@@ -1,0 +1,48 @@
+"""State carried across between x3d2_tpu and the port.
+
+A TGV state of either package, as numpy arrays: ``u, v, w, p``, the
+per-field AB history ``olds`` (per field a (nolds,)-tuple, newest first, the
+structure of ``TimeIntegrator.empty_olds``) and the 1-based ``istep``. The
+JAX package's ``key`` (unused by TGV) is dropped on the way in; the way out
+gives plain numpy arrays that the caller turns into its own arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .common import resolve_device
+
+
+def state_from_numpy(np_state, device=None):
+    """The port's state from numpy arrays (x3d2_tpu's state as numpy),
+    at the arrays' dtype."""
+    device = resolve_device(device)
+
+    def t(a):
+        a = np.array(a)   # a writable copy: JAX arrays convert read-only
+        return torch.as_tensor(a, device=device).contiguous()
+
+    return {
+        "u": t(np_state["u"]), "v": t(np_state["v"]), "w": t(np_state["w"]),
+        "p": t(np_state["p"]),
+        "istep": int(np.asarray(np_state["istep"])),
+        # separate tensors per history slot, so the rotation never aliases
+        "olds": tuple(tuple(t(o) for o in per_field)
+                      for per_field in np_state["olds"]),
+    }
+
+
+def state_to_numpy(state):
+    """numpy arrays of the port's state, in the same structure."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    return {
+        "u": a(state["u"]), "v": a(state["v"]), "w": a(state["w"]),
+        "p": a(state["p"]),
+        "istep": int(state["istep"]),
+        "olds": tuple(tuple(a(o) for o in per_field)
+                      for per_field in state["olds"]),
+    }

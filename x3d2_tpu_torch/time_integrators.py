@@ -1,0 +1,111 @@
+"""Explicit time integrators: Adams-Bashforth 1-4 and Runge-Kutta 1-4.
+
+Counterpart of x3d2_tpu.time_integrators (reference
+src/time_integrator.f90, coefficients :83-118). The AB derivative history
+is a per-field tuple of separate tensors, newest first, so its rotation is
+a tuple reshuffle. ``istep`` is a Python int: the startup coefficient row
+is picked on the host, so no per-step device sync is needed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# AB coefficients (time_integrator.f90:108-118); row k = AB(k+1)
+AB_COEFFS = np.array([
+    [1.0, 0.0, 0.0, 0.0],
+    [1.5, -0.5, 0.0, 0.0],
+    [23.0 / 12, -4.0 / 3, 5.0 / 12, 0.0],
+    [55.0 / 24, -59.0 / 24, 37.0 / 24, -3.0 / 8],
+])
+
+# RK stage tables (time_integrator.f90:83-106); rk_a[order][stage][j]
+RK_A = {
+    1: np.zeros((0, 3)),
+    2: np.array([[0.5, 0.0, 0.0]]),
+    3: np.array([[0.5, 0.0, 0.0],
+                 [0.0, 0.75, 0.0]]),
+    4: np.array([[0.5, 0.0, 0.0],
+                 [0.0, 0.5, 0.0],
+                 [0.0, 0.0, 1.0]]),
+}
+RK_B = {
+    1: np.array([1.0]),
+    2: np.array([0.0, 1.0]),
+    3: np.array([2.0 / 9, 1.0 / 3, 4.0 / 9]),
+    4: np.array([1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6]),
+}
+
+
+@dataclass(frozen=True)
+class TimeIntegrator:
+    """Scheme descriptor parsed from names like 'AB3' / 'RK3'."""
+
+    name: str
+
+    def __post_init__(self):
+        kind, order = self.name[:2].upper(), int(self.name[2])
+        if kind not in ("AB", "RK") or not 1 <= order <= 4:
+            raise ValueError(f"unsupported time integrator {self.name!r}")
+        object.__setattr__(self, "kind", kind)
+        object.__setattr__(self, "order", order)
+
+    @property
+    def nstage(self) -> int:
+        return self.order if self.kind == "RK" else 1
+
+    @property
+    def nolds(self) -> int:
+        # AB(k) carries k-1 old derivatives; RK carries none across steps
+        return self.order - 1 if self.kind == "AB" else 0
+
+    def gdt(self, dt: float, istage: int) -> float:
+        """Effective sub-timestep for BC ramping (time_integrator.f90:166-182)."""
+        if self.kind == "AB":
+            return dt
+        return float(RK_B[self.order][istage]) * dt
+
+    def future_coeff_sum(self) -> float:
+        """Sum of the steady-state AB coefficients that will multiply a
+        derivative stored this step in future updates (c_1..c_{order-1})."""
+        return float(AB_COEFFS[self.order - 1][1:self.order].sum())
+
+    def ab_row(self, istep: int, dt: float, dtype=torch.float32) -> list:
+        """The dt-scaled coefficient row dt*AB_COEFFS[min(istep, order)-1]
+        (the startup rows for istep < order) as host floats. The table is
+        rounded to `dtype` and multiplied by dt there, as x3d2_tpu does."""
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        row = AB_COEFFS.astype(npd)[min(int(istep), self.order) - 1]
+        return [float(npd(dt) * c) for c in row]
+
+    def ab_step(self, fields, olds, istep, rhs, dt):
+        """One AB step. `fields`/`rhs` are tuples of tensors; `olds` is a
+        matching tuple whose entries are (nolds,)-tuples of tensors (the
+        derivative history, newest first); istep is a 1-based int.
+        Returns (new_fields, new_olds)."""
+        order = self.order
+        co = self.ab_row(istep, dt, fields[0].dtype)
+
+        def upd(f, r, o):
+            acc = f + co[0] * r
+            for j in range(order - 1):
+                acc = acc + co[j + 1] * o[j]
+            return acc
+
+        new_fields = tuple(upd(f, r, o)
+                           for f, r, o in zip(fields, rhs, olds))
+        if self.nolds == 0:
+            new_olds = olds
+        else:
+            new_olds = tuple((r,) + tuple(o[:-1])
+                             for r, o in zip(rhs, olds))
+        return new_fields, new_olds
+
+    def empty_olds(self, template):
+        """Zero-initialised history: per field, a (nolds,)-tuple of
+        separate tensors (so rotation is a reshuffle, never a copy)."""
+        return tuple(tuple(torch.zeros_like(f) for _ in range(self.nolds))
+                     for f in template)
