@@ -4,8 +4,8 @@
   and enstrophy series agree to 1e-12 relative (the same float64 algebra,
   summed in another order).
 - (128, 128, 256) float32, 3 steps: the port takes its fused sweep chain
-  (plain versions on the CPU), x3d2_tpu its einsum step; <= 1e-5 on u, v,
-  w, as tests/test_fused_ab.py:61.
+  and its pressure pipeline (plain versions on the CPU), x3d2_tpu its
+  einsum step; <= 1e-5 on u, v, w, as tests/test_fused_ab.py:61.
 - A state handed over from x3d2_tpu after 3 steps and continued 3 steps in
   the port matches x3d2_tpu's own 6 steps to 1e-12 (float64, 32^3): the AB
   history crosses intact.
@@ -68,7 +68,7 @@ def test_tgv_series_match_f64():
 def test_tgv_fused_path_matches_einsum_step_f32():
     shape = (128, 128, 256)
     case, jcase = _cases(shape, torch.float32, jnp.float32)
-    assert case._fused_ab is not None
+    assert case._fused_ab is not None and case.solver._pipe is not None
     s = case.initial_state()
     js = jcase.initial_state()
     for _ in range(3):   # AB3 startup rows istep 1, 2, 3

@@ -7,9 +7,11 @@ as separable matrix transforms. Module names mirror x3d2_tpu; this package
 imports torch, numpy and scipy only, never jax or x3d2_tpu.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no GPU and no device given they raise. The transport sweeps run the
-hand-written kernel ``csrc/transeq_sweep.cu`` on CUDA tensors and its plain
-PyTorch version on CPU tensors only.
+with no GPU and no device given they raise. The transport sweeps
+(``csrc/transeq_sweep.cu``) and the three-stage pressure projection
+(``csrc/pressure_pipe.cu``) run hand-written kernels on CUDA tensors and
+their plain PyTorch versions on CPU tensors only; on the card a case no
+ported kernel serves raises NotImplementedError.
 
 Float32 matrix products run in full float32: TF32 is off for matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``) and the float32

@@ -46,27 +46,41 @@ def nvcc_path() -> str:
                        "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
 
 
+def build_all(names) -> dict[str, Path]:
+    """Compile every named ``csrc/<name>.cu`` that is not built yet, one
+    ``nvcc`` per source, all started together; returns the library paths."""
+    libs, procs = {}, {}
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
+                                .encode()).hexdigest()[:16]
+        libs[name] = lib = BUILD_DIR / f"lib{name}-{digest}.so"
+        if lib.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in procs.items():
+        BUILD_LOG[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same content is
     already built; returns the library path."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        BUILD_SECONDS.setdefault(name, 0.0)
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(src)], capture_output=True, text=True)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    BUILD_LOG[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{BUILD_LOG[name]}")
-    os.replace(tmp, lib)
-    return lib
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,13 +6,19 @@ per step {transeq -> forcings -> AB update -> pressure_correction}
 the JAX package (define_bc, apply_bc, body) come with the wall-bounded
 cases that need them.
 
-Ported: Adams-Bashforth stepping, unfused (dense transeq + ab_step,
-x3d2_tpu cases/base.py:390-405) and fused (the transport + AB sweep chain,
+Ported: Adams-Bashforth stepping, unfused (transeq + ab_step, x3d2_tpu
+cases/base.py:390-405) and fused (the transport + AB sweep chain,
 :406-471, momentum only). The fused chain is taken exactly where x3d2_tpu
 takes it: an AB scheme with history, not compensated, identity forcings,
 and a mesh the sweep kernel supports (transeq_sweep_supported).
 Runge-Kutta, compensated stepping, species and the X3D2_* switches of the
 JAX step are not ported yet and raise NotImplementedError.
+
+On the card a case must run on kernels: a step outside the fused sweep
+chain (a mesh the sweep kernel does not serve, another forcing, AB1), or
+a projection outside the pipe3 kernels (keep_pressure=True, or a grid
+they do not tile), raises NotImplementedError at construction. The CPU
+runs every case, with plain versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
 fused chain writes u' over the oldest history fields.
@@ -31,7 +37,7 @@ from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.transeq_sweep import make_fused_transeq_ab, transeq_sweep_supported
-from ..solver import NavierStokes
+from ..solver import _UNPORTED_PROJECTION, _UNPORTED_TRANSEQ, NavierStokes
 from ..time_integrators import TimeIntegrator
 
 # environment switches the JAX step reads (x3d2_tpu cases/base.py,
@@ -106,16 +112,34 @@ class BaseCase:
                                          poisson_method=pmethod,
                                          device=self.device)
         self.dt = params.dt
+        dims = mesh.dims(DataLoc.VERT)
+        on_card = self.device.type == "cuda"
+        if on_card and (keep_pressure or self.solver._pipe is None):
+            raise NotImplementedError(
+                "the projection on the card runs the pipe3 kernels "
+                "(keep_pressure=False on an all-periodic grid tiled by "
+                f"128); {_UNPORTED_PROJECTION} are not ported yet")
         # transport + AB update in one chain of three sweep kernels, under
         # x3d2_tpu's gate (cases/base.py:131-135)
         self._fused_ab = None
-        dims = mesh.dims(DataLoc.VERT)
         if (self.ti.nolds >= 1   # compensated stepping raised above
                 and type(self).forcings is BaseCase.forcings
                 and transeq_sweep_supported(self.solver, dims)):
-            self._fused_ab = make_fused_transeq_ab(
-                self.solver.ops, self.solver.nu, dims, self.ti.nolds,
-                device=self.device)
+            try:
+                self._fused_ab = make_fused_transeq_ab(
+                    self.solver.ops, self.solver.nu, dims, self.ti.nolds,
+                    device=self.device)
+            except ValueError:
+                # an operator band wider than the kernel's: the CPU steps
+                # unfused; the card has no kernel for it
+                if on_card:
+                    raise
+        if on_card and self._fused_ab is None:
+            raise NotImplementedError(
+                "on the card the step runs the fused sweep chain (an AB "
+                "scheme with history, identity forcings, a float32 uniform "
+                f"grid tiled by 64; mesh {dims} at {dtype}); "
+                f"{_UNPORTED_TRANSEQ} are not ported yet")
         self.monitor = Monitor(self.solver, path=monitor_path,
                                verbose=verbose)
 
@@ -169,6 +193,10 @@ class BaseCase:
                          for r, o in zip(rhs, state["olds"]))
         u, v, w, p = self.solver.pressure_correction(
             *fields, keep_pressure=self.keep_pressure)
+        if p is None:
+            # the pipeline forms no pressure: carry the previous
+            # (diagnostic-only) one, as x3d2_tpu does
+            p = state["p"]
         return {"u": u, "v": v, "w": w, "p": p, "istep": istep + 1,
                 "olds": olds}
 

@@ -1,0 +1,368 @@
+// Three-stage pressure projection (keep_pressure=False) as batched operator
+// applies, for Hopper (sm_90a), behind a plain C interface.
+//
+// Replaces the TPU kernels of x3d2_tpu's projection pipeline
+// (make_pressure_pipe3, x3d2_tpu/ops/pallas_poisson.py:1573):
+//   - _pipe_a_kernel  pallas_poisson.py:1378  a = Ty Iz Iy u,
+//                                             e = Ty (Iz Sy v + Sz Iy w)
+//   - _pipe_b_kernel  pallas_poisson.py:1405  q = -(Sx a + Ix e) / waves,
+//                                             X = Gxs q, Y = Gxi q
+//   - _pipe_c_kernel  pallas_poisson.py:1455  u - Giy Gzi X, v - Gsy Gzi Y,
+//                                             w - Giy Gzs Y
+// Each stage is a few launches of one kernel template that applies an
+// operator matrix along one axis of a field, out = M . f, in one of three
+// forms (the forms of the TPU kernels):
+//   BANDED  block-banded M: output block b of 64 rows reads the window of
+//           64 + 2*BW rows starting at 64*b - BW (periodic wrap); the y
+//           interpolation and staggered derivative of stages A and C.
+//   PFWD    forward parity split of a transform-folded M:
+//           [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f
+//           (one radix-2 level in matrix form: half the operations).
+//   PINV    inverse parity split: [a + b; a - b], a = Me f_e, b = Mo f_o.
+// The contraction runs along the slow axis of a row-major slab (x, or y
+// batched over x-planes) or, transposed, along the contiguous z axis. A
+// launch takes up to 3 jobs (fields) and a job up to 2 sources summed into
+// one result (Iz p2 + Sz p3; Sx a + Ix e). Epilogues: store, subtract from
+// a field (the velocity correction), or the spectral solve (multiply by
+// -1/waves rebuilt from separable tables, with the zero-wave guard). The
+// TPU kernel's Nyquist mask is left out: on the all-periodic grids the
+// pipeline serves it is identically one.
+//
+// Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
+// point (the dense parity halves dominate; the banded applies count their
+// 2*BW + 1 band taps), about 17.7 ms at the 67 TFLOP/s FP32 rate, against
+// 17 field passes of device memory (about 2.7 ms at 3.35 TB/s) for the
+// function itself: bound by operations.
+// What the design does about it: a classic register-tiled FP32 product,
+// 128 x 128 outputs per block of 256 threads, 8 x 8 per thread, two blocks
+// per SM, operands double-buffered through shared memory in k-steps of 8
+// with the next step's global loads issued before the current step's FMAs
+// (one barrier per k-step). The parity combine
+// (f1 +/- f2) and the band window are applied while staging the operand,
+// and the solve and the correction in the epilogue, so no extra pass over
+// a field is made for them. Unlike the TPU kernels, which hold a whole
+// (ny, nz) plane or x-column in VMEM, a stage here writes its
+// intermediates (p, z, q, GH) to device memory: a 512 x 512 plane is
+// 1 MB, beyond the 227 KB of shared memory of one block.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BM = 128;   // output rows per block: two groups of GR
+constexpr int GR = 64;    // rows per group (and the banded block size)
+constexpr int BN = 128;   // output columns per block
+constexpr int BK = 8;     // k-step
+constexpr int NT = 256;   // threads per block
+constexpr int PAD = 4;    // shared-memory row pad (keeps float4 alignment)
+
+enum { BANDED = 0, PFWD = 1, PINV = 2 };
+enum { STORE = 0, SUB = 1, SOLVE = 2 };
+
+struct Job {
+  const float* A[2];   // operator matrices (rows x K, row-major), per source
+  const float* B[2];   // field operands, per source
+  float* C;            // result
+  const float* S;      // SUB: the field the result is subtracted from
+  int nsrc;
+};
+
+struct Args {
+  Job job[3];
+  int batch;           // planes per job: blockIdx.z = job * batch + plane
+  int K;               // contraction length of one source
+  int nrow;            // field rows along the contracted axis
+  int h;               // nrow / 2 (PFWD: input half; PINV: output half)
+  int bw;              // BANDED: band half-width
+  long long ld;        // stride of a row (TRANS: of a column)
+  long long pstride;   // stride between the planes of a batch
+  const float* tab[2];  // SOLVE: A, B per column
+  const float* col[2];  // SOLVE: k2x, tx2 per output row
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 axpy4(float4 x, float s, float4 y) {
+  return make_float4(x.x + s * y.x, x.y + s * y.y, x.z + s * y.z,
+                     x.w + s * y.w);
+}
+
+template <int MODE, bool TRANS, int EPI>
+__global__ void __launch_bounds__(NT, 2)
+mat_apply_kernel(const __grid_constant__ Args a) {
+  // two stages of operands: the next k-step is staged while the current
+  // one is read, so one barrier per k-step suffices
+  __shared__ __align__(16) float As[2][BK][BM + PAD];
+  __shared__ __align__(16) float Bs[2][2][BK][BN + PAD];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const Job& J = a.job[blockIdx.z / a.batch];
+  const long long base = (long long)(blockIdx.z % a.batch) * a.pstride;
+  const int n0 = blockIdx.x * BN;
+  const int mt = blockIdx.y;
+
+  // first operator row of each 64-row group; first field row of each
+  // group's operand at k = 0; PFWD sign of each group's half
+  int arow[2], brow[2];
+  float sg[2] = {1.f, 1.f};
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    if (MODE == PINV) {
+      arow[g] = g * a.h + mt * GR;
+      brow[g] = g * a.h;
+    } else {
+      arow[g] = mt * BM + g * GR;
+      brow[g] = 0;
+    }
+    if (MODE == BANDED) brow[g] = (arow[g] - a.bw + a.nrow) % a.nrow;
+    if (MODE == PFWD) sg[g] = arow[g] < a.h ? 1.f : -1.f;
+  }
+
+  // staging assignment: A as (row tid/2, k 4*(tid&1)); B as
+  // (k tid/32, col 4*(tid&31)), or transposed (col tid/2, k 4*(tid&1))
+  const int am = tid >> 1;
+  const int ak = (tid & 1) * 4;
+  const int bk = TRANS ? (tid & 1) * 4 : tid >> 5;
+  const int bn = TRANS ? tid >> 1 : (tid & 31) * 4;
+  const int ktiles = a.K / BK;
+  const int ntiles = J.nsrc * ktiles;
+
+  float4 ra, rb[2];
+  auto fetch = [&](int t) {
+    const int s = t / ktiles;
+    const int kt = (t - s * ktiles) * BK;
+    const int ar = (am < GR ? arow[0] : arow[1]) + (am & (GR - 1));
+    ra = ld4(J.A[s] + (long long)ar * a.K + kt + ak);
+    const float* B = J.B[s] + base;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (MODE == PFWD && g == 1) break;
+      int r = brow[g] + kt + bk;
+      if (MODE == BANDED && r >= a.nrow) r -= a.nrow;
+      const long long off = TRANS ? (long long)(n0 + bn) * a.ld + r
+                                  : (long long)r * a.ld + n0 + bn;
+      rb[g] = ld4(B + off);
+      if (MODE == PFWD) {
+        const long long off2 = TRANS ? off + a.h : off + (long long)a.h * a.ld;
+        rb[1] = ld4(B + off2);
+      }
+    }
+  };
+  auto stage = [&](int buf) {
+    As[buf][ak + 0][am] = ra.x;
+    As[buf][ak + 1][am] = ra.y;
+    As[buf][ak + 2][am] = ra.z;
+    As[buf][ak + 3][am] = ra.w;
+    float4 v[2];
+    if (MODE == PFWD) {
+      v[0] = axpy4(rb[0], sg[0], rb[1]);
+      v[1] = axpy4(rb[0], sg[1], rb[1]);
+    } else {
+      v[0] = rb[0];
+      v[1] = rb[1];
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (TRANS) {
+        Bs[buf][g][bk + 0][bn] = v[g].x;
+        Bs[buf][g][bk + 1][bn] = v[g].y;
+        Bs[buf][g][bk + 2][bn] = v[g].z;
+        Bs[buf][g][bk + 3][bn] = v[g].w;
+      } else {
+        *reinterpret_cast<float4*>(&Bs[buf][g][bk][bn]) = v[g];
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntiles) fetch(t + 1);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][kk][GR + ty * 4]);
+      const float4 b00 =
+          *reinterpret_cast<const float4*>(&Bs[buf][0][kk][tx * 4]);
+      const float4 b01 =
+          *reinterpret_cast<const float4*>(&Bs[buf][0][kk][64 + tx * 4]);
+      const float4 b10 =
+          *reinterpret_cast<const float4*>(&Bs[buf][1][kk][tx * 4]);
+      const float4 b11 =
+          *reinterpret_cast<const float4*>(&Bs[buf][1][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv0[8] = {b00.x, b00.y, b00.z, b00.w,
+                            b01.x, b01.y, b01.z, b01.w};
+      const float bv1[8] = {b10.x, b10.y, b10.z, b10.w,
+                            b11.x, b11.y, b11.z, b11.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(av[i], bv0[j], acc[i][j]);
+          acc[4 + i][j] = fmaf(av[4 + i], bv1[j], acc[4 + i][j]);
+        }
+    }
+    // the other stage was last read before the previous barrier
+    if (t + 1 < ntiles) stage(buf ^ 1);
+    __syncthreads();
+  }
+
+  // epilogue: thread rows g*64 + 4*ty + i (i < 4) of the block's groups,
+  // columns 4*tx + j and 64 + 4*tx + j
+  float* C = J.C + base;
+  const float* S = EPI == SUB ? J.S + base : nullptr;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int n = n0 + c * 64 + tx * 4;
+    if (TRANS) {
+      // rows are contiguous: per column, one float4 for each group
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float4 o[2];
+        float* ov = reinterpret_cast<float*>(o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x0 = acc[i][c * 4 + j], x1 = acc[4 + i][c * 4 + j];
+          if (MODE == PINV) {
+            ov[i] = x0 + x1;
+            ov[4 + i] = x0 - x1;
+          } else {
+            ov[i] = x0;
+            ov[4 + i] = x1;
+          }
+        }
+        const long long cb = (long long)(n + j) * a.ld;
+        const int m0 = MODE == PINV ? mt * GR + ty * 4 : arow[0] + ty * 4;
+        const int m1 = MODE == PINV ? a.h + m0 : arow[1] + ty * 4;
+        *reinterpret_cast<float4*>(C + cb + m0) = o[0];
+        *reinterpret_cast<float4*>(C + cb + m1) = o[1];
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float x0 = acc[i][c * 4 + j], x1 = acc[4 + i][c * 4 + j];
+            v[j] = MODE == PINV ? (g == 0 ? x0 + x1 : x0 - x1)
+                                : (g == 0 ? x0 : x1);
+          }
+          const int m = MODE == PINV ? g * a.h + mt * GR + ty * 4 + i
+                                     : arow[g] + ty * 4 + i;
+          const long long off = (long long)m * a.ld + n;
+          if (EPI == SUB) {
+            const float4 s = ld4(S + off);
+            v[0] = s.x - v[0];
+            v[1] = s.y - v[1];
+            v[2] = s.z - v[2];
+            v[3] = s.w - v[3];
+          } else if (EPI == SOLVE) {
+            const float k2 = a.col[0][m], t2 = a.col[1][m];
+            const float4 tA = ld4(a.tab[0] + n);
+            const float4 tB = ld4(a.tab[1] + n);
+            const float wa[4] = {tA.x, tA.y, tA.z, tA.w};
+            const float wb[4] = {tB.x, tB.y, tB.z, tB.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float waves = k2 * wa[j] + t2 * wb[j];
+              v[j] *= fabsf(waves) >= 1e-16f ? -1.f / waves : 0.f;
+            }
+          }
+          *reinterpret_cast<float4*>(C + off) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int MODE, bool TRANS, int EPI>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream) {
+  mat_apply_kernel<MODE, TRANS, EPI><<<grid, NT, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Compile-time block geometry, for the wrapper's checks.
+int pressure_pipe_geometry(int* bm, int* gr, int* bn, int* bk) {
+  *bm = BM;
+  *gr = GR;
+  *bn = BN;
+  *bk = BK;
+  return 0;
+}
+
+// One launch of the operator apply. ptrs: per job A0, A1, B0, B1, C, S (6
+// each, unused may be null); nsrc: sources per job; tabs: A, B, k2x, tx2
+// (SOLVE only, else null). Grid: (ncols / BN, mtiles, njobs *
+// batch). Returns the cudaError_t of the launch (0 on success).
+int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
+                        void* const* ptrs, const int* nsrc,
+                        void* const* tabs, int batch, int K, int nrow,
+                        int bw, long long ld, long long pstride, long long ncols,
+                        int mtiles, void* stream) {
+  if (njobs < 1 || njobs > 3 || batch < 1 || K % BK || ncols % BN)
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  for (int j = 0; j < njobs; ++j) {
+    void* const* p = ptrs + 6 * j;
+    a.job[j].A[0] = static_cast<const float*>(p[0]);
+    a.job[j].A[1] = static_cast<const float*>(p[1]);
+    a.job[j].B[0] = static_cast<const float*>(p[2]);
+    a.job[j].B[1] = static_cast<const float*>(p[3]);
+    a.job[j].C = static_cast<float*>(p[4]);
+    a.job[j].S = static_cast<const float*>(p[5]);
+    a.job[j].nsrc = nsrc[j];
+  }
+  for (int i = 0; i < 2; ++i) {
+    a.tab[i] = static_cast<const float*>(tabs[i]);
+    a.col[i] = static_cast<const float*>(tabs[2 + i]);
+  }
+  a.batch = batch;
+  a.K = K;
+  a.nrow = nrow;
+  a.h = nrow / 2;
+  a.bw = bw;
+  a.ld = ld;
+  a.pstride = pstride;
+  const dim3 grid((unsigned)(ncols / BN), (unsigned)mtiles,
+                  (unsigned)(njobs * batch));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int key = mode * 100 + trans * 10 + epi;
+  switch (key) {
+    case BANDED * 100 + 0 + STORE: return launch<BANDED, false, STORE>(a, grid, s);
+    case BANDED * 100 + 0 + SUB:   return launch<BANDED, false, SUB>(a, grid, s);
+    case PFWD * 100 + 0 + STORE:   return launch<PFWD, false, STORE>(a, grid, s);
+    case PFWD * 100 + 0 + SOLVE:   return launch<PFWD, false, SOLVE>(a, grid, s);
+    case PFWD * 100 + 10 + STORE:  return launch<PFWD, true, STORE>(a, grid, s);
+    case PINV * 100 + 0 + STORE:   return launch<PINV, false, STORE>(a, grid, s);
+    case PINV * 100 + 10 + STORE:  return launch<PINV, true, STORE>(a, grid, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* pressure_pipe_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

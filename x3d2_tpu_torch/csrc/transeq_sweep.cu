@@ -18,10 +18,14 @@
 // With NOLDS > 0 the epilogue also writes rhs = r and
 //   u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j.
 //
-// Bound on an H100: at BS=64, W=16 the banded form costs 864 FMA per point
-// (3 components x (2*96 + 96)), about 3.5 ms per 512^3 sweep at the 67
-// TFLOP/s FP32 rate, against 1-2.9 ms for the 6-18 field passes the sweeps
-// move at 3.35 TB/s: every variant is bound by operations.
+// Bound on an H100: the function needs the 2W + 1 = 33 band taps of each
+// operator, 3 components x 3 operators x 33 = 297 FMA per point, about
+// 1.2 ms per 512^3 sweep at the 67 TFLOP/s FP32 rate; the 6, 9 and 18
+// field passes of the z, x+acc and y+acc+AB3 sweeps take 0.96, 1.44 and
+// 2.88 ms at 3.35 TB/s. So the z sweep is bound by operations and the
+// other two by bytes. The kernel's block rows are BS + 2W = 96 wide (864
+// FMA per point, 2.9x the need): a choice of this design, which keeps each
+// block's operators dense, not a need of the function.
 // What the design does about it: a block stages both operator pairings of
 // its output block (147 KB) once and walks many line tiles with them, so
 // the operators cost no device-memory traffic per tile. Each thread keeps

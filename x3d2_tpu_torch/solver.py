@@ -4,10 +4,19 @@ Counterpart of x3d2_tpu.solver (reference solver layer: transeq
 src/solver.f90:291-505, vector calculus src/vector_calculus.f90, pressure
 correction src/solver.f90:693-739). Fields are Cartesian (nx, ny, nz)
 tensors; each compact-operator solve is one matrix contraction
-(ops/compact.py). The projection is the transform-folded chain of matrix
-products (x3d2_tpu solver.py:461-491) followed by ``u - dpdx``; its large
-products go to ``torch.matmul`` in full float32 (TF32 off, see the
-package docstring).
+(ops/compact.py).
+
+What runs where, as in x3d2_tpu (solver.py:108-168, :523-567):
+- transeq: the dense operator products, on CPU tensors only (the card
+  steps through the fused sweep chain of cases/base.py).
+- pressure_correction with keep_pressure=False on the grids of
+  ops/pressure_pipe.py: the three-stage pipeline (kernels on CUDA tensors,
+  plain versions on CPU ones). Otherwise, on CPU tensors, the
+  transform-folded chain of matrix products (x3d2_tpu solver.py:461-491)
+  followed by ``u - dpdx``.
+On CUDA tensors a case the ported kernels do not cover raises
+NotImplementedError and names the TPU kernel that covers it: the port
+never substitutes plain PyTorch for a kernel on the card.
 """
 
 from __future__ import annotations
@@ -20,9 +29,20 @@ import torch
 
 from .common import resolve_device
 from .mesh import Mesh
-from .ops.compact import CompactOp, apply_matrix
+from .ops.compact import apply_matrix
 from .ops.dirops import AxisOps, build_all_ops
 from .ops.matmul_poisson import MatmulPoisson
+from .ops.pressure_pipe import make_pressure_pipe, pipe_supported
+
+# the TPU kernels behind the cases that raise on the card
+_UNPORTED_TRANSEQ = ("the v3 sweeps without the AB epilogue "
+                     "(make_fused_transeq_v3, x3d2_tpu/ops/pallas_kernels.py:"
+                     "172) that serve the unfused step, and the v1 dense "
+                     "sweep _kernel (ops/pallas_transeq.py:42) for grids the "
+                     "v3 sweeps cannot tile")
+_UNPORTED_PROJECTION = ("the slab projection kernels (x3d2_tpu/ops/"
+                        "pallas_poisson.py:327-1246), which x3d2_tpu runs "
+                        "for keep_pressure=True and off the pipe3 grids")
 
 
 def _bcast(vec: np.ndarray, axis: int, like: torch.Tensor) -> torch.Tensor:
@@ -65,6 +85,15 @@ class NavierStokes:
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
                  poisson=poisson)
         ns._fused_pressure_mats()
+        pipe = None
+        if pipe_supported(ns):
+            try:
+                pipe = make_pressure_pipe(ns)
+            except ValueError:
+                # a band wider than the kernel's: the CPU keeps the folded
+                # chain; the card raises in pressure_correction
+                pipe = None
+        object.__setattr__(ns, "_pipe", pipe)
         return ns
 
     # ------------------------------------------------------------------
@@ -76,7 +105,12 @@ class NavierStokes:
         direction-aligned component uses (der1st, der1st_sym, der2nd);
         transverse components use (der1st_sym, der1st, der2nd_sym)
         (omp/backend.f90:235-262). The 6 products u_i*u_j are computed
-        once; dq and d2q share one row-stacked product."""
+        once; dq and d2q share one row-stacked product. CPU tensors only:
+        on the card this would stand in for TPU kernels."""
+        if u.is_cuda:
+            raise NotImplementedError(
+                f"the unfused transeq on the card: {_UNPORTED_TRANSEQ} are "
+                "not ported yet")
         comps = (u, v, w)
         prods = {}
 
@@ -225,7 +259,16 @@ class NavierStokes:
     def pressure_correction(self, u, v, w, keep_pressure=True):
         """Fractional-step projection (solver.f90:693-739): the
         divergence-free velocity and the pseudo-pressure (CELL grid,
-        scaled by dt like the reference)."""
+        scaled by dt like the reference). With keep_pressure=False on the
+        pipeline's grids the pressure is not formed and p is None (the
+        caller carries its previous pressure, as x3d2_tpu does)."""
+        if self._pipe is not None and not keep_pressure:
+            return (*self._pipe(u, v, w), None)
+        if u.is_cuda:
+            raise NotImplementedError(
+                "the projection on the card runs the pipe3 kernels "
+                "(keep_pressure=False on an all-periodic grid tiled by 128); "
+                f"{_UNPORTED_PROJECTION} are not ported yet")
         dpdx, dpdy, dpdz, p = self.pressure_grads(
             u, v, w, keep_pressure=keep_pressure)
         return u - dpdx, v - dpdy, w - dpdz, p
