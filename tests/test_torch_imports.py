@@ -8,13 +8,19 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from x3d2_tpu_torch.common import BC, resolve_device
 from x3d2_tpu_torch.mesh import Mesh
 from x3d2_tpu_torch.ops import transeq_sweep as ts
 from x3d2_tpu_torch.ops.dirops import build_axis_ops
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "x3d2_tpu")

@@ -9,6 +9,7 @@ ulps of O(1) results after ~n-term sums).
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -21,7 +22,12 @@ from x3d2_tpu_torch.common import BC
 from x3d2_tpu_torch.ops.banded import banded_blocks
 from x3d2_tpu_torch.ops.compact import apply_matrix, build_op
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 N = 32
 # (operation, scheme, bc, sym, from_to): the schemes x BCs of

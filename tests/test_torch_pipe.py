@@ -16,6 +16,7 @@
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -29,7 +30,12 @@ from x3d2_tpu_torch.mesh import Mesh
 from x3d2_tpu_torch.ops import pressure_pipe as pp
 from x3d2_tpu_torch.solver import NavierStokes
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 SHAPE = (128, 128, 128)
 L = (2 * np.pi,) * 3
@@ -55,17 +61,21 @@ def jax_pipe():
 
 
 @pytest.fixture(scope="module")
-def mats():
-    return _build(torch.float32)._pipe.mats
+def solver32():
+    return _build(torch.float32)
 
 
-def test_pipe_supported():
-    assert pp.pipe_supported(_build(torch.float32))
-    for shape in ((32, 32, 32), (128, 128, 192)):
-        assert not pp.pipe_supported(_build(torch.float32, shape))
-        assert _build(torch.float32, shape)._pipe is None
+@pytest.fixture(scope="module")
+def mats(solver32):
+    return solver32._pipe.mats
+
+
+def test_pipe_supported(solver32):
+    assert pp.pipe_supported(solver32)
+    small = _build(torch.float32, (32, 32, 32))   # not tiled by 128
+    assert not pp.pipe_supported(small) and small._pipe is None
     neu = ((BC.NEUMANN, BC.NEUMANN),) + PER[1:]
-    assert not pp.pipe_supported(_build(torch.float32, (129, 128, 128), neu))
+    assert not pp.pipe_supported(_build(torch.float32, (33, 32, 32), neu))
 
 
 @pytest.mark.parametrize("stage,nin", [("a", 3), ("b", 2), ("c", 5)])

@@ -11,6 +11,7 @@ tests/test_poisson.py.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -22,7 +23,12 @@ from x3d2_tpu_torch.common import BC, DataLoc
 from x3d2_tpu_torch.mesh import Mesh
 from x3d2_tpu_torch.solver import NavierStokes
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 N = 32
 L = (2 * np.pi,) * 3

@@ -14,6 +14,7 @@
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,12 @@ from x3d2_tpu_torch.mesh import Mesh
 from x3d2_tpu_torch.cases import SolverParams, TGVCase
 from x3d2_tpu_torch.convert import state_from_numpy, state_to_numpy
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 L = (2 * np.pi,) * 3
 

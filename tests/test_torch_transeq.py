@@ -14,6 +14,7 @@ smallest shape the sweeps tile, (128, 128, 256), float32 on the CPU.
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 
@@ -28,7 +29,12 @@ from x3d2_tpu_torch.ops import transeq_sweep as ts
 from x3d2_tpu_torch.solver import NavierStokes
 from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
+# one thread for torch and for numpy's BLAS: the suite runs several workers
+# on one machine, and multi-threaded BLAS calls in each of them, spinning on
+# oversubscribed cores, made these tests many times slower there
 torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
+
 
 SHAPE = (128, 128, 256)
 L = (2 * np.pi,) * 3

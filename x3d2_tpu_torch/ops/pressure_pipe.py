@@ -343,11 +343,15 @@ def _apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
             _check(t, shape, "field")
         if out.data_ptr() in {t.data_ptr() for t in fields}:
             raise ValueError("the output may not alias an input")
+        if (sub is not None) != (epi == SUB):
+            raise ValueError("the subtracting epilogue takes one field")
         pad = [None] * (2 - len(mats))
         ptrs += [M.data_ptr() for M in mats] + pad
         ptrs += [t.data_ptr() for t in fields] + pad
         ptrs += [out.data_ptr(), sub.data_ptr() if sub is not None else None]
         nsrc.append(len(mats))
+    if (len(tabs) == 4) != (epi == SOLVE):
+        raise ValueError("the solve epilogue takes its 4 tables")
     if epi == SOLVE:
         for t, k in zip(tabs, (ny * nz, ny * nz, n, n)):
             _check(t, (k,), "solve table")

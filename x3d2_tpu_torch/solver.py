@@ -92,7 +92,7 @@ class NavierStokes:
             except ValueError:
                 # a band wider than the kernel's: the CPU keeps the folded
                 # chain; the card raises in pressure_correction
-                pipe = None
+                pass
         object.__setattr__(ns, "_pipe", pipe)
         return ns
 
