@@ -9,6 +9,10 @@ smallest shape the sweeps tile, (128, 128, 256), float32 on the CPU.
   TimeIntegrator.ab_step, for the startup rows istep 1, 2, 3: <= 1e-5,
   as tests/test_fused_ab.py:52-61. The reference runs in float64, so the
   difference is the port's own f32 error.
+- The xdiv chain (z, y, then x with the AB update and the x-transformed
+  divergence inputs) vs the z, x, y chain, vs a float64 parity apply of
+  its own u', v', w', and vs x3d2_tpu's xdiv chain in interpret mode; and
+  the ValueError cases of its builder.
 """
 
 import numpy as np
@@ -141,3 +145,119 @@ def test_cpu_sweeps_never_count_launches(setup):
     fn = ts.make_transeq_sweep(ns.ops[2], NU, 2, SHAPE, device="cpu")
     fn(*(torch.from_numpy(q) for q in comps))
     assert ts.launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# the xdiv chain: z sweep -> y sweep + acc -> x sweep + acc + AB + xdiv
+# ---------------------------------------------------------------------------
+
+def _chains(ns):
+    """(z, x, y chain; xdiv chain) of the fused transport + AB update."""
+    d64 = ns._fp_mats64()
+    plain = ts.make_fused_transeq_ab(ns.ops, NU, SHAPE, 2, device="cpu")
+    xdiv = ts.make_fused_transeq_ab(ns.ops, NU, SHAPE, 2, device="cpu",
+                                    xdiv=(d64["sx"], d64["ix"]))
+    return plain, xdiv
+
+
+def _torch_inputs(ab_inputs, dtype):
+    fields, olds = ab_inputs[:2]
+    return (tuple(torch.from_numpy(f).to(dtype) for f in fields),
+            tuple(tuple(torch.from_numpy(o.copy()).to(dtype) for o in per)
+                  for per in olds))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_xdiv_chain_matches_plain_chain(setup, ab_inputs, dtype, tol):
+    """The reordered chain sums the same three direction terms in another
+    order: a float reassociation of the rhs (1e-5 * scale in float32,
+    1e-12 in float64). Its du, dv, dw equal a float64 parity apply of its
+    own u', v', w' (the check of tests/test_fused_ab.py:143-159), to
+    float32 rounding of a 64-long dot (3e-6) or float64's (1e-12)."""
+    _, ns, _ = setup
+    plain, xdiv = _chains(ns)
+    dtc = TimeIntegrator("AB3").ab_row(3, DT)
+    f, olds = _torch_inputs(ab_inputs, dtype)
+    new_a, rhs_a = plain(*f, olds, dtc)
+    f, olds = _torch_inputs(ab_inputs, dtype)
+    new_x, rhs_x, divs = xdiv(*f, olds, dtc)
+    assert xdiv.sweeps[2].xdiv is not None and plain.sweeps[2].xdiv is None
+    assert all(olds[c][-1] is o for c, o in enumerate(new_x))
+    for a, b in zip(new_a + rhs_a, new_x + rhs_x):
+        err = float((a - b).abs().max())
+        assert err < tol * float(a.abs().max()), f"{err:.2e}"
+    h = SHAPE[0] // 2
+    sl = (slice(None), slice(0, 4), slice(None))   # thin y slab
+    m64 = xdiv.sweeps[2].xdiv.m64
+    for key, fld, got in (("sx", new_x[0], divs[0]), ("ix", new_x[1], divs[1]),
+                          ("ix", new_x[2], divs[2])):
+        F = fld.numpy().astype(np.float64)[sl]
+        want = np.concatenate([
+            np.einsum("ab,byz->ayz", m64[key][:h], F[:h] + F[h:]),
+            np.einsum("ab,byz->ayz", m64[key][h:], F[:h] - F[h:])])
+        err = np.abs(got.numpy()[sl] - want).max()
+        dtol = 3e-6 if dtype == torch.float32 else 1e-12
+        assert err < dtol * np.abs(want).max(), f"{key}: {err:.2e}"
+
+
+def test_xdiv_chain_matches_x3d2_tpu_kernel_chain(setup, ab_inputs):
+    """Against x3d2_tpu's xdiv chain run in interpret mode (terms=3) on the
+    same inputs, at the shape of tests/test_fused_ab.py: 3e-5 * scale, the
+    bound x3d2_tpu holds its default-mode kernels to. The ordering of du,
+    dv, dw is the JAX kernel's."""
+    from x3d2_tpu.ops.pallas_kernels import make_fused_transeq_ab_v3
+
+    _, ns, _ = setup
+    _, xdiv = _chains(ns)
+    fields, olds = ab_inputs[:2]
+    jmesh = JMesh(SHAPE, L, ((JBC.PERIODIC, JBC.PERIODIC),) * 3)
+    jns = JNavierStokes.build(jmesh, NU, dtype=jnp.float32)
+    d64 = jns._fp_mats64()
+    jchain = make_fused_transeq_ab_v3(jns.ops, NU, SHAPE, nolds=2,
+                                      interpret=True, terms=3,
+                                      xdiv=(d64["sx"], d64["ix"]))
+    dtc = TimeIntegrator("AB3").ab_row(3, DT)
+    want = jchain(*(jnp.asarray(f) for f in fields),
+                  tuple(tuple(jnp.asarray(o) for o in per) for per in olds),
+                  jnp.asarray(dtc, jnp.float32))
+    f, t_olds = _torch_inputs(ab_inputs, torch.float32)
+    got = xdiv(*f, t_olds, dtc)
+    assert len(got) == len(want) == 3
+    for gs, es in zip(got, want):
+        for g, e in zip(gs, es):
+            e = np.asarray(e)
+            err = np.abs(g.numpy() - e).max()
+            assert err < 3e-5 * np.abs(e).max(), f"{err:.2e}"
+
+
+def test_xdiv_value_errors(setup):
+    """The builder raises where x3d2_tpu's does (pallas_kernels.py:520-536)
+    and beyond the size the kernel is built for."""
+    mesh, ns, _ = setup
+    d64 = ns._fp_mats64()
+    x = (d64["sx"], d64["ix"])
+    with pytest.raises(ValueError, match="AB-fused axis-0"):
+        ts.make_transeq_sweep(ns.ops[1], NU, 1, SHAPE, accumulate=True,
+                              nolds=2, device="cpu", xdiv_mats=x)
+    with pytest.raises(ValueError, match="AB-fused axis-0"):
+        ts.make_transeq_sweep(ns.ops[0], NU, 0, SHAPE, accumulate=True,
+                              device="cpu", xdiv_mats=x)
+    with pytest.raises(ValueError, match="even block count"):
+        ts.build_xdiv_mats(*x, 192, device="cpu")
+    with pytest.raises(ValueError, match=r"\(n, n\)"):
+        ts.build_xdiv_mats(d64["sx"][:, :64], d64["ix"], 128, device="cpu")
+    with pytest.raises(ValueError, match="serves n <="):
+        ts.build_xdiv_mats(*x, 512, device="cpu")
+    rng = np.random.default_rng(2)
+    with pytest.raises(ValueError, match="parity symmetry"):
+        ts.build_xdiv_mats(rng.standard_normal((128, 128)), d64["ix"], 128,
+                           device="cpu")
+    # CPU tensors take the plain version and count no launch
+    ts.reset_launch_counts()
+    fn = ts.make_transeq_sweep(ns.ops[0], NU, 0, SHAPE, accumulate=True,
+                               nolds=1, device="cpu", xdiv_mats=x)
+    z = torch.zeros(SHAPE)
+    out = fn(z, z, z, acc=(z, z, z), olds=((z,),) * 3, dtc=[DT, 0.0])
+    assert len(out) == 3 and ts.launch_counts() == {}
+    assert ts.variant_name(0, True, 2, True) == "transeq_sweep[x,acc,ab3,xdiv]"

@@ -10,15 +10,22 @@ Ported: Adams-Bashforth stepping, unfused (transeq + ab_step, x3d2_tpu
 cases/base.py:390-405) and fused (the transport + AB sweep chain,
 :406-471, momentum only). The fused chain is taken exactly where x3d2_tpu
 takes it: an AB scheme with history, not compensated, identity forcings,
-and a mesh the sweep kernel supports (transeq_sweep_supported).
-Runge-Kutta, compensated stepping, species and the X3D2_* switches of the
-JAX step are not ported yet and raise NotImplementedError.
+and a mesh the sweep kernel supports (transeq_sweep_supported). Under
+x3d2_tpu's gate (:141-167: the slab projection is there, max(dims) <= 256,
+X3D2_XDIV_FUSED is not "0") the chain is the xdiv one: z, y, then the x
+sweep with the AB update, which also emits the projection's x-transformed
+divergence inputs; the step hands them to the slab projection. Otherwise
+the chain is z, x, y with the AB update, followed by the three-stage
+pipeline (keep_pressure=False) or the slab projection (keep_pressure=True).
+Runge-Kutta, compensated stepping, species and the other X3D2_* switches
+of the JAX step are not ported yet and raise NotImplementedError.
 
 On the card a case must run on kernels: a step outside the fused sweep
 chain (a mesh the sweep kernel does not serve, another forcing, AB1), or
-a projection outside the pipe3 kernels (keep_pressure=True, or a grid
-they do not tile), raises NotImplementedError at construction. The CPU
-runs every case, with plain versions and dense products.
+a projection on a grid the pipe3 and slab kernels do not serve (a
+wall-bounded axis, an extent that is not a multiple of 128), raises
+NotImplementedError at construction. The CPU runs every case, with plain
+versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
 fused chain writes u' over the oldest history fields.
@@ -41,11 +48,15 @@ from ..solver import _UNPORTED_PROJECTION, _UNPORTED_TRANSEQ, NavierStokes
 from ..time_integrators import TimeIntegrator
 
 # environment switches the JAX step reads (x3d2_tpu cases/base.py,
-# solver.py, ops/compact.py); none has a port yet
+# solver.py, ops/compact.py) that have no port yet; X3D2_XDIV_FUSED is
+# ported ("0" keeps the z, x, y chain and the pipeline at every size)
 _JAX_STEP_SWITCHES = ("X3D2_FUSED_AB", "X3D2_FUSED_RK", "X3D2_PIPE3",
-                      "X3D2_XDIV_FUSED", "X3D2_BF16_OLDS", "X3D2_BF16_ACC",
+                      "X3D2_BF16_OLDS", "X3D2_BF16_ACC",
                       "X3D2_D2C", "X3D2_CHUNK", "X3D2_PALLAS",
                       "X3D2_MATMUL_PRECISION", "X3D2_MID_SPLIT")
+# the largest extent at which the step takes the xdiv chain: x3d2_tpu's
+# gate (cases/base.py:146), kept as the reference has it
+XDIV_MAX_DIM = 256
 
 
 @dataclass
@@ -114,26 +125,46 @@ class BaseCase:
         self.dt = params.dt
         dims = mesh.dims(DataLoc.VERT)
         on_card = self.device.type == "cuda"
-        if on_card and (keep_pressure or self.solver._pipe is None):
+        if on_card and self.solver._slab is None:
             raise NotImplementedError(
-                "the projection on the card runs the pipe3 kernels "
-                "(keep_pressure=False on an all-periodic grid tiled by "
-                f"128); {_UNPORTED_PROJECTION} are not ported yet")
+                "the projection on the card runs the pipe3 and slab kernels "
+                "(an all-periodic uniform grid tiled by 128); "
+                f"{_UNPORTED_PROJECTION} are not ported yet")
         # transport + AB update in one chain of three sweep kernels, under
         # x3d2_tpu's gate (cases/base.py:131-135)
         self._fused_ab = None
+        self._ab_is_xdiv = False
         if (self.ti.nolds >= 1   # compensated stepping raised above
                 and type(self).forcings is BaseCase.forcings
                 and transeq_sweep_supported(self.solver, dims)):
-            try:
-                self._fused_ab = make_fused_transeq_ab(
-                    self.solver.ops, self.solver.nu, dims, self.ti.nolds,
-                    device=self.device)
-            except ValueError:
-                # an operator band wider than the kernel's: the CPU steps
-                # unfused; the card has no kernel for it
-                if on_card:
-                    raise
+            slab = self.solver._slab
+            if (slab is not None   # the port's slab is always parity x
+                    and max(dims) <= XDIV_MAX_DIM
+                    and os.environ.get("X3D2_XDIV_FUSED", "1") != "0"):
+                # the final sweep also emits the projection's x-transformed
+                # divergence inputs, in the block-parity basis of the slab
+                # kernels (x3d2_tpu cases/base.py:141-167; the port has no
+                # boundary or body hook that could change the velocities
+                # between the AB update and the projection)
+                d64 = self.solver._fp_mats64()
+                try:
+                    self._fused_ab = make_fused_transeq_ab(
+                        self.solver.ops, self.solver.nu, dims,
+                        self.ti.nolds, device=self.device,
+                        xdiv=(d64["sx"], d64["ix"]))
+                    self._ab_is_xdiv = True
+                except ValueError:
+                    pass
+            if self._fused_ab is None:
+                try:
+                    self._fused_ab = make_fused_transeq_ab(
+                        self.solver.ops, self.solver.nu, dims,
+                        self.ti.nolds, device=self.device)
+                except ValueError:
+                    # an operator band wider than the kernel's: the CPU
+                    # steps unfused; the card has no kernel for it
+                    if on_card:
+                        raise
         if on_card and self._fused_ab is None:
             raise NotImplementedError(
                 "on the card the step runs the fused sweep chain (an AB "
@@ -181,6 +212,7 @@ class BaseCase:
         fields = (state["u"], state["v"], state["w"])
         istep = int(state["istep"])
         dt = self.dt
+        divs = None
         if self._fused_ab is None:
             rhs = self.forcings(self.solver.transeq(*fields), fields, istep)
             fields, olds = self.ti.ab_step(fields, state["olds"], istep, rhs,
@@ -188,14 +220,18 @@ class BaseCase:
         else:
             # the AB row is picked on the host: no per-step device sync
             dtc = self.ti.ab_row(istep, dt, self.dtype)
-            fields, rhs = self._fused_ab(*fields, state["olds"], dtc)
+            out = self._fused_ab(*fields, state["olds"], dtc)
+            if len(out) == 3:   # the xdiv chain
+                fields, rhs, divs = out
+            else:
+                fields, rhs = out
             olds = tuple((r,) + tuple(o[:-1])
                          for r, o in zip(rhs, state["olds"]))
         u, v, w, p = self.solver.pressure_correction(
-            *fields, keep_pressure=self.keep_pressure)
+            *fields, keep_pressure=self.keep_pressure, divs=divs)
         if p is None:
-            # the pipeline forms no pressure: carry the previous
-            # (diagnostic-only) one, as x3d2_tpu does
+            # no pressure was formed (keep_pressure=False): carry the
+            # previous (diagnostic-only) one, as x3d2_tpu does
             p = state["p"]
         return {"u": u, "v": v, "w": w, "p": p, "istep": istep + 1,
                 "olds": olds}

@@ -28,6 +28,17 @@
 // TPU kernel's Nyquist mask is left out: on the all-periodic grids the
 // pipeline serves it is identically one.
 //
+// The same template carries the slab projection (make_pressure_slab,
+// pallas_poisson.py:553; wrappers in ops/pressure_slab.py):
+//   - _x_parity_fwd3_kernel      pallas_poisson.py:1067  one PFWD launch
+//     along x with three jobs: du = Sx u, dv = Ix v, dw = Ix w
+//   - _pressure_mid_kernel       pallas_poisson.py:354   six launches:
+//     banded y (Iy du + Sy dv; Iy dw), PFWD z (Iz . + Sz .), PFWD y with
+//     the solve in its epilogue (the x mode is the plane of the batch:
+//     SOLVE_PLANE), PINV z (Gzi q, Gzs q), PINV y, banded y (Giy, Gsy, Giy)
+//   - _x_parity_gradsub3_kernel  pallas_poisson.py:1106  one PINV launch
+//     along x with three jobs and the subtracting epilogue
+//
 // Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
 // point (the dense parity halves dominate; the banded applies count their
 // 2*BW + 1 band taps), about 17.7 ms at the 67 TFLOP/s FP32 rate, against
@@ -57,7 +68,7 @@ constexpr int NT = 256;   // threads per block
 constexpr int PAD = 4;    // shared-memory row pad (keeps float4 alignment)
 
 enum { BANDED = 0, PFWD = 1, PINV = 2 };
-enum { STORE = 0, SUB = 1, SOLVE = 2 };
+enum { STORE = 0, SUB = 1, SOLVE = 2, SOLVE_PLANE = 3 };
 
 struct Job {
   const float* A[2];   // operator matrices (rows x K, row-major), per source
@@ -76,8 +87,11 @@ struct Args {
   int bw;              // BANDED: band half-width
   long long ld;        // stride of a row (TRANS: of a column)
   long long pstride;   // stride between the planes of a batch
-  const float* tab[2];  // SOLVE: A, B per column
-  const float* col[2];  // SOLVE: k2x, tx2 per output row
+  // SOLVE (after an x apply): A, B per (y, z) column, k2x, tx2 per output
+  // row. SOLVE_PLANE (after a y apply batched over x planes): A, B per
+  // (output row, column), k2x, tx2 per plane.
+  const float* tab[2];
+  const float* col[2];
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -273,10 +287,12 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             v[1] = s.y - v[1];
             v[2] = s.z - v[2];
             v[3] = s.w - v[3];
-          } else if (EPI == SOLVE) {
-            const float k2 = a.col[0][m], t2 = a.col[1][m];
-            const float4 tA = ld4(a.tab[0] + n);
-            const float4 tB = ld4(a.tab[1] + n);
+          } else if (EPI == SOLVE || EPI == SOLVE_PLANE) {
+            const int xm = EPI == SOLVE ? m : (int)(blockIdx.z % a.batch);
+            const long long tn = EPI == SOLVE ? n : off;
+            const float k2 = a.col[0][xm], t2 = a.col[1][xm];
+            const float4 tA = ld4(a.tab[0] + tn);
+            const float4 tB = ld4(a.tab[1] + tn);
             const float wa[4] = {tA.x, tA.y, tA.z, tA.w};
             const float wb[4] = {tB.x, tB.y, tB.z, tB.w};
 #pragma unroll
@@ -354,8 +370,11 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
     case BANDED * 100 + 0 + SUB:   return launch<BANDED, false, SUB>(a, grid, s);
     case PFWD * 100 + 0 + STORE:   return launch<PFWD, false, STORE>(a, grid, s);
     case PFWD * 100 + 0 + SOLVE:   return launch<PFWD, false, SOLVE>(a, grid, s);
+    case PFWD * 100 + 0 + SOLVE_PLANE:
+      return launch<PFWD, false, SOLVE_PLANE>(a, grid, s);
     case PFWD * 100 + 10 + STORE:  return launch<PFWD, true, STORE>(a, grid, s);
     case PINV * 100 + 0 + STORE:   return launch<PINV, false, STORE>(a, grid, s);
+    case PINV * 100 + 0 + SUB:     return launch<PINV, false, SUB>(a, grid, s);
     case PINV * 100 + 10 + STORE:  return launch<PINV, true, STORE>(a, grid, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -17,6 +17,13 @@
 //   component; st = [D1s; D2s] and dt = D1 for the transverse ones.
 // With NOLDS > 0 the epilogue also writes rhs = r and
 //   u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j.
+// With XDIV (the x sweep with the AB epilogue only; the xdiv variant of
+// _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) the kernel also
+// emits the projection's forward x transforms of the updated velocities,
+//   du = [Me_s (u'1 + u'2); Mo_s (u'1 - u'2)], dv, dw likewise with Ix,
+// modes in block-parity order: x block b of u' contributes
+// Me[:, cols(b)] u'_b to the even modes and +/- Mo[:, cols(b)] u'_b to the
+// odd ones (sign by input half), summed over the nb blocks of x.
 //
 // Bound on an H100: the function needs the 2W + 1 = 33 band taps of each
 // operator, 3 components x 3 operators x 33 = 297 FMA per point, about
@@ -35,6 +42,19 @@
 // 64-line tile (3 x 96 x 64 floats) is read from device memory once, and
 // the next tile's windows load into registers while the current tile
 // computes (one block per SM, so the overlap is within the block).
+//
+// XDIV: the TPU kernel carries the sum over x blocks in scratch memory
+// along its sequential innermost grid axis; blocks of a CUDA grid run in
+// no order. Here block (., b) writes u'_b of a component from registers
+// into that component's dead window in shared memory, contracts it with
+// its 64 columns of the transform (read through L2: shared memory is full)
+// into a partial (nx modes x 64 lines) and stores the partial to a scratch
+// buffer. The blocks of one line tile then draw a ticket from a counter;
+// the one that draws the last adds the nb partials in the fixed order
+// b = 0 .. nb-1 and writes du, dv, dw. No floating-point atomics: the
+// result does not depend on the order in which blocks finish, so a run
+// repeats bit for bit. The transform reads u' on chip; only the partial
+// sums pass through device memory (nb x 3 fields, mostly resident in L2).
 
 #include <cuda_runtime.h>
 
@@ -46,6 +66,11 @@ constexpr int WIN = BS + 2 * W;   // window length
 constexpr int TL = 64;            // lines per tile
 constexpr int NT = 256;           // threads per block
 constexpr int RPT = BS / (NT / 32);  // output rows per thread (8)
+constexpr int XDIV_MAX_NB = 4;    // x blocks the xdiv variant takes
+constexpr int XK = 8;             // xdiv: rows of the transform per chunk
+static_assert(XK * XDIV_MAX_NB * BS <= (WIN - BS) * TL &&
+                  XK * XDIV_MAX_NB * BS / 4 <= 2 * NT && BS % XK == 0,
+              "a chunk of the transform must fit the window's spare rows");
 
 struct SweepArgs {
   const float* f[3];               // u, v, w
@@ -60,6 +85,11 @@ struct SweepArgs {
   int n0, n1, n2;
   float nu;
   float dtc[4];
+  // XDIV only
+  const float* xm[2];              // Sx, Ix slices [nb][BS][n0], sign folded
+  float* part;                     // partials [nb][3][n0][n1 * n2]
+  float* div[3];                   // du, dv, dw
+  unsigned int* ticket;            // one counter per line tile, zeroed
 };
 
 template <int AXIS>
@@ -162,9 +192,12 @@ __device__ __forceinline__ void store_rows(float* p, long long row0,
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS>
+template <int AXIS, bool ACC, int NOLDS, bool XDIV>
 __global__ void __launch_bounds__(NT, 1)
 transeq_sweep_kernel(SweepArgs a, long long ntiles) {
+  static_assert(!XDIV || (AXIS == 0 && ACC && NOLDS > 0),
+                "the xdiv variant is the x sweep with the AB epilogue");
+  __shared__ unsigned int s_ticket;
   extern __shared__ __align__(16) float smem[];
   constexpr int LDW = ldw<AXIS>();
   float* SaT = smem;                    // [WIN][2BS]
@@ -245,6 +278,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
       const float* S = (c == AXIS) ? SaT : StT;
       const float* D = (c == AXIS) ? DaT : DtT;
       float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+      float unk[2][RPT];  // XDIV: u' of the thread's two lines
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
 #pragma unroll
@@ -315,6 +349,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
 #pragma unroll
             for (int jj = 0; jj < NOLDS; ++jj)
               un[r] += a.dtc[jj + 1] * ov[jj][r];
+            if (XDIV) unk[j][r] = un[r];
           }
           store_rows<AXIS>(a.rhs[c], row0, ss, res);
           store_rows<AXIS>(a.out[c], row0, ss, un);
@@ -324,6 +359,91 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
       }
 
       __syncthreads();  // every thread is done reading window c
+      if (XDIV) {
+        // u'_b into rows [0, BS) of the dead window, then its partial
+        // transform. The block's slice of the transform, [BS][n], passes
+        // through the window's other rows, XK rows of k at a time, the
+        // next chunk in flight from L2 while this one is used; a warp
+        // takes 8 modes of every 64, a thread its two lines.
+        float* U = F + c * WIN * LDW;
+        float* XS = U + BS * LDW;  // [XK][n]
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < RPT; ++r)
+            U[(r0 + r) * LDW + tx + 32 * j] = unk[j][r];
+        const long long lines = (long long)a.n1 * a.n2;
+        const float4* X4 = reinterpret_cast<const float4*>(
+            a.xm[c == 0 ? 0 : 1] + (size_t)b * BS * n);
+        const int chunk4 = XK * n / 4;  // float4 per chunk: at most 2 * NT
+        const int npass = n / 64;
+        float4 xr[2];
+        auto fetch_x = [&](int kc) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (tid + q * NT < chunk4)
+              xr[q] = __ldg(X4 + (size_t)kc * chunk4 + tid + q * NT);
+        };
+        auto stage_x = [&]() {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (tid + q * NT < chunk4)
+              reinterpret_cast<float4*>(XS)[tid + q * NT] = xr[q];
+        };
+        float e[XDIV_MAX_NB][RPT][2];
+#pragma unroll
+        for (int p = 0; p < XDIV_MAX_NB; ++p)
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            e[p][r][0] = 0.f;
+            e[p][r][1] = 0.f;
+          }
+        fetch_x(0);
+        stage_x();
+        __syncthreads();  // u'_b and the first chunk are in place
+        for (int kc = 0; kc < BS / XK; ++kc) {
+          if (kc + 1 < BS / XK) fetch_x(kc + 1);
+#pragma unroll
+          for (int kk = 0; kk < XK; ++kk) {
+            const int k = kc * XK + kk;
+            const float u0 = U[k * LDW + tx];
+            const float u1 = U[k * LDW + tx + 32];
+#pragma unroll
+            for (int p = 0; p < XDIV_MAX_NB; ++p) {
+              if (p < npass) {
+                const float4* xs = reinterpret_cast<const float4*>(
+                    XS + kk * n + p * 64 + r0);
+                const float4 x0 = xs[0], x1 = xs[1];
+                const float xv[RPT] = {x0.x, x0.y, x0.z, x0.w,
+                                       x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+                for (int r = 0; r < RPT; ++r) {
+                  e[p][r][0] = fmaf(xv[r], u0, e[p][r][0]);
+                  e[p][r][1] = fmaf(xv[r], u1, e[p][r][1]);
+                }
+              }
+            }
+          }
+          __syncthreads();  // every thread is done reading this chunk
+          if (kc + 1 < BS / XK) {
+            stage_x();
+            __syncthreads();
+          }
+        }
+        float* P = a.part + (size_t)(b * 3 + c) * n * lines + base;
+#pragma unroll
+        for (int p = 0; p < XDIV_MAX_NB; ++p) {
+          if (p < npass) {
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
+              const size_t o = (size_t)(p * 64 + r0 + r) * lines;
+              P[o + tx] = e[p][r][0];
+              P[o + tx + 32] = e[p][r][1];
+            }
+          }
+        }
+        // (the last chunk's barrier also ended every read of u'_b)
+      }
       if (has_next) {
         float* dst = F + c * WIN * LDW;
 #pragma unroll
@@ -331,6 +451,46 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
           int k, l;
           window_coords<AXIS>(tid + m * NT, k, l);
           dst[k * LDW + l] = pre[m];
+        }
+      }
+    }
+    if (XDIV) {
+      // this block's partials of the tile are stored: make them visible,
+      // draw a ticket; the block that draws the last one sums all nb
+      // partials in the order of b
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) s_ticket = atomicAdd(a.ticket + t, 1u);
+      __syncthreads();
+      if (s_ticket == gridDim.y - 1) {
+        __threadfence();
+        // all nb loads of a point are issued before the adds, several
+        // points at a time: one block does this for the whole tile, so
+        // loads in flight are what it is bound by
+        const long long lines = (long long)a.n1 * a.n2;
+        const int nb = gridDim.y;
+        const int per = n * (TL / 4);
+#pragma unroll 4
+        for (int i = tid; i < 3 * per; i += NT) {
+          const int c = i / per, ic = i - c * per;
+          const int m = ic / (TL / 4), l4 = (ic - m * (TL / 4)) * 4;
+          const size_t o = (size_t)m * lines + base + l4;
+          float4 p[XDIV_MAX_NB];
+#pragma unroll
+          for (int bb = 0; bb < XDIV_MAX_NB; ++bb)
+            if (bb < nb)
+              p[bb] = __ldcg(reinterpret_cast<const float4*>(
+                  a.part + (size_t)(bb * 3 + c) * n * lines + o));
+          float4 sum = p[0];
+#pragma unroll
+          for (int bb = 1; bb < XDIV_MAX_NB; ++bb)
+            if (bb < nb) {
+              sum.x += p[bb].x;
+              sum.y += p[bb].y;
+              sum.z += p[bb].z;
+              sum.w += p[bb].w;
+            }
+          *reinterpret_cast<float4*>(a.div[c] + o) = sum;
         }
       }
     }
@@ -342,23 +502,34 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS>
+template <int AXIS, bool ACC, int NOLDS, bool XDIV = false>
 cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<AXIS>();
   cudaError_t e = cudaFuncSetAttribute(
-      transeq_sweep_kernel<AXIS, ACC, NOLDS>,
+      transeq_sweep_kernel<AXIS, ACC, NOLDS, XDIV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  transeq_sweep_kernel<AXIS, ACC, NOLDS>
+  transeq_sweep_kernel<AXIS, ACC, NOLDS, XDIV>
       <<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
   return cudaGetLastError();
 }
 
 template <int AXIS>
-cudaError_t dispatch_axis(int accumulate, int nolds, const SweepArgs& a,
-                          long long ntiles, int nb, int grid_x,
-                          cudaStream_t s) {
+cudaError_t dispatch_axis(int accumulate, int nolds, int xdiv,
+                          const SweepArgs& a, long long ntiles, int nb,
+                          int grid_x, cudaStream_t s) {
+  if (xdiv) {
+    if constexpr (AXIS == 0) {
+      if (!accumulate) return cudaErrorInvalidValue;
+      switch (nolds) {
+        case 1: return launch<0, true, 1, true>(a, ntiles, nb, grid_x, s);
+        case 2: return launch<0, true, 2, true>(a, ntiles, nb, grid_x, s);
+        case 3: return launch<0, true, 3, true>(a, ntiles, nb, grid_x, s);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   if (!accumulate) {
     if (nolds != 0) return cudaErrorInvalidValue;
     return launch<AXIS, false, 0>(a, ntiles, nb, grid_x, s);
@@ -377,17 +548,19 @@ cudaError_t dispatch_axis(int accumulate, int nolds, const SweepArgs& a,
 extern "C" {
 
 // Compile-time block geometry, for the wrapper's checks.
-int transeq_sweep_geometry(int* bs, int* w, int* tl) {
+int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb) {
   *bs = BS;
   *w = W;
   *tl = TL;
+  *xdiv_max_nb = XDIV_MAX_NB;
   return 0;
 }
 
 // ptrs: u, v, w, sa, st, da, dt, acc[3], old[j][c] (9, j-major),
-// out[3], rhs[3]; unused entries may be null. dtc: 4 floats.
+// out[3], rhs[3], then for xdiv the Sx and Ix slices, the partials, du,
+// dv, dw and the tile counters; unused entries may be null. dtc: 4 floats.
 // Returns the cudaError_t of the launch (0 on success).
-int transeq_sweep_launch(int axis, int accumulate, int nolds,
+int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
                          void* const* ptrs, int n0, int n1, int n2,
                          float nu, const float* dtc, int grid_x,
                          void* stream) {
@@ -404,6 +577,10 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds,
       a.old[j][c] = static_cast<const float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.out[c] = static_cast<float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.rhs[c] = static_cast<float*>(ptrs[i++]);
+  for (int j = 0; j < 2; ++j) a.xm[j] = static_cast<const float*>(ptrs[i++]);
+  a.part = static_cast<float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.div[c] = static_cast<float*>(ptrs[i++]);
+  a.ticket = static_cast<unsigned int*>(ptrs[i++]);
   a.n0 = n0;
   a.n1 = n1;
   a.n2 = n2;
@@ -417,10 +594,14 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds,
                                       : (long long)n0 * n1;
   const long long ntiles = lines / TL;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (xdiv && nb > XDIV_MAX_NB) return cudaErrorInvalidValue;
   switch (axis) {
-    case 0: return dispatch_axis<0>(accumulate, nolds, a, ntiles, nb, grid_x, s);
-    case 1: return dispatch_axis<1>(accumulate, nolds, a, ntiles, nb, grid_x, s);
-    case 2: return dispatch_axis<2>(accumulate, nolds, a, ntiles, nb, grid_x, s);
+    case 0:
+      return dispatch_axis<0>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
+    case 1:
+      return dispatch_axis<1>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
+    case 2:
+      return dispatch_axis<2>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }

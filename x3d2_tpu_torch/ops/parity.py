@@ -1,0 +1,228 @@
+"""What the two kernel projections share: the parity splits, the banded and
+parity applies in plain PyTorch, the solve factor, and the operator set.
+
+Both projections of the port, the three-stage pipeline (pressure_pipe.py)
+and the slab projection (pressure_slab.py), factor the same chain
+(x3d2_tpu.ops.pallas_poisson): the y interpolation and staggered
+derivative band-truncated per block of 64 rows (ops/banded.py, W=32), the
+periodic transforms as parity splits (one radix-2 level in matrix form,
+half the operations), spectral indices in block-parity order [even modes;
+odd modes] with the solve tables permuted to match. They differ only in
+the order of the stages, so they consume one operator set,
+``ProjectionMats``, built once per solver. The operators are f32 on the
+card (no bf16 hi/lo splits: those worked around the TPU matrix unit).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..common import DataLoc
+from .banded import banded_blocks
+from .compact import apply_matrix
+from .matmul_poisson import MatmulPoisson, real_dft_matrix
+
+BW = 32                # band half-width of the y operators
+BBS = 64               # banded block (rows per output block)
+WIN = BBS + 2 * BW     # band window
+TILE = 128             # the kernel's output tile along every axis
+# at W=32 the uniform compact interpolation and staggered derivative drop
+# entries below 1e-15 of their largest: the band is exact to float64
+# rounding (W=16, the TPU's bf16x3 choice, drops 1e-7)
+_BAND_TOL = 1e-12
+_EPS = 1e-16           # zero-wave guard, as matmul_poisson._EPS
+
+
+# ---------------------------------------------------------------------------
+# parity splits (numpy, float64)
+# ---------------------------------------------------------------------------
+
+def parity_split(n):
+    """Split of the real DFT T = real_dft_matrix(n) by output parity: with
+    h = n/2, Te = T[0::2, :h] and To = T[1::2, :h],
+
+        T x = [Te (x1 + x2); To (x1 - x2)]   (rows in block-parity order)
+
+    and, from row orthogonality, Ti y = [a + b; a - b] with a = Te^T z_e,
+    b = To^T z_o, z = w * y. Returns (Te, To, w); raises if the symmetry
+    does not hold."""
+    h = n // 2
+    T = real_dft_matrix(n)
+    if (np.abs(T[0::2, :h] - T[0::2, h:]).max() > 1e-9
+            or np.abs(T[1::2, :h] + T[1::2, h:]).max() > 1e-9):
+        raise ValueError("transform lacks the parity column symmetry")
+    TTt = T @ T.T
+    if np.abs(TTt - np.diag(np.diag(TTt))).max() > 1e-9 * n:
+        raise ValueError("transform rows not orthogonal")
+    return T[0::2, :h].copy(), T[1::2, :h].copy(), 1.0 / np.diag(TTt)
+
+
+def parity_split_folded(M, axis):
+    """Parity split of a transform-folded matrix on a periodic axis.
+
+    axis=0 (forward-folded, M = T @ Op): M x = [Me (x1 + x2); Mo (x1 - x2)]
+    with Me = M[0::2, :h], Mo = M[1::2, :h], h = n_in/2.
+    axis=1 (inverse-folded, M = Op @ Ti): M z = [a + b; a - b] with
+    a = Me z_e, b = Mo z_o, Me = M[:h, 0::2], Mo = M[:h, 1::2], h = n_out/2,
+    z in block-parity mode order.
+
+    Returns (Me, Mo); raises when the symmetry does not hold."""
+    n0, n1 = M.shape
+    tol = 1e-9 * np.abs(M).max()
+    if axis == 0:
+        h = n1 // 2
+        if (np.abs(M[0::2, :h] - M[0::2, h:]).max() > tol
+                or np.abs(M[1::2, :h] + M[1::2, h:]).max() > tol):
+            raise ValueError("no forward parity symmetry")
+        return M[0::2, :h].copy(), M[1::2, :h].copy()
+    h = n0 // 2
+    if (np.abs(M[:h, 0::2] - M[h:, 0::2]).max() > tol
+            or np.abs(M[:h, 1::2] + M[h:, 1::2]).max() > tol):
+        raise ValueError("no inverse parity symmetry")
+    return M[:h, 0::2].copy(), M[:h, 1::2].copy()
+
+
+def parity_perm(n):
+    """Natural index of each block-parity slot: [0, 2, ...; 1, 3, ...]."""
+    return np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)])
+
+
+# ---------------------------------------------------------------------------
+# operators
+# ---------------------------------------------------------------------------
+
+def projection_supported(solver) -> bool:
+    """The grids the kernel projections serve: the uniform spectral Poisson
+    solve on an all-periodic grid (square operators, parity-split
+    transforms on every axis) whose extents are multiples of the kernel
+    tile."""
+    po = solver.poisson
+    if (not isinstance(po, MatmulPoisson) or po.stretch_solver is not None
+            or po.folded):
+        return False
+    nv = tuple(solver.mesh.dims(DataLoc.VERT))
+    return nv == tuple(po.nc) and all(n % TILE == 0 for n in nv)
+
+
+@dataclass
+class ProjectionMats:
+    """The projections' operators as float64 numpy masters, with device
+    copies per dtype. Banded (stacked (n, WIN) blocks): biy, bsy
+    (divergence), bgiy, bgsy (gradient). Forward parity [Me; Mo]: ty, iz,
+    sz, sx, ix. Inverse parity [Me; Mo]: gxs, gxi, gzi, gzs, tyi (the
+    inverse y transform with its row weights folded in). Solve tables
+    (block-parity order): tab_a, tab_b per (y, z) column, k2x, tx2 per x
+    mode. Inverse transforms with columns in block-parity order, for the
+    physical pressure: ti_x, ti_y, ti_z. x_perm, q_perm, z_perm give the
+    natural mode of each block-parity slot along x, y, z."""
+
+    shape: tuple
+    m64: dict
+    device: torch.device
+    x_perm: np.ndarray
+    q_perm: np.ndarray
+    z_perm: np.ndarray
+    _dev: dict = field(default_factory=dict)
+
+    def mats(self, dtype) -> dict:
+        if dtype not in self._dev:
+            self._dev[dtype] = {
+                k: torch.as_tensor(M, dtype=dtype, device=self.device)
+                .contiguous() for k, M in self.m64.items()}
+        return self._dev[dtype]
+
+
+def build_projection_mats(solver) -> ProjectionMats:
+    """The projections' operators from the solver (x3d2_tpu
+    make_pressure_pipe3, pallas_poisson.py:1584-1680, and
+    make_pressure_slab, :553-699, :919-936, fast branches). Raises
+    ValueError outside ``projection_supported`` or when a y operator's band
+    is wider than W at the truncation tolerance."""
+    if not projection_supported(solver):
+        raise ValueError("the kernel projections need an all-periodic "
+                         f"uniform grid tiled by {TILE}")
+    d64 = solver._fp_mats64()
+    oy = solver.ops[1]
+    po = solver.poisson
+    nx, ny, nz = po.nc
+
+    def band(op):
+        return banded_blocks(op, BW, BBS, tol=_BAND_TOL).reshape(-1, WIN)
+
+    def fwd(M):
+        return np.concatenate(parity_split_folded(M, 0))
+
+    def inv(M):
+        return np.concatenate(parity_split_folded(M, 1))
+
+    te, to, wvec = parity_split(ny)
+    h = ny // 2
+    w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
+    xp, yp, zp = parity_perm(nx), parity_perm(ny), parity_perm(nz)
+    ti = [np.asarray(T, np.float64) for T in po.Ti64]
+    m = {
+        "biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
+        "ty": np.concatenate([te, to]),
+        "iz": fwd(d64["iz"]), "sz": fwd(d64["sz"]),
+        "sx": fwd(d64["sx"]), "ix": fwd(d64["ix"]),
+        "gxs": inv(d64["gx_s"]), "gxi": inv(d64["gx_i"]),
+        "gzi": inv(d64["gz_i"]), "gzs": inv(d64["gz_s"]),
+        "tyi": np.concatenate([te.T * w_perm[None, :h],
+                               to.T * w_perm[None, h:]]),
+        "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v),
+        "tab_a": np.asarray(po.tab_A)[yp][:, zp].reshape(-1),
+        "tab_b": np.asarray(po.tab_B)[yp][:, zp].reshape(-1),
+        "k2x": po.k2_1d[0][xp],
+        "tx2": (po.T_1d[0] ** 2)[xp],
+        "ti_x": ti[0][:, xp], "ti_y": ti[1][:, yp], "ti_z": ti[2][:, zp],
+    }
+    return ProjectionMats(shape=(nx, ny, nz), m64=m, device=solver.device,
+                          x_perm=xp, q_perm=yp, z_perm=zp)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch applies
+# ---------------------------------------------------------------------------
+
+def banded_apply(Wst, f, axis):
+    """Block-banded apply along `axis` (periodic window per block)."""
+    n = f.shape[axis]
+    nb = n // BBS
+    k = torch.arange(WIN, device=f.device)
+    b = torch.arange(nb, device=f.device)
+    idx = (b[:, None] * BBS - BW + k[None, :]) % n
+    fm = f.movedim(axis, 0)
+    rest = fm.shape[1:]
+    win = fm.reshape(n, -1)[idx]                       # (nb, WIN, lines)
+    out = torch.bmm(Wst.reshape(nb, BBS, WIN), win)    # (nb, BBS, lines)
+    return out.reshape((n,) + rest).movedim(0, axis)
+
+
+def pfwd(Mst, f, axis):
+    """Forward parity apply: [Me (f1 + f2); Mo (f1 - f2)] along `axis`."""
+    h = f.shape[axis] // 2
+    ho = Mst.shape[0] // 2
+    f1, f2 = f.narrow(axis, 0, h), f.narrow(axis, h, h)
+    return torch.cat([apply_matrix(Mst[:ho], f1 + f2, axis),
+                      apply_matrix(Mst[ho:], f1 - f2, axis)], axis)
+
+
+def pinv(Mst, f, axis):
+    """Inverse parity apply: [a + b; a - b], a = Me f_e, b = Mo f_o."""
+    h = Mst.shape[0] // 2
+    a = apply_matrix(Mst[:h], f.narrow(axis, 0, h), axis)
+    b = apply_matrix(Mst[h:], f.narrow(axis, h, h), axis)
+    return torch.cat([a + b, a - b], axis)
+
+
+def solve_factor(m, shape):
+    """-1/waves with the zero-wave guard, from the separable tables, as an
+    (nx, ny, nz) field in block-parity order on every axis."""
+    waves = (m["k2x"][:, None] * m["tab_a"][None, :]
+             + m["tx2"][:, None] * m["tab_b"][None, :])
+    ok = waves.abs() >= _EPS
+    inv = torch.where(ok, -1.0 / torch.where(ok, waves, 1.0), 0.0)
+    return inv.reshape(shape)

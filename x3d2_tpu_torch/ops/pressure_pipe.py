@@ -16,8 +16,10 @@ The y interpolation and staggered derivative are band-truncated per block
 of 64 rows (ops/banded.py, W=32); the periodic transforms use the parity
 split (one radix-2 level in matrix form, half the operations), so spectral
 indices stay in block-parity order [even modes; odd modes] between the
-stages and the solve tables are permuted to match. The operators are f32
-(no bf16 hi/lo splits: those worked around the TPU matrix unit).
+stages and the solve tables are permuted to match. The operator set, the
+splits and the plain applies are shared with the slab projection
+(ops/parity.py); so is the kernel template, whose launcher ``_apply`` the
+slab's wrappers (ops/pressure_slab.py) call as well.
 
 A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
 runs the plain version. The pipeline serves the all-periodic uniform grid
@@ -29,34 +31,24 @@ pallas_poisson.py:1555).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, field
 
-import numpy as np
 import torch
 
-from ..common import DataLoc
-from .banded import banded_blocks
-from .compact import apply_matrix
-from .matmul_poisson import MatmulPoisson, real_dft_matrix
+from .parity import (BBS, BW, TILE, WIN, ProjectionMats, banded_apply, pfwd,
+                     pinv, projection_supported, solve_factor)
 
-BW = 32                # band half-width of the y operators
-BBS = 64               # banded block (rows per output block)
-WIN = BBS + 2 * BW     # band window
-TILE = 128             # the kernel's output tile along every axis
-# at W=32 the uniform compact interpolation and staggered derivative drop
-# entries below 1e-15 of their largest: the band is exact to float64
-# rounding (W=16, the TPU's bf16x3 choice, drops 1e-7)
-_BAND_TOL = 1e-12
-_EPS = 1e-16           # zero-wave guard, as matmul_poisson._EPS
-
-# operator forms and epilogues of the kernel template
+# operator forms and epilogues of the kernel template; SOLVE_PLANE is the
+# solve after a plane-batched apply (the x mode is the plane)
 BANDED, PFWD, PINV = 0, 1, 2
-STORE, SUB, SOLVE = 0, 1, 2
+STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 
-# kernel launches per call of each stage
-LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3}
+# kernel launches per call of each wrapper that launches the template (the
+# slab projection's wrappers are in pressure_slab.py)
+LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
+                     "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
+                     "x_gradsub3": 1}
 
-# launches of the kernel per stage, counted where it is launched
+# launches of the kernel per wrapper, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
 
 
@@ -68,209 +60,40 @@ def reset_launch_counts() -> None:
     _LAUNCHES.clear()
 
 
-# ---------------------------------------------------------------------------
-# parity splits (numpy, float64)
-# ---------------------------------------------------------------------------
-
-def parity_split(n):
-    """Split of the real DFT T = real_dft_matrix(n) by output parity: with
-    h = n/2, Te = T[0::2, :h] and To = T[1::2, :h],
-
-        T x = [Te (x1 + x2); To (x1 - x2)]   (rows in block-parity order)
-
-    and, from row orthogonality, Ti y = [a + b; a - b] with a = Te^T z_e,
-    b = To^T z_o, z = w * y. Returns (Te, To, w); raises if the symmetry
-    does not hold."""
-    h = n // 2
-    T = real_dft_matrix(n)
-    if (np.abs(T[0::2, :h] - T[0::2, h:]).max() > 1e-9
-            or np.abs(T[1::2, :h] + T[1::2, h:]).max() > 1e-9):
-        raise ValueError("transform lacks the parity column symmetry")
-    TTt = T @ T.T
-    if np.abs(TTt - np.diag(np.diag(TTt))).max() > 1e-9 * n:
-        raise ValueError("transform rows not orthogonal")
-    return T[0::2, :h].copy(), T[1::2, :h].copy(), 1.0 / np.diag(TTt)
-
-
-def parity_split_folded(M, axis):
-    """Parity split of a transform-folded matrix on a periodic axis.
-
-    axis=0 (forward-folded, M = T @ Op): M x = [Me (x1 + x2); Mo (x1 - x2)]
-    with Me = M[0::2, :h], Mo = M[1::2, :h], h = n_in/2.
-    axis=1 (inverse-folded, M = Op @ Ti): M z = [a + b; a - b] with
-    a = Me z_e, b = Mo z_o, Me = M[:h, 0::2], Mo = M[:h, 1::2], h = n_out/2,
-    z in block-parity mode order.
-
-    Returns (Me, Mo); raises when the symmetry does not hold."""
-    n0, n1 = M.shape
-    tol = 1e-9 * np.abs(M).max()
-    if axis == 0:
-        h = n1 // 2
-        if (np.abs(M[0::2, :h] - M[0::2, h:]).max() > tol
-                or np.abs(M[1::2, :h] + M[1::2, h:]).max() > tol):
-            raise ValueError("no forward parity symmetry")
-        return M[0::2, :h].copy(), M[1::2, :h].copy()
-    h = n0 // 2
-    if (np.abs(M[:h, 0::2] - M[h:, 0::2]).max() > tol
-            or np.abs(M[:h, 1::2] + M[h:, 1::2]).max() > tol):
-        raise ValueError("no inverse parity symmetry")
-    return M[:h, 0::2].copy(), M[:h, 1::2].copy()
-
-
-# ---------------------------------------------------------------------------
-# operators
-# ---------------------------------------------------------------------------
-
 def pipe_supported(solver) -> bool:
-    """The grids the pipeline serves: the uniform spectral Poisson solve on
-    an all-periodic grid (square operators, parity-split transforms on
-    every axis) whose extents are multiples of the kernel tile."""
-    po = solver.poisson
-    if (not isinstance(po, MatmulPoisson) or po.stretch_solver is not None
-            or po.folded):
-        return False
-    nv = tuple(solver.mesh.dims(DataLoc.VERT))
-    return nv == tuple(po.nc) and all(n % TILE == 0 for n in nv)
-
-
-@dataclass
-class PipeMats:
-    """The pipeline's operators as float64 numpy masters, with device
-    copies per dtype. Banded: biy, bsy (stage A), bgiy, bgsy (stage C) as
-    stacked (n, WIN) blocks. Forward parity [Me; Mo]: ty, iz, sz (A), sx,
-    ix (B). Inverse parity [Me; Mo]: gxs, gxi (B), gzi, gzs, tyi (C; the
-    inverse y transform with its row weights folded in). Solve tables
-    (block-parity order): tab_a, tab_b per (y, z) column, k2x, tx2 per x
-    mode."""
-
-    shape: tuple
-    m64: dict
-    device: torch.device
-    _dev: dict = field(default_factory=dict)
-
-    def mats(self, dtype) -> dict:
-        if dtype not in self._dev:
-            self._dev[dtype] = {
-                k: torch.as_tensor(M, dtype=dtype, device=self.device)
-                .contiguous() for k, M in self.m64.items()}
-        return self._dev[dtype]
-
-
-def build_pipe_mats(solver) -> PipeMats:
-    """The pipeline's operators from the solver (x3d2_tpu
-    make_pressure_pipe3, pallas_poisson.py:1584-1680). Raises ValueError
-    outside ``pipe_supported`` or when a y operator's band is wider than W
-    at the truncation tolerance."""
-    if not pipe_supported(solver):
-        raise ValueError("the pressure pipeline needs an all-periodic "
-                         f"uniform grid tiled by {TILE}")
-    d64 = solver._fp_mats64()
-    oy = solver.ops[1]
-    po = solver.poisson
-    nx, ny, nz = po.nc
-
-    def band(op):
-        return banded_blocks(op, BW, BBS, tol=_BAND_TOL).reshape(-1, WIN)
-
-    def fwd(M):
-        return np.concatenate(parity_split_folded(M, 0))
-
-    def inv(M):
-        return np.concatenate(parity_split_folded(M, 1))
-
-    te, to, wvec = parity_split(ny)
-    h = ny // 2
-    w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
-
-    def perm(n):
-        return np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)])
-
-    yp, zp, xp = perm(ny), perm(nz), perm(nx)
-    m = {
-        "biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
-        "ty": np.concatenate([te, to]),
-        "iz": fwd(d64["iz"]), "sz": fwd(d64["sz"]),
-        "sx": fwd(d64["sx"]), "ix": fwd(d64["ix"]),
-        "gxs": inv(d64["gx_s"]), "gxi": inv(d64["gx_i"]),
-        "gzi": inv(d64["gz_i"]), "gzs": inv(d64["gz_s"]),
-        "tyi": np.concatenate([te.T * w_perm[None, :h],
-                               to.T * w_perm[None, h:]]),
-        "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v),
-        "tab_a": np.asarray(po.tab_A)[yp][:, zp].reshape(-1),
-        "tab_b": np.asarray(po.tab_B)[yp][:, zp].reshape(-1),
-        "k2x": po.k2_1d[0][xp],
-        "tx2": (po.T_1d[0] ** 2)[xp],
-    }
-    return PipeMats(shape=(nx, ny, nz), m64=m, device=solver.device)
+    """The grids the pipeline serves (parity.projection_supported), as
+    x3d2_tpu's pipe3 serves its periodic-even fast path."""
+    return projection_supported(solver)
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _banded(Wst, f, axis):
-    """Block-banded apply along `axis` (periodic window per block)."""
-    n = f.shape[axis]
-    nb = n // BBS
-    k = torch.arange(WIN, device=f.device)
-    b = torch.arange(nb, device=f.device)
-    idx = (b[:, None] * BBS - BW + k[None, :]) % n
-    fm = f.movedim(axis, 0)
-    rest = fm.shape[1:]
-    win = fm.reshape(n, -1)[idx]                       # (nb, WIN, lines)
-    out = torch.bmm(Wst.reshape(nb, BBS, WIN), win)    # (nb, BBS, lines)
-    return out.reshape((n,) + rest).movedim(0, axis)
-
-
-def _pfwd(Mst, f, axis):
-    """Forward parity apply: [Me (f1 + f2); Mo (f1 - f2)] along `axis`."""
-    h = f.shape[axis] // 2
-    ho = Mst.shape[0] // 2
-    f1, f2 = f.narrow(axis, 0, h), f.narrow(axis, h, h)
-    return torch.cat([apply_matrix(Mst[:ho], f1 + f2, axis),
-                      apply_matrix(Mst[ho:], f1 - f2, axis)], axis)
-
-
-def _pinv(Mst, f, axis):
-    """Inverse parity apply: [a + b; a - b], a = Me f_e, b = Mo f_o."""
-    h = Mst.shape[0] // 2
-    a = apply_matrix(Mst[:h], f.narrow(axis, 0, h), axis)
-    b = apply_matrix(Mst[h:], f.narrow(axis, h, h), axis)
-    return torch.cat([a + b, a - b], axis)
-
-
-def _solve_factor(m, shape):
-    """-1/waves with the zero-wave guard, from the separable tables."""
-    waves = (m["k2x"][:, None] * m["tab_a"][None, :]
-             + m["tx2"][:, None] * m["tab_b"][None, :])
-    ok = waves.abs() >= _EPS
-    inv = torch.where(ok, -1.0 / torch.where(ok, waves, 1.0), 0.0)
-    return inv.reshape(shape)
-
-
 def pipe_a_plain(u, v, w, m):
     """Stage A in plain PyTorch: (a, e)."""
-    p1, p2, p3 = _banded(m["biy"], u, 1), _banded(m["bsy"], v, 1), \
-        _banded(m["biy"], w, 1)
-    z1 = _pfwd(m["iz"], p1, 2)
-    z23 = _pfwd(m["iz"], p2, 2) + _pfwd(m["sz"], p3, 2)
-    return _pfwd(m["ty"], z1, 1), _pfwd(m["ty"], z23, 1)
+    p1, p2, p3 = banded_apply(m["biy"], u, 1), \
+        banded_apply(m["bsy"], v, 1), banded_apply(m["biy"], w, 1)
+    z1 = pfwd(m["iz"], p1, 2)
+    z23 = pfwd(m["iz"], p2, 2) + pfwd(m["sz"], p3, 2)
+    return pfwd(m["ty"], z1, 1), pfwd(m["ty"], z23, 1)
 
 
 def pipe_b_plain(a, e, m):
     """Stage B in plain PyTorch: (X, Y)."""
-    F = _pfwd(m["sx"], a, 0) + _pfwd(m["ix"], e, 0)
-    q = F * _solve_factor(m, tuple(a.shape))
-    return _pinv(m["gxs"], q, 0), _pinv(m["gxi"], q, 0)
+    F = pfwd(m["sx"], a, 0) + pfwd(m["ix"], e, 0)
+    q = F * solve_factor(m, tuple(a.shape))
+    return pinv(m["gxs"], q, 0), pinv(m["gxi"], q, 0)
 
 
 def pipe_c_plain(X, Y, u, v, w, m):
     """Stage C in plain PyTorch: (u', v', w')."""
-    gx = _pinv(m["tyi"], _pinv(m["gzi"], X, 2), 1)
-    gz = _pinv(m["tyi"], _pinv(m["gzs"], Y, 2), 1)
-    gy = _pinv(m["tyi"], _pinv(m["gzi"], Y, 2), 1)
-    return (u - _banded(m["bgiy"], gx, 1), v - _banded(m["bgsy"], gy, 1),
-            w - _banded(m["bgiy"], gz, 1))
+    gx = pinv(m["tyi"], pinv(m["gzi"], X, 2), 1)
+    gz = pinv(m["tyi"], pinv(m["gzs"], Y, 2), 1)
+    gy = pinv(m["tyi"], pinv(m["gzi"], Y, 2), 1)
+    return (u - banded_apply(m["bgiy"], gx, 1),
+            v - banded_apply(m["bgsy"], gy, 1),
+            w - banded_apply(m["bgiy"], gz, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +173,14 @@ def _apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
         ptrs += [t.data_ptr() for t in fields] + pad
         ptrs += [out.data_ptr(), sub.data_ptr() if sub is not None else None]
         nsrc.append(len(mats))
-    if (len(tabs) == 4) != (epi == SOLVE):
+    solve = epi in (SOLVE, SOLVE_PLANE)
+    if (len(tabs) == 4) != solve:
         raise ValueError("the solve epilogue takes its 4 tables")
-    if epi == SOLVE:
-        for t, k in zip(tabs, (ny * nz, ny * nz, n, n)):
+    if (epi == SOLVE and axis != 0) or (epi == SOLVE_PLANE and axis != 1):
+        raise ValueError("the solve follows an x apply, or a y apply "
+                         "batched over x planes")
+    if solve:
+        for t, k in zip(tabs, (ny * nz, ny * nz, nx, nx)):
             _check(t, (k,), "solve table")
     tab_ptrs = [t.data_ptr() for t in tabs] + [None] * (4 - len(tabs))
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -420,7 +247,7 @@ def _route(t, name):
     return False
 
 
-def pipe_a(u, v, w, pm: PipeMats):
+def pipe_a(u, v, w, pm: ProjectionMats):
     """Stage A: (u, v, w) -> (a, e). CUDA tensors launch the kernel (or
     raise); CPU tensors run the plain version."""
     if _route(u, "pipe_a"):
@@ -428,25 +255,25 @@ def pipe_a(u, v, w, pm: PipeMats):
     return pipe_a_plain(u, v, w, pm.mats(u.dtype))
 
 
-def pipe_b(a, e, pm: PipeMats):
+def pipe_b(a, e, pm: ProjectionMats):
     """Stage B: (a, e) -> (X, Y), the x transforms around the solve."""
     if _route(a, "pipe_b"):
         return _pipe_b_cuda(a, e, pm.mats(torch.float32))
     return pipe_b_plain(a, e, pm.mats(a.dtype))
 
 
-def pipe_c(X, Y, u, v, w, pm: PipeMats):
+def pipe_c(X, Y, u, v, w, pm: ProjectionMats):
     """Stage C: (X, Y, u, v, w) -> the corrected (u', v', w')."""
     if _route(X, "pipe_c"):
         return _pipe_c_cuda(X, Y, u, v, w, pm.mats(torch.float32))
     return pipe_c_plain(X, Y, u, v, w, pm.mats(X.dtype))
 
 
-def make_pressure_pipe(solver):
+def make_pressure_pipe(pm: ProjectionMats):
     """fn(u, v, w) -> (u', v', w'): the keep_pressure=False projection as
-    the three stages (x3d2_tpu make_pressure_pipe3). Raises ValueError
-    outside ``pipe_supported``."""
-    pm = build_pipe_mats(solver)
+    the three stages (x3d2_tpu make_pressure_pipe3) over the operator set
+    `pm` (parity.build_projection_mats, which raises ValueError outside
+    ``pipe_supported``)."""
 
     def fn(u, v, w):
         a, e = pipe_a(u, v, w, pm)

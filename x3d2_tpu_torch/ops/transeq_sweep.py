@@ -11,7 +11,11 @@ component q of (u, v, w), with conv the component aligned with the axis:
     r = -1/2 (conv * D1 q + D1d (q * conv)) + nu * D2 q   [+ acc]
 
 and with ``nolds`` > 0 also rhs = r and
-u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j.
+u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j. The xdiv variant (the x sweep
+with the AB epilogue; pallas_kernels.py:202-211, :327-364) also emits the
+projection's forward x transforms of the updated velocities, du = Sx u',
+dv = Ix v', dw = Ix w' as parity splits with the modes in block-parity
+order, so the slab projection skips its x_div3 (ops/pressure_slab.py).
 
 The operators are band-truncated per output block of BS points (window
 BS + 2W, periodic wrap; ops/banded.py). Every axis uses BS=64, W=16: the
@@ -34,19 +38,26 @@ import torch
 
 from ..common import resolve_device
 from .banded import banded_blocks
+from .parity import parity_split_folded, pfwd
 
 BS = 64        # output points per block along the sweep axis
 W = 16         # band half-width
 TL = 64        # lines per kernel tile
 _BAND_TOL = 1e-6
+# the xdiv variant's scratch holds one partial per x block and field
+# (nb * 3 fields), which its per-tile reduction reads back, at most 4 at a
+# time: it is built for the sizes the step takes it at (cases/base.py:
+# max(dims) <= 256)
+XDIV_MAX_N = 256
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
 
 
-def variant_name(axis: int, accumulate: bool, nolds: int) -> str:
+def variant_name(axis: int, accumulate: bool, nolds: int,
+                 xdiv: bool = False) -> str:
     tags = ["xyz"[axis]] + (["acc"] if accumulate else []) \
-        + ([f"ab{nolds + 1}"] if nolds else [])
+        + ([f"ab{nolds + 1}"] if nolds else []) + (["xdiv"] if xdiv else [])
     return "transeq_sweep[" + ",".join(tags) + "]"
 
 
@@ -96,6 +107,65 @@ def build_sweep_blocks(ops_axis, axis, device=None) -> SweepBlocks:
     return SweepBlocks(axis=axis, m64=m64, device=resolve_device(device))
 
 
+@dataclass
+class XdivMats:
+    """The xdiv variant's transforms: the parity splits [Me; Mo] (n, n/2)
+    of the transform-folded Sx (for u) and Ix (for v, w) as float64 numpy
+    masters, with device copies per dtype. For the kernel they are cut per
+    x block and transposed, (nb, BS, n) float32: row k of block b holds
+    column (b mod nb/2) * BS + k of [Me; Mo], the Mo part negated for the
+    blocks of the second half of x (the sign of u'1 - u'2)."""
+
+    m64: dict
+    device: torch.device
+    _dev: dict = field(default_factory=dict)
+
+    def mats(self, dtype):
+        """(sx, ix) stacked parity splits on the device at `dtype`."""
+        if dtype not in self._dev:
+            self._dev[dtype] = tuple(
+                torch.as_tensor(self.m64[k], dtype=dtype, device=self.device)
+                for k in ("sx", "ix"))
+        return self._dev[dtype]
+
+    def kernel_mats(self):
+        """(sx, ix) in the kernel's per-block layout, float32."""
+        if "kernel" not in self._dev:
+            out = []
+            for k in ("sx", "ix"):
+                M = self.m64[k]
+                n, h = M.shape
+                nbh = h // BS
+                sign = np.where(np.arange(n) < h, 1.0, -1.0)[:, None]
+                blocks = [(M[:, (b % nbh) * BS:(b % nbh + 1) * BS]
+                           * (1.0 if b < nbh else sign)).T
+                          for b in range(2 * nbh)]
+                out.append(torch.as_tensor(
+                    np.stack(blocks), dtype=torch.float32,
+                    device=self.device).contiguous())
+            self._dev["kernel"] = tuple(out)
+        return self._dev["kernel"]
+
+
+def build_xdiv_mats(sx64, ix64, n, device=None) -> XdivMats:
+    """The xdiv transforms from the transform-folded x-stage divergence
+    matrices. Raises ValueError where x3d2_tpu does (pallas_kernels.py:
+    520-536): an odd block count, transforms that are not (n, n), no
+    parity symmetry; and beyond the size the kernel is built for."""
+    if n % (2 * BS):
+        raise ValueError("xdiv fusion needs an even block count")
+    if n > XDIV_MAX_N:
+        raise ValueError(f"the xdiv sweep serves n <= {XDIV_MAX_N} along "
+                         f"x, got {n}")
+    m64 = {}
+    for key, M64 in (("sx", sx64), ("ix", ix64)):
+        M64 = np.asarray(M64, np.float64)
+        if M64.shape != (n, n):
+            raise ValueError("xdiv transforms must be (n, n)")
+        m64[key] = np.concatenate(parity_split_folded(M64, 0))
+    return XdivMats(m64=m64, device=resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -117,11 +187,12 @@ def _field(y, shape, axis):
 
 
 def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
-                        olds=None, dtc=None):
+                        olds=None, dtc=None, xdiv: XdivMats | None = None):
     """The sweep's function in plain PyTorch, at the inputs' dtype: gather
     the windows with periodic indices, then batched products with the
     blocks. Returns (r_u, r_v, r_w), or ((u', v', w'), (rhs_u, rhs_v,
-    rhs_w)) when `dtc` is given (olds: per-field history tuples)."""
+    rhs_w)) when `dtc` is given (olds: per-field history tuples), and with
+    `xdiv` also (du, dv, dw), the forward parity x applies of u', v', w'."""
     axis = blocks.axis
     sa, st, da, dt = blocks.mats(u.dtype)
     nb, bs, w = blocks.nb, BS, W
@@ -148,7 +219,11 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
         for j, o in enumerate(olds[c] if olds is not None else ()):
             un = un + dtc[1 + j] * o
         new.append(un)
-    return tuple(new), tuple(outs)
+    if xdiv is None:
+        return tuple(new), tuple(outs)
+    sx, ix = xdiv.mats(u.dtype)
+    divs = (pfwd(sx, new[0], 0), pfwd(ix, new[1], 0), pfwd(ix, new[2], 0))
+    return tuple(new), tuple(outs), divs
 
 
 # ---------------------------------------------------------------------------
@@ -166,20 +241,22 @@ def _lib():
 
         lib = _build.load("transeq_sweep")
         lib.transeq_sweep_launch.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.transeq_sweep_launch.restype = ctypes.c_int
         lib.transeq_sweep_error_string.argtypes = [ctypes.c_int]
         lib.transeq_sweep_error_string.restype = ctypes.c_char_p
-        lib.transeq_sweep_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.transeq_sweep_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
         lib.transeq_sweep_geometry.restype = ctypes.c_int
-        bs, w, tl = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        lib.transeq_sweep_geometry(bs, w, tl)
-        if (bs.value, w.value, tl.value) != (BS, W, TL):
-            raise RuntimeError("transeq_sweep.cu geometry "
-                               f"{(bs.value, w.value, tl.value)} differs "
-                               f"from the wrapper's {(BS, W, TL)}")
+        geo = [ctypes.c_int() for _ in range(4)]
+        lib.transeq_sweep_geometry(*geo)
+        geo = tuple(g.value for g in geo)
+        if geo != (BS, W, TL, XDIV_MAX_N // BS):
+            raise RuntimeError(f"transeq_sweep.cu geometry {geo} differs "
+                               "from the wrapper's "
+                               f"{(BS, W, TL, XDIV_MAX_N // BS)}")
         _LIB = lib
     return _LIB
 
@@ -203,7 +280,7 @@ def _check(t, shape, name):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out):
+def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
     axis = blocks.axis
     shape = tuple(u.shape)
     if len(shape) != 3 or not sweep_shape_ok(shape, axis):
@@ -214,6 +291,9 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out):
         raise ValueError("the fused AB sweep accumulates: pass acc")
     if nolds > 3:
         raise ValueError("the kernel takes at most 3 history fields")
+    if xdiv is not None and (axis != 0 or not nolds):
+        raise ValueError("the xdiv variant is the x sweep with the AB "
+                         "update and at least one history field")
     ins = [u, v, w_] + (list(acc) if acc is not None else [])
     ins += [o for c in range(3) for o in (olds[c] if dtc is not None else ())]
     for i, t in enumerate(ins):
@@ -247,63 +327,89 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out):
     ptrs += [t.data_ptr() for t in outs[:3]]
     ptrs += [t.data_ptr() for t in outs[3:]] if dtc is not None \
         else [null] * 3
+    nb = shape[axis] // BS
+    lines = shape[0] * shape[1] * shape[2] // shape[axis]
+    divs = None
+    if xdiv is not None:
+        xm = xdiv.kernel_mats()
+        for M in xm:
+            _check(M, (nb, BS, shape[0]), "xdiv transform")
+        divs = [torch.empty_like(u) for _ in range(3)]
+        part = torch.empty((nb, 3) + shape, dtype=u.dtype, device=u.device)
+        ticket = torch.zeros(lines // TL, dtype=torch.int32, device=u.device)
+        ptrs += [M.data_ptr() for M in xm] + [part.data_ptr()]
+        ptrs += [t.data_ptr() for t in divs] + [ticket.data_ptr()]
+    else:
+        ptrs += [null] * 7
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     co = list(dtc) if dtc is not None else []
     carr = (ctypes.c_float * 4)(*(co + [0.0] * (4 - len(co))))
-    nb = shape[axis] // BS
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    lines = shape[0] * shape[1] * shape[2] // shape[axis]
     grid_x = max(1, min(lines // TL, sms // nb))
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         err = _lib().transeq_sweep_launch(
-            axis, int(acc is not None), nolds, parr, *shape, float(nu),
-            carr, grid_x, stream)
+            axis, int(acc is not None), nolds, int(xdiv is not None), parr,
+            *shape, float(nu), carr, grid_x, stream)
     if err != 0:
         msg = _lib().transeq_sweep_error_string(err).decode()
         raise RuntimeError(f"transeq_sweep launch failed: {msg} ({err})")
-    name = variant_name(axis, acc is not None, nolds)
+    name = variant_name(axis, acc is not None, nolds, xdiv is not None)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    if xdiv is not None:
+        return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)
     if dtc is not None:
         return tuple(outs[:3]), tuple(outs[3:])
     return tuple(outs)
 
 
 def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
-                  dtc=None, out=None):
+                  dtc=None, out=None, xdiv: XdivMats | None = None):
     """One direction sweep: -> (r_u, r_v, r_w), or with `dtc` (the
     dt-scaled AB row, host floats) -> ((u', v', w'), (rhs_u, rhs_v,
-    rhs_w)). `out` names the tensors to write (in place): 3 tensors, or
-    ((u'x3), (rhs x3)) with `dtc`. An output may alias `acc` or the
-    history (each point reads them before it writes), never u, v or w.
+    rhs_w)), and with `xdiv` -> (..., ..., (du, dv, dw)). `out` names the
+    tensors to write (in place): 3 tensors, or ((u'x3), (rhs x3)) with
+    `dtc` (du, dv, dw are always new tensors). An output may alias `acc`
+    or the history (each point reads them before it writes), never u, v
+    or w.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
     if u.is_cuda:
-        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out)
+        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv)
     if u.device.type != "cpu":
         raise ValueError(f"no transeq sweep for device {u.device}")
     res = transeq_sweep_plain(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                              dtc=dtc)
+                              dtc=dtc, xdiv=xdiv)
     if out is None:
         return res
     flat_res = list(res[0]) + list(res[1]) if dtc is not None else list(res)
     flat_out = list(out[0]) + list(out[1]) if dtc is not None else list(out)
     for o, r in zip(flat_out, flat_res):
         o.copy_(r)
+    if xdiv is not None:
+        return tuple(flat_out[:3]), tuple(flat_out[3:]), res[2]
     return (tuple(flat_out[:3]), tuple(flat_out[3:])) if dtc is not None \
         else tuple(flat_out)
 
 
 def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
-                       device=None):
+                       device=None, xdiv_mats=None):
     """One direction sweep as a function, the counterpart of
     make_transeq_dir_v3 / make_pencil_sweep:
-    fn(u, v, w[, acc][, olds, dtc][, out]) -> as transeq_sweep."""
+    fn(u, v, w[, acc][, olds, dtc][, out]) -> as transeq_sweep. With
+    xdiv_mats=(sx64, ix64), the transform-folded x-stage divergence
+    matrices, the sweep is the xdiv variant (raises ValueError as
+    build_xdiv_mats does, and off the AB-fused x sweep)."""
     if nolds and not accumulate:
         raise ValueError("fused-update sweeps accumulate (x3d2_tpu rule)")
     if not sweep_shape_ok(tuple(shape), axis):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
+    xdiv = None
+    if xdiv_mats is not None:
+        if axis != 0 or not nolds:
+            raise ValueError("xdiv fusion needs the AB-fused axis-0 sweep")
+        xdiv = build_xdiv_mats(*xdiv_mats, shape[0], device=device)
     blocks = build_sweep_blocks(ops_axis, axis, device=device)
 
     def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None):
@@ -312,19 +418,31 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
         if nolds and any(len(o) != nolds for o in olds):
             raise ValueError(f"need {nolds} history fields per component")
         return transeq_sweep(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                             dtc=dtc, out=out)
+                             dtc=dtc, out=out, xdiv=xdiv)
 
     fn.blocks = blocks
+    fn.xdiv = xdiv
     return fn
 
 
-def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None):
+def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
+                          xdiv=None):
     """Transport + Adams-Bashforth update in one chain of three sweeps
     (x3d2_tpu make_fused_transeq_ab_v3, pallas_kernels.py:862, chain at
     :936-939): z sweep -> accumulating x sweep -> accumulating y sweep with
     the AB update in its epilogue.
 
         fn(u, v, w, olds, dtc) -> ((u', v', w'), (rhs_u, rhs_v, rhs_w))
+
+    With xdiv=(sx64, ix64), the projection's transform-folded x-stage
+    divergence matrices, the chain reorders to z sweep -> accumulating y
+    sweep -> accumulating x sweep with the AB update, which also emits the
+    x-transformed divergence inputs (chain at pallas_kernels.py:901-919):
+
+        fn(u, v, w, olds, dtc) -> ((u', v', w'), rhs, (du, dv, dw))
+
+    and raises ValueError where the shapes or the parity symmetry do not
+    allow it (make_transeq_sweep).
 
     `olds` holds per-field (nolds,) history tuples, newest first; `dtc` the
     dt-scaled coefficient row (host floats). The rhs outputs are the new
@@ -335,6 +453,22 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None):
     tuples are therefore consumed."""
     device = resolve_device(device)
     d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    if xdiv is not None:
+        d0x = make_transeq_sweep(solver_ops[0], nu, 0, shape,
+                                 accumulate=True, nolds=nolds, device=device,
+                                 xdiv_mats=xdiv)
+        d1p = make_transeq_sweep(solver_ops[1], nu, 1, shape,
+                                 accumulate=True, device=device)
+
+        def fnx(u, v, w_, olds, dtc):
+            acc = d2(u, v, w_)
+            acc = d1p(u, v, w_, acc=acc, out=acc)
+            oldest = tuple(o[-1] for o in olds)
+            return d0x(u, v, w_, acc=acc, olds=olds, dtc=dtc,
+                       out=(oldest, acc))
+
+        fnx.sweeps = (d2, d1p, d0x)
+        return fnx
     d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
                             device=device)
     d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,

@@ -9,11 +9,18 @@ tensors; each compact-operator solve is one matrix contraction
 What runs where, as in x3d2_tpu (solver.py:108-168, :523-567):
 - transeq: the dense operator products, on CPU tensors only (the card
   steps through the fused sweep chain of cases/base.py).
-- pressure_correction with keep_pressure=False on the grids of
-  ops/pressure_pipe.py: the three-stage pipeline (kernels on CUDA tensors,
-  plain versions on CPU ones). Otherwise, on CPU tensors, the
-  transform-folded chain of matrix products (x3d2_tpu solver.py:461-491)
-  followed by ``u - dpdx``.
+- pressure_correction, on the all-periodic uniform grids tiled by 128 that
+  the projection kernels serve (ops/parity.py), in x3d2_tpu's dispatch
+  order: the three-stage pipeline (ops/pressure_pipe.py) when the
+  pressure is not kept and no pre-transformed divergence inputs are
+  given; otherwise the slab projection (ops/pressure_slab.py: x_div3 or
+  the xdiv sweep's ``divs``, the mid, x_gradsub3), which with
+  keep_pressure=True also returns the physical pressure, three inverse
+  transforms of the spectral solution q as plain matrix products (they
+  are XLA einsums outside any kernel in x3d2_tpu too). Both run kernels
+  on CUDA tensors and plain versions on CPU ones.
+- On other grids, CPU tensors only: the transform-folded chain of matrix
+  products (x3d2_tpu solver.py:461-491) followed by ``u - dpdx``.
 On CUDA tensors a case the ported kernels do not cover raises
 NotImplementedError and names the TPU kernel that covers it: the port
 never substitutes plain PyTorch for a kernel on the card.
@@ -32,7 +39,9 @@ from .mesh import Mesh
 from .ops.compact import apply_matrix
 from .ops.dirops import AxisOps, build_all_ops
 from .ops.matmul_poisson import MatmulPoisson
-from .ops.pressure_pipe import make_pressure_pipe, pipe_supported
+from .ops.parity import build_projection_mats, projection_supported
+from .ops.pressure_pipe import make_pressure_pipe
+from .ops.pressure_slab import PressureSlab
 
 # the TPU kernels behind the cases that raise on the card
 _UNPORTED_TRANSEQ = ("the v3 sweeps without the AB epilogue "
@@ -40,9 +49,12 @@ _UNPORTED_TRANSEQ = ("the v3 sweeps without the AB epilogue "
                      "172) that serve the unfused step, and the v1 dense "
                      "sweep _kernel (ops/pallas_transeq.py:42) for grids the "
                      "v3 sweeps cannot tile")
-_UNPORTED_PROJECTION = ("the slab projection kernels (x3d2_tpu/ops/"
-                        "pallas_poisson.py:327-1246), which x3d2_tpu runs "
-                        "for keep_pressure=True and off the pipe3 grids")
+_UNPORTED_PROJECTION = ("the slab projection's branches for wall-bounded "
+                        "or untiled axes: the dense and folded y/z branches "
+                        "of _pressure_mid_kernel (x3d2_tpu/ops/"
+                        "pallas_poisson.py:354), _x_apply_kernel (:954), "
+                        "_x_parity_fwd_kernel (:997) and "
+                        "_x_parity_inv_kernel (:1025)")
 
 
 def _bcast(vec: np.ndarray, axis: int, like: torch.Tensor) -> torch.Tensor:
@@ -85,15 +97,18 @@ class NavierStokes:
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
                  poisson=poisson)
         ns._fused_pressure_mats()
-        pipe = None
-        if pipe_supported(ns):
+        pipe = slab = None
+        if projection_supported(ns):
             try:
-                pipe = make_pressure_pipe(ns)
+                pm = build_projection_mats(ns)
+                pipe = make_pressure_pipe(pm)
+                slab = PressureSlab(pm)
             except ValueError:
                 # a band wider than the kernel's: the CPU keeps the folded
                 # chain; the card raises in pressure_correction
                 pass
         object.__setattr__(ns, "_pipe", pipe)
+        object.__setattr__(ns, "_slab", slab)
         return ns
 
     # ------------------------------------------------------------------
@@ -256,18 +271,44 @@ class NavierStokes:
                 p = apply_matrix(po.Ti[a], p, a)
         return dpdx, dpdy, dpdz, p
 
-    def pressure_correction(self, u, v, w, keep_pressure=True):
+    def _slab_mid(self, u, v, w, want_q=True, divs=None):
+        """The slab projection up to the gradient x stage: (q or None,
+        p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
+        inputs (the xdiv sweep's), so x_div3 is skipped; without want_q
+        the spectral solution is not returned."""
+        du, dv, dw = divs if divs is not None else self._slab.div3(u, v, w)
+        return self._slab.mid(du, dv, dw, emit_q=want_q)
+
+    def pressure_correction(self, u, v, w, keep_pressure=True, divs=None):
         """Fractional-step projection (solver.f90:693-739): the
         divergence-free velocity and the pseudo-pressure (CELL grid,
-        scaled by dt like the reference). With keep_pressure=False on the
-        pipeline's grids the pressure is not formed and p is None (the
-        caller carries its previous pressure, as x3d2_tpu does)."""
-        if self._pipe is not None and not keep_pressure:
+        scaled by dt like the reference), in the dispatch order of
+        x3d2_tpu (solver.py:523-567). With keep_pressure=False the
+        pressure is not formed on the kernel grids and p is None (the
+        caller carries its previous pressure, as x3d2_tpu does). `divs`:
+        pre-transformed divergence inputs from the xdiv sweep (slab
+        projection only)."""
+        if self._pipe is not None and divs is None and not keep_pressure:
             return (*self._pipe(u, v, w), None)
+        if self._slab is not None:
+            q, p_zy, dpdy, dpdz = self._slab_mid(
+                u, v, w, want_q=keep_pressure, divs=divs)
+            un, vn, wn = self._slab.gradsub3(p_zy, dpdy, dpdz, u, v, w)
+            p = q
+            if keep_pressure:
+                # q's modes are in block-parity order on every axis: the
+                # inverse transforms carry permuted columns
+                m = self._slab.mats.mats(u.dtype)
+                for a, name in enumerate(("ti_x", "ti_y", "ti_z")):
+                    p = apply_matrix(m[name], p, a)
+            return un, vn, wn, p
+        if divs is not None:
+            raise ValueError("pre-transformed divergence inputs need the "
+                             "slab projection")
         if u.is_cuda:
             raise NotImplementedError(
-                "the projection on the card runs the pipe3 kernels "
-                "(keep_pressure=False on an all-periodic grid tiled by 128); "
+                "the projection on the card runs the pipe3 and slab kernels "
+                "(an all-periodic uniform grid tiled by 128); "
                 f"{_UNPORTED_PROJECTION} are not ported yet")
         dpdx, dpdy, dpdz, p = self.pressure_grads(
             u, v, w, keep_pressure=keep_pressure)
