@@ -56,6 +56,7 @@ It imports nothing of JAX or of the JAX package.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -250,9 +251,16 @@ def main():
     for name, lib in libs.items():
         print(f"[build] {lib.name}: {_build.BUILD_SECONDS[name]:.1f} s",
               flush=True)
+        inst = ""
         for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build {name}] " + line.strip())
+            # ptxas names each instance by its mangled template arguments:
+            # <AXIS, ACC, NOLDS, XDIV> or <MODE, TRANS, EPI>
+            found = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
+            if found:
+                inst = "<" + ",".join(
+                    re.findall(r"L[ib](\d+)E", found.group(1))) + ">"
+            elif "registers" in line or "spill" in line:
+                print(f"[build {name}{inst}] " + line.strip())
 
     # ---- 3. kernels vs plain ---------------------------------------------
     per = ((BC.PERIODIC, BC.PERIODIC),) * 3
@@ -442,6 +450,23 @@ def main():
           "with q", flush=True)
     del with_q, no_q, dp, gp, su, sv, sw
     torch.cuda.empty_cache()
+    # for the record, why the mid's inputs above are plane waves: on white
+    # noise and on a smooth field the plain float32 mid is as far from the
+    # plain float64 one as the kernel is from either (nothing is asserted)
+    for label, fields in (("white noise", (u, v, w)),
+                          ("waves of k = 1", wave_fields(mesh, k=1))):
+        ins = tuple(t.contiguous() for t in sl.x_div3_plain(*fields, m32))
+        kern = mid_q(*ins, pm)
+        plain32 = mid_q_plain(*ins, m32)
+        plain64 = mid_q_plain(*to64(ins), pm.mats(d64))
+        _, rel_k32 = rel_err(kern, plain32)
+        _, rel_k64 = rel_err(kern, plain64)
+        _, rel_p64 = rel_err(plain32, plain64)
+        print(f"[pressure_mid[q] {NS}^3] on {label}: kernel vs plain f32 "
+              f"rel {rel_k32:.2e}, kernel vs plain f64 rel {rel_k64:.2e}, "
+              f"plain f32 vs plain f64 rel {rel_p64:.2e}", flush=True)
+        del ins, kern, plain32, plain64, fields
+    torch.cuda.empty_cache()
 
     # each whole projection on the kernels against the other formulations
     # of the same projection: the transform-folded chain (plain PyTorch),
@@ -568,7 +593,7 @@ def main():
               f"({100 * proj_ms / step_ms:.1f}%)", flush=True)
         return step_ms
 
-    # 4. main path of the first slice: 512^3, keep_pressure=False
+    # 4. main path: 512^3, keep_pressure=False
     case, state, counts = drive(
         "main", mesh, NS, False, STEPS,
         sweeps_zxy + ["pipe_a", "pipe_b", "pipe_c"])

@@ -12,7 +12,7 @@ smallest shape the sweeps tile, (128, 128, 256), float32 on the CPU.
 - The xdiv chain (z, y, then x with the AB update and the x-transformed
   divergence inputs) vs the z, x, y chain, vs a float64 parity apply of
   its own u', v', w', and vs x3d2_tpu's xdiv chain in interpret mode; and
-  the ValueError cases of its builder.
+  the ValueError cases of build_xdiv_mats and make_transeq_sweep.
 """
 
 import numpy as np
@@ -232,8 +232,8 @@ def test_xdiv_chain_matches_x3d2_tpu_kernel_chain(setup, ab_inputs):
 
 
 def test_xdiv_value_errors(setup):
-    """The builder raises where x3d2_tpu's does (pallas_kernels.py:520-536)
-    and beyond the size the kernel is built for."""
+    """make_transeq_sweep and build_xdiv_mats raise where x3d2_tpu does
+    (pallas_kernels.py:520-536) and beyond the size the kernel serves."""
     mesh, ns, _ = setup
     d64 = ns._fp_mats64()
     x = (d64["sx"], d64["ix"])
