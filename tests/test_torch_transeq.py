@@ -231,7 +231,7 @@ def test_xdiv_chain_matches_x3d2_tpu_kernel_chain(setup, ab_inputs):
             assert err < 3e-5 * np.abs(e).max(), f"{err:.2e}"
 
 
-def test_xdiv_value_errors(setup):
+def test_xdiv_value_errors(setup, monkeypatch):
     """make_transeq_sweep and build_xdiv_mats raise where x3d2_tpu does
     (pallas_kernels.py:520-536) and beyond the size the kernel serves."""
     mesh, ns, _ = setup
@@ -253,6 +253,20 @@ def test_xdiv_value_errors(setup):
     with pytest.raises(ValueError, match="parity symmetry"):
         ts.build_xdiv_mats(rng.standard_normal((128, 128)), d64["ix"], 128,
                            device="cpu")
+    # the kernel stages one operator block for all x blocks: unequal
+    # blocks (never the case on a uniform periodic axis) are refused
+    real = ts.build_sweep_blocks
+
+    def skewed(*args, **kw):
+        blocks = real(*args, **kw)
+        blocks.m64["sa"][1] *= 1 + 1e-6
+        return blocks
+
+    monkeypatch.setattr(ts, "build_sweep_blocks", skewed)
+    with pytest.raises(ValueError, match="equal operator blocks"):
+        ts.make_transeq_sweep(ns.ops[0], NU, 0, SHAPE, accumulate=True,
+                              nolds=1, device="cpu", xdiv_mats=x)
+    monkeypatch.undo()
     # CPU tensors take the plain version and count no launch
     ts.reset_launch_counts()
     fn = ts.make_transeq_sweep(ns.ops[0], NU, 0, SHAPE, accumulate=True,

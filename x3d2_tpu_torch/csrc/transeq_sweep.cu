@@ -17,9 +17,9 @@
 //   component; st = [D1s; D2s] and dt = D1 for the transverse ones.
 // With NOLDS > 0 the epilogue also writes rhs = r and
 //   u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j.
-// With XDIV (the x sweep with the AB epilogue only; the xdiv variant of
-// _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) the kernel also
-// emits the projection's forward x transforms of the updated velocities,
+// The xdiv variant (the x sweep with the AB epilogue only; the xdiv variant
+// of _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) also emits
+// the projection's forward x transforms of the updated velocities,
 //   du = [Me_s (u'1 + u'2); Mo_s (u'1 - u'2)], dv, dw likewise with Ix,
 // modes in block-parity order: x block b of u' contributes
 // Me[:, cols(b)] u'_b to the even modes and +/- Mo[:, cols(b)] u'_b to the
@@ -43,18 +43,23 @@
 // the next tile's windows load into registers while the current tile
 // computes (one block per SM, so the overlap is within the block).
 //
-// XDIV: the TPU kernel carries the sum over x blocks in scratch memory
-// along its sequential innermost grid axis; blocks of a CUDA grid run in
-// no order. Here block (., b) writes u'_b of a component from registers
-// into that component's dead window in shared memory, contracts it with
-// its 64 columns of the transform (read through L2: shared memory is full)
-// into a partial (nx modes x 64 lines) and stores the partial to a scratch
-// buffer. The blocks of one line tile then draw a ticket from a counter;
-// the one that draws the last adds the nb partials in the fixed order
-// b = 0 .. nb-1 and writes du, dv, dw. No floating-point atomics: the
-// result does not depend on the order in which blocks finish, so a run
-// repeats bit for bit. The transform reads u' on chip; only the partial
-// sums pass through device memory (nb x 3 fields, mostly resident in L2).
+// The xdiv variant is a kernel of its own (transeq_xdiv_kernel). The TPU
+// kernel carries the sum over x blocks in scratch memory along its
+// sequential innermost grid axis; blocks of a CUDA grid run in no order.
+// So here one block owns a line tile over the whole of x: per component it
+// walks the nb x blocks in order, and each thread keeps its share of the
+// transform's result (n modes x 64 lines per block: 64 accumulators a
+// thread at n = 256) in registers across them, then writes du, dv or dw
+// once. No partial sums leave the chip, nothing is reduced across blocks
+// and no atomics are used, so a run repeats bit for bit. On a uniform
+// periodic axis the operator blocks of all x blocks are equal (the
+// operators are circulant and BS divides n; the wrapper checks it), so
+// the block stages them once, as the sweep does. After a block's sweep
+// epilogue u'_b goes from registers to shared memory, and the block's 64
+// columns of the transform pass through 8 KB of shared memory, 8 rows of
+// k at a time, the next chunk in flight from L2 meanwhile. The price of
+// the component-outer order is that the conv window (u) is read once per
+// component: 5 window reads per x block where the sweep needs 3.
 
 #include <cuda_runtime.h>
 
@@ -66,11 +71,11 @@ constexpr int WIN = BS + 2 * W;   // window length
 constexpr int TL = 64;            // lines per tile
 constexpr int NT = 256;           // threads per block
 constexpr int RPT = BS / (NT / 32);  // output rows per thread (8)
-constexpr int XDIV_MAX_NB = 4;    // x blocks the xdiv variant takes
+constexpr int XDIV_MAX_NB = 4;    // xdiv: x blocks (64 accumulators a thread)
 constexpr int XK = 8;             // xdiv: rows of the transform per chunk
 static_assert(XK * XDIV_MAX_NB * BS <= (WIN - BS) * TL &&
                   XK * XDIV_MAX_NB * BS / 4 <= 2 * NT && BS % XK == 0,
-              "a chunk of the transform must fit the window's spare rows");
+              "a chunk of the transform must fit beside u'_b in one window");
 
 struct SweepArgs {
   const float* f[3];               // u, v, w
@@ -85,11 +90,9 @@ struct SweepArgs {
   int n0, n1, n2;
   float nu;
   float dtc[4];
-  // XDIV only
+  // xdiv only
   const float* xm[2];              // Sx, Ix slices [nb][BS][n0], sign folded
-  float* part;                     // partials [nb][3][n0][n1 * n2]
   float* div[3];                   // du, dv, dw
-  unsigned int* ticket;            // one counter per line tile, zeroed
 };
 
 template <int AXIS>
@@ -192,12 +195,119 @@ __device__ __forceinline__ void store_rows(float* p, long long row0,
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS, bool XDIV>
+// Stage the operator slices of output block b, transposed to [k][row] so
+// that a thread's 8 rows at one k are two aligned float4 loads.
+__device__ __forceinline__ void stage_operators(const SweepArgs& a, int b,
+                                                float* SaT, float* StT,
+                                                float* DaT, float* DtT) {
+  const int tid = threadIdx.x;
+  const float* sa = a.sa + (size_t)b * 2 * BS * WIN;
+  const float* st = a.st + (size_t)b * 2 * BS * WIN;
+  for (int i = tid; i < 2 * BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    SaT[k * 2 * BS + row] = sa[i];
+    StT[k * 2 * BS + row] = st[i];
+  }
+  const float* da = a.da + (size_t)b * BS * WIN;
+  const float* dt = a.dt + (size_t)b * BS * WIN;
+  for (int i = tid; i < BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    DaT[k * BS + row] = da[i];
+    DtT[k * BS + row] = dt[i];
+  }
+}
+
+// The contraction of one component's window Q (conv window CV, which is Q
+// itself for the aligned component) with the block's operators: the
+// thread's 8 rows (from r0) x 2 lines (tx, tx + 32) of D1 q, D2 q and
+// D1d (q * conv).
+template <int LDW>
+__device__ __forceinline__ void contract(const float* Q, const float* CV,
+                                         const float* S, const float* D,
+                                         int tx, int r0, float (&dq)[RPT][2],
+                                         float (&d2)[RPT][2],
+                                         float (&dd)[RPT][2]) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      dq[r][j] = 0.f;
+      d2[r][j] = 0.f;
+      dd[r][j] = 0.f;
+    }
+  }
+#pragma unroll 4
+  for (int k = 0; k < WIN; ++k) {
+    const float q0 = Q[k * LDW + tx];
+    const float q1 = Q[k * LDW + tx + 32];
+    const float p0 = q0 * CV[k * LDW + tx];
+    const float p1 = q1 * CV[k * LDW + tx + 32];
+    float m1[RPT], m2[RPT], m3[RPT];
+    const float4* s1 = reinterpret_cast<const float4*>(S + k * 2 * BS + r0);
+    const float4* s2 =
+        reinterpret_cast<const float4*>(S + k * 2 * BS + BS + r0);
+    const float4* s3 = reinterpret_cast<const float4*>(D + k * BS + r0);
+#pragma unroll
+    for (int h = 0; h < RPT / 4; ++h) {
+      const float4 x1 = s1[h], x2 = s2[h], x3 = s3[h];
+      m1[4 * h] = x1.x; m1[4 * h + 1] = x1.y;
+      m1[4 * h + 2] = x1.z; m1[4 * h + 3] = x1.w;
+      m2[4 * h] = x2.x; m2[4 * h + 1] = x2.y;
+      m2[4 * h + 2] = x2.z; m2[4 * h + 3] = x2.w;
+      m3[4 * h] = x3.x; m3[4 * h + 1] = x3.y;
+      m3[4 * h + 2] = x3.z; m3[4 * h + 3] = x3.w;
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      dq[r][0] = fmaf(m1[r], q0, dq[r][0]);
+      dq[r][1] = fmaf(m1[r], q1, dq[r][1]);
+      d2[r][0] = fmaf(m2[r], q0, d2[r][0]);
+      d2[r][1] = fmaf(m2[r], q1, d2[r][1]);
+      dd[r][0] = fmaf(m3[r], p0, dd[r][0]);
+      dd[r][1] = fmaf(m3[r], p1, dd[r][1]);
+    }
+  }
+}
+
+// The epilogue of the thread's line j (window column l, rows from row0) of
+// component c: combine, accumulate, AB update, stores. acc and the history
+// may alias the outputs (the same point, read before it is written), so
+// the compiler cannot move a load above an earlier store: every load of a
+// line is issued before its stores, one memory latency per line. With
+// NOLDS > 0, un returns u'.
+template <int AXIS, bool ACC, int NOLDS, int LDW>
+__device__ __forceinline__ void combine_line(
+    const SweepArgs& a, int c, int j, int l, int r0, long long row0,
+    long long ss, const float* Q, const float* CV, const float (&dq)[RPT][2],
+    const float (&d2)[RPT][2], const float (&dd)[RPT][2], float (&un)[RPT]) {
+  float res[RPT], av[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
+  if (ACC) load_rows<AXIS>(a.acc[c], row0, ss, av);
+#pragma unroll
+  for (int jj = 0; jj < NOLDS; ++jj)
+    load_rows<AXIS>(a.old[jj][c], row0, ss, ov[jj]);
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float conv = CV[(W + r0 + r) * LDW + l];
+    res[r] = -0.5f * (conv * dq[r][j] + dd[r][j]) + a.nu * d2[r][j];
+    if (ACC) res[r] += av[r];
+  }
+  if (NOLDS > 0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      un[r] = Q[(W + r0 + r) * LDW + l] + a.dtc[0] * res[r];
+#pragma unroll
+      for (int jj = 0; jj < NOLDS; ++jj) un[r] += a.dtc[jj + 1] * ov[jj][r];
+    }
+    store_rows<AXIS>(a.rhs[c], row0, ss, res);
+    store_rows<AXIS>(a.out[c], row0, ss, un);
+  } else {
+    store_rows<AXIS>(a.out[c], row0, ss, res);
+  }
+}
+
+template <int AXIS, bool ACC, int NOLDS>
 __global__ void __launch_bounds__(NT, 1)
 transeq_sweep_kernel(SweepArgs a, long long ntiles) {
-  static_assert(!XDIV || (AXIS == 0 && ACC && NOLDS > 0),
-                "the xdiv variant is the x sweep with the AB epilogue");
-  __shared__ unsigned int s_ticket;
   extern __shared__ __align__(16) float smem[];
   constexpr int LDW = ldw<AXIS>();
   float* SaT = smem;                    // [WIN][2BS]
@@ -208,25 +318,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-
-  // stage this output block's operator slices, transposed to [k][row] so
-  // that a thread's 8 rows at one k are two aligned float4 loads
-  {
-    const float* sa = a.sa + (size_t)b * 2 * BS * WIN;
-    const float* st = a.st + (size_t)b * 2 * BS * WIN;
-    for (int i = tid; i < 2 * BS * WIN; i += NT) {
-      const int row = i / WIN, k = i - (i / WIN) * WIN;
-      SaT[k * 2 * BS + row] = sa[i];
-      StT[k * 2 * BS + row] = st[i];
-    }
-    const float* da = a.da + (size_t)b * BS * WIN;
-    const float* dt = a.dt + (size_t)b * BS * WIN;
-    for (int i = tid; i < BS * WIN; i += NT) {
-      const int row = i / WIN, k = i - (i / WIN) * WIN;
-      DaT[k * BS + row] = da[i];
-      DtT[k * BS + row] = dt[i];
-    }
-  }
+  stage_operators(a, b, SaT, StT, DaT, DtT);
 
   const int tx = tid & 31;
   const int r0 = (tid >> 5) * RPT;
@@ -275,108 +367,84 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
       }
 
       const float* Q = F + c * WIN * LDW;
-      const float* S = (c == AXIS) ? SaT : StT;
-      const float* D = (c == AXIS) ? DaT : DtT;
       float dq[RPT][2], d2[RPT][2], dd[RPT][2];
-      float unk[2][RPT];  // XDIV: u' of the thread's two lines
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          dq[r][j] = 0.f;
-          d2[r][j] = 0.f;
-          dd[r][j] = 0.f;
-        }
-      }
-
-#pragma unroll 4
-      for (int k = 0; k < WIN; ++k) {
-        const float q0 = Q[k * LDW + tx];
-        const float q1 = Q[k * LDW + tx + 32];
-        const float p0 = q0 * CV[k * LDW + tx];
-        const float p1 = q1 * CV[k * LDW + tx + 32];
-        float m1[RPT], m2[RPT], m3[RPT];
-        const float4* s1 = reinterpret_cast<const float4*>(S + k * 2 * BS + r0);
-        const float4* s2 =
-            reinterpret_cast<const float4*>(S + k * 2 * BS + BS + r0);
-        const float4* s3 = reinterpret_cast<const float4*>(D + k * BS + r0);
-#pragma unroll
-        for (int h = 0; h < RPT / 4; ++h) {
-          const float4 x1 = s1[h], x2 = s2[h], x3 = s3[h];
-          m1[4 * h] = x1.x; m1[4 * h + 1] = x1.y;
-          m1[4 * h + 2] = x1.z; m1[4 * h + 3] = x1.w;
-          m2[4 * h] = x2.x; m2[4 * h + 1] = x2.y;
-          m2[4 * h + 2] = x2.z; m2[4 * h + 3] = x2.w;
-          m3[4 * h] = x3.x; m3[4 * h + 1] = x3.y;
-          m3[4 * h + 2] = x3.z; m3[4 * h + 3] = x3.w;
-        }
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          dq[r][0] = fmaf(m1[r], q0, dq[r][0]);
-          dq[r][1] = fmaf(m1[r], q1, dq[r][1]);
-          d2[r][0] = fmaf(m2[r], q0, d2[r][0]);
-          d2[r][1] = fmaf(m2[r], q1, d2[r][1]);
-          dd[r][0] = fmaf(m3[r], p0, dd[r][0]);
-          dd[r][1] = fmaf(m3[r], p1, dd[r][1]);
-        }
-      }
-
-      // epilogue: combine, accumulate, AB update. acc and the history may
-      // alias the outputs (the same point, read before it is written), so
-      // the compiler cannot move a load above an earlier store: every load
-      // of a line is issued before its stores, one memory latency per line.
+      contract<LDW>(Q, CV, (c == AXIS) ? SaT : StT, (c == AXIS) ? DaT : DtT,
+                    tx, r0, dq, d2, dd);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int l = tx + 32 * j;
         const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
                                (long long)(b * BS + r0) * ss;
-        float res[RPT], av[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
-        if (ACC) load_rows<AXIS>(a.acc[c], row0, ss, av);
-#pragma unroll
-        for (int jj = 0; jj < NOLDS; ++jj)
-          load_rows<AXIS>(a.old[jj][c], row0, ss, ov[jj]);
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float conv = CV[(W + r0 + r) * LDW + l];
-          res[r] = -0.5f * (conv * dq[r][j] + dd[r][j]) + a.nu * d2[r][j];
-          if (ACC) res[r] += av[r];
-        }
-        if (NOLDS > 0) {
-          float un[RPT];
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) {
-            un[r] = Q[(W + r0 + r) * LDW + l] + a.dtc[0] * res[r];
-#pragma unroll
-            for (int jj = 0; jj < NOLDS; ++jj)
-              un[r] += a.dtc[jj + 1] * ov[jj][r];
-            if (XDIV) unk[j][r] = un[r];
-          }
-          store_rows<AXIS>(a.rhs[c], row0, ss, res);
-          store_rows<AXIS>(a.out[c], row0, ss, un);
-        } else {
-          store_rows<AXIS>(a.out[c], row0, ss, res);
-        }
+        float un[RPT];
+        combine_line<AXIS, ACC, NOLDS, LDW>(a, c, j, l, r0, row0, ss, Q, CV,
+                                            dq, d2, dd, un);
       }
 
       __syncthreads();  // every thread is done reading window c
-      if (XDIV) {
-        // u'_b into rows [0, BS) of the dead window, then its partial
-        // transform. The block's slice of the transform, [BS][n], passes
-        // through the window's other rows, XK rows of k at a time, the
-        // next chunk in flight from L2 while this one is used; a warp
-        // takes 8 modes of every 64, a thread its two lines.
-        float* U = F + c * WIN * LDW;
-        float* XS = U + BS * LDW;  // [XK][n]
+      if (has_next) {
+        float* dst = F + c * WIN * LDW;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int m = 0; m < PER_THREAD; ++m) {
+          int k, l;
+          window_coords<AXIS>(tid + m * NT, k, l);
+          dst[k * LDW + l] = pre[m];
+        }
+      }
+    }
+    __syncthreads();  // the next tile's windows are complete
+    base = nbase;
+    ls = nls;
+    ss = nss;
+    n = nn;
+  }
+}
+
+// The xdiv variant: the x sweep with accumulate and the AB epilogue, which
+// also writes du = Sx u', dv = Ix v', dw = Ix w' (see the head of the
+// file). Grid (blocks); a block owns whole line tiles, all of x.
+template <int NOLDS>
+__global__ void __launch_bounds__(NT, 1)
+transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
+  extern __shared__ __align__(16) float smem[];
+  float* SaT = smem;
+  float* StT = SaT + WIN * 2 * BS;
+  float* DaT = StT + WIN * 2 * BS;
+  float* DtT = DaT + WIN * BS;
+  float* Qw = DtT + WIN * BS;           // [WIN][TL] the component's window
+  float* Cw = Qw + WIN * TL;            // [WIN][TL] the conv (u) window
+  float* U = Cw + WIN * TL;             // [BS][TL]  u'_b
+  float* XS = U + BS * TL;              // [XK][n]   a chunk of the transform
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;
+  const int r0 = (tid >> 5) * RPT;
+  const int n = a.n0;
+  const int nb = n / BS;
+  const int npass = n / 64;             // 64 modes per pass of the 8 warps
+  const int chunk4 = XK * n / 4;        // float4 per chunk: at most 2 * NT
+  const long long ss = (long long)a.n1 * a.n2;  // x stride; lines per field
+  // every x block has the operators of block 0 (checked by the wrapper)
+  stage_operators(a, 0, SaT, StT, DaT, DtT);
+
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long base = t * TL;
+#pragma unroll 1
+    for (int ci = 0; ci < 3; ++ci) {
+      const int c = ci == 2 ? 0 : ci + 1;  // v, w, then the aligned u
+      const float* Q = Qw;
+      const float* CV = c == 0 ? Qw : Cw;
+      float e[XDIV_MAX_NB][RPT][2];
 #pragma unroll
-          for (int r = 0; r < RPT; ++r)
-            U[(r0 + r) * LDW + tx + 32 * j] = unk[j][r];
-        const long long lines = (long long)a.n1 * a.n2;
+      for (int p = 0; p < XDIV_MAX_NB; ++p)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          e[p][r][0] = 0.f;
+          e[p][r][1] = 0.f;
+        }
+#pragma unroll 1
+      for (int b = 0; b < nb; ++b) {
         const float4* X4 = reinterpret_cast<const float4*>(
             a.xm[c == 0 ? 0 : 1] + (size_t)b * BS * n);
-        const int chunk4 = XK * n / 4;  // float4 per chunk: at most 2 * NT
-        const int npass = n / 64;
         float4 xr[2];
         auto fetch_x = [&](int kc) {
 #pragma unroll
@@ -390,24 +458,45 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
             if (tid + q * NT < chunk4)
               reinterpret_cast<float4*>(XS)[tid + q * NT] = xr[q];
         };
-        float e[XDIV_MAX_NB][RPT][2];
-#pragma unroll
-        for (int p = 0; p < XDIV_MAX_NB; ++p)
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) {
-            e[p][r][0] = 0.f;
-            e[p][r][1] = 0.f;
-          }
+        // the windows of x block b (the barrier that ended the previous
+        // block's transform freed them)
+        const int k0 = b * BS - W;
+#pragma unroll 8
+        for (int m = 0; m < PER_THREAD; ++m) {
+          int k, l;
+          window_coords<0>(tid + m * NT, k, l);
+          const long long off = base + window_offset<0>(k, l, k0, n, 1, ss);
+          Qw[k * TL + l] = a.f[c][off];
+          if (c != 0) Cw[k * TL + l] = a.f[0][off];
+        }
         fetch_x(0);
+        __syncthreads();
+
+        float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+        contract<TL>(Q, CV, c == 0 ? SaT : StT, c == 0 ? DaT : DtT, tx, r0,
+                     dq, d2, dd);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int l = tx + 32 * j;
+          const long long row0 = base + l + (long long)(b * BS + r0) * ss;
+          float un[RPT];
+          combine_line<0, true, NOLDS, TL>(a, c, j, l, r0, row0, ss, Q, CV,
+                                           dq, d2, dd, un);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) U[(r0 + r) * TL + l] = un[r];
+        }
         stage_x();
         __syncthreads();  // u'_b and the first chunk are in place
+
+        // e += X_b^T u'_b: a warp takes 8 modes of every 64, a thread its
+        // two lines
         for (int kc = 0; kc < BS / XK; ++kc) {
           if (kc + 1 < BS / XK) fetch_x(kc + 1);
 #pragma unroll
           for (int kk = 0; kk < XK; ++kk) {
             const int k = kc * XK + kk;
-            const float u0 = U[k * LDW + tx];
-            const float u1 = U[k * LDW + tx + 32];
+            const float u0 = U[k * TL + tx];
+            const float u1 = U[k * TL + tx + 32];
 #pragma unroll
             for (int p = 0; p < XDIV_MAX_NB; ++p) {
               if (p < npass) {
@@ -430,106 +519,53 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
             __syncthreads();
           }
         }
-        float* P = a.part + (size_t)(b * 3 + c) * n * lines + base;
+      }
+      // the sum over the x blocks is complete: mode p * 64 + r0 + r
+      float* dst = a.div[c] + base;
 #pragma unroll
-        for (int p = 0; p < XDIV_MAX_NB; ++p) {
-          if (p < npass) {
+      for (int p = 0; p < XDIV_MAX_NB; ++p) {
+        if (p < npass) {
 #pragma unroll
-            for (int r = 0; r < RPT; ++r) {
-              const size_t o = (size_t)(p * 64 + r0 + r) * lines;
-              P[o + tx] = e[p][r][0];
-              P[o + tx + 32] = e[p][r][1];
-            }
+          for (int r = 0; r < RPT; ++r) {
+            const long long o = (long long)(p * 64 + r0 + r) * ss;
+            dst[o + tx] = e[p][r][0];
+            dst[o + tx + 32] = e[p][r][1];
           }
         }
-        // (the last chunk's barrier also ended every read of u'_b)
-      }
-      if (has_next) {
-        float* dst = F + c * WIN * LDW;
-#pragma unroll
-        for (int m = 0; m < PER_THREAD; ++m) {
-          int k, l;
-          window_coords<AXIS>(tid + m * NT, k, l);
-          dst[k * LDW + l] = pre[m];
-        }
       }
     }
-    if (XDIV) {
-      // this block's partials of the tile are stored: make them visible,
-      // draw a ticket; the block that draws the last one sums all nb
-      // partials in the order of b
-      __threadfence();
-      __syncthreads();
-      if (tid == 0) s_ticket = atomicAdd(a.ticket + t, 1u);
-      __syncthreads();
-      if (s_ticket == gridDim.y - 1) {
-        __threadfence();
-        // all nb loads of a point are issued before the adds, several
-        // points at a time: one block does this for the whole tile, so
-        // loads in flight are what it is bound by
-        const long long lines = (long long)a.n1 * a.n2;
-        const int nb = gridDim.y;
-        const int per = n * (TL / 4);
-#pragma unroll 4
-        for (int i = tid; i < 3 * per; i += NT) {
-          const int c = i / per, ic = i - c * per;
-          const int m = ic / (TL / 4), l4 = (ic - m * (TL / 4)) * 4;
-          const size_t o = (size_t)m * lines + base + l4;
-          float4 p[XDIV_MAX_NB];
-#pragma unroll
-          for (int bb = 0; bb < XDIV_MAX_NB; ++bb)
-            if (bb < nb)
-              p[bb] = __ldcg(reinterpret_cast<const float4*>(
-                  a.part + (size_t)(bb * 3 + c) * n * lines + o));
-          float4 sum = p[0];
-#pragma unroll
-          for (int bb = 1; bb < XDIV_MAX_NB; ++bb)
-            if (bb < nb) {
-              sum.x += p[bb].x;
-              sum.y += p[bb].y;
-              sum.z += p[bb].z;
-              sum.w += p[bb].w;
-            }
-          *reinterpret_cast<float4*>(a.div[c] + o) = sum;
-        }
-      }
-    }
-    __syncthreads();  // the next tile's windows are complete
-    base = nbase;
-    ls = nls;
-    ss = nss;
-    n = nn;
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS, bool XDIV = false>
+template <int AXIS, bool ACC, int NOLDS>
 cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<AXIS>();
   cudaError_t e = cudaFuncSetAttribute(
-      transeq_sweep_kernel<AXIS, ACC, NOLDS, XDIV>,
+      transeq_sweep_kernel<AXIS, ACC, NOLDS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  transeq_sweep_kernel<AXIS, ACC, NOLDS, XDIV>
+  transeq_sweep_kernel<AXIS, ACC, NOLDS>
       <<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
   return cudaGetLastError();
 }
 
+template <int NOLDS>
+cudaError_t launch_xdiv(const SweepArgs& a, long long ntiles, int grid_x,
+                        cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<0>();
+  cudaError_t e = cudaFuncSetAttribute(
+      transeq_xdiv_kernel<NOLDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  transeq_xdiv_kernel<NOLDS><<<grid_x, NT, smem, stream>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
 template <int AXIS>
-cudaError_t dispatch_axis(int accumulate, int nolds, int xdiv,
-                          const SweepArgs& a, long long ntiles, int nb,
-                          int grid_x, cudaStream_t s) {
-  if (xdiv) {
-    if constexpr (AXIS == 0) {
-      if (!accumulate) return cudaErrorInvalidValue;
-      switch (nolds) {
-        case 1: return launch<0, true, 1, true>(a, ntiles, nb, grid_x, s);
-        case 2: return launch<0, true, 2, true>(a, ntiles, nb, grid_x, s);
-        case 3: return launch<0, true, 3, true>(a, ntiles, nb, grid_x, s);
-      }
-    }
-    return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_axis(int accumulate, int nolds, const SweepArgs& a,
+                          long long ntiles, int nb, int grid_x,
+                          cudaStream_t s) {
   if (!accumulate) {
     if (nolds != 0) return cudaErrorInvalidValue;
     return launch<AXIS, false, 0>(a, ntiles, nb, grid_x, s);
@@ -557,9 +593,10 @@ int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb) {
 }
 
 // ptrs: u, v, w, sa, st, da, dt, acc[3], old[j][c] (9, j-major),
-// out[3], rhs[3], then for xdiv the Sx and Ix slices, the partials, du,
-// dv, dw and the tile counters; unused entries may be null. dtc: 4 floats.
-// Returns the cudaError_t of the launch (0 on success).
+// out[3], rhs[3], then for xdiv the Sx and Ix slices and du, dv, dw;
+// unused entries may be null. dtc: 4 floats. grid_x: blocks per x block,
+// or with xdiv blocks in all. Returns the cudaError_t of the launch (0 on
+// success).
 int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
                          void* const* ptrs, int n0, int n1, int n2,
                          float nu, const float* dtc, int grid_x,
@@ -578,9 +615,7 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
   for (int c = 0; c < 3; ++c) a.out[c] = static_cast<float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.rhs[c] = static_cast<float*>(ptrs[i++]);
   for (int j = 0; j < 2; ++j) a.xm[j] = static_cast<const float*>(ptrs[i++]);
-  a.part = static_cast<float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.div[c] = static_cast<float*>(ptrs[i++]);
-  a.ticket = static_cast<unsigned int*>(ptrs[i++]);
   a.n0 = n0;
   a.n1 = n1;
   a.n2 = n2;
@@ -594,14 +629,20 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
                                       : (long long)n0 * n1;
   const long long ntiles = lines / TL;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (xdiv && nb > XDIV_MAX_NB) return cudaErrorInvalidValue;
+  if (xdiv) {
+    if (axis != 0 || !accumulate || nb > XDIV_MAX_NB)
+      return cudaErrorInvalidValue;
+    switch (nolds) {
+      case 1: return launch_xdiv<1>(a, ntiles, grid_x, s);
+      case 2: return launch_xdiv<2>(a, ntiles, grid_x, s);
+      case 3: return launch_xdiv<3>(a, ntiles, grid_x, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (axis) {
-    case 0:
-      return dispatch_axis<0>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
-    case 1:
-      return dispatch_axis<1>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
-    case 2:
-      return dispatch_axis<2>(accumulate, nolds, xdiv, a, ntiles, nb, grid_x, s);
+    case 0: return dispatch_axis<0>(accumulate, nolds, a, ntiles, nb, grid_x, s);
+    case 1: return dispatch_axis<1>(accumulate, nolds, a, ntiles, nb, grid_x, s);
+    case 2: return dispatch_axis<2>(accumulate, nolds, a, ntiles, nb, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -44,11 +44,13 @@ BS = 64        # output points per block along the sweep axis
 W = 16         # band half-width
 TL = 64        # lines per kernel tile
 _BAND_TOL = 1e-6
-# the xdiv variant's scratch holds one partial per x block and field
-# (nb * 3 fields), which its per-tile reduction reads back, at most 4 at a
-# time: it is built for the sizes the step takes it at (cases/base.py:
-# max(dims) <= 256)
+# the xdiv kernel keeps n / 4 accumulators a thread in registers across the
+# x blocks of a line tile: it is built for the sizes the step takes it at
+# (cases/base.py: max(dims) <= 256)
 XDIV_MAX_N = 256
+# the xdiv kernel stages the operators of x block 0 for every block: on a
+# uniform periodic axis all blocks are equal to float64 rounding
+_EQUAL_BLOCKS_TOL = 1e-12
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
@@ -335,17 +337,15 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
         for M in xm:
             _check(M, (nb, BS, shape[0]), "xdiv transform")
         divs = [torch.empty_like(u) for _ in range(3)]
-        part = torch.empty((nb, 3) + shape, dtype=u.dtype, device=u.device)
-        ticket = torch.zeros(lines // TL, dtype=torch.int32, device=u.device)
-        ptrs += [M.data_ptr() for M in xm] + [part.data_ptr()]
-        ptrs += [t.data_ptr() for t in divs] + [ticket.data_ptr()]
+        ptrs += [M.data_ptr() for M in xm] + [t.data_ptr() for t in divs]
     else:
-        ptrs += [null] * 7
+        ptrs += [null] * 5
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     co = list(dtc) if dtc is not None else []
     carr = (ctypes.c_float * 4)(*(co + [0.0] * (4 - len(co))))
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    grid_x = max(1, min(lines // TL, sms // nb))
+    # blocks per x block; the xdiv kernel's blocks own all of x
+    grid_x = max(1, min(lines // TL, sms if xdiv is not None else sms // nb))
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         err = _lib().transeq_sweep_launch(
@@ -400,7 +400,8 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     fn(u, v, w[, acc][, olds, dtc][, out]) -> as transeq_sweep. With
     xdiv_mats=(sx64, ix64), the transform-folded x-stage divergence
     matrices, the sweep is the xdiv variant (raises ValueError as
-    build_xdiv_mats does, and off the AB-fused x sweep)."""
+    build_xdiv_mats does, off the AB-fused x sweep, and when the operator
+    blocks along x differ)."""
     if nolds and not accumulate:
         raise ValueError("fused-update sweeps accumulate (x3d2_tpu rule)")
     if not sweep_shape_ok(tuple(shape), axis):
@@ -411,6 +412,11 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
             raise ValueError("xdiv fusion needs the AB-fused axis-0 sweep")
         xdiv = build_xdiv_mats(*xdiv_mats, shape[0], device=device)
     blocks = build_sweep_blocks(ops_axis, axis, device=device)
+    if xdiv is not None:
+        for M in blocks.m64.values():
+            if np.abs(M - M[:1]).max() > _EQUAL_BLOCKS_TOL * np.abs(M).max():
+                raise ValueError("the xdiv sweep needs equal operator blocks "
+                                 "(a uniform periodic x axis)")
 
     def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None):
         if accumulate != (acc is not None) or bool(nolds) != (dtc is not None):
