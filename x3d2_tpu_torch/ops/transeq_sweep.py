@@ -48,9 +48,7 @@ _BAND_TOL = 1e-6
 # x blocks of a line tile: it is built for the sizes the step takes it at
 # (cases/base.py: max(dims) <= 256)
 XDIV_MAX_N = 256
-# the xdiv kernel stages the operators of x block 0 for every block: on a
-# uniform periodic axis all blocks are equal to float64 rounding
-_EQUAL_BLOCKS_TOL = 1e-12
+_EQUAL_BLOCKS_TOL = 1e-12   # SweepBlocks.require_equal_blocks
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
@@ -85,6 +83,18 @@ class SweepBlocks:
     @property
     def nb(self) -> int:
         return self.m64["sa"].shape[0]
+
+    def require_equal_blocks(self):
+        """Raise ValueError unless every block has the operators of block
+        0, as on a uniform periodic axis (to float64 rounding): the xdiv
+        kernel stages block 0 for all of them."""
+        if "equal" not in self._dev:
+            self._dev["equal"] = all(
+                np.abs(M - M[:1]).max() <= _EQUAL_BLOCKS_TOL * np.abs(M).max()
+                for M in self.m64.values())
+        if not self._dev["equal"]:
+            raise ValueError("the xdiv sweep needs equal operator blocks "
+                             "(a uniform periodic x axis)")
 
     def mats(self, dtype):
         """(sa, st, da, dt) on the device at `dtype` (cached)."""
@@ -333,6 +343,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
     lines = shape[0] * shape[1] * shape[2] // shape[axis]
     divs = None
     if xdiv is not None:
+        blocks.require_equal_blocks()
         xm = xdiv.kernel_mats()
         for M in xm:
             _check(M, (nb, BS, shape[0]), "xdiv transform")
@@ -413,10 +424,7 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
         xdiv = build_xdiv_mats(*xdiv_mats, shape[0], device=device)
     blocks = build_sweep_blocks(ops_axis, axis, device=device)
     if xdiv is not None:
-        for M in blocks.m64.values():
-            if np.abs(M - M[:1]).max() > _EQUAL_BLOCKS_TOL * np.abs(M).max():
-                raise ValueError("the xdiv sweep needs equal operator blocks "
-                                 "(a uniform periodic x axis)")
+        blocks.require_equal_blocks()
 
     def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None):
         if accumulate != (acc is not None) or bool(nolds) != (dtc is not None):
