@@ -10,22 +10,28 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. Build: compiles every kernel source (csrc/transeq_sweep.cu,
    csrc/pressure_pipe.cu) with nvcc for sm_90a, one nvcc per source, all
    started together.
-3. Kernel vs plain, float32, on the card. At 512^3:
-   - every sweep variant of the 512^3 paths (z; x accumulate; y accumulate
-     + AB3 with the steady and a startup coefficient row);
+3. Kernel vs plain, float32, on the card, at every size a driven path
+   gives the kernel (another size is another grid and tile count).
+   At 512^3 (main path, path B):
+   - the sweeps z; x accumulate; y accumulate + AB3 with the steady and a
+     startup coefficient row;
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
      inputs the previous stage's plain version gives;
    - the slab projection: x_div3, the mid with q, the mid without q (its
      outputs bit-equal to the mid with q) and x_gradsub3.
-   At 256^3 (the xdiv path): the y accumulate sweep, the xdiv sweep (x
-   accumulate + AB3 + the x-transformed divergence inputs) with the
-   steady and a startup row, run twice and compared bit for bit, and the
-   mid without q once more (the size path A gives it).
+   At 256^3 (path A, and the same grid with X3D2_XDIV_FUSED=0): the
+   sweeps z; y accumulate; the xdiv sweep (x accumulate + AB3 + the
+   x-transformed divergence inputs) with the steady and a startup row, run
+   twice and compared bit for bit; x accumulate; y accumulate + AB3; the
+   pipeline's stages; the slab projection's functions.
    max |kernel - plain f32| <= 1e-5 * scale and max |kernel - plain f64|
    <= 3e-5 * scale (scale = max |plain f64|); kernel and plain times (CUDA
-   events, median) beside the bound. The whole projection on the slab
-   kernels is held to 1e-5 * scale of the transform-folded chain and of
-   the pipeline.
+   events, median) beside the bound. The mid's inputs there are plane
+   waves; on white noise, at both sizes, it is held to what the plain
+   float32 version reaches against float64 in the same run, and q times
+   its wave factor (every mode, so every solve-table entry) to the limits
+   above (mid_on_noise). The whole projection on the slab kernels is held
+   to 1e-5 * scale of the transform-folded chain and of the pipeline.
 4. Main path: TGV 512^3 AB3 float32, keep_pressure=False, through
    TGVCase.run(n_iters=10), with every launch count set to 0 just before:
    3 sweep launches and the pipeline's 8 launches per step, finite and
@@ -47,8 +53,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    (kernels) and on the CPU (plain versions), through the xdiv path, with
    keep_pressure=True, and with X3D2_XDIV_FUSED=0: max |du, dv, dw| <=
    1e-5, KE relative difference <= 1e-6, p within p_tolerance.
-8. The total wall time, the kernels line (JSON), the card line, and the
-   result line.
+8. The total wall time, the kernels line (JSON; one entry per kernel and
+   size a path gives it, named kernel@n, its launches those of the path
+   run at that size), the card line, and the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -224,9 +231,11 @@ def main():
     from x3d2_tpu_torch.cases import SolverParams, TGVCase
     from x3d2_tpu_torch.common import BC, DataLoc
     from x3d2_tpu_torch.mesh import Mesh
+    from x3d2_tpu_torch.ops import operator_apply as oa
     from x3d2_tpu_torch.ops import pressure_pipe as pp
     from x3d2_tpu_torch.ops import pressure_slab as sl
     from x3d2_tpu_torch.ops import transeq_sweep as ts
+    from x3d2_tpu_torch.ops.parity import BW, solve_factor
     from x3d2_tpu_torch.solver import NavierStokes
     from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
@@ -247,7 +256,7 @@ def main():
     # ---- 2. build -------------------------------------------------------
     libs = _build.build_all(["transeq_sweep", "pressure_pipe"])
     ts._lib()
-    pp._lib()
+    oa.lib()
     for name, lib in libs.items():
         print(f"[build] {lib.name}: {_build.BUILD_SECONDS[name]:.1f} s",
               flush=True)
@@ -267,14 +276,15 @@ def main():
     nu = 1.0 / 1600
     d64 = torch.float64
     ti = TimeIntegrator("AB3")
-    rows = {}
+    rows = {}     # (kernel name, n) -> its entry of the kernels line
 
-    def row(name, source, replaces, err, ms, plain_ms, cost):
+    def row(name, n, source, replaces, err, ms, plain_ms, cost):
         b, by, t_bytes, t_ops = bound(*cost)
-        rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": 0,
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b, "bound_by": by, "library_ms": None}
+        rows[name, n] = {"name": f"{name}@{n}", "route": "cuda",
+                         "source": source, "replaces": replaces,
+                         "launches": 0, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                         "library_ms": None}
         return f"bound {b:.3f} ms ({by}: bytes {t_bytes:.3f}, ops " \
                f"{t_ops:.3f})"
 
@@ -301,6 +311,7 @@ def main():
         """Hold sweep variants (label, axis, acc, olds, dtc, xdiv) against
         the plain version at `shape`."""
         u, v, w = randn(), randn(), randn()
+        n = shape[0]
         for label, axis, a, o, dtc, xm in variants:
             blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev)
             nolds = 2 if dtc is not None else 0
@@ -332,18 +343,172 @@ def main():
             plain_ms = cuda_ms(plain, 5, torch)
             name = ts.variant_name(axis, a is not None, nolds,
                                    xm is not None)
-            if name in rows:   # the startup row: times kept from the steady
-                rows[name]["max_abs_err"] = max(err32,
-                                                rows[name]["max_abs_err"])
+            if (name, n) in rows:   # the startup row: the steady one's times
+                rows[name, n]["max_abs_err"] = max(
+                    err32, rows[name, n]["max_abs_err"])
                 txt = ""
             else:
-                txt = row(name, SWEEP_SOURCE, REPLACES[axis], err32, ms,
+                txt = row(name, n, SWEEP_SOURCE, REPLACES[axis], err32, ms,
                           plain_ms, sweep_cost(shape, a is not None, nolds,
                                                ts.W, xm is not None))
-            report(f"sweep {label} {shape[0]}^3", err32, rel32, rel64, ms,
-                   plain_ms, txt)
+            report(f"sweep {label} {n}^3", err32, rel32, rel64, ms, plain_ms,
+                   txt)
 
-    # -- 3a. at 512^3 --
+    def stage_row(name, ins, kern_fn, plain_fn, cost, pm, on_path=True):
+        """Hold one function of a projection (operator set `pm`) against
+        its plain version on `ins`. on_path=False: a size no path gives the
+        function, held but left out of the kernels line."""
+        m32, m64 = pm.mats(torch.float32), pm.mats(d64)
+        n = ins[0].shape[0]
+        got = [t for t in kern_fn(*ins, pm) if t is not None]
+        torch.cuda.synchronize()
+        err32, rel32 = rel_err(got, [t for t in plain_fn(*ins, m32)
+                                     if t is not None])
+        _, rel64 = rel_err(got, [t for t in plain_fn(*to64(ins), m64)
+                                 if t is not None])
+        del got
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kern_fn(*ins, pm), 10, torch)
+        plain_ms = cuda_ms(lambda: plain_fn(*ins, m32), 5, torch)
+        txt = row(name, n, PIPE_SOURCE, REPLACES[name], err32, ms, plain_ms,
+                  cost)
+        if not on_path:
+            del rows[name, n]
+        report(f"{name} {n}^3", err32, rel32, rel64, ms, plain_ms, txt)
+
+    def pipe_rows(shape, fields, pm):
+        """The pipeline's stages at `shape`, each on the inputs the
+        previous stage's plain version gives (so kernel and plain see the
+        same tensors)."""
+        u, v, w = fields
+        m32 = pm.mats(torch.float32)
+        a_, e_ = pp.pipe_a_plain(u, v, w, m32)
+        X_, Y_ = pp.pipe_b_plain(a_, e_, m32)
+        for name, ins, kern_fn, plain_fn in [
+                ("pipe_a", (u, v, w), pp.pipe_a, pp.pipe_a_plain),
+                ("pipe_b", (a_, e_), pp.pipe_b, pp.pipe_b_plain),
+                ("pipe_c", (X_, Y_, u, v, w), pp.pipe_c, pp.pipe_c_plain)]:
+            stage_row(name, ins, kern_fn, plain_fn,
+                      pipe_cost(name, shape, BW), pm)
+
+    # the slab projection's functions. Their inputs are a few plane waves
+    # of wavenumber about 12 in y and 1-2 in x and z, not white noise: the
+    # mid solves (divides by k^2) and differentiates the result in y
+    # through a physical-space intermediate. Under white noise the float32
+    # rounding of all modes lands on the k = 1 modes that carry max |q|
+    # (the plain float32 version then differs from the float64 one by
+    # about 2e-5 at 512^3); under a smooth k = 1 field the y derivative of
+    # p cancels to 1/(k dy) digits (4e-5). A mid-band field keeps both
+    # below the limits, for the kernel and for the plain version alike.
+    # White noise is held as well, against what the plain float32 version
+    # itself reaches there (mid_on_noise below).
+    def wave_fields(mesh_, k=12):
+        X, Y, Z = (torch.as_tensor(g, dtype=torch.float32, device=dev)
+                   for g in mesh_.coord_grids(DataLoc.VERT))
+        return (torch.sin(X) * torch.cos(k * Y) * torch.cos(Z)
+                + 0.5 * torch.cos(2 * X + (k - 1) * Y),
+                torch.cos(X) * torch.sin(k * Y) * torch.cos(2 * Z)
+                + 0.3 * torch.sin((k - 2) * Y + Z),
+                torch.cos(2 * X) * torch.cos((k - 1) * Y) * torch.sin(Z)
+                + 0.2 * torch.sin(X + k * Y + 2 * Z))
+
+    def mid_q(du, dv, dw, m):
+        return sl.pressure_mid(du, dv, dw, m, emit_q=True)
+
+    def mid_nq(du, dv, dw, m):
+        return sl.pressure_mid(du, dv, dw, m, emit_q=False)
+
+    def mid_q_plain(du, dv, dw, m):
+        return sl.pressure_mid_plain(du, dv, dw, m, True)
+
+    def mid_nq_plain(du, dv, dw, m):
+        return sl.pressure_mid_plain(du, dv, dw, m, False)
+
+    def slab_rows(shape, mesh_, pm, on_path):
+        """x_div3, the mid with and without q and x_gradsub3 at `shape`,
+        on plane waves; the names in `on_path` enter the kernels line. The
+        mid without q gives the bits of the mid with q."""
+        m32 = pm.mats(torch.float32)
+        su, sv, sw = wave_fields(mesh_)
+        dp = tuple(t.contiguous() for t in sl.x_div3_plain(su, sv, sw, m32))
+        gp = tuple(t.contiguous()
+                   for t in sl.pressure_mid_plain(*dp, m32, False)[1:])
+        for name, ins, kern_fn, plain_fn in [
+                ("x_div3", (su, sv, sw), sl.x_div3, sl.x_div3_plain),
+                ("pressure_mid[q]", dp, mid_q, mid_q_plain),
+                ("pressure_mid", dp, mid_nq, mid_nq_plain),
+                ("x_gradsub3", gp + (su, sv, sw), sl.x_gradsub3,
+                 sl.x_gradsub3_plain)]:
+            stage_row(name, ins, kern_fn, plain_fn,
+                      slab_cost(name, shape, BW), pm, name in on_path)
+        with_q, no_q = mid_q(*dp, pm), mid_nq(*dp, pm)
+        check(no_q[0] is None and with_q[0] is not None
+              and all(torch.equal(a, b)
+                      for a, b in zip(with_q[1:], no_q[1:])),
+              "the mid without q must give the bits of the mid with q")
+        print(f"[pressure_mid {shape[0]}^3] without q: p_zy, dpdy, dpdz "
+              "bit-equal to the mid with q", flush=True)
+
+    def mid_on_noise(n, pm, fields, label, hold):
+        """The mid with q on the x_div3 of `fields`: kernel, plain float32
+        and plain float64. Printed; with `hold` (white noise) also held:
+        - q times its wave factor is the solve's input F, mode by mode,
+          without the division by k^2 that lets a few k = 1 modes carry
+          max |q|: the usual limits, 1e-5 of plain float32 and 3e-5 of
+          plain float64, relative to max |F|. White noise fills every mode,
+          so every entry of the solve tables is read and compared.
+        - each output, unweighted: the kernel may be no worse a float32
+          evaluation than the plain version. The two differ only in the
+          two-source launches (the kernel sums both sources in one chain,
+          plain adds two chains) and in the solve's fused multiply-add;
+          the other launches are bit-equal on equal inputs
+          (x3d2_tpu_torch/tools/mid_probe.py shows each launch). Two
+          independent float32 roundings of one size differ by sqrt(2) of
+          either one's distance to float64 in the mean: the
+          root-mean-square differences kernel - plain32 and kernel -
+          plain64 are held to 2x the root-mean-square plain32 - plain64
+          of the same run. The maxima sit on a handful of k = 1 modes and
+          scatter between seeds (the probe prints several): held to 4x."""
+        m32, m64 = pm.mats(torch.float32), pm.mats(d64)
+        ins = tuple(t.contiguous() for t in sl.x_div3_plain(*fields, m32))
+        kern = [t.to(d64) for t in mid_q(*ins, pm)]
+        plain32 = [t.to(d64) for t in mid_q_plain(*ins, m32)]
+        plain64 = mid_q_plain(*to64(ins), m64)
+
+        def dist(a, b, weight=None):
+            d = (a - b) if weight is None else (a - b) * weight
+            return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+        tag = f"pressure_mid[q] {n}^3 on {label}"
+        for name, k, p32, p64 in zip(("q", "p_zy", "dpdy", "dpdz"), kern,
+                                     plain32, plain64):
+            kp, k6, p6 = dist(k, p32), dist(k, p64), dist(p32, p64)
+            scale = float(p64.abs().max())
+            lim = ("(<= 2)", "(<= 4)") if hold else ("", "(not held)")
+            print(f"[{tag}] {name}: max kernel-plain32 {kp[0] / scale:.2e} "
+                  f"kernel-plain64 {k6[0] / scale:.2e} plain32-plain64 "
+                  f"{p6[0] / scale:.2e} (of max |plain64|); rms "
+                  f"{kp[1] / p6[1]:.2f}x and {k6[1] / p6[1]:.2f}x the "
+                  f"plain32-plain64 one {lim[0]}, max {kp[0] / p6[0]:.2f}x "
+                  f"and {k6[0] / p6[0]:.2f}x {lim[1]}", flush=True)
+            if hold:
+                check(kp[1] <= 2 * p6[1] and k6[1] <= 2 * p6[1],
+                      f"{tag}: {name} rms {kp[1]}, {k6[1]} vs {p6[1]}")
+                check(kp[0] <= 4 * p6[0] and k6[0] <= 4 * p6[0],
+                      f"{tag}: {name} max {kp[0]}, {k6[0]} vs {p6[0]}")
+        if hold:
+            factor = solve_factor(m64, (n,) * 3).abs()
+            waves = torch.where(factor > 0, 1.0 / factor, factor)
+            scale = float((plain64[0] * waves).abs().max())
+            f32 = dist(kern[0], plain32[0], waves)[0] / scale
+            f64 = dist(kern[0], plain64[0], waves)[0] / scale
+            print(f"[{tag}] q times its wave factor (the solve's input, "
+                  f"every mode): kernel vs plain f32 rel {f32:.2e} (<= "
+                  f"1e-5), vs plain f64 rel {f64:.2e} (<= 3e-5)", flush=True)
+            check(f32 <= 1e-5 and f64 <= 3e-5,
+                  f"{tag}: weighted q {f32}, {f64}")
+
+    # -- 3a. at 512^3: what the main path and path B launch --
     shape = (NS,) * 3
     mesh = Mesh(shape, (2 * math.pi,) * 3, per)
     ns = NavierStokes.build(mesh, nu, device=dev)
@@ -361,111 +526,16 @@ def main():
         ("y,acc,ab3 startup", 1, acc, olds, ti.ab_row(1, DT), None),
     ], randn)
     del acc, olds
-
-    # the pipeline's stages, each on the inputs the previous stage's plain
-    # version gives (so kernel and plain see the same tensors)
+    pm = ns._slab
     u, v, w = randn(), randn(), randn()
-    pm = ns._pipe.mats
-    m32 = pm.mats(torch.float32)
-    a_, e_ = pp.pipe_a_plain(u, v, w, m32)
-    X_, Y_ = pp.pipe_b_plain(a_, e_, m32)
-
-    def stage_row(name, ins, kern_fn, plain_fn, cost, pm):
-        """Hold one function of a projection (operator set `pm`) against
-        its plain version on `ins`; a second call for a name (another
-        size) replaces the first one's row."""
-        m32, m64 = pm.mats(torch.float32), pm.mats(d64)
-        got = [t for t in kern_fn(*ins, pm) if t is not None]
-        torch.cuda.synchronize()
-        err32, rel32 = rel_err(got, [t for t in plain_fn(*ins, m32)
-                                     if t is not None])
-        _, rel64 = rel_err(got, [t for t in plain_fn(*to64(ins), m64)
-                                 if t is not None])
-        del got
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: kern_fn(*ins, pm), 10, torch)
-        plain_ms = cuda_ms(lambda: plain_fn(*ins, m32), 5, torch)
-        txt = row(name, PIPE_SOURCE, REPLACES[name], err32, ms, plain_ms,
-                  cost)
-        report(f"{name} {ins[0].shape[0]}^3", err32, rel32, rel64, ms,
-               plain_ms, txt)
-
-    for name, ins, kern_fn, plain_fn in [
-            ("pipe_a", (u, v, w), pp.pipe_a, pp.pipe_a_plain),
-            ("pipe_b", (a_, e_), pp.pipe_b, pp.pipe_b_plain),
-            ("pipe_c", (X_, Y_, u, v, w), pp.pipe_c, pp.pipe_c_plain)]:
-        stage_row(name, ins, kern_fn, plain_fn,
-                  pipe_cost(name, shape, pp.BW), pm)
-    del a_, e_, X_, Y_
-
-    # the slab projection's functions. Their inputs are a few plane waves
-    # of wavenumber about 12 in y and 1-2 in x and z, not white noise: the
-    # mid solves (divides by k^2) and differentiates the result in y
-    # through a physical-space intermediate. Under white noise the float32
-    # rounding of all modes lands on the k = 1 modes that carry max |q|
-    # (the plain float32 version then differs from the float64 one by
-    # 2.4e-5 at 512^3); under a smooth k = 1 field the y derivative of p
-    # cancels to 1/(k dy) digits (4e-5). A mid-band field keeps both below
-    # the limits, for the kernel and for the plain version alike.
-    def wave_fields(mesh_, k=12):
-        X, Y, Z = (torch.as_tensor(g, dtype=torch.float32, device=dev)
-                   for g in mesh_.coord_grids(DataLoc.VERT))
-        return (torch.sin(X) * torch.cos(k * Y) * torch.cos(Z)
-                + 0.5 * torch.cos(2 * X + (k - 1) * Y),
-                torch.cos(X) * torch.sin(k * Y) * torch.cos(2 * Z)
-                + 0.3 * torch.sin((k - 2) * Y + Z),
-                torch.cos(2 * X) * torch.cos((k - 1) * Y) * torch.sin(Z)
-                + 0.2 * torch.sin(X + k * Y + 2 * Z))
-
-    su, sv, sw = wave_fields(mesh)
-    dp = tuple(t.contiguous() for t in sl.x_div3_plain(su, sv, sw, m32))
-    gp = tuple(t.contiguous()
-               for t in sl.pressure_mid_plain(*dp, m32, False)[1:])
-
-    def mid_q(du, dv, dw, m):
-        return sl.pressure_mid(du, dv, dw, m, emit_q=True)
-
-    def mid_nq(du, dv, dw, m):
-        return sl.pressure_mid(du, dv, dw, m, emit_q=False)
-
-    def mid_q_plain(du, dv, dw, m):
-        return sl.pressure_mid_plain(du, dv, dw, m, True)
-
-    def mid_nq_plain(du, dv, dw, m):
-        return sl.pressure_mid_plain(du, dv, dw, m, False)
-
-    for name, ins, kern_fn, plain_fn in [
-            ("x_div3", (su, sv, sw), sl.x_div3, sl.x_div3_plain),
-            ("pressure_mid[q]", dp, mid_q, mid_q_plain),
-            ("pressure_mid", dp, mid_nq, mid_nq_plain),
-            ("x_gradsub3", gp + (su, sv, sw), sl.x_gradsub3,
-             sl.x_gradsub3_plain)]:
-        stage_row(name, ins, kern_fn, plain_fn,
-                  slab_cost(name, shape, pp.BW), pm)
-    with_q, no_q = mid_q(*dp, pm), mid_nq(*dp, pm)
-    check(no_q[0] is None and with_q[0] is not None
-          and all(torch.equal(a, b) for a, b in zip(with_q[1:], no_q[1:])),
-          "the mid without q must give the bits of the mid with q")
-    print("[pressure_mid] without q: p_zy, dpdy, dpdz bit-equal to the mid "
-          "with q", flush=True)
-    del with_q, no_q, dp, gp, su, sv, sw
+    pipe_rows(shape, (u, v, w), pm)
+    # the mid without q is on no path at this size: held, not listed
+    slab_rows(shape, mesh, pm, ("x_div3", "pressure_mid[q]", "x_gradsub3"))
     torch.cuda.empty_cache()
-    # for the record, why the mid's inputs above are plane waves: on white
-    # noise and on a smooth field the plain float32 mid is as far from the
-    # plain float64 one as the kernel is from either (nothing is asserted)
-    for label, fields in (("white noise", (u, v, w)),
-                          ("waves of k = 1", wave_fields(mesh, k=1))):
-        ins = tuple(t.contiguous() for t in sl.x_div3_plain(*fields, m32))
-        kern = mid_q(*ins, pm)
-        plain32 = mid_q_plain(*ins, m32)
-        plain64 = mid_q_plain(*to64(ins), pm.mats(d64))
-        _, rel_k32 = rel_err(kern, plain32)
-        _, rel_k64 = rel_err(kern, plain64)
-        _, rel_p64 = rel_err(plain32, plain64)
-        print(f"[pressure_mid[q] {NS}^3] on {label}: kernel vs plain f32 "
-              f"rel {rel_k32:.2e}, kernel vs plain f64 rel {rel_k64:.2e}, "
-              f"plain f32 vs plain f64 rel {rel_p64:.2e}", flush=True)
-        del ins, kern, plain32, plain64, fields
+    mid_on_noise(NS, pm, (u, v, w), "white noise", True)
+    # for the record, the other reason the mid's inputs are plane waves of
+    # k about 12: a smooth field
+    mid_on_noise(NS, pm, wave_fields(mesh, k=1), "waves of k = 1", False)
     torch.cuda.empty_cache()
 
     # each whole projection on the kernels against the other formulations
@@ -489,10 +559,12 @@ def main():
     check(rel_sp <= 1e-5, f"slab vs pipeline projection {rel_sp}")
     del u, v, w, ns, folded, piped, slab
     pm._dev.pop(d64, None)
-    del pm, m32
+    del pm
     torch.cuda.empty_cache()
 
-    # -- 3b. at 256^3: the xdiv chain's own sweeps --
+    # -- 3b. at 256^3: what path A launches, and what the same grid
+    # launches with X3D2_XDIV_FUSED=0 (another grid and tile count than at
+    # 512^3 for every kernel) --
     shape_a = (NA,) * 3
     mesh_a = Mesh(shape_a, (2 * math.pi,) * 3, per)
     ns_a = NavierStokes.build(mesh_a, nu, device=dev)
@@ -505,19 +577,22 @@ def main():
     f64m = ns_a._fp_mats64()
     xm = ts.build_xdiv_mats(f64m["sx"], f64m["ix"], NA, device=dev)
     sweep_rows(shape_a, ns_a.ops, [
+        ("z", 2, None, None, None, None),
         ("y,acc", 1, acc, None, None, None),
         ("x,acc,ab3,xdiv steady", 0, acc, olds, ti.ab_row(3, DT), xm),
         ("x,acc,ab3,xdiv startup", 0, acc, olds, ti.ab_row(1, DT), xm),
+        ("x,acc", 0, acc, None, None, None),
+        ("y,acc,ab3 steady", 1, acc, olds, ti.ab_row(3, DT), None),
+        ("y,acc,ab3 startup", 1, acc, olds, ti.ab_row(1, DT), None),
     ], randn_a)
     del acc, olds, xm, f64m
-    # the mid without q at the size path A gives it (this row replaces the
-    # 512^3 one above)
-    pm_a = ns_a._slab.mats
-    dp = tuple(t.contiguous() for t in sl.x_div3_plain(
-        *wave_fields(mesh_a), pm_a.mats(torch.float32)))
-    stage_row("pressure_mid", dp, mid_nq, mid_nq_plain,
-              slab_cost("pressure_mid", shape_a, pp.BW), pm_a)
-    del dp, ns_a, pm_a
+    pm_a = ns_a._slab
+    noise_a = (randn_a(), randn_a(), randn_a())
+    pipe_rows(shape_a, noise_a, pm_a)
+    # x_div3 and the mid with q are on no path at this size
+    slab_rows(shape_a, mesh_a, pm_a, ("pressure_mid", "x_gradsub3"))
+    mid_on_noise(NA, pm_a, noise_a, "white noise", True)
+    del noise_a, ns_a, pm_a
     torch.cuda.empty_cache()
 
     # ---- 4-6. the paths ------------------------------------------------------
@@ -542,10 +617,10 @@ def main():
         print(f"[{tag}] TGV {n}^3 keep_pressure={keep_pressure} set-up "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ts.reset_launch_counts()
-        pp.reset_launch_counts()
+        oa.reset_launch_counts()
         state = case.run(n_iters=steps, state=state, n_output=1, fresh=True)
         torch.cuda.synchronize()
-        counts = {**ts.launch_counts(), **pp.launch_counts()}
+        counts = {**ts.launch_counts(), **oa.launch_counts()}
         mon = case.monitor.rows
         ke = [r[4] for r in mon]
         ens = [r[1] for r in mon]
@@ -554,7 +629,7 @@ def main():
         print(f"[{tag}] ke {ke[0]:.10e} -> {ke[-1]:.10e}  enstrophy "
               f"{ens[0]:.8e} -> {ens[-1]:.8e}  div_u_max <= {div_max:.3e} "
               f"(limit {DIV_LIMIT[n]:g})", flush=True)
-        want = {name: steps * pp.LAUNCHES_PER_CALL.get(name, 1)
+        want = {name: steps * oa.LAUNCHES_PER_CALL.get(name, 1)
                 for name in want_names}
         check(counts == want, f"{tag}: expected launches {want}, got "
                               f"{counts}")
@@ -599,7 +674,7 @@ def main():
         sweeps_zxy + ["pipe_a", "pipe_b", "pipe_c"])
     check(not case._ab_is_xdiv, "512^3 must not take the xdiv chain")
     for name in counts:
-        rows[name]["launches"] = counts[name]
+        rows[name, NS]["launches"] = counts[name]
     step_times("main", case, state)
     del case, state
     torch.cuda.empty_cache()
@@ -621,7 +696,7 @@ def main():
         sweeps_zxy + ["x_div3", "pressure_mid[q]", "x_gradsub3"],
         spy=spy_projection)
     for name in ("x_div3", "pressure_mid[q]", "x_gradsub3"):
-        rows[name]["launches"] = counts[name]
+        rows[name, NS]["launches"] = counts[name]
     p = state["p"]
     p_ref = case.solver.pressure_grads(*last["in"], keep_pressure=True)[3]
     err_p, _ = rel_err([p], [p_ref])
@@ -650,8 +725,8 @@ def main():
     case, state, counts = drive("path A", mesh_a, NA, False, STEPS_A,
                                 names_a)
     check(case._ab_is_xdiv, "256^3 must take the xdiv chain")
-    for name in (sweeps_xdiv[1], sweeps_xdiv[2], "pressure_mid"):
-        rows[name]["launches"] = counts[name]
+    for name in names_a:
+        rows[name, NA]["launches"] = counts[name]
     first = tuple(state[k].clone() for k in ("u", "v", "w"))
     ms_xdiv = step_times("path A", case, state)
     del case, state
@@ -666,10 +741,12 @@ def main():
     torch.cuda.empty_cache()
     os.environ["X3D2_XDIV_FUSED"] = "0"
     try:
-        case, state, _ = drive(
+        case, state, counts = drive(
             "256^3 X3D2_XDIV_FUSED=0", mesh_a, NA, False, STEPS_A,
             sweeps_zxy + ["pipe_a", "pipe_b", "pipe_c"])
         check(not case._ab_is_xdiv, "X3D2_XDIV_FUSED=0 must switch xdiv off")
+        for name in sweeps_zxy[1:] + ["pipe_a", "pipe_b", "pipe_c"]:
+            rows[name, NA]["launches"] = counts[name]
         ms_pipe = step_times("256^3 X3D2_XDIV_FUSED=0", case, state)
     finally:
         del os.environ["X3D2_XDIV_FUSED"]
@@ -717,8 +794,8 @@ def main():
         check(ke_rel <= 1e-6, f"{label}: card vs CPU KE difference {ke_rel}")
 
     # ---- 8. result lines ---------------------------------------------------
-    check(all(r["launches"] > 0 for r in rows.values()),
-          "a kernel of the paths was never launched")
+    idle = [r["name"] for r in rows.values() if r["launches"] <= 0]
+    check(not idle, f"never launched on a path: {idle}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -27,7 +27,9 @@ from x3d2_tpu.solver import NavierStokes as JNavierStokes
 
 from x3d2_tpu_torch.common import BC
 from x3d2_tpu_torch.mesh import Mesh
+from x3d2_tpu_torch.ops import operator_apply as oa
 from x3d2_tpu_torch.ops import pressure_pipe as pp
+from x3d2_tpu_torch.ops.parity import projection_supported
 from x3d2_tpu_torch.solver import NavierStokes
 
 # one thread for torch and for numpy's BLAS: the suite runs several workers
@@ -71,11 +73,11 @@ def mats(solver32):
 
 
 def test_pipe_supported(solver32):
-    assert pp.pipe_supported(solver32)
+    assert projection_supported(solver32)
     small = _build(torch.float32, (32, 32, 32))   # not tiled by 128
-    assert not pp.pipe_supported(small) and small._pipe is None
+    assert not projection_supported(small) and small._pipe is None
     neu = ((BC.NEUMANN, BC.NEUMANN),) + PER[1:]
-    assert not pp.pipe_supported(_build(torch.float32, (33, 32, 32), neu))
+    assert not projection_supported(_build(torch.float32, (33, 32, 32), neu))
 
 
 @pytest.mark.parametrize("stage,nin", [("a", 3), ("b", 2), ("c", 5)])
@@ -109,11 +111,11 @@ def test_pipeline_matches_x3d2_tpu_projection_f64():
 
 
 def test_cpu_pipe_never_counts_launches(mats):
-    pp.reset_launch_counts()
+    oa.reset_launch_counts()
     f = torch.zeros(SHAPE)
     out = pp.pipe_c(*pp.pipe_b(*pp.pipe_a(f, f, f, mats), mats), f, f, f,
                     mats)
-    assert len(out) == 3 and pp.launch_counts() == {}
+    assert len(out) == 3 and oa.launch_counts() == {}
     m = torch.empty(SHAPE, device="meta")
     with pytest.raises(ValueError, match="no pipe_a"):
         pp.pipe_a(m, m, m, mats)

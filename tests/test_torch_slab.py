@@ -34,8 +34,9 @@ from x3d2_tpu.solver import NavierStokes as JNavierStokes
 
 from x3d2_tpu_torch.common import BC
 from x3d2_tpu_torch.mesh import Mesh
-from x3d2_tpu_torch.ops import pressure_pipe as pp
+from x3d2_tpu_torch.ops import operator_apply as oa
 from x3d2_tpu_torch.ops import pressure_slab as sl
+from x3d2_tpu_torch.ops.parity import projection_supported
 from x3d2_tpu_torch.solver import NavierStokes
 
 # one thread for torch and for numpy's BLAS: the suite runs several workers
@@ -92,12 +93,12 @@ def jsolver64():
 
 
 def test_slab_supported(solver32):
-    assert sl.slab_supported(solver32) and solver32._slab is not None
-    assert solver32._slab.mats is solver32._pipe.mats   # one operator set
+    assert projection_supported(solver32) and solver32._slab is not None
+    assert solver32._slab is solver32._pipe.mats   # one operator set
     small = _build(torch.float32, (32, 32, 32))   # not tiled by 128
-    assert not sl.slab_supported(small) and small._slab is None
+    assert not projection_supported(small) and small._slab is None
     neu = ((BC.NEUMANN, BC.NEUMANN),) + PER[1:]
-    assert not sl.slab_supported(_build(torch.float32, (33, 32, 32), neu))
+    assert not projection_supported(_build(torch.float32, (33, 32, 32), neu))
 
 
 @pytest.mark.parametrize("stage,nin", [("div3", 3), ("mid", 3),
@@ -110,15 +111,15 @@ def test_stage_matches_x3d2_tpu_slab(jax_slab, solver32, stage, nin):
     j = [jnp.asarray(a) for a in f]
     xk, mid_fn = jax_slab[2], jax_slab[3]
     if stage == "div3":
-        got, want = slab.div3(*t), xk["div3"](*j)
+        got, want = sl.x_div3(*t, slab), xk["div3"](*j)
     elif stage == "mid":
-        got, want = slab.mid(*t, emit_q=True), mid_fn(*j)
+        got, want = sl.pressure_mid(*t, slab, emit_q=True), mid_fn(*j)
     elif stage == "mid_no_q":
-        got = slab.mid(*t, emit_q=False)
+        got = sl.pressure_mid(*t, slab, emit_q=False)
         assert got[0] is None
         got, want = got[1:], mid_fn.no_q(*j)
     else:
-        got, want = slab.gradsub3(*t), xk["gradsub3"](*j)
+        got, want = sl.x_gradsub3(*t, slab), xk["gradsub3"](*j)
     _close(got, want, 2e-4)
 
 
@@ -135,12 +136,12 @@ def test_stage_matches_x3d2_tpu_f64_operators(solver64, jsolver64, stage):
         return np.asarray(j_apply_matrix(d[name], a, axis))
 
     if stage == "div3":
-        got = slab.div3(*t[:3])
+        got = sl.x_div3(*t[:3], slab)
         want = [ap("sx", j[0], 0)[xp], ap("ix", j[1], 0)[xp],
                 ap("ix", j[2], 0)[xp]]
     elif stage == "mid":
         # inputs: x-spectral fields in block-parity order, as div3 gives
-        got = slab.mid(*t[:3], emit_q=True)
+        got = sl.pressure_mid(*t[:3], slab, emit_q=True)
         inv_x = np.argsort(xp)
         du, dv, dw = (jnp.asarray(a[inv_x]) for a in f[:3])
         duv = ap("iy", du, 1) + ap("sy", dv, 1)
@@ -154,7 +155,7 @@ def test_stage_matches_x3d2_tpu_f64_operators(solver64, jsolver64, stage):
         want = [q[xp][:, yp][:, :, zp], both[xp, :ny], both[xp, ny:],
                 ap("gy_i", dpdz, 1)[xp]]
     else:
-        got = slab.gradsub3(*t)
+        got = sl.x_gradsub3(*t, slab)
         inv_x = np.argsort(xp)
         want = [f[3] - ap("gx_s", jnp.asarray(f[0][inv_x]), 0),
                 f[4] - ap("gx_i", jnp.asarray(f[1][inv_x]), 0),
@@ -197,7 +198,7 @@ def test_slab_and_pipe_agree_f64(solver64):
     (False, True, ["mid", "gradsub3"]),
     (True, True, ["mid:q", "gradsub3"]),
 ])
-def test_dispatch_order(keep, with_divs, want):
+def test_dispatch_order(monkeypatch, keep, with_divs, want):
     ns = _build(torch.float32)
     calls = []
     pipe, slab = ns._pipe, ns._slab
@@ -207,13 +208,15 @@ def test_dispatch_order(keep, with_divs, want):
         return pipe(u, v, w)
 
     object.__setattr__(ns, "_pipe", spy_pipe)
-    div3, mid, gradsub3 = slab.div3, slab.mid, slab.gradsub3
-    slab.div3 = lambda *a: (calls.append("div3"), div3(*a))[1]
-    slab.mid = lambda *a, emit_q=True: (
-        calls.append("mid:q" if emit_q else "mid"), mid(*a, emit_q=emit_q))[1]
-    slab.gradsub3 = lambda *a: (calls.append("gradsub3"), gradsub3(*a))[1]
+    div3, mid, gradsub3 = sl.x_div3, sl.pressure_mid, sl.x_gradsub3
+    monkeypatch.setattr(sl, "x_div3",
+                        lambda *a: (calls.append("div3"), div3(*a))[1])
+    monkeypatch.setattr(sl, "pressure_mid", lambda *a, emit_q=True: (
+        calls.append("mid:q" if emit_q else "mid"), mid(*a, emit_q=emit_q))[1])
+    monkeypatch.setattr(sl, "x_gradsub3", lambda *a: (
+        calls.append("gradsub3"), gradsub3(*a))[1])
     t = [torch.from_numpy(a) for a in _fields(3, seed=8)]
-    divs = div3(*t) if with_divs else None
+    divs = div3(*t, slab) if with_divs else None
     out = ns.pressure_correction(*t, keep_pressure=keep, divs=divs)
     assert calls == want
     assert (out[3] is not None) == keep
@@ -231,11 +234,12 @@ def test_divs_need_the_slab():
 
 
 def test_cpu_slab_never_counts_launches(solver32):
-    pp.reset_launch_counts()
+    oa.reset_launch_counts()
     f = torch.zeros(SHAPE)
     slab = solver32._slab
-    out = slab.gradsub3(*slab.mid(*slab.div3(f, f, f))[1:], f, f, f)
-    assert len(out) == 3 and pp.launch_counts() == {}
+    mid = sl.pressure_mid(*sl.x_div3(f, f, f, slab), slab)
+    out = sl.x_gradsub3(*mid[1:], f, f, f, slab)
+    assert len(out) == 3 and oa.launch_counts() == {}
     m = torch.empty(SHAPE, device="meta")
     with pytest.raises(ValueError, match="no x_div3"):
-        slab.div3(m, m, m)
+        sl.x_div3(m, m, m, slab)

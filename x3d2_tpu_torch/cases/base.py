@@ -43,7 +43,8 @@ import torch
 from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
-from ..ops.transeq_sweep import make_fused_transeq_ab, transeq_sweep_supported
+from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
+                                 transeq_sweep_supported)
 from ..solver import _UNPORTED_PROJECTION, _UNPORTED_TRANSEQ, NavierStokes
 from ..time_integrators import TimeIntegrator
 
@@ -54,9 +55,6 @@ _JAX_STEP_SWITCHES = ("X3D2_FUSED_AB", "X3D2_FUSED_RK", "X3D2_PIPE3",
                       "X3D2_BF16_OLDS", "X3D2_BF16_ACC",
                       "X3D2_D2C", "X3D2_CHUNK", "X3D2_PALLAS",
                       "X3D2_MATMUL_PRECISION", "X3D2_MID_SPLIT")
-# the largest extent at which the step takes the xdiv chain: x3d2_tpu's
-# gate (cases/base.py:146), kept as the reference has it
-XDIV_MAX_DIM = 256
 
 
 @dataclass
@@ -137,9 +135,10 @@ class BaseCase:
         if (self.ti.nolds >= 1   # compensated stepping raised above
                 and type(self).forcings is BaseCase.forcings
                 and transeq_sweep_supported(self.solver, dims)):
-            slab = self.solver._slab
-            if (slab is not None   # the port's slab is always parity x
-                    and max(dims) <= XDIV_MAX_DIM
+            # x3d2_tpu's gate (cases/base.py:146) is max(dims) <= 256, which
+            # is also the most the xdiv kernel tiles along x (XDIV_MAX_N)
+            if (self.solver._slab is not None   # always parity x here
+                    and max(dims) <= XDIV_MAX_N
                     and os.environ.get("X3D2_XDIV_FUSED", "1") != "0"):
                 # the final sweep also emits the projection's x-transformed
                 # divergence inputs, in the block-parity basis of the slab

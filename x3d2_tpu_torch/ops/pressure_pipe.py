@@ -18,52 +18,22 @@ split (one radix-2 level in matrix form, half the operations), so spectral
 indices stay in block-parity order [even modes; odd modes] between the
 stages and the solve tables are permuted to match. The operator set, the
 splits and the plain applies are shared with the slab projection
-(ops/parity.py); so is the kernel template, whose launcher ``_apply`` the
-slab's wrappers (ops/pressure_slab.py) call as well.
+(ops/parity.py); so is the kernel template, behind its launcher
+(ops/operator_apply.py).
 
 A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
 runs the plain version. The pipeline serves the all-periodic uniform grid
-whose every extent is a multiple of 128 (``pipe_supported``), as
+whose every extent is a multiple of 128 (``parity.projection_supported``), as
 x3d2_tpu's pipe3 serves its periodic-even fast path (pipe3_supported,
 pallas_poisson.py:1555).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .parity import (BBS, BW, TILE, WIN, ProjectionMats, banded_apply, pfwd,
-                     pinv, projection_supported, solve_factor)
-
-# operator forms and epilogues of the kernel template; SOLVE_PLANE is the
-# solve after a plane-batched apply (the x mode is the plane)
-BANDED, PFWD, PINV = 0, 1, 2
-STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
-
-# kernel launches per call of each wrapper that launches the template (the
-# slab projection's wrappers are in pressure_slab.py)
-LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
-                     "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
-                     "x_gradsub3": 1}
-
-# launches of the kernel per wrapper, counted where it is launched
-_LAUNCHES: dict[str, int] = {}
-
-
-def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
-
-
-def pipe_supported(solver) -> bool:
-    """The grids the pipeline serves (parity.projection_supported), as
-    x3d2_tpu's pipe3 serves its periodic-even fast path."""
-    return projection_supported(solver)
+from .operator_apply import BANDED, PFWD, PINV, SOLVE, SUB, apply, route
+from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
 
 
 # ---------------------------------------------------------------------------
@@ -100,171 +70,66 @@ def pipe_c_plain(X, Y, u, v, w, m):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_LIB = None
-
-
-def _lib():
-    """The kernel library, built and typed at first use."""
-    global _LIB
-    if _LIB is None:
-        from .. import _build
-
-        lib = _build.load("pressure_pipe")
-        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.pressure_pipe_apply.argtypes = [
-            i, i, i, i, p, p, p, i, i, i, i, ll, ll, ll, i, p]
-        lib.pressure_pipe_apply.restype = i
-        lib.pressure_pipe_error_string.argtypes = [i]
-        lib.pressure_pipe_error_string.restype = ctypes.c_char_p
-        lib.pressure_pipe_geometry.argtypes = [ctypes.POINTER(i)] * 4
-        lib.pressure_pipe_geometry.restype = i
-        geo = [i() for _ in range(4)]
-        lib.pressure_pipe_geometry(*geo)
-        if tuple(g.value for g in geo) != (TILE, BBS, TILE, 8):
-            raise RuntimeError("pressure_pipe.cu geometry "
-                               f"{tuple(g.value for g in geo)} differs from "
-                               f"the wrapper's {(TILE, BBS, TILE, 8)}")
-        _LIB = lib
-    return _LIB
-
-
-def _check(t, shape, name):
-    if not t.is_cuda or t.dtype != torch.float32:
-        raise ValueError(f"{name}: the kernel takes float32 CUDA tensors, "
-                         f"got {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous tensor of shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
-
-
-def _apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
-    """One kernel launch applying operators along `axis` of (nx, ny, nz)
-    fields. jobs: (mats, fields, out, sub) per field, with 1-2 (mat, field)
-    sources summed into `out` (sub: the field it is subtracted from)."""
-    shape = tuple(jobs[0][1][0].shape)
-    nx, ny, nz = shape
-    n = shape[axis]
-    if n % TILE or (axis == 2 and (nx * ny) % TILE) \
-            or (axis < 2 and nz % TILE):
-        raise ValueError(f"shape {shape} is not tiled by {TILE} along "
-                         f"axis {axis}")
-    trans, batch, ld, pstride, ncols = {
-        0: (0, 1, ny * nz, 0, ny * nz),
-        1: (0, nx, nz, ny * nz, nz),
-        2: (1, 1, nz, 0, nx * ny)}[axis]
-    K = WIN if mode == BANDED else n // 2
-    mtiles = n // 2 // BBS if mode == PINV else n // TILE
-    ptrs, nsrc = [], []
-    for mats, fields, out, sub in jobs:
-        if not 1 <= len(mats) == len(fields) <= 2:
-            raise ValueError("a job takes one or two sources")
-        for M in mats:
-            _check(M, (n, K), "operator")
-        for t in fields + [out] + ([sub] if sub is not None else []):
-            _check(t, shape, "field")
-        if out.data_ptr() in {t.data_ptr() for t in fields}:
-            raise ValueError("the output may not alias an input")
-        if (sub is not None) != (epi == SUB):
-            raise ValueError("the subtracting epilogue takes one field")
-        pad = [None] * (2 - len(mats))
-        ptrs += [M.data_ptr() for M in mats] + pad
-        ptrs += [t.data_ptr() for t in fields] + pad
-        ptrs += [out.data_ptr(), sub.data_ptr() if sub is not None else None]
-        nsrc.append(len(mats))
-    solve = epi in (SOLVE, SOLVE_PLANE)
-    if (len(tabs) == 4) != solve:
-        raise ValueError("the solve epilogue takes its 4 tables")
-    if (epi == SOLVE and axis != 0) or (epi == SOLVE_PLANE and axis != 1):
-        raise ValueError("the solve follows an x apply, or a y apply "
-                         "batched over x planes")
-    if solve:
-        for t, k in zip(tabs, (ny * nz, ny * nz, nx, nx)):
-            _check(t, (k,), "solve table")
-    tab_ptrs = [t.data_ptr() for t in tabs] + [None] * (4 - len(tabs))
-    parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    narr = (ctypes.c_int * len(nsrc))(*nsrc)
-    tarr = (ctypes.c_void_p * 4)(*tab_ptrs)
-    dev = jobs[0][2].device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().pressure_pipe_apply(
-            mode, trans, epi, len(jobs), parr, narr, tarr, batch, K, n, BW,
-            ld, pstride, ncols, mtiles, stream)
-    if err != 0:
-        msg = _lib().pressure_pipe_error_string(err).decode()
-        raise RuntimeError(f"pressure_pipe launch failed: {msg} ({err})")
-    _LAUNCHES[stage] = _LAUNCHES.get(stage, 0) + 1
-
-
 def _pipe_a_cuda(u, v, w, m):
     p = [torch.empty_like(u) for _ in range(3)]
-    _apply("pipe_a", BANDED, 1, [([m["biy"]], [u], p[0], None),
-                                 ([m["bsy"]], [v], p[1], None),
-                                 ([m["biy"]], [w], p[2], None)])
+    apply("pipe_a", BANDED, 1, [([m["biy"]], [u], p[0], None),
+                                ([m["bsy"]], [v], p[1], None),
+                                ([m["biy"]], [w], p[2], None)])
     z1, z23 = torch.empty_like(u), torch.empty_like(u)
-    _apply("pipe_a", PFWD, 2, [([m["iz"]], [p[0]], z1, None),
-                               ([m["iz"], m["sz"]], [p[1], p[2]], z23, None)])
+    # Sz before Iz: one chain sums both sources, and for the low z modes,
+    # which carry the solution after the solve, Sz's part is the small one
+    apply("pipe_a", PFWD, 2, [([m["iz"]], [p[0]], z1, None),
+                              ([m["sz"], m["iz"]], [p[2], p[1]], z23, None)])
     # p1 and p2 are dead: a and e take their buffers
-    _apply("pipe_a", PFWD, 1, [([m["ty"]], [z1], p[0], None),
-                               ([m["ty"]], [z23], p[1], None)])
+    apply("pipe_a", PFWD, 1, [([m["ty"]], [z1], p[0], None),
+                              ([m["ty"]], [z23], p[1], None)])
     return p[0], p[1]
 
 
 def _pipe_b_cuda(a, e, m):
     q = torch.empty_like(a)
-    _apply("pipe_b", PFWD, 0, [([m["sx"], m["ix"]], [a, e], q, None)],
-           epi=SOLVE, tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
+    apply("pipe_b", PFWD, 0, [([m["sx"], m["ix"]], [a, e], q, None)],
+          epi=SOLVE, tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
     X, Y = torch.empty_like(a), torch.empty_like(a)
-    _apply("pipe_b", PINV, 0, [([m["gxs"]], [q], X, None),
-                               ([m["gxi"]], [q], Y, None)])
+    apply("pipe_b", PINV, 0, [([m["gxs"]], [q], X, None),
+                              ([m["gxi"]], [q], Y, None)])
     return X, Y
 
 
 def _pipe_c_cuda(X, Y, u, v, w, m):
     px, dzy, pzy = (torch.empty_like(X) for _ in range(3))
-    _apply("pipe_c", PINV, 2, [([m["gzi"]], [X], px, None),
-                               ([m["gzs"]], [Y], dzy, None),
-                               ([m["gzi"]], [Y], pzy, None)])
+    apply("pipe_c", PINV, 2, [([m["gzi"]], [X], px, None),
+                              ([m["gzs"]], [Y], dzy, None),
+                              ([m["gzi"]], [Y], pzy, None)])
     gx, gz, gy = (torch.empty_like(X) for _ in range(3))
-    _apply("pipe_c", PINV, 1, [([m["tyi"]], [px], gx, None),
-                               ([m["tyi"]], [dzy], gz, None),
-                               ([m["tyi"]], [pzy], gy, None)])
+    apply("pipe_c", PINV, 1, [([m["tyi"]], [px], gx, None),
+                              ([m["tyi"]], [dzy], gz, None),
+                              ([m["tyi"]], [pzy], gy, None)])
     un, vn, wn = (torch.empty_like(u) for _ in range(3))
-    _apply("pipe_c", BANDED, 1, [([m["bgiy"]], [gx], un, u),
-                                 ([m["bgsy"]], [gy], vn, v),
-                                 ([m["bgiy"]], [gz], wn, w)], epi=SUB)
+    apply("pipe_c", BANDED, 1, [([m["bgiy"]], [gx], un, u),
+                                ([m["bgsy"]], [gy], vn, v),
+                                ([m["bgiy"]], [gz], wn, w)], epi=SUB)
     return un, vn, wn
-
-
-def _route(t, name):
-    """True for CUDA tensors (launch), False for CPU ones (plain)."""
-    if t.is_cuda:
-        return True
-    if t.device.type != "cpu":
-        raise ValueError(f"no {name} for device {t.device}")
-    return False
 
 
 def pipe_a(u, v, w, pm: ProjectionMats):
     """Stage A: (u, v, w) -> (a, e). CUDA tensors launch the kernel (or
     raise); CPU tensors run the plain version."""
-    if _route(u, "pipe_a"):
+    if route(u, "pipe_a"):
         return _pipe_a_cuda(u, v, w, pm.mats(torch.float32))
     return pipe_a_plain(u, v, w, pm.mats(u.dtype))
 
 
 def pipe_b(a, e, pm: ProjectionMats):
     """Stage B: (a, e) -> (X, Y), the x transforms around the solve."""
-    if _route(a, "pipe_b"):
+    if route(a, "pipe_b"):
         return _pipe_b_cuda(a, e, pm.mats(torch.float32))
     return pipe_b_plain(a, e, pm.mats(a.dtype))
 
 
 def pipe_c(X, Y, u, v, w, pm: ProjectionMats):
     """Stage C: (X, Y, u, v, w) -> the corrected (u', v', w')."""
-    if _route(X, "pipe_c"):
+    if route(X, "pipe_c"):
         return _pipe_c_cuda(X, Y, u, v, w, pm.mats(torch.float32))
     return pipe_c_plain(X, Y, u, v, w, pm.mats(X.dtype))
 
@@ -273,7 +138,7 @@ def make_pressure_pipe(pm: ProjectionMats):
     """fn(u, v, w) -> (u', v', w'): the keep_pressure=False projection as
     the three stages (x3d2_tpu make_pressure_pipe3) over the operator set
     `pm` (parity.build_projection_mats, which raises ValueError outside
-    ``pipe_supported``)."""
+    ``parity.projection_supported``)."""
 
     def fn(u, v, w):
         a, e = pipe_a(u, v, w, pm)

@@ -25,9 +25,13 @@ every axis, as the TPU kernels keep them; the operator set is the one the
 pipeline uses (ops/parity.py). Only the fast branches of the TPU slab are
 here (banded y, parity y and z, parity x): they are the ones it takes on
 the all-periodic uniform grids tiled by 128 that the port's kernel serves
-(``slab_supported``). The Nyquist mask of the TPU kernel is left out: on
-those grids it is identically one (the poisson names no Nyquist index, so
-the kernel's mx table is zero, pallas_poisson.py:646-656).
+(``parity.projection_supported``; the structural gate of x3d2_tpu,
+slab_pressure_supported, pallas_poisson.py:515-533, also admits
+wall-bounded axes through the dense and folded branches, and its
+VMEM-footprint test is a TPU limit with no counterpart here). The Nyquist
+mask of the TPU kernel is left out: on those grids it is identically one
+(the poisson names no Nyquist index, so the kernel's mx table is zero,
+pallas_poisson.py:646-656).
 
 A 512 x 512 plane is 1 MB against 227 KB of shared memory per block, so
 the mid is not one whole-plane kernel as on the TPU but six launches of
@@ -37,26 +41,19 @@ Without ``emit_q`` q is scratch the caller never sees, and the gradient
 slabs are bit-identical to the ``emit_q`` call (the same launches).
 
 A wrapper on CUDA tensors launches the kernel (or raises); on CPU tensors
-it runs the plain version.
+it runs the plain version. All take the projections' operator set
+(``parity.ProjectionMats``), which also carries the block-parity orderings
+(x_perm, q_perm, z_perm) and the column-permuted inverse transforms (ti_x,
+ti_y, ti_z) that turn q into the physical pressure.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .parity import (ProjectionMats, banded_apply, pfwd, pinv,
-                     projection_supported, solve_factor)
-from .pressure_pipe import (BANDED, PFWD, PINV, SOLVE_PLANE, SUB, _apply,
-                            _route)
-
-
-def slab_supported(solver) -> bool:
-    """The grids the slab kernels serve. The structural gate of x3d2_tpu
-    (slab_pressure_supported, pallas_poisson.py:515-533) also admits
-    wall-bounded axes, through dense and folded branches that are not
-    ported; its VMEM-footprint test is a TPU limit and has no counterpart
-    here."""
-    return projection_supported(solver)
+from .operator_apply import (BANDED, PFWD, PINV, SOLVE_PLANE, SUB, apply,
+                             route)
+from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
 
 
 # ---------------------------------------------------------------------------
@@ -93,82 +90,62 @@ def x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, m):
 
 def _x_div3_cuda(u, v, w, m):
     du, dv, dw = (torch.empty_like(u) for _ in range(3))
-    _apply("x_div3", PFWD, 0, [([m["sx"]], [u], du, None),
-                               ([m["ix"]], [v], dv, None),
-                               ([m["ix"]], [w], dw, None)])
+    apply("x_div3", PFWD, 0, [([m["sx"]], [u], du, None),
+                              ([m["ix"]], [v], dv, None),
+                              ([m["ix"]], [w], dw, None)])
     return du, dv, dw
 
 
 def _pressure_mid_cuda(du, dv, dw, m, emit_q):
     name = "pressure_mid[q]" if emit_q else "pressure_mid"
     t = [torch.empty_like(du) for _ in range(4)]
-    _apply(name, BANDED, 1, [([m["biy"], m["bsy"]], [du, dv], t[0], None),
-                             ([m["biy"]], [dw], t[1], None)])
-    _apply(name, PFWD, 2, [([m["iz"], m["sz"]], [t[0], t[1]], t[2], None)])
+    apply(name, BANDED, 1, [([m["biy"], m["bsy"]], [du, dv], t[0], None),
+                            ([m["biy"]], [dw], t[1], None)])
+    # Sz first: the kernel sums both sources in one chain, and for the low
+    # z modes, which carry the solution after the solve, Sz's part is
+    # small; behind Iz's it would be rounded at Iz's magnitude
+    apply(name, PFWD, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
     q = t[0]
-    _apply(name, PFWD, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
-           tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
-    _apply(name, PINV, 2, [([m["gzi"]], [q], t[1], None),
-                           ([m["gzs"]], [q], t[2], None)])
+    apply(name, PFWD, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
+          tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
+    apply(name, PINV, 2, [([m["gzi"]], [q], t[1], None),
+                          ([m["gzs"]], [q], t[2], None)])
     gh1, gh2 = t[3], torch.empty_like(du)
-    _apply(name, PINV, 1, [([m["tyi"]], [t[1]], gh1, None),
-                           ([m["tyi"]], [t[2]], gh2, None)])
+    apply(name, PINV, 1, [([m["tyi"]], [t[1]], gh1, None),
+                          ([m["tyi"]], [t[2]], gh2, None)])
     # p_z and dpdz_s are dead: two of the results take their buffers
     p_zy, dpdy, dpdz = t[1], t[2], torch.empty_like(du)
-    _apply(name, BANDED, 1, [([m["bgiy"]], [gh1], p_zy, None),
-                             ([m["bgsy"]], [gh1], dpdy, None),
-                             ([m["bgiy"]], [gh2], dpdz, None)])
+    apply(name, BANDED, 1, [([m["bgiy"]], [gh1], p_zy, None),
+                            ([m["bgsy"]], [gh1], dpdy, None),
+                            ([m["bgiy"]], [gh2], dpdz, None)])
     return (q if emit_q else None), p_zy, dpdy, dpdz
 
 
 def _x_gradsub3_cuda(p_zy, dpdy, dpdz, u, v, w, m):
     un, vn, wn = (torch.empty_like(u) for _ in range(3))
-    _apply("x_gradsub3", PINV, 0, [([m["gxs"]], [p_zy], un, u),
-                                   ([m["gxi"]], [dpdy], vn, v),
-                                   ([m["gxi"]], [dpdz], wn, w)], epi=SUB)
+    apply("x_gradsub3", PINV, 0, [([m["gxs"]], [p_zy], un, u),
+                                  ([m["gxi"]], [dpdy], vn, v),
+                                  ([m["gxi"]], [dpdz], wn, w)], epi=SUB)
     return un, vn, wn
 
 
 def x_div3(u, v, w, pm: ProjectionMats):
     """(u, v, w) -> (du, dv, dw), x modes in block-parity order."""
-    if _route(u, "x_div3"):
+    if route(u, "x_div3"):
         return _x_div3_cuda(u, v, w, pm.mats(torch.float32))
     return x_div3_plain(u, v, w, pm.mats(u.dtype))
 
 
 def pressure_mid(du, dv, dw, pm: ProjectionMats, emit_q=True):
     """(du, dv, dw) -> (q or None, p_zy, dpdy, dpdz)."""
-    if _route(du, "pressure_mid"):
+    if route(du, "pressure_mid"):
         return _pressure_mid_cuda(du, dv, dw, pm.mats(torch.float32), emit_q)
     return pressure_mid_plain(du, dv, dw, pm.mats(du.dtype), emit_q)
 
 
 def x_gradsub3(p_zy, dpdy, dpdz, u, v, w, pm: ProjectionMats):
     """(p_zy, dpdy, dpdz, u, v, w) -> the corrected (u', v', w')."""
-    if _route(u, "x_gradsub3"):
+    if route(u, "x_gradsub3"):
         return _x_gradsub3_cuda(p_zy, dpdy, dpdz, u, v, w,
                                 pm.mats(torch.float32))
     return x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, pm.mats(u.dtype))
-
-
-class PressureSlab:
-    """The slab projection's three functions over one operator set
-    (parity.build_projection_mats, which raises ValueError outside
-    ``slab_supported``), with the block-parity orderings (x_perm, q_perm,
-    z_perm) and the column-permuted inverse transforms (ti_x, ti_y, ti_z,
-    per dtype through ``mats``) that turn q into the physical pressure."""
-
-    def __init__(self, pm: ProjectionMats):
-        self.mats = pm
-        self.x_perm = pm.x_perm
-        self.q_perm = pm.q_perm
-        self.z_perm = pm.z_perm
-
-    def div3(self, u, v, w):
-        return x_div3(u, v, w, self.mats)
-
-    def mid(self, du, dv, dw, emit_q=True):
-        return pressure_mid(du, dv, dw, self.mats, emit_q)
-
-    def gradsub3(self, p_zy, dpdy, dpdz, u, v, w):
-        return x_gradsub3(p_zy, dpdy, dpdz, u, v, w, self.mats)

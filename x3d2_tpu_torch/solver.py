@@ -39,9 +39,9 @@ from .mesh import Mesh
 from .ops.compact import apply_matrix
 from .ops.dirops import AxisOps, build_all_ops
 from .ops.matmul_poisson import MatmulPoisson
+from .ops import pressure_slab
 from .ops.parity import build_projection_mats, projection_supported
 from .ops.pressure_pipe import make_pressure_pipe
-from .ops.pressure_slab import PressureSlab
 
 # the TPU kernels behind the cases that raise on the card
 _UNPORTED_TRANSEQ = ("the v3 sweeps without the AB epilogue "
@@ -97,12 +97,13 @@ class NavierStokes:
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
                  poisson=poisson)
         ns._fused_pressure_mats()
+        # both kernel projections over one operator set: _pipe is the
+        # pipeline's function, _slab the set the slab's functions take
         pipe = slab = None
         if projection_supported(ns):
             try:
-                pm = build_projection_mats(ns)
-                pipe = make_pressure_pipe(pm)
-                slab = PressureSlab(pm)
+                slab = build_projection_mats(ns)
+                pipe = make_pressure_pipe(slab)
             except ValueError:
                 # a band wider than the kernel's: the CPU keeps the folded
                 # chain; the card raises in pressure_correction
@@ -276,8 +277,10 @@ class NavierStokes:
         p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
         inputs (the xdiv sweep's), so x_div3 is skipped; without want_q
         the spectral solution is not returned."""
-        du, dv, dw = divs if divs is not None else self._slab.div3(u, v, w)
-        return self._slab.mid(du, dv, dw, emit_q=want_q)
+        du, dv, dw = divs if divs is not None \
+            else pressure_slab.x_div3(u, v, w, self._slab)
+        return pressure_slab.pressure_mid(du, dv, dw, self._slab,
+                                          emit_q=want_q)
 
     def pressure_correction(self, u, v, w, keep_pressure=True, divs=None):
         """Fractional-step projection (solver.f90:693-739): the
@@ -293,12 +296,13 @@ class NavierStokes:
         if self._slab is not None:
             q, p_zy, dpdy, dpdz = self._slab_mid(
                 u, v, w, want_q=keep_pressure, divs=divs)
-            un, vn, wn = self._slab.gradsub3(p_zy, dpdy, dpdz, u, v, w)
+            un, vn, wn = pressure_slab.x_gradsub3(p_zy, dpdy, dpdz, u, v, w,
+                                                  self._slab)
             p = q
             if keep_pressure:
                 # q's modes are in block-parity order on every axis: the
                 # inverse transforms carry permuted columns
-                m = self._slab.mats.mats(u.dtype)
+                m = self._slab.mats(u.dtype)
                 for a, name in enumerate(("ti_x", "ti_y", "ti_z")):
                     p = apply_matrix(m[name], p, a)
             return un, vn, wn, p
