@@ -7,14 +7,17 @@ Phases, each printing its own lines; any failed check exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and asserts full-float32 matmuls (TF32 off).
-2. Build: compiles every kernel source (csrc/transeq_sweep.cu,
-   csrc/pressure_pipe.cu) with nvcc for sm_90a, one nvcc per source, all
-   started together.
+2. Build: compiles every kernel source (csrc/transeq_sweep.cu, which also
+   holds the species kernel, and csrc/pressure_pipe.cu) with nvcc for
+   sm_90a, one nvcc per source, all started together.
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
-   At 512^3 (main path, path B):
+   At 512^3 (main path, path B, path S, paths R and R4):
    - the sweeps z; x accumulate; y accumulate + AB3 with the steady and a
-     startup coefficient row;
+     startup coefficient row; y accumulate with the RK substage updates
+     (history fields, base) = (0, own), (0, f0), (2, f0) (RK3's rows) and
+     (3, f0) (RK4's last);
+   - the species sweeps z; x accumulate; y accumulate, two scalars;
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
      inputs the previous stage's plain version gives;
    - the slab projection: x_div3, the mid with q, the mid without q (its
@@ -24,6 +27,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    x-transformed divergence inputs) with the steady and a startup row, run
    twice and compared bit for bit; x accumulate; y accumulate + AB3; the
    pipeline's stages; the slab projection's functions.
+   At (128, 128, 256), the example grid (path S-ex): the sweeps z; y
+   accumulate; the xdiv sweep; the species sweeps; the mid without q and
+   x_gradsub3, the mid also on white noise.
    max |kernel - plain f32| <= 1e-5 * scale and max |kernel - plain f64|
    <= 3e-5 * scale (scale = max |plain f64|); kernel and plain times (CUDA
    events, median) beside the bound. The mid's inputs there are plane
@@ -49,13 +55,29 @@ Phases, each printing its own lines; any failed check exits non-zero:
    initial state gives bit-identical u, v, w; ms/step; then the same grid
    with X3D2_XDIV_FUSED=0 (the z, x, y chain and the pipeline), timed the
    same way. Both times are printed; neither is asserted to be the faster.
-7. Slice as a whole: TGV (128, 128, 256) AB3 float32, 10 steps on the card
-   (kernels) and on the CPU (plain versions), through the xdiv path, with
-   keep_pressure=True, and with X3D2_XDIV_FUSED=0: max |du, dv, dw| <=
-   1e-5, KE relative difference <= 1e-6, p within p_tolerance.
-8. The total wall time, the kernels line (JSON; one entry per kernel and
-   size a path gives it, named kernel@n, its launches those of the path
-   run at that size), the card line, and the result line.
+7. Passive scalars and Runge-Kutta, keep_pressure=False, with the same
+   checks, and for the scalars phi finite and its variance (sum of phi^2,
+   in float64) lower at the end than at the start:
+   - path S: TGV 512^3 AB3 with two scalars (Pr 0.7 and 1.0), 10 steps: the
+     main path's launches and the species sweeps z, x, y once a step;
+     ms/step and the share of the species sweeps;
+   - path S-ex: examples/TGV_species/input.x3d read by the port's
+     config.py, at its grid (128, 128, 256), 20 steps: the xdiv chain, the
+     species sweeps, the mid (6) and x_gradsub3 once a step;
+   - path R: TGV 512^3 RK3, 10 steps: per substage the RK sweep chain (z,
+     x + acc, y + acc + the substage update) and the pipeline, 33 launches
+     a step; path R4: RK4, 3 steps, whose last substage reads three stage
+     derivatives.
+8. Slice as a whole: TGV (128, 128, 256) float32, 10 steps on the card
+   (kernels) and on the CPU (plain versions): AB3 through the xdiv path,
+   with keep_pressure=True, and with X3D2_XDIV_FUSED=0; AB3 with two
+   scalars; RK3 fused; RK3 with two scalars (the unfused RK branch). max
+   |du, dv, dw| <= 1e-5 and max |dphi| <= 1e-5, KE relative difference
+   <= 1e-6, p within p_tolerance.
+9. The total wall time, the kernels line (JSON; one entry per kernel and
+   size a path gives it, named kernel@n, n the edge of a cubic grid or
+   nx x ny x nz, its launches those of the path run at that size), the
+   card line, and the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -67,18 +89,22 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
-NS = 512                    # grid of the main path and of path B
+NS = 512                    # grid of the main path, paths B, S, R, R4
 NA = 256                    # grid of path A (the xdiv chain)
-SMALL = (128, 128, 256)     # whole-slice comparison grid
-STEPS = 10                  # steps at 512^3
-STEPS_A = 20                # steps at 256^3
+SMALL = (128, 128, 256)     # whole-slice comparison grid, the example's
+EXAMPLE = "examples/TGV_species/input.x3d"   # path S-ex
+STEPS = 10                  # steps at 512^3 (path R4: STEPS_R4)
+STEPS_A = 20                # steps at 256^3 and on the example grid
+STEPS_R4 = 3
+PR = (0.7, 1.0)             # the example's scalars
 DT = 1e-3
 # f32 projection level of div_u_max: the f32 plain path on the CPU reaches
 # 7.5e-6, 2.4e-5 and 7.3e-5 at 64^3, 128^3 and 256^3 after two TGV steps
 # (about 3x per doubling, the derivative operators' 1/dx growth), so about
 # 2e-4 is expected at 512^3. The limits are 5x the expected level.
-DIV_LIMIT = {512: 1e-3, 256: 3.65e-4}
+DIV_LIMIT = {512: 1e-3, 256: 3.65e-4}   # by max(dims)
 # H100 SXM data-sheet rates (NVIDIA), dense, at the 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -87,6 +113,7 @@ PIPE_SOURCE = "x3d2_tpu_torch/csrc/pressure_pipe.cu"
 REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             0: "x3d2_tpu/ops/pallas_kernels.py:172",
             1: "x3d2_tpu/ops/pallas_kernels.py:172",
+            "species": "x3d2_tpu/ops/pallas_kernels.py:1038",
             "pipe_a": "x3d2_tpu/ops/pallas_poisson.py:1378",
             "pipe_b": "x3d2_tpu/ops/pallas_poisson.py:1405",
             "pipe_c": "x3d2_tpu/ops/pallas_poisson.py:1455",
@@ -123,22 +150,43 @@ def cuda_ms(fn, reps, torch):
     return times[len(times) // 2]
 
 
-def sweep_cost(shape, accumulate, nolds, w, xdiv=False):
+def size_label(shape):
+    """The edge of a cubic grid, else nx x ny x nz."""
+    return str(shape[0]) if len(set(shape)) == 1 else "x".join(map(str,
+                                                                   shape))
+
+
+def sweep_cost(shape, accumulate, nolds, w, xdiv=False, upd=None,
+               base_sep=False):
     """(bytes, flops) the sweep function needs: each input field read once
     and each output written once; the band taps each output needs (2w + 1
     per operator: D1, D2 and D1d, for 3 components), the q*conv products,
-    the combine, the accumulate and the AB update. The kernel's 96-wide
-    block rows (BS + 2W) are its design, not a need of the function. With
-    xdiv: three more outputs and three parity-split x applies."""
+    the combine, the accumulate and the time update (upd, default nolds >
+    0; base_sep: three more inputs, the RK step-initial fields). The
+    kernel's 96-wide block rows (BS + 2W) are its design, not a need of the
+    function. With xdiv: three more outputs and three parity-split x
+    applies."""
+    upd = nolds > 0 if upd is None else upd
     npts = shape[0] * shape[1] * shape[2]
-    nin = 3 + (3 if accumulate else 0) + 3 * nolds
-    nout = (6 if nolds else 3) + (3 if xdiv else 0)
+    nin = 3 + (3 if accumulate else 0) + 3 * nolds + (3 if base_sep else 0)
+    nout = (6 if upd else 3) + (3 if xdiv else 0)
     per_pt = 3 * (2 * 3 * (2 * w + 1) + 1 + 5) + (3 if accumulate else 0)
-    if nolds:
+    if upd:
         per_pt += 3 * (2 + 2 * nolds)
     if xdiv:
         per_pt += 3 * (shape[0] + 1)
     return 4 * npts * (nin + nout), npts * per_pt
+
+
+def species_cost(shape, nsp, accumulate, w):
+    """(bytes, flops) of the species sweep function, counted as sweep_cost
+    counts: the conv and each scalar read once (and each accumulator), each
+    scalar's rhs written once; per scalar the band taps of D1, D2 and D1s,
+    the phi*conv product and the combine."""
+    npts = shape[0] * shape[1] * shape[2]
+    nfields = 1 + nsp * (2 + (1 if accumulate else 0))
+    per_pt = nsp * (2 * 3 * (2 * w + 1) + 1 + 5 + (1 if accumulate else 0))
+    return 4 * npts * nfields, npts * per_pt
 
 
 def pipe_cost(stage, shape, w):
@@ -204,6 +252,12 @@ def rel_err(got, ref):
     return max(errs), max(rels)
 
 
+def phi_variance(phi):
+    """The scalars' variance, sum of phi^2 in float64 (their analogue of
+    the kinetic energy)."""
+    return float(phi.double().pow(2).sum())
+
+
 def p_tolerance(p_ref, vel):
     """The bound on max |p - p_ref| for two float32 evaluations of the
     projection's pressure on one input: 1e-5 of max |p_ref|, plus four
@@ -227,19 +281,21 @@ def main():
               file=sys.stderr)
         return 2
     import x3d2_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
-    from x3d2_tpu_torch import _build
+    from x3d2_tpu_torch import _build, config
     from x3d2_tpu_torch.cases import SolverParams, TGVCase
     from x3d2_tpu_torch.common import BC, DataLoc
     from x3d2_tpu_torch.mesh import Mesh
     from x3d2_tpu_torch.ops import operator_apply as oa
     from x3d2_tpu_torch.ops import pressure_pipe as pp
     from x3d2_tpu_torch.ops import pressure_slab as sl
+    from x3d2_tpu_torch.ops import species_sweep as spm
     from x3d2_tpu_torch.ops import transeq_sweep as ts
     from x3d2_tpu_torch.ops.parity import BW, solve_factor
     from x3d2_tpu_torch.solver import NavierStokes
     from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
-    os.environ.pop("X3D2_XDIV_FUSED", None)
+    for switch in ("X3D2_XDIV_FUSED", "X3D2_FUSED_RK"):
+        os.environ.pop(switch, None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -262,21 +318,25 @@ def main():
               flush=True)
         inst = ""
         for line in _build.BUILD_LOG.get(name, "").splitlines():
-            # ptxas names each instance by its mangled template arguments:
-            # <AXIS, ACC, NOLDS, XDIV> or <MODE, TRANS, EPI>
-            found = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
+            # ptxas names each instance by its mangled name and template
+            # arguments: transeq_sweep_kernel<AXIS, ACC, NOLDS, UPD,
+            # BASE_SEP>, transeq_xdiv_kernel<NOLDS>, species_sweep_kernel
+            # <AXIS, ACC>, mat_apply_kernel<MODE, TRANS, EPI>
+            found = re.search(r"(?<=\d)([a-z_]+_kernel)I((?:L[ib]\d+E)+)E",
+                              line)
             if found:
-                inst = "<" + ",".join(
-                    re.findall(r"L[ib](\d+)E", found.group(1))) + ">"
+                inst = found.group(1) + "<" + ",".join(
+                    re.findall(r"L[ib](\d+)E", found.group(2))) + ">"
             elif "registers" in line or "spill" in line:
-                print(f"[build {name}{inst}] " + line.strip())
+                print(f"[build {name} {inst}] " + line.strip())
 
     # ---- 3. kernels vs plain ---------------------------------------------
     per = ((BC.PERIODIC, BC.PERIODIC),) * 3
     nu = 1.0 / 1600
+    nus = tuple(nu / pr for pr in PR)
     d64 = torch.float64
     ti = TimeIntegrator("AB3")
-    rows = {}     # (kernel name, n) -> its entry of the kernels line
+    rows = {}     # (kernel name, size label) -> its entry of the kernels line
 
     def row(name, n, source, replaces, err, ms, plain_ms, cost):
         b, by, t_bytes, t_ops = bound(*cost)
@@ -307,59 +367,88 @@ def main():
             out += [x] if torch.is_tensor(x) else flat(x)
         return out
 
+    def hold(label, n, kern, plain, args, name, replaces, cost, again=False):
+        """Hold kern(*args) against plain(*args) in float32 and plain on
+        the float64 args; time both. A name met before at this size (a
+        second coefficient row) adds its error to the first's entry. With
+        again: a second launch must give the same bits."""
+        got = flat(kern(*args))
+        torch.cuda.synchronize()
+        if again:
+            repeat = flat(kern(*args))
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, h) for g, h in zip(got, repeat)),
+                  f"{label}: two launches differ")
+            del repeat
+        err32, rel32 = rel_err(got, flat(plain(*args)))
+        _, rel64 = rel_err(got, flat(plain(*to64(args))))
+        del got
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kern(*args), 10, torch)
+        plain_ms = cuda_ms(lambda: plain(*args), 5, torch)
+        if (name, n) in rows:   # the startup row: the steady one's times
+            rows[name, n]["max_abs_err"] = max(err32,
+                                               rows[name, n]["max_abs_err"])
+            txt = ""
+        else:
+            txt = row(name, n, SWEEP_SOURCE, replaces, err32, ms, plain_ms,
+                      cost)
+        report(f"{label} {n}", err32, rel32, rel64, ms, plain_ms, txt)
+
     def sweep_rows(shape, ops, variants, randn):
-        """Hold sweep variants (label, axis, acc, olds, dtc, xdiv) against
-        the plain version at `shape`."""
+        """Hold sweep variants (label, axis, kw: acc, olds, dtc, xdiv,
+        base) against the plain version at `shape`."""
         u, v, w = randn(), randn(), randn()
-        n = shape[0]
-        for label, axis, a, o, dtc, xm in variants:
+        n = size_label(shape)
+        for label, axis, kw in variants:
             blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev)
-            nolds = 2 if dtc is not None else 0
+            a, o, dtc = kw.get("acc"), kw.get("olds"), kw.get("dtc")
+            xm, base = kw.get("xdiv"), kw.get("base")
+            nolds = len(o[0]) if o is not None else 0
 
-            def kern():
+            def kern(u, v, w, a, o, base):
                 return ts.transeq_sweep(u, v, w, blocks, nu, acc=a, olds=o,
-                                        dtc=dtc, xdiv=xm)
+                                        dtc=dtc, xdiv=xm, base=base)
 
-            def plain(f=(u, v, w), a=a, o=o):
-                return ts.transeq_sweep_plain(*f, blocks, nu, acc=a, olds=o,
-                                              dtc=dtc, xdiv=xm)
+            def plain(u, v, w, a, o, base):
+                return ts.transeq_sweep_plain(u, v, w, blocks, nu, acc=a,
+                                              olds=o, dtc=dtc, xdiv=xm,
+                                              base=base)
 
-            got = flat(kern())
-            torch.cuda.synchronize()
-            if xm is not None:
-                # the sum over x blocks has a fixed order: a second launch
-                # gives the same bits
-                again = flat(kern())
-                torch.cuda.synchronize()
-                check(all(torch.equal(g, h) for g, h in zip(got, again)),
-                      f"sweep {label}: two launches differ")
-                del again
-            err32, rel32 = rel_err(got, flat(plain()))
-            _, rel64 = rel_err(got, flat(plain(to64((u, v, w)), to64(a),
-                                               to64(o))))
-            del got
-            torch.cuda.synchronize()
-            ms = cuda_ms(kern, 10, torch)
-            plain_ms = cuda_ms(plain, 5, torch)
-            name = ts.variant_name(axis, a is not None, nolds,
-                                   xm is not None)
-            if (name, n) in rows:   # the startup row: the steady one's times
-                rows[name, n]["max_abs_err"] = max(
-                    err32, rows[name, n]["max_abs_err"])
-                txt = ""
-            else:
-                txt = row(name, n, SWEEP_SOURCE, REPLACES[axis], err32, ms,
-                          plain_ms, sweep_cost(shape, a is not None, nolds,
-                                               ts.W, xm is not None))
-            report(f"sweep {label} {n}^3", err32, rel32, rel64, ms, plain_ms,
-                   txt)
+            upd, sep = dtc is not None, base is not None
+            hold(f"sweep {label}", n, kern, plain, (u, v, w, a, o, base),
+                 ts.variant_name(axis, a is not None, nolds, xm is not None,
+                                 upd, sep),
+                 REPLACES[axis],
+                 sweep_cost(shape, a is not None, nolds, ts.W,
+                            xm is not None, upd, sep),
+                 again=xm is not None)
+
+    def species_rows(shape, ops, randn):
+        """The species sweeps of the two scalars, z; x + acc; y + acc."""
+        phis = (randn(), randn())
+        comps = (randn(), randn(), randn())
+        acc = (randn(100.0), randn(100.0))
+        for axis, a in ((2, None), (0, acc), (1, acc)):
+            blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev)
+
+            def kern(phis, conv, a):
+                return spm.species_sweep(phis, conv, blocks, nus, acc=a)
+
+            def plain(phis, conv, a):
+                return spm.species_sweep_plain(phis, conv, blocks, nus, acc=a)
+
+            name = spm.variant_name(axis, a is not None)
+            hold(name, size_label(shape), kern, plain,
+                 (phis, comps[axis], a), name, REPLACES["species"],
+                 species_cost(shape, len(nus), a is not None, ts.W))
 
     def stage_row(name, ins, kern_fn, plain_fn, cost, pm, on_path=True):
         """Hold one function of a projection (operator set `pm`) against
         its plain version on `ins`. on_path=False: a size no path gives the
         function, held but left out of the kernels line."""
         m32, m64 = pm.mats(torch.float32), pm.mats(d64)
-        n = ins[0].shape[0]
+        n = size_label(ins[0].shape)
         got = [t for t in kern_fn(*ins, pm) if t is not None]
         torch.cuda.synchronize()
         err32, rel32 = rel_err(got, [t for t in plain_fn(*ins, m32)
@@ -374,7 +463,7 @@ def main():
                   cost)
         if not on_path:
             del rows[name, n]
-        report(f"{name} {n}^3", err32, rel32, rel64, ms, plain_ms, txt)
+        report(f"{name} {n}", err32, rel32, rel64, ms, plain_ms, txt)
 
     def pipe_rows(shape, fields, pm):
         """The pipeline's stages at `shape`, each on the inputs the
@@ -446,10 +535,10 @@ def main():
               and all(torch.equal(a, b)
                       for a, b in zip(with_q[1:], no_q[1:])),
               "the mid without q must give the bits of the mid with q")
-        print(f"[pressure_mid {shape[0]}^3] without q: p_zy, dpdy, dpdz "
-              "bit-equal to the mid with q", flush=True)
+        print(f"[pressure_mid {size_label(shape)}] without q: p_zy, dpdy, "
+              "dpdz bit-equal to the mid with q", flush=True)
 
-    def mid_on_noise(n, pm, fields, label, hold):
+    def mid_on_noise(shape, pm, fields, label, hold):
         """The mid with q on the x_div3 of `fields`: kernel, plain float32
         and plain float64. Printed; with `hold` (white noise) also held:
         - q times its wave factor is the solve's input F, mode by mode,
@@ -479,7 +568,7 @@ def main():
             d = (a - b) if weight is None else (a - b) * weight
             return float(d.abs().max()), float(d.pow(2).mean().sqrt())
 
-        tag = f"pressure_mid[q] {n}^3 on {label}"
+        tag = f"pressure_mid[q] {size_label(shape)} on {label}"
         for name, k, p32, p64 in zip(("q", "p_zy", "dpdy", "dpdz"), kern,
                                      plain32, plain64):
             kp, k6, p6 = dist(k, p32), dist(k, p64), dist(p32, p64)
@@ -497,7 +586,7 @@ def main():
                 check(kp[0] <= 4 * p6[0] and k6[0] <= 4 * p6[0],
                       f"{tag}: {name} max {kp[0]}, {k6[0]} vs {p6[0]}")
         if hold:
-            factor = solve_factor(m64, (n,) * 3).abs()
+            factor = solve_factor(m64, tuple(shape)).abs()
             waves = torch.where(factor > 0, 1.0 / factor, factor)
             scale = float((plain64[0] * waves).abs().max())
             f32 = dist(kern[0], plain32[0], waves)[0] / scale
@@ -508,34 +597,66 @@ def main():
             check(f32 <= 1e-5 and f64 <= 3e-5,
                   f"{tag}: weighted q {f32}, {f64}")
 
-    # -- 3a. at 512^3: what the main path and path B launch --
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn_of(shape_):
+        def randn(scale=1.0):
+            return scale * torch.randn(shape_, generator=gen, device=dev)
+        return randn
+
+    # -- 3a. at 512^3: what the main path, paths B, S, R and R4 launch --
     shape = (NS,) * 3
     mesh = Mesh(shape, (2 * math.pi,) * 3, per)
     ns = NavierStokes.build(mesh, nu, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(scale=1.0):
-        return scale * torch.randn(shape, generator=gen, device=dev)
-
+    randn = randn_of(shape)
     acc = tuple(randn(100.0) for _ in range(3))
     olds = tuple(tuple(randn(100.0) for _ in range(2)) for _ in range(3))
     sweep_rows(shape, ns.ops, [
-        ("z", 2, None, None, None, None),
-        ("x,acc", 0, acc, None, None, None),
-        ("y,acc,ab3 steady", 1, acc, olds, ti.ab_row(3, DT), None),
-        ("y,acc,ab3 startup", 1, acc, olds, ti.ab_row(1, DT), None),
+        ("z", 2, {}),
+        ("x,acc", 0, {"acc": acc}),
+        ("y,acc,ab3 steady", 1, {"acc": acc, "olds": olds,
+                                 "dtc": ti.ab_row(3, DT)}),
+        ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
+                                  "dtc": ti.ab_row(1, DT)}),
     ], randn)
-    del acc, olds
+    # the RK substage updates, on the rows of the RK3 and RK4 tableaus:
+    # the first substage's base is u, v, w; the later ones' the
+    # step-initial fields f0, with 0, 2 (RK3's last) or 3 (RK4's last)
+    # earlier stage derivatives
+    rk3, rk4 = TimeIntegrator("RK3"), TimeIntegrator("RK4")
+    f0 = tuple(randn() for _ in range(3))
+    ks = [tuple(randn(100.0) for _ in range(3)) for _ in range(3)]
+
+    def stage_olds(prev):
+        return tuple(tuple(ks[j][c] for j in prev) for c in range(3))
+
+    sweep_rows(shape, ns.ops, [
+        ("y,acc,rk0 (RK3 substage 0)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(0, DT)}),
+        ("y,acc,rk0,f0 (RK3 substage 1)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(1, DT),
+          "base": f0}),
+        ("y,acc,rk2,f0 (RK3 substage 2)", 1,
+         {"acc": acc, "olds": stage_olds(rk3.rk_prev(2)),
+          "dtc": rk3.rk_row(2, DT), "base": f0}),
+        ("y,acc,rk3,f0 (RK4 substage 3)", 1,
+         {"acc": acc, "olds": stage_olds(rk4.rk_prev(3)),
+          "dtc": rk4.rk_row(3, DT), "base": f0}),
+    ], randn)
+    del acc, olds, f0, ks
+    torch.cuda.empty_cache()
+    species_rows(shape, ns.ops, randn)
+    torch.cuda.empty_cache()
     pm = ns._slab
     u, v, w = randn(), randn(), randn()
     pipe_rows(shape, (u, v, w), pm)
     # the mid without q is on no path at this size: held, not listed
     slab_rows(shape, mesh, pm, ("x_div3", "pressure_mid[q]", "x_gradsub3"))
     torch.cuda.empty_cache()
-    mid_on_noise(NS, pm, (u, v, w), "white noise", True)
+    mid_on_noise(shape, pm, (u, v, w), "white noise", True)
     # for the record, the other reason the mid's inputs are plane waves of
     # k about 12: a smooth field
-    mid_on_noise(NS, pm, wave_fields(mesh, k=1), "waves of k = 1", False)
+    mid_on_noise(shape, pm, wave_fields(mesh, k=1), "waves of k = 1", False)
     torch.cuda.empty_cache()
 
     # each whole projection on the kernels against the other formulations
@@ -568,82 +689,136 @@ def main():
     shape_a = (NA,) * 3
     mesh_a = Mesh(shape_a, (2 * math.pi,) * 3, per)
     ns_a = NavierStokes.build(mesh_a, nu, device=dev)
+    randn_a = randn_of(shape_a)
 
-    def randn_a(scale=1.0):
-        return scale * torch.randn(shape_a, generator=gen, device=dev)
+    def xdiv_variants(ns_, n_x, acc, olds):
+        f64m = ns_._fp_mats64()
+        xm = ts.build_xdiv_mats(f64m["sx"], f64m["ix"], n_x, device=dev)
+        return [
+            ("z", 2, {}),
+            ("y,acc", 1, {"acc": acc}),
+            ("x,acc,ab3,xdiv steady", 0, {"acc": acc, "olds": olds,
+                                          "dtc": ti.ab_row(3, DT),
+                                          "xdiv": xm}),
+            ("x,acc,ab3,xdiv startup", 0, {"acc": acc, "olds": olds,
+                                           "dtc": ti.ab_row(1, DT),
+                                           "xdiv": xm})]
 
     acc = tuple(randn_a(100.0) for _ in range(3))
     olds = tuple(tuple(randn_a(100.0) for _ in range(2)) for _ in range(3))
-    f64m = ns_a._fp_mats64()
-    xm = ts.build_xdiv_mats(f64m["sx"], f64m["ix"], NA, device=dev)
-    sweep_rows(shape_a, ns_a.ops, [
-        ("z", 2, None, None, None, None),
-        ("y,acc", 1, acc, None, None, None),
-        ("x,acc,ab3,xdiv steady", 0, acc, olds, ti.ab_row(3, DT), xm),
-        ("x,acc,ab3,xdiv startup", 0, acc, olds, ti.ab_row(1, DT), xm),
-        ("x,acc", 0, acc, None, None, None),
-        ("y,acc,ab3 steady", 1, acc, olds, ti.ab_row(3, DT), None),
-        ("y,acc,ab3 startup", 1, acc, olds, ti.ab_row(1, DT), None),
+    sweep_rows(shape_a, ns_a.ops, xdiv_variants(ns_a, NA, acc, olds) + [
+        ("x,acc", 0, {"acc": acc}),
+        ("y,acc,ab3 steady", 1, {"acc": acc, "olds": olds,
+                                 "dtc": ti.ab_row(3, DT)}),
+        ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
+                                  "dtc": ti.ab_row(1, DT)}),
     ], randn_a)
-    del acc, olds, xm, f64m
+    del acc, olds
     pm_a = ns_a._slab
     noise_a = (randn_a(), randn_a(), randn_a())
     pipe_rows(shape_a, noise_a, pm_a)
     # x_div3 and the mid with q are on no path at this size
     slab_rows(shape_a, mesh_a, pm_a, ("pressure_mid", "x_gradsub3"))
-    mid_on_noise(NA, pm_a, noise_a, "white noise", True)
+    mid_on_noise(shape_a, pm_a, noise_a, "white noise", True)
     del noise_a, ns_a, pm_a
     torch.cuda.empty_cache()
 
-    # ---- 4-6. the paths ------------------------------------------------------
+    # -- 3c. at (128, 128, 256), the example grid: what path S-ex launches --
+    mesh_e = Mesh(SMALL, (2 * math.pi,) * 3, per)
+    ns_e = NavierStokes.build(mesh_e, nu, device=dev)
+    randn_e = randn_of(SMALL)
+    acc = tuple(randn_e(100.0) for _ in range(3))
+    olds = tuple(tuple(randn_e(100.0) for _ in range(2)) for _ in range(3))
+    sweep_rows(SMALL, ns_e.ops, xdiv_variants(ns_e, SMALL[0], acc, olds),
+               randn_e)
+    del acc, olds
+    species_rows(SMALL, ns_e.ops, randn_e)
+    pm_e = ns_e._slab
+    slab_rows(SMALL, mesh_e, pm_e, ("pressure_mid", "x_gradsub3"))
+    mid_on_noise(SMALL, pm_e, (randn_e(), randn_e(), randn_e()),
+                 "white noise", True)
+    del ns_e, pm_e
+    torch.cuda.empty_cache()
+
+    # ---- 4-7. the paths ------------------------------------------------------
     params = SolverParams(Re=1600.0, time_intg="AB3", dt=DT)
+    params_s = SolverParams(Re=1600.0, time_intg="AB3", dt=DT, n_species=2,
+                            pr_species=PR)
     sweeps_zxy = [ts.variant_name(2, False, 0), ts.variant_name(0, True, 0),
                   ts.variant_name(1, True, 2)]
     sweeps_xdiv = [ts.variant_name(2, False, 0), ts.variant_name(1, True, 0),
                    ts.variant_name(0, True, 2, True)]
+    species = [spm.variant_name(2, False), spm.variant_name(0, True),
+               spm.variant_name(1, True)]
+    pipe3 = ["pipe_a", "pipe_b", "pipe_c"]
 
-    def drive(tag, mesh_, n, keep_pressure, steps, want_names, spy=None):
+    def counts_now():
+        return {**ts.launch_counts(), **oa.launch_counts(),
+                **spm.launch_counts()}
+
+    def drive(tag, mesh_, params_, keep_pressure, steps, per_step,
+              spy=None):
         """One TGV run through TGVCase.run with the launch counts set to 0
-        just before and read just after; checks the counts, KE and the
-        divergence. Returns (case, state, counts)."""
+        just before and read just after. per_step names each kernel call of
+        a step (a name once per call). Checks the counts, KE and the
+        divergence, and with scalars phi and its variance. A kernel's
+        entry in the kernels line takes the launches of the first path
+        that runs it at that size. Returns (case, state, counts)."""
         t0 = time.perf_counter()
-        case = TGVCase(mesh_, params, dtype=torch.float32, monitor_path=None,
+        case = TGVCase(mesh_, params_, dtype=torch.float32, monitor_path=None,
                        verbose=False, keep_pressure=keep_pressure, device=dev)
-        check(case._fused_ab is not None, f"{tag}: must take the fused sweeps")
+        check(case._fused_ab is not None or case._fused_rk is not None,
+              f"{tag}: must take a fused sweep chain")
         if spy is not None:
             spy(case)
         state = case.initial_state()
+        var0 = phi_variance(state["phi"]) if "phi" in state else None
         torch.cuda.synchronize()
-        print(f"[{tag}] TGV {n}^3 keep_pressure={keep_pressure} set-up "
+        dims = mesh_.dims(DataLoc.VERT)
+        n = size_label(dims)
+        print(f"[{tag}] TGV {n} {params_.time_intg} n_species="
+              f"{params_.n_species} keep_pressure={keep_pressure} set-up "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ts.reset_launch_counts()
         oa.reset_launch_counts()
+        spm.reset_launch_counts()
         state = case.run(n_iters=steps, state=state, n_output=1, fresh=True)
         torch.cuda.synchronize()
-        counts = {**ts.launch_counts(), **oa.launch_counts()}
+        counts = counts_now()
         mon = case.monitor.rows
         ke = [r[4] for r in mon]
         ens = [r[1] for r in mon]
         div_max = max(r[2] for r in mon[1:])
+        limit = DIV_LIMIT[max(dims)]
         print(f"[{tag}] launches {counts}", flush=True)
         print(f"[{tag}] ke {ke[0]:.10e} -> {ke[-1]:.10e}  enstrophy "
               f"{ens[0]:.8e} -> {ens[-1]:.8e}  div_u_max <= {div_max:.3e} "
-              f"(limit {DIV_LIMIT[n]:g})", flush=True)
-        want = {name: steps * oa.LAUNCHES_PER_CALL.get(name, 1)
-                for name in want_names}
+              f"(limit {limit:g})", flush=True)
+        want = {name: steps * k * oa.LAUNCHES_PER_CALL.get(name, 1)
+                for name, k in Counter(per_step).items()}
         check(counts == want, f"{tag}: expected launches {want}, got "
                               f"{counts}")
         check(all(math.isfinite(x) for x in ke + ens),
               f"{tag}: non-finite KE/enstrophy")
         check(all(b < a for a, b in zip(ke, ke[1:])),
               f"{tag}: KE must decrease")
-        check(div_max < DIV_LIMIT[n], f"{tag}: div_u_max {div_max} >= "
-                                      f"{DIV_LIMIT[n]}")
+        check(div_max < limit, f"{tag}: div_u_max {div_max} >= {limit}")
+        if var0 is not None:
+            var = phi_variance(state["phi"])
+            print(f"[{tag}] phi variance (sum phi^2) {var0:.10e} -> "
+                  f"{var:.10e} ({(var - var0) / var0:.3e})", flush=True)
+            check(torch.isfinite(state["phi"]).all().item(),
+                  f"{tag}: non-finite phi")
+            check(var < var0, f"{tag}: the scalars' variance must fall")
+        for name in counts:
+            if (name, n) in rows and not rows[name, n]["launches"]:
+                rows[name, n]["launches"] = counts[name]
         return case, state, counts
 
     def step_times(tag, case, state):
         """ms/step over steps after the first (monitoring off), and the
-        share of the step in the sweep chain and in the projection."""
+        share of the step in the sweep chains, the species sweeps and the
+        projection (CUDA events on the step's own calls)."""
         times = []
         for _ in range(10):
             torch.cuda.synchronize()
@@ -654,27 +829,42 @@ def main():
         times.sort()
         step_ms = times[len(times) // 2]
         f = (state["u"], state["v"], state["w"])
-        scratch = tuple(tuple(o.clone() for o in p) for p in state["olds"])
-        dtc = ti.ab_row(3, DT)
-        chain_ms = cuda_ms(lambda: case._fused_ab(*f, scratch, dtc), 10,
-                           torch)
-        divs = case._fused_ab(*f, scratch, dtc)[2] if case._ab_is_xdiv \
-            else None
-        proj_ms = cuda_ms(lambda: case.solver.pressure_correction(
+        nsub, species_ms, divs = 1, 0.0, None
+        if case._fused_rk is not None:
+            nsub = len(case._fused_rk)
+            ks, chain_ms = [], 0.0
+            for istage, stage in enumerate(case._fused_rk):
+                dtc = case.ti.rk_row(istage, DT)
+                chain_ms += cuda_ms(lambda: stage(*f, f, ks, dtc), 10, torch)
+                ks.append(stage(*f, f, ks, dtc)[1])
+            del ks
+        else:
+            scratch = tuple(tuple(o.clone() for o in p)
+                            for p in state["olds"][:3])
+            dtc = ti.ab_row(3, DT)
+            chain_ms = cuda_ms(lambda: case._fused_ab(*f, scratch, dtc), 10,
+                               torch)
+            if case._ab_is_xdiv:
+                divs = case._fused_ab(*f, scratch, dtc)[2]
+            del scratch
+        if "phi" in state:
+            species_ms = cuda_ms(lambda: case.solver.transeq_species_all(
+                state["phi"], *f), 10, torch)
+        proj_ms = nsub * cuda_ms(lambda: case.solver.pressure_correction(
             *f, keep_pressure=case.keep_pressure, divs=divs), 10, torch)
+        txt = (f"  species sweeps {species_ms:.3f} ms "
+               f"({100 * species_ms / step_ms:.1f}%)" if "phi" in state
+               else "")
         print(f"[{tag}] step {step_ms:.3f} ms (median of 10, host clock)  "
-              f"sweeps {chain_ms:.3f} ms ({100 * chain_ms / step_ms:.1f}%)  "
-              f"projection {proj_ms:.3f} ms "
+              f"sweeps {chain_ms:.3f} ms ({100 * chain_ms / step_ms:.1f}%)"
+              f"{txt}  projection {proj_ms:.3f} ms "
               f"({100 * proj_ms / step_ms:.1f}%)", flush=True)
         return step_ms
 
     # 4. main path: 512^3, keep_pressure=False
-    case, state, counts = drive(
-        "main", mesh, NS, False, STEPS,
-        sweeps_zxy + ["pipe_a", "pipe_b", "pipe_c"])
+    case, state, _ = drive("main", mesh, params, False, STEPS,
+                           sweeps_zxy + pipe3)
     check(not case._ab_is_xdiv, "512^3 must not take the xdiv chain")
-    for name in counts:
-        rows[name, NS]["launches"] = counts[name]
     step_times("main", case, state)
     del case, state
     torch.cuda.empty_cache()
@@ -691,12 +881,9 @@ def main():
 
         object.__setattr__(case.solver, "pressure_correction", spy)
 
-    case, state, counts = drive(
-        "path B", mesh, NS, True, STEPS,
-        sweeps_zxy + ["x_div3", "pressure_mid[q]", "x_gradsub3"],
-        spy=spy_projection)
-    for name in ("x_div3", "pressure_mid[q]", "x_gradsub3"):
-        rows[name, NS]["launches"] = counts[name]
+    case, state, _ = drive("path B", mesh, params, True, STEPS,
+                           sweeps_zxy + ["x_div3", "pressure_mid[q]",
+                                         "x_gradsub3"], spy=spy_projection)
     p = state["p"]
     p_ref = case.solver.pressure_grads(*last["in"], keep_pressure=True)[3]
     err_p, _ = rel_err([p], [p_ref])
@@ -722,15 +909,12 @@ def main():
 
     # 6. path A: 256^3, keep_pressure=False: the xdiv chain and the slab
     names_a = sweeps_xdiv + ["pressure_mid", "x_gradsub3"]
-    case, state, counts = drive("path A", mesh_a, NA, False, STEPS_A,
-                                names_a)
+    case, state, _ = drive("path A", mesh_a, params, False, STEPS_A, names_a)
     check(case._ab_is_xdiv, "256^3 must take the xdiv chain")
-    for name in names_a:
-        rows[name, NA]["launches"] = counts[name]
     first = tuple(state[k].clone() for k in ("u", "v", "w"))
     ms_xdiv = step_times("path A", case, state)
     del case, state
-    case, state, _ = drive("path A again", mesh_a, NA, False, STEPS_A,
+    case, state, _ = drive("path A again", mesh_a, params, False, STEPS_A,
                            names_a)
     same = all(torch.equal(a, state[k])
                for a, k in zip(first, ("u", "v", "w")))
@@ -741,12 +925,9 @@ def main():
     torch.cuda.empty_cache()
     os.environ["X3D2_XDIV_FUSED"] = "0"
     try:
-        case, state, counts = drive(
-            "256^3 X3D2_XDIV_FUSED=0", mesh_a, NA, False, STEPS_A,
-            sweeps_zxy + ["pipe_a", "pipe_b", "pipe_c"])
+        case, state, _ = drive("256^3 X3D2_XDIV_FUSED=0", mesh_a, params,
+                               False, STEPS_A, sweeps_zxy + pipe3)
         check(not case._ab_is_xdiv, "X3D2_XDIV_FUSED=0 must switch xdiv off")
-        for name in sweeps_zxy[1:] + ["pipe_a", "pipe_b", "pipe_c"]:
-            rows[name, NA]["launches"] = counts[name]
         ms_pipe = step_times("256^3 X3D2_XDIV_FUSED=0", case, state)
     finally:
         del os.environ["X3D2_XDIV_FUSED"]
@@ -755,22 +936,69 @@ def main():
     del case, state
     torch.cuda.empty_cache()
 
-    # ---- 7. slice as a whole: card vs CPU at (128, 128, 256) ---------------
+    # 7. passive scalars and Runge-Kutta
+    case, state, _ = drive("path S", mesh, params_s, False, STEPS,
+                           sweeps_zxy + species + pipe3)
+    check(not case._ab_is_xdiv, "512^3 must not take the xdiv chain")
+    step_times("path S", case, state)
+    del case, state
+    torch.cuda.empty_cache()
+
+    cfg = config.Config.from_file(EXAMPLE)
+    check(cfg.solver.n_species == 2 and tuple(cfg.solver.pr_species) == PR
+          and tuple(cfg.domain.dims_global) == SMALL,
+          f"{EXAMPLE}: unexpected configuration {cfg}")
+    case, state, _ = drive("path S-ex", Mesh.from_config(cfg.domain),
+                           cfg.solver, False, STEPS_A,
+                           sweeps_xdiv + species + ["pressure_mid",
+                                                    "x_gradsub3"])
+    check(case._ab_is_xdiv, "the example grid must take the xdiv chain")
+    step_times("path S-ex", case, state)
+    del case, state
+    torch.cuda.empty_cache()
+
+    params_r = SolverParams(Re=1600.0, time_intg="RK3", dt=DT)
+    zx = [ts.variant_name(2, False, 0), ts.variant_name(0, True, 0)]
+    rk_y = [ts.variant_name(1, True, nolds, upd=True, base_sep=istage > 0)
+            for istage, nolds in enumerate([0, 0, 2])]
+    case, state, _ = drive("path R", mesh, params_r, False, STEPS,
+                           zx * 3 + rk_y + pipe3 * 3)
+    check(case._fused_rk is not None, "path R must take the fused RK chain")
+    step_times("path R", case, state)
+    del case, state
+    torch.cuda.empty_cache()
+    params_r4 = SolverParams(Re=1600.0, time_intg="RK4", dt=DT)
+    rk4_y = [ts.variant_name(1, True, nolds, upd=True, base_sep=istage > 0)
+             for istage, nolds in enumerate([0, 0, 0, 3])]
+    case, state, _ = drive("path R4", mesh, params_r4, False, STEPS_R4,
+                           zx * 4 + rk4_y + pipe3 * 4)
+    del case, state
+    torch.cuda.empty_cache()
+
+    # ---- 8. slice as a whole: card vs CPU at (128, 128, 256) ---------------
     small = Mesh(SMALL, (2 * math.pi,) * 3, per)
-    for label, keep, env in (("xdiv path", False, None),
-                             ("keep_pressure=True", True, None),
-                             ("X3D2_XDIV_FUSED=0", False, "0")):
+    params_rs = SolverParams(Re=1600.0, time_intg="RK3", dt=DT, n_species=2,
+                             pr_species=PR)
+    for label, prm, keep, env, chain in (
+            ("xdiv path", params, False, None, "xdiv"),
+            ("keep_pressure=True", params, True, None, "xdiv"),
+            ("X3D2_XDIV_FUSED=0", params, False, "0", "zxy"),
+            ("AB3 + 2 species", params_s, False, None, "xdiv"),
+            ("RK3 fused", params_r, False, None, "rk"),
+            ("RK3 + 2 species (unfused)", params_rs, False, None, "rk-unfused")):
         if env is not None:
             os.environ["X3D2_XDIV_FUSED"] = env
         try:
             res = {}
             for d in ("cuda", "cpu"):
-                c = TGVCase(small, params, dtype=torch.float32,
+                c = TGVCase(small, prm, dtype=torch.float32,
                             monitor_path=None, verbose=False,
                             keep_pressure=keep, device=d)
-                check(c._fused_ab is not None
-                      and c._ab_is_xdiv == (env is None),
-                      f"{SMALL} {label}: wrong sweep chain")
+                took = ("rk" if c._fused_rk is not None
+                        else "rk-unfused" if c.ti.kind == "RK"
+                        else "xdiv" if c._ab_is_xdiv else "zxy")
+                check(took == chain, f"{SMALL} {label}: took the {took} "
+                                     f"chain, not {chain}")
                 s = c.run(n_iters=10, n_output=10)
                 res[d] = (s, c.monitor.rows[-1][4])
         finally:
@@ -787,13 +1015,18 @@ def main():
             txt = f"  max|dp| {p_err:.3e} (<= {p_tol:.3e}, max|p| " \
                   f"{float(p_cpu.abs().max()):.3e})"
             check(p_err <= p_tol, f"card vs CPU pressure difference {p_err}")
+        if prm.n_species:
+            dphi = float((res["cuda"][0]["phi"].cpu() - res["cpu"][0]["phi"])
+                         .abs().max())
+            txt += f"  max|dphi|={dphi:.3e} (<= 1e-5)"
+            check(dphi <= 1e-5, f"{label}: card vs CPU phi difference {dphi}")
         print(f"[slice] {SMALL} {label}, 10 steps card vs CPU: "
               f"max|du,dv,dw|={du:.3e} (<= 1e-5)  KE rel {ke_rel:.3e} "
               f"(<= 1e-6){txt}", flush=True)
         check(du <= 1e-5, f"{label}: card vs CPU velocity difference {du}")
         check(ke_rel <= 1e-6, f"{label}: card vs CPU KE difference {ke_rel}")
 
-    # ---- 8. result lines ---------------------------------------------------
+    # ---- 9. result lines ---------------------------------------------------
     idle = [r["name"] for r in rows.values() if r["launches"] <= 0]
     check(not idle, f"never launched on a path: {idle}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s wall", flush=True)

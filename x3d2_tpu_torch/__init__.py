@@ -2,13 +2,15 @@
 
 An incompressible Navier-Stokes solver in the x3d2 mould: 6th-order compact
 finite differences resolved into operator matrices, skew-symmetric
-transport with Adams-Bashforth stepping, and a spectral projection written
-as separable matrix transforms. Module names mirror x3d2_tpu; this package
-imports torch, numpy and scipy only, never jax or x3d2_tpu.
+transport of momentum and passive scalars with Adams-Bashforth or
+Runge-Kutta stepping, and a spectral projection written as separable
+matrix transforms. Module names mirror x3d2_tpu; this package imports
+torch, numpy and scipy only, never jax or x3d2_tpu. Input files parse
+with ``config.Config.from_file``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no GPU and no device given they raise. The transport sweeps
-(``csrc/transeq_sweep.cu``) and the two pressure projections, the
+with no GPU and no device given they raise. The transport and scalar
+sweeps (``csrc/transeq_sweep.cu``) and the two pressure projections, the
 three-stage pipeline and the slab projection (``csrc/pressure_pipe.cu``),
 run hand-written kernels on CUDA tensors and their plain PyTorch versions
 on CPU tensors only; on the card a case no ported kernel serves raises

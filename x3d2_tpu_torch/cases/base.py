@@ -1,34 +1,44 @@
 """Case lifecycle and the time loop.
 
 Counterpart of x3d2_tpu.cases.base (reference src/case/base_case.f90):
-per step {transeq -> forcings -> AB update -> pressure_correction}
+per substage {transeq -> forcings -> time update -> pressure_correction}
 (base_case.f90:261-300), with monitoring. The boundary and IBM hooks of
 the JAX package (define_bc, apply_bc, body) come with the wall-bounded
 cases that need them.
 
-Ported: Adams-Bashforth stepping, unfused (transeq + ab_step, x3d2_tpu
-cases/base.py:390-405) and fused (the transport + AB sweep chain,
-:406-471, momentum only). The fused chain is taken exactly where x3d2_tpu
-takes it: an AB scheme with history, not compensated, identity forcings,
-and a mesh the sweep kernel supports (transeq_sweep_supported). Under
-x3d2_tpu's gate (:141-167: the slab projection is there, max(dims) <= 256,
-X3D2_XDIV_FUSED is not "0") the chain is the xdiv one: z, y, then the x
-sweep with the AB update, which also emits the projection's x-transformed
-divergence inputs; the step hands them to the slab projection. Otherwise
-the chain is z, x, y with the AB update, followed by the three-stage
-pipeline (keep_pressure=False) or the slab projection (keep_pressure=True).
-Runge-Kutta, compensated stepping, species and the other X3D2_* switches
-of the JAX step are not ported yet and raise NotImplementedError.
+The four branches of x3d2_tpu's step (cases/base.py:377-524), each taken
+where x3d2_tpu takes it:
+- AB, unfused: transeq (+ species) and ab_step (:390-405).
+- AB, fused (:406-471): an AB scheme with history, not compensated,
+  identity forcings, a mesh the sweep kernel supports
+  (transeq_sweep_supported). The transport + AB sweep chain; under
+  x3d2_tpu's gate (:141-167: the slab projection is there, max(dims) <=
+  256, X3D2_XDIV_FUSED is not "0") the xdiv one: z, y, then the x sweep
+  with the AB update, which also emits the projection's x-transformed
+  divergence inputs for the slab projection. Otherwise z, x, y with the AB
+  update, then the three-stage pipeline (keep_pressure=False) or the slab
+  projection (keep_pressure=True). Passive scalars take their RHS from the
+  species sweep chain on the velocities before the update (the chain then
+  writes u' over the oldest history) and the AB update as elementwise
+  PyTorch, as x3d2_tpu does in XLA.
+- RK, fused (:472-496): RK without scalars, not compensated, identity
+  forcings, X3D2_FUSED_RK not "0", a mesh the sweep kernel supports. Per
+  substage the sweep chain with the substage update in the y sweep, then
+  the projection.
+- RK, unfused (:497-514; RK with scalars, or X3D2_FUSED_RK=0): per
+  substage transeq (+ species), rk_substage, the projection.
+Compensated stepping and the other X3D2_* switches of the JAX step are not
+ported yet and raise NotImplementedError.
 
-On the card a case must run on kernels: a step outside the fused sweep
-chain (a mesh the sweep kernel does not serve, another forcing, AB1), or
-a projection on a grid the pipe3 and slab kernels do not serve (a
-wall-bounded axis, an extent that is not a multiple of 128), raises
-NotImplementedError at construction. The CPU runs every case, with plain
-versions and dense products.
+On the card a case must run on kernels: a step outside the kernels' reach
+(an unfused AB step; a mesh the sweep kernel does not serve; more than 8
+scalars), or a projection on a grid the pipe3 and slab kernels do not
+serve (a wall-bounded axis, an extent that is not a multiple of 128),
+raises NotImplementedError at construction. The CPU runs every case, with
+plain versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
-fused chain writes u' over the oldest history fields.
+fused AB chain writes u' over the oldest history fields.
 """
 
 from __future__ import annotations
@@ -44,14 +54,17 @@ from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
+                                 make_fused_transeq_rk,
                                  transeq_sweep_supported)
-from ..solver import _UNPORTED_PROJECTION, _UNPORTED_TRANSEQ, NavierStokes
+from ..solver import (_UNPORTED_PROJECTION, _UNPORTED_SPECIES,
+                      _UNPORTED_TRANSEQ, NavierStokes)
 from ..time_integrators import TimeIntegrator
 
 # environment switches the JAX step reads (x3d2_tpu cases/base.py,
-# solver.py, ops/compact.py) that have no port yet; X3D2_XDIV_FUSED is
-# ported ("0" keeps the z, x, y chain and the pipeline at every size)
-_JAX_STEP_SWITCHES = ("X3D2_FUSED_AB", "X3D2_FUSED_RK", "X3D2_PIPE3",
+# solver.py, ops/compact.py) that have no port yet; X3D2_XDIV_FUSED ("0"
+# keeps the z, x, y chain and the pipeline at every size) and
+# X3D2_FUSED_RK ("0" steps RK unfused) are ported
+_JAX_STEP_SWITCHES = ("X3D2_FUSED_AB", "X3D2_PIPE3",
                       "X3D2_BF16_OLDS", "X3D2_BF16_ACC",
                       "X3D2_D2C", "X3D2_CHUNK", "X3D2_PALLAS",
                       "X3D2_MATMUL_PRECISION", "X3D2_MID_SPLIT")
@@ -91,17 +104,16 @@ class BaseCase:
                  keep_pressure=True, device=None):
         set_env = [k for k in _JAX_STEP_SWITCHES if k in os.environ]
         if set_env:
+            bf16 = (" (the bf16 history and partials are the olds_dtype and "
+                    "acc_dtype variants of _transeq_kernel_v3, x3d2_tpu/ops/"
+                    "pallas_kernels.py:172)"
+                    if any("BF16" in k for k in set_env) else "")
             raise NotImplementedError(
-                f"environment switches {set_env} are not ported yet")
+                f"environment switches {set_env} are not ported yet{bf16}")
         self.ti = TimeIntegrator(params.time_intg)
-        if self.ti.kind != "AB":
-            raise NotImplementedError("Runge-Kutta stepping is not ported "
-                                      "yet")
         if params.compensated:
             raise NotImplementedError("compensated stepping is not ported "
                                       "yet")
-        if params.n_species:
-            raise NotImplementedError("species transport is not ported yet")
         self.device = resolve_device(device)
         self.mesh = mesh
         self.params = params
@@ -116,10 +128,15 @@ class BaseCase:
         )
         pmethod = {"FFT": "matmul", "CG": "cg"}.get(
             params.poisson_solver_type.upper(), "matmul")
-        self.solver = NavierStokes.build(mesh, 1.0 / params.Re, dtype=dtype,
-                                         schemes=schemes,
-                                         poisson_method=pmethod,
-                                         device=self.device)
+        nu = 1.0 / params.Re
+        self.nsp = nsp = params.n_species
+        if len(params.pr_species) < nsp:
+            raise ValueError(f"{nsp} passive scalars need as many Prandtl "
+                             f"numbers, got pr_species={params.pr_species}")
+        self.solver = NavierStokes.build(
+            mesh, nu, dtype=dtype, schemes=schemes, poisson_method=pmethod,
+            device=self.device,
+            nu_species=tuple(nu / pr for pr in params.pr_species[:nsp]))
         self.dt = params.dt
         dims = mesh.dims(DataLoc.VERT)
         on_card = self.device.type == "cuda"
@@ -128,6 +145,10 @@ class BaseCase:
                 "the projection on the card runs the pipe3 and slab kernels "
                 "(an all-periodic uniform grid tiled by 128); "
                 f"{_UNPORTED_PROJECTION} are not ported yet")
+        if on_card and nsp and self.solver._species_sweeps is None:
+            raise NotImplementedError(
+                f"{nsp} passive scalars on mesh {dims} at {dtype}: "
+                f"{_UNPORTED_SPECIES}")
         # transport + AB update in one chain of three sweep kernels, under
         # x3d2_tpu's gate (cases/base.py:131-135)
         self._fused_ab = None
@@ -164,12 +185,33 @@ class BaseCase:
                     # steps unfused; the card has no kernel for it
                     if on_card:
                         raise
-        if on_card and self._fused_ab is None:
+        # transport + RK substage update in one chain per substage, under
+        # x3d2_tpu's gate (cases/base.py:212-232); scalars ride the unfused
+        # branch
+        self._fused_rk = None
+        if (self.ti.kind == "RK" and not nsp
+                and os.environ.get("X3D2_FUSED_RK", "1") != "0"
+                and type(self).forcings is BaseCase.forcings
+                and transeq_sweep_supported(self.solver, dims)):
+            try:
+                self._fused_rk = make_fused_transeq_rk(
+                    self.solver.ops, self.solver.nu, dims, self.ti.order,
+                    device=self.device)
+            except ValueError:
+                if on_card:
+                    raise
+        if on_card and self.ti.kind == "AB" and self._fused_ab is None:
             raise NotImplementedError(
-                "on the card the step runs the fused sweep chain (an AB "
+                "on the card the AB step runs the fused sweep chain (an AB "
                 "scheme with history, identity forcings, a float32 uniform "
-                f"grid tiled by 64; mesh {dims} at {dtype}); "
-                f"{_UNPORTED_TRANSEQ} are not ported yet")
+                f"grid tiled by 64; mesh {dims} at {dtype}); the unfused AB "
+                "step is not ported to the card")
+        if (on_card and self.ti.kind == "RK" and self._fused_rk is None
+                and self.solver._sweeps is None):
+            raise NotImplementedError(
+                f"the RK step on the card runs the sweep kernels (a float32 "
+                f"uniform grid tiled by 64; mesh {dims} at {dtype}); "
+                f"{_UNPORTED_TRANSEQ} is not ported yet")
         self.monitor = Monitor(self.solver, path=monitor_path,
                                verbose=verbose)
 
@@ -177,7 +219,8 @@ class BaseCase:
     # hooks (overridden by concrete cases)
     # ------------------------------------------------------------------
     def initial_conditions(self):
-        """Return dict of initial fields {'u','v','w'} (numpy or tensors)."""
+        """Return dict of initial fields {'u','v','w'[, 'phi']} (numpy or
+        tensors; phi stacked (nsp, nx, ny, nz))."""
         raise NotImplementedError
 
     def forcings(self, rhs, fields, istep):
@@ -196,44 +239,101 @@ class BaseCase:
     def initial_state(self):
         fields = self.initial_conditions()
         u, v, w = (self._tensor(fields[k]) for k in ("u", "v", "w"))
-        return {
+        state = {
             "u": u, "v": v, "w": w,
             "p": torch.zeros(self.mesh.dims(DataLoc.CELL), dtype=self.dtype,
                              device=self.device),
             "istep": 1,
-            "olds": self.ti.empty_olds((u, v, w)),
         }
+        tmpl = (u, v, w)
+        if self.nsp:
+            state["phi"] = self._tensor(fields["phi"])
+            tmpl = tmpl + (state["phi"],)
+        # AB: per field its history (the stacked scalars' one 4th); RK
+        # keeps none across steps (empty per field)
+        state["olds"] = self.ti.empty_olds(tmpl)
+        return state
+
+    def _rhs(self, fields, istep):
+        """transeq (+ the scalars' stacked RHS), then the forcings hook."""
+        u, v, w = fields[:3]
+        if self.nsp:
+            mom, sp = self.solver.transeq_with_species(u, v, w, fields[3])
+            rhs = mom + (sp,)
+        else:
+            rhs = self.solver.transeq(u, v, w)
+        return self.forcings(rhs, fields, istep)
+
+    def _project(self, fields, divs=None):
+        """pressure_correction of the velocities; the scalars pass."""
+        u, v, w, p = self.solver.pressure_correction(
+            *fields[:3], keep_pressure=self.keep_pressure, divs=divs)
+        return (u, v, w) + tuple(fields[3:]), p
 
     @torch.no_grad()
     def step(self, state):
-        """One time step; returns the new state (the input state is
-        consumed: the fused chain reuses its history buffers)."""
+        """One time step (all substages); returns the new state (the input
+        state is consumed: the fused AB chain reuses its history
+        buffers)."""
         fields = (state["u"], state["v"], state["w"])
+        if self.nsp:
+            fields = fields + (state["phi"],)
         istep = int(state["istep"])
         dt = self.dt
-        divs = None
-        if self._fused_ab is None:
-            rhs = self.forcings(self.solver.transeq(*fields), fields, istep)
-            fields, olds = self.ti.ab_step(fields, state["olds"], istep, rhs,
-                                           dt)
-        else:
+        olds = state["olds"]
+        if self.ti.kind == "AB" and self._fused_ab is None:
+            rhs = self._rhs(fields, istep)
+            fields, olds = self.ti.ab_step(fields, olds, istep, rhs, dt)
+            fields, p = self._project(fields)
+        elif self.ti.kind == "AB":
             # the AB row is picked on the host: no per-step device sync
             dtc = self.ti.ab_row(istep, dt, self.dtype)
-            out = self._fused_ab(*fields, state["olds"], dtc)
+            prhs = None
+            if self.nsp:
+                # the scalars' RHS on the velocities before the update (the
+                # time level the momentum RHS uses inside the chain, whose
+                # u' then goes over the oldest history)
+                prhs = self.solver.transeq_species_all(fields[3],
+                                                       *fields[:3])
+            out = self._fused_ab(*fields[:3], olds[:3], dtc)
+            divs = None
             if len(out) == 3:   # the xdiv chain
-                fields, rhs, divs = out
+                mom, rhs, divs = out
             else:
-                fields, rhs = out
-            olds = tuple((r,) + tuple(o[:-1])
-                         for r, o in zip(rhs, state["olds"]))
-        u, v, w, p = self.solver.pressure_correction(
-            *fields, keep_pressure=self.keep_pressure, divs=divs)
+                mom, rhs = out
+            new_olds = tuple((r,) + tuple(o[:-1])
+                             for r, o in zip(rhs, olds[:3]))
+            if self.nsp:
+                phi_olds = olds[3]
+                phi = fields[3] + dtc[0] * prhs
+                for j, ph in enumerate(phi_olds):
+                    phi = phi + dtc[1 + j] * ph
+                mom = mom + (phi,)
+                new_olds = new_olds + ((prhs,) + tuple(phi_olds[:-1]),)
+            olds = new_olds
+            fields, p = self._project(mom, divs=divs)
+        elif self._fused_rk is not None:
+            fields0, ks = fields, []
+            for istage, stage in enumerate(self._fused_rk):
+                dtc = self.ti.rk_row(istage, dt, self.dtype)
+                mom, rhs = stage(*fields, fields0, ks, dtc)
+                ks.append(rhs)
+                fields, p = self._project(mom)
+        else:
+            fields0, ks = fields, []
+            for istage in range(self.ti.nstage):
+                ks.append(self._rhs(fields, istep))
+                fields = self.ti.rk_substage(fields0, ks, istage, dt)
+                fields, p = self._project(fields)
         if p is None:
             # no pressure was formed (keep_pressure=False): carry the
             # previous (diagnostic-only) one, as x3d2_tpu does
             p = state["p"]
-        return {"u": u, "v": v, "w": w, "p": p, "istep": istep + 1,
-                "olds": olds}
+        new = {"u": fields[0], "v": fields[1], "w": fields[2], "p": p,
+               "istep": istep + 1, "olds": olds}
+        if self.nsp:
+            new["phi"] = fields[3]
+        return new
 
     def _chunk(self, state, k):
         """k steps as a plain loop."""

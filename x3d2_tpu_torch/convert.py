@@ -1,10 +1,14 @@
 """State carried across between x3d2_tpu and the port.
 
 A TGV state of either package, as numpy arrays: ``u, v, w, p``, the
-per-field AB history ``olds`` (per field a (nolds,)-tuple, newest first, the
-structure of ``TimeIntegrator.empty_olds``) and the 1-based ``istep``. The
-JAX package's ``key`` (unused by TGV) is dropped on the way in; the way out
-gives plain numpy arrays that the caller turns into its own arrays.
+1-based ``istep``, with passive scalars the stacked ``phi`` (nsp, nx, ny,
+nz), and the per-field AB history ``olds`` (per field a (nolds,)-tuple,
+newest first, the structure of ``TimeIntegrator.empty_olds``; with scalars
+a 4th entry holds the stacked phi history). A Runge-Kutta state carries no
+history: x3d2_tpu's has no ``olds``, the port's has an empty tuple per
+field. The JAX package's ``key`` (unused by TGV) is dropped on the way in;
+the way out gives plain numpy arrays that the caller turns into its own
+arrays.
 """
 
 from __future__ import annotations
@@ -24,14 +28,20 @@ def state_from_numpy(np_state, device=None):
         a = np.array(a)   # a writable copy: JAX arrays convert read-only
         return torch.as_tensor(a, device=device).contiguous()
 
-    return {
+    state = {
         "u": t(np_state["u"]), "v": t(np_state["v"]), "w": t(np_state["w"]),
         "p": t(np_state["p"]),
         "istep": int(np.asarray(np_state["istep"])),
-        # separate tensors per history slot, so the rotation never aliases
-        "olds": tuple(tuple(t(o) for o in per_field)
-                      for per_field in np_state["olds"]),
     }
+    nfields = 3
+    if "phi" in np_state:
+        state["phi"] = t(np_state["phi"])
+        nfields = 4
+    # separate tensors per history slot, so the rotation never aliases
+    olds = np_state.get("olds", ((),) * nfields)
+    state["olds"] = tuple(tuple(t(o) for o in per_field)
+                          for per_field in olds)
+    return state
 
 
 def state_to_numpy(state):
@@ -39,10 +49,13 @@ def state_to_numpy(state):
     def a(x):
         return x.detach().cpu().numpy()
 
-    return {
+    out = {
         "u": a(state["u"]), "v": a(state["v"]), "w": a(state["w"]),
         "p": a(state["p"]),
         "istep": int(state["istep"]),
         "olds": tuple(tuple(a(o) for o in per_field)
                       for per_field in state["olds"]),
     }
+    if "phi" in state:
+        out["phi"] = a(state["phi"])
+    return out

@@ -1,11 +1,14 @@
-// Directional transport sweep with accumulate and fused Adams-Bashforth
-// epilogue, for Hopper (sm_90a), behind a plain C interface.
+// Directional transport sweeps for Hopper (sm_90a), behind a plain C
+// interface: the momentum sweep with accumulate and a fused time-update
+// epilogue (Adams-Bashforth or a Runge-Kutta substage), its xdiv variant,
+// and the passive-scalar (species) sweep.
 //
-// Replaces two TPU kernels of x3d2_tpu, which compute one function and
-// differ only in how the TPU blocks it:
+// Replaces three TPU kernels of x3d2_tpu, which compute two functions:
 //   - _pencil_kernel      x3d2_tpu/ops/pallas_kernels.py:671  (z sweep)
 //   - _transeq_kernel_v3  x3d2_tpu/ops/pallas_kernels.py:172  (x/y sweeps,
-//     accumulate, and the ab_olds epilogue of the final y sweep)
+//     accumulate, and the ab_olds / upd / base_sep epilogue of the final y
+//     sweep)
+//   - _species_kernel_v3  x3d2_tpu/ops/pallas_kernels.py:1038 (species)
 //
 // For every line along the sweep axis and every component q of (u, v, w):
 //   r = -1/2 (conv * D1 q + D1d (q * conv)) + nu * D2 q   [+ acc]
@@ -15,8 +18,16 @@
 // BS + 2W input points starting at b*BS - W (periodic wrap).
 //   sa = [D1; D2] (nb, 2BS, WIN) and da = D1s (nb, BS, WIN) for the aligned
 //   component; st = [D1s; D2s] and dt = D1 for the transverse ones.
-// With NOLDS > 0 the epilogue also writes rhs = r and
-//   u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j.
+// With UPD the epilogue also writes rhs = r and
+//   u' = base + dtc0 * r + sum_j dtc_{j+1} * old_j,
+// the Adams-Bashforth update (base = the sweep's own u, olds = the
+// derivative history) or the Runge-Kutta substage update (make_fused_
+// transeq_rk, pallas_kernels.py:944-995: olds = the earlier stage
+// derivatives with a nonzero coefficient, NOLDS = 0, 2 or 3 for the RK1-4
+// tableaus; base = u at the first substage, else the step-initial field f0,
+// read as three more row streams: BASE_SEP). u' never aliases u (other
+// blocks read its windows) or f0 (later substages read it); rhs may alias
+// acc.
 // The xdiv variant (the x sweep with the AB epilogue only; the xdiv variant
 // of _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) also emits
 // the projection's forward x transforms of the updated velocities,
@@ -24,6 +35,11 @@
 // modes in block-parity order: x block b of u' contributes
 // Me[:, cols(b)] u'_b to the even modes and +/- Mo[:, cols(b)] u'_b to the
 // odd ones (sign by input half), summed over the nb blocks of x.
+// The species sweep computes, for each of nsp <= 8 scalars phi_s with its
+// own diffusivity nu_s, the aligned component's function with conv the
+// velocity component along the axis:
+//   r_s = -1/2 (conv * D1 phi_s + D1s (phi_s * conv)) + nu_s * D2 phi_s
+//         [+ acc_s].
 //
 // Bound on an H100: the function needs the 2W + 1 = 33 band taps of each
 // operator, 3 components x 3 operators x 33 = 297 FMA per point, about
@@ -32,7 +48,9 @@
 // 2.88 ms at 3.35 TB/s. So the z sweep is bound by operations and the
 // other two by bytes. The kernel's block rows are BS + 2W = 96 wide (864
 // FMA per point, 2.9x the need): a choice of this design, which keeps each
-// block's operators dense, not a need of the function.
+// block's operators dense, not a need of the function. The species sweep
+// with 2 scalars needs 198 FMA per point and moves 5 (z) or 7 (x, y +
+// acc) field passes: 0.82 ms of operations and 1.12 ms of bytes at 512^3.
 // What the design does about it: a block stages both operator pairings of
 // its output block (147 KB) once and walks many line tiles with them, so
 // the operators cost no device-memory traffic per tile. Each thread keeps
@@ -42,6 +60,16 @@
 // 64-line tile (3 x 96 x 64 floats) is read from device memory once, and
 // the next tile's windows load into registers while the current tile
 // computes (one block per SM, so the overlap is within the block).
+//
+// The species sweep keeps what the TPU kernel exists for (pallas_kernels.py
+// :1028-1035): the conv window is read from device memory once per tile for
+// all scalars. It stages only the aligned pairing (sa, da: 74 KB); a tile's
+// conv window stays resident while the block walks the scalars through a
+// second window. The next scalar's window (or, after the last, the next
+// tile's conv and first scalar: two windows for one scalar's compute) is
+// in flight meanwhile by asynchronous copies straight into a second buffer
+// of each window, so no registers hold it: 172 KB of shared memory, one
+// block per SM.
 //
 // The xdiv variant is a kernel of its own (transeq_xdiv_kernel). The TPU
 // kernel carries the sum over x blocks in scratch memory along its
@@ -73,6 +101,7 @@ constexpr int NT = 256;           // threads per block
 constexpr int RPT = BS / (NT / 32);  // output rows per thread (8)
 constexpr int XDIV_MAX_NB = 4;    // xdiv: x blocks (64 accumulators a thread)
 constexpr int XK = 8;             // xdiv: rows of the transform per chunk
+constexpr int MAX_SPECIES = 8;    // scalars per species launch
 static_assert(XK * XDIV_MAX_NB * BS <= (WIN - BS) * TL &&
                   XK * XDIV_MAX_NB * BS / 4 <= 2 * NT && BS % XK == 0,
               "a chunk of the transform must fit beside u'_b in one window");
@@ -85,14 +114,28 @@ struct SweepArgs {
   const float* dt;
   const float* acc[3];
   const float* old[3][3];          // old[j][c]
-  float* out[3];                   // r (NOLDS == 0) or u' (NOLDS > 0)
-  float* rhs[3];                   // NOLDS > 0 only
+  float* out[3];                   // r, or u' with UPD
+  float* rhs[3];                   // UPD only
   int n0, n1, n2;
   float nu;
   float dtc[4];
   // xdiv only
   const float* xm[2];              // Sx, Ix slices [nb][BS][n0], sign folded
   float* div[3];                   // du, dv, dw
+  // BASE_SEP only: the update's base (the RK step-initial fields)
+  const float* base[3];
+};
+
+struct SpeciesArgs {
+  const float* conv;               // the velocity component along the axis
+  const float* sa;                 // [D1; D2] (nb, 2BS, WIN)
+  const float* da;                 // D1s (nb, BS, WIN)
+  const float* phi[MAX_SPECIES];
+  const float* acc[MAX_SPECIES];   // ACC only
+  float* out[MAX_SPECIES];
+  float nu[MAX_SPECIES];
+  int nsp;
+  int n0, n1, n2;
 };
 
 template <int AXIS>
@@ -109,27 +152,35 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(kMatFloats + 3 * WIN * ldw<AXIS>());
 }
 
+// the species sweep: the aligned pairing, and two buffers each of the conv
+// window and of one scalar's
+template <int AXIS>
+constexpr size_t species_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(WIN * 2 * BS + WIN * BS + 4 * WIN * ldw<AXIS>());
+}
+
 // Offsets of one line tile: element (line l, sweep index g) of a field is
 // at base + l * lstride + g * sstride.
 template <int AXIS>
-__device__ __forceinline__ void tile_geometry(const SweepArgs& a, long long t,
-                                              long long& base,
+__device__ __forceinline__ void tile_geometry(int n0, int n1_, int n2_,
+                                              long long t, long long& base,
                                               long long& lstride,
                                               long long& sstride, int& n) {
-  const long long n1 = a.n1, n2 = a.n2;
+  const long long n1 = n1_, n2 = n2_;
   if (AXIS == 0) {
-    n = a.n0;
+    n = n0;
     base = t * TL;
     lstride = 1;
     sstride = n1 * n2;
   } else if (AXIS == 1) {
-    n = a.n1;
+    n = n1_;
     const long long per = n2 / TL;
     base = (t / per) * n1 * n2 + (t % per) * TL;
     lstride = 1;
     sstride = n2;
   } else {
-    n = a.n2;
+    n = n2_;
     base = t * TL * n2;
     lstride = n2;
     sstride = 1;
@@ -164,6 +215,59 @@ __device__ __forceinline__ long long window_offset(int k, int l, int k0,
   return AXIS == 2 ? (long long)l * ls + g : (long long)g * ss + l;
 }
 
+// A thread's share of the window of field f for the tile at base, into
+// registers (a load that can be in flight while the block computes)...
+template <int AXIS>
+__device__ __forceinline__ void fetch_window(const float* f, long long base,
+                                             int k0, int n, long long ls,
+                                             long long ss,
+                                             float (&pre)[PER_THREAD]) {
+#pragma unroll
+  for (int m = 0; m < PER_THREAD; ++m) {
+    int k, l;
+    window_coords<AXIS>(threadIdx.x + m * NT, k, l);
+    pre[m] = f[base + window_offset<AXIS>(k, l, k0, n, ls, ss)];
+  }
+}
+
+// ...and from registers into the window's place in shared memory.
+template <int AXIS>
+__device__ __forceinline__ void put_window(float* dst,
+                                           const float (&pre)[PER_THREAD]) {
+#pragma unroll
+  for (int m = 0; m < PER_THREAD; ++m) {
+    int k, l;
+    window_coords<AXIS>(threadIdx.x + m * NT, k, l);
+    dst[k * ldw<AXIS>() + l] = pre[m];
+  }
+}
+
+// A thread's share of the window of field f straight into shared memory
+// by asynchronous copies (cp.async, no registers held); complete after
+// cp_async_wait() and a barrier.
+template <int AXIS>
+__device__ __forceinline__ void copy_window_async(float* dst, const float* f,
+                                                  long long base, int k0,
+                                                  int n, long long ls,
+                                                  long long ss) {
+#pragma unroll 4
+  for (int m = 0; m < PER_THREAD; ++m) {
+    int k, l;
+    window_coords<AXIS>(threadIdx.x + m * NT, k, l);
+    const unsigned to = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + k * ldw<AXIS>() + l));
+    const float* from = f + base + window_offset<AXIS>(k, l, k0, n, ls, ss);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+                 "l"(from)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // The RPT output rows of one line at row0 (stride ss along the sweep):
 // along z they are contiguous and 16-byte aligned, two float4 accesses.
 template <int AXIS>
@@ -195,26 +299,30 @@ __device__ __forceinline__ void store_rows(float* p, long long row0,
   }
 }
 
-// Stage the operator slices of output block b, transposed to [k][row] so
-// that a thread's 8 rows at one k are two aligned float4 loads.
+// Stage one operator pairing of output block b (s: [D1; D2]-shaped, d: one
+// BS-row operator), transposed to [k][row] so that a thread's 8 rows at
+// one k are two aligned float4 loads.
+__device__ __forceinline__ void stage_pairing(const float* s, const float* d,
+                                              int b, float* ST, float* DT) {
+  const int tid = threadIdx.x;
+  s += (size_t)b * 2 * BS * WIN;
+  for (int i = tid; i < 2 * BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    ST[k * 2 * BS + row] = s[i];
+  }
+  d += (size_t)b * BS * WIN;
+  for (int i = tid; i < BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    DT[k * BS + row] = d[i];
+  }
+}
+
+// Both pairings of the momentum sweep.
 __device__ __forceinline__ void stage_operators(const SweepArgs& a, int b,
                                                 float* SaT, float* StT,
                                                 float* DaT, float* DtT) {
-  const int tid = threadIdx.x;
-  const float* sa = a.sa + (size_t)b * 2 * BS * WIN;
-  const float* st = a.st + (size_t)b * 2 * BS * WIN;
-  for (int i = tid; i < 2 * BS * WIN; i += NT) {
-    const int row = i / WIN, k = i - (i / WIN) * WIN;
-    SaT[k * 2 * BS + row] = sa[i];
-    StT[k * 2 * BS + row] = st[i];
-  }
-  const float* da = a.da + (size_t)b * BS * WIN;
-  const float* dt = a.dt + (size_t)b * BS * WIN;
-  for (int i = tid; i < BS * WIN; i += NT) {
-    const int row = i / WIN, k = i - (i / WIN) * WIN;
-    DaT[k * BS + row] = da[i];
-    DtT[k * BS + row] = dt[i];
-  }
+  stage_pairing(a.sa, a.da, b, SaT, DaT);
+  stage_pairing(a.st, a.dt, b, StT, DtT);
 }
 
 // The contraction of one component's window Q (conv window CV, which is Q
@@ -269,32 +377,48 @@ __device__ __forceinline__ void contract(const float* Q, const float* CV,
   }
 }
 
+// The combine of the thread's line j (window column l, rows from r0):
+// r = -1/2 (conv dq + dd) + nu d2 [+ av].
+template <bool ACC, int LDW>
+__device__ __forceinline__ void line_rhs(float nu, int j, int l, int r0,
+                                         const float* CV,
+                                         const float (&dq)[RPT][2],
+                                         const float (&d2)[RPT][2],
+                                         const float (&dd)[RPT][2],
+                                         const float (&av)[RPT],
+                                         float (&res)[RPT]) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float conv = CV[(W + r0 + r) * LDW + l];
+    res[r] = -0.5f * (conv * dq[r][j] + dd[r][j]) + nu * d2[r][j];
+    if (ACC) res[r] += av[r];
+  }
+}
+
 // The epilogue of the thread's line j (window column l, rows from row0) of
-// component c: combine, accumulate, AB update, stores. acc and the history
-// may alias the outputs (the same point, read before it is written), so
-// the compiler cannot move a load above an earlier store: every load of a
-// line is issued before its stores, one memory latency per line. With
-// NOLDS > 0, un returns u'.
-template <int AXIS, bool ACC, int NOLDS, int LDW>
+// component c: combine, accumulate, time update, stores. acc, the history
+// and the base may alias outputs (the same point, read before it is
+// written), so the compiler cannot move a load above an earlier store:
+// every load of a line is issued before its stores, one memory latency per
+// line. With UPD, un returns u'.
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP, int LDW>
 __device__ __forceinline__ void combine_line(
     const SweepArgs& a, int c, int j, int l, int r0, long long row0,
     long long ss, const float* Q, const float* CV, const float (&dq)[RPT][2],
     const float (&d2)[RPT][2], const float (&dd)[RPT][2], float (&un)[RPT]) {
-  float res[RPT], av[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
+  static_assert(UPD || (NOLDS == 0 && !BASE_SEP), "history needs UPD");
+  float res[RPT], av[RPT], bv[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
   if (ACC) load_rows<AXIS>(a.acc[c], row0, ss, av);
 #pragma unroll
   for (int jj = 0; jj < NOLDS; ++jj)
     load_rows<AXIS>(a.old[jj][c], row0, ss, ov[jj]);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const float conv = CV[(W + r0 + r) * LDW + l];
-    res[r] = -0.5f * (conv * dq[r][j] + dd[r][j]) + a.nu * d2[r][j];
-    if (ACC) res[r] += av[r];
-  }
-  if (NOLDS > 0) {
+  if (BASE_SEP) load_rows<AXIS>(a.base[c], row0, ss, bv);
+  line_rhs<ACC, LDW>(a.nu, j, l, r0, CV, dq, d2, dd, av, res);
+  if (UPD) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      un[r] = Q[(W + r0 + r) * LDW + l] + a.dtc[0] * res[r];
+      un[r] = (BASE_SEP ? bv[r] : Q[(W + r0 + r) * LDW + l]) +
+              a.dtc[0] * res[r];
 #pragma unroll
       for (int jj = 0; jj < NOLDS; ++jj) un[r] += a.dtc[jj + 1] * ov[jj][r];
     }
@@ -305,7 +429,7 @@ __device__ __forceinline__ void combine_line(
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS>
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP>
 __global__ void __launch_bounds__(NT, 1)
 transeq_sweep_kernel(SweepArgs a, long long ntiles) {
   extern __shared__ __align__(16) float smem[];
@@ -328,17 +452,13 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
   if (t >= ntiles) return;
   long long base, ls, ss;
   int n;
-  tile_geometry<AXIS>(a, t, base, ls, ss, n);
+  tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
   const int k0 = b * BS - W;
-  // the first tile's windows, loaded directly
+  // the first tile's windows
   for (int c = 0; c < 3; ++c) {
-#pragma unroll 8
-    for (int m = 0; m < PER_THREAD; ++m) {
-      int k, l;
-      window_coords<AXIS>(tid + m * NT, k, l);
-      F[c * WIN * LDW + k * LDW + l] =
-          a.f[c][base + window_offset<AXIS>(k, l, k0, n, ls, ss)];
-    }
+    float pre[PER_THREAD];
+    fetch_window<AXIS>(a.f[c], base, k0, n, ls, ss, pre);
+    put_window<AXIS>(F + c * WIN * LDW, pre);
   }
   __syncthreads();
 
@@ -347,7 +467,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
     const bool has_next = tn < ntiles;
     long long nbase = 0, nls = 0, nss = 0;
     int nn = n;
-    if (has_next) tile_geometry<AXIS>(a, tn, nbase, nls, nss, nn);
+    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
 
     // the two transverse components first, the aligned one last: its
     // window is every component's conv. While a component computes, the
@@ -357,14 +477,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
     for (int ci = 0; ci < 3; ++ci) {
       const int c = ci == 2 ? AXIS : ci + (ci >= AXIS ? 1 : 0);
       float pre[PER_THREAD];
-      if (has_next) {
-#pragma unroll
-        for (int m = 0; m < PER_THREAD; ++m) {
-          int k, l;
-          window_coords<AXIS>(tid + m * NT, k, l);
-          pre[m] = a.f[c][nbase + window_offset<AXIS>(k, l, k0, nn, nls, nss)];
-        }
-      }
+      if (has_next) fetch_window<AXIS>(a.f[c], nbase, k0, nn, nls, nss, pre);
 
       const float* Q = F + c * WIN * LDW;
       float dq[RPT][2], d2[RPT][2], dd[RPT][2];
@@ -376,20 +489,12 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
         const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
                                (long long)(b * BS + r0) * ss;
         float un[RPT];
-        combine_line<AXIS, ACC, NOLDS, LDW>(a, c, j, l, r0, row0, ss, Q, CV,
-                                            dq, d2, dd, un);
+        combine_line<AXIS, ACC, NOLDS, UPD, BASE_SEP, LDW>(
+            a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
       }
 
       __syncthreads();  // every thread is done reading window c
-      if (has_next) {
-        float* dst = F + c * WIN * LDW;
-#pragma unroll
-        for (int m = 0; m < PER_THREAD; ++m) {
-          int k, l;
-          window_coords<AXIS>(tid + m * NT, k, l);
-          dst[k * LDW + l] = pre[m];
-        }
-      }
+      if (has_next) put_window<AXIS>(F + c * WIN * LDW, pre);
     }
     __syncthreads();  // the next tile's windows are complete
     base = nbase;
@@ -480,8 +585,8 @@ transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
           const int l = tx + 32 * j;
           const long long row0 = base + l + (long long)(b * BS + r0) * ss;
           float un[RPT];
-          combine_line<0, true, NOLDS, TL>(a, c, j, l, r0, row0, ss, Q, CV,
-                                           dq, d2, dd, un);
+          combine_line<0, true, NOLDS, true, false, TL>(
+              a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
 #pragma unroll
           for (int r = 0; r < RPT; ++r) U[(r0 + r) * TL + l] = un[r];
         }
@@ -537,16 +642,100 @@ transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS>
+// The species sweep (see the head of the file). Grid (blocks per output
+// block, output blocks); a block stages its output block's aligned pairing
+// and walks line tiles, and within a tile the scalars.
+template <int AXIS, bool ACC>
+__global__ void __launch_bounds__(NT, 1)
+species_sweep_kernel(SpeciesArgs a, long long ntiles) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LDW = ldw<AXIS>();
+  float* SaT = smem;                    // [WIN][2BS]
+  float* DaT = SaT + WIN * 2 * BS;      // [WIN][BS]
+  float* Cw = DaT + WIN * BS;           // [WIN][LDW] the conv window
+  float* Qw = Cw + WIN * LDW;           // [WIN][LDW] one scalar's window
+  float* Cn = Qw + WIN * LDW;           // the buffers the next windows
+  float* Qn = Cn + WIN * LDW;           // arrive in
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  stage_pairing(a.sa, a.da, b, SaT, DaT);
+
+  const int tx = tid & 31;
+  const int r0 = (tid >> 5) * RPT;
+
+  long long t = blockIdx.x;
+  if (t >= ntiles) return;
+  long long base, ls, ss;
+  int n;
+  tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
+  const int k0 = b * BS - W;
+  copy_window_async<AXIS>(Cw, a.conv, base, k0, n, ls, ss);
+  copy_window_async<AXIS>(Qw, a.phi[0], base, k0, n, ls, ss);
+  cp_async_wait();
+  __syncthreads();
+
+  for (; t < ntiles; t += gridDim.x) {
+    const long long tn = t + gridDim.x;
+    const bool has_next = tn < ntiles;
+    long long nbase = 0, nls = 0, nss = 0;
+    int nn = n;
+    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+
+#pragma unroll 1
+    for (int s = 0; s < a.nsp; ++s) {
+      const bool last = s + 1 == a.nsp;
+      // in flight while scalar s computes: the next scalar's window of
+      // this tile, or after the last scalar the next tile's windows of the
+      // first scalar and of the conv (their buffers were last read before
+      // the previous barrier)
+      if (!last) {
+        copy_window_async<AXIS>(Qn, a.phi[s + 1], base, k0, n, ls, ss);
+      } else if (has_next) {
+        copy_window_async<AXIS>(Qn, a.phi[0], nbase, k0, nn, nls, nss);
+        copy_window_async<AXIS>(Cn, a.conv, nbase, k0, nn, nls, nss);
+      }
+
+      float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+      contract<LDW>(Qw, Cw, SaT, DaT, tx, r0, dq, d2, dd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = tx + 32 * j;
+        const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
+                               (long long)(b * BS + r0) * ss;
+        float av[RPT], res[RPT];
+        if (ACC) load_rows<AXIS>(a.acc[s], row0, ss, av);
+        line_rhs<ACC, LDW>(a.nu[s], j, l, r0, Cw, dq, d2, dd, av, res);
+        store_rows<AXIS>(a.out[s], row0, ss, res);
+      }
+
+      cp_async_wait();
+      __syncthreads();  // the next windows are complete, the current free
+      float* q = Qw;
+      Qw = Qn;
+      Qn = q;
+      if (last) {
+        float* c = Cw;
+        Cw = Cn;
+        Cn = c;
+      }
+    }
+    base = nbase;
+    ls = nls;
+    ss = nss;
+    n = nn;
+  }
+}
+
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP>
 cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<AXIS>();
+  auto kern = transeq_sweep_kernel<AXIS, ACC, NOLDS, UPD, BASE_SEP>;
   cudaError_t e = cudaFuncSetAttribute(
-      transeq_sweep_kernel<AXIS, ACC, NOLDS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  transeq_sweep_kernel<AXIS, ACC, NOLDS>
-      <<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
+  kern<<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
   return cudaGetLastError();
 }
 
@@ -562,21 +751,67 @@ cudaError_t launch_xdiv(const SweepArgs& a, long long ntiles, int grid_x,
   return cudaGetLastError();
 }
 
+template <int AXIS, bool ACC>
+cudaError_t launch_species(const SpeciesArgs& a, long long ntiles, int nb,
+                           int grid_x, cudaStream_t stream) {
+  constexpr size_t smem = species_smem_bytes<AXIS>();
+  auto kern = species_sweep_kernel<AXIS, ACC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
+// The instances: every axis without an update and with the AB update (1-3
+// history fields); the RK substage updates (no history and the sweep's own
+// base; the step-initial base with 0, 2 or 3 stage derivatives, the RK1-4
+// tableaus' rows) on the y sweep only, which ends the RK chain.
 template <int AXIS>
-cudaError_t dispatch_axis(int accumulate, int nolds, const SweepArgs& a,
-                          long long ntiles, int nb, int grid_x,
-                          cudaStream_t s) {
+cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
+                          const SweepArgs& a, long long ntiles, int nb,
+                          int grid_x, cudaStream_t s) {
   if (!accumulate) {
-    if (nolds != 0) return cudaErrorInvalidValue;
-    return launch<AXIS, false, 0>(a, ntiles, nb, grid_x, s);
+    if (nolds != 0 || upd) return cudaErrorInvalidValue;
+    return launch<AXIS, false, 0, false, false>(a, ntiles, nb, grid_x, s);
   }
-  switch (nolds) {
-    case 0: return launch<AXIS, true, 0>(a, ntiles, nb, grid_x, s);
-    case 1: return launch<AXIS, true, 1>(a, ntiles, nb, grid_x, s);
-    case 2: return launch<AXIS, true, 2>(a, ntiles, nb, grid_x, s);
-    case 3: return launch<AXIS, true, 3>(a, ntiles, nb, grid_x, s);
+  if (!upd) {
+    if (nolds != 0 || base_sep) return cudaErrorInvalidValue;
+    return launch<AXIS, true, 0, false, false>(a, ntiles, nb, grid_x, s);
+  }
+  if (!base_sep) {
+    switch (nolds) {
+      case 1: return launch<AXIS, true, 1, true, false>(a, ntiles, nb, grid_x, s);
+      case 2: return launch<AXIS, true, 2, true, false>(a, ntiles, nb, grid_x, s);
+      case 3: return launch<AXIS, true, 3, true, false>(a, ntiles, nb, grid_x, s);
+    }
+  }
+  if constexpr (AXIS == 1) {
+    if (!base_sep && nolds == 0)
+      return launch<1, true, 0, true, false>(a, ntiles, nb, grid_x, s);
+    if (base_sep) {
+      switch (nolds) {
+        case 0: return launch<1, true, 0, true, true>(a, ntiles, nb, grid_x, s);
+        case 2: return launch<1, true, 2, true, true>(a, ntiles, nb, grid_x, s);
+        case 3: return launch<1, true, 3, true, true>(a, ntiles, nb, grid_x, s);
+      }
+    }
   }
   return cudaErrorInvalidValue;
+}
+
+template <int AXIS>
+cudaError_t dispatch_species(int accumulate, const SpeciesArgs& a,
+                             long long ntiles, int nb, int grid_x,
+                             cudaStream_t s) {
+  return accumulate ? launch_species<AXIS, true>(a, ntiles, nb, grid_x, s)
+                    : launch_species<AXIS, false>(a, ntiles, nb, grid_x, s);
+}
+
+long long lines_of(int axis, int n0, int n1, int n2) {
+  return axis == 0 ? (long long)n1 * n2
+         : axis == 1 ? (long long)n0 * n2
+                     : (long long)n0 * n1;
 }
 
 }  // namespace
@@ -584,23 +819,25 @@ cudaError_t dispatch_axis(int accumulate, int nolds, const SweepArgs& a,
 extern "C" {
 
 // Compile-time block geometry, for the wrapper's checks.
-int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb) {
+int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,
+                           int* max_species) {
   *bs = BS;
   *w = W;
   *tl = TL;
   *xdiv_max_nb = XDIV_MAX_NB;
+  *max_species = MAX_SPECIES;
   return 0;
 }
 
 // ptrs: u, v, w, sa, st, da, dt, acc[3], old[j][c] (9, j-major),
-// out[3], rhs[3], then for xdiv the Sx and Ix slices and du, dv, dw;
-// unused entries may be null. dtc: 4 floats. grid_x: blocks per x block,
-// or with xdiv blocks in all. Returns the cudaError_t of the launch (0 on
-// success).
-int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
-                         void* const* ptrs, int n0, int n1, int n2,
-                         float nu, const float* dtc, int grid_x,
-                         void* stream) {
+// out[3], rhs[3], for xdiv the Sx and Ix slices and du, dv, dw, then for
+// base_sep the base fields; unused entries may be null. dtc: 4 floats.
+// grid_x: blocks per x block, or with xdiv blocks in all. Returns the
+// cudaError_t of the launch (0 on success).
+int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,
+                         int base_sep, int xdiv, void* const* ptrs, int n0,
+                         int n1, int n2, float nu, const float* dtc,
+                         int grid_x, void* stream) {
   SweepArgs a;
   int i = 0;
   for (int c = 0; c < 3; ++c) a.f[c] = static_cast<const float*>(ptrs[i++]);
@@ -616,6 +853,7 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
   for (int c = 0; c < 3; ++c) a.rhs[c] = static_cast<float*>(ptrs[i++]);
   for (int j = 0; j < 2; ++j) a.xm[j] = static_cast<const float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.div[c] = static_cast<float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.base[c] = static_cast<const float*>(ptrs[i++]);
   a.n0 = n0;
   a.n1 = n1;
   a.n2 = n2;
@@ -624,13 +862,10 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
 
   const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
   const int nb = n / BS;
-  const long long lines = axis == 0 ? (long long)n1 * n2
-                          : axis == 1 ? (long long)n0 * n2
-                                      : (long long)n0 * n1;
-  const long long ntiles = lines / TL;
+  const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (xdiv) {
-    if (axis != 0 || !accumulate || nb > XDIV_MAX_NB)
+    if (axis != 0 || !accumulate || !upd || base_sep || nb > XDIV_MAX_NB)
       return cudaErrorInvalidValue;
     switch (nolds) {
       case 1: return launch_xdiv<1>(a, ntiles, grid_x, s);
@@ -640,9 +875,49 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int xdiv,
     return cudaErrorInvalidValue;
   }
   switch (axis) {
-    case 0: return dispatch_axis<0>(accumulate, nolds, a, ntiles, nb, grid_x, s);
-    case 1: return dispatch_axis<1>(accumulate, nolds, a, ntiles, nb, grid_x, s);
-    case 2: return dispatch_axis<2>(accumulate, nolds, a, ntiles, nb, grid_x, s);
+    case 0: return dispatch_axis<0>(accumulate, nolds, upd, base_sep, a,
+                                    ntiles, nb, grid_x, s);
+    case 1: return dispatch_axis<1>(accumulate, nolds, upd, base_sep, a,
+                                    ntiles, nb, grid_x, s);
+    case 2: return dispatch_axis<2>(accumulate, nolds, upd, base_sep, a,
+                                    ntiles, nb, grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The species sweep of nsp (1..MAX_SPECIES) scalars. ptrs: conv, sa, da,
+// phi[MAX_SPECIES], acc[MAX_SPECIES], out[MAX_SPECIES]; entries past nsp
+// (and acc without accumulate) may be null. nus: nsp floats. grid_x:
+// blocks per output block.
+int species_sweep_launch(int axis, int accumulate, int nsp, void* const* ptrs,
+                         int n0, int n1, int n2, const float* nus, int grid_x,
+                         void* stream) {
+  if (nsp < 1 || nsp > MAX_SPECIES) return cudaErrorInvalidValue;
+  SpeciesArgs a;
+  int i = 0;
+  a.conv = static_cast<const float*>(ptrs[i++]);
+  a.sa = static_cast<const float*>(ptrs[i++]);
+  a.da = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.phi[q] = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.acc[q] = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.out[q] = static_cast<float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q) a.nu[q] = q < nsp ? nus[q] : 0.f;
+  a.nsp = nsp;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+
+  const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
+  const int nb = n / BS;
+  const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (axis) {
+    case 0: return dispatch_species<0>(accumulate, a, ntiles, nb, grid_x, s);
+    case 1: return dispatch_species<1>(accumulate, a, ntiles, nb, grid_x, s);
+    case 2: return dispatch_species<2>(accumulate, a, ntiles, nb, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,0 +1,192 @@
+"""Passive-scalar (species) transport sweeps over banded operator blocks:
+the wrapper of the species kernel of ``csrc/transeq_sweep.cu`` and its
+plain PyTorch version.
+
+Counterpart of x3d2_tpu.ops.pallas_kernels ``_species_kernel_v3``
+(pallas_kernels.py:1038), ``make_species_dir_v3`` (:1112) and
+``make_fused_species_v3`` (:1209); reference transeq_species
+(solver.f90:507-601). Along one sweep axis, for each scalar phi_s with its
+diffusivity nu_s = nu / Pr_s and conv the velocity component aligned with
+the axis (u for x, v for y, w for z):
+
+    r_s = -1/2 (conv * D1 phi_s + D1s (phi_s * conv)) + nu_s * D2 phi_s
+          [+ acc_s]
+
+the aligned pairing of the momentum sweep (``SweepBlocks`` sa = [D1; D2],
+da = D1s, at the same BS and W). One launch serves up to MAX_SPECIES
+scalars, so the conv window is read once per tile for all of them.
+
+``species_sweep`` launches the kernel for CUDA tensors (or raises) and
+runs ``species_sweep_plain`` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..common import resolve_device
+from . import transeq_sweep as ts
+from .transeq_sweep import BS, MAX_SPECIES, TL, W, SweepBlocks
+
+# launches of the kernel per variant name, counted where it is launched
+_LAUNCHES: dict[str, int] = {}
+
+
+def variant_name(axis: int, accumulate: bool) -> str:
+    return "species_sweep[" + "xyz"[axis] + (",acc" if accumulate else "") \
+        + "]"
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+def species_sweep_plain(phis, conv, blocks: SweepBlocks, nus, acc=None):
+    """The sweep's function in plain PyTorch, at the inputs' dtype: the
+    windows of conv are gathered once, each scalar's in turn, then batched
+    products with the aligned blocks. Returns one tensor per scalar."""
+    axis = blocks.axis
+    sa, _, da, _ = blocks.mats(conv.dtype)
+    nb, bs, w = blocks.nb, BS, W
+    shape = tuple(conv.shape)
+    cw = ts._windows(conv, axis, nb, bs, w)
+    cmid = cw[:, w:w + bs]
+    outs = []
+    for s, (phi, nu_s) in enumerate(zip(phis, nus)):
+        qw = ts._windows(phi, axis, nb, bs, w)
+        both = torch.bmm(sa, qw)
+        dqd = torch.bmm(da, qw * cw)
+        r = -0.5 * (cmid * both[:, :bs] + dqd) + nu_s * both[:, bs:]
+        r = ts._field(r, shape, axis)
+        if acc is not None:
+            r = r + acc[s]
+        outs.append(r)
+    return tuple(outs)
+
+
+def _launch(phis, conv, blocks, nus, acc, out):
+    axis = blocks.axis
+    shape = tuple(conv.shape)
+    nsp = len(phis)
+    if len(shape) != 3 or not ts.sweep_shape_ok(shape, axis):
+        raise ValueError(f"shape {shape} is not tileable by the sweep "
+                         f"kernel along axis {axis}")
+    if not 1 <= nsp <= MAX_SPECIES or len(nus) != nsp:
+        raise ValueError(f"the species kernel takes 1 to {MAX_SPECIES} "
+                         f"scalars with one diffusivity each, got {nsp}")
+    ins = [conv] + list(phis) + (list(acc) if acc is not None else [])
+    for i, t in enumerate(ins):
+        ts._check(t, shape, f"input {i}")
+    sa, _, da, _ = blocks.mats(torch.float32)
+    if sa.device != conv.device:
+        raise ValueError("operator blocks and fields are on different devices")
+    if out is None:
+        out = [torch.empty_like(conv) for _ in range(nsp)]
+    elif len(out) != nsp:
+        raise ValueError(f"out must hold {nsp} tensors")
+    windows = {t.data_ptr() for t in [conv] + list(phis)}
+    for t in out:
+        ts._check(t, shape, "out")
+        if t.data_ptr() in windows:
+            raise ValueError("out may not alias conv or a scalar: the kernel "
+                             "reads their windows around every point")
+    pad = [None] * (MAX_SPECIES - nsp)
+    ptrs = [conv.data_ptr(), sa.data_ptr(), da.data_ptr()]
+    ptrs += [t.data_ptr() for t in phis] + pad
+    ptrs += ([t.data_ptr() for t in acc] if acc is not None
+             else [None] * nsp) + pad
+    ptrs += [t.data_ptr() for t in out] + pad
+    parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    narr = (ctypes.c_float * nsp)(*(float(x) for x in nus))
+    nb = shape[axis] // BS
+    lines = shape[0] * shape[1] * shape[2] // shape[axis]
+    sms = torch.cuda.get_device_properties(conv.device).multi_processor_count
+    grid_x = max(1, min(lines // TL, sms // nb))
+    stream = torch.cuda.current_stream(conv.device).cuda_stream
+    with torch.cuda.device(conv.device):
+        err = ts._lib().species_sweep_launch(
+            axis, int(acc is not None), nsp, parr, *shape, narr, grid_x,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"species_sweep launch failed: "
+                           f"{ts.launch_error(err)} ({err})")
+    name = variant_name(axis, acc is not None)
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    return tuple(out)
+
+
+def species_sweep(phis, conv, blocks: SweepBlocks, nus, acc=None, out=None):
+    """One direction sweep of the scalars `phis` (a sequence of fields,
+    diffusivities `nus`) carried by `conv` -> one rhs per scalar. `out`
+    names the tensors to write (in place); an output may alias its `acc`
+    (each point reads it before it writes), never conv or a scalar.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    if conv.is_cuda:
+        return _launch(phis, conv, blocks, nus, acc, out)
+    if conv.device.type != "cpu":
+        raise ValueError(f"no species sweep for device {conv.device}")
+    res = species_sweep_plain(phis, conv, blocks, nus, acc=acc)
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def make_species_sweep(ops_axis, nus, axis, shape, accumulate=False,
+                       device=None):
+    """One direction sweep as a function, the counterpart of
+    make_species_dir_v3: fn(phis, conv[, acc][, out]) -> as species_sweep.
+    Raises ValueError where x3d2_tpu does (no scalars, more than 8 per
+    launch) and where the kernel does not tile the shape."""
+    nus = tuple(float(x) for x in nus)
+    if not nus:
+        raise ValueError("no species")
+    if len(nus) > MAX_SPECIES:
+        raise ValueError(f"species kernel capped at {MAX_SPECIES} per call")
+    if not ts.sweep_shape_ok(tuple(shape), axis):
+        raise ValueError(f"shape {shape} not tileable along axis {axis}")
+    blocks = ts.build_sweep_blocks(ops_axis, axis, device=device)
+
+    def fn(phis, conv, acc=None, out=None):
+        if accumulate != (acc is not None) or len(phis) != len(nus):
+            raise ValueError("arguments do not match the sweep variant")
+        return species_sweep(phis, conv, blocks, nus, acc=acc, out=out)
+
+    fn.blocks = blocks
+    return fn
+
+
+def make_fused_species(solver_ops, nus, shape, device=None):
+    """All scalars' transport RHS in one chain of three sweeps (x3d2_tpu
+    make_fused_species_v3, pallas_kernels.py:1209-1226): z sweep ->
+    accumulating x sweep -> accumulating y sweep.
+
+        fn(phis, u, v, w, out=None) -> one rhs per scalar
+
+    `out` (one tensor per scalar, e.g. the unbound rows of a stacked
+    tensor) receives the z sweep's partials; the x and y sweeps add into
+    them in place."""
+    device = resolve_device(device)
+    d2 = make_species_sweep(solver_ops[2], nus, 2, shape, device=device)
+    d0 = make_species_sweep(solver_ops[0], nus, 0, shape, accumulate=True,
+                            device=device)
+    d1 = make_species_sweep(solver_ops[1], nus, 1, shape, accumulate=True,
+                            device=device)
+
+    def fn(phis, u, v, w_, out=None):
+        phis = tuple(phis)
+        acc = d2(phis, w_, out=out)
+        acc = d0(phis, u, acc=acc, out=acc)
+        return d1(phis, v, acc=acc, out=acc)
+
+    fn.sweeps = (d2, d0, d1)
+    return fn

@@ -1,17 +1,21 @@
 """Directional transport sweeps over banded operator blocks, with the
-fused Adams-Bashforth update: the wrapper of the Hopper kernel
+fused time update: the wrapper of the Hopper kernel
 ``csrc/transeq_sweep.cu`` and its plain PyTorch version.
 
-Counterpart of the main-path sweeps of x3d2_tpu.ops.pallas_kernels: the z
-sweep ``_pencil_kernel`` (pallas_kernels.py:671), the accumulating x sweep
-and the accumulating y sweep with the AB epilogue, both
+Counterpart of the sweeps of x3d2_tpu.ops.pallas_kernels: the z sweep
+``_pencil_kernel`` (pallas_kernels.py:671), the accumulating x sweep and
+the accumulating y sweep with the AB or RK epilogue, both
 ``_transeq_kernel_v3`` (pallas_kernels.py:172). For one sweep axis and each
 component q of (u, v, w), with conv the component aligned with the axis:
 
     r = -1/2 (conv * D1 q + D1d (q * conv)) + nu * D2 q   [+ acc]
 
-and with ``nolds`` > 0 also rhs = r and
-u' = u + dtc0 * r + sum_j dtc_{j+1} * old_j. The xdiv variant (the x sweep
+and with the update (``dtc`` given) also rhs = r and
+u' = base + dtc0 * r + sum_j dtc_{j+1} * old_j, where base is u itself
+(the AB update, olds = the derivative history; and the first RK substage)
+or the RK step-initial field f0 (``base``; pallas_kernels.py:195-200,
+:304-326), olds then the earlier stage derivatives with a nonzero
+coefficient. The xdiv variant (the x sweep
 with the AB epilogue; pallas_kernels.py:202-211, :327-364) also emits the
 projection's forward x transforms of the updated velocities, du = Sx u',
 dv = Ix v', dw = Ix w' as parity splits with the modes in block-parity
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from ..common import resolve_device
+from ..time_integrators import TimeIntegrator
 from .banded import banded_blocks
 from .parity import parity_split_folded, pfwd
 
@@ -49,16 +54,41 @@ _BAND_TOL = 1e-6
 # (cases/base.py: max(dims) <= 256)
 XDIV_MAX_N = 256
 _EQUAL_BLOCKS_TOL = 1e-12   # SweepBlocks.require_equal_blocks
+MAX_SPECIES = 8   # scalars per species launch (ops/species_sweep.py)
+# the RK substage updates the kernel is built with, (history fields,
+# separate base): the rows of the RK1-4 tableaus (make_fused_transeq_rk),
+# on the y sweep that ends the chain
+RK_INSTANCES = {(0, False), (0, True), (2, True), (3, True)}
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
 
 
 def variant_name(axis: int, accumulate: bool, nolds: int,
-                 xdiv: bool = False) -> str:
-    tags = ["xyz"[axis]] + (["acc"] if accumulate else []) \
-        + ([f"ab{nolds + 1}"] if nolds else []) + (["xdiv"] if xdiv else [])
-    return "transeq_sweep[" + ",".join(tags) + "]"
+                 xdiv: bool = False, upd: bool | None = None,
+                 base_sep: bool = False) -> str:
+    """The kernel instance's name. upd (default: nolds > 0) is the fused
+    update; an update with history and the sweep's own base is the AB one
+    (``ab<k>``), the others are the RK substage updates (``rk<nolds>``, and
+    ``f0`` where the base is the step-initial field)."""
+    if upd is None:
+        upd = nolds > 0
+    tags = ["xyz"[axis]] + (["acc"] if accumulate else [])
+    if upd and (base_sep or not nolds):
+        tags += [f"rk{nolds}"] + (["f0"] if base_sep else [])
+    elif upd:
+        tags.append(f"ab{nolds + 1}")
+    return "transeq_sweep[" + ",".join(tags + (["xdiv"] if xdiv else [])) \
+        + "]"
+
+
+def _check_rk_instance(axis, nolds, base_sep):
+    """Raise ValueError for an RK update (no history, or a separate base)
+    the kernel is not built with."""
+    if axis != 1 or (nolds, base_sep) not in RK_INSTANCES:
+        raise ValueError(f"the RK update is built on the y sweep for "
+                         f"(nolds, base_sep) in {sorted(RK_INSTANCES)}, not "
+                         f"({nolds}, {base_sep}) on axis {axis}")
 
 
 def launch_counts() -> dict[str, int]:
@@ -199,12 +229,14 @@ def _field(y, shape, axis):
 
 
 def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
-                        olds=None, dtc=None, xdiv: XdivMats | None = None):
+                        olds=None, dtc=None, xdiv: XdivMats | None = None,
+                        base=None):
     """The sweep's function in plain PyTorch, at the inputs' dtype: gather
     the windows with periodic indices, then batched products with the
     blocks. Returns (r_u, r_v, r_w), or ((u', v', w'), (rhs_u, rhs_v,
-    rhs_w)) when `dtc` is given (olds: per-field history tuples), and with
-    `xdiv` also (du, dv, dw), the forward parity x applies of u', v', w'."""
+    rhs_w)) when `dtc` is given (olds: per-field history tuples; base: the
+    update's base fields, default u, v, w), and with `xdiv` also (du, dv,
+    dw), the forward parity x applies of u', v', w'."""
     axis = blocks.axis
     sa, st, da, dt = blocks.mats(u.dtype)
     nb, bs, w = blocks.nb, BS, W
@@ -227,7 +259,7 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
         return tuple(outs)
     new = []
     for c in range(3):
-        un = comps[c] + dtc[0] * outs[c]
+        un = (comps if base is None else base)[c] + dtc[0] * outs[c]
         for j, o in enumerate(olds[c] if olds is not None else ()):
             un = un + dtc[1 + j] * o
         new.append(un)
@@ -252,23 +284,23 @@ def _lib():
         from .. import _build
 
         lib = _build.load("transeq_sweep")
+        i, p = ctypes.c_int, ctypes.c_void_p
         lib.transeq_sweep_launch.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        lib.transeq_sweep_launch.restype = ctypes.c_int
-        lib.transeq_sweep_error_string.argtypes = [ctypes.c_int]
+            i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
+        lib.transeq_sweep_launch.restype = i
+        lib.species_sweep_launch.argtypes = [i, i, i, p, i, i, i, p, i, p]
+        lib.species_sweep_launch.restype = i
+        lib.transeq_sweep_error_string.argtypes = [i]
         lib.transeq_sweep_error_string.restype = ctypes.c_char_p
-        lib.transeq_sweep_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
-        lib.transeq_sweep_geometry.restype = ctypes.c_int
-        geo = [ctypes.c_int() for _ in range(4)]
+        lib.transeq_sweep_geometry.argtypes = [ctypes.POINTER(i)] * 5
+        lib.transeq_sweep_geometry.restype = i
+        geo = [i() for _ in range(5)]
         lib.transeq_sweep_geometry(*geo)
         geo = tuple(g.value for g in geo)
-        if geo != (BS, W, TL, XDIV_MAX_N // BS):
+        want = (BS, W, TL, XDIV_MAX_N // BS, MAX_SPECIES)
+        if geo != want:
             raise RuntimeError(f"transeq_sweep.cu geometry {geo} differs "
-                               "from the wrapper's "
-                               f"{(BS, W, TL, XDIV_MAX_N // BS)}")
+                               f"from the wrapper's {want}")
         _LIB = lib
     return _LIB
 
@@ -279,6 +311,11 @@ def sweep_shape_ok(shape, axis) -> bool:
     n = shape[axis]
     return (n % BS == 0 and n >= BS + 2 * W and n2 % TL == 0
             and (n0 * n1) % TL == 0)
+
+
+def launch_error(err) -> str:
+    """The CUDA error string of a launch's return code."""
+    return _lib().transeq_sweep_error_string(err).decode()
 
 
 def _check(t, shape, name):
@@ -292,53 +329,63 @@ def _check(t, shape, name):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
+def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
+            base=None):
     axis = blocks.axis
     shape = tuple(u.shape)
     if len(shape) != 3 or not sweep_shape_ok(shape, axis):
         raise ValueError(f"shape {shape} is not tileable by the sweep "
                          f"kernel along axis {axis}")
-    nolds = len(olds[0]) if dtc is not None else 0
-    if dtc is not None and acc is None:
-        raise ValueError("the fused AB sweep accumulates: pass acc")
+    upd = dtc is not None
+    olds = olds if upd and olds is not None else ((), (), ())
+    nolds = len(olds[0])
+    if upd and acc is None:
+        raise ValueError("the fused-update sweep accumulates: pass acc")
+    if base is not None and not upd:
+        raise ValueError("a separate base needs the update (dtc)")
     if nolds > 3:
         raise ValueError("the kernel takes at most 3 history fields")
-    if xdiv is not None and (axis != 0 or not nolds):
+    if upd and (base is not None or not nolds):
+        _check_rk_instance(axis, nolds, base is not None)
+    if xdiv is not None and (axis != 0 or not nolds or base is not None):
         raise ValueError("the xdiv variant is the x sweep with the AB "
                          "update and at least one history field")
     ins = [u, v, w_] + (list(acc) if acc is not None else [])
-    ins += [o for c in range(3) for o in (olds[c] if dtc is not None else ())]
+    ins += [o for c in range(3) for o in olds[c]]
+    ins += list(base) if base is not None else []
     for i, t in enumerate(ins):
         _check(t, shape, f"input {i}")
     mats = blocks.mats(torch.float32)
     if mats[0].device != u.device:
         raise ValueError("operator blocks and fields are on different devices")
-    nout = 6 if dtc is not None else 3
+    nout = 6 if upd else 3
     if out is None:
         outs = [torch.empty_like(u) for _ in range(nout)]
     else:
-        outs = list(out[0]) + list(out[1]) if dtc is not None else list(out)
+        outs = list(out[0]) + list(out[1]) if upd else list(out)
         if len(outs) != nout:
             raise ValueError(f"out must hold {nout} tensors")
         fields = {t.data_ptr() for t in (u, v, w_)}
+        bases = {t.data_ptr() for t in base} if base is not None else set()
         for t in outs:
             _check(t, shape, "out")
             if t.data_ptr() in fields:
                 raise ValueError("out may not alias u, v or w: the kernel "
                                  "reads their windows around every point")
+            if t.data_ptr() in bases:
+                raise ValueError("out may not alias the base: the RK "
+                                 "substages after this one read it")
     null = None
     ptrs = [u.data_ptr(), v.data_ptr(), w_.data_ptr()]
     ptrs += [m.data_ptr() for m in mats]
     ptrs += [t.data_ptr() for t in acc] if acc is not None else [null] * 3
     old_ptrs = [null] * 9
-    if dtc is not None:
-        for c in range(3):
-            for j, o in enumerate(olds[c]):
-                old_ptrs[3 * j + c] = o.data_ptr()
+    for c in range(3):
+        for j, o in enumerate(olds[c]):
+            old_ptrs[3 * j + c] = o.data_ptr()
     ptrs += old_ptrs
     ptrs += [t.data_ptr() for t in outs[:3]]
-    ptrs += [t.data_ptr() for t in outs[3:]] if dtc is not None \
-        else [null] * 3
+    ptrs += [t.data_ptr() for t in outs[3:]] if upd else [null] * 3
     nb = shape[axis] // BS
     lines = shape[0] * shape[1] * shape[2] // shape[axis]
     divs = None
@@ -351,8 +398,9 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
         ptrs += [M.data_ptr() for M in xm] + [t.data_ptr() for t in divs]
     else:
         ptrs += [null] * 5
+    ptrs += [t.data_ptr() for t in base] if base is not None else [null] * 3
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    co = list(dtc) if dtc is not None else []
+    co = list(dtc) if upd else []
     carr = (ctypes.c_float * 4)(*(co + [0.0] * (4 - len(co))))
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     # blocks per x block; the xdiv kernel's blocks own all of x
@@ -360,38 +408,42 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None):
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
         err = _lib().transeq_sweep_launch(
-            axis, int(acc is not None), nolds, int(xdiv is not None), parr,
-            *shape, float(nu), carr, grid_x, stream)
+            axis, int(acc is not None), nolds, int(upd), int(base is not None),
+            int(xdiv is not None), parr, *shape, float(nu), carr, grid_x,
+            stream)
     if err != 0:
-        msg = _lib().transeq_sweep_error_string(err).decode()
-        raise RuntimeError(f"transeq_sweep launch failed: {msg} ({err})")
-    name = variant_name(axis, acc is not None, nolds, xdiv is not None)
+        raise RuntimeError(f"transeq_sweep launch failed: "
+                           f"{launch_error(err)} ({err})")
+    name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
+                        base is not None)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     if xdiv is not None:
         return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)
-    if dtc is not None:
+    if upd:
         return tuple(outs[:3]), tuple(outs[3:])
     return tuple(outs)
 
 
 def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
-                  dtc=None, out=None, xdiv: XdivMats | None = None):
+                  dtc=None, out=None, xdiv: XdivMats | None = None,
+                  base=None):
     """One direction sweep: -> (r_u, r_v, r_w), or with `dtc` (the
-    dt-scaled AB row, host floats) -> ((u', v', w'), (rhs_u, rhs_v,
-    rhs_w)), and with `xdiv` -> (..., ..., (du, dv, dw)). `out` names the
-    tensors to write (in place): 3 tensors, or ((u'x3), (rhs x3)) with
-    `dtc` (du, dv, dw are always new tensors). An output may alias `acc`
-    or the history (each point reads them before it writes), never u, v
-    or w.
+    dt-scaled update row, host floats) -> ((u', v', w'), (rhs_u, rhs_v,
+    rhs_w)), and with `xdiv` -> (..., ..., (du, dv, dw)). `base`: the
+    update's base fields where they are not u, v, w (the RK step-initial
+    fields). `out` names the tensors to write (in place): 3 tensors, or
+    ((u'x3), (rhs x3)) with `dtc` (du, dv, dw are always new tensors). An
+    output may alias `acc` or the history (each point reads them before it
+    writes), never u, v, w or the base.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
     if u.is_cuda:
-        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv)
+        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv, base)
     if u.device.type != "cpu":
         raise ValueError(f"no transeq sweep for device {u.device}")
     res = transeq_sweep_plain(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                              dtc=dtc, xdiv=xdiv)
+                              dtc=dtc, xdiv=xdiv, base=base)
     if out is None:
         return res
     flat_res = list(res[0]) + list(res[1]) if dtc is not None else list(res)
@@ -405,16 +457,24 @@ def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
 
 
 def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
-                       device=None, xdiv_mats=None):
+                       device=None, xdiv_mats=None, upd=None, base_sep=False):
     """One direction sweep as a function, the counterpart of
     make_transeq_dir_v3 / make_pencil_sweep:
-    fn(u, v, w[, acc][, olds, dtc][, out]) -> as transeq_sweep. With
+    fn(u, v, w[, acc][, olds, dtc][, out][, base]) -> as transeq_sweep.
+    upd (default: nolds > 0) fuses the time update; base_sep takes its base
+    from `base` (the RK substages after the first). With
     xdiv_mats=(sx64, ix64), the transform-folded x-stage divergence
     matrices, the sweep is the xdiv variant (raises ValueError as
     build_xdiv_mats does, off the AB-fused x sweep, and when the operator
     blocks along x differ)."""
-    if nolds and not accumulate:
+    if upd is None:
+        upd = nolds > 0
+    if (upd or nolds) and not accumulate:
         raise ValueError("fused-update sweeps accumulate (x3d2_tpu rule)")
+    if (nolds or base_sep) and not upd:
+        raise ValueError("history and a separate base need the update")
+    if upd and (base_sep or not nolds):
+        _check_rk_instance(axis, nolds, base_sep)
     if not sweep_shape_ok(tuple(shape), axis):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
     xdiv = None
@@ -426,17 +486,86 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     if xdiv is not None:
         blocks.require_equal_blocks()
 
-    def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None):
-        if accumulate != (acc is not None) or bool(nolds) != (dtc is not None):
+    def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None, base=None):
+        if (accumulate != (acc is not None) or upd != (dtc is not None)
+                or base_sep != (base is not None)):
             raise ValueError("arguments do not match the sweep variant")
         if nolds and any(len(o) != nolds for o in olds):
             raise ValueError(f"need {nolds} history fields per component")
         return transeq_sweep(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                             dtc=dtc, out=out, xdiv=xdiv)
+                             dtc=dtc, out=out, xdiv=xdiv, base=base)
 
     fn.blocks = blocks
     fn.xdiv = xdiv
     return fn
+
+
+def make_fused_transeq(solver_ops, nu, shape, device=None):
+    """The full transport RHS in one chain of three sweeps (x3d2_tpu
+    make_fused_transeq_v3, pallas_kernels.py:811-836): z sweep ->
+    accumulating x sweep -> accumulating y sweep.
+
+        fn(u, v, w) -> (r_u, r_v, r_w) summed over the directions
+
+    The chain allocates only the z sweep's partials; the x and y sweeps add
+    into them in place."""
+    device = resolve_device(device)
+    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
+                            device=device)
+    d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
+                            device=device)
+
+    def fn(u, v, w_):
+        acc = d2(u, v, w_)
+        acc = d0(u, v, w_, acc=acc, out=acc)
+        return d1(u, v, w_, acc=acc, out=acc)
+
+    fn.sweeps = (d2, d0, d1)
+    return fn
+
+
+def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None):
+    """Transport + Runge-Kutta substage update in one chain per substage
+    (x3d2_tpu make_fused_transeq_rk, pallas_kernels.py:944-995): z sweep ->
+    accumulating x sweep -> accumulating y sweep with the substage update
+    in its epilogue. Returns the per-substage functions
+
+        stage_fns[i](u, v, w, f0, ks, dtc) -> ((u', v', w'), rhs)
+
+    u, v, w: the substage's entry velocities; f0: the step-initial fields
+    (the base of every substage after the first, whose base is u, v, w);
+    ks: the stage derivatives so far (per substage a 3-tuple), of which the
+    ones with a nonzero coefficient in this substage's tableau row
+    (stage.prev_nz) are read; dtc: TimeIntegrator.rk_row, the dt-scaled row
+    [fresh, those...] as host floats. rhs is this substage's derivative;
+    it is written over the z sweep's partials, u' into new tensors (never
+    over u, v, w or f0)."""
+    device = resolve_device(device)
+    ti = TimeIntegrator(f"RK{order}")
+    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
+                            device=device)
+    stage_fns = []
+    for istage in range(order):
+        prev_nz = ti.rk_prev(istage)
+        d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
+                                nolds=len(prev_nz), upd=True,
+                                base_sep=istage > 0, device=device)
+
+        def stage(u, v, w_, f0, ks, dtc, d1=d1, prev_nz=prev_nz,
+                  istage=istage):
+            acc = d2(u, v, w_)
+            acc = d0(u, v, w_, acc=acc, out=acc)
+            olds = tuple(tuple(ks[j][c] for j in prev_nz) for c in range(3))
+            new = tuple(torch.empty_like(u) for _ in range(3))
+            return d1(u, v, w_, acc=acc, olds=olds, dtc=dtc, out=(new, acc),
+                      base=None if istage == 0 else tuple(f0))
+
+        stage.prev_nz = prev_nz
+        stage.sweeps = (d2, d0, d1)
+        stage_fns.append(stage)
+    return stage_fns
 
 
 def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,

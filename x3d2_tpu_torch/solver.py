@@ -6,9 +6,13 @@ correction src/solver.f90:693-739). Fields are Cartesian (nx, ny, nz)
 tensors; each compact-operator solve is one matrix contraction
 (ops/compact.py).
 
-What runs where, as in x3d2_tpu (solver.py:108-168, :523-567):
-- transeq: the dense operator products, on CPU tensors only (the card
-  steps through the fused sweep chain of cases/base.py).
+What runs where, as in x3d2_tpu (solver.py:108-168, :198-200, :270-282,
+:523-567):
+- transeq and transeq_species_all: on float32 uniform grids the sweep
+  kernels tile (ops/transeq_sweep.py transeq_sweep_supported), the chains
+  of three sweeps, make_fused_transeq and make_fused_species (at most 8
+  scalars); kernels on CUDA tensors, plain versions on CPU ones. Elsewhere
+  the dense operator products, on CPU tensors only.
 - pressure_correction, on the all-periodic uniform grids tiled by 128 that
   the projection kernels serve (ops/parity.py), in x3d2_tpu's dispatch
   order: the three-stage pipeline (ops/pressure_pipe.py) when the
@@ -34,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .common import resolve_device
+from .common import DataLoc, resolve_device
 from .mesh import Mesh
 from .ops.compact import apply_matrix
 from .ops.dirops import AxisOps, build_all_ops
@@ -42,13 +46,19 @@ from .ops.matmul_poisson import MatmulPoisson
 from .ops import pressure_slab
 from .ops.parity import build_projection_mats, projection_supported
 from .ops.pressure_pipe import make_pressure_pipe
+from .ops.species_sweep import make_fused_species
+from .ops.transeq_sweep import (MAX_SPECIES, make_fused_transeq,
+                                transeq_sweep_supported)
 
 # the TPU kernels behind the cases that raise on the card
-_UNPORTED_TRANSEQ = ("the v3 sweeps without the AB epilogue "
-                     "(make_fused_transeq_v3, x3d2_tpu/ops/pallas_kernels.py:"
-                     "172) that serve the unfused step, and the v1 dense "
-                     "sweep _kernel (ops/pallas_transeq.py:42) for grids the "
-                     "v3 sweeps cannot tile")
+_UNPORTED_TRANSEQ = ("the v1 dense sweep _kernel (x3d2_tpu/ops/"
+                     "pallas_transeq.py:42) for grids the v3 sweeps cannot "
+                     "tile")
+_UNPORTED_SPECIES = ("the species sweeps serve float32 uniform grids the "
+                     "sweep kernel tiles, at most 8 scalars (_species_kernel"
+                     "_v3, x3d2_tpu/ops/pallas_kernels.py:1038); x3d2_tpu "
+                     "takes its dense per-species path past that (solver.py:"
+                     "277-282), which is not ported to the card")
 _UNPORTED_PROJECTION = ("the slab projection's branches for wall-bounded "
                         "or untiled axes: the dense and folded y/z branches "
                         "of _pressure_mid_kernel (x3d2_tpu/ops/"
@@ -80,13 +90,15 @@ class NavierStokes:
     dtype: torch.dtype = torch.float32
     device: torch.device = None
     poisson: Optional[Callable] = None
+    nu_species: tuple = ()
 
     @classmethod
     def build(cls, mesh: Mesh, nu: float, *, dtype=torch.float32,
               schemes: dict | None = None, poisson_method: str = "matmul",
-              device=None) -> "NavierStokes":
+              device=None, nu_species=()) -> "NavierStokes":
         """poisson_method: only 'matmul' (separable real transforms) is
-        ported; 'fft' and 'cg' raise NotImplementedError."""
+        ported; 'fft' and 'cg' raise NotImplementedError. nu_species: one
+        diffusivity per passive scalar."""
         if poisson_method != "matmul":
             raise NotImplementedError(
                 f"poisson_method {poisson_method!r} is not ported yet")
@@ -95,8 +107,23 @@ class NavierStokes:
                             **(schemes or {}))
         poisson = MatmulPoisson(mesh, ops, dtype=dtype, device=device)
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
-                 poisson=poisson)
+                 poisson=poisson, nu_species=tuple(nu_species))
         ns._fused_pressure_mats()
+        # the sweep chains where the kernel tiles the grid (x3d2_tpu
+        # solver.py:118-140); a band wider than the kernel's leaves them
+        # out, and the card then raises in transeq
+        sweeps = species = None
+        shape = mesh.dims(DataLoc.VERT)
+        if transeq_sweep_supported(ns, shape):
+            try:
+                sweeps = make_fused_transeq(ops, nu, shape, device=device)
+                if ns.nu_species and len(ns.nu_species) <= MAX_SPECIES:
+                    species = make_fused_species(ops, ns.nu_species, shape,
+                                                 device=device)
+            except ValueError:
+                pass
+        object.__setattr__(ns, "_sweeps", sweeps)
+        object.__setattr__(ns, "_species_sweeps", species)
         # both kernel projections over one operator set: _pipe is the
         # pipeline's function, _slab the set the slab's functions take
         pipe = slab = None
@@ -117,16 +144,20 @@ class NavierStokes:
     # ------------------------------------------------------------------
     def transeq(self, u, v, w):
         """Skew-symmetric momentum RHS (reference transeq_default,
-        solver.f90:291-389) on the dense operator matrices. The
-        direction-aligned component uses (der1st, der1st_sym, der2nd);
-        transverse components use (der1st_sym, der1st, der2nd_sym)
-        (omp/backend.f90:235-262). The 6 products u_i*u_j are computed
-        once; dq and d2q share one row-stacked product. CPU tensors only:
-        on the card this would stand in for TPU kernels."""
+        solver.f90:291-389): the chain of three sweeps where it is built,
+        else the dense operator matrices (CPU tensors only: on the card
+        they would stand in for a TPU kernel). The direction-aligned
+        component uses (der1st, der1st_sym, der2nd); transverse components
+        use (der1st_sym, der1st, der2nd_sym) (omp/backend.f90:235-262). The
+        6 products u_i*u_j are computed once; dq and d2q share one
+        row-stacked product."""
+        if self._sweeps is not None:
+            return self._sweeps(u, v, w)
         if u.is_cuda:
             raise NotImplementedError(
-                f"the unfused transeq on the card: {_UNPORTED_TRANSEQ} are "
-                "not ported yet")
+                f"the transeq on the card runs the sweep kernels (a float32 "
+                f"uniform grid tiled by 64); {_UNPORTED_TRANSEQ} is not "
+                "ported yet")
         comps = (u, v, w)
         prods = {}
 
@@ -157,6 +188,47 @@ class NavierStokes:
                     d2q = d2q + dq * cb
                 rhs[c] = rhs[c] - 0.5 * (conv * dq + dqd) + self.nu * d2q
         return tuple(rhs)
+
+    def transeq_species(self, phi, u, v, w, nu_s):
+        """Species convection-diffusion RHS on the dense operator matrices
+        (solver.f90:507-601): the scalar uses (der1st, der1st_sym, der2nd)
+        against the velocity component aligned with each direction
+        (omp/backend.f90:226-231). CPU tensors only."""
+        if phi.is_cuda:
+            raise NotImplementedError(
+                f"dense species transport on the card: {_UNPORTED_SPECIES}")
+        comps = (u, v, w)
+        rhs = 0.0
+        for axis in range(3):
+            o = self.ops[axis]
+            conv = comps[axis]
+            dq = o.der1st(phi, axis)
+            dqd = o.der1st_sym(phi * conv, axis)
+            d2q = o.der2nd(phi, axis)
+            corr = o.der2nd.stretch_correct
+            if corr is not None and np.any(corr):
+                d2q = d2q + dq * _bcast(corr, axis, phi)
+            rhs = rhs + (-0.5 * (conv * dq + dqd) + nu_s * d2q)
+        return rhs
+
+    def transeq_species_all(self, phi, u, v, w):
+        """All scalars' RHS from a stacked (nsp, nx, ny, nz) field: the
+        species sweep chain (one conv window read shared by the scalars
+        per direction) where it is built, else the dense per-species path
+        (CPU tensors only)."""
+        nsp = len(self.nu_species)
+        if self._species_sweeps is not None:
+            out = torch.empty_like(phi)
+            self._species_sweeps(phi.unbind(0), u, v, w, out=out.unbind(0))
+            return out
+        return torch.stack([self.transeq_species(phi[i], u, v, w,
+                                                 self.nu_species[i])
+                            for i in range(nsp)])
+
+    def transeq_with_species(self, u, v, w, phi):
+        """Momentum + all-species RHS: (rhs3, stacked species rhs)."""
+        return (self.transeq(u, v, w),
+                self.transeq_species_all(phi, u, v, w))
 
     # ------------------------------------------------------------------
     # vector calculus (reference vector_calculus.f90)

@@ -104,6 +104,47 @@ class TimeIntegrator:
                              for r, o in zip(rhs, olds))
         return new_fields, new_olds
 
+    def _rk_tab(self, istage: int):
+        """The tableau row of RK substage istage's update."""
+        order = self.order
+        return RK_B[order] if istage == order - 1 else RK_A[order][istage]
+
+    def rk_prev(self, istage: int) -> list:
+        """The earlier stages whose derivatives the update of substage
+        istage reads: those with a nonzero coefficient in its row (x3d2_tpu
+        make_fused_transeq_rk, pallas_kernels.py:973-976). The fused chain
+        needs the fresh derivative's coefficient to be nonzero."""
+        tab = self._rk_tab(istage)
+        if tab[istage] == 0.0:
+            raise ValueError("fused RK needs a nonzero fresh coefficient")
+        return [j for j in range(istage) if tab[j] != 0.0]
+
+    def rk_row(self, istage: int, dt: float, dtype=torch.float32) -> list:
+        """The dt-scaled row [fresh, rk_prev...] of substage istage's fused
+        update as host floats, each dt * c in float64 rounded to `dtype`,
+        as x3d2_tpu builds it (cases/base.py:483-488)."""
+        tab = self._rk_tab(istage)
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        return [float(npd(dt * float(tab[j])))
+                for j in [istage] + self.rk_prev(istage)]
+
+    def rk_substage(self, fields0, ks, istage, dt):
+        """Stage update for RK: given the step-initial fields and the list
+        of stage derivatives computed so far (each a tuple like fields0),
+        produce the fields for the next stage evaluation (istage < nstage)
+        or the final step result (istage == nstage-1). Mirrors
+        time_integrator.f90:166-231 (x3d2_tpu time_integrators.py:176-192)."""
+        tab = self._rk_tab(istage)
+
+        def upd(i):
+            acc = fields0[i]
+            for c, k in zip(tab, ks):
+                if c != 0.0:
+                    acc = acc + dt * float(c) * k[i]
+            return acc
+
+        return tuple(upd(i) for i in range(len(fields0)))
+
     def empty_olds(self, template):
         """Zero-initialised history: per field, a (nolds,)-tuple of
         separate tensors (so rotation is a reshuffle, never a copy)."""
