@@ -161,9 +161,14 @@ def test_species_sweep_rules():
         sp.make_species_sweep(ns.ops[0], (), 0, shape, device="cpu")
     with pytest.raises(ValueError, match="capped at 8"):
         sp.make_species_sweep(ns.ops[0], (NU,) * 9, 0, shape, device="cpu")
-    # more than 8 scalars: no chain; the CPU takes the dense path
-    ns9 = NavierStokes.build(mesh, NU, device="cpu", nu_species=(NU,) * 9)
-    assert ns9._species_sweeps is None and ns._species_sweeps is not None
+    # more than 8 scalars: no chain; the CPU takes the dense path. The
+    # chain is built where x3d2_tpu takes its sweeps: z >= 256 (at 128^3
+    # its transport is the dense v1 sweep and its scalars the einsums)
+    assert ns._species_sweeps is None and ns._transport == "v1"
+    mesh2 = Mesh(SHAPE, L, ((BC.PERIODIC, BC.PERIODIC),) * 3)
+    ns2 = NavierStokes.build(mesh2, NU, device="cpu", nu_species=NUS)
+    ns9 = NavierStokes.build(mesh2, NU, device="cpu", nu_species=(NU,) * 9)
+    assert ns9._species_sweeps is None and ns2._species_sweeps is not None
 
 
 # ---------------------------------------------------------------------------

@@ -1,26 +1,34 @@
 """Case lifecycle and the time loop.
 
 Counterpart of x3d2_tpu.cases.base (reference src/case/base_case.f90):
-per substage {transeq -> forcings -> time update -> pressure_correction}
-(base_case.f90:261-300), with monitoring. The boundary and IBM hooks of
-the JAX package (define_bc, apply_bc, body) come with the wall-bounded
-cases that need them.
+per substage {define_bc -> transeq -> forcings -> time update -> apply_bc
+-> body (IBM) -> pressure_correction} (base_case.f90:261-300), with
+monitoring. The hooks define_bc, forcings, apply_bc and body are those of
+x3d2_tpu (cases/base.py:321-341); the tail apply_bc -> body -> projection
+is ``_substage_post`` (:343-370). define_bc draws its random numbers from
+the state's ``rng``, a torch.Generator seeded from the case's ``seed`` on
+its device (in x3d2_tpu a JAX PRNG key, split per substage; the two give
+different numbers from one seed).
 
 The four branches of x3d2_tpu's step (cases/base.py:377-524), each taken
 where x3d2_tpu takes it:
-- AB, unfused: transeq (+ species) and ab_step (:390-405).
+- AB, unfused (:390-405): transeq (+ species) and ab_step, the update as
+  elementwise PyTorch (XLA in x3d2_tpu); on the grids where x3d2_tpu's
+  transport is its dense sweep kernel or its einsums (TGV 128^3, the
+  cylinder).
 - AB, fused (:406-471): an AB scheme with history, not compensated,
-  identity forcings, a mesh the sweep kernel supports
-  (transeq_sweep_supported). The transport + AB sweep chain; under
-  x3d2_tpu's gate (:141-167: the slab projection is there, max(dims) <=
-  256, X3D2_XDIV_FUSED is not "0") the xdiv one: z, y, then the x sweep
-  with the AB update, which also emits the projection's x-transformed
-  divergence inputs for the slab projection. Otherwise z, x, y with the AB
-  update, then the three-stage pipeline (keep_pressure=False) or the slab
-  projection (keep_pressure=True). Passive scalars take their RHS from the
-  species sweep chain on the velocities before the update (the chain then
-  writes u' over the oldest history) and the AB update as elementwise
-  PyTorch, as x3d2_tpu does in XLA.
+  identity forcings, the sweep chains built (the solver's transport is
+  the sweeps). The transport + AB sweep chain; under x3d2_tpu's gate
+  (:141-167: the slab projection with a parity x stage, identity apply_bc
+  and body, max(dims) <= 256, X3D2_XDIV_FUSED is not "0") the xdiv one:
+  z, y, then the x sweep with the AB update, which also emits the
+  projection's x-transformed divergence inputs for the slab projection.
+  Otherwise z, x, y with the AB update, then the three-stage pipeline
+  (keep_pressure=False) or the slab projection (keep_pressure=True).
+  Passive scalars take their RHS from the species sweep chain on the
+  velocities before the update (the chain then writes u' over the oldest
+  history) and the AB update as elementwise PyTorch, as x3d2_tpu does in
+  XLA.
 - RK, fused (:472-496): RK without scalars, not compensated, identity
   forcings, X3D2_FUSED_RK not "0", a mesh the sweep kernel supports. Per
   substage the sweep chain with the substage update in the y sweep, then
@@ -30,15 +38,17 @@ where x3d2_tpu takes it:
 Compensated stepping and the other X3D2_* switches of the JAX step are not
 ported yet and raise NotImplementedError.
 
-On the card a case must run on kernels: a step outside the kernels' reach
-(an unfused AB step; a mesh the sweep kernel does not serve; more than 8
-scalars), or a projection on a grid the pipe3 and slab kernels do not
-serve (a wall-bounded axis, an extent that is not a multiple of 128),
-raises NotImplementedError at construction. The CPU runs every case, with
-plain versions and dense products.
+On the card a case runs what x3d2_tpu runs: its kernels as the port's
+kernels, its XLA parts (einsums, elementwise updates, boundary hooks) as
+plain PyTorch. Where x3d2_tpu takes a kernel the port lacks (the slab's
+wall-bounded y and z branches), or scalars off the species sweeps (its
+dense per-species einsums, not ported to the card yet), the case raises
+NotImplementedError at construction. The CPU runs every case, with plain
+versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
-fused AB chain writes u' over the oldest history fields.
+fused AB chain writes u' over the oldest history fields, and apply_bc
+may write the fields of the time update in place.
 """
 
 from __future__ import annotations
@@ -54,10 +64,8 @@ from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
-                                 make_fused_transeq_rk,
-                                 transeq_sweep_supported)
-from ..solver import (_UNPORTED_PROJECTION, _UNPORTED_SPECIES,
-                      _UNPORTED_TRANSEQ, NavierStokes)
+                                 make_fused_transeq_rk)
+from ..solver import _UNPORTED_SPECIES, NavierStokes
 from ..time_integrators import TimeIntegrator
 
 # environment switches the JAX step reads (x3d2_tpu cases/base.py,
@@ -101,7 +109,8 @@ class BaseCase:
 
     def __init__(self, mesh: Mesh, params: SolverParams, dtype=torch.float32,
                  monitor_path: str | None = "monitoring.csv", verbose=True,
-                 keep_pressure=True, device=None):
+                 keep_pressure=True, device=None, seed: int = 0,
+                 case_cfg=None):
         set_env = [k for k in _JAX_STEP_SWITCHES if k in os.environ]
         if set_env:
             bf16 = (" (the bf16 history and partials are the olds_dtype and "
@@ -115,6 +124,8 @@ class BaseCase:
             raise NotImplementedError("compensated stepping is not ported "
                                       "yet")
         self.device = resolve_device(device)
+        self.seed = seed
+        self.case_cfg = case_cfg
         self.mesh = mesh
         self.params = params
         self.dtype = dtype
@@ -140,32 +151,38 @@ class BaseCase:
         self.dt = params.dt
         dims = mesh.dims(DataLoc.VERT)
         on_card = self.device.type == "cuda"
-        if on_card and self.solver._slab is None:
+        if on_card and self.solver._projection_gap is not None:
             raise NotImplementedError(
-                "the projection on the card runs the pipe3 and slab kernels "
-                "(an all-periodic uniform grid tiled by 128); "
-                f"{_UNPORTED_PROJECTION} are not ported yet")
+                "the projection on the card: x3d2_tpu runs its slab kernels "
+                f"on mesh {dims}; the port lacks "
+                f"{self.solver._projection_gap}")
+        if on_card and self.solver.transport_gap() is not None:
+            raise NotImplementedError(
+                f"transeq on the card: {self.solver.transport_gap()}")
         if on_card and nsp and self.solver._species_sweeps is None:
             raise NotImplementedError(
                 f"{nsp} passive scalars on mesh {dims} at {dtype}: "
                 f"{_UNPORTED_SPECIES}")
         # transport + AB update in one chain of three sweep kernels, under
-        # x3d2_tpu's gate (cases/base.py:131-135)
+        # x3d2_tpu's gate (cases/base.py:131-135: its v3 sweeps are there)
         self._fused_ab = None
         self._ab_is_xdiv = False
+        slab = self.solver._slab
         if (self.ti.nolds >= 1   # compensated stepping raised above
                 and type(self).forcings is BaseCase.forcings
-                and transeq_sweep_supported(self.solver, dims)):
-            # x3d2_tpu's gate (cases/base.py:146) is max(dims) <= 256, which
-            # is also the most the xdiv kernel tiles along x (XDIV_MAX_N)
-            if (self.solver._slab is not None   # always parity x here
+                and self.solver._sweeps is not None):
+            # x3d2_tpu's gate (cases/base.py:141-147) is max(dims) <= 256,
+            # which is also the most the xdiv kernel tiles along x
+            # (XDIV_MAX_N), with the slab's parity x stage and no hook
+            # between the AB update and the projection
+            if (slab is not None and slab.x_perm is not None
+                    and type(self).apply_bc is BaseCase.apply_bc
+                    and type(self).body is BaseCase.body
                     and max(dims) <= XDIV_MAX_N
                     and os.environ.get("X3D2_XDIV_FUSED", "1") != "0"):
                 # the final sweep also emits the projection's x-transformed
                 # divergence inputs, in the block-parity basis of the slab
-                # kernels (x3d2_tpu cases/base.py:141-167; the port has no
-                # boundary or body hook that could change the velocities
-                # between the AB update and the projection)
+                # kernels (x3d2_tpu cases/base.py:141-167)
                 d64 = self.solver._fp_mats64()
                 try:
                     self._fused_ab = make_fused_transeq_ab(
@@ -192,7 +209,7 @@ class BaseCase:
         if (self.ti.kind == "RK" and not nsp
                 and os.environ.get("X3D2_FUSED_RK", "1") != "0"
                 and type(self).forcings is BaseCase.forcings
-                and transeq_sweep_supported(self.solver, dims)):
+                and self.solver._sweeps is not None):
             try:
                 self._fused_rk = make_fused_transeq_rk(
                     self.solver.ops, self.solver.nu, dims, self.ti.order,
@@ -200,18 +217,6 @@ class BaseCase:
             except ValueError:
                 if on_card:
                     raise
-        if on_card and self.ti.kind == "AB" and self._fused_ab is None:
-            raise NotImplementedError(
-                "on the card the AB step runs the fused sweep chain (an AB "
-                "scheme with history, identity forcings, a float32 uniform "
-                f"grid tiled by 64; mesh {dims} at {dtype}); the unfused AB "
-                "step is not ported to the card")
-        if (on_card and self.ti.kind == "RK" and self._fused_rk is None
-                and self.solver._sweeps is None):
-            raise NotImplementedError(
-                f"the RK step on the card runs the sweep kernels (a float32 "
-                f"uniform grid tiled by 64; mesh {dims} at {dtype}); "
-                f"{_UNPORTED_TRANSEQ} is not ported yet")
         self.monitor = Monitor(self.solver, path=monitor_path,
                                verbose=verbose)
 
@@ -223,10 +228,25 @@ class BaseCase:
         tensors; phi stacked (nsp, nx, ny, nz))."""
         raise NotImplementedError
 
+    def define_bc(self, fields, rng, istep):
+        """Per-substage pre-transeq hook (reference define_BC,
+        base_case.f90:263): may modify the fields and returns (fields,
+        bc_data), bc_data carrying what apply_bc consumes. rng: the
+        state's torch.Generator."""
+        return fields, None
+
     def forcings(self, rhs, fields, istep):
         """Modify the RHS tuple (base_case forcings hook); the fused chain
         runs only while it is the identity."""
         return rhs
+
+    def apply_bc(self, fields, bc_data, gdt, istep):
+        """Face-plane BC enforcement after the time update."""
+        return fields
+
+    def body(self, fields):
+        """IBM or similar pre-projection modification (ibm.f90:148-170)."""
+        return fields
 
     def postprocess(self, istep, t, state):
         self.monitor.write_step(t, state["u"], state["v"], state["w"])
@@ -244,6 +264,8 @@ class BaseCase:
             "p": torch.zeros(self.mesh.dims(DataLoc.CELL), dtype=self.dtype,
                              device=self.device),
             "istep": 1,
+            "rng": torch.Generator(device=self.device).manual_seed(
+                self.seed),
         }
         tmpl = (u, v, w)
         if self.nsp:
@@ -264,8 +286,13 @@ class BaseCase:
             rhs = self.solver.transeq(u, v, w)
         return self.forcings(rhs, fields, istep)
 
-    def _project(self, fields, divs=None):
-        """pressure_correction of the velocities; the scalars pass."""
+    def _substage_post(self, fields, bc_data, gdt, istep, divs=None):
+        """apply_bc -> body (IBM) -> pressure_correction of the velocities,
+        one substage's tail (x3d2_tpu cases/base.py:343-370); the scalars
+        pass. `divs`: the xdiv sweep's x-transformed divergence inputs
+        (only where apply_bc and body are the identity)."""
+        fields = self.apply_bc(fields, bc_data, gdt, istep)
+        fields = self.body(fields)
         u, v, w, p = self.solver.pressure_correction(
             *fields[:3], keep_pressure=self.keep_pressure, divs=divs)
         return (u, v, w) + tuple(fields[3:]), p
@@ -281,11 +308,15 @@ class BaseCase:
         istep = int(state["istep"])
         dt = self.dt
         olds = state["olds"]
+        rng = state["rng"]
         if self.ti.kind == "AB" and self._fused_ab is None:
+            fields, bc_data = self.define_bc(fields, rng, istep)
             rhs = self._rhs(fields, istep)
             fields, olds = self.ti.ab_step(fields, olds, istep, rhs, dt)
-            fields, p = self._project(fields)
+            fields, p = self._substage_post(fields, bc_data,
+                                            self.ti.gdt(dt, 0), istep)
         elif self.ti.kind == "AB":
+            fields, bc_data = self.define_bc(fields, rng, istep)
             # the AB row is picked on the host: no per-step device sync
             dtc = self.ti.ab_row(istep, dt, self.dtype)
             prhs = None
@@ -311,26 +342,37 @@ class BaseCase:
                 mom = mom + (phi,)
                 new_olds = new_olds + ((prhs,) + tuple(phi_olds[:-1]),)
             olds = new_olds
-            fields, p = self._project(mom, divs=divs)
+            fields, p = self._substage_post(mom, bc_data, self.ti.gdt(dt, 0),
+                                            istep, divs=divs)
         elif self._fused_rk is not None:
-            fields0, ks = fields, []
+            ks = []
             for istage, stage in enumerate(self._fused_rk):
+                fields, bc_data = self.define_bc(fields, rng, istep)
+                if istage == 0:
+                    # the step-initial fields, after define_bc (x3d2_tpu
+                    # cases/base.py:476-478)
+                    fields0 = fields
                 dtc = self.ti.rk_row(istage, dt, self.dtype)
                 mom, rhs = stage(*fields, fields0, ks, dtc)
                 ks.append(rhs)
-                fields, p = self._project(mom)
+                fields, p = self._substage_post(
+                    mom, bc_data, self.ti.gdt(dt, istage), istep)
         else:
-            fields0, ks = fields, []
+            ks = []
             for istage in range(self.ti.nstage):
+                fields, bc_data = self.define_bc(fields, rng, istep)
+                if istage == 0:
+                    fields0 = fields
                 ks.append(self._rhs(fields, istep))
                 fields = self.ti.rk_substage(fields0, ks, istage, dt)
-                fields, p = self._project(fields)
+                fields, p = self._substage_post(
+                    fields, bc_data, self.ti.gdt(dt, istage), istep)
         if p is None:
             # no pressure was formed (keep_pressure=False): carry the
             # previous (diagnostic-only) one, as x3d2_tpu does
             p = state["p"]
         new = {"u": fields[0], "v": fields[1], "w": fields[2], "p": p,
-               "istep": istep + 1, "olds": olds}
+               "istep": istep + 1, "olds": olds, "rng": rng}
         if self.nsp:
             new["phi"] = fields[3]
         return new

@@ -5,8 +5,9 @@ Reads the reference's input format verbatim (namelist blocks
 &domain_settings, &solver_params, &checkpoint_params, &stats_params,
 &channel_nml, &cylinder_nml -- reference src/config.f90) so the example
 inputs (examples/*/input.x3d) drive the port unchanged:
-``Config.from_file(path)``, then ``Mesh.from_config(cfg.domain)`` and a
-case from ``cfg.solver`` (the port's SolverParams). Unknown keys
+``Config.from_file(path)``, then ``make_case(cfg)``: ``Mesh.from_config
+(cfg.domain)`` and the case ``flow_case_name`` names, from ``cfg.solver``
+(the port's SolverParams) and its case block. Unknown keys
 warn-and-continue like the reference's optional blocks
 (config.f90:316-323).
 """
@@ -248,3 +249,31 @@ class Config:
             cfg.cylinder = _fill(CylinderConfig(), blocks["cylinder_nml"],
                                  "cylinder_nml")
         return cfg
+
+
+def make_case(cfg: Config, dtype=None, seed=0, verbose=True,
+              monitor_path="monitoring.csv", keep_pressure=True,
+              device=None):
+    """The case factory of x3d2_tpu (__main__.py:15-31; reference
+    xcompact.f90:111-126): the mesh from &domain_settings and the case
+    ``flow_case_name`` names (tgv; cylinder with &cylinder_nml). Channel
+    and generic are not ported yet (ROADMAP Queue 1 item 6) and raise
+    NotImplementedError."""
+    import torch
+
+    from .cases import CylinderCase, TGVCase
+    from .mesh import Mesh
+
+    mesh = Mesh.from_config(cfg.domain)
+    name = cfg.domain.flow_case_name.lower()
+    if name in ("channel", "generic"):
+        raise NotImplementedError(f"the {name} case is not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
+    table = {"tgv": (TGVCase, None), "cylinder": (CylinderCase, cfg.cylinder)}
+    if name not in table:
+        raise ValueError(f"flow_case_name '{name}' is undefined")
+    cls, case_cfg = table[name]
+    return cls(mesh, cfg.solver, dtype=dtype or torch.float32, seed=seed,
+               verbose=verbose, monitor_path=monitor_path,
+               keep_pressure=keep_pressure, device=device,
+               case_cfg=case_cfg)

@@ -1,14 +1,19 @@
 """State carried across between x3d2_tpu and the port.
 
-A TGV state of either package, as numpy arrays: ``u, v, w, p``, the
+A TGV or cylinder state of either package, as numpy arrays: ``u, v, w, p``,
+the
 1-based ``istep``, with passive scalars the stacked ``phi`` (nsp, nx, ny,
 nz), and the per-field AB history ``olds`` (per field a (nolds,)-tuple,
 newest first, the structure of ``TimeIntegrator.empty_olds``; with scalars
 a 4th entry holds the stacked phi history). A Runge-Kutta state carries no
 history: x3d2_tpu's has no ``olds``, the port's has an empty tuple per
-field. The JAX package's ``key`` (unused by TGV) is dropped on the way in;
-the way out gives plain numpy arrays that the caller turns into its own
-arrays.
+field. The cylinder's IBM mask ``ep`` is no part of the state: it is the
+case's parameter (``CylinderCase(..., ibm_mask=ep)``). The JAX package's
+PRNG ``key`` is dropped on the way in, and the port's state gets its own
+``rng``, a torch.Generator seeded from ``seed`` (the two give different
+numbers from one seed; the cylinder's inflow noise is drawn from it); the
+way out drops ``rng`` and gives plain numpy arrays that the caller turns
+into its own arrays.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 from .common import resolve_device
 
 
-def state_from_numpy(np_state, device=None):
+def state_from_numpy(np_state, device=None, seed=0):
     """The port's state from numpy arrays (x3d2_tpu's state as numpy),
     at the arrays' dtype."""
     device = resolve_device(device)
@@ -32,6 +37,7 @@ def state_from_numpy(np_state, device=None):
         "u": t(np_state["u"]), "v": t(np_state["v"]), "w": t(np_state["w"]),
         "p": t(np_state["p"]),
         "istep": int(np.asarray(np_state["istep"])),
+        "rng": torch.Generator(device=device).manual_seed(seed),
     }
     nfields = 3
     if "phi" in np_state:

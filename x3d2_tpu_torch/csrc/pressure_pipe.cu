@@ -24,9 +24,10 @@
 // launch takes up to 3 jobs (fields) and a job up to 2 sources summed into
 // one result (Iz p2 + Sz p3; Sx a + Ix e). Epilogues: store, subtract from
 // a field (the velocity correction), or the spectral solve (multiply by
-// -1/waves rebuilt from separable tables, with the zero-wave guard). The
-// TPU kernel's Nyquist mask is left out: on the all-periodic grids the
-// pipeline serves it is identically one.
+// -1/waves rebuilt from separable tables, with the zero-wave guard, and by
+// the Nyquist mask 1 - mx * Myz where the Poisson variant zeros a line;
+// on the all-periodic grids of the pipeline there is no mask and the
+// epilogue reads no mask table).
 //
 // The same template carries the slab projection (make_pressure_slab,
 // pallas_poisson.py:553; wrappers in ops/pressure_slab.py):
@@ -38,6 +39,13 @@
 //     SOLVE_PLANE), PINV z (Gzi q, Gzs q), PINV y, banded y (Giy, Gsy, Giy)
 //   - _x_parity_gradsub3_kernel  pallas_poisson.py:1106  one PINV launch
 //     along x with three jobs and the subtracting epilogue
+//   - _x_apply_kernel            pallas_poisson.py:954   the dense x stage
+//     of a wall-bounded x axis: one DENSE launch per field, out = M f
+//     (sx, ix: (ncx, nvx)) or out = s - M f (gx_s, gx_i: (nvx, ncx)). The
+//     TPU kernel K-blocks the contraction over its grid; here the k-loop
+//     of the block runs over all of K, and the operand loads are guarded,
+//     so K and the output rows need not be multiples of the tiles (513 on
+//     a Dirichlet axis of 512 cells).
 //
 // Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
 // point (the dense parity halves dominate; the banded applies count their
@@ -67,7 +75,7 @@ constexpr int BK = 8;     // k-step
 constexpr int NT = 256;   // threads per block
 constexpr int PAD = 4;    // shared-memory row pad (keeps float4 alignment)
 
-enum { BANDED = 0, PFWD = 1, PINV = 2 };
+enum { BANDED = 0, PFWD = 1, PINV = 2, DENSE = 3 };
 enum { STORE = 0, SUB = 1, SOLVE = 2, SOLVE_PLANE = 3 };
 
 struct Job {
@@ -83,15 +91,17 @@ struct Args {
   int batch;           // planes per job: blockIdx.z = job * batch + plane
   int K;               // contraction length of one source
   int nrow;            // field rows along the contracted axis
+  int nout;            // DENSE: output rows (the operator's rows)
   int h;               // nrow / 2 (PFWD: input half; PINV: output half)
   int bw;              // BANDED: band half-width
   long long ld;        // stride of a row (TRANS: of a column)
   long long pstride;   // stride between the planes of a batch
   // SOLVE (after an x apply): A, B per (y, z) column, k2x, tx2 per output
   // row. SOLVE_PLANE (after a y apply batched over x planes): A, B per
-  // (output row, column), k2x, tx2 per plane.
-  const float* tab[2];
-  const float* col[2];
+  // (output row, column), k2x, tx2 per plane. tab[2], col[2]: the Nyquist
+  // indicators Myz and mx, laid out as A and k2x; null without a mask.
+  const float* tab[3];
+  const float* col[3];
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -125,7 +135,10 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   float sg[2] = {1.f, 1.f};
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
-    if (MODE == PINV) {
+    if (MODE == DENSE) {
+      arow[g] = mt * BM + g * GR;
+      brow[g] = 0;
+    } else if (MODE == PINV) {
       arow[g] = g * a.h + mt * GR;
       brow[g] = g * a.h;
     } else {
@@ -142,7 +155,7 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   const int ak = (tid & 1) * 4;
   const int bk = TRANS ? (tid & 1) * 4 : tid >> 5;
   const int bn = TRANS ? tid >> 1 : (tid & 31) * 4;
-  const int ktiles = a.K / BK;
+  const int ktiles = (a.K + BK - 1) / BK;   // DENSE: K may be ragged
   const int ntiles = J.nsrc * ktiles;
 
   float4 ra, rb[2];
@@ -150,8 +163,25 @@ mat_apply_kernel(const __grid_constant__ Args a) {
     const int s = t / ktiles;
     const int kt = (t - s * ktiles) * BK;
     const int ar = (am < GR ? arow[0] : arow[1]) + (am & (GR - 1));
-    ra = ld4(J.A[s] + (long long)ar * a.K + kt + ak);
     const float* B = J.B[s] + base;
+    if (MODE == DENSE) {
+      // rows past nout and k past K read as zeros: the operator's rows
+      // are K long (no float4 alignment), the field has K rows
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = kt + ak + i;
+        v[i] = (ar < a.nout && k < a.K)
+                   ? __ldg(J.A[s] + (long long)ar * a.K + k) : 0.f;
+      }
+      ra = make_float4(v[0], v[1], v[2], v[3]);
+      const int r = kt + bk;
+      rb[0] = r < a.K ? ld4(B + (long long)r * a.ld + n0 + bn)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      rb[1] = rb[0];   // both row groups read the same operand rows
+      return;
+    }
+    ra = ld4(J.A[s] + (long long)ar * a.K + kt + ak);
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
       if (MODE == PFWD && g == 1) break;
@@ -280,6 +310,7 @@ mat_apply_kernel(const __grid_constant__ Args a) {
           }
           const int m = MODE == PINV ? g * a.h + mt * GR + ty * 4 + i
                                      : arow[g] + ty * 4 + i;
+          if (MODE == DENSE && m >= a.nout) continue;
           const long long off = (long long)m * a.ld + n;
           if (EPI == SUB) {
             const float4 s = ld4(S + off);
@@ -299,6 +330,15 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             for (int j = 0; j < 4; ++j) {
               const float waves = k2 * wa[j] + t2 * wb[j];
               v[j] *= fabsf(waves) >= 1e-16f ? -1.f / waves : 0.f;
+            }
+            if (a.tab[2] != nullptr) {
+              // the Nyquist line: q * (1 - mx * Myz)
+              const float mx = a.col[2][xm];
+              const float4 tm = ld4(a.tab[2] + tn);
+              v[0] *= 1.f - mx * tm.x;
+              v[1] *= 1.f - mx * tm.y;
+              v[2] *= 1.f - mx * tm.z;
+              v[3] *= 1.f - mx * tm.w;
             }
           }
           *reinterpret_cast<float4*>(C + off) =
@@ -329,15 +369,17 @@ int pressure_pipe_geometry(int* bm, int* gr, int* bn, int* bk) {
 }
 
 // One launch of the operator apply. ptrs: per job A0, A1, B0, B1, C, S (6
-// each, unused may be null); nsrc: sources per job; tabs: A, B, k2x, tx2
-// (SOLVE only, else null). Grid: (ncols / BN, mtiles, njobs *
+// each, unused may be null); nsrc: sources per job; tabs: A, B, k2x, tx2,
+// Myz, mx (SOLVE only, else null; Myz and mx null without a Nyquist mask).
+// nout: the operator's rows (DENSE). Grid: (ncols / BN, mtiles, njobs *
 // batch). Returns the cudaError_t of the launch (0 on success).
 int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
                         void* const* ptrs, const int* nsrc,
                         void* const* tabs, int batch, int K, int nrow,
-                        int bw, long long ld, long long pstride, long long ncols,
-                        int mtiles, void* stream) {
-  if (njobs < 1 || njobs > 3 || batch < 1 || K % BK || ncols % BN)
+                        int nout, int bw, long long ld, long long pstride,
+                        long long ncols, int mtiles, void* stream) {
+  if (njobs < 1 || njobs > 3 || batch < 1 || ncols % BN
+      || (mode != DENSE && K % BK) || (mode == DENSE && (trans || batch != 1)))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int j = 0; j < njobs; ++j) {
@@ -354,9 +396,12 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
     a.tab[i] = static_cast<const float*>(tabs[i]);
     a.col[i] = static_cast<const float*>(tabs[2 + i]);
   }
+  a.tab[2] = static_cast<const float*>(tabs[4]);
+  a.col[2] = static_cast<const float*>(tabs[5]);
   a.batch = batch;
   a.K = K;
   a.nrow = nrow;
+  a.nout = nout;
   a.h = nrow / 2;
   a.bw = bw;
   a.ld = ld;
@@ -376,6 +421,8 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
     case PINV * 100 + 0 + STORE:   return launch<PINV, false, STORE>(a, grid, s);
     case PINV * 100 + 0 + SUB:     return launch<PINV, false, SUB>(a, grid, s);
     case PINV * 100 + 10 + STORE:  return launch<PINV, true, STORE>(a, grid, s);
+    case DENSE * 100 + 0 + STORE:  return launch<DENSE, false, STORE>(a, grid, s);
+    case DENSE * 100 + 0 + SUB:    return launch<DENSE, false, SUB>(a, grid, s);
   }
   return (int)cudaErrorInvalidValue;
 }

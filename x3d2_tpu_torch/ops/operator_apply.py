@@ -6,10 +6,14 @@ pressure_slab.py) share on the card.
 axis of (nx, ny, nz) float32 fields in one of three forms (BANDED, PFWD,
 PINV), up to three fields a launch and two summed sources a field, with an
 epilogue (STORE, SUB, SOLVE after an x apply, SOLVE_PLANE after a y apply
-batched over x planes). It checks its operands, launches or raises, and
-adds one to the launch count of the wrapper named in ``stage``; nothing
-else counts. ``route`` is the wrappers' device switch: CUDA tensors launch,
-CPU tensors take the plain version, anything else raises.
+batched over x planes; the solves take the Nyquist mask where the operator
+set has one). ``apply_dense`` launches the fourth form, DENSE: one dense
+(n_out, n_in) operator along x, out = M f or out = s - M f, any extents
+(the x stage of a wall-bounded x axis). Both check their operands, launch
+or raise, and add one to the launch count of the wrapper named in
+``stage``; nothing else counts. ``route`` is the wrappers' device switch:
+CUDA tensors launch, CPU tensors take the plain version, anything else
+raises.
 """
 
 from __future__ import annotations
@@ -21,13 +25,13 @@ import torch
 from .parity import BBS, BW, TILE, WIN
 
 # operator forms and epilogues of the kernel template
-BANDED, PFWD, PINV = 0, 1, 2
+BANDED, PFWD, PINV, DENSE = 0, 1, 2, 3
 STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 
 # kernel launches per call of each wrapper
 LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
-                     "x_gradsub3": 1}
+                     "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1}
 
 # launches of the kernel per wrapper, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
@@ -53,7 +57,7 @@ def lib():
         so = _build.load("pressure_pipe")
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         so.pressure_pipe_apply.argtypes = [
-            i, i, i, i, p, p, p, i, i, i, i, ll, ll, ll, i, p]
+            i, i, i, i, p, p, p, i, i, i, i, i, ll, ll, ll, i, p]
         so.pressure_pipe_apply.restype = i
         so.pressure_pipe_error_string.argtypes = [i]
         so.pressure_pipe_error_string.restype = ctypes.c_char_p
@@ -83,7 +87,8 @@ def _check(t, shape, name):
 def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     """One kernel launch applying operators along `axis` of (nx, ny, nz)
     fields. jobs: (mats, fields, out, sub) per field, with 1-2 (mat, field)
-    sources summed into `out` (sub: the field it is subtracted from)."""
+    sources summed into `out` (sub: the field it is subtracted from).
+    tabs: the solve's A, B, k2x, tx2 [, Myz, mx: the Nyquist mask]."""
     shape = tuple(jobs[0][1][0].shape)
     nx, ny, nz = shape
     n = shape[axis]
@@ -115,24 +120,54 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
         ptrs += [out.data_ptr(), sub.data_ptr() if sub is not None else None]
         nsrc.append(len(mats))
     solve = epi in (SOLVE, SOLVE_PLANE)
-    if (len(tabs) == 4) != solve:
-        raise ValueError("the solve epilogue takes its 4 tables")
+    if (len(tabs) in (4, 6)) != solve:
+        raise ValueError("the solve epilogue takes its 4 tables, 6 with "
+                         "the Nyquist mask")
     if (epi == SOLVE and axis != 0) or (epi == SOLVE_PLANE and axis != 1):
         raise ValueError("the solve follows an x apply, or a y apply "
                          "batched over x planes")
     if solve:
-        for t, k in zip(tabs, (ny * nz, ny * nz, nx, nx)):
+        for t, k in zip(tabs, (ny * nz, ny * nz, nx, nx, ny * nz, nx)):
             _check(t, (k,), "solve table")
-    tab_ptrs = [t.data_ptr() for t in tabs] + [None] * (4 - len(tabs))
+    _launch(stage, mode, trans, epi, jobs, ptrs, nsrc, tabs, batch, K, n, n,
+            ld, pstride, ncols, mtiles)
+
+
+def apply_dense(stage, M, f, out, sub=None):
+    """One DENSE launch along x: out = M f, or out = sub - M f with the
+    subtracting epilogue. M (n_out, n_in); f (n_in, ny, nz); out and sub
+    (n_out, ny, nz); n_in and n_out any, ny * nz a multiple of 128."""
+    n_out, n_in = M.shape
+    _, ny, nz = f.shape
+    if (ny * nz) % TILE:
+        raise ValueError(f"the dense x apply needs ny * nz tiled by {TILE}, "
+                         f"got {(ny, nz)}")
+    _check(M, (n_out, n_in), "operator")
+    _check(f, (n_in, ny, nz), "field")
+    for t in (out,) + ((sub,) if sub is not None else ()):
+        _check(t, (n_out, ny, nz), "field")
+    if out.data_ptr() == f.data_ptr():
+        raise ValueError("the output may not alias an input")
+    ptrs = [M.data_ptr(), None, f.data_ptr(), None, out.data_ptr(),
+            sub.data_ptr() if sub is not None else None]
+    _launch(stage, DENSE, 0, SUB if sub is not None else STORE,
+            [(None, None, out, None)], ptrs, [1], (), 1, n_in, n_in, n_out,
+            ny * nz, 0, ny * nz, -(-n_out // TILE))
+
+
+def _launch(stage, mode, trans, epi, jobs, ptrs, nsrc, tabs, batch, K, nrow,
+            nout, ld, pstride, ncols, mtiles):
+    """The launch itself, its error check and its count."""
+    tab_ptrs = [t.data_ptr() for t in tabs] + [None] * (6 - len(tabs))
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     narr = (ctypes.c_int * len(nsrc))(*nsrc)
-    tarr = (ctypes.c_void_p * 4)(*tab_ptrs)
+    tarr = (ctypes.c_void_p * 6)(*tab_ptrs)
     dev = jobs[0][2].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib().pressure_pipe_apply(
-            mode, trans, epi, len(jobs), parr, narr, tarr, batch, K, n, BW,
-            ld, pstride, ncols, mtiles, stream)
+            mode, trans, epi, len(jobs), parr, narr, tarr, batch, K, nrow,
+            nout, BW, ld, pstride, ncols, mtiles, stream)
     if err != 0:
         msg = lib().pressure_pipe_error_string(err).decode()
         raise RuntimeError(f"pressure_pipe launch failed: {msg} ({err})")

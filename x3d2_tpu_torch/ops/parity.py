@@ -11,6 +11,12 @@ odd modes] with the solve tables permuted to match. They differ only in
 the order of the stages, so they consume one operator set,
 ``ProjectionMats``, built once per solver. The operators are f32 on the
 card (no bf16 hi/lo splits: those worked around the TPU matrix unit).
+
+The gates mirror x3d2_tpu's: the slab where slab_pressure_supported's
+structural conditions hold (a wall-bounded x axis among them: its x stage
+is then the dense transform-folded x apply, x_perm None, and the Poisson
+variant may zero a Nyquist line), the pipeline inside that where
+pipe3_supported holds (every axis periodic).
 """
 
 from __future__ import annotations
@@ -94,17 +100,82 @@ def parity_perm(n):
 # operators
 # ---------------------------------------------------------------------------
 
-def projection_supported(solver) -> bool:
-    """The grids the kernel projections serve: the uniform spectral Poisson
-    solve on an all-periodic grid (square operators, parity-split
-    transforms on every axis) whose extents are multiples of the kernel
-    tile."""
+def slab_supported(solver) -> bool:
+    """Counterpart of x3d2_tpu slab_pressure_supported (pallas_poisson.py:
+    515-534), its structural conditions: the uniform spectral Poisson
+    solve, and the VERT and CELL y extents multiples of 8, the z extents
+    multiples of 128, both CELL extents at least 128. Any axis may be
+    wall-bounded (folded). The TPU's VMEM-footprint test has no counterpart
+    here: it is a limit of the TPU's scoped memory."""
     po = solver.poisson
-    if (not isinstance(po, MatmulPoisson) or po.stretch_solver is not None
-            or po.folded):
+    if not isinstance(po, MatmulPoisson) or po.stretch_solver is not None:
         return False
-    nv = tuple(solver.mesh.dims(DataLoc.VERT))
-    return nv == tuple(po.nc) and all(n % TILE == 0 for n in nv)
+    _, ncy, ncz = po.nc
+    _, nvy, nvz = solver.mesh.dims(DataLoc.VERT)
+    return (ncy % 8 == 0 and nvy % 8 == 0 and ncz % TILE == 0
+            and nvz % TILE == 0 and min(ncy, ncz) >= TILE)
+
+
+def pipe3_supported(solver) -> bool:
+    """Counterpart of x3d2_tpu pipe3_supported (pallas_poisson.py:
+    1555-1570): a slab grid with every axis periodic, extents multiples of
+    16 (y of 64) and a square y interpolation."""
+    if not slab_supported(solver) or solver.poisson.folded:
+        return False
+    nx, ny, nz = solver.poisson.nc
+    oy = solver.ops[1]
+    return (tuple(solver.mesh.dims(DataLoc.VERT)) == (nx, ny, nz)
+            and nx % 16 == 0 and ny % 16 == 0 and nz % 16 == 0
+            and ny % 64 == 0
+            and oy.interpl_v2p.n_out == oy.interpl_v2p.n_in)
+
+
+def x_is_parity(solver) -> bool:
+    """Whether the slab's x stage is the parity split (x3d2_tpu
+    make_pressure_slab, pallas_poisson.py:681-708: it takes the split where
+    the transform-folded x matrices have the half-period symmetry, which a
+    periodic x axis of even extent gives) rather than the dense x applies
+    (``x_perm`` None there)."""
+    d64 = solver._fp_mats64()
+    try:
+        for name in ("sx", "ix"):
+            if d64[name].shape[1] % 2 or d64[name].shape[0] % 2:
+                raise ValueError("odd extent")
+            parity_split_folded(d64[name], 0)
+        for name in ("gx_s", "gx_i"):
+            parity_split_folded(d64[name], 1)
+    except ValueError:
+        return False
+    return True
+
+
+def slab_gap(solver) -> str | None:
+    """Why the port's slab kernels cannot serve a grid x3d2_tpu's slab
+    gate admits, or None when they can: the port has the fast y and z
+    branches (periodic y and z, banded y, parity y and z, extents tiled by
+    the kernel's 128) and both x stages (the parity split, tiled by 128,
+    and the dense x applies)."""
+    po = solver.poisson
+    nx, ny, nz = po.nc
+    if 1 in po.folded or 2 in po.folded:
+        return ("the dense and folded y/z branches of _pressure_mid_kernel "
+                "(x3d2_tpu/ops/pallas_poisson.py:354)")
+    if ny % TILE or nz % TILE:
+        return (f"y and z extents tiled by {TILE} (the banded y and parity "
+                "z branches of _pressure_mid_kernel, x3d2_tpu/ops/"
+                "pallas_poisson.py:354, at other extents)")
+    if x_is_parity(solver) and nx % TILE:
+        return (f"an x extent tiled by {TILE} (the parity x kernels "
+                "_x_parity_fwd3_kernel and _x_parity_gradsub3_kernel, "
+                "x3d2_tpu/ops/pallas_poisson.py:1067, :1106, at other "
+                "extents)")
+    return None
+
+
+def projection_supported(solver) -> bool:
+    """The grids the port's kernel projections serve: x3d2_tpu's slab gate
+    holds (slab_supported) and nothing of it is left to port (slab_gap)."""
+    return slab_supported(solver) and slab_gap(solver) is None
 
 
 @dataclass
@@ -112,17 +183,22 @@ class ProjectionMats:
     """The projections' operators as float64 numpy masters, with device
     copies per dtype. Banded (stacked (n, WIN) blocks): biy, bsy
     (divergence), bgiy, bgsy (gradient). Forward parity [Me; Mo]: ty, iz,
-    sz, sx, ix. Inverse parity [Me; Mo]: gxs, gxi, gzi, gzs, tyi (the
-    inverse y transform with its row weights folded in). Solve tables
-    (block-parity order): tab_a, tab_b per (y, z) column, k2x, tx2 per x
-    mode. Inverse transforms with columns in block-parity order, for the
-    physical pressure: ti_x, ti_y, ti_z. x_perm, q_perm, z_perm give the
-    natural mode of each block-parity slot along x, y, z."""
+    sz, and sx, ix on a periodic x. Inverse parity [Me; Mo]: gzi, gzs, tyi
+    (the inverse y transform with its row weights folded in), and gxs, gxi
+    on a periodic x. On a wall-bounded x the dense transform-folded x
+    matrices instead: sx, ix (ncx, nvx) and gxs, gxi (nvx, ncx), natural
+    order. Solve tables (block-parity order on periodic axes): tab_a, tab_b
+    per (y, z) column, k2x, tx2 per x mode; where the Poisson variant zeros
+    a Nyquist line, its indicators myz per (y, z) column and mx per x mode
+    (q is multiplied by 1 - mx myz). Inverse transforms with columns in the
+    order of q's modes, for the physical pressure: ti_x, ti_y, ti_z.
+    x_perm, q_perm, z_perm give the natural mode of each slot along x, y,
+    z; x_perm is None on the dense x stage, as in x3d2_tpu."""
 
     shape: tuple
     m64: dict
     device: torch.device
-    x_perm: np.ndarray
+    x_perm: np.ndarray | None
     q_perm: np.ndarray
     z_perm: np.ndarray
     _dev: dict = field(default_factory=dict)
@@ -138,12 +214,13 @@ class ProjectionMats:
 def build_projection_mats(solver) -> ProjectionMats:
     """The projections' operators from the solver (x3d2_tpu
     make_pressure_pipe3, pallas_poisson.py:1584-1680, and
-    make_pressure_slab, :553-699, :919-936, fast branches). Raises
-    ValueError outside ``projection_supported`` or when a y operator's band
-    is wider than W at the truncation tolerance."""
+    make_pressure_slab, :553-708, :919-936, the fast y and z branches with
+    either x stage). Raises ValueError outside ``projection_supported`` or
+    when a y operator's band is wider than W at the truncation
+    tolerance."""
     if not projection_supported(solver):
-        raise ValueError("the kernel projections need an all-periodic "
-                         f"uniform grid tiled by {TILE}")
+        raise ValueError("the kernel projections need x3d2_tpu's slab grid "
+                         f"with periodic y and z tiled by {TILE}")
     d64 = solver._fp_mats64()
     oy = solver.ops[1]
     po = solver.poisson
@@ -161,24 +238,39 @@ def build_projection_mats(solver) -> ProjectionMats:
     te, to, wvec = parity_split(ny)
     h = ny // 2
     w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
-    xp, yp, zp = parity_perm(nx), parity_perm(ny), parity_perm(nz)
+    yp, zp = parity_perm(ny), parity_perm(nz)
+    xp = parity_perm(nx) if x_is_parity(solver) else None
+    xo = xp if xp is not None else np.arange(nx)
     ti = [np.asarray(T, np.float64) for T in po.Ti64]
     m = {
         "biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
         "ty": np.concatenate([te, to]),
         "iz": fwd(d64["iz"]), "sz": fwd(d64["sz"]),
-        "sx": fwd(d64["sx"]), "ix": fwd(d64["ix"]),
-        "gxs": inv(d64["gx_s"]), "gxi": inv(d64["gx_i"]),
         "gzi": inv(d64["gz_i"]), "gzs": inv(d64["gz_s"]),
         "tyi": np.concatenate([te.T * w_perm[None, :h],
                                to.T * w_perm[None, h:]]),
         "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v),
         "tab_a": np.asarray(po.tab_A)[yp][:, zp].reshape(-1),
         "tab_b": np.asarray(po.tab_B)[yp][:, zp].reshape(-1),
-        "k2x": po.k2_1d[0][xp],
-        "tx2": (po.T_1d[0] ** 2)[xp],
-        "ti_x": ti[0][:, xp], "ti_y": ti[1][:, yp], "ti_z": ti[2][:, zp],
+        "k2x": po.k2_1d[0][xo],
+        "tx2": (po.T_1d[0] ** 2)[xo],
+        "ti_x": ti[0][:, xo], "ti_y": ti[1][:, yp], "ti_z": ti[2][:, zp],
     }
+    if xp is not None:
+        m.update(sx=fwd(d64["sx"]), ix=fwd(d64["ix"]),
+                 gxs=inv(d64["gx_s"]), gxi=inv(d64["gx_i"]))
+    else:
+        m.update(sx=d64["sx"], ix=d64["ix"], gxs=d64["gx_s"],
+                 gxi=d64["gx_i"])
+    if po._zero_idx is not None:
+        # the Nyquist-line indicators of x3d2_tpu (pallas_poisson.py:
+        # 641-656): the zeroed set is the intersection of the named axes'
+        # Nyquist indices
+        ind = [np.ones(n) if a not in po._zero_idx
+               else (np.arange(n) == n // 2).astype(np.float64)
+               for a, n in enumerate((nx, ny, nz))]
+        m["mx"] = ind[0][xo]
+        m["myz"] = np.outer(ind[1][yp], ind[2][zp]).reshape(-1)
     return ProjectionMats(shape=(nx, ny, nz), m64=m, device=solver.device,
                           x_perm=xp, q_perm=yp, z_perm=zp)
 
@@ -220,9 +312,13 @@ def pinv(Mst, f, axis):
 
 def solve_factor(m, shape):
     """-1/waves with the zero-wave guard, from the separable tables, as an
-    (nx, ny, nz) field in block-parity order on every axis."""
+    (nx, ny, nz) field in the order of q's modes; times 1 - mx myz where
+    the Poisson variant zeros a Nyquist line (x3d2_tpu's mask,
+    pallas_poisson.py:641-656)."""
     waves = (m["k2x"][:, None] * m["tab_a"][None, :]
              + m["tx2"][:, None] * m["tab_b"][None, :])
     ok = waves.abs() >= _EPS
     inv = torch.where(ok, -1.0 / torch.where(ok, waves, 1.0), 0.0)
+    if "myz" in m:
+        inv = inv * (1.0 - m["mx"][:, None] * m["myz"][None, :])
     return inv.reshape(shape)

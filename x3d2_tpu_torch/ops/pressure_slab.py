@@ -19,19 +19,26 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
                  p_zy = Giy GH1, dpdy = Gsy GH1, dpdz = Giy GH2
     x_gradsub3   _x_parity_gradsub3_kernel (:1106)
                  u - Gxs p_zy, v - Gxi dpdy, w - Gxi dpdz
+    x_apply      _x_apply_kernel (:954), make_x_apply (:1258): the dense x
+                 stage of a wall-bounded x axis, one field a call, in
+                 x3d2_tpu's six calls (solver.py:506-511, :550-555):
+                 sx(u), ix(v), ix(w); then with the correction
+                 u - gx_s p_zy, v - gx_i dpdy, w - gx_i dpdz
 
 Spectral indices are in block-parity order [even modes; odd modes] on
-every axis, as the TPU kernels keep them; the operator set is the one the
-pipeline uses (ops/parity.py). Only the fast branches of the TPU slab are
-here (banded y, parity y and z, parity x): they are the ones it takes on
-the all-periodic uniform grids tiled by 128 that the port's kernel serves
-(``parity.projection_supported``; the structural gate of x3d2_tpu,
-slab_pressure_supported, pallas_poisson.py:515-533, also admits
-wall-bounded axes through the dense and folded branches, and its
-VMEM-footprint test is a TPU limit with no counterpart here). The Nyquist
-mask of the TPU kernel is left out: on those grids it is identically one
-(the poisson names no Nyquist index, so the kernel's mx table is zero,
-pallas_poisson.py:646-656).
+every periodic axis, as the TPU kernels keep them, and in natural order on
+a wall-bounded x; the operator set is the one the pipeline uses
+(ops/parity.py). The y and z branches here are the fast ones of the TPU
+slab (banded y, parity y and z): the ones it takes where y and z are
+periodic (``parity.projection_supported``; the structural gate of
+x3d2_tpu, slab_pressure_supported, pallas_poisson.py:515-534, also admits
+wall-bounded y and z through the dense and folded branches, not ported).
+The x stage is the parity split on a periodic x (x_div3, x_gradsub3) and
+the dense x apply on a wall-bounded one (x_apply). The Nyquist mask of the
+TPU kernel (q times 1 - mx Myz) is applied in the solve's epilogue where
+the Poisson variant zeros a line (the cylinder's "100" with even ny and
+nz: the (ny/2, nz/2) line on every x plane); elsewhere the operator set
+carries no mask and the epilogue reads none.
 
 A 512 x 512 plane is 1 MB against 227 KB of shared memory per block, so
 the mid is not one whole-plane kernel as on the TPU but six launches of
@@ -51,8 +58,9 @@ from __future__ import annotations
 
 import torch
 
+from .compact import apply_matrix
 from .operator_apply import (BANDED, PFWD, PINV, SOLVE_PLANE, SUB, apply,
-                             route)
+                             apply_dense, route)
 from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
 
 
@@ -84,6 +92,12 @@ def x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, m):
             w - pinv(m["gxi"], dpdz, 0))
 
 
+def x_apply_plain(M, f, s=None):
+    """M f along x, or s - M f."""
+    r = apply_matrix(M, f, 0)
+    return r if s is None else s - r
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -106,8 +120,9 @@ def _pressure_mid_cuda(du, dv, dw, m, emit_q):
     # small; behind Iz's it would be rounded at Iz's magnitude
     apply(name, PFWD, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
     q = t[0]
+    mask = (m["myz"], m["mx"]) if "myz" in m else ()
     apply(name, PFWD, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
-          tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
+          tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]) + mask)
     apply(name, PINV, 2, [([m["gzi"]], [q], t[1], None),
                           ([m["gzs"]], [q], t[2], None)])
     gh1, gh2 = t[3], torch.empty_like(du)
@@ -141,6 +156,18 @@ def pressure_mid(du, dv, dw, pm: ProjectionMats, emit_q=True):
     if route(du, "pressure_mid"):
         return _pressure_mid_cuda(du, dv, dw, pm.mats(torch.float32), emit_q)
     return pressure_mid_plain(du, dv, dw, pm.mats(du.dtype), emit_q)
+
+
+def x_apply(name, f, pm: ProjectionMats, s=None):
+    """The dense x stage: pm's operator `name` (sx, ix, gxs, gxi) applied
+    along x of f, or s minus it. Counted as x_apply, x_apply[sub] with s."""
+    if route(f, "x_apply"):
+        M = pm.mats(torch.float32)[name]
+        out = torch.empty((M.shape[0],) + tuple(f.shape[1:]),
+                          dtype=f.dtype, device=f.device)
+        apply_dense("x_apply" if s is None else "x_apply[sub]", M, f, out, s)
+        return out
+    return x_apply_plain(pm.mats(f.dtype)[name], f, s)
 
 
 def x_gradsub3(p_zy, dpdy, dpdz, u, v, w, pm: ProjectionMats):

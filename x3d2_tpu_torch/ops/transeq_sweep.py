@@ -627,14 +627,24 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
     return fn
 
 
+# x3d2_tpu's v3 sweep geometry (pallas_kernels.py:137-143, :998-1022): the
+# block and band half-width per axis (the z sweep runs on the TPU's lanes),
+# the in-tile extents of the two other axes, the band truncation tolerance
+V3_BLOCK = {0: (64, 16), 1: (64, 16), 2: (128, 64)}
+V3_FREE = {0: (16, 128), 1: (16, 128), 2: (8, 128)}
+V3_BAND_TOL = 1e-6
+
+
 def transeq_sweep_supported(solver, shape) -> bool:
-    """Counterpart of x3d2_tpu transeq_v3_supported
-    (pallas_kernels.py:998-1022) for the port's kernel: float32, uniform
-    mesh, square operators and every axis tileable. The operators' bands
-    are checked where the blocks are built (build_sweep_blocks raises
-    ValueError when a band is wider than W at the truncation tolerance)."""
-    if solver.dtype != torch.float32:
-        return False
+    """Counterpart of x3d2_tpu transeq_v3_supported (pallas_kernels.py:
+    998-1022), with its conditions: a uniform mesh, square operators, per
+    axis an extent that is a multiple of the block and at least a block
+    and two bands long (the z rule: n >= 128 + 2 * 64 = 256), the other
+    two extents multiples of the in-tile ones, and every operator within
+    its band at the truncation tolerance. The port keeps x3d2_tpu's choice
+    (its own kernel tiles more: 64-point blocks and W=16 on every axis,
+    sweep_shape_ok, which these conditions imply). The kernel is float32:
+    the solver takes the sweeps for float32 only."""
     shape = tuple(shape)
     for axis in range(3):
         o = solver.ops[axis]
@@ -642,8 +652,20 @@ def transeq_sweep_supported(solver, shape) -> bool:
         if corr is not None and np.any(corr):
             return False
         n = shape[axis]
-        if not sweep_shape_ok(shape, axis):
+        bs, w = V3_BLOCK[axis]
+        if n % bs or n < bs + 2 * w:
+            return False
+        other = [a for a in range(3) if a != axis]
+        t0, t1 = V3_FREE[axis]
+        if shape[other[0]] % t0 or shape[other[1]] % t1:
             return False
         if o.der1st.n_out != n or o.der1st.n_in != n:
+            return False
+        try:
+            for op in (o.der1st, o.der1st_sym, o.der2nd, o.der2nd_sym):
+                banded_blocks(op, w, bs, tol=V3_BAND_TOL)
+        except ValueError:
+            return False
+        if not sweep_shape_ok(shape, axis):
             return False
     return True

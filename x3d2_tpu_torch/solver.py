@@ -6,28 +6,34 @@ correction src/solver.f90:693-739). Fields are Cartesian (nx, ny, nz)
 tensors; each compact-operator solve is one matrix contraction
 (ops/compact.py).
 
-What runs where, as in x3d2_tpu (solver.py:108-168, :198-200, :270-282,
-:523-567):
-- transeq and transeq_species_all: on float32 uniform grids the sweep
-  kernels tile (ops/transeq_sweep.py transeq_sweep_supported), the chains
-  of three sweeps, make_fused_transeq and make_fused_species (at most 8
-  scalars); kernels on CUDA tensors, plain versions on CPU ones. Elsewhere
-  the dense operator products, on CPU tensors only.
-- pressure_correction, on the all-periodic uniform grids tiled by 128 that
-  the projection kernels serve (ops/parity.py), in x3d2_tpu's dispatch
-  order: the three-stage pipeline (ops/pressure_pipe.py) when the
-  pressure is not kept and no pre-transformed divergence inputs are
-  given; otherwise the slab projection (ops/pressure_slab.py: x_div3 or
-  the xdiv sweep's ``divs``, the mid, x_gradsub3), which with
-  keep_pressure=True also returns the physical pressure, three inverse
-  transforms of the spectral solution q as plain matrix products (they
-  are XLA einsums outside any kernel in x3d2_tpu too). Both run kernels
-  on CUDA tensors and plain versions on CPU ones.
-- On other grids, CPU tensors only: the transform-folded chain of matrix
-  products (x3d2_tpu solver.py:461-491) followed by ``u - dpdx``.
-On CUDA tensors a case the ported kernels do not cover raises
-NotImplementedError and names the TPU kernel that covers it: the port
-never substitutes plain PyTorch for a kernel on the card.
+What runs where: the branch x3d2_tpu takes (solver.py:108-168, :198-205,
+:270-282, :523-567), chosen by counterparts of its gates with the same
+conditions (``transport_route``, ``parity.slab_supported``,
+``parity.pipe3_supported``):
+- transeq and transeq_species_all: where transeq_v3_supported's
+  conditions hold (ops/transeq_sweep.py transeq_sweep_supported), the
+  chains of three sweeps, make_fused_transeq and make_fused_species (at
+  most 8 scalars), float32 only (the sweeps' band is truncated at the
+  float32 level); else where fused_transeq_supported's hold
+  (ops/transeq_dense.py), the dense sweep per direction, summed; else the
+  dense operator products, which x3d2_tpu runs as XLA einsums outside any
+  kernel, as plain matrix products on either device.
+- pressure_correction, in x3d2_tpu's dispatch order: the three-stage
+  pipeline (ops/pressure_pipe.py) where pipe3_supported holds, when the
+  pressure is not kept and no pre-transformed divergence inputs are given;
+  otherwise where slab_pressure_supported holds the slab projection
+  (ops/pressure_slab.py: on a periodic x x_div3 or the xdiv sweep's
+  ``divs``, the mid, x_gradsub3; on a wall-bounded x the dense x applies
+  around the mid), which with keep_pressure=True also returns the physical
+  pressure, three inverse transforms of the spectral solution q as plain
+  matrix products (XLA einsums outside any kernel in x3d2_tpu too);
+  elsewhere the transform-folded chain of matrix products (x3d2_tpu
+  solver.py:461-491, XLA there too) followed by ``u - dpdx``, on either
+  device.
+Kernels run on CUDA tensors and their plain versions on CPU ones. On CUDA
+tensors a branch x3d2_tpu runs on a kernel the port lacks raises
+NotImplementedError naming it: the port never substitutes plain PyTorch
+for a kernel on the card.
 """
 
 from __future__ import annotations
@@ -44,27 +50,40 @@ from .ops.compact import apply_matrix
 from .ops.dirops import AxisOps, build_all_ops
 from .ops.matmul_poisson import MatmulPoisson
 from .ops import pressure_slab
-from .ops.parity import build_projection_mats, projection_supported
+from .ops.parity import (build_projection_mats, pipe3_supported, slab_gap,
+                         slab_supported)
 from .ops.pressure_pipe import make_pressure_pipe
 from .ops.species_sweep import make_fused_species
+from .ops.transeq_dense import make_transeq_dense, transeq_dense_supported
 from .ops.transeq_sweep import (MAX_SPECIES, make_fused_transeq,
                                 transeq_sweep_supported)
 
 # the TPU kernels behind the cases that raise on the card
-_UNPORTED_TRANSEQ = ("the v1 dense sweep _kernel (x3d2_tpu/ops/"
-                     "pallas_transeq.py:42) for grids the v3 sweeps cannot "
-                     "tile")
 _UNPORTED_SPECIES = ("the species sweeps serve float32 uniform grids the "
                      "sweep kernel tiles, at most 8 scalars (_species_kernel"
                      "_v3, x3d2_tpu/ops/pallas_kernels.py:1038); x3d2_tpu "
                      "takes its dense per-species path past that (solver.py:"
                      "277-282), which is not ported to the card")
-_UNPORTED_PROJECTION = ("the slab projection's branches for wall-bounded "
-                        "or untiled axes: the dense and folded y/z branches "
-                        "of _pressure_mid_kernel (x3d2_tpu/ops/"
-                        "pallas_poisson.py:354), _x_apply_kernel (:954), "
-                        "_x_parity_fwd_kernel (:997) and "
-                        "_x_parity_inv_kernel (:1025)")
+
+
+def transport_route(solver, shape) -> str:
+    """x3d2_tpu's transport branch (solver.py:118-148) on a grid: "sweeps"
+    where transeq_v3_supported's conditions hold, else "v1" where
+    fused_transeq_supported's hold, else "dense" (its einsum path)."""
+    if transeq_sweep_supported(solver, shape):
+        return "sweeps"
+    if transeq_dense_supported(solver, shape):
+        return "v1"
+    return "dense"
+
+
+def projection_route(solver):
+    """x3d2_tpu's projection kernels on a grid (solver.py:150-168):
+    "pipe3" (with the slab beside it), "slab", or None (the folded chain
+    of einsums)."""
+    if not slab_supported(solver):
+        return None
+    return "pipe3" if pipe3_supported(solver) else "slab"
 
 
 def _bcast(vec: np.ndarray, axis: int, like: torch.Tensor) -> torch.Tensor:
@@ -109,12 +128,15 @@ class NavierStokes:
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
                  poisson=poisson, nu_species=tuple(nu_species))
         ns._fused_pressure_mats()
-        # the sweep chains where the kernel tiles the grid (x3d2_tpu
-        # solver.py:118-140); a band wider than the kernel's leaves them
-        # out, and the card then raises in transeq
-        sweeps = species = None
+        # the transport x3d2_tpu takes (solver.py:118-148): the sweep
+        # chains (float32; a band wider than the kernel's leaves them out,
+        # and the card then raises in transeq), the dense sweeps (any
+        # dtype: their operators are the exact dense ones), or the dense
+        # products
+        sweeps = species = v1 = None
         shape = mesh.dims(DataLoc.VERT)
-        if transeq_sweep_supported(ns, shape):
+        route = transport_route(ns, shape)
+        if route == "sweeps" and dtype == torch.float32:
             try:
                 sweeps = make_fused_transeq(ops, nu, shape, device=device)
                 if ns.nu_species and len(ns.nu_species) <= MAX_SPECIES:
@@ -122,42 +144,68 @@ class NavierStokes:
                                                  device=device)
             except ValueError:
                 pass
+        elif route == "v1":
+            v1 = make_transeq_dense(ops, nu, shape, device=device)
+        object.__setattr__(ns, "_transport", route)
         object.__setattr__(ns, "_sweeps", sweeps)
+        object.__setattr__(ns, "_v1", v1)
         object.__setattr__(ns, "_species_sweeps", species)
         # both kernel projections over one operator set: _pipe is the
-        # pipeline's function, _slab the set the slab's functions take
-        pipe = slab = None
-        if projection_supported(ns):
+        # pipeline's function, _slab the set the slab's functions take.
+        # _projection_gap: why the card cannot run the kernels x3d2_tpu
+        # runs here (None where it can, or where x3d2_tpu runs none)
+        pipe = slab = gap = None
+        proute = projection_route(ns)
+        if proute is not None:
+            gap = slab_gap(ns)
+        if proute is not None and gap is None:
             try:
                 slab = build_projection_mats(ns)
-                pipe = make_pressure_pipe(slab)
-            except ValueError:
+                if proute == "pipe3":
+                    pipe = make_pressure_pipe(slab)
+            except ValueError as err:
                 # a band wider than the kernel's: the CPU keeps the folded
                 # chain; the card raises in pressure_correction
-                pass
+                slab = pipe = None
+                gap = f"the y operators' band ({err})"
         object.__setattr__(ns, "_pipe", pipe)
         object.__setattr__(ns, "_slab", slab)
+        object.__setattr__(ns, "_projection_gap", gap)
         return ns
+
+    def transport_gap(self):
+        """Why the card cannot run this grid's transport, or None: x3d2_tpu
+        takes a sweep kernel here (the sweeps or the dense sweeps) and the
+        port has not built it (float32 only; a band wider than the
+        kernel's)."""
+        if self._transport == "dense" or self._sweeps is not None \
+                or self._v1 is not None:
+            return None
+        return (f"x3d2_tpu runs its banded sweeps here (_transeq_kernel_v3, "
+                f"x3d2_tpu/ops/pallas_kernels.py:172); the port's sweep "
+                f"kernel takes float32 and operators within its band "
+                f"(dtype {self.dtype})")
 
     # ------------------------------------------------------------------
     # transport equation RHS
     # ------------------------------------------------------------------
     def transeq(self, u, v, w):
         """Skew-symmetric momentum RHS (reference transeq_default,
-        solver.f90:291-389): the chain of three sweeps where it is built,
-        else the dense operator matrices (CPU tensors only: on the card
-        they would stand in for a TPU kernel). The direction-aligned
+        solver.f90:291-389): the chain of three sweeps or the dense sweeps
+        where x3d2_tpu takes its kernels, else the dense operator matrices
+        (on the card only where x3d2_tpu runs them as einsums too). The
+        direction-aligned
         component uses (der1st, der1st_sym, der2nd); transverse components
         use (der1st_sym, der1st, der2nd_sym) (omp/backend.f90:235-262). The
         6 products u_i*u_j are computed once; dq and d2q share one
         row-stacked product."""
         if self._sweeps is not None:
             return self._sweeps(u, v, w)
-        if u.is_cuda:
-            raise NotImplementedError(
-                f"the transeq on the card runs the sweep kernels (a float32 "
-                f"uniform grid tiled by 64); {_UNPORTED_TRANSEQ} is not "
-                "ported yet")
+        if self._v1 is not None:
+            return self._v1(u, v, w)
+        if u.is_cuda and self.transport_gap() is not None:
+            raise NotImplementedError(f"transeq on the card: "
+                                      f"{self.transport_gap()}")
         comps = (u, v, w)
         prods = {}
 
@@ -349,10 +397,17 @@ class NavierStokes:
         p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
         inputs (the xdiv sweep's), so x_div3 is skipped; without want_q
         the spectral solution is not returned."""
-        du, dv, dw = divs if divs is not None \
-            else pressure_slab.x_div3(u, v, w, self._slab)
-        return pressure_slab.pressure_mid(du, dv, dw, self._slab,
-                                          emit_q=want_q)
+        slab = self._slab
+        if divs is not None:
+            du, dv, dw = divs
+        elif slab.x_perm is not None:
+            du, dv, dw = pressure_slab.x_div3(u, v, w, slab)
+        else:
+            # the dense x stage (x3d2_tpu solver.py:506-511)
+            du = pressure_slab.x_apply("sx", u, slab)
+            dv = pressure_slab.x_apply("ix", v, slab)
+            dw = pressure_slab.x_apply("ix", w, slab)
+        return pressure_slab.pressure_mid(du, dv, dw, slab, emit_q=want_q)
 
     def pressure_correction(self, u, v, w, keep_pressure=True, divs=None):
         """Fractional-step projection (solver.f90:693-739): the
@@ -366,14 +421,22 @@ class NavierStokes:
         if self._pipe is not None and divs is None and not keep_pressure:
             return (*self._pipe(u, v, w), None)
         if self._slab is not None:
+            slab = self._slab
             q, p_zy, dpdy, dpdz = self._slab_mid(
                 u, v, w, want_q=keep_pressure, divs=divs)
-            un, vn, wn = pressure_slab.x_gradsub3(p_zy, dpdy, dpdz, u, v, w,
-                                                  self._slab)
+            if slab.x_perm is not None:
+                un, vn, wn = pressure_slab.x_gradsub3(p_zy, dpdy, dpdz, u, v,
+                                                      w, slab)
+            else:
+                # the dense x stage with the correction (x3d2_tpu
+                # solver.py:550-555)
+                un = pressure_slab.x_apply("gxs", p_zy, slab, u)
+                vn = pressure_slab.x_apply("gxi", dpdy, slab, v)
+                wn = pressure_slab.x_apply("gxi", dpdz, slab, w)
             p = q
             if keep_pressure:
-                # q's modes are in block-parity order on every axis: the
-                # inverse transforms carry permuted columns
+                # q's modes are in block-parity order on the periodic
+                # axes: the inverse transforms carry permuted columns
                 m = self._slab.mats(u.dtype)
                 for a, name in enumerate(("ti_x", "ti_y", "ti_z")):
                     p = apply_matrix(m[name], p, a)
@@ -381,11 +444,10 @@ class NavierStokes:
         if divs is not None:
             raise ValueError("pre-transformed divergence inputs need the "
                              "slab projection")
-        if u.is_cuda:
+        if u.is_cuda and self._projection_gap is not None:
             raise NotImplementedError(
-                "the projection on the card runs the pipe3 and slab kernels "
-                "(an all-periodic uniform grid tiled by 128); "
-                f"{_UNPORTED_PROJECTION} are not ported yet")
+                "the projection on the card: x3d2_tpu runs its slab kernels "
+                f"on this grid; the port lacks {self._projection_gap}")
         dpdx, dpdy, dpdz, p = self.pressure_grads(
             u, v, w, keep_pressure=keep_pressure)
         return u - dpdx, v - dpdy, w - dpdz, p
