@@ -277,14 +277,17 @@ def test_species_state_handover_from_x3d2_tpu_continues_exactly():
 
 
 def test_unported_options_with_species_raise(monkeypatch):
-    monkeypatch.setenv("X3D2_BF16_OLDS", "1")
-    with pytest.raises(NotImplementedError, match="X3D2_BF16_OLDS"):
+    # the bfloat16 history and compensated stepping are ported (with
+    # scalars too: tests/test_torch_bf16.py, test_torch_compensated.py);
+    # the mid cut at q is not
+    monkeypatch.setenv("X3D2_MID_SPLIT", "1")
+    with pytest.raises(NotImplementedError, match="X3D2_MID_SPLIT"):
         _cases()
-    monkeypatch.delenv("X3D2_BF16_OLDS")
+    monkeypatch.delenv("X3D2_MID_SPLIT")
     mesh = Mesh((32,) * 3, L, ((BC.PERIODIC, BC.PERIODIC),) * 3)
     params = SolverParams(n_species=2, pr_species=PR, compensated=True)
-    with pytest.raises(NotImplementedError, match="compensated"):
-        TGVCase(mesh, params, device="cpu", monitor_path=None)
+    case = TGVCase(mesh, params, device="cpu", monitor_path=None)
+    assert len(case.initial_state()["comp"]) == 4
     with pytest.raises(ValueError, match="Prandtl"):
         TGVCase(mesh, SolverParams(n_species=2), device="cpu",
                 monitor_path=None)

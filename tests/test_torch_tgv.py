@@ -124,8 +124,10 @@ def test_tgv_xdiv_switch_off_takes_pipeline_f32(monkeypatch):
 
 
 def test_unported_switches_still_raise(monkeypatch):
-    monkeypatch.setenv("X3D2_PIPE3", "0")
-    with pytest.raises(NotImplementedError, match="X3D2_PIPE3"):
+    # X3D2_PIPE3 routes between ported branches now (tests/test_torch_
+    # bf16.py); the mid cut at q still has no port
+    monkeypatch.setenv("X3D2_MID_SPLIT", "1")
+    with pytest.raises(NotImplementedError, match="X3D2_MID_SPLIT"):
         _cases((32,) * 3, torch.float64, jnp.float64)
 
 

@@ -15,10 +15,14 @@ where x3d2_tpu takes it:
 - AB, unfused (:390-405): transeq (+ species) and ab_step, the update as
   elementwise PyTorch (XLA in x3d2_tpu); on the grids where x3d2_tpu's
   transport is its dense sweep kernel or its einsums (TGV 128^3, the
-  cylinder).
+  cylinder), with X3D2_FUSED_AB=0, and for compensated stepping
+  (SolverParams.compensated: ab_step_compensated, then the tail
+  _substage_post(comp=), which takes the gradients from
+  solver.pressure_grads and adds them through the Kahan compensation).
 - AB, fused (:406-471): an AB scheme with history, not compensated,
-  identity forcings, the sweep chains built (the solver's transport is
-  the sweeps). The transport + AB sweep chain; under x3d2_tpu's gate
+  X3D2_FUSED_AB not "0", identity forcings, the sweep chains built (the
+  solver's transport is the sweeps). The transport + AB sweep chain; under
+  x3d2_tpu's gate
   (:141-167: the slab projection with a parity x stage, identity apply_bc
   and body, max(dims) <= 256, X3D2_XDIV_FUSED is not "0") the xdiv one:
   z, y, then the x sweep with the AB update, which also emits the
@@ -26,8 +30,8 @@ where x3d2_tpu takes it:
   Otherwise z, x, y with the AB update, then the three-stage pipeline
   (keep_pressure=False) or the slab projection (keep_pressure=True).
   Passive scalars take their RHS from the species sweep chain on the
-  velocities before the update (the chain then writes u' over the oldest
-  history) and the AB update as elementwise PyTorch, as x3d2_tpu does in
+  velocities before the update (the chain then consumes the history's
+  buffers) and the AB update as elementwise PyTorch, as x3d2_tpu does in
   XLA.
 - RK, fused (:472-496): RK without scalars, not compensated, identity
   forcings, X3D2_FUSED_RK not "0", a mesh the sweep kernel supports. Per
@@ -35,8 +39,16 @@ where x3d2_tpu takes it:
   the projection.
 - RK, unfused (:497-514; RK with scalars, or X3D2_FUSED_RK=0): per
   substage transeq (+ species), rk_substage, the projection.
-Compensated stepping and the other X3D2_* switches of the JAX step are not
-ported yet and raise NotImplementedError.
+The AB history may be stored in bfloat16 (X3D2_BF16_OLDS=1, AB with
+history), with x3d2_tpu's error feedback in every AB branch; the fused AB
+chain may keep its cross-direction partials in bfloat16 (X3D2_BF16_ACC=1;
+the other chains stay float32, as in x3d2_tpu). X3D2_FUSED_AB,
+X3D2_XDIV_FUSED, X3D2_FUSED_RK (here) and X3D2_PIPE3, X3D2_MERGED_X (the
+solver) route between ported branches as in x3d2_tpu. X3D2_BFLY=0 on a
+slab grid (the solver's build) and X3D2_D2C=1 where x3d2_tpu's carry gate holds take TPU kernels
+the port lacks and raise NotImplementedError naming them, as do
+X3D2_CHUNK, X3D2_PALLAS, X3D2_MATMUL_PRECISION and X3D2_MID_SPLIT whenever
+they are set.
 
 On the card a case runs what x3d2_tpu runs: its kernels as the port's
 kernels, its XLA parts (einsums, elementwise updates, boundary hooks) as
@@ -47,8 +59,8 @@ NotImplementedError at construction. The CPU runs every case, with plain
 versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
-fused AB chain writes u' over the oldest history fields, and apply_bc
-may write the fields of the time update in place.
+fused AB chain writes its outputs over the history's and the partials'
+buffers, and apply_bc may write the fields of the time update in place.
 """
 
 from __future__ import annotations
@@ -66,16 +78,25 @@ from ..mesh import Mesh
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
                                  make_fused_transeq_rk)
 from ..solver import _UNPORTED_SPECIES, NavierStokes
-from ..time_integrators import TimeIntegrator
+from ..time_integrators import TimeIntegrator, kahan_add
 
 # environment switches the JAX step reads (x3d2_tpu cases/base.py,
-# solver.py, ops/compact.py) that have no port yet; X3D2_XDIV_FUSED ("0"
-# keeps the z, x, y chain and the pipeline at every size) and
-# X3D2_FUSED_RK ("0" steps RK unfused) are ported
-_JAX_STEP_SWITCHES = ("X3D2_FUSED_AB", "X3D2_PIPE3",
-                      "X3D2_BF16_OLDS", "X3D2_BF16_ACC",
-                      "X3D2_D2C", "X3D2_CHUNK", "X3D2_PALLAS",
-                      "X3D2_MATMUL_PRECISION", "X3D2_MID_SPLIT")
+# solver.py, ops/compact.py, ops/pallas_poisson.py) that have no port yet,
+# with what x3d2_tpu runs under them; each raises whenever it is set
+_UNPORTED_SWITCHES = {
+    "X3D2_CHUNK": "the chunked step loop (x3d2_tpu cases/base.py:244-263)",
+    "X3D2_PALLAS": "x3d2_tpu's switch of all its kernels (solver.py:106)",
+    "X3D2_MATMUL_PRECISION": (
+        "the HIGHEST mode: the W = 32 bands of _transeq_kernel_v3 and "
+        "_pencil_kernel (x3d2_tpu/ops/pallas_kernels.py:172, :671) and of "
+        "the mid's y stages (pallas_poisson.py:575), held to 5e-7"),
+    "X3D2_MID_SPLIT": ("_div_solve_kernel and _grad_kernel (x3d2_tpu/ops/"
+                       "pallas_poisson.py:327, :340)"),
+}
+# what X3D2_D2C=1 takes where it acts (X3D2_BFLY=0: solver.BFLY_GAP)
+_D2C_GAP = ("X3D2_D2C=1 takes _pipe_c_kernel d2=True (x3d2_tpu/ops/"
+            "pallas_poisson.py:1455, :1523-1552) with the chain that skips "
+            "its z sweep, not ported")
 
 
 @dataclass
@@ -111,18 +132,12 @@ class BaseCase:
                  monitor_path: str | None = "monitoring.csv", verbose=True,
                  keep_pressure=True, device=None, seed: int = 0,
                  case_cfg=None):
-        set_env = [k for k in _JAX_STEP_SWITCHES if k in os.environ]
+        set_env = [k for k in _UNPORTED_SWITCHES if k in os.environ]
         if set_env:
-            bf16 = (" (the bf16 history and partials are the olds_dtype and "
-                    "acc_dtype variants of _transeq_kernel_v3, x3d2_tpu/ops/"
-                    "pallas_kernels.py:172)"
-                    if any("BF16" in k for k in set_env) else "")
             raise NotImplementedError(
-                f"environment switches {set_env} are not ported yet{bf16}")
+                "environment switches not ported yet: " + "; ".join(
+                    f"{k} ({_UNPORTED_SWITCHES[k]})" for k in set_env))
         self.ti = TimeIntegrator(params.time_intg)
-        if params.compensated:
-            raise NotImplementedError("compensated stepping is not ported "
-                                      "yet")
         self.device = resolve_device(device)
         self.seed = seed
         self.case_cfg = case_cfg
@@ -149,6 +164,14 @@ class BaseCase:
             device=self.device,
             nu_species=tuple(nu / pr for pr in params.pr_species[:nsp]))
         self.dt = params.dt
+        # x3d2_tpu's reduced-precision gates (cases/base.py:104-129): an AB
+        # scheme with history stores it in bfloat16 (every AB branch), and
+        # the fused AB chain its cross-direction partials
+        ab_hist = self.ti.kind == "AB" and self.ti.nolds >= 1
+        self._olds_dtype = (torch.bfloat16 if ab_hist and os.environ.get(
+            "X3D2_BF16_OLDS", "0") == "1" else None)
+        self._acc_dtype = (torch.bfloat16 if ab_hist and os.environ.get(
+            "X3D2_BF16_ACC", "0") == "1" else None)
         dims = mesh.dims(DataLoc.VERT)
         on_card = self.device.type == "cuda"
         if on_card and self.solver._projection_gap is not None:
@@ -168,7 +191,11 @@ class BaseCase:
         self._fused_ab = None
         self._ab_is_xdiv = False
         slab = self.solver._slab
-        if (self.ti.nolds >= 1   # compensated stepping raised above
+        chain = dict(device=self.device, olds_dtype=self._olds_dtype,
+                     acc_dtype=self._acc_dtype)
+        if (os.environ.get("X3D2_FUSED_AB", "1") != "0"
+                and self.ti.kind == "AB" and self.ti.nolds >= 1
+                and not params.compensated
                 and type(self).forcings is BaseCase.forcings
                 and self.solver._sweeps is not None):
             # x3d2_tpu's gate (cases/base.py:141-147) is max(dims) <= 256,
@@ -187,8 +214,7 @@ class BaseCase:
                 try:
                     self._fused_ab = make_fused_transeq_ab(
                         self.solver.ops, self.solver.nu, dims,
-                        self.ti.nolds, device=self.device,
-                        xdiv=(d64["sx"], d64["ix"]))
+                        self.ti.nolds, xdiv=(d64["sx"], d64["ix"]), **chain)
                     self._ab_is_xdiv = True
                 except ValueError:
                     pass
@@ -196,17 +222,27 @@ class BaseCase:
                 try:
                     self._fused_ab = make_fused_transeq_ab(
                         self.solver.ops, self.solver.nu, dims,
-                        self.ti.nolds, device=self.device)
+                        self.ti.nolds, **chain)
                 except ValueError:
                     # an operator band wider than the kernel's: the CPU
                     # steps unfused; the card has no kernel for it
                     if on_card:
                         raise
+        # x3d2_tpu's d2-in-C carry gate (cases/base.py:182-194), where the
+        # step would take it (keep_pressure=False: :326-330, :420-434)
+        if (os.environ.get("X3D2_D2C", "0") == "1"
+                and self._fused_ab is not None and self._acc_dtype is None
+                and not self._ab_is_xdiv and not nsp
+                and type(self).define_bc is BaseCase.define_bc
+                and type(self).apply_bc is BaseCase.apply_bc
+                and type(self).body is BaseCase.body
+                and self.solver._pipe is not None and not keep_pressure):
+            raise NotImplementedError(_D2C_GAP)
         # transport + RK substage update in one chain per substage, under
         # x3d2_tpu's gate (cases/base.py:212-232); scalars ride the unfused
         # branch
         self._fused_rk = None
-        if (self.ti.kind == "RK" and not nsp
+        if (self.ti.kind == "RK" and not nsp and not params.compensated
                 and os.environ.get("X3D2_FUSED_RK", "1") != "0"
                 and type(self).forcings is BaseCase.forcings
                 and self.solver._sweeps is not None):
@@ -271,9 +307,13 @@ class BaseCase:
         if self.nsp:
             state["phi"] = self._tensor(fields["phi"])
             tmpl = tmpl + (state["phi"],)
-        # AB: per field its history (the stacked scalars' one 4th); RK
-        # keeps none across steps (empty per field)
-        state["olds"] = self.ti.empty_olds(tmpl)
+        # AB: per field its history (the stacked scalars' one 4th), at the
+        # history's dtype; RK keeps none across steps (empty per field)
+        state["olds"] = self.ti.empty_olds(tmpl, dtype=self._olds_dtype)
+        if self.ti.kind == "AB" and self.params.compensated:
+            # the Kahan compensation, one per field (x3d2_tpu
+            # cases/base.py:323-325)
+            state["comp"] = tuple(torch.zeros_like(f) for f in tmpl)
         return state
 
     def _rhs(self, fields, istep):
@@ -286,16 +326,39 @@ class BaseCase:
             rhs = self.solver.transeq(u, v, w)
         return self.forcings(rhs, fields, istep)
 
-    def _substage_post(self, fields, bc_data, gdt, istep, divs=None):
+    def _substage_post(self, fields, bc_data, gdt, istep, divs=None,
+                       comp=None):
         """apply_bc -> body (IBM) -> pressure_correction of the velocities,
-        one substage's tail (x3d2_tpu cases/base.py:343-370); the scalars
+        one substage's tail (x3d2_tpu cases/base.py:342-376); the scalars
         pass. `divs`: the xdiv sweep's x-transformed divergence inputs
-        (only where apply_bc and body are the identity)."""
+        (only where apply_bc and body are the identity). With `comp` (the
+        Kahan compensation of every field) the correction u - grad p is
+        added through it, and the compensation is zeroed wherever a hook
+        changed a point; returns (fields, p, comp)."""
+        hooked = comp is not None and (
+            type(self).apply_bc is not BaseCase.apply_bc
+            or type(self).body is not BaseCase.body)
+        # apply_bc may write in place: keep the values it may change
+        pre = tuple(f.clone() for f in fields[:3]) if hooked else None
         fields = self.apply_bc(fields, bc_data, gdt, istep)
         fields = self.body(fields)
-        u, v, w, p = self.solver.pressure_correction(
-            *fields[:3], keep_pressure=self.keep_pressure, divs=divs)
-        return (u, v, w) + tuple(fields[3:]), p
+        if comp is None:
+            u, v, w, p = self.solver.pressure_correction(
+                *fields[:3], keep_pressure=self.keep_pressure, divs=divs)
+            return (u, v, w) + tuple(fields[3:]), p, None
+        if hooked:
+            comp = tuple(torch.where(f == f0, c, torch.zeros_like(c))
+                         for f, f0, c in zip(fields[:3], pre, comp[:3])) \
+                + tuple(comp[3:])
+        grads = self.solver.pressure_grads(*fields[:3],
+                                           keep_pressure=self.keep_pressure)
+        outs, newc = [], []
+        for f, g, c in zip(fields[:3], grads[:3], comp[:3]):
+            t, c2 = kahan_add(f, -g, c)
+            outs.append(t)
+            newc.append(c2)
+        return (tuple(outs) + tuple(fields[3:]), grads[3],
+                tuple(newc) + tuple(comp[3:]))
 
     @torch.no_grad()
     def step(self, state):
@@ -309,16 +372,23 @@ class BaseCase:
         dt = self.dt
         olds = state["olds"]
         rng = state["rng"]
+        comp = state.get("comp")
         if self.ti.kind == "AB" and self._fused_ab is None:
             fields, bc_data = self.define_bc(fields, rng, istep)
             rhs = self._rhs(fields, istep)
-            fields, olds = self.ti.ab_step(fields, olds, istep, rhs, dt)
-            fields, p = self._substage_post(fields, bc_data,
-                                            self.ti.gdt(dt, 0), istep)
+            if comp is not None:
+                fields, olds, comp = self.ti.ab_step_compensated(
+                    fields, olds, comp, istep, rhs, dt)
+            else:
+                fields, olds = self.ti.ab_step(fields, olds, istep, rhs, dt)
+            fields, p, comp = self._substage_post(
+                fields, bc_data, self.ti.gdt(dt, 0), istep, comp=comp)
         elif self.ti.kind == "AB":
             fields, bc_data = self.define_bc(fields, rng, istep)
-            # the AB row is picked on the host: no per-step device sync
-            dtc = self.ti.ab_row(istep, dt, self.dtype)
+            # the AB row is picked on the host: no per-step device sync;
+            # with a bfloat16 history its 5th entry is the error feedback
+            dtc = self.ti.ab_row(istep, dt, self.dtype,
+                                 feedback=self._olds_dtype is not None)
             prhs = None
             if self.nsp:
                 # the scalars' RHS on the velocities before the update (the
@@ -335,15 +405,17 @@ class BaseCase:
             new_olds = tuple((r,) + tuple(o[:-1])
                              for r, o in zip(rhs, olds[:3]))
             if self.nsp:
-                phi_olds = olds[3]
-                phi = fields[3] + dtc[0] * prhs
-                for j, ph in enumerate(phi_olds):
-                    phi = phi + dtc[1 + j] * ph
+                # the phi AB update elementwise, with the reduced history's
+                # error feedback (x3d2_tpu cases/base.py:451-465): ab_step
+                # on the row the chain took
+                (phi,), (phi_olds,) = self.ti.ab_step(
+                    (fields[3],), (olds[3],), istep, (prhs,), dt)
                 mom = mom + (phi,)
-                new_olds = new_olds + ((prhs,) + tuple(phi_olds[:-1]),)
+                new_olds = new_olds + (phi_olds,)
             olds = new_olds
-            fields, p = self._substage_post(mom, bc_data, self.ti.gdt(dt, 0),
-                                            istep, divs=divs)
+            fields, p, _ = self._substage_post(mom, bc_data,
+                                               self.ti.gdt(dt, 0), istep,
+                                               divs=divs)
         elif self._fused_rk is not None:
             ks = []
             for istage, stage in enumerate(self._fused_rk):
@@ -355,7 +427,7 @@ class BaseCase:
                 dtc = self.ti.rk_row(istage, dt, self.dtype)
                 mom, rhs = stage(*fields, fields0, ks, dtc)
                 ks.append(rhs)
-                fields, p = self._substage_post(
+                fields, p, _ = self._substage_post(
                     mom, bc_data, self.ti.gdt(dt, istage), istep)
         else:
             ks = []
@@ -365,7 +437,7 @@ class BaseCase:
                     fields0 = fields
                 ks.append(self._rhs(fields, istep))
                 fields = self.ti.rk_substage(fields0, ks, istage, dt)
-                fields, p = self._substage_post(
+                fields, p, _ = self._substage_post(
                     fields, bc_data, self.ti.gdt(dt, istage), istep)
         if p is None:
             # no pressure was formed (keep_pressure=False): carry the
@@ -375,6 +447,8 @@ class BaseCase:
                "istep": istep + 1, "olds": olds, "rng": rng}
         if self.nsp:
             new["phi"] = fields[3]
+        if comp is not None:
+            new["comp"] = comp
         return new
 
     def _chunk(self, state, k):

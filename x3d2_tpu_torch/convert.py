@@ -8,7 +8,13 @@ newest first, the structure of ``TimeIntegrator.empty_olds``; with scalars
 a 4th entry holds the stacked phi history). A Runge-Kutta state carries no
 history: x3d2_tpu's has no ``olds``, the port's has an empty tuple per
 field. The cylinder's IBM mask ``ep`` is no part of the state: it is the
-case's parameter (``CylinderCase(..., ibm_mask=ep)``). The JAX package's
+case's parameter (``CylinderCase(..., ibm_mask=ep)``). A compensated AB
+state also carries ``comp``, the Kahan compensation per field (the fields'
+structure). A history stored in bfloat16 (X3D2_BF16_OLDS) travels as
+float32 arrays, since numpy has no bfloat16 without extra packages:
+widening bfloat16 to float32 is exact and narrowing it back is exact, so
+``state_from_numpy(..., olds_dtype=torch.bfloat16)`` restores the stored
+bits (from x3d2_tpu: ``np.asarray(a.astype(jnp.float32))``). The JAX package's
 PRNG ``key`` is dropped on the way in, and the port's state gets its own
 ``rng``, a torch.Generator seeded from ``seed`` (the two give different
 numbers from one seed; the cylinder's inflow noise is drawn from it); the
@@ -24,9 +30,10 @@ import torch
 from .common import resolve_device
 
 
-def state_from_numpy(np_state, device=None, seed=0):
+def state_from_numpy(np_state, device=None, seed=0, olds_dtype=None):
     """The port's state from numpy arrays (x3d2_tpu's state as numpy),
-    at the arrays' dtype."""
+    at the arrays' dtype; the history at `olds_dtype` where given (the
+    case's ``_olds_dtype``)."""
     device = resolve_device(device)
 
     def t(a):
@@ -45,15 +52,19 @@ def state_from_numpy(np_state, device=None, seed=0):
         nfields = 4
     # separate tensors per history slot, so the rotation never aliases
     olds = np_state.get("olds", ((),) * nfields)
-    state["olds"] = tuple(tuple(t(o) for o in per_field)
-                          for per_field in olds)
+    state["olds"] = tuple(
+        tuple(t(o) if olds_dtype is None else t(o).to(olds_dtype)
+              for o in per_field) for per_field in olds)
+    if "comp" in np_state:
+        state["comp"] = tuple(t(c) for c in np_state["comp"])
     return state
 
 
 def state_to_numpy(state):
     """numpy arrays of the port's state, in the same structure."""
     def a(x):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
     out = {
         "u": a(state["u"]), "v": a(state["v"]), "w": a(state["w"]),
@@ -64,4 +75,6 @@ def state_to_numpy(state):
     }
     if "phi" in state:
         out["phi"] = a(state["phi"])
+    if "comp" in state:
+        out["comp"] = tuple(a(c) for c in state["comp"])
     return out

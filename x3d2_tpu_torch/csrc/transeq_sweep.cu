@@ -28,6 +28,16 @@
 // read as three more row streams: BASE_SEP). u' never aliases u (other
 // blocks read its windows) or f0 (later substages read it); rhs may alias
 // acc.
+// Reduced precision (PREC, template flags; x3d2_tpu's olds_dtype and
+// acc_dtype, X3D2_BF16_OLDS and X3D2_BF16_ACC, pallas_kernels.py:304-326,
+// :448-460): with OLDS_BF16 the AB history is read as bfloat16 and widened
+// before its coefficient multiply, rhs is stored rounded to bfloat16
+// (round to nearest even, as astype and torch's .to do), and the update
+// gains the error feedback dtc4 * (r - bf16(r)), in the order
+//   u' = base + dtc0 r + sum_j dtc_{j+1} old_j + dtc4 (r - bf16(r));
+// with ACC_BF16 the cross-direction partials are bfloat16: the accumulate
+// input is read as bfloat16 and widened, a sweep without the update stores
+// its partial rounded to bfloat16. Arithmetic stays float32 in registers.
 // The xdiv variant (the x sweep with the AB epilogue only; the xdiv variant
 // of _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) also emits
 // the projection's forward x transforms of the updated velocities,
@@ -89,9 +99,14 @@
 // the component-outer order is that the conv window (u) is read once per
 // component: 5 window reads per x block where the sweep needs 3.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// PREC flags of the sweep kernels
+constexpr int OLDS_BF16 = 1;      // history in, rhs out as bfloat16
+constexpr int ACC_BF16 = 2;       // partials in (and out without UPD)
 
 constexpr int BS = 64;            // output points per block along the sweep
 constexpr int W = 16;             // band half-width
@@ -112,13 +127,13 @@ struct SweepArgs {
   const float* st;
   const float* da;
   const float* dt;
-  const float* acc[3];
-  const float* old[3][3];          // old[j][c]
-  float* out[3];                   // r, or u' with UPD
-  float* rhs[3];                   // UPD only
+  const void* acc[3];              // float, or bfloat16 with ACC_BF16
+  const void* old[3][3];           // old[j][c]; bfloat16 with OLDS_BF16
+  void* out[3];                    // r (bfloat16 with ACC_BF16), or u'
+  void* rhs[3];                    // UPD only; bfloat16 with OLDS_BF16
   int n0, n1, n2;
   float nu;
-  float dtc[4];
+  float dtc[5];                    // [4]: the error feedback (OLDS_BF16)
   // xdiv only
   const float* xm[2];              // Sx, Ix slices [nb][BS][n0], sign folded
   float* div[3];                   // du, dv, dw
@@ -299,6 +314,55 @@ __device__ __forceinline__ void store_rows(float* p, long long row0,
   }
 }
 
+// The same rows of a float or (BF) bfloat16 field, widened to or rounded
+// from float32 (round to nearest even). Along z a thread's 8 bfloat16 rows
+// are one aligned 16-byte access.
+template <int AXIS, bool BF>
+__device__ __forceinline__ void load_rows_as(const void* p, long long row0,
+                                             long long ss, float (&v)[RPT]) {
+  if (!BF) {
+    load_rows<AXIS>(static_cast<const float*>(p), row0, ss, v);
+    return;
+  }
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p);
+  if (AXIS == 2) {
+    static_assert(RPT == 8, "8 bfloat16 rows are one 16-byte access");
+    const uint4 x = *reinterpret_cast<const uint4*>(q + row0);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < RPT / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) v[r] = __bfloat162float(q[row0 + r * ss]);
+  }
+}
+
+template <int AXIS, bool BF>
+__device__ __forceinline__ void store_rows_as(void* p, long long row0,
+                                              long long ss,
+                                              const float (&v)[RPT]) {
+  if (!BF) {
+    store_rows<AXIS>(static_cast<float*>(p), row0, ss, v);
+    return;
+  }
+  __nv_bfloat16* q = static_cast<__nv_bfloat16*>(p);
+  if (AXIS == 2) {
+    uint4 x;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < RPT / 2; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(q + row0) = x;
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) q[row0 + r * ss] = __float2bfloat16_rn(v[r]);
+  }
+}
+
 // Stage one operator pairing of output block b (s: [D1; D2]-shaped, d: one
 // BS-row operator), transposed to [k][row] so that a thread's 8 rows at
 // one k are two aligned float4 loads.
@@ -400,18 +464,24 @@ __device__ __forceinline__ void line_rhs(float nu, int j, int l, int r0,
 // and the base may alias outputs (the same point, read before it is
 // written), so the compiler cannot move a load above an earlier store:
 // every load of a line is issued before its stores, one memory latency per
-// line. With UPD, un returns u'.
-template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP, int LDW>
+// line. With UPD, un returns u'. PREC: the bfloat16 streams (see the head
+// of the file).
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP, int PREC,
+          int LDW>
 __device__ __forceinline__ void combine_line(
     const SweepArgs& a, int c, int j, int l, int r0, long long row0,
     long long ss, const float* Q, const float* CV, const float (&dq)[RPT][2],
     const float (&d2)[RPT][2], const float (&dd)[RPT][2], float (&un)[RPT]) {
   static_assert(UPD || (NOLDS == 0 && !BASE_SEP), "history needs UPD");
+  constexpr bool OB = (PREC & OLDS_BF16) != 0;
+  constexpr bool AB = (PREC & ACC_BF16) != 0;
+  static_assert(!OB || (UPD && NOLDS > 0 && !BASE_SEP),
+                "a bfloat16 history is the AB update's");
   float res[RPT], av[RPT], bv[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
-  if (ACC) load_rows<AXIS>(a.acc[c], row0, ss, av);
+  if (ACC) load_rows_as<AXIS, AB>(a.acc[c], row0, ss, av);
 #pragma unroll
   for (int jj = 0; jj < NOLDS; ++jj)
-    load_rows<AXIS>(a.old[jj][c], row0, ss, ov[jj]);
+    load_rows_as<AXIS, OB>(a.old[jj][c], row0, ss, ov[jj]);
   if (BASE_SEP) load_rows<AXIS>(a.base[c], row0, ss, bv);
   line_rhs<ACC, LDW>(a.nu, j, l, r0, CV, dq, d2, dd, av, res);
   if (UPD) {
@@ -421,15 +491,20 @@ __device__ __forceinline__ void combine_line(
               a.dtc[0] * res[r];
 #pragma unroll
       for (int jj = 0; jj < NOLDS; ++jj) un[r] += a.dtc[jj + 1] * ov[jj][r];
+      if (OB) {
+        // pre-pay the stored rhs's rounding while r is exact
+        const float rs = __bfloat162float(__float2bfloat16_rn(res[r]));
+        un[r] += a.dtc[4] * (res[r] - rs);
+      }
     }
-    store_rows<AXIS>(a.rhs[c], row0, ss, res);
-    store_rows<AXIS>(a.out[c], row0, ss, un);
+    store_rows_as<AXIS, OB>(a.rhs[c], row0, ss, res);
+    store_rows_as<AXIS, false>(a.out[c], row0, ss, un);
   } else {
-    store_rows<AXIS>(a.out[c], row0, ss, res);
+    store_rows_as<AXIS, AB>(a.out[c], row0, ss, res);
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP>
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP, int PREC>
 __global__ void __launch_bounds__(NT, 1)
 transeq_sweep_kernel(SweepArgs a, long long ntiles) {
   extern __shared__ __align__(16) float smem[];
@@ -489,7 +564,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
         const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
                                (long long)(b * BS + r0) * ss;
         float un[RPT];
-        combine_line<AXIS, ACC, NOLDS, UPD, BASE_SEP, LDW>(
+        combine_line<AXIS, ACC, NOLDS, UPD, BASE_SEP, PREC, LDW>(
             a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
       }
 
@@ -507,7 +582,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
 // The xdiv variant: the x sweep with accumulate and the AB epilogue, which
 // also writes du = Sx u', dv = Ix v', dw = Ix w' (see the head of the
 // file). Grid (blocks); a block owns whole line tiles, all of x.
-template <int NOLDS>
+template <int NOLDS, int PREC>
 __global__ void __launch_bounds__(NT, 1)
 transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
   extern __shared__ __align__(16) float smem[];
@@ -585,7 +660,7 @@ transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
           const int l = tx + 32 * j;
           const long long row0 = base + l + (long long)(b * BS + r0) * ss;
           float un[RPT];
-          combine_line<0, true, NOLDS, true, false, TL>(
+          combine_line<0, true, NOLDS, true, false, PREC, TL>(
               a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
 #pragma unroll
           for (int r = 0; r < RPT; ++r) U[(r0 + r) * TL + l] = un[r];
@@ -727,11 +802,12 @@ species_sweep_kernel(SpeciesArgs a, long long ntiles) {
   }
 }
 
-template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP>
+template <int AXIS, bool ACC, int NOLDS, bool UPD, bool BASE_SEP,
+          int PREC = 0>
 cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<AXIS>();
-  auto kern = transeq_sweep_kernel<AXIS, ACC, NOLDS, UPD, BASE_SEP>;
+  auto kern = transeq_sweep_kernel<AXIS, ACC, NOLDS, UPD, BASE_SEP, PREC>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -739,15 +815,15 @@ cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
   return cudaGetLastError();
 }
 
-template <int NOLDS>
+template <int NOLDS, int PREC>
 cudaError_t launch_xdiv(const SweepArgs& a, long long ntiles, int grid_x,
                         cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<0>();
+  auto kern = transeq_xdiv_kernel<NOLDS, PREC>;
   cudaError_t e = cudaFuncSetAttribute(
-      transeq_xdiv_kernel<NOLDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  transeq_xdiv_kernel<NOLDS><<<grid_x, NT, smem, stream>>>(a, ntiles);
+  kern<<<grid_x, NT, smem, stream>>>(a, ntiles);
   return cudaGetLastError();
 }
 
@@ -763,14 +839,61 @@ cudaError_t launch_species(const SpeciesArgs& a, long long ntiles, int nb,
   return cudaGetLastError();
 }
 
+// The y sweep's AB update (1-3 history fields) at a reduced precision.
+template <int PREC>
+cudaError_t launch_ab_y(int nolds, const SweepArgs& a, long long ntiles,
+                        int nb, int grid_x, cudaStream_t s) {
+  switch (nolds) {
+    case 1: return launch<1, true, 1, true, false, PREC>(a, ntiles, nb,
+                                                         grid_x, s);
+    case 2: return launch<1, true, 2, true, false, PREC>(a, ntiles, nb,
+                                                         grid_x, s);
+    case 3: return launch<1, true, 3, true, false, PREC>(a, ntiles, nb,
+                                                         grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // The instances: every axis without an update and with the AB update (1-3
 // history fields); the RK substage updates (no history and the sweep's own
 // base; the step-initial base with 0, 2 or 3 stage derivatives, the RK1-4
-// tableaus' rows) on the y sweep only, which ends the RK chain.
+// tableaus' rows) on the y sweep only, which ends the RK chain. The
+// reduced-precision ones are those of the fused AB chains: the partial
+// sweeps with bfloat16 partials (z without, x and y with accumulate) and
+// the y sweep's AB update with a bfloat16 history, partials or both.
 template <int AXIS>
 cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
-                          const SweepArgs& a, long long ntiles, int nb,
-                          int grid_x, cudaStream_t s) {
+                          int prec, const SweepArgs& a, long long ntiles,
+                          int nb, int grid_x, cudaStream_t s) {
+  if (prec != 0) {
+    if (!upd) {
+      if (prec != ACC_BF16 || nolds != 0 || base_sep)
+        return cudaErrorInvalidValue;
+      if constexpr (AXIS == 2) {
+        if (!accumulate)
+          return launch<2, false, 0, false, false, ACC_BF16>(a, ntiles, nb,
+                                                             grid_x, s);
+      } else {
+        if (accumulate)
+          return launch<AXIS, true, 0, false, false, ACC_BF16>(a, ntiles, nb,
+                                                               grid_x, s);
+      }
+      return cudaErrorInvalidValue;
+    }
+    if constexpr (AXIS == 1) {
+      if (!accumulate || base_sep) return cudaErrorInvalidValue;
+      switch (prec) {
+        case OLDS_BF16:
+          return launch_ab_y<OLDS_BF16>(nolds, a, ntiles, nb, grid_x, s);
+        case ACC_BF16:
+          return launch_ab_y<ACC_BF16>(nolds, a, ntiles, nb, grid_x, s);
+        case OLDS_BF16 | ACC_BF16:
+          return launch_ab_y<OLDS_BF16 | ACC_BF16>(nolds, a, ntiles, nb,
+                                                   grid_x, s);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   if (!accumulate) {
     if (nolds != 0 || upd) return cudaErrorInvalidValue;
     return launch<AXIS, false, 0, false, false>(a, ntiles, nb, grid_x, s);
@@ -796,6 +919,18 @@ cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
         case 3: return launch<1, true, 3, true, true>(a, ntiles, nb, grid_x, s);
       }
     }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The xdiv instances: 1-3 history fields at each precision.
+template <int PREC>
+cudaError_t dispatch_xdiv(int nolds, const SweepArgs& a, long long ntiles,
+                          int grid_x, cudaStream_t s) {
+  switch (nolds) {
+    case 1: return launch_xdiv<1, PREC>(a, ntiles, grid_x, s);
+    case 2: return launch_xdiv<2, PREC>(a, ntiles, grid_x, s);
+    case 3: return launch_xdiv<3, PREC>(a, ntiles, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -831,12 +966,14 @@ int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,
 
 // ptrs: u, v, w, sa, st, da, dt, acc[3], old[j][c] (9, j-major),
 // out[3], rhs[3], for xdiv the Sx and Ix slices and du, dv, dw, then for
-// base_sep the base fields; unused entries may be null. dtc: 4 floats.
-// grid_x: blocks per x block, or with xdiv blocks in all. Returns the
-// cudaError_t of the launch (0 on success).
+// base_sep the base fields; unused entries may be null. prec: the PREC
+// flags (OLDS_BF16 = 1, ACC_BF16 = 2). dtc: 5 floats (the 5th: the error
+// feedback of a bfloat16 history). grid_x: blocks per x block, or with
+// xdiv blocks in all. Returns the cudaError_t of the launch (0 on
+// success).
 int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,
-                         int base_sep, int xdiv, void* const* ptrs, int n0,
-                         int n1, int n2, float nu, const float* dtc,
+                         int base_sep, int xdiv, int prec, void* const* ptrs,
+                         int n0, int n1, int n2, float nu, const float* dtc,
                          int grid_x, void* stream) {
   SweepArgs a;
   int i = 0;
@@ -845,12 +982,11 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,
   a.st = static_cast<const float*>(ptrs[i++]);
   a.da = static_cast<const float*>(ptrs[i++]);
   a.dt = static_cast<const float*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.acc[c] = static_cast<const float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.acc[c] = ptrs[i++];
   for (int j = 0; j < 3; ++j)
-    for (int c = 0; c < 3; ++c)
-      a.old[j][c] = static_cast<const float*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.out[c] = static_cast<float*>(ptrs[i++]);
-  for (int c = 0; c < 3; ++c) a.rhs[c] = static_cast<float*>(ptrs[i++]);
+    for (int c = 0; c < 3; ++c) a.old[j][c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.out[c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.rhs[c] = ptrs[i++];
   for (int j = 0; j < 2; ++j) a.xm[j] = static_cast<const float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.div[c] = static_cast<float*>(ptrs[i++]);
   for (int c = 0; c < 3; ++c) a.base[c] = static_cast<const float*>(ptrs[i++]);
@@ -858,7 +994,7 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,
   a.n1 = n1;
   a.n2 = n2;
   a.nu = nu;
-  for (int j = 0; j < 4; ++j) a.dtc[j] = dtc[j];
+  for (int j = 0; j < 5; ++j) a.dtc[j] = dtc[j];
 
   const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
   const int nb = n / BS;
@@ -867,20 +1003,25 @@ int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,
   if (xdiv) {
     if (axis != 0 || !accumulate || !upd || base_sep || nb > XDIV_MAX_NB)
       return cudaErrorInvalidValue;
-    switch (nolds) {
-      case 1: return launch_xdiv<1>(a, ntiles, grid_x, s);
-      case 2: return launch_xdiv<2>(a, ntiles, grid_x, s);
-      case 3: return launch_xdiv<3>(a, ntiles, grid_x, s);
+    switch (prec) {
+      case 0: return dispatch_xdiv<0>(nolds, a, ntiles, grid_x, s);
+      case OLDS_BF16: return dispatch_xdiv<OLDS_BF16>(nolds, a, ntiles,
+                                                      grid_x, s);
+      case ACC_BF16: return dispatch_xdiv<ACC_BF16>(nolds, a, ntiles, grid_x,
+                                                    s);
+      case OLDS_BF16 | ACC_BF16:
+        return dispatch_xdiv<OLDS_BF16 | ACC_BF16>(nolds, a, ntiles, grid_x,
+                                                   s);
     }
     return cudaErrorInvalidValue;
   }
   switch (axis) {
-    case 0: return dispatch_axis<0>(accumulate, nolds, upd, base_sep, a,
-                                    ntiles, nb, grid_x, s);
-    case 1: return dispatch_axis<1>(accumulate, nolds, upd, base_sep, a,
-                                    ntiles, nb, grid_x, s);
-    case 2: return dispatch_axis<2>(accumulate, nolds, upd, base_sep, a,
-                                    ntiles, nb, grid_x, s);
+    case 0: return dispatch_axis<0>(accumulate, nolds, upd, base_sep, prec,
+                                    a, ntiles, nb, grid_x, s);
+    case 1: return dispatch_axis<1>(accumulate, nolds, upd, base_sep, prec,
+                                    a, ntiles, nb, grid_x, s);
+    case 2: return dispatch_axis<2>(accumulate, nolds, upd, base_sep, prec,
+                                    a, ntiles, nb, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -31,7 +31,8 @@ STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 # kernel launches per call of each wrapper
 LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
-                     "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1}
+                     "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1,
+                     "x_pfwd": 1, "x_pinv": 1, "x_pinv[sub]": 1}
 
 # launches of the kernel per wrapper, counted where it is launched
 _LAUNCHES: dict[str, int] = {}

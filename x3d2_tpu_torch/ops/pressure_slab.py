@@ -23,7 +23,14 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
                  stage of a wall-bounded x axis, one field a call, in
                  x3d2_tpu's six calls (solver.py:506-511, :550-555):
                  sx(u), ix(v), ix(w); then with the correction
-                 u - gx_s p_zy, v - gx_i dpdy, w - gx_i dpdz
+                 u - gx_s p_zy, v - gx_i dpdy, w - gx_i dpdz; or without
+                 it, gx_s p_zy, gx_i dpdy, gx_i dpdz (pressure_grads,
+                 solver.py:441-457)
+    x_apply_parity  _x_parity_fwd_kernel (:997), _x_parity_inv_kernel
+                 (:1025), make_x_apply(parity=...) (:1258-1318): the
+                 parity x stage one field a call, where x3d2_tpu takes it
+                 (X3D2_MERGED_X=0: sx(u), ix(v), ix(w) and u - gx_s p_zy,
+                 ...; and pressure_grads: gx_s p_zy, gx_i dpdy, gx_i dpdz)
 
 Spectral indices are in block-parity order [even modes; odd modes] on
 every periodic axis, as the TPU kernels keep them, and in natural order on
@@ -59,8 +66,8 @@ from __future__ import annotations
 import torch
 
 from .compact import apply_matrix
-from .operator_apply import (BANDED, PFWD, PINV, SOLVE_PLANE, SUB, apply,
-                             apply_dense, route)
+from .operator_apply import (BANDED, PFWD, PINV, SOLVE_PLANE, STORE, SUB,
+                             apply, apply_dense, route)
 from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
 
 
@@ -95,6 +102,22 @@ def x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, m):
 def x_apply_plain(M, f, s=None):
     """M f along x, or s - M f."""
     r = apply_matrix(M, f, 0)
+    return r if s is None else s - r
+
+
+# the parity form of each x-stage operator: forward (physical in, modes out
+# in block-parity order) or inverse (modes in, physical out)
+_PARITY_FORM = {"sx": PFWD, "ix": PFWD, "gxs": PINV, "gxi": PINV}
+
+
+def x_apply_parity_plain(name, M, f, s=None):
+    """The parity x apply of operator `name` ([Me; Mo] in M), or s minus
+    the inverse one."""
+    if _PARITY_FORM[name] == PFWD:
+        if s is not None:
+            raise ValueError("the correction is an inverse-stage fusion")
+        return pfwd(M, f, 0)
+    r = pinv(M, f, 0)
     return r if s is None else s - r
 
 
@@ -168,6 +191,27 @@ def x_apply(name, f, pm: ProjectionMats, s=None):
         apply_dense("x_apply" if s is None else "x_apply[sub]", M, f, out, s)
         return out
     return x_apply_plain(pm.mats(f.dtype)[name], f, s)
+
+
+def x_apply_parity(name, f, pm: ProjectionMats, s=None):
+    """The parity x stage, one field: pm's operator `name` applied along x
+    of f as a parity split, forward (sx, ix: one PFWD launch, counted as
+    x_pfwd) or inverse (gxs, gxi: one PINV launch, x_pinv; s minus it with
+    the subtracting epilogue, x_pinv[sub])."""
+    if pm.x_perm is None:
+        raise ValueError("the parity x stage needs a periodic x (x_perm)")
+    if route(f, "x_apply_parity"):
+        M = pm.mats(torch.float32)[name]
+        form = _PARITY_FORM[name]
+        if form == PFWD and s is not None:
+            raise ValueError("the correction is an inverse-stage fusion")
+        stage = ("x_pfwd" if form == PFWD
+                 else "x_pinv" if s is None else "x_pinv[sub]")
+        out = torch.empty_like(f)
+        apply(stage, form, 0, [([M], [f], out, s)],
+              epi=STORE if s is None else SUB)
+        return out
+    return x_apply_parity_plain(name, pm.mats(f.dtype)[name], f, s)
 
 
 def x_gradsub3(p_zy, dpdy, dpdz, u, v, w, pm: ProjectionMats):

@@ -21,6 +21,15 @@ projection's forward x transforms of the updated velocities, du = Sx u',
 dv = Ix v', dw = Ix w' as parity splits with the modes in block-parity
 order, so the slab projection skips its x_div3 (ops/pressure_slab.py).
 
+Reduced precision (x3d2_tpu's olds_dtype and acc_dtype, X3D2_BF16_OLDS and
+X3D2_BF16_ACC; pallas_kernels.py:304-326, :448-460, :567-640): a bfloat16
+history (the olds; the rhs is then stored rounded to bfloat16 and u' gains
+the error feedback dtc4 * (r - bf16(r)), dtc4 = dt * future_coeff_sum) and
+bfloat16 partials (``acc_dtype``: the accumulate input, and the output of a
+sweep without the update). Arithmetic is float32 (the inputs' dtype in the
+plain version): a bfloat16 stream is widened when read and rounded to
+nearest even when written.
+
 The operators are band-truncated per output block of BS points (window
 BS + 2W, periodic wrap; ops/banded.py). Every axis uses BS=64, W=16: the
 TPU's z blocking (128/64) is a lane rule, and W=16 passes the truncation
@@ -66,11 +75,13 @@ _LAUNCHES: dict[str, int] = {}
 
 def variant_name(axis: int, accumulate: bool, nolds: int,
                  xdiv: bool = False, upd: bool | None = None,
-                 base_sep: bool = False) -> str:
+                 base_sep: bool = False, olds_bf16: bool = False,
+                 acc_bf16: bool = False) -> str:
     """The kernel instance's name. upd (default: nolds > 0) is the fused
     update; an update with history and the sweep's own base is the AB one
     (``ab<k>``), the others are the RK substage updates (``rk<nolds>``, and
-    ``f0`` where the base is the step-initial field)."""
+    ``f0`` where the base is the step-initial field). ``bf16olds``,
+    ``bf16acc``: the bfloat16 history, the bfloat16 partials."""
     if upd is None:
         upd = nolds > 0
     tags = ["xyz"[axis]] + (["acc"] if accumulate else [])
@@ -78,8 +89,32 @@ def variant_name(axis: int, accumulate: bool, nolds: int,
         tags += [f"rk{nolds}"] + (["f0"] if base_sep else [])
     elif upd:
         tags.append(f"ab{nolds + 1}")
-    return "transeq_sweep[" + ",".join(tags + (["xdiv"] if xdiv else [])) \
-        + "]"
+    tags += (["xdiv"] if xdiv else []) + (["bf16olds"] if olds_bf16 else []) \
+        + (["bf16acc"] if acc_bf16 else [])
+    return "transeq_sweep[" + ",".join(tags) + "]"
+
+
+def _check_prec_instance(axis, accumulate, upd, nolds, base_sep, xdiv,
+                         olds_bf16, acc_bf16):
+    """Raise ValueError for a reduced-precision variant the kernel is not
+    built with. Built: those of the fused AB chains (x3d2_tpu
+    make_fused_transeq_ab_v3, pallas_kernels.py:862-941): the partial
+    sweeps with bfloat16 partials (z without accumulate, x and y with), and
+    the AB update (history, the sweep's own base) of the y sweep or of the
+    xdiv sweep with a bfloat16 history, partials or both."""
+    if not (olds_bf16 or acc_bf16):
+        return
+    if upd:
+        ok = nolds > 0 and not base_sep and (axis == 1 or xdiv)
+    else:
+        ok = not olds_bf16 and accumulate == (axis != 2)
+    if not ok:
+        raise ValueError(
+            f"no reduced-precision sweep on axis {axis} with accumulate="
+            f"{accumulate}, update={upd}, history={nolds}, separate base="
+            f"{base_sep}, xdiv={xdiv}, bfloat16 history={olds_bf16}, "
+            f"bfloat16 partials={acc_bf16}: the kernel is built with the "
+            "fused AB chains' variants")
 
 
 def _check_rk_instance(axis, nolds, base_sep):
@@ -230,15 +265,20 @@ def _field(y, shape, axis):
 
 def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
                         olds=None, dtc=None, xdiv: XdivMats | None = None,
-                        base=None):
+                        base=None, acc_dtype=None):
     """The sweep's function in plain PyTorch, at the inputs' dtype: gather
     the windows with periodic indices, then batched products with the
     blocks. Returns (r_u, r_v, r_w), or ((u', v', w'), (rhs_u, rhs_v,
     rhs_w)) when `dtc` is given (olds: per-field history tuples; base: the
     update's base fields, default u, v, w), and with `xdiv` also (du, dv,
-    dw), the forward parity x applies of u', v', w'."""
+    dw), the forward parity x applies of u', v', w'. A bfloat16 acc or
+    history is widened to the inputs' dtype before any arithmetic; without
+    the update r is stored at `acc_dtype` (default the inputs' dtype); with
+    a bfloat16 history rhs is stored at bfloat16 and u' gains the error
+    feedback dtc[4] * (r - bf16(r))."""
     axis = blocks.axis
-    sa, st, da, dt = blocks.mats(u.dtype)
+    dtype = u.dtype
+    sa, st, da, dt = blocks.mats(dtype)
     nb, bs, w = blocks.nb, BS, W
     comps = (u, v, w_)
     shape = tuple(u.shape)
@@ -253,21 +293,26 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
         r = -0.5 * (conv * both[:, :bs] + dqd) + nu * both[:, bs:]
         r = _field(r, shape, axis)
         if acc is not None:
-            r = r + acc[c]
+            r = r + acc[c].to(dtype)
         outs.append(r)
     if dtc is None:
-        return tuple(outs)
+        return tuple(r.to(acc_dtype or dtype) for r in outs)
+    hist = olds if olds is not None else ((), (), ())
+    reduced = bool(hist[0]) and hist[0][0].dtype != dtype
+    stored = [r.to(hist[0][0].dtype) if reduced else r for r in outs]
     new = []
     for c in range(3):
         un = (comps if base is None else base)[c] + dtc[0] * outs[c]
-        for j, o in enumerate(olds[c] if olds is not None else ()):
-            un = un + dtc[1 + j] * o
+        for j, o in enumerate(hist[c]):
+            un = un + dtc[1 + j] * o.to(dtype)
+        if reduced:
+            un = un + dtc[4] * (outs[c] - stored[c].to(dtype))
         new.append(un)
     if xdiv is None:
-        return tuple(new), tuple(outs)
-    sx, ix = xdiv.mats(u.dtype)
+        return tuple(new), tuple(stored)
+    sx, ix = xdiv.mats(dtype)
     divs = (pfwd(sx, new[0], 0), pfwd(ix, new[1], 0), pfwd(ix, new[2], 0))
-    return tuple(new), tuple(outs), divs
+    return tuple(new), tuple(stored), divs
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +331,7 @@ def _lib():
         lib = _build.load("transeq_sweep")
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.transeq_sweep_launch.argtypes = [
-            i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
+            i, i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
         lib.transeq_sweep_launch.restype = i
         lib.species_sweep_launch.argtypes = [i, i, i, p, i, i, i, p, i, p]
         lib.species_sweep_launch.restype = i
@@ -318,10 +363,10 @@ def launch_error(err) -> str:
     return _lib().transeq_sweep_error_string(err).decode()
 
 
-def _check(t, shape, name):
-    if not t.is_cuda or t.dtype != torch.float32:
-        raise ValueError(f"{name}: the kernel takes float32 CUDA tensors, "
-                         f"got {t.dtype} on {t.device}")
+def _check(t, shape, name, dtype=torch.float32):
+    if not t.is_cuda or t.dtype != dtype:
+        raise ValueError(f"{name}: the kernel takes {dtype} CUDA tensors "
+                         f"here, got {t.dtype} on {t.device}")
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous tensor of shape {shape},"
                          f" got {tuple(t.shape)}")
@@ -329,8 +374,18 @@ def _check(t, shape, name):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+def _reduced(dtype, what):
+    """Whether a stream's dtype is the reduced one (bfloat16)."""
+    if dtype in (None, torch.float32):
+        return False
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the sweep kernel stores {what} as float32 or "
+                         f"bfloat16, not {dtype}")
+    return True
+
+
 def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
-            base=None):
+            base=None, acc_dtype=None):
     axis = blocks.axis
     shape = tuple(u.shape)
     if len(shape) != 3 or not sweep_shape_ok(shape, axis):
@@ -350,25 +405,34 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     if xdiv is not None and (axis != 0 or not nolds or base is not None):
         raise ValueError("the xdiv variant is the x sweep with the AB "
                          "update and at least one history field")
-    ins = [u, v, w_] + (list(acc) if acc is not None else [])
-    ins += [o for c in range(3) for o in olds[c]]
-    ins += list(base) if base is not None else []
-    for i, t in enumerate(ins):
+    pdt = acc_dtype or torch.float32      # the partials' dtype
+    hdt = olds[0][0].dtype if nolds else torch.float32
+    olds_bf16, acc_bf16 = _reduced(hdt, "the history"), \
+        _reduced(pdt, "the partials")
+    _check_prec_instance(axis, acc is not None, upd, nolds, base is not None,
+                         xdiv is not None, olds_bf16, acc_bf16)
+    for i, t in enumerate([u, v, w_] + list(base or ())):
         _check(t, shape, f"input {i}")
+    for t in acc or ():
+        _check(t, shape, "acc", pdt)
+    for t in (o for c in range(3) for o in olds[c]):
+        _check(t, shape, "history", hdt)
     mats = blocks.mats(torch.float32)
     if mats[0].device != u.device:
         raise ValueError("operator blocks and fields are on different devices")
-    nout = 6 if upd else 3
+    # outputs: u' (float32) and rhs (at the history's dtype) with the
+    # update, else r at the partials' dtype
+    odts = [torch.float32] * 3 + [hdt] * 3 if upd else [pdt] * 3
     if out is None:
-        outs = [torch.empty_like(u) for _ in range(nout)]
+        outs = [torch.empty_like(u, dtype=d) for d in odts]
     else:
         outs = list(out[0]) + list(out[1]) if upd else list(out)
-        if len(outs) != nout:
-            raise ValueError(f"out must hold {nout} tensors")
+        if len(outs) != len(odts):
+            raise ValueError(f"out must hold {len(odts)} tensors")
         fields = {t.data_ptr() for t in (u, v, w_)}
         bases = {t.data_ptr() for t in base} if base is not None else set()
-        for t in outs:
-            _check(t, shape, "out")
+        for t, d in zip(outs, odts):
+            _check(t, shape, "out", d)
             if t.data_ptr() in fields:
                 raise ValueError("out may not alias u, v or w: the kernel "
                                  "reads their windows around every point")
@@ -401,21 +465,26 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     ptrs += [t.data_ptr() for t in base] if base is not None else [null] * 3
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     co = list(dtc) if upd else []
-    carr = (ctypes.c_float * 4)(*(co + [0.0] * (4 - len(co))))
+    if olds_bf16 and len(co) != 5:
+        raise ValueError("a bfloat16 history needs the 5-entry row (the 5th: "
+                         "the error feedback, TimeIntegrator.ab_row(..., "
+                         "feedback=True))")
+    carr = (ctypes.c_float * 5)(*(co + [0.0] * (5 - len(co))))
     sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     # blocks per x block; the xdiv kernel's blocks own all of x
     grid_x = max(1, min(lines // TL, sms if xdiv is not None else sms // nb))
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    prec = (1 if olds_bf16 else 0) | (2 if acc_bf16 else 0)
     with torch.cuda.device(u.device):
         err = _lib().transeq_sweep_launch(
             axis, int(acc is not None), nolds, int(upd), int(base is not None),
-            int(xdiv is not None), parr, *shape, float(nu), carr, grid_x,
-            stream)
+            int(xdiv is not None), prec, parr, *shape, float(nu), carr,
+            grid_x, stream)
     if err != 0:
         raise RuntimeError(f"transeq_sweep launch failed: "
                            f"{launch_error(err)} ({err})")
     name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
-                        base is not None)
+                        base is not None, olds_bf16, acc_bf16)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     if xdiv is not None:
         return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)
@@ -426,29 +495,37 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
 
 def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
                   dtc=None, out=None, xdiv: XdivMats | None = None,
-                  base=None):
+                  base=None, acc_dtype=None):
     """One direction sweep: -> (r_u, r_v, r_w), or with `dtc` (the
-    dt-scaled update row, host floats) -> ((u', v', w'), (rhs_u, rhs_v,
-    rhs_w)), and with `xdiv` -> (..., ..., (du, dv, dw)). `base`: the
-    update's base fields where they are not u, v, w (the RK step-initial
-    fields). `out` names the tensors to write (in place): 3 tensors, or
-    ((u'x3), (rhs x3)) with `dtc` (du, dv, dw are always new tensors). An
-    output may alias `acc` or the history (each point reads them before it
-    writes), never u, v, w or the base.
+    dt-scaled update row, host floats; 5 entries with a bfloat16 history,
+    the 5th the error feedback) -> ((u', v', w'), (rhs_u, rhs_v, rhs_w)),
+    and with `xdiv` -> (..., ..., (du, dv, dw)). `base`: the update's base
+    fields where they are not u, v, w (the RK step-initial fields).
+    `acc_dtype`: the partials' dtype (float32 or bfloat16), of `acc` and,
+    without the update, of r; the history's dtype is that of `olds`, and
+    rhs is stored at it. `out` names the tensors to write (in place): 3
+    tensors, or ((u'x3), (rhs x3)) with `dtc` (du, dv, dw are always new
+    tensors). An output may alias `acc` or the history at its dtype (each
+    point reads them before it writes), never u, v, w or the base.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
     if u.is_cuda:
-        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv, base)
+        return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv, base,
+                       acc_dtype)
     if u.device.type != "cpu":
         raise ValueError(f"no transeq sweep for device {u.device}")
     res = transeq_sweep_plain(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                              dtc=dtc, xdiv=xdiv, base=base)
+                              dtc=dtc, xdiv=xdiv, base=base,
+                              acc_dtype=acc_dtype)
     if out is None:
         return res
     flat_res = list(res[0]) + list(res[1]) if dtc is not None else list(res)
     flat_out = list(out[0]) + list(out[1]) if dtc is not None else list(out)
     for o, r in zip(flat_out, flat_res):
+        if o.dtype != r.dtype:
+            raise ValueError(f"out: {o.dtype} where the sweep writes "
+                             f"{r.dtype}")
         o.copy_(r)
     if xdiv is not None:
         return tuple(flat_out[:3]), tuple(flat_out[3:]), res[2]
@@ -457,7 +534,8 @@ def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
 
 
 def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
-                       device=None, xdiv_mats=None, upd=None, base_sep=False):
+                       device=None, xdiv_mats=None, upd=None, base_sep=False,
+                       olds_dtype=None, acc_dtype=None):
     """One direction sweep as a function, the counterpart of
     make_transeq_dir_v3 / make_pencil_sweep:
     fn(u, v, w[, acc][, olds, dtc][, out][, base]) -> as transeq_sweep.
@@ -466,7 +544,9 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     xdiv_mats=(sx64, ix64), the transform-folded x-stage divergence
     matrices, the sweep is the xdiv variant (raises ValueError as
     build_xdiv_mats does, off the AB-fused x sweep, and when the operator
-    blocks along x differ)."""
+    blocks along x differ). olds_dtype, acc_dtype: bfloat16 for the
+    reduced history and partials (None: the state's dtype), where the
+    kernel is built with them (_check_prec_instance)."""
     if upd is None:
         upd = nolds > 0
     if (upd or nolds) and not accumulate:
@@ -475,6 +555,10 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
         raise ValueError("history and a separate base need the update")
     if upd and (base_sep or not nolds):
         _check_rk_instance(axis, nolds, base_sep)
+    _check_prec_instance(axis, accumulate, upd, nolds, base_sep,
+                         xdiv_mats is not None,
+                         _reduced(olds_dtype, "the history"),
+                         _reduced(acc_dtype, "the partials"))
     if not sweep_shape_ok(tuple(shape), axis):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
     xdiv = None
@@ -492,8 +576,12 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
             raise ValueError("arguments do not match the sweep variant")
         if nolds and any(len(o) != nolds for o in olds):
             raise ValueError(f"need {nolds} history fields per component")
+        if nolds and olds[0][0].dtype != (olds_dtype or u.dtype):
+            raise ValueError(f"the history is {olds[0][0].dtype}, the sweep "
+                             f"takes {olds_dtype or u.dtype}")
         return transeq_sweep(u, v, w_, blocks, nu, acc=acc, olds=olds,
-                             dtc=dtc, out=out, xdiv=xdiv, base=base)
+                             dtc=dtc, out=out, xdiv=xdiv, base=base,
+                             acc_dtype=acc_dtype)
 
     fn.blocks = blocks
     fn.xdiv = xdiv
@@ -569,7 +657,7 @@ def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None):
 
 
 def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
-                          xdiv=None):
+                          xdiv=None, olds_dtype=None, acc_dtype=None):
     """Transport + Adams-Bashforth update in one chain of three sweeps
     (x3d2_tpu make_fused_transeq_ab_v3, pallas_kernels.py:862, chain at
     :936-939): z sweep -> accumulating x sweep -> accumulating y sweep with
@@ -588,40 +676,59 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
     allow it (make_transeq_sweep).
 
     `olds` holds per-field (nolds,) history tuples, newest first; `dtc` the
-    dt-scaled coefficient row (host floats). The rhs outputs are the new
-    history heads. Like x3d2_tpu's aliasing (pallas_kernels.py:567-594)
+    dt-scaled coefficient row (host floats; with olds_dtype the 5-entry row
+    with the error feedback). The rhs outputs, at the history's dtype, are
+    the new history heads. olds_dtype, acc_dtype: bfloat16 for the reduced
+    history (X3D2_BF16_OLDS) and partials (X3D2_BF16_ACC), None for the
+    state's float32. Like x3d2_tpu's aliasing (pallas_kernels.py:567-594)
     the chain allocates only the z sweep's partials: the x sweep adds into
-    them in place, and the y sweep writes rhs over them and u' over the
-    OLDEST history buffers, which the rotation drops. The caller's olds
-    tuples are therefore consumed."""
+    them in place, and the final sweep writes its two outputs over the two
+    buffers that are dead after it and have the outputs' dtypes: rhs over
+    the partials and u' over the OLDEST history buffers, which the rotation
+    drops (all float32); with a bfloat16 history alone rhs over the oldest
+    history and u' over the partials; with bfloat16 partials alone u' over
+    the oldest history and rhs into new tensors; with both rhs over the
+    partials and u' into new tensors. The caller's olds tuples are
+    therefore consumed."""
     device = resolve_device(device)
-    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    olds_red = _reduced(olds_dtype, "the history")
+    acc_red = _reduced(acc_dtype, "the partials")
+    kw = dict(device=device, acc_dtype=acc_dtype)
+    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw)
+
+    def final_out(acc, olds, like):
+        """(u' buffers, rhs buffers) of the final sweep."""
+        oldest = tuple(o[-1] for o in olds)
+        if not acc_red:
+            return (acc, oldest) if olds_red else (oldest, acc)
+        fresh = tuple(torch.empty_like(like) for _ in range(3))
+        return (fresh, acc) if olds_red else (oldest, fresh)
+
     if xdiv is not None:
         d0x = make_transeq_sweep(solver_ops[0], nu, 0, shape,
-                                 accumulate=True, nolds=nolds, device=device,
-                                 xdiv_mats=xdiv)
+                                 accumulate=True, nolds=nolds, xdiv_mats=xdiv,
+                                 olds_dtype=olds_dtype, **kw)
         d1p = make_transeq_sweep(solver_ops[1], nu, 1, shape,
-                                 accumulate=True, device=device)
+                                 accumulate=True, **kw)
 
         def fnx(u, v, w_, olds, dtc):
             acc = d2(u, v, w_)
             acc = d1p(u, v, w_, acc=acc, out=acc)
-            oldest = tuple(o[-1] for o in olds)
             return d0x(u, v, w_, acc=acc, olds=olds, dtc=dtc,
-                       out=(oldest, acc))
+                       out=final_out(acc, olds, u))
 
         fnx.sweeps = (d2, d1p, d0x)
         return fnx
     d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
-                            device=device)
+                            **kw)
     d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
-                            nolds=nolds, device=device)
+                            nolds=nolds, olds_dtype=olds_dtype, **kw)
 
     def fn(u, v, w_, olds, dtc):
         acc = d2(u, v, w_)
         acc = d0(u, v, w_, acc=acc, out=acc)
-        oldest = tuple(o[-1] for o in olds)
-        return d1(u, v, w_, acc=acc, olds=olds, dtc=dtc, out=(oldest, acc))
+        return d1(u, v, w_, acc=acc, olds=olds, dtc=dtc,
+                  out=final_out(acc, olds, u))
 
     fn.sweeps = (d2, d0, d1)
     return fn

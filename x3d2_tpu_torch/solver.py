@@ -19,17 +19,23 @@ conditions (``transport_route``, ``parity.slab_supported``,
   dense operator products, which x3d2_tpu runs as XLA einsums outside any
   kernel, as plain matrix products on either device.
 - pressure_correction, in x3d2_tpu's dispatch order: the three-stage
-  pipeline (ops/pressure_pipe.py) where pipe3_supported holds, when the
-  pressure is not kept and no pre-transformed divergence inputs are given;
-  otherwise where slab_pressure_supported holds the slab projection
-  (ops/pressure_slab.py: on a periodic x x_div3 or the xdiv sweep's
-  ``divs``, the mid, x_gradsub3; on a wall-bounded x the dense x applies
-  around the mid), which with keep_pressure=True also returns the physical
-  pressure, three inverse transforms of the spectral solution q as plain
-  matrix products (XLA einsums outside any kernel in x3d2_tpu too);
-  elsewhere the transform-folded chain of matrix products (x3d2_tpu
-  solver.py:461-491, XLA there too) followed by ``u - dpdx``, on either
-  device.
+  pipeline (ops/pressure_pipe.py) where pipe3_supported holds and
+  X3D2_PIPE3 is not "0", when the pressure is not kept and no
+  pre-transformed divergence inputs are given; otherwise where
+  slab_pressure_supported holds the slab projection (ops/pressure_slab.py:
+  on a periodic x x_div3 or the xdiv sweep's ``divs``, the mid,
+  x_gradsub3, or with X3D2_MERGED_X=0 the one-field parity x applies in
+  their place; on a wall-bounded x the dense x applies around the mid),
+  which with keep_pressure=True also returns the physical pressure, three
+  inverse transforms of the spectral solution q as plain matrix products
+  (XLA einsums outside any kernel in x3d2_tpu too); elsewhere the
+  transform-folded chain of matrix products (x3d2_tpu solver.py:461-491,
+  XLA there too) followed by ``u - dpdx``, on either device.
+- pressure_grads (the gradients without the correction, for compensated
+  stepping), as x3d2_tpu's (solver.py:407-491): where the slab is built
+  its x stage and mid with q, then the inverse x stage one field at a
+  time without the correction (the parity x apply, or the dense one on a
+  wall-bounded x); elsewhere the transform-folded chain.
 Kernels run on CUDA tensors and their plain versions on CPU ones. On CUDA
 tensors a branch x3d2_tpu runs on a kernel the port lacks raises
 NotImplementedError naming it: the port never substitutes plain PyTorch
@@ -38,6 +44,7 @@ for a kernel on the card.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -64,6 +71,12 @@ _UNPORTED_SPECIES = ("the species sweeps serve float32 uniform grids the "
                      "_v3, x3d2_tpu/ops/pallas_kernels.py:1038); x3d2_tpu "
                      "takes its dense per-species path past that (solver.py:"
                      "277-282), which is not ported to the card")
+# the slab's x-stage operators, forward (divergence) and inverse (gradient)
+_X_FWD, _X_INV = ("sx", "ix", "ix"), ("gxs", "gxi", "gxi")
+# what X3D2_BFLY=0 takes on a grid with the slab, on either device
+BFLY_GAP = ("X3D2_BFLY=0 takes the banded y branch of _pressure_mid_kernel "
+            "with the dense Ty/Ti_y and the dense z stages (x3d2_tpu/ops/"
+            "pallas_poisson.py:206-243, :283-310), not ported")
 
 
 def transport_route(solver, shape) -> str:
@@ -156,6 +169,13 @@ class NavierStokes:
         # runs here (None where it can, or where x3d2_tpu runs none)
         pipe = slab = gap = None
         proute = projection_route(ns)
+        if proute == "pipe3" and os.environ.get("X3D2_PIPE3", "1") == "0":
+            # x3d2_tpu builds the slab alone (solver.py:161-168)
+            proute = "slab"
+        if proute is not None and os.environ.get("X3D2_BFLY", "1") == "0":
+            # x3d2_tpu reads it where it builds the slab
+            # (pallas_poisson.py:589-603, :676)
+            raise NotImplementedError(BFLY_GAP)
         if proute is not None:
             gap = slab_gap(ns)
         if proute is not None and gap is None:
@@ -171,6 +191,10 @@ class NavierStokes:
         object.__setattr__(ns, "_pipe", pipe)
         object.__setattr__(ns, "_slab", slab)
         object.__setattr__(ns, "_projection_gap", gap)
+        # the merged 3-field parity x stage (x_div3, x_gradsub3), or with
+        # X3D2_MERGED_X=0 one field a launch (pallas_poisson.py:709-715)
+        object.__setattr__(ns, "_merged_x",
+                           os.environ.get("X3D2_MERGED_X", "1") != "0")
         return ns
 
     def transport_gap(self):
@@ -360,11 +384,34 @@ class NavierStokes:
         return d
 
     def pressure_grads(self, u, v, w, keep_pressure=True):
-        """Pressure-gradient stage of the projection: (dpdx, dpdy, dpdz, p).
-        The divergence is taken straight into the spectral basis, solved
-        on the diagonal, and the gradient taken straight out of it. With
-        keep_pressure the physical pressure is reconstructed by the three
-        inverse transforms; otherwise p is the spectral-basis solution."""
+        """Pressure-gradient stage of the projection: (dpdx, dpdy, dpdz, p),
+        for callers that apply the correction themselves (compensated
+        stepping). Where the slab is built, x3d2_tpu's slab branch
+        (solver.py:441-457): the x stage and the mid with q, then the
+        inverse x stage one field at a time without the correction, the
+        parity x apply on a periodic x or the dense x apply on a
+        wall-bounded one. Elsewhere the transform-folded chain
+        (pressure_grads_folded). p: the physical pressure with
+        keep_pressure, else the spectral-basis solution q."""
+        slab = self._slab
+        if slab is None:
+            if u.is_cuda and self._projection_gap is not None:
+                raise NotImplementedError(
+                    "the projection on the card: x3d2_tpu runs its slab "
+                    f"kernels on this grid; the port lacks "
+                    f"{self._projection_gap}")
+            return self.pressure_grads_folded(u, v, w, keep_pressure)
+        q, p_zy, dpdy, dpdz = self._slab_mid(u, v, w)
+        grads = self._x_stage(_X_INV, (p_zy, dpdy, dpdz))
+        return grads + (self._physical_p(q) if keep_pressure else q,)
+
+    def pressure_grads_folded(self, u, v, w, keep_pressure=True):
+        """The transform-folded chain of matrix products (x3d2_tpu
+        solver.py:461-491): the divergence taken straight into the
+        spectral basis, solved on the diagonal, and the gradient taken
+        straight out of it. With keep_pressure the physical pressure is
+        reconstructed by the three inverse transforms; otherwise p is the
+        spectral-basis solution. Any device: XLA einsums in x3d2_tpu."""
         d = self._fused_pressure_mats()
         po = self.poisson
 
@@ -392,22 +439,43 @@ class NavierStokes:
                 p = apply_matrix(po.Ti[a], p, a)
         return dpdx, dpdy, dpdz, p
 
+    def _physical_p(self, q):
+        """The physical pressure from the slab's spectral solution q, whose
+        modes are in block-parity order on the periodic axes: the inverse
+        transforms with permuted columns."""
+        m = self._slab.mats(q.dtype)
+        for a, name in enumerate(("ti_x", "ti_y", "ti_z")):
+            q = apply_matrix(m[name], q, a)
+        return q
+
+    def _x_stage(self, names, fields, s=(None, None, None)):
+        """The slab's x stage over three fields: forward (_X_FWD) or
+        inverse (_X_INV; with s = (u, v, w) the corrected s - gradient).
+        On a periodic x the merged 3-field parity kernel (x_div3, or
+        x_gradsub3 with s), or one field a launch with X3D2_MERGED_X=0
+        (x3d2_tpu solver.py:506-509, :549-552) and for the gradients
+        without the correction (:441-457); on a wall-bounded x the dense x
+        apply one field a launch (:506-511, :550-555)."""
+        slab = self._slab
+        if slab.x_perm is None:
+            return tuple(pressure_slab.x_apply(n, f, slab, t)
+                         for n, f, t in zip(names, fields, s))
+        if self._merged_x and names == _X_FWD:
+            return pressure_slab.x_div3(*fields, slab)
+        if self._merged_x and s[0] is not None:
+            return pressure_slab.x_gradsub3(*fields, *s, slab)
+        return tuple(pressure_slab.x_apply_parity(n, f, slab, t)
+                     for n, f, t in zip(names, fields, s))
+
     def _slab_mid(self, u, v, w, want_q=True, divs=None):
         """The slab projection up to the gradient x stage: (q or None,
         p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
-        inputs (the xdiv sweep's), so x_div3 is skipped; without want_q
-        the spectral solution is not returned."""
-        slab = self._slab
-        if divs is not None:
-            du, dv, dw = divs
-        elif slab.x_perm is not None:
-            du, dv, dw = pressure_slab.x_div3(u, v, w, slab)
-        else:
-            # the dense x stage (x3d2_tpu solver.py:506-511)
-            du = pressure_slab.x_apply("sx", u, slab)
-            dv = pressure_slab.x_apply("ix", v, slab)
-            dw = pressure_slab.x_apply("ix", w, slab)
-        return pressure_slab.pressure_mid(du, dv, dw, slab, emit_q=want_q)
+        inputs (the xdiv sweep's), so the x stage is skipped; without
+        want_q the spectral solution is not returned."""
+        du, dv, dw = (divs if divs is not None
+                      else self._x_stage(_X_FWD, (u, v, w)))
+        return pressure_slab.pressure_mid(du, dv, dw, self._slab,
+                                          emit_q=want_q)
 
     def pressure_correction(self, u, v, w, keep_pressure=True, divs=None):
         """Fractional-step projection (solver.f90:693-739): the
@@ -421,33 +489,14 @@ class NavierStokes:
         if self._pipe is not None and divs is None and not keep_pressure:
             return (*self._pipe(u, v, w), None)
         if self._slab is not None:
-            slab = self._slab
             q, p_zy, dpdy, dpdz = self._slab_mid(
                 u, v, w, want_q=keep_pressure, divs=divs)
-            if slab.x_perm is not None:
-                un, vn, wn = pressure_slab.x_gradsub3(p_zy, dpdy, dpdz, u, v,
-                                                      w, slab)
-            else:
-                # the dense x stage with the correction (x3d2_tpu
-                # solver.py:550-555)
-                un = pressure_slab.x_apply("gxs", p_zy, slab, u)
-                vn = pressure_slab.x_apply("gxi", dpdy, slab, v)
-                wn = pressure_slab.x_apply("gxi", dpdz, slab, w)
-            p = q
-            if keep_pressure:
-                # q's modes are in block-parity order on the periodic
-                # axes: the inverse transforms carry permuted columns
-                m = self._slab.mats(u.dtype)
-                for a, name in enumerate(("ti_x", "ti_y", "ti_z")):
-                    p = apply_matrix(m[name], p, a)
-            return un, vn, wn, p
+            un, vn, wn = self._x_stage(_X_INV, (p_zy, dpdy, dpdz), (u, v, w))
+            return un, vn, wn, (self._physical_p(q) if keep_pressure
+                                else None)
         if divs is not None:
             raise ValueError("pre-transformed divergence inputs need the "
                              "slab projection")
-        if u.is_cuda and self._projection_gap is not None:
-            raise NotImplementedError(
-                "the projection on the card: x3d2_tpu runs its slab kernels "
-                f"on this grid; the port lacks {self._projection_gap}")
         dpdx, dpdy, dpdz, p = self.pressure_grads(
             u, v, w, keep_pressure=keep_pressure)
         return u - dpdx, v - dpdy, w - dpdz, p

@@ -5,6 +5,11 @@ src/time_integrator.f90, coefficients :83-118). The AB derivative history
 is a per-field tuple of separate tensors, newest first, so its rotation is
 a tuple reshuffle. ``istep`` is a Python int: the startup coefficient row
 is picked on the host, so no per-step device sync is needed.
+
+Two modes of the AB step, as in x3d2_tpu (time_integrators.py:22-31,
+:88-129, :155-164): a history stored at a reduced precision (bfloat16,
+X3D2_BF16_OLDS) with the error feedback that pre-pays the stored rhs's
+rounding, and Kahan-compensated state accumulation (``compensated``).
 """
 
 from __future__ import annotations
@@ -13,6 +18,17 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def kahan_add(x, inc, c):
+    """One compensated accumulation step (x3d2_tpu time_integrators.py:
+    22-31): (x + inc, c'), c' the rounding error of the addition. PyTorch
+    evaluates each operation as written, so the cancellation survives."""
+    y = inc - c
+    t = x + y
+    c_new = (t - x) - y
+    return t, c_new
+
 
 # AB coefficients (time_integrator.f90:108-118); row k = AB(k+1)
 AB_COEFFS = np.array([
@@ -73,36 +89,71 @@ class TimeIntegrator:
         derivative stored this step in future updates (c_1..c_{order-1})."""
         return float(AB_COEFFS[self.order - 1][1:self.order].sum())
 
-    def ab_row(self, istep: int, dt: float, dtype=torch.float32) -> list:
+    def ab_row(self, istep: int, dt: float, dtype=torch.float32,
+               feedback: bool = False) -> list:
         """The dt-scaled coefficient row dt*AB_COEFFS[min(istep, order)-1]
         (the startup rows for istep < order) as host floats. The table is
-        rounded to `dtype` and multiplied by dt there, as x3d2_tpu does."""
+        rounded to `dtype` and multiplied by dt there, as x3d2_tpu does.
+        feedback: a 5th entry, the reduced history's error-feedback
+        coefficient dt * future_coeff_sum() rounded to `dtype` (x3d2_tpu
+        cases/base.py:412-420, "col 4")."""
         npd = np.float64 if dtype == torch.float64 else np.float32
         row = AB_COEFFS.astype(npd)[min(int(istep), self.order) - 1]
-        return [float(npd(dt) * c) for c in row]
+        out = [float(npd(dt) * c) for c in row]
+        if feedback:
+            out.append(self._feedback(dt, dtype))
+        return out
+
+    def _feedback(self, dt, dtype) -> float:
+        """dt * future_coeff_sum() rounded to `dtype`: the coefficient of
+        the reduced history's error feedback."""
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        return float(npd(dt * self.future_coeff_sum()))
+
+    def _with_history(self, acc, f, r, o, co, dt):
+        """acc + sum_j co_{j+1} o_j (a reduced history widened to f's dtype
+        before its multiply), plus, where the history is stored reduced,
+        the error feedback dt*future_coeff_sum*(r - round(r)) that pre-pays
+        the stored rhs's rounding while r is exact (x3d2_tpu
+        time_integrators.py:102-118, :155-165)."""
+        for j in range(self.order - 1):
+            acc = acc + co[j + 1] * o[j].to(f.dtype)
+        if o and o[0].dtype != f.dtype:
+            rb = r.to(o[0].dtype).to(f.dtype)
+            acc = acc + self._feedback(dt, f.dtype) * (r - rb)
+        return acc
+
+    def _rotate(self, rhs, olds):
+        """The new history: each rhs at its history's storage dtype in
+        front, the oldest dropped."""
+        if self.nolds == 0:
+            return olds
+        return tuple((r.to(o[0].dtype),) + tuple(o[:-1])
+                     for r, o in zip(rhs, olds))
 
     def ab_step(self, fields, olds, istep, rhs, dt):
         """One AB step. `fields`/`rhs` are tuples of tensors; `olds` is a
         matching tuple whose entries are (nolds,)-tuples of tensors (the
-        derivative history, newest first); istep is a 1-based int.
-        Returns (new_fields, new_olds)."""
-        order = self.order
+        derivative history, newest first, at the state's dtype or
+        bfloat16); istep is a 1-based int. Returns (new_fields,
+        new_olds)."""
         co = self.ab_row(istep, dt, fields[0].dtype)
-
-        def upd(f, r, o):
-            acc = f + co[0] * r
-            for j in range(order - 1):
-                acc = acc + co[j + 1] * o[j]
-            return acc
-
-        new_fields = tuple(upd(f, r, o)
+        new_fields = tuple(self._with_history(f + co[0] * r, f, r, o, co, dt)
                            for f, r, o in zip(fields, rhs, olds))
-        if self.nolds == 0:
-            new_olds = olds
-        else:
-            new_olds = tuple((r,) + tuple(o[:-1])
-                             for r, o in zip(rhs, olds))
-        return new_fields, new_olds
+        return new_fields, self._rotate(rhs, olds)
+
+    def ab_step_compensated(self, fields, olds, comp, istep, rhs, dt):
+        """AB step with Kahan-compensated state accumulation (x3d2_tpu
+        time_integrators.py:88-129): the increment is formed first, then
+        added through the running compensation `comp` (one tensor per
+        field), which carries the low-order bits each state addition
+        drops. Returns (new_fields, new_olds, new_comp)."""
+        co = self.ab_row(istep, dt, fields[0].dtype)
+        pairs = [kahan_add(f, self._with_history(co[0] * r, f, r, o, co, dt),
+                           c)
+                 for f, r, o, c in zip(fields, rhs, olds, comp)]
+        return (tuple(p[0] for p in pairs), self._rotate(rhs, olds),
+                tuple(p[1] for p in pairs))
 
     def _rk_tab(self, istage: int):
         """The tableau row of RK substage istage's update."""
@@ -145,8 +196,10 @@ class TimeIntegrator:
 
         return tuple(upd(i) for i in range(len(fields0)))
 
-    def empty_olds(self, template):
+    def empty_olds(self, template, dtype=None):
         """Zero-initialised history: per field, a (nolds,)-tuple of
-        separate tensors (so rotation is a reshuffle, never a copy)."""
-        return tuple(tuple(torch.zeros_like(f) for _ in range(self.nolds))
-                     for f in template)
+        separate tensors (so rotation is a reshuffle, never a copy).
+        `dtype` overrides the storage precision (bfloat16 under
+        X3D2_BF16_OLDS)."""
+        return tuple(tuple(torch.zeros_like(f, dtype=dtype)
+                           for _ in range(self.nolds)) for f in template)
