@@ -7,13 +7,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and asserts full-float32 matmuls (TF32 off).
-2. Build: compiles every kernel source (csrc/transeq_sweep.cu, which also
-   holds the species kernel, csrc/pressure_pipe.cu and
-   csrc/transeq_dense.cu) with nvcc for sm_90a, one nvcc per source, all
-   started together.
+2. Build: compiles every kernel source (csrc/transeq_sweep.cu and
+   csrc/transeq_sweep_w32.cu, the sweep and species kernels of
+   csrc/transeq_sweep.cuh at W = 16 and at the HIGHEST mode's W = 32,
+   csrc/pressure_pipe.cu and csrc/transeq_dense.cu) with nvcc for sm_90a,
+   one nvcc per source, all started together.
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
-   At 512^3 (main path, paths B, S, R, R4, H, HP, HA, K, M):
+   Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
+   driven HIGHEST path gives it is held to 5e-7 * scale of plain f64, the
+   bound of x3d2_tpu's HIGHEST kernels (tests/test_pallas_v3.py:114); the
+   xdiv sweep's du, dv, dw, the projection's transforms of u', to its
+   3e-5.
+   At 512^3 (main path, paths B, S, R, R4, H, HP, HA, K, M; W = 32: HI, HK,
+   RI, R4I):
    - the sweeps z; x accumulate; y accumulate + AB3 with the steady and a
      startup coefficient row; y accumulate with the RK substage updates
      (history fields, base) = (0, own), (0, f0), (2, f0) (RK3's rows) and
@@ -31,6 +38,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
      (x_pinv[sub], path M), each beside one torch.matmul or torch.addmm
      of the dense operator the parity split stands for;
    - the species sweeps z; x accumulate; y accumulate, two scalars;
+   - at W = 32: z; x accumulate; y accumulate + AB3 (both rows); y
+     accumulate; the four RK updates;
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
      inputs the previous stage's plain version gives;
    - the slab projection: x_div3, the mid with q, the mid without q (its
@@ -39,13 +48,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    sweeps z; y accumulate; the xdiv sweep (x accumulate + AB3 + the
    x-transformed divergence inputs) with the steady and a startup row, run
    twice and compared bit for bit; x accumulate; y accumulate + AB3; the
-   pipeline's stages; the slab projection's functions.
+   pipeline's stages; the slab projection's functions; at W = 32 (path
+   AI) z, y accumulate and the xdiv sweep.
    At (128, 128, 256), the example grid (path S-ex, and phase 8's chains
    of the AB step's modes): the sweeps z; y accumulate; the xdiv sweep;
    the reduced-precision sweeps of the xdiv chain (z and y accumulate with
    bfloat16 partials, the xdiv sweep with a bfloat16 history alone, with
    bfloat16 partials alone and with both) and y accumulate + AB3 with a
-   bfloat16 history;
+   bfloat16 history; at W = 32 (phase 8's HIGHEST chains) z, x and y
+   accumulate, the xdiv sweep and the species sweeps;
    the species sweeps; the mid without q and x_gradsub3, the mid also on
    white noise; the one-field parity x applies.
    At 128^3 (path T128): the dense transport sweeps z, x, y, held to 5e-7
@@ -88,6 +99,11 @@ Phases, each printing its own lines; any failed check exits non-zero:
      pipeline launch; a finite compensation;
    - path M: X3D2_MERGED_X=0 with keep_pressure=True, 3 steps: the z, x, y
      chain, 3 x_pfwd, the mid with q (6) and 3 x_pinv[sub].
+4c. The HIGHEST mode (X3D2_MATMUL_PRECISION=highest) at 512^3, the main
+   path's checks, ms/step, only W = 32 sweep instances launched:
+   - path HI: the main path, 10 steps;
+   - path HK: with compensated stepping (the production-accuracy mode),
+     10 steps, the launches of path K at W = 32.
 5. Path B: the same case with keep_pressure=True, 10 steps: 3 sweeps, 1
    x_div3, the mid's 6 and 1 x_gradsub3 launch per step and no pipeline
    launch; the same KE and divergence checks; the physical pressure of the
@@ -99,7 +115,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    no x_div3 launch; KE and divergence checks; a second run from the same
    initial state gives bit-identical u, v, w; ms/step; then the same grid
    with X3D2_XDIV_FUSED=0 (the z, x, y chain and the pipeline), timed the
-   same way. Both times are printed; neither is asserted to be the faster.
+   same way, and path AI: the xdiv chain in the HIGHEST mode (W = 32). The
+   times are printed; none is asserted to be the faster.
 7. Passive scalars, Runge-Kutta and TGV 128^3, keep_pressure=False, with
    the same checks, and for the scalars phi finite and its variance (sum
    of phi^2, in float64) lower at the end than at the start:
@@ -112,7 +129,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - path R: TGV 512^3 RK3, 10 steps: per substage the RK sweep chain (z,
      x + acc, y + acc + the substage update) and the pipeline, 33 launches
      a step; path R4: RK4, 3 steps, whose last substage reads three stage
-     derivatives;
+     derivatives; paths RI and R4I: RK3 and RK4 in the HIGHEST mode, 3
+     steps, W = 32 sweeps only;
    - path T128: TGV 128^3 AB3, 20 steps: the unfused AB step x3d2_tpu
      takes there, the dense transport sweeps z, x, y and the pipeline's 8
      launches a step, no sweep launch; ms/step and the shares.
@@ -139,7 +157,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    X3D2_XDIV_FUSED=0; compensated;
    compensated with two scalars and a bfloat16 history; X3D2_MERGED_X=0
    with keep_pressure=True and X3D2_XDIV_FUSED=0; the cylinder at (65,
-   128, 128) compensated (the dense x applies without the correction).
+   128, 128) compensated (the dense x applies without the correction). In
+   the HIGHEST mode, counted (W = 32 sweeps only): the xdiv path,
+   compensated, RK3 with two scalars.
    max |du, dv, dw| <= 1e-5 and max |dphi| <= 1e-5, KE relative
    difference <= 1e-6, p within p_tolerance; with bfloat16 stores each of
    the first two widened by what one bfloat16 ulp of the largest rhs (or
@@ -147,6 +167,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    stream and step can give: 10 n dt 4.58 2^-7 R (n = 1 with the history,
    2 with the partials alone, 3 with both), and the KE limit by that times mean(|u| +
    |v| + |w|) / KE.
+8b. KE in the HIGHEST mode: TGV (128, 128, 256) to t = KE_T, float32
+   HIGHEST + compensated against the float64 einsum leg (X3D2_PALLAS=0),
+   both on the card (x3d2_tpu_torch.tools.ke_parity): max |dKE| / KE0 <=
+   KE_LIMIT.
 9. The total wall time (and, before, when each phase started), the
    kernels line (JSON; one entry per kernel and
    size a path gives it, named kernel@n, n the edge of a cubic grid or
@@ -180,6 +204,15 @@ STEPS = 10                  # steps at 512^3 (path R4: STEPS_R4)
 STEPS_A = 20                # steps at 256^3 and on the example grid
 STEPS_R4 = 3
 PR = (0.7, 1.0)             # the example's scalars
+# phase 8b: the KE check's horizon and limit. In the long runs of
+# x3d2_tpu_torch.tools.ke_parity on an H100 (PERF.md, KE parity) the float32
+# HIGHEST + compensated curve at (128, 128, 256) leaves the float64 one
+# linearly, by ~1.9e-7 of KE0 per unit of time (the same with W = 16 and
+# without the compensation: the float32 evaluation of the operators, not
+# the band or the state's accumulation), and reads 7.49e-8 at t = 0.4; the
+# limit is twice that.
+KE_T = 0.4
+KE_LIMIT = 1.5e-7
 DT = 1e-3
 # f32 projection level of div_u_max: the f32 plain path on the CPU reaches
 # 7.5e-6, 2.4e-5 and 7.3e-5 at 64^3, 128^3 and 256^3 after two TGV steps
@@ -199,6 +232,9 @@ CYL_DIV_LIMIT = 1.1e-3
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 SWEEP_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep.cu"
+# the W = 32 instances (X3D2_MATMUL_PRECISION=highest); both sources hold
+# the kernels of csrc/transeq_sweep.cuh at one block geometry each
+SWEEP32_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep_w32.cu"
 PIPE_SOURCE = "x3d2_tpu_torch/csrc/pressure_pipe.cu"
 DENSE_SOURCE = "x3d2_tpu_torch/csrc/transeq_dense.cu"
 REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
@@ -458,7 +494,9 @@ def main():
 
     for switch in ("X3D2_XDIV_FUSED", "X3D2_FUSED_RK", "X3D2_FUSED_AB",
                    "X3D2_BF16_OLDS", "X3D2_BF16_ACC", "X3D2_MERGED_X",
-                   "X3D2_PIPE3", "X3D2_BFLY", "X3D2_D2C"):
+                   "X3D2_PIPE3", "X3D2_BFLY", "X3D2_D2C",
+                   "X3D2_MATMUL_PRECISION", "X3D2_PALLAS", "X3D2_MID_SPLIT",
+                   "X3D2_CHUNK"):
         os.environ.pop(switch, None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -474,9 +512,10 @@ def main():
           "float32 matmul precision must be 'highest'")
 
     # ---- 2. build -------------------------------------------------------
-    libs = _build.build_all(["transeq_sweep", "pressure_pipe",
-                             "transeq_dense"])
-    ts._lib()
+    libs = _build.build_all(["transeq_sweep", "transeq_sweep_w32",
+                             "pressure_pipe", "transeq_dense"])
+    ts._lib(16)
+    ts._lib(32)
     oa.lib()
     td._lib()
     for name, lib in libs.items():
@@ -485,11 +524,11 @@ def main():
         inst = ""
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             # ptxas names each instance by its mangled name and template
-            # arguments: transeq_sweep_kernel<AXIS, ACC, NOLDS, UPD,
-            # BASE_SEP, PREC>, transeq_xdiv_kernel<NOLDS, PREC> (PREC: 1 a
-            # bfloat16 history, 2 bfloat16 partials), species_sweep_kernel
-            # <AXIS, ACC>, mat_apply_kernel<MODE, TRANS, EPI>,
-            # transeq_dense_kernel<TRANS, EXACT>
+            # arguments: transeq_sweep_kernel<BS, W, AXIS, ACC, NOLDS, UPD,
+            # BASE_SEP, PREC>, transeq_xdiv_kernel<BS, W, NOLDS, PREC>
+            # (PREC: 1 a bfloat16 history, 2 bfloat16 partials),
+            # species_sweep_kernel<BS, W, AXIS, ACC>, mat_apply_kernel<MODE,
+            # TRANS, EPI>, transeq_dense_kernel<TRANS, EXACT>
             found = re.search(r"(?<=\d)([a-z_]+_kernel)I((?:L[ib]\d+E)+)E",
                               line)
             if found:
@@ -559,7 +598,7 @@ def main():
 
     def hold(label, n, kern, plain, args, name, replaces, cost, again=False,
              source=SWEEP_SOURCE, lim64=3e-5, library=None, listed=True,
-             fold=None):
+             fold=None, tail64=None):
         """Hold kern(*args) against plain(*args) in float32 and plain on
         the float64 args; time both (and `library`, one PyTorch call of the
         same function, where there is one). A name met before at this size
@@ -568,7 +607,10 @@ def main():
         listed=False: held, kept out of the kernels line. fold: the outputs
         -> (float32 ones, bfloat16 ones); the float32 ones are held as
         above, the bfloat16 ones to one bfloat16 ulp of RNE(plain float32)
-        plus the float32 limit (bf16_err)."""
+        plus the float32 limit (bf16_err). tail64=(k, lim): the last k
+        float32 outputs are held to lim of plain float64 instead of lim64
+        (the xdiv sweep's x-transformed divergence inputs in the HIGHEST
+        mode: the projection's transforms, held to its 3e-5)."""
         reduced = fold is not None
         fold = fold or (lambda outs: (outs, []))
         got = flat(kern(*args))
@@ -582,9 +624,21 @@ def main():
         g32, g16 = fold(got)
         p32, p16 = fold(flat(plain(*args)))
         err32 = rel32 = rel64 = 0.0
+        tail_txt = ""
         if g32:
             err32, rel32 = rel_err(g32, p32)
-            _, rel64 = rel_err(g32, fold(flat(plain(*to64(args))))[0])
+            p64 = fold(flat(plain(*to64(args))))[0]
+            if tail64 is None:
+                _, rel64 = rel_err(g32, p64)
+            else:
+                k, lim_t = tail64
+                _, rel64 = rel_err(g32[:-k], p64[:-k])
+                _, rel_t = rel_err(g32[-k:], p64[-k:])
+                tail_txt = (f"  last {k} outputs vs plain64 rel {rel_t:.2e} "
+                            f"(<= {lim_t:g})")
+                check(rel_t <= lim_t, f"{label} {n}: the last {k} outputs "
+                                      f"vs plain f64 {rel_t}")
+            del p64
         err16, ex16 = bf16_err(g16, p16) if g16 else (0.0, 0.0)
         del got, g32, g16, p32, p16
         torch.cuda.synchronize()
@@ -602,6 +656,7 @@ def main():
                       lib_ms)
             if not listed:
                 del rows[name, n]
+        txt += tail_txt
         if reduced:
             txt += (f"  bfloat16 outputs: max|k-RNE(plain32)|={err16:.3e}, "
                     f"beyond one ulp rel {ex16:.2e} (<= 1e-5)")
@@ -635,13 +690,18 @@ def main():
 
         return fold
 
-    def sweep_rows(shape, ops, variants, randn):
+    def sweep_rows(shape, ops, variants, randn, terms=2):
         """Hold sweep variants (label, axis, kw: acc, olds, dtc, xdiv,
-        base, acc_dtype) against the plain version at `shape`."""
+        base, acc_dtype) against the plain version at `shape`, built at
+        the geometry of `terms` (3: the HIGHEST mode's W = 32 instances,
+        held to 5e-7 of plain float64, the bound of x3d2_tpu's HIGHEST
+        kernels, tests/test_pallas_v3.py:114; their xdiv outputs du, dv,
+        dw, the projection's transforms of u', to its 3e-5)."""
         u, v, w = randn(), randn(), randn()
         n = size_label(shape)
         for label, axis, kw in variants:
-            blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev)
+            blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev,
+                                           terms=terms)
             a, o, dtc = kw.get("acc"), kw.get("olds"), kw.get("dtc")
             xm, base = kw.get("xdiv"), kw.get("base")
             adt = kw.get("acc_dtype")
@@ -660,14 +720,19 @@ def main():
                                               base=base, acc_dtype=adt)
 
             upd, sep = dtc is not None, base is not None
-            hold(f"sweep {label}", n, kern, plain, (u, v, w, a, o, base),
+            w32 = blocks.w != ts.W
+            hold(f"sweep {label}{' w32' if w32 else ''}", n, kern, plain,
+                 (u, v, w, a, o, base),
                  ts.variant_name(axis, a is not None, nolds, xm is not None,
-                                 upd, sep, ob, ab),
+                                 upd, sep, ob, ab, w=blocks.w),
                  REPLACES[axis],
-                 sweep_cost(shape, a is not None, nolds, ts.W,
+                 sweep_cost(shape, a is not None, nolds, blocks.w,
                             xm is not None, upd, sep, ob, ab),
                  again=xm is not None,
-                 fold=sweep_fold(dtc, xm, upd, ob, ab))
+                 fold=sweep_fold(dtc, xm, upd, ob, ab),
+                 source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
+                 lim64=5e-7 if w32 else 3e-5,
+                 tail64=(3, 3e-5) if w32 and xm is not None else None)
 
     def bf16_variants(randn, xm=None):
         """The reduced-precision sweeps of the fused AB chain (paths H, HP
@@ -732,13 +797,15 @@ def main():
                      REPLACES[stage], x_parity_cost(shape, sub),
                      source=PIPE_SOURCE, library=library)
 
-    def species_rows(shape, ops, randn):
-        """The species sweeps of the two scalars, z; x + acc; y + acc."""
+    def species_rows(shape, ops, randn, terms=2):
+        """The species sweeps of the two scalars, z; x + acc; y + acc (at
+        the geometry of `terms`, as sweep_rows)."""
         phis = (randn(), randn())
         comps = (randn(), randn(), randn())
         acc = (randn(100.0), randn(100.0))
         for axis, a in ((2, None), (0, acc), (1, acc)):
-            blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev)
+            blocks = ts.build_sweep_blocks(ops[axis], axis, device=dev,
+                                           terms=terms)
 
             def kern(phis, conv, a):
                 return spm.species_sweep(phis, conv, blocks, nus, acc=a)
@@ -746,10 +813,13 @@ def main():
             def plain(phis, conv, a):
                 return spm.species_sweep_plain(phis, conv, blocks, nus, acc=a)
 
-            name = spm.variant_name(axis, a is not None)
+            name = spm.variant_name(axis, a is not None, blocks.w)
+            w32 = blocks.w != ts.W
             hold(name, size_label(shape), kern, plain,
                  (phis, comps[axis], a), name, REPLACES["species"],
-                 species_cost(shape, len(nus), a is not None, ts.W))
+                 species_cost(shape, len(nus), a is not None, blocks.w),
+                 source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
+                 lim64=5e-7 if w32 else 3e-5)
 
     def stage_row(name, ins, kern_fn, plain_fn, cost, pm, on_path=True,
                   n=None):
@@ -966,6 +1036,28 @@ def main():
          {"acc": acc, "olds": stage_olds(rk4.rk_prev(3)),
           "dtc": rk4.rk_row(3, DT), "base": f0}),
     ], randn)
+    # the HIGHEST mode's W = 32 instances at this size: paths HI (z, x +
+    # acc, y + acc + AB3), HK (y + acc) and RI, R4I (the RK rows)
+    sweep_rows(shape, ns.ops, [
+        ("z", 2, {}),
+        ("x,acc", 0, {"acc": acc}),
+        ("y,acc,ab3 steady", 1, {"acc": acc, "olds": olds,
+                                 "dtc": ti.ab_row(3, DT)}),
+        ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
+                                  "dtc": ti.ab_row(1, DT)}),
+        ("y,acc", 1, {"acc": acc}),
+        ("y,acc,rk0 (RK3 substage 0)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(0, DT)}),
+        ("y,acc,rk0,f0 (RK3 substage 1)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(1, DT),
+          "base": f0}),
+        ("y,acc,rk2,f0 (RK3 substage 2)", 1,
+         {"acc": acc, "olds": stage_olds(rk3.rk_prev(2)),
+          "dtc": rk3.rk_row(2, DT), "base": f0}),
+        ("y,acc,rk3,f0 (RK4 substage 3)", 1,
+         {"acc": acc, "olds": stage_olds(rk4.rk_prev(3)),
+          "dtc": rk4.rk_row(3, DT), "base": f0}),
+    ], randn, terms=3)
     del acc, olds, f0, ks
     # paths H and HA: the bfloat16 history, and the bfloat16 partials
     sweep_rows(shape, ns.ops, bf16_variants(randn), randn)
@@ -1018,9 +1110,10 @@ def main():
     ns_a = NavierStokes.build(mesh_a, nu, device=dev)
     randn_a = randn_of(shape_a)
 
-    def xdiv_variants(ns_, n_x, acc, olds):
+    def xdiv_variants(ns_, n_x, acc, olds, terms=2):
         f64m = ns_._fp_mats64()
-        xm = ts.build_xdiv_mats(f64m["sx"], f64m["ix"], n_x, device=dev)
+        xm = ts.build_xdiv_mats(f64m["sx"], f64m["ix"], n_x, device=dev,
+                                bs=ts.geometry(terms)[0])
         return [
             ("z", 2, {}),
             ("y,acc", 1, {"acc": acc}),
@@ -1040,6 +1133,9 @@ def main():
         ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
                                   "dtc": ti.ab_row(1, DT)}),
     ], randn_a)
+    # path AI: the HIGHEST mode's xdiv chain, W = 32
+    sweep_rows(shape_a, ns_a.ops, xdiv_variants(ns_a, NA, acc, olds, 3),
+               randn_a, terms=3)
     del acc, olds
     pm_a = ns_a._slab
     noise_a = (randn_a(), randn_a(), randn_a())
@@ -1077,6 +1173,13 @@ def main():
         ("x,acc", 0, {"acc": acc_e}),
         ("y,acc,ab3 steady", 1, {"acc": acc_e, "olds": olds_e,
                                  "dtc": ti.ab_row(3, DT)})], randn_e)
+    # phase 8's HIGHEST chains at this grid, W = 32: the xdiv chain, the
+    # compensated one (z, x + acc, y + acc) and RK3 with two scalars
+    # (the same, and the species sweeps)
+    sweep_rows(SMALL, ns_e.ops, xdiv_variants(ns_e, SMALL[0], acc_e, olds_e,
+                                              3)
+               + [("x,acc", 0, {"acc": acc_e})], randn_e, terms=3)
+    species_rows(SMALL, ns_e.ops, randn_e, terms=3)
     del olds16, acc_e, olds_e
     species_rows(SMALL, ns_e.ops, randn_e)
     pm_e = ns_e._slab
@@ -1253,6 +1356,17 @@ def main():
     species = [spm.variant_name(2, False), spm.variant_name(0, True),
                spm.variant_name(1, True)]
     pipe3 = ["pipe_a", "pipe_b", "pipe_c"]
+    # the HIGHEST mode (x3d2_tpu's terms = 3): every sweep at W = 32
+    hi = {"X3D2_MATMUL_PRECISION": "highest"}
+    sweeps_zxy32 = [ts.variant_name(2, False, 0, w=32),
+                    ts.variant_name(0, True, 0, w=32),
+                    ts.variant_name(1, True, 2, w=32)]
+    sweeps_rhs32 = sweeps_zxy32[:2] + [ts.variant_name(1, True, 0, w=32)]
+    sweeps_xdiv32 = [ts.variant_name(2, False, 0, w=32),
+                     ts.variant_name(1, True, 0, w=32),
+                     ts.variant_name(0, True, 2, True, w=32)]
+    species32 = [spm.variant_name(2, False, 32), spm.variant_name(0, True, 32),
+                 spm.variant_name(1, True, 32)]
 
     def counts_now():
         return {**ts.launch_counts(), **oa.launch_counts(),
@@ -1441,6 +1555,25 @@ def main():
                                + ["pressure_mid[q]"] + ["x_pinv[sub]"] * 3)
     del case, state
     torch.cuda.empty_cache()
+    # 4c. the HIGHEST mode at 512^3: path HI, the main path on the W = 32
+    # sweeps; path HK, HIGHEST with compensated stepping (the
+    # production-accuracy mode: the W = 32 sweeps without the update,
+    # x_div3, the mid with q, 3 x_pinv). Only W = 32 sweeps launch.
+    with env_set(hi):
+        case, state, _ = drive("path HI", mesh, params, False, STEPS,
+                               sweeps_zxy32 + pipe3)
+    modes_ms["path HI"] = step_times("path HI", case, state)
+    del case, state
+    torch.cuda.empty_cache()
+    with env_set(hi):
+        case, state, _ = drive("path HK", mesh, params_k, False, STEPS,
+                               sweeps_rhs32 + ["x_div3", "pressure_mid[q]"]
+                               + ["x_pinv"] * 3, fused=False)
+    check(all(torch.isfinite(c).all().item() for c in state["comp"]),
+          "path HK: a finite compensation per velocity")
+    modes_ms["path HK"] = step_times("path HK", case, state)
+    del case, state
+    torch.cuda.empty_cache()
     print("[modes] 512^3 ms/step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in modes_ms.items()), flush=True)
 
@@ -1507,8 +1640,18 @@ def main():
         ms_pipe = step_times("256^3 X3D2_XDIV_FUSED=0", case, state)
     finally:
         del os.environ["X3D2_XDIV_FUSED"]
+    del case, state
+    torch.cuda.empty_cache()
+    # path AI: the xdiv chain in the HIGHEST mode, on the W = 32 sweeps
+    with env_set(hi):
+        case, state, _ = drive("path AI", mesh_a, params, False, STEPS_A,
+                               sweeps_xdiv32 + ["pressure_mid",
+                                                "x_gradsub3"])
+    check(case._ab_is_xdiv, "path AI must take the xdiv chain")
+    ms_ai = step_times("path AI", case, state)
     print(f"[path A] 256^3 ms/step: xdiv chain + slab {ms_xdiv:.3f}, z-x-y "
-          f"chain + pipeline {ms_pipe:.3f}", flush=True)
+          f"chain + pipeline {ms_pipe:.3f}, xdiv chain in the HIGHEST mode "
+          f"(path AI) {ms_ai:.3f}", flush=True)
     del case, state
     torch.cuda.empty_cache()
 
@@ -1550,6 +1693,18 @@ def main():
                            zx * 4 + rk4_y + pipe3 * 4)
     del case, state
     torch.cuda.empty_cache()
+    # paths RI and R4I: RK3 and RK4 fused in the HIGHEST mode, 3 steps
+    zx32 = sweeps_zxy32[:2]
+    for tag, prm, nolds_rows in (("path RI", params_r, [0, 0, 2]),
+                                 ("path R4I", params_r4, [0, 0, 0, 3])):
+        rk_y32 = [ts.variant_name(1, True, k, upd=True, base_sep=i > 0, w=32)
+                  for i, k in enumerate(nolds_rows)]
+        with env_set(hi):
+            case, state, _ = drive(tag, mesh, prm, False, STEPS_R4,
+                                   zx32 * len(nolds_rows) + rk_y32
+                                   + pipe3 * len(nolds_rows))
+        del case, state
+        torch.cuda.empty_cache()
 
     # path T128: 128^3, the dense sweeps and the unfused AB step
     dense3 = [td.variant_name(a) for a in range(3)]
@@ -1690,6 +1845,15 @@ def main():
     chains += [(f"cylinder {size_label(CYL_SMALL)} compensated", cylk_make,
                 cylk_prm, False, {}, "ab-unfused",
                 ["x_apply"] * 6 + ["pressure_mid[q]"], 0)]
+    # the HIGHEST mode: only W = 32 sweeps launch
+    chains += [(f"{SMALL} HIGHEST, {label}", tgv_on(small, prm, False), prm,
+                False, hi, chain, per_step, 0)
+               for label, prm, chain, per_step in (
+                   ("xdiv path", params, "xdiv", sweeps_xdiv32 + slab_tail),
+                   ("compensated", params_k, "ab-unfused",
+                    sweeps_rhs32 + grads),
+                   ("RK3 + 2 species (unfused)", params_rs, "rk-unfused",
+                    (sweeps_rhs32 + species32 + pipe3) * 3))]
     ab3 = TimeIntegrator("AB3")
     # |c_j| of every coefficient a rounded value meets, and the feedback's
     coeff_sum = float(sum(abs(c) for c in ab3.ab_row(3, 1.0))) + abs(
@@ -1757,6 +1921,23 @@ def main():
         check(ke_rel <= ke_tol, f"{label}: card vs CPU KE difference "
                                 f"{ke_rel}")
         del res, cpu
+
+    # ---- 8b. KE against float64 in the HIGHEST mode -------------------------
+    stamp("phase 8b (KE, HIGHEST + compensated vs float64)")
+    from x3d2_tpu_torch.tools import ke_parity as kp
+    with env_set(hi):
+        s32, k32, ms32, _ = kp.run_curve(SMALL, torch.float32, True, dev,
+                                         KE_T, log=lambda msg: None)
+    with env_set({"X3D2_PALLAS": "0"}):
+        s64, k64, ms64, _ = kp.run_curve(SMALL, d64, False, dev, KE_T,
+                                         log=lambda msg: None)
+    ke_rel, ke_t, _ = kp.compare(s32, k32, s64, k64)
+    print(f"[ke] TGV {size_label(SMALL)} to t = {KE_T:g}: HIGHEST + "
+          f"compensated float32 ({ms32:.3f} ms/step) vs the float64 einsum "
+          f"leg ({ms64:.3f} ms/step): max |dKE|/KE0 {ke_rel:.3e} at t = "
+          f"{ke_t:.2f} (<= {KE_LIMIT:g})", flush=True)
+    check(math.isfinite(ke_rel) and ke_rel <= KE_LIMIT,
+          f"KE of the HIGHEST compensated run vs float64: {ke_rel}")
 
     # ---- 9. result lines ---------------------------------------------------
     idle = [r["name"] for r in rows.values() if r["launches"] <= 0]

@@ -2,7 +2,7 @@
 bfloat16 AB history (X3D2_BF16_OLDS=1) with its error feedback and the
 bfloat16 cross-direction partials (X3D2_BF16_ACC=1); and the one-field
 parity x applies (X3D2_MERGED_X=0), the branch choice under every switch
-the step reads, and the switches that still raise.
+the step reads, and the switches a case once refused at any value.
 
 - ab_step with a bfloat16 history, float32 and float64, on the same numpy
   inputs as x3d2_tpu's ab_step: u' equal to 2 roundings of the state's
@@ -530,17 +530,40 @@ def test_bfly_raises_where_the_solver_builds_the_slab(monkeypatch):
                               device="cpu")._slab is None
 
 
-@pytest.mark.parametrize("switch,value,names", [
-    ("X3D2_MID_SPLIT", "1", "_div_solve_kernel"),
-    ("X3D2_MATMUL_PRECISION", "highest", "W = 32"),
-    ("X3D2_PALLAS", "0", "X3D2_PALLAS"),
-    ("X3D2_CHUNK", "0", "X3D2_CHUNK")])
+@pytest.mark.parametrize("switch,value,expect", [
+    ("X3D2_MID_SPLIT", "1", "runs"),
+    ("X3D2_MATMUL_PRECISION", "highest", "w32"),
+    ("X3D2_PALLAS", "0", "dense"),
+    ("X3D2_CHUNK", "0", "runs"),
+    ("X3D2_MATMUL_PRECISION", "bf16x9", "ValueError")])
 def test_unported_switches_raise_naming_their_kernels(monkeypatch, switch,
-                                                      value, names):
+                                                      value, expect):
+    """The four switches a case refused at any value until they were read
+    where x3d2_tpu reads them. X3D2_MID_SPLIT=1 and X3D2_CHUNK=0 on a grid
+    without the slab: the case runs, as x3d2_tpu's (the mid split raises
+    where the slab's mid runs: tests/test_torch_highest.py).
+    X3D2_MATMUL_PRECISION=highest: the sweeps at the W = 32 band; an
+    unknown value raises ValueError (x3d2_tpu: KeyError). X3D2_PALLAS=0:
+    the einsum paths, no kernel branch."""
     monkeypatch.setenv(switch, value)
-    with pytest.raises(NotImplementedError, match=names):
-        TGVCase(Mesh((32,) * 3, L, PER), SolverParams(), device="cpu",
-                monitor_path=None)
+    kw = dict(device="cpu", monitor_path=None, verbose=False)
+    if expect == "ValueError":
+        with pytest.raises(ValueError, match="X3D2_MATMUL_PRECISION"):
+            TGVCase(Mesh((32,) * 3, L, PER), SolverParams(), **kw)
+    elif expect == "runs":
+        case = TGVCase(Mesh((32,) * 3, L, PER), SolverParams(), **kw)
+        state = case.run(n_iters=2, n_output=1)
+        assert int(state["istep"]) == 3
+        assert all(torch.isfinite(state[k]).all() for k in "uvw")
+    else:
+        case = TGVCase(Mesh(SHAPE, L, PER), SolverParams(), **kw)
+        if expect == "w32":
+            assert case.solver._terms == 3
+            assert [f.blocks.w for f in case._fused_ab.sweeps] == [32] * 3
+        else:
+            assert case.solver._transport == "dense"
+            assert case.solver._slab is None and case.solver._pipe is None
+            assert case._fused_ab is None and case.solver._sweeps is None
 
 
 def test_bf16_state_crosses_with_x3d2_tpu(monkeypatch):

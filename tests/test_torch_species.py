@@ -279,10 +279,17 @@ def test_species_state_handover_from_x3d2_tpu_continues_exactly():
 def test_unported_options_with_species_raise(monkeypatch):
     # the bfloat16 history and compensated stepping are ported (with
     # scalars too: tests/test_torch_bf16.py, test_torch_compensated.py);
-    # the mid cut at q is not
+    # the mid cut at q is not: it raises where the slab's mid runs (read
+    # there, as x3d2_tpu reads it), and a grid without the slab runs
     monkeypatch.setenv("X3D2_MID_SPLIT", "1")
+    case, _ = _cases()
+    assert case.solver._slab is None
+    ns = NavierStokes.build(Mesh((128, 128, 256), L,
+                                 ((BC.PERIODIC, BC.PERIODIC),) * 3),
+                            1e-3, device="cpu", nu_species=(1e-3, 1e-3))
+    zero = torch.zeros((128, 128, 256))
     with pytest.raises(NotImplementedError, match="X3D2_MID_SPLIT"):
-        _cases()
+        ns.pressure_correction(zero, zero, zero, keep_pressure=True)
     monkeypatch.delenv("X3D2_MID_SPLIT")
     mesh = Mesh((32,) * 3, L, ((BC.PERIODIC, BC.PERIODIC),) * 3)
     params = SolverParams(n_species=2, pr_species=PR, compensated=True)

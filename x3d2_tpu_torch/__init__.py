@@ -10,7 +10,9 @@ with ``config.Config.from_file``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no device given they raise. The transport and scalar
-sweeps (``csrc/transeq_sweep.cu``) and the two pressure projections, the
+sweeps (``csrc/transeq_sweep.cuh``, built at two band widths:
+``transeq_sweep.cu`` and, for X3D2_MATMUL_PRECISION=highest,
+``transeq_sweep_w32.cu``) and the two pressure projections, the
 three-stage pipeline and the slab projection (``csrc/pressure_pipe.cu``),
 run hand-written kernels on CUDA tensors and their plain PyTorch versions
 on CPU tensors only; on the card a case no ported kernel serves raises

@@ -5,8 +5,12 @@ Each CUDA source under ``csrc/`` is compiled with ``nvcc`` for Hopper
 plain C interface and loaded with ``ctypes``. The build happens at first
 use, into ``build/x3d2_tpu_torch/`` beside the package (listed in
 ``.gitignore``), and uses the sources in the repository and nothing else.
-A library is named after its source's content hash, so an edited source
-is rebuilt and an unchanged one is loaded as built.
+A library is named after the content hash of its source and of the
+headers under ``csrc/`` (``*.cuh``), so an edited source or header is
+rebuilt and an unchanged one is loaded as built. Sources that share a
+header (``transeq_sweep.cu`` and ``transeq_sweep_w32.cu``, two block
+geometries of one kernel template) are separate libraries, so
+``build_all`` compiles them in parallel.
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ def build_all(names) -> dict[str, Path]:
     """Compile every named ``csrc/<name>.cu`` that is not built yet, one
     ``nvcc`` per source, all started together; returns the library paths."""
     libs, procs = {}, {}
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     for name in names:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
-                                .encode()).hexdigest()[:16]
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(
+            NVCC_FLAGS).encode()).hexdigest()[:16]
         libs[name] = lib = BUILD_DIR / f"lib{name}-{digest}.so"
         if lib.exists():
             BUILD_SECONDS.setdefault(name, 0.0)

@@ -43,12 +43,18 @@ The AB history may be stored in bfloat16 (X3D2_BF16_OLDS=1, AB with
 history), with x3d2_tpu's error feedback in every AB branch; the fused AB
 chain may keep its cross-direction partials in bfloat16 (X3D2_BF16_ACC=1;
 the other chains stay float32, as in x3d2_tpu). X3D2_FUSED_AB,
-X3D2_XDIV_FUSED, X3D2_FUSED_RK (here) and X3D2_PIPE3, X3D2_MERGED_X (the
-solver) route between ported branches as in x3d2_tpu. X3D2_BFLY=0 on a
-slab grid (the solver's build) and X3D2_D2C=1 where x3d2_tpu's carry gate holds take TPU kernels
-the port lacks and raise NotImplementedError naming them, as do
-X3D2_CHUNK, X3D2_PALLAS, X3D2_MATMUL_PRECISION and X3D2_MID_SPLIT whenever
-they are set.
+X3D2_XDIV_FUSED, X3D2_FUSED_RK (here) and X3D2_PIPE3, X3D2_MERGED_X,
+X3D2_PALLAS (the solver) route between ported branches as in x3d2_tpu;
+X3D2_MATMUL_PRECISION=highest builds every sweep chain (the solver's and
+the fused AB and RK chains here) at the W=32 band, as x3d2_tpu's terms=3
+(cases/base.py:139, :226). X3D2_BFLY=0 on a slab grid (the solver's
+build), X3D2_D2C=1 where x3d2_tpu's carry gate holds, X3D2_MID_SPLIT=1
+where the slab's mid runs (the solver), and a bfloat16 history or
+partials on the fused AB chain in the HIGHEST mode take TPU kernels the
+port lacks and raise NotImplementedError naming them. X3D2_CHUNK is
+accepted at any value: x3d2_tpu chains the steps between outputs into one
+dispatch or not (cases/base.py:566), the same steps either way, and the
+port's ``run`` dispatches per step.
 
 On the card a case runs what x3d2_tpu runs: its kernels as the port's
 kernels, its XLA parts (einsums, elementwise updates, boundary hooks) as
@@ -75,24 +81,12 @@ import torch
 from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
+from ..ops.compact import matmul_terms
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
                                  make_fused_transeq_rk)
 from ..solver import _UNPORTED_SPECIES, NavierStokes
 from ..time_integrators import TimeIntegrator, kahan_add
 
-# environment switches the JAX step reads (x3d2_tpu cases/base.py,
-# solver.py, ops/compact.py, ops/pallas_poisson.py) that have no port yet,
-# with what x3d2_tpu runs under them; each raises whenever it is set
-_UNPORTED_SWITCHES = {
-    "X3D2_CHUNK": "the chunked step loop (x3d2_tpu cases/base.py:244-263)",
-    "X3D2_PALLAS": "x3d2_tpu's switch of all its kernels (solver.py:106)",
-    "X3D2_MATMUL_PRECISION": (
-        "the HIGHEST mode: the W = 32 bands of _transeq_kernel_v3 and "
-        "_pencil_kernel (x3d2_tpu/ops/pallas_kernels.py:172, :671) and of "
-        "the mid's y stages (pallas_poisson.py:575), held to 5e-7"),
-    "X3D2_MID_SPLIT": ("_div_solve_kernel and _grad_kernel (x3d2_tpu/ops/"
-                       "pallas_poisson.py:327, :340)"),
-}
 # what X3D2_D2C=1 takes where it acts (X3D2_BFLY=0: solver.BFLY_GAP)
 _D2C_GAP = ("X3D2_D2C=1 takes _pipe_c_kernel d2=True (x3d2_tpu/ops/"
             "pallas_poisson.py:1455, :1523-1552) with the chain that skips "
@@ -132,11 +126,6 @@ class BaseCase:
                  monitor_path: str | None = "monitoring.csv", verbose=True,
                  keep_pressure=True, device=None, seed: int = 0,
                  case_cfg=None):
-        set_env = [k for k in _UNPORTED_SWITCHES if k in os.environ]
-        if set_env:
-            raise NotImplementedError(
-                "environment switches not ported yet: " + "; ".join(
-                    f"{k} ({_UNPORTED_SWITCHES[k]})" for k in set_env))
         self.ti = TimeIntegrator(params.time_intg)
         self.device = resolve_device(device)
         self.seed = seed
@@ -191,8 +180,11 @@ class BaseCase:
         self._fused_ab = None
         self._ab_is_xdiv = False
         slab = self.solver._slab
+        # x3d2_tpu's kernel mode, read where its case builds the chains
+        # (cases/base.py:137-139, :224-226)
+        terms = matmul_terms()
         chain = dict(device=self.device, olds_dtype=self._olds_dtype,
-                     acc_dtype=self._acc_dtype)
+                     acc_dtype=self._acc_dtype, terms=terms)
         if (os.environ.get("X3D2_FUSED_AB", "1") != "0"
                 and self.ti.kind == "AB" and self.ti.nolds >= 1
                 and not params.compensated
@@ -249,7 +241,7 @@ class BaseCase:
             try:
                 self._fused_rk = make_fused_transeq_rk(
                     self.solver.ops, self.solver.nu, dims, self.ti.order,
-                    device=self.device)
+                    device=self.device, terms=terms)
             except ValueError:
                 if on_card:
                     raise

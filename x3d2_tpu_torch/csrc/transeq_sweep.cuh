@@ -1,0 +1,1178 @@
+// Directional transport sweeps for Hopper (sm_90a), behind a plain C
+// interface: the momentum sweep with accumulate and a fused time-update
+// epilogue (Adams-Bashforth or a Runge-Kutta substage), its xdiv variant,
+// and the passive-scalar (species) sweep. This header holds the kernels,
+// templated on the block geometry (BS output points per block, band
+// half-width W); each geometry is its own translation unit and library,
+// so nvcc builds them in parallel:
+//   - transeq_sweep.cu      BS = 64, W = 16 (x3d2_tpu's default mode,
+//     terms = 2), with the reduced-precision (bfloat16) instances;
+//   - transeq_sweep_w32.cu  BS = 32, W = 32 (x3d2_tpu's HIGHEST mode,
+//     X3D2_MATMUL_PRECISION=highest, terms = 3: w = 32 on the non-lane
+//     axes, pallas_kernels.py:484, :747, :1131), float32 only.
+//
+// Replaces three TPU kernels of x3d2_tpu, which compute two functions:
+//   - _pencil_kernel      x3d2_tpu/ops/pallas_kernels.py:671  (z sweep)
+//   - _transeq_kernel_v3  x3d2_tpu/ops/pallas_kernels.py:172  (x/y sweeps,
+//     accumulate, and the ab_olds / upd / base_sep epilogue of the final y
+//     sweep)
+//   - _species_kernel_v3  x3d2_tpu/ops/pallas_kernels.py:1038 (species)
+//
+// For every line along the sweep axis and every component q of (u, v, w):
+//   r = -1/2 (conv * D1 q + D1d (q * conv)) + nu * D2 q   [+ acc]
+// where conv is the component aligned with the axis. D1, D2 and D1d are the
+// band-truncated resolved compact operators, given as per-output-block
+// slices (ops/banded.py): for output block b of BS points, the window of
+// BS + 2W input points starting at b*BS - W (periodic wrap).
+//   sa = [D1; D2] (nb, 2BS, WIN) and da = D1s (nb, BS, WIN) for the aligned
+//   component; st = [D1s; D2s] and dt = D1 for the transverse ones.
+// With UPD the epilogue also writes rhs = r and
+//   u' = base + dtc0 * r + sum_j dtc_{j+1} * old_j,
+// the Adams-Bashforth update (base = the sweep's own u, olds = the
+// derivative history) or the Runge-Kutta substage update (make_fused_
+// transeq_rk, pallas_kernels.py:944-995: olds = the earlier stage
+// derivatives with a nonzero coefficient, NOLDS = 0, 2 or 3 for the RK1-4
+// tableaus; base = u at the first substage, else the step-initial field f0,
+// read as three more row streams: BASE_SEP). u' never aliases u (other
+// blocks read its windows) or f0 (later substages read it); rhs may alias
+// acc.
+// Reduced precision (PREC, template flags; x3d2_tpu's olds_dtype and
+// acc_dtype, X3D2_BF16_OLDS and X3D2_BF16_ACC, pallas_kernels.py:304-326,
+// :448-460): with OLDS_BF16 the AB history is read as bfloat16 and widened
+// before its coefficient multiply, rhs is stored rounded to bfloat16
+// (round to nearest even, as astype and torch's .to do), and the update
+// gains the error feedback dtc4 * (r - bf16(r)), in the order
+//   u' = base + dtc0 r + sum_j dtc_{j+1} old_j + dtc4 (r - bf16(r));
+// with ACC_BF16 the cross-direction partials are bfloat16: the accumulate
+// input is read as bfloat16 and widened, a sweep without the update stores
+// its partial rounded to bfloat16. Arithmetic stays float32 in registers.
+// The xdiv variant (the x sweep with the AB epilogue only; the xdiv variant
+// of _transeq_kernel_v3, pallas_kernels.py:202-211, :327-364) also emits
+// the projection's forward x transforms of the updated velocities,
+//   du = [Me_s (u'1 + u'2); Mo_s (u'1 - u'2)], dv, dw likewise with Ix,
+// modes in block-parity order: x block b of u' contributes
+// Me[:, cols(b)] u'_b to the even modes and +/- Mo[:, cols(b)] u'_b to the
+// odd ones (sign by input half), summed over the nb blocks of x.
+// The species sweep computes, for each of nsp <= 8 scalars phi_s with its
+// own diffusivity nu_s, the aligned component's function with conv the
+// velocity component along the axis:
+//   r_s = -1/2 (conv * D1 phi_s + D1s (phi_s * conv)) + nu_s * D2 phi_s
+//         [+ acc_s].
+//
+// Bound on an H100 (W = 16; W = 32 in brackets): the function needs the
+// 2W + 1 = 33 [65] band taps of each operator, 3 components x 3 operators
+// x 33 = 297 [585] FMA per point, about 1.2 [2.4] ms per 512^3 sweep at
+// the 67 TFLOP/s FP32 rate; the 6, 9 and 18 field passes of the z, x+acc
+// and y+acc+AB3 sweeps take 0.96, 1.44 and 2.88 ms at 3.35 TB/s. The
+// kernel's block rows are BS + 2W = 96 wide in both geometries (864 FMA
+// per point, 2.9x [1.5x] the need): a choice of this design, which keeps
+// each block's operators dense, not a need of the function. The species sweep
+// with 2 scalars needs 198 FMA per point and moves 5 (z) or 7 (x, y +
+// acc) field passes: 0.82 ms of operations and 1.12 ms of bytes at 512^3.
+// What the design does about it: a block stages both operator pairings of
+// its output block (147 KB at BS = 64; 74 KB at BS = 32) once and walks
+// many line tiles with them, so the operators cost no device-memory
+// traffic per tile. Each thread keeps an RPT-row x 2-line register tile of
+// three accumulators (RPT = BS / 8: 8 rows, 4 at BS = 32), so one k step
+// does 6 RPT FMAs against 3 RPT / 4 broadcast 16-byte shared-memory loads
+// of operator rows and 4 conflict-free loads of field values. The field
+// window of a 64-line tile (3 x 96 x 64 floats) is read from device
+// memory once, and the next tile's windows load into registers while the
+// current tile computes (one block per SM, so the overlap is within the
+// block).
+//
+// Why BS = 32 at W = 32: the window BS + 2W stays 96, so a block holds its
+// operators (74 KB) and three windows (75 KB) in 149 KB of the 227 KB an
+// SM allows, and each output point costs the same 96 FMA per operator as
+// at W = 16. At BS = 64 the window would be 128 wide: 196 KB of operators
+// alone. The price: twice the operator blocks per axis (n / 32), and
+// half the FMA per field load in the k loop.
+//
+// The species sweep keeps what the TPU kernel exists for (pallas_kernels.py
+// :1028-1035): the conv window is read from device memory once per tile for
+// all scalars. It stages only the aligned pairing (sa, da: 74 KB); a tile's
+// conv window stays resident while the block walks the scalars through a
+// second window. The next scalar's window (or, after the last, the next
+// tile's conv and first scalar: two windows for one scalar's compute) is
+// in flight meanwhile by asynchronous copies straight into a second buffer
+// of each window, so no registers hold it: 172 KB of shared memory (137 KB
+// at BS = 32), one block per SM.
+//
+// The xdiv variant is a kernel of its own (transeq_xdiv_kernel). The TPU
+// kernel carries the sum over x blocks in scratch memory along its
+// sequential innermost grid axis; blocks of a CUDA grid run in no order.
+// So here one block owns a line tile over the whole of x: per component it
+// walks the nb x blocks in order, and each thread keeps its share of the
+// transform's result (n modes x 64 lines per block: 64 accumulators a
+// thread at n = 256 in both geometries, n / BS passes of RPT rows x 2
+// lines: 4 passes of 8 rows at BS = 64, 8 of 4 at BS = 32) in registers
+// across them, then writes du, dv or dw once. No partial sums leave the chip, nothing is reduced across blocks
+// and no atomics are used, so a run repeats bit for bit. On a uniform
+// periodic axis the operator blocks of all x blocks are equal (the
+// operators are circulant and BS divides n; the wrapper checks it), so
+// the block stages them once, as the sweep does. After a block's sweep
+// epilogue u'_b goes from registers to shared memory, and the block's BS
+// columns of the transform pass through 8 KB of shared memory, 8 rows of
+// k at a time, the next chunk in flight from L2 meanwhile. The price of
+// the component-outer order is that the conv window (u) is read once per
+// component: 5 window reads per x block where the sweep needs 3.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace sweep {
+
+// PREC flags of the sweep kernels
+constexpr int OLDS_BF16 = 1;      // history in, rhs out as bfloat16
+constexpr int ACC_BF16 = 2;       // partials in (and out without UPD)
+
+constexpr int TL = 64;            // lines per tile
+constexpr int NT = 256;           // threads per block
+constexpr int XDIV_MAX_N = 256;   // xdiv: most points along x
+constexpr int XK = 8;             // xdiv: rows of the transform per chunk
+constexpr int MAX_SPECIES = 8;    // scalars per species launch
+
+// The block geometry: BS output points per block along the sweep, band
+// half-width W.
+template <int BS, int W>
+struct Geo {
+  static constexpr int WIN = BS + 2 * W;         // window length
+  static constexpr int RPT = BS / (NT / 32);     // output rows per thread
+  static constexpr int PER_THREAD = WIN * TL / NT;  // window elements
+  // xdiv: passes of the 8 warps over the modes, BS modes a pass (64
+  // accumulators a thread at n = 256)
+  static constexpr int XDIV_NP = XDIV_MAX_N / BS;
+  static constexpr int MAT_FLOATS = 2 * (WIN * 2 * BS) + 2 * (WIN * BS);
+  static_assert(RPT % 4 == 0 && RPT * (NT / 32) == BS,
+                "each warp owns RPT rows, a multiple of a float4");
+  static_assert(WIN * TL % NT == 0, "threads must tile the window");
+  static_assert(XK * XDIV_MAX_N <= (WIN - BS) * TL &&
+                    XK * XDIV_MAX_N / 4 <= 2 * NT && BS % XK == 0,
+                "a chunk of the transform must fit beside u'_b in one window");
+};
+
+struct SweepArgs {
+  const float* f[3];               // u, v, w
+  const float* sa;
+  const float* st;
+  const float* da;
+  const float* dt;
+  const void* acc[3];              // float, or bfloat16 with ACC_BF16
+  const void* old[3][3];           // old[j][c]; bfloat16 with OLDS_BF16
+  void* out[3];                    // r (bfloat16 with ACC_BF16), or u'
+  void* rhs[3];                    // UPD only; bfloat16 with OLDS_BF16
+  int n0, n1, n2;
+  float nu;
+  float dtc[5];                    // [4]: the error feedback (OLDS_BF16)
+  // xdiv only
+  const float* xm[2];              // Sx, Ix slices [nb][BS][n0], sign folded
+  float* div[3];                   // du, dv, dw
+  // BASE_SEP only: the update's base (the RK step-initial fields)
+  const float* base[3];
+};
+
+struct SpeciesArgs {
+  const float* conv;               // the velocity component along the axis
+  const float* sa;                 // [D1; D2] (nb, 2BS, WIN)
+  const float* da;                 // D1s (nb, BS, WIN)
+  const float* phi[MAX_SPECIES];
+  const float* acc[MAX_SPECIES];   // ACC only
+  float* out[MAX_SPECIES];
+  float nu[MAX_SPECIES];
+  int nsp;
+  int n0, n1, n2;
+};
+
+template <int AXIS>
+__host__ __device__ constexpr int ldw() {
+  // z-sweep windows are written to shared memory along the sweep index:
+  // one pad column keeps those transposing stores free of bank conflicts
+  return AXIS == 2 ? TL + 1 : TL;
+}
+
+template <int BS, int W, int AXIS>
+constexpr size_t smem_bytes() {
+  using G = Geo<BS, W>;
+  return sizeof(float) * (size_t)(G::MAT_FLOATS + 3 * G::WIN * ldw<AXIS>());
+}
+
+// the species sweep: the aligned pairing, and two buffers each of the conv
+// window and of one scalar's
+template <int BS, int W, int AXIS>
+constexpr size_t species_smem_bytes() {
+  using G = Geo<BS, W>;
+  return sizeof(float) * (size_t)(G::WIN * 2 * BS + G::WIN * BS +
+                                  4 * G::WIN * ldw<AXIS>());
+}
+
+// Offsets of one line tile: element (line l, sweep index g) of a field is
+// at base + l * lstride + g * sstride.
+template <int AXIS>
+__device__ __forceinline__ void tile_geometry(int n0, int n1_, int n2_,
+                                              long long t, long long& base,
+                                              long long& lstride,
+                                              long long& sstride, int& n) {
+  const long long n1 = n1_, n2 = n2_;
+  if (AXIS == 0) {
+    n = n0;
+    base = t * TL;
+    lstride = 1;
+    sstride = n1 * n2;
+  } else if (AXIS == 1) {
+    n = n1_;
+    const long long per = n2 / TL;
+    base = (t / per) * n1 * n2 + (t % per) * TL;
+    lstride = 1;
+    sstride = n2;
+  } else {
+    n = n2_;
+    base = t * TL * n2;
+    lstride = n2;
+    sstride = 1;
+  }
+}
+
+// Window element i of a tile as (sweep index k, line l): consecutive i run
+// along the contiguous axis of the field (k for the z sweep, l otherwise),
+// so consecutive threads read consecutive addresses.
+template <int WIN, int AXIS>
+__device__ __forceinline__ void window_coords(int i, int& k, int& l) {
+  if (AXIS == 2) {
+    l = i / WIN;
+    k = i - l * WIN;
+  } else {
+    k = i / TL;
+    l = i - k * TL;
+  }
+}
+
+// Offset from the tile base of window element (k, l), periodic along the
+// sweep (n >= W, so one wrap suffices).
+template <int AXIS>
+__device__ __forceinline__ long long window_offset(int k, int l, int k0,
+                                                   int n, long long ls,
+                                                   long long ss) {
+  int g = k0 + k;
+  g = g < 0 ? g + n : (g >= n ? g - n : g);
+  return AXIS == 2 ? (long long)l * ls + g : (long long)g * ss + l;
+}
+
+// A thread's share of the window of field f for the tile at base, into
+// registers (a load that can be in flight while the block computes)...
+template <int BS, int W, int AXIS>
+__device__ __forceinline__ void fetch_window(
+    const float* f, long long base, int k0, int n, long long ls, long long ss,
+    float (&pre)[Geo<BS, W>::PER_THREAD]) {
+  using G = Geo<BS, W>;
+#pragma unroll
+  for (int m = 0; m < G::PER_THREAD; ++m) {
+    int k, l;
+    window_coords<G::WIN, AXIS>(threadIdx.x + m * NT, k, l);
+    pre[m] = f[base + window_offset<AXIS>(k, l, k0, n, ls, ss)];
+  }
+}
+
+// ...and from registers into the window's place in shared memory.
+template <int BS, int W, int AXIS>
+__device__ __forceinline__ void put_window(
+    float* dst, const float (&pre)[Geo<BS, W>::PER_THREAD]) {
+  using G = Geo<BS, W>;
+#pragma unroll
+  for (int m = 0; m < G::PER_THREAD; ++m) {
+    int k, l;
+    window_coords<G::WIN, AXIS>(threadIdx.x + m * NT, k, l);
+    dst[k * ldw<AXIS>() + l] = pre[m];
+  }
+}
+
+// A thread's share of the window of field f straight into shared memory
+// by asynchronous copies (cp.async, no registers held); complete after
+// cp_async_wait() and a barrier.
+template <int BS, int W, int AXIS>
+__device__ __forceinline__ void copy_window_async(float* dst, const float* f,
+                                                  long long base, int k0,
+                                                  int n, long long ls,
+                                                  long long ss) {
+  using G = Geo<BS, W>;
+#pragma unroll 4
+  for (int m = 0; m < G::PER_THREAD; ++m) {
+    int k, l;
+    window_coords<G::WIN, AXIS>(threadIdx.x + m * NT, k, l);
+    const unsigned to = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + k * ldw<AXIS>() + l));
+    const float* from = f + base + window_offset<AXIS>(k, l, k0, n, ls, ss);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+                 "l"(from)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The RPT output rows of one line at row0 (stride ss along the sweep):
+// along z they are contiguous and 16-byte aligned, RPT / 4 float4 accesses.
+template <int RPT, int AXIS>
+__device__ __forceinline__ void load_rows(const float* p, long long row0,
+                                          long long ss, float (&v)[RPT]) {
+  if (AXIS == 2) {
+#pragma unroll
+    for (int h = 0; h < RPT / 4; ++h) {
+      const float4 x = *reinterpret_cast<const float4*>(p + row0 + 4 * h);
+      v[4 * h] = x.x; v[4 * h + 1] = x.y; v[4 * h + 2] = x.z; v[4 * h + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) v[r] = p[row0 + r * ss];
+  }
+}
+
+template <int RPT, int AXIS>
+__device__ __forceinline__ void store_rows(float* p, long long row0,
+                                           long long ss, const float (&v)[RPT]) {
+  if (AXIS == 2) {
+#pragma unroll
+    for (int h = 0; h < RPT / 4; ++h)
+      *reinterpret_cast<float4*>(p + row0 + 4 * h) =
+          make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) p[row0 + r * ss] = v[r];
+  }
+}
+
+// The same rows of a float or (BF) bfloat16 field, widened to or rounded
+// from float32 (round to nearest even). Along z a thread's RPT bfloat16
+// rows are one aligned access (16 bytes at RPT = 8).
+template <int RPT, int AXIS, bool BF>
+__device__ __forceinline__ void load_rows_as(const void* p, long long row0,
+                                             long long ss, float (&v)[RPT]) {
+  if constexpr (!BF) {
+    load_rows<RPT, AXIS>(static_cast<const float*>(p), row0, ss, v);
+  } else {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p);
+    if constexpr (AXIS == 2) {
+      using V = typename std::conditional<RPT == 8, uint4, uint2>::type;
+      static_assert(RPT == 8 || RPT == 4, "one 8- or 16-byte access");
+      const V x = *reinterpret_cast<const V*>(q + row0);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int i = 0; i < RPT / 2; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) v[r] = __bfloat162float(q[row0 + r * ss]);
+    }
+  }
+}
+
+template <int RPT, int AXIS, bool BF>
+__device__ __forceinline__ void store_rows_as(void* p, long long row0,
+                                              long long ss,
+                                              const float (&v)[RPT]) {
+  if constexpr (!BF) {
+    store_rows<RPT, AXIS>(static_cast<float*>(p), row0, ss, v);
+  } else {
+    __nv_bfloat16* q = static_cast<__nv_bfloat16*>(p);
+    if constexpr (AXIS == 2) {
+      using V = typename std::conditional<RPT == 8, uint4, uint2>::type;
+      static_assert(RPT == 8 || RPT == 4, "one 8- or 16-byte access");
+      V x;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int i = 0; i < RPT / 2; ++i)
+        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      *reinterpret_cast<V*>(q + row0) = x;
+    } else {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        q[row0 + r * ss] = __float2bfloat16_rn(v[r]);
+    }
+  }
+}
+
+// Stage one operator pairing of output block b (s: [D1; D2]-shaped, d: one
+// BS-row operator), transposed to [k][row] so that a thread's RPT rows at
+// one k are RPT / 4 aligned float4 loads.
+template <int BS, int W>
+__device__ __forceinline__ void stage_pairing(const float* s, const float* d,
+                                              int b, float* ST, float* DT) {
+  constexpr int WIN = Geo<BS, W>::WIN;
+  const int tid = threadIdx.x;
+  s += (size_t)b * 2 * BS * WIN;
+  for (int i = tid; i < 2 * BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    ST[k * 2 * BS + row] = s[i];
+  }
+  d += (size_t)b * BS * WIN;
+  for (int i = tid; i < BS * WIN; i += NT) {
+    const int row = i / WIN, k = i - (i / WIN) * WIN;
+    DT[k * BS + row] = d[i];
+  }
+}
+
+// Both pairings of the momentum sweep.
+template <int BS, int W>
+__device__ __forceinline__ void stage_operators(const SweepArgs& a, int b,
+                                                float* SaT, float* StT,
+                                                float* DaT, float* DtT) {
+  stage_pairing<BS, W>(a.sa, a.da, b, SaT, DaT);
+  stage_pairing<BS, W>(a.st, a.dt, b, StT, DtT);
+}
+
+// The contraction of one component's window Q (conv window CV, which is Q
+// itself for the aligned component) with the block's operators: the
+// thread's RPT rows (from r0) x 2 lines (tx, tx + 32) of D1 q, D2 q and
+// D1d (q * conv).
+template <int BS, int W, int LDW>
+__device__ __forceinline__ void contract(
+    const float* Q, const float* CV, const float* S, const float* D, int tx,
+    int r0, float (&dq)[Geo<BS, W>::RPT][2], float (&d2)[Geo<BS, W>::RPT][2],
+    float (&dd)[Geo<BS, W>::RPT][2]) {
+  constexpr int RPT = Geo<BS, W>::RPT;
+  constexpr int WIN = Geo<BS, W>::WIN;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      dq[r][j] = 0.f;
+      d2[r][j] = 0.f;
+      dd[r][j] = 0.f;
+    }
+  }
+#pragma unroll 4
+  for (int k = 0; k < WIN; ++k) {
+    const float q0 = Q[k * LDW + tx];
+    const float q1 = Q[k * LDW + tx + 32];
+    const float p0 = q0 * CV[k * LDW + tx];
+    const float p1 = q1 * CV[k * LDW + tx + 32];
+    float m1[RPT], m2[RPT], m3[RPT];
+    const float4* s1 = reinterpret_cast<const float4*>(S + k * 2 * BS + r0);
+    const float4* s2 =
+        reinterpret_cast<const float4*>(S + k * 2 * BS + BS + r0);
+    const float4* s3 = reinterpret_cast<const float4*>(D + k * BS + r0);
+#pragma unroll
+    for (int h = 0; h < RPT / 4; ++h) {
+      const float4 x1 = s1[h], x2 = s2[h], x3 = s3[h];
+      m1[4 * h] = x1.x; m1[4 * h + 1] = x1.y;
+      m1[4 * h + 2] = x1.z; m1[4 * h + 3] = x1.w;
+      m2[4 * h] = x2.x; m2[4 * h + 1] = x2.y;
+      m2[4 * h + 2] = x2.z; m2[4 * h + 3] = x2.w;
+      m3[4 * h] = x3.x; m3[4 * h + 1] = x3.y;
+      m3[4 * h + 2] = x3.z; m3[4 * h + 3] = x3.w;
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      dq[r][0] = fmaf(m1[r], q0, dq[r][0]);
+      dq[r][1] = fmaf(m1[r], q1, dq[r][1]);
+      d2[r][0] = fmaf(m2[r], q0, d2[r][0]);
+      d2[r][1] = fmaf(m2[r], q1, d2[r][1]);
+      dd[r][0] = fmaf(m3[r], p0, dd[r][0]);
+      dd[r][1] = fmaf(m3[r], p1, dd[r][1]);
+    }
+  }
+}
+
+// The combine of the thread's line j (window column l, rows from r0):
+// r = -1/2 (conv dq + dd) + nu d2 [+ av].
+template <int RPT, int W, bool ACC, int LDW>
+__device__ __forceinline__ void line_rhs(float nu, int j, int l, int r0,
+                                         const float* CV,
+                                         const float (&dq)[RPT][2],
+                                         const float (&d2)[RPT][2],
+                                         const float (&dd)[RPT][2],
+                                         const float (&av)[RPT],
+                                         float (&res)[RPT]) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float conv = CV[(W + r0 + r) * LDW + l];
+    res[r] = -0.5f * (conv * dq[r][j] + dd[r][j]) + nu * d2[r][j];
+    if (ACC) res[r] += av[r];
+  }
+}
+
+// The epilogue of the thread's line j (window column l, rows from row0) of
+// component c: combine, accumulate, time update, stores. acc, the history
+// and the base may alias outputs (the same point, read before it is
+// written), so the compiler cannot move a load above an earlier store:
+// every load of a line is issued before its stores, one memory latency per
+// line. With UPD, un returns u'. PREC: the bfloat16 streams (see the head
+// of the file).
+template <int BS, int W, int AXIS, bool ACC, int NOLDS, bool UPD,
+          bool BASE_SEP, int PREC, int LDW>
+__device__ __forceinline__ void combine_line(
+    const SweepArgs& a, int c, int j, int l, int r0, long long row0,
+    long long ss, const float* Q, const float* CV,
+    const float (&dq)[Geo<BS, W>::RPT][2], const float (&d2)[Geo<BS, W>::RPT][2],
+    const float (&dd)[Geo<BS, W>::RPT][2], float (&un)[Geo<BS, W>::RPT]) {
+  constexpr int RPT = Geo<BS, W>::RPT;
+  static_assert(UPD || (NOLDS == 0 && !BASE_SEP), "history needs UPD");
+  constexpr bool OB = (PREC & OLDS_BF16) != 0;
+  constexpr bool AB = (PREC & ACC_BF16) != 0;
+  static_assert(!OB || (UPD && NOLDS > 0 && !BASE_SEP),
+                "a bfloat16 history is the AB update's");
+  float res[RPT], av[RPT], bv[RPT], ov[NOLDS > 0 ? NOLDS : 1][RPT];
+  if (ACC) load_rows_as<RPT, AXIS, AB>(a.acc[c], row0, ss, av);
+#pragma unroll
+  for (int jj = 0; jj < NOLDS; ++jj)
+    load_rows_as<RPT, AXIS, OB>(a.old[jj][c], row0, ss, ov[jj]);
+  if (BASE_SEP) load_rows<RPT, AXIS>(a.base[c], row0, ss, bv);
+  line_rhs<RPT, W, ACC, LDW>(a.nu, j, l, r0, CV, dq, d2, dd, av, res);
+  if (UPD) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      un[r] = (BASE_SEP ? bv[r] : Q[(W + r0 + r) * LDW + l]) +
+              a.dtc[0] * res[r];
+#pragma unroll
+      for (int jj = 0; jj < NOLDS; ++jj) un[r] += a.dtc[jj + 1] * ov[jj][r];
+      if (OB) {
+        // pre-pay the stored rhs's rounding while r is exact
+        const float rs = __bfloat162float(__float2bfloat16_rn(res[r]));
+        un[r] += a.dtc[4] * (res[r] - rs);
+      }
+    }
+    store_rows_as<RPT, AXIS, OB>(a.rhs[c], row0, ss, res);
+    store_rows_as<RPT, AXIS, false>(a.out[c], row0, ss, un);
+  } else {
+    store_rows_as<RPT, AXIS, AB>(a.out[c], row0, ss, res);
+  }
+}
+
+template <int BS, int W, int AXIS, bool ACC, int NOLDS, bool UPD,
+          bool BASE_SEP, int PREC>
+__global__ void __launch_bounds__(NT, 1)
+transeq_sweep_kernel(SweepArgs a, long long ntiles) {
+  using G = Geo<BS, W>;
+  constexpr int WIN = G::WIN, RPT = G::RPT;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LDW = ldw<AXIS>();
+  float* SaT = smem;                    // [WIN][2BS]
+  float* StT = SaT + WIN * 2 * BS;      // [WIN][2BS]
+  float* DaT = StT + WIN * 2 * BS;      // [WIN][BS]
+  float* DtT = DaT + WIN * BS;          // [WIN][BS]
+  float* F = DtT + WIN * BS;            // [3][WIN][LDW]
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  stage_operators<BS, W>(a, b, SaT, StT, DaT, DtT);
+
+  const int tx = tid & 31;
+  const int r0 = (tid >> 5) * RPT;
+  const float* CV = F + AXIS * WIN * LDW;
+
+  long long t = blockIdx.x;
+  if (t >= ntiles) return;
+  long long base, ls, ss;
+  int n;
+  tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
+  const int k0 = b * BS - W;
+  // the first tile's windows
+  for (int c = 0; c < 3; ++c) {
+    float pre[G::PER_THREAD];
+    fetch_window<BS, W, AXIS>(a.f[c], base, k0, n, ls, ss, pre);
+    put_window<BS, W, AXIS>(F + c * WIN * LDW, pre);
+  }
+  __syncthreads();
+
+  for (; t < ntiles; t += gridDim.x) {
+    const long long tn = t + gridDim.x;
+    const bool has_next = tn < ntiles;
+    long long nbase = 0, nls = 0, nss = 0;
+    int nn = n;
+    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+
+    // the two transverse components first, the aligned one last: its
+    // window is every component's conv. While a component computes, the
+    // next tile's window of that component is in flight into registers;
+    // it replaces the current one once all threads are done with it.
+#pragma unroll 1
+    for (int ci = 0; ci < 3; ++ci) {
+      const int c = ci == 2 ? AXIS : ci + (ci >= AXIS ? 1 : 0);
+      float pre[G::PER_THREAD];
+      if (has_next)
+        fetch_window<BS, W, AXIS>(a.f[c], nbase, k0, nn, nls, nss, pre);
+
+      const float* Q = F + c * WIN * LDW;
+      float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+      contract<BS, W, LDW>(Q, CV, (c == AXIS) ? SaT : StT,
+                           (c == AXIS) ? DaT : DtT, tx, r0, dq, d2, dd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = tx + 32 * j;
+        const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
+                               (long long)(b * BS + r0) * ss;
+        float un[RPT];
+        combine_line<BS, W, AXIS, ACC, NOLDS, UPD, BASE_SEP, PREC, LDW>(
+            a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
+      }
+
+      __syncthreads();  // every thread is done reading window c
+      if (has_next) put_window<BS, W, AXIS>(F + c * WIN * LDW, pre);
+    }
+    __syncthreads();  // the next tile's windows are complete
+    base = nbase;
+    ls = nls;
+    ss = nss;
+    n = nn;
+  }
+}
+
+// The xdiv variant: the x sweep with accumulate and the AB epilogue, which
+// also writes du = Sx u', dv = Ix v', dw = Ix w' (see the head of the
+// file). Grid (blocks); a block owns whole line tiles, all of x.
+template <int BS, int W, int NOLDS, int PREC>
+__global__ void __launch_bounds__(NT, 1)
+transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
+  using G = Geo<BS, W>;
+  constexpr int WIN = G::WIN, RPT = G::RPT, NP = G::XDIV_NP;
+  extern __shared__ __align__(16) float smem[];
+  float* SaT = smem;
+  float* StT = SaT + WIN * 2 * BS;
+  float* DaT = StT + WIN * 2 * BS;
+  float* DtT = DaT + WIN * BS;
+  float* Qw = DtT + WIN * BS;           // [WIN][TL] the component's window
+  float* Cw = Qw + WIN * TL;            // [WIN][TL] the conv (u) window
+  float* U = Cw + WIN * TL;             // [BS][TL]  u'_b
+  float* XS = U + BS * TL;              // [XK][n]   a chunk of the transform
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;
+  const int r0 = (tid >> 5) * RPT;
+  const int n = a.n0;
+  const int nb = n / BS;
+  const int npass = n / BS;             // BS modes per pass of the 8 warps
+  const int chunk4 = XK * n / 4;        // float4 per chunk: at most 2 * NT
+  const long long ss = (long long)a.n1 * a.n2;  // x stride; lines per field
+  // every x block has the operators of block 0 (checked by the wrapper)
+  stage_operators<BS, W>(a, 0, SaT, StT, DaT, DtT);
+
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long base = t * TL;
+#pragma unroll 1
+    for (int ci = 0; ci < 3; ++ci) {
+      const int c = ci == 2 ? 0 : ci + 1;  // v, w, then the aligned u
+      const float* Q = Qw;
+      const float* CV = c == 0 ? Qw : Cw;
+      float e[NP][RPT][2];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          e[p][r][0] = 0.f;
+          e[p][r][1] = 0.f;
+        }
+#pragma unroll 1
+      for (int b = 0; b < nb; ++b) {
+        const float4* X4 = reinterpret_cast<const float4*>(
+            a.xm[c == 0 ? 0 : 1] + (size_t)b * BS * n);
+        float4 xr[2];
+        auto fetch_x = [&](int kc) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (tid + q * NT < chunk4)
+              xr[q] = __ldg(X4 + (size_t)kc * chunk4 + tid + q * NT);
+        };
+        auto stage_x = [&]() {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (tid + q * NT < chunk4)
+              reinterpret_cast<float4*>(XS)[tid + q * NT] = xr[q];
+        };
+        // the windows of x block b (the barrier that ended the previous
+        // block's transform freed them)
+        const int k0 = b * BS - W;
+#pragma unroll 8
+        for (int m = 0; m < G::PER_THREAD; ++m) {
+          int k, l;
+          window_coords<WIN, 0>(tid + m * NT, k, l);
+          const long long off = base + window_offset<0>(k, l, k0, n, 1, ss);
+          Qw[k * TL + l] = a.f[c][off];
+          if (c != 0) Cw[k * TL + l] = a.f[0][off];
+        }
+        fetch_x(0);
+        __syncthreads();
+
+        float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+        contract<BS, W, TL>(Q, CV, c == 0 ? SaT : StT, c == 0 ? DaT : DtT,
+                            tx, r0, dq, d2, dd);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int l = tx + 32 * j;
+          const long long row0 = base + l + (long long)(b * BS + r0) * ss;
+          float un[RPT];
+          combine_line<BS, W, 0, true, NOLDS, true, false, PREC, TL>(
+              a, c, j, l, r0, row0, ss, Q, CV, dq, d2, dd, un);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) U[(r0 + r) * TL + l] = un[r];
+        }
+        stage_x();
+        __syncthreads();  // u'_b and the first chunk are in place
+
+        // e += X_b^T u'_b: a warp takes RPT modes of every BS, a thread its
+        // two lines
+        for (int kc = 0; kc < BS / XK; ++kc) {
+          if (kc + 1 < BS / XK) fetch_x(kc + 1);
+#pragma unroll
+          for (int kk = 0; kk < XK; ++kk) {
+            const int k = kc * XK + kk;
+            const float u0 = U[k * TL + tx];
+            const float u1 = U[k * TL + tx + 32];
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              if (p < npass) {
+                const float4* xs = reinterpret_cast<const float4*>(
+                    XS + kk * n + p * BS + r0);
+                float xv[RPT];
+#pragma unroll
+                for (int h = 0; h < RPT / 4; ++h) {
+                  const float4 x4 = xs[h];
+                  xv[4 * h] = x4.x;
+                  xv[4 * h + 1] = x4.y;
+                  xv[4 * h + 2] = x4.z;
+                  xv[4 * h + 3] = x4.w;
+                }
+#pragma unroll
+                for (int r = 0; r < RPT; ++r) {
+                  e[p][r][0] = fmaf(xv[r], u0, e[p][r][0]);
+                  e[p][r][1] = fmaf(xv[r], u1, e[p][r][1]);
+                }
+              }
+            }
+          }
+          __syncthreads();  // every thread is done reading this chunk
+          if (kc + 1 < BS / XK) {
+            stage_x();
+            __syncthreads();
+          }
+        }
+      }
+      // the sum over the x blocks is complete: mode p * BS + r0 + r
+      float* dst = a.div[c] + base;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        if (p < npass) {
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            const long long o = (long long)(p * BS + r0 + r) * ss;
+            dst[o + tx] = e[p][r][0];
+            dst[o + tx + 32] = e[p][r][1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The species sweep (see the head of the file). Grid (blocks per output
+// block, output blocks); a block stages its output block's aligned pairing
+// and walks line tiles, and within a tile the scalars.
+template <int BS, int W, int AXIS, bool ACC>
+__global__ void __launch_bounds__(NT, 1)
+species_sweep_kernel(SpeciesArgs a, long long ntiles) {
+  using G = Geo<BS, W>;
+  constexpr int WIN = G::WIN, RPT = G::RPT;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LDW = ldw<AXIS>();
+  float* SaT = smem;                    // [WIN][2BS]
+  float* DaT = SaT + WIN * 2 * BS;      // [WIN][BS]
+  float* Cw = DaT + WIN * BS;           // [WIN][LDW] the conv window
+  float* Qw = Cw + WIN * LDW;           // [WIN][LDW] one scalar's window
+  float* Cn = Qw + WIN * LDW;           // the buffers the next windows
+  float* Qn = Cn + WIN * LDW;           // arrive in
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  stage_pairing<BS, W>(a.sa, a.da, b, SaT, DaT);
+
+  const int tx = tid & 31;
+  const int r0 = (tid >> 5) * RPT;
+
+  long long t = blockIdx.x;
+  if (t >= ntiles) return;
+  long long base, ls, ss;
+  int n;
+  tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
+  const int k0 = b * BS - W;
+  copy_window_async<BS, W, AXIS>(Cw, a.conv, base, k0, n, ls, ss);
+  copy_window_async<BS, W, AXIS>(Qw, a.phi[0], base, k0, n, ls, ss);
+  cp_async_wait();
+  __syncthreads();
+
+  for (; t < ntiles; t += gridDim.x) {
+    const long long tn = t + gridDim.x;
+    const bool has_next = tn < ntiles;
+    long long nbase = 0, nls = 0, nss = 0;
+    int nn = n;
+    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+
+#pragma unroll 1
+    for (int s = 0; s < a.nsp; ++s) {
+      const bool last = s + 1 == a.nsp;
+      // in flight while scalar s computes: the next scalar's window of
+      // this tile, or after the last scalar the next tile's windows of the
+      // first scalar and of the conv (their buffers were last read before
+      // the previous barrier)
+      if (!last) {
+        copy_window_async<BS, W, AXIS>(Qn, a.phi[s + 1], base, k0, n, ls, ss);
+      } else if (has_next) {
+        copy_window_async<BS, W, AXIS>(Qn, a.phi[0], nbase, k0, nn, nls, nss);
+        copy_window_async<BS, W, AXIS>(Cn, a.conv, nbase, k0, nn, nls, nss);
+      }
+
+      float dq[RPT][2], d2[RPT][2], dd[RPT][2];
+      contract<BS, W, LDW>(Qw, Cw, SaT, DaT, tx, r0, dq, d2, dd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = tx + 32 * j;
+        const long long row0 = base + (AXIS == 2 ? l * ls : (long long)l) +
+                               (long long)(b * BS + r0) * ss;
+        float av[RPT], res[RPT];
+        if (ACC) load_rows<RPT, AXIS>(a.acc[s], row0, ss, av);
+        line_rhs<RPT, W, ACC, LDW>(a.nu[s], j, l, r0, Cw, dq, d2, dd, av,
+                                   res);
+        store_rows<RPT, AXIS>(a.out[s], row0, ss, res);
+      }
+
+      cp_async_wait();
+      __syncthreads();  // the next windows are complete, the current free
+      float* q = Qw;
+      Qw = Qn;
+      Qn = q;
+      if (last) {
+        float* c = Cw;
+        Cw = Cn;
+        Cn = c;
+      }
+    }
+    base = nbase;
+    ls = nls;
+    ss = nss;
+    n = nn;
+  }
+}
+
+template <int BS, int W, int AXIS, bool ACC, int NOLDS, bool UPD,
+          bool BASE_SEP, int PREC = 0>
+cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<BS, W, AXIS>();
+  auto kern =
+      transeq_sweep_kernel<BS, W, AXIS, ACC, NOLDS, UPD, BASE_SEP, PREC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
+template <int BS, int W, int NOLDS, int PREC>
+cudaError_t launch_xdiv(const SweepArgs& a, long long ntiles, int grid_x,
+                        cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<BS, W, 0>();
+  auto kern = transeq_xdiv_kernel<BS, W, NOLDS, PREC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_x, NT, smem, stream>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
+template <int BS, int W, int AXIS, bool ACC>
+cudaError_t launch_species(const SpeciesArgs& a, long long ntiles, int nb,
+                           int grid_x, cudaStream_t stream) {
+  constexpr size_t smem = species_smem_bytes<BS, W, AXIS>();
+  auto kern = species_sweep_kernel<BS, W, AXIS, ACC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(grid_x, nb), NT, smem, stream>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
+// The y sweep's AB update (1-3 history fields) at a reduced precision.
+template <int BS, int W, int PREC>
+cudaError_t launch_ab_y(int nolds, const SweepArgs& a, long long ntiles,
+                        int nb, int grid_x, cudaStream_t s) {
+  switch (nolds) {
+    case 1: return launch<BS, W, 1, true, 1, true, false, PREC>(
+        a, ntiles, nb, grid_x, s);
+    case 2: return launch<BS, W, 1, true, 2, true, false, PREC>(
+        a, ntiles, nb, grid_x, s);
+    case 3: return launch<BS, W, 1, true, 3, true, false, PREC>(
+        a, ntiles, nb, grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The reduced-precision instances (WITH_PREC): those of the fused AB
+// chains, the partial sweeps with bfloat16 partials (z without, x and y
+// with accumulate) and the y sweep's AB update with a bfloat16 history,
+// partials or both.
+template <int BS, int W, int AXIS, bool WITH_PREC>
+cudaError_t dispatch_prec(int accumulate, int nolds, int upd, int base_sep,
+                          int prec, const SweepArgs& a, long long ntiles,
+                          int nb, int grid_x, cudaStream_t s) {
+  if constexpr (WITH_PREC) {
+    if (!upd) {
+      if (prec != ACC_BF16 || nolds != 0 || base_sep)
+        return cudaErrorInvalidValue;
+      if constexpr (AXIS == 2) {
+        if (!accumulate)
+          return launch<BS, W, 2, false, 0, false, false, ACC_BF16>(
+              a, ntiles, nb, grid_x, s);
+      } else {
+        if (accumulate)
+          return launch<BS, W, AXIS, true, 0, false, false, ACC_BF16>(
+              a, ntiles, nb, grid_x, s);
+      }
+      return cudaErrorInvalidValue;
+    }
+    if constexpr (AXIS == 1) {
+      if (!accumulate || base_sep) return cudaErrorInvalidValue;
+      switch (prec) {
+        case OLDS_BF16:
+          return launch_ab_y<BS, W, OLDS_BF16>(nolds, a, ntiles, nb, grid_x,
+                                               s);
+        case ACC_BF16:
+          return launch_ab_y<BS, W, ACC_BF16>(nolds, a, ntiles, nb, grid_x,
+                                              s);
+        case OLDS_BF16 | ACC_BF16:
+          return launch_ab_y<BS, W, OLDS_BF16 | ACC_BF16>(nolds, a, ntiles,
+                                                          nb, grid_x, s);
+      }
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The instances: every axis without an update and with the AB update (1-3
+// history fields); the RK substage updates (no history and the sweep's own
+// base; the step-initial base with 0, 2 or 3 stage derivatives, the RK1-4
+// tableaus' rows) on the y sweep only, which ends the RK chain; with
+// WITH_PREC the reduced-precision ones (dispatch_prec).
+template <int BS, int W, int AXIS, bool WITH_PREC>
+cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
+                          int prec, const SweepArgs& a, long long ntiles,
+                          int nb, int grid_x, cudaStream_t s) {
+  if (prec != 0)
+    return dispatch_prec<BS, W, AXIS, WITH_PREC>(accumulate, nolds, upd,
+                                                 base_sep, prec, a, ntiles,
+                                                 nb, grid_x, s);
+  if (!accumulate) {
+    if (nolds != 0 || upd) return cudaErrorInvalidValue;
+    return launch<BS, W, AXIS, false, 0, false, false>(a, ntiles, nb, grid_x,
+                                                       s);
+  }
+  if (!upd) {
+    if (nolds != 0 || base_sep) return cudaErrorInvalidValue;
+    return launch<BS, W, AXIS, true, 0, false, false>(a, ntiles, nb, grid_x,
+                                                      s);
+  }
+  if (!base_sep) {
+    switch (nolds) {
+      case 1: return launch<BS, W, AXIS, true, 1, true, false>(
+          a, ntiles, nb, grid_x, s);
+      case 2: return launch<BS, W, AXIS, true, 2, true, false>(
+          a, ntiles, nb, grid_x, s);
+      case 3: return launch<BS, W, AXIS, true, 3, true, false>(
+          a, ntiles, nb, grid_x, s);
+    }
+  }
+  if constexpr (AXIS == 1) {
+    if (!base_sep && nolds == 0)
+      return launch<BS, W, 1, true, 0, true, false>(a, ntiles, nb, grid_x, s);
+    if (base_sep) {
+      switch (nolds) {
+        case 0: return launch<BS, W, 1, true, 0, true, true>(
+            a, ntiles, nb, grid_x, s);
+        case 2: return launch<BS, W, 1, true, 2, true, true>(
+            a, ntiles, nb, grid_x, s);
+        case 3: return launch<BS, W, 1, true, 3, true, true>(
+            a, ntiles, nb, grid_x, s);
+      }
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The xdiv instances: 1-3 history fields at each precision built.
+template <int BS, int W, int PREC>
+cudaError_t dispatch_xdiv(int nolds, const SweepArgs& a, long long ntiles,
+                          int grid_x, cudaStream_t s) {
+  switch (nolds) {
+    case 1: return launch_xdiv<BS, W, 1, PREC>(a, ntiles, grid_x, s);
+    case 2: return launch_xdiv<BS, W, 2, PREC>(a, ntiles, grid_x, s);
+    case 3: return launch_xdiv<BS, W, 3, PREC>(a, ntiles, grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int BS, int W, int AXIS>
+cudaError_t dispatch_species(int accumulate, const SpeciesArgs& a,
+                             long long ntiles, int nb, int grid_x,
+                             cudaStream_t s) {
+  return accumulate
+             ? launch_species<BS, W, AXIS, true>(a, ntiles, nb, grid_x, s)
+             : launch_species<BS, W, AXIS, false>(a, ntiles, nb, grid_x, s);
+}
+
+inline long long lines_of(int axis, int n0, int n1, int n2) {
+  return axis == 0 ? (long long)n1 * n2
+         : axis == 1 ? (long long)n0 * n2
+                     : (long long)n0 * n1;
+}
+
+// The bodies of the C interface (each translation unit exports them for
+// its geometry; see transeq_sweep.cu).
+template <int BS, int W>
+int geometry(int* bs, int* w, int* tl, int* xdiv_max_nb, int* max_species) {
+  *bs = BS;
+  *w = W;
+  *tl = TL;
+  *xdiv_max_nb = Geo<BS, W>::XDIV_NP;
+  *max_species = MAX_SPECIES;
+  return 0;
+}
+
+template <int BS, int W, bool WITH_PREC>
+int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
+                 int xdiv, int prec, void* const* ptrs, int n0, int n1,
+                 int n2, float nu, const float* dtc, int grid_x,
+                 void* stream) {
+  SweepArgs a;
+  int i = 0;
+  for (int c = 0; c < 3; ++c) a.f[c] = static_cast<const float*>(ptrs[i++]);
+  a.sa = static_cast<const float*>(ptrs[i++]);
+  a.st = static_cast<const float*>(ptrs[i++]);
+  a.da = static_cast<const float*>(ptrs[i++]);
+  a.dt = static_cast<const float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.acc[c] = ptrs[i++];
+  for (int j = 0; j < 3; ++j)
+    for (int c = 0; c < 3; ++c) a.old[j][c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.out[c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.rhs[c] = ptrs[i++];
+  for (int j = 0; j < 2; ++j) a.xm[j] = static_cast<const float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.div[c] = static_cast<float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.base[c] = static_cast<const float*>(ptrs[i++]);
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+  a.nu = nu;
+  for (int j = 0; j < 5; ++j) a.dtc[j] = dtc[j];
+
+  const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
+  const int nb = n / BS;
+  const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (xdiv) {
+    if (axis != 0 || !accumulate || !upd || base_sep || n > XDIV_MAX_N)
+      return cudaErrorInvalidValue;
+    if (prec == 0) return dispatch_xdiv<BS, W, 0>(nolds, a, ntiles, grid_x, s);
+    if constexpr (WITH_PREC) {
+      switch (prec) {
+        case OLDS_BF16:
+          return dispatch_xdiv<BS, W, OLDS_BF16>(nolds, a, ntiles, grid_x, s);
+        case ACC_BF16:
+          return dispatch_xdiv<BS, W, ACC_BF16>(nolds, a, ntiles, grid_x, s);
+        case OLDS_BF16 | ACC_BF16:
+          return dispatch_xdiv<BS, W, OLDS_BF16 | ACC_BF16>(nolds, a, ntiles,
+                                                            grid_x, s);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  switch (axis) {
+    case 0: return dispatch_axis<BS, W, 0, WITH_PREC>(
+        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+    case 1: return dispatch_axis<BS, W, 1, WITH_PREC>(
+        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+    case 2: return dispatch_axis<BS, W, 2, WITH_PREC>(
+        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int BS, int W>
+int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
+                   int n0, int n1, int n2, const float* nus, int grid_x,
+                   void* stream) {
+  if (nsp < 1 || nsp > MAX_SPECIES) return cudaErrorInvalidValue;
+  SpeciesArgs a;
+  int i = 0;
+  a.conv = static_cast<const float*>(ptrs[i++]);
+  a.sa = static_cast<const float*>(ptrs[i++]);
+  a.da = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.phi[q] = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.acc[q] = static_cast<const float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q)
+    a.out[q] = static_cast<float*>(ptrs[i++]);
+  for (int q = 0; q < MAX_SPECIES; ++q) a.nu[q] = q < nsp ? nus[q] : 0.f;
+  a.nsp = nsp;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+
+  const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
+  const int nb = n / BS;
+  const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (axis) {
+    case 0: return dispatch_species<BS, W, 0>(accumulate, a, ntiles, nb,
+                                              grid_x, s);
+    case 1: return dispatch_species<BS, W, 1>(accumulate, a, ntiles, nb,
+                                              grid_x, s);
+    case 2: return dispatch_species<BS, W, 2>(accumulate, a, ntiles, nb,
+                                              grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sweep
+
+// The C interface of one geometry: ptrs of transeq_sweep_launch are u, v,
+// w, sa, st, da, dt, acc[3], old[j][c] (9, j-major), out[3], rhs[3], for
+// xdiv the Sx and Ix slices and du, dv, dw, then for base_sep the base
+// fields; unused entries may be null. prec: the PREC flags (OLDS_BF16 = 1,
+// ACC_BF16 = 2). dtc: 5 floats (the 5th: the error feedback of a bfloat16
+// history). grid_x: blocks per x block, or with xdiv blocks in all.
+// species_sweep_launch: nsp (1..MAX_SPECIES) scalars; ptrs conv, sa, da,
+// phi[MAX_SPECIES], acc[MAX_SPECIES], out[MAX_SPECIES], entries past nsp
+// (and acc without accumulate) may be null; nus: nsp floats; grid_x:
+// blocks per output block. Each returns the cudaError_t of the launch (0
+// on success).
+#define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC)                           \
+  extern "C" {                                                                \
+  int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,      \
+                             int* max_species) {                              \
+    return sweep::geometry<BS, W>(bs, w, tl, xdiv_max_nb, max_species);       \
+  }                                                                           \
+  int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,      \
+                           int base_sep, int xdiv, int prec,                  \
+                           void* const* ptrs, int n0, int n1, int n2,         \
+                           float nu, const float* dtc, int grid_x,            \
+                           void* stream) {                                    \
+    return sweep::sweep_launch<BS, W, WITH_PREC>(                             \
+        axis, accumulate, nolds, upd, base_sep, xdiv, prec, ptrs, n0, n1, n2, \
+        nu, dtc, grid_x, stream);                                             \
+  }                                                                           \
+  int species_sweep_launch(int axis, int accumulate, int nsp,                 \
+                           void* const* ptrs, int n0, int n1, int n2,         \
+                           const float* nus, int grid_x, void* stream) {      \
+    return sweep::species_launch<BS, W>(axis, accumulate, nsp, ptrs, n0, n1,  \
+                                        n2, nus, grid_x, stream);             \
+  }                                                                           \
+  const char* transeq_sweep_error_string(int err) {                           \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));                 \
+  }                                                                           \
+  }

@@ -16,12 +16,33 @@ numpy float64 (``M64``); ``CompactOp.M`` is a device tensor.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import schemes
+
+# x3d2_tpu's X3D2_MATMUL_PRECISION values (ops/compact.py:53-58) and the
+# kernel terms each selects (solver.py:124-127: 3 for HIGHEST, else 2)
+_PRECISION_TERMS = {"default": 2, "high": 2, "highest": 3}
+
+
+def matmul_terms() -> int:
+    """The kernel mode X3D2_MATMUL_PRECISION selects, as x3d2_tpu's
+    ``terms``: 3 for "highest" (the W = 32 sweep bands), 2 for "high" (the
+    default) and "default". Another value raises ValueError, as x3d2_tpu's
+    table lookup raises KeyError. Read when called, by NavierStokes.build
+    and the case's chain build (x3d2_tpu binds it at import), so a caller
+    may set it before building. The einsum paths it sets in x3d2_tpu are
+    full float32 products here in every mode (TF32 off, the package's
+    import)."""
+    val = os.environ.get("X3D2_MATMUL_PRECISION", "high")
+    if val not in _PRECISION_TERMS:
+        raise ValueError(f"X3D2_MATMUL_PRECISION={val!r}: one of "
+                         f"{sorted(_PRECISION_TERMS)}")
+    return _PRECISION_TERMS[val]
 
 
 def apply_matrix(M: torch.Tensor, f: torch.Tensor, axis: int) -> torch.Tensor:

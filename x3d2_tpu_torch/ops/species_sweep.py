@@ -1,5 +1,5 @@
 """Passive-scalar (species) transport sweeps over banded operator blocks:
-the wrapper of the species kernel of ``csrc/transeq_sweep.cu`` and its
+the wrapper of the species kernel of ``csrc/transeq_sweep.cuh`` and its
 plain PyTorch version.
 
 Counterpart of x3d2_tpu.ops.pallas_kernels ``_species_kernel_v3``
@@ -13,8 +13,10 @@ the axis (u for x, v for y, w for z):
           [+ acc_s]
 
 the aligned pairing of the momentum sweep (``SweepBlocks`` sa = [D1; D2],
-da = D1s, at the same BS and W). One launch serves up to MAX_SPECIES
-scalars, so the conv window is read once per tile for all of them.
+da = D1s, at the same BS and W: W=32 in x3d2_tpu's HIGHEST mode, as its
+species sweep, pallas_kernels.py:1131). One launch serves up to
+MAX_SPECIES scalars, so the conv window is read once per tile for all of
+them.
 
 ``species_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs ``species_sweep_plain`` for CPU tensors only.
@@ -28,15 +30,16 @@ import torch
 
 from ..common import resolve_device
 from . import transeq_sweep as ts
-from .transeq_sweep import BS, MAX_SPECIES, TL, W, SweepBlocks
+from .transeq_sweep import MAX_SPECIES, TL, W, SweepBlocks
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
 
 
-def variant_name(axis: int, accumulate: bool) -> str:
+def variant_name(axis: int, accumulate: bool, w: int = W) -> str:
+    """The instance's name; ``w32``: the HIGHEST mode's band."""
     return "species_sweep[" + "xyz"[axis] + (",acc" if accumulate else "") \
-        + "]"
+        + (f",w{w}" if w != W else "") + "]"
 
 
 def launch_counts() -> dict[str, int]:
@@ -53,7 +56,7 @@ def species_sweep_plain(phis, conv, blocks: SweepBlocks, nus, acc=None):
     products with the aligned blocks. Returns one tensor per scalar."""
     axis = blocks.axis
     sa, _, da, _ = blocks.mats(conv.dtype)
-    nb, bs, w = blocks.nb, BS, W
+    nb, bs, w = blocks.nb, blocks.bs, blocks.w
     shape = tuple(conv.shape)
     cw = ts._windows(conv, axis, nb, bs, w)
     cmid = cw[:, w:w + bs]
@@ -72,9 +75,10 @@ def species_sweep_plain(phis, conv, blocks: SweepBlocks, nus, acc=None):
 
 def _launch(phis, conv, blocks, nus, acc, out):
     axis = blocks.axis
+    bs, w = blocks.bs, blocks.w
     shape = tuple(conv.shape)
     nsp = len(phis)
-    if len(shape) != 3 or not ts.sweep_shape_ok(shape, axis):
+    if len(shape) != 3 or not ts.sweep_shape_ok(shape, axis, bs, w):
         raise ValueError(f"shape {shape} is not tileable by the sweep "
                          f"kernel along axis {axis}")
     if not 1 <= nsp <= MAX_SPECIES or len(nus) != nsp:
@@ -104,19 +108,19 @@ def _launch(phis, conv, blocks, nus, acc, out):
     ptrs += [t.data_ptr() for t in out] + pad
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     narr = (ctypes.c_float * nsp)(*(float(x) for x in nus))
-    nb = shape[axis] // BS
+    nb = shape[axis] // bs
     lines = shape[0] * shape[1] * shape[2] // shape[axis]
     sms = torch.cuda.get_device_properties(conv.device).multi_processor_count
     grid_x = max(1, min(lines // TL, sms // nb))
     stream = torch.cuda.current_stream(conv.device).cuda_stream
     with torch.cuda.device(conv.device):
-        err = ts._lib().species_sweep_launch(
+        err = ts._lib(w).species_sweep_launch(
             axis, int(acc is not None), nsp, parr, *shape, narr, grid_x,
             stream)
     if err != 0:
         raise RuntimeError(f"species_sweep launch failed: "
-                           f"{ts.launch_error(err)} ({err})")
-    name = variant_name(axis, acc is not None)
+                           f"{ts.launch_error(err, w)} ({err})")
+    name = variant_name(axis, acc is not None, w)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     return tuple(out)
 
@@ -142,19 +146,21 @@ def species_sweep(phis, conv, blocks: SweepBlocks, nus, acc=None, out=None):
 
 
 def make_species_sweep(ops_axis, nus, axis, shape, accumulate=False,
-                       device=None):
+                       device=None, terms=2):
     """One direction sweep as a function, the counterpart of
     make_species_dir_v3: fn(phis, conv[, acc][, out]) -> as species_sweep.
     Raises ValueError where x3d2_tpu does (no scalars, more than 8 per
-    launch) and where the kernel does not tile the shape."""
+    launch) and where the kernel does not tile the shape. terms: x3d2_tpu's
+    kernel mode (3: the W=32 band)."""
     nus = tuple(float(x) for x in nus)
     if not nus:
         raise ValueError("no species")
     if len(nus) > MAX_SPECIES:
         raise ValueError(f"species kernel capped at {MAX_SPECIES} per call")
-    if not ts.sweep_shape_ok(tuple(shape), axis):
+    if not ts.sweep_shape_ok(tuple(shape), axis, *ts.geometry(terms)):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
-    blocks = ts.build_sweep_blocks(ops_axis, axis, device=device)
+    blocks = ts.build_sweep_blocks(ops_axis, axis, device=device,
+                                   terms=terms)
 
     def fn(phis, conv, acc=None, out=None):
         if accumulate != (acc is not None) or len(phis) != len(nus):
@@ -165,7 +171,7 @@ def make_species_sweep(ops_axis, nus, axis, shape, accumulate=False,
     return fn
 
 
-def make_fused_species(solver_ops, nus, shape, device=None):
+def make_fused_species(solver_ops, nus, shape, device=None, terms=2):
     """All scalars' transport RHS in one chain of three sweeps (x3d2_tpu
     make_fused_species_v3, pallas_kernels.py:1209-1226): z sweep ->
     accumulating x sweep -> accumulating y sweep.
@@ -174,13 +180,14 @@ def make_fused_species(solver_ops, nus, shape, device=None):
 
     `out` (one tensor per scalar, e.g. the unbound rows of a stacked
     tensor) receives the z sweep's partials; the x and y sweeps add into
-    them in place."""
+    them in place. terms: x3d2_tpu's kernel mode."""
     device = resolve_device(device)
-    d2 = make_species_sweep(solver_ops[2], nus, 2, shape, device=device)
+    kw = dict(device=device, terms=terms)
+    d2 = make_species_sweep(solver_ops[2], nus, 2, shape, **kw)
     d0 = make_species_sweep(solver_ops[0], nus, 0, shape, accumulate=True,
-                            device=device)
+                            **kw)
     d1 = make_species_sweep(solver_ops[1], nus, 1, shape, accumulate=True,
-                            device=device)
+                            **kw)
 
     def fn(phis, u, v, w_, out=None):
         phis = tuple(phis)

@@ -1,6 +1,6 @@
 """Directional transport sweeps over banded operator blocks, with the
 fused time update: the wrapper of the Hopper kernel
-``csrc/transeq_sweep.cu`` and its plain PyTorch version.
+``csrc/transeq_sweep.cuh`` and its plain PyTorch version.
 
 Counterpart of the sweeps of x3d2_tpu.ops.pallas_kernels: the z sweep
 ``_pencil_kernel`` (pallas_kernels.py:671), the accumulating x sweep and
@@ -31,11 +31,17 @@ plain version): a bfloat16 stream is widened when read and rounded to
 nearest even when written.
 
 The operators are band-truncated per output block of BS points (window
-BS + 2W, periodic wrap; ops/banded.py). Every axis uses BS=64, W=16: the
-TPU's z blocking (128/64) is a lane rule, and W=16 passes the truncation
-check at 1e-6 for the uniform compact6 operators. The operators are f32
-(no bf16 hi/lo splits: those worked around the TPU matrix unit), and the
-kernel accumulates in f32 FMA.
+BS + 2W, periodic wrap; ops/banded.py). The geometry follows x3d2_tpu's
+mode (``terms``, X3D2_MATMUL_PRECISION; GEOMETRY): by default every axis
+uses BS=64, W=16 (the TPU's z blocking, 128/64, is a lane rule, and W=16
+passes the truncation check at 1e-6 for the uniform compact6 operators);
+in the HIGHEST mode (terms=3) W=32, x3d2_tpu's band on its non-lane axes
+(pallas_kernels.py:484, :747, :1131), here on every axis, with BS=32 so
+that the window stays 96 wide: the truncation falls to float32 epsilon
+(pallas_kernels.py:24-25, :480-483). Each geometry is its own library
+(``transeq_sweep.cu``, ``transeq_sweep_w32.cu``); the W=32 one is
+float32 only. The operators are f32 (no bf16 hi/lo splits: those worked
+around the TPU matrix unit), and the kernel accumulates in f32 FMA.
 
 ``transeq_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs ``transeq_sweep_plain`` for CPU tensors only.
@@ -54,10 +60,14 @@ from ..time_integrators import TimeIntegrator
 from .banded import banded_blocks
 from .parity import parity_split_folded, pfwd
 
-BS = 64        # output points per block along the sweep axis
-W = 16         # band half-width
+# (output points per block along the sweep axis, band half-width) by
+# x3d2_tpu's kernel terms (ops/compact.py matmul_terms), and the library
+# built at each band
+GEOMETRY = {2: (64, 16), 3: (32, 32)}
+_LIB_NAME = {16: "transeq_sweep", 32: "transeq_sweep_w32"}
+BS, W = GEOMETRY[2]   # the default mode's
 TL = 64        # lines per kernel tile
-_BAND_TOL = 1e-6
+_BAND_TOL = 1e-6      # x3d2_tpu's (pallas_kernels.py:143), both modes
 # the xdiv kernel keeps n / 4 accumulators a thread in registers across the
 # x blocks of a line tile: it is built for the sizes the step takes it at
 # (cases/base.py: max(dims) <= 256)
@@ -71,17 +81,23 @@ RK_INSTANCES = {(0, False), (0, True), (2, True), (3, True)}
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
+# what x3d2_tpu runs in the HIGHEST mode with a reduced-precision AB chain
+BF16_W32_GAP = ("_transeq_kernel_v3 olds_dtype/acc_dtype at w=32 (x3d2_tpu/"
+                "ops/pallas_kernels.py:172, :304-326, :448-460, terms=3): the "
+                "bfloat16 history and partials with X3D2_MATMUL_PRECISION="
+                "highest are not ported")
 
 
 def variant_name(axis: int, accumulate: bool, nolds: int,
                  xdiv: bool = False, upd: bool | None = None,
                  base_sep: bool = False, olds_bf16: bool = False,
-                 acc_bf16: bool = False) -> str:
+                 acc_bf16: bool = False, w: int = W) -> str:
     """The kernel instance's name. upd (default: nolds > 0) is the fused
     update; an update with history and the sweep's own base is the AB one
     (``ab<k>``), the others are the RK substage updates (``rk<nolds>``, and
     ``f0`` where the base is the step-initial field). ``bf16olds``,
-    ``bf16acc``: the bfloat16 history, the bfloat16 partials."""
+    ``bf16acc``: the bfloat16 history, the bfloat16 partials; ``w32``: the
+    HIGHEST mode's band (w, the band half-width)."""
     if upd is None:
         upd = nolds > 0
     tags = ["xyz"[axis]] + (["acc"] if accumulate else [])
@@ -90,20 +106,31 @@ def variant_name(axis: int, accumulate: bool, nolds: int,
     elif upd:
         tags.append(f"ab{nolds + 1}")
     tags += (["xdiv"] if xdiv else []) + (["bf16olds"] if olds_bf16 else []) \
-        + (["bf16acc"] if acc_bf16 else [])
+        + (["bf16acc"] if acc_bf16 else []) + ([f"w{w}"] if w != W else [])
     return "transeq_sweep[" + ",".join(tags) + "]"
 
 
+def geometry(terms: int) -> tuple[int, int]:
+    """(BS, W) of x3d2_tpu's kernel terms (2: the default mode, 3: HIGHEST)."""
+    if terms not in GEOMETRY:
+        raise ValueError(f"kernel terms {terms}: one of {sorted(GEOMETRY)}")
+    return GEOMETRY[terms]
+
+
 def _check_prec_instance(axis, accumulate, upd, nolds, base_sep, xdiv,
-                         olds_bf16, acc_bf16):
+                         olds_bf16, acc_bf16, w=W):
     """Raise ValueError for a reduced-precision variant the kernel is not
     built with. Built: those of the fused AB chains (x3d2_tpu
     make_fused_transeq_ab_v3, pallas_kernels.py:862-941): the partial
     sweeps with bfloat16 partials (z without accumulate, x and y with), and
     the AB update (history, the sweep's own base) of the y sweep or of the
-    xdiv sweep with a bfloat16 history, partials or both."""
+    xdiv sweep with a bfloat16 history, partials or both; at W=16 only:
+    at W=32 (the HIGHEST mode) they raise NotImplementedError
+    (BF16_W32_GAP)."""
     if not (olds_bf16 or acc_bf16):
         return
+    if w != W:
+        raise NotImplementedError(BF16_W32_GAP)
     if upd:
         ok = nolds > 0 and not base_sep and (axis == 1 or xdiv)
     else:
@@ -137,12 +164,15 @@ def reset_launch_counts() -> None:
 @dataclass
 class SweepBlocks:
     """Banded operator blocks of one axis: sa = [D1; D2] and st = [D1s; D2s]
-    as (nb, 2BS, WIN), da = D1s and dt = D1 as (nb, BS, WIN); float64
-    numpy masters plus device copies per dtype."""
+    as (nb, 2BS, WIN), da = D1s and dt = D1 as (nb, BS, WIN) at the block
+    geometry (bs, w); float64 numpy masters plus device copies per
+    dtype."""
 
     axis: int
     m64: dict
     device: torch.device
+    bs: int = BS
+    w: int = W
     _dev: dict = field(default_factory=dict)
 
     @property
@@ -170,18 +200,23 @@ class SweepBlocks:
         return self._dev[dtype]
 
 
-def build_sweep_blocks(ops_axis, axis, device=None) -> SweepBlocks:
-    """Banded blocks of one axis' transport operators at (BS, W) (the
-    pairings of x3d2_tpu make_transeq_dir_v3, pallas_kernels.py:508-513)."""
+def build_sweep_blocks(ops_axis, axis, device=None, terms=2) -> SweepBlocks:
+    """Banded blocks of one axis' transport operators at the geometry of
+    `terms` (the pairings of x3d2_tpu make_transeq_dir_v3,
+    pallas_kernels.py:508-513), checked at x3d2_tpu's truncation tolerance
+    (raises ValueError beyond it)."""
+    bs, w = geometry(terms)
+
     def bb(op):
-        return banded_blocks(op, W, BS, tol=_BAND_TOL)
+        return banded_blocks(op, w, bs, tol=_BAND_TOL)
 
     d1, d1s = ops_axis.der1st, ops_axis.der1st_sym
     d2, d2s = ops_axis.der2nd, ops_axis.der2nd_sym
     m64 = {"sa": np.concatenate([bb(d1), bb(d2)], axis=1),
            "st": np.concatenate([bb(d1s), bb(d2s)], axis=1),
            "da": bb(d1s), "dt": bb(d1)}
-    return SweepBlocks(axis=axis, m64=m64, device=resolve_device(device))
+    return SweepBlocks(axis=axis, m64=m64, device=resolve_device(device),
+                       bs=bs, w=w)
 
 
 @dataclass
@@ -195,6 +230,7 @@ class XdivMats:
 
     m64: dict
     device: torch.device
+    bs: int = BS
     _dev: dict = field(default_factory=dict)
 
     def mats(self, dtype):
@@ -212,9 +248,10 @@ class XdivMats:
             for k in ("sx", "ix"):
                 M = self.m64[k]
                 n, h = M.shape
-                nbh = h // BS
+                bs = self.bs
+                nbh = h // bs
                 sign = np.where(np.arange(n) < h, 1.0, -1.0)[:, None]
-                blocks = [(M[:, (b % nbh) * BS:(b % nbh + 1) * BS]
+                blocks = [(M[:, (b % nbh) * bs:(b % nbh + 1) * bs]
                            * (1.0 if b < nbh else sign)).T
                           for b in range(2 * nbh)]
                 out.append(torch.as_tensor(
@@ -224,12 +261,13 @@ class XdivMats:
         return self._dev["kernel"]
 
 
-def build_xdiv_mats(sx64, ix64, n, device=None) -> XdivMats:
+def build_xdiv_mats(sx64, ix64, n, device=None, bs=BS) -> XdivMats:
     """The xdiv transforms from the transform-folded x-stage divergence
-    matrices. Raises ValueError where x3d2_tpu does (pallas_kernels.py:
-    520-536): an odd block count, transforms that are not (n, n), no
+    matrices, cut for x blocks of `bs` points. Raises ValueError where
+    x3d2_tpu does (pallas_kernels.py:520-536): an odd count of its 64-point
+    blocks (its block in both modes), transforms that are not (n, n), no
     parity symmetry; and beyond the size the kernel is built for."""
-    if n % (2 * BS):
+    if n % (2 * BS) or n % (2 * bs):
         raise ValueError("xdiv fusion needs an even block count")
     if n > XDIV_MAX_N:
         raise ValueError(f"the xdiv sweep serves n <= {XDIV_MAX_N} along "
@@ -240,7 +278,7 @@ def build_xdiv_mats(sx64, ix64, n, device=None) -> XdivMats:
         if M64.shape != (n, n):
             raise ValueError("xdiv transforms must be (n, n)")
         m64[key] = np.concatenate(parity_split_folded(M64, 0))
-    return XdivMats(m64=m64, device=resolve_device(device))
+    return XdivMats(m64=m64, device=resolve_device(device), bs=bs)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +317,7 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
     axis = blocks.axis
     dtype = u.dtype
     sa, st, da, dt = blocks.mats(dtype)
-    nb, bs, w = blocks.nb, BS, W
+    nb, bs, w = blocks.nb, blocks.bs, blocks.w
     comps = (u, v, w_)
     shape = tuple(u.shape)
     cw = _windows(comps[axis], axis, nb, bs, w)
@@ -319,16 +357,16 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    """The kernel library, built and typed at first use."""
-    global _LIB
-    if _LIB is None:
+def _lib(w=W):
+    """The kernel library of band half-width w, built and typed at first
+    use."""
+    if w not in _LIBS:
         from .. import _build
 
-        lib = _build.load("transeq_sweep")
+        lib = _build.load(_LIB_NAME[w])
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.transeq_sweep_launch.argtypes = [
             i, i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
@@ -342,25 +380,27 @@ def _lib():
         geo = [i() for _ in range(5)]
         lib.transeq_sweep_geometry(*geo)
         geo = tuple(g.value for g in geo)
-        want = (BS, W, TL, XDIV_MAX_N // BS, MAX_SPECIES)
+        bs = next(b for b, ww in GEOMETRY.values() if ww == w)
+        want = (bs, w, TL, XDIV_MAX_N // bs, MAX_SPECIES)
         if geo != want:
-            raise RuntimeError(f"transeq_sweep.cu geometry {geo} differs "
+            raise RuntimeError(f"{_LIB_NAME[w]}.cu geometry {geo} differs "
                                f"from the wrapper's {want}")
-        _LIB = lib
-    return _LIB
+        _LIBS[w] = lib
+    return _LIBS[w]
 
 
-def sweep_shape_ok(shape, axis) -> bool:
-    """The kernel's tiling rules for one sweep axis."""
+def sweep_shape_ok(shape, axis, bs=BS, w=W) -> bool:
+    """The kernel's tiling rules for one sweep axis at the geometry (bs,
+    w)."""
     n0, n1, n2 = shape
     n = shape[axis]
-    return (n % BS == 0 and n >= BS + 2 * W and n2 % TL == 0
+    return (n % bs == 0 and n >= bs + 2 * w and n2 % TL == 0
             and (n0 * n1) % TL == 0)
 
 
-def launch_error(err) -> str:
+def launch_error(err, w=W) -> str:
     """The CUDA error string of a launch's return code."""
-    return _lib().transeq_sweep_error_string(err).decode()
+    return _lib(w).transeq_sweep_error_string(err).decode()
 
 
 def _check(t, shape, name, dtype=torch.float32):
@@ -387,8 +427,9 @@ def _reduced(dtype, what):
 def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
             base=None, acc_dtype=None):
     axis = blocks.axis
+    bs, w = blocks.bs, blocks.w
     shape = tuple(u.shape)
-    if len(shape) != 3 or not sweep_shape_ok(shape, axis):
+    if len(shape) != 3 or not sweep_shape_ok(shape, axis, bs, w):
         raise ValueError(f"shape {shape} is not tileable by the sweep "
                          f"kernel along axis {axis}")
     upd = dtc is not None
@@ -410,7 +451,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     olds_bf16, acc_bf16 = _reduced(hdt, "the history"), \
         _reduced(pdt, "the partials")
     _check_prec_instance(axis, acc is not None, upd, nolds, base is not None,
-                         xdiv is not None, olds_bf16, acc_bf16)
+                         xdiv is not None, olds_bf16, acc_bf16, w)
     for i, t in enumerate([u, v, w_] + list(base or ())):
         _check(t, shape, f"input {i}")
     for t in acc or ():
@@ -450,14 +491,17 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     ptrs += old_ptrs
     ptrs += [t.data_ptr() for t in outs[:3]]
     ptrs += [t.data_ptr() for t in outs[3:]] if upd else [null] * 3
-    nb = shape[axis] // BS
+    nb = shape[axis] // bs
     lines = shape[0] * shape[1] * shape[2] // shape[axis]
     divs = None
     if xdiv is not None:
         blocks.require_equal_blocks()
+        if xdiv.bs != bs:
+            raise ValueError(f"xdiv transforms cut for {xdiv.bs}-point "
+                             f"blocks, the sweep's are {bs}")
         xm = xdiv.kernel_mats()
         for M in xm:
-            _check(M, (nb, BS, shape[0]), "xdiv transform")
+            _check(M, (nb, bs, shape[0]), "xdiv transform")
         divs = [torch.empty_like(u) for _ in range(3)]
         ptrs += [M.data_ptr() for M in xm] + [t.data_ptr() for t in divs]
     else:
@@ -476,15 +520,15 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     stream = torch.cuda.current_stream(u.device).cuda_stream
     prec = (1 if olds_bf16 else 0) | (2 if acc_bf16 else 0)
     with torch.cuda.device(u.device):
-        err = _lib().transeq_sweep_launch(
+        err = _lib(w).transeq_sweep_launch(
             axis, int(acc is not None), nolds, int(upd), int(base is not None),
             int(xdiv is not None), prec, parr, *shape, float(nu), carr,
             grid_x, stream)
     if err != 0:
         raise RuntimeError(f"transeq_sweep launch failed: "
-                           f"{launch_error(err)} ({err})")
+                           f"{launch_error(err, w)} ({err})")
     name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
-                        base is not None, olds_bf16, acc_bf16)
+                        base is not None, olds_bf16, acc_bf16, w)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     if xdiv is not None:
         return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)
@@ -535,7 +579,7 @@ def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
 
 def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
                        device=None, xdiv_mats=None, upd=None, base_sep=False,
-                       olds_dtype=None, acc_dtype=None):
+                       olds_dtype=None, acc_dtype=None, terms=2):
     """One direction sweep as a function, the counterpart of
     make_transeq_dir_v3 / make_pencil_sweep:
     fn(u, v, w[, acc][, olds, dtc][, out][, base]) -> as transeq_sweep.
@@ -546,7 +590,8 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     build_xdiv_mats does, off the AB-fused x sweep, and when the operator
     blocks along x differ). olds_dtype, acc_dtype: bfloat16 for the
     reduced history and partials (None: the state's dtype), where the
-    kernel is built with them (_check_prec_instance)."""
+    kernel is built with them (_check_prec_instance). terms: x3d2_tpu's
+    kernel mode, 2 (default) or 3 (HIGHEST: the W=32 band)."""
     if upd is None:
         upd = nolds > 0
     if (upd or nolds) and not accumulate:
@@ -555,18 +600,19 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
         raise ValueError("history and a separate base need the update")
     if upd and (base_sep or not nolds):
         _check_rk_instance(axis, nolds, base_sep)
+    bs, w = geometry(terms)
     _check_prec_instance(axis, accumulate, upd, nolds, base_sep,
                          xdiv_mats is not None,
                          _reduced(olds_dtype, "the history"),
-                         _reduced(acc_dtype, "the partials"))
-    if not sweep_shape_ok(tuple(shape), axis):
+                         _reduced(acc_dtype, "the partials"), w)
+    if not sweep_shape_ok(tuple(shape), axis, bs, w):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
     xdiv = None
     if xdiv_mats is not None:
         if axis != 0 or not nolds:
             raise ValueError("xdiv fusion needs the AB-fused axis-0 sweep")
-        xdiv = build_xdiv_mats(*xdiv_mats, shape[0], device=device)
-    blocks = build_sweep_blocks(ops_axis, axis, device=device)
+        xdiv = build_xdiv_mats(*xdiv_mats, shape[0], device=device, bs=bs)
+    blocks = build_sweep_blocks(ops_axis, axis, device=device, terms=terms)
     if xdiv is not None:
         blocks.require_equal_blocks()
 
@@ -588,21 +634,23 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     return fn
 
 
-def make_fused_transeq(solver_ops, nu, shape, device=None):
+def make_fused_transeq(solver_ops, nu, shape, device=None, terms=2):
     """The full transport RHS in one chain of three sweeps (x3d2_tpu
     make_fused_transeq_v3, pallas_kernels.py:811-836): z sweep ->
-    accumulating x sweep -> accumulating y sweep.
+    accumulating x sweep -> accumulating y sweep, at the geometry of
+    `terms` (x3d2_tpu's kernel mode).
 
         fn(u, v, w) -> (r_u, r_v, r_w) summed over the directions
 
     The chain allocates only the z sweep's partials; the x and y sweeps add
     into them in place."""
     device = resolve_device(device)
-    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    kw = dict(device=device, terms=terms)
+    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw)
     d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
-                            device=device)
+                            **kw)
     d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
-                            device=device)
+                            **kw)
 
     def fn(u, v, w_):
         acc = d2(u, v, w_)
@@ -613,11 +661,13 @@ def make_fused_transeq(solver_ops, nu, shape, device=None):
     return fn
 
 
-def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None):
+def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None,
+                          terms=2):
     """Transport + Runge-Kutta substage update in one chain per substage
     (x3d2_tpu make_fused_transeq_rk, pallas_kernels.py:944-995): z sweep ->
     accumulating x sweep -> accumulating y sweep with the substage update
-    in its epilogue. Returns the per-substage functions
+    in its epilogue, at the geometry of `terms`. Returns the per-substage
+    functions
 
         stage_fns[i](u, v, w, f0, ks, dtc) -> ((u', v', w'), rhs)
 
@@ -631,15 +681,16 @@ def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None):
     over u, v, w or f0)."""
     device = resolve_device(device)
     ti = TimeIntegrator(f"RK{order}")
-    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, device=device)
+    kw = dict(device=device, terms=terms)
+    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw)
     d0 = make_transeq_sweep(solver_ops[0], nu, 0, shape, accumulate=True,
-                            device=device)
+                            **kw)
     stage_fns = []
     for istage in range(order):
         prev_nz = ti.rk_prev(istage)
         d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
                                 nolds=len(prev_nz), upd=True,
-                                base_sep=istage > 0, device=device)
+                                base_sep=istage > 0, **kw)
 
         def stage(u, v, w_, f0, ks, dtc, d1=d1, prev_nz=prev_nz,
                   istage=istage):
@@ -657,7 +708,7 @@ def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None):
 
 
 def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
-                          xdiv=None, olds_dtype=None, acc_dtype=None):
+                          xdiv=None, olds_dtype=None, acc_dtype=None, terms=2):
     """Transport + Adams-Bashforth update in one chain of three sweeps
     (x3d2_tpu make_fused_transeq_ab_v3, pallas_kernels.py:862, chain at
     :936-939): z sweep -> accumulating x sweep -> accumulating y sweep with
@@ -689,11 +740,13 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
     history and u' over the partials; with bfloat16 partials alone u' over
     the oldest history and rhs into new tensors; with both rhs over the
     partials and u' into new tensors. The caller's olds tuples are
-    therefore consumed."""
+    therefore consumed. terms: x3d2_tpu's kernel mode (3: the W=32 band;
+    with a reduced history or partials it raises NotImplementedError,
+    BF16_W32_GAP)."""
     device = resolve_device(device)
     olds_red = _reduced(olds_dtype, "the history")
     acc_red = _reduced(acc_dtype, "the partials")
-    kw = dict(device=device, acc_dtype=acc_dtype)
+    kw = dict(device=device, acc_dtype=acc_dtype, terms=terms)
     d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw)
 
     def final_out(acc, olds, like):
@@ -750,8 +803,10 @@ def transeq_sweep_supported(solver, shape) -> bool:
     two extents multiples of the in-tile ones, and every operator within
     its band at the truncation tolerance. The port keeps x3d2_tpu's choice
     (its own kernel tiles more: 64-point blocks and W=16 on every axis,
-    sweep_shape_ok, which these conditions imply). The kernel is float32:
-    the solver takes the sweeps for float32 only."""
+    or 32-point blocks and W=32 in the HIGHEST mode, sweep_shape_ok, which
+    these conditions imply). Like x3d2_tpu's gate it does not depend on the
+    mode. The kernel is float32: the solver takes the sweeps for float32
+    only."""
     shape = tuple(shape)
     for axis in range(3):
         o = solver.ops[axis]

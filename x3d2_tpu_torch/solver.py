@@ -40,6 +40,16 @@ Kernels run on CUDA tensors and their plain versions on CPU ones. On CUDA
 tensors a branch x3d2_tpu runs on a kernel the port lacks raises
 NotImplementedError naming it: the port never substitutes plain PyTorch
 for a kernel on the card.
+
+The switches x3d2_tpu's solver reads are read where it reads them:
+X3D2_PALLAS and X3D2_MATMUL_PRECISION in ``NavierStokes.build``
+(solver.py:106, :124-127: "0" takes the einsum paths above on either
+device, the dense products and the folded chain; "highest" builds the
+sweeps at the W=32 band, ops/compact.py matmul_terms), X3D2_PIPE3,
+X3D2_BFLY and X3D2_MERGED_X where the projection is built, and
+X3D2_MID_SPLIT where the slab's mid runs (``_slab_mid``, solver.py:512:
+"1" takes _div_solve_kernel and _grad_kernel, which the port lacks, and
+raises NotImplementedError there; the pipeline never reads it).
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ import torch
 
 from .common import DataLoc, resolve_device
 from .mesh import Mesh
-from .ops.compact import apply_matrix
+from .ops.compact import apply_matrix, matmul_terms
 from .ops.dirops import AxisOps, build_all_ops
 from .ops.matmul_poisson import MatmulPoisson
 from .ops import pressure_slab
@@ -77,6 +87,11 @@ _X_FWD, _X_INV = ("sx", "ix", "ix"), ("gxs", "gxi", "gxi")
 BFLY_GAP = ("X3D2_BFLY=0 takes the banded y branch of _pressure_mid_kernel "
             "with the dense Ty/Ti_y and the dense z stages (x3d2_tpu/ops/"
             "pallas_poisson.py:206-243, :283-310), not ported")
+# what X3D2_MID_SPLIT=1 takes where the slab's mid runs, on either device
+MID_SPLIT_GAP = ("X3D2_MID_SPLIT=1 takes the mid as two kernels, "
+                 "_div_solve_kernel and _grad_kernel (x3d2_tpu/ops/"
+                 "pallas_poisson.py:327, :340; solver.py:512-518), not "
+                 "ported")
 
 
 def transport_route(solver, shape) -> str:
@@ -130,11 +145,18 @@ class NavierStokes:
               device=None, nu_species=()) -> "NavierStokes":
         """poisson_method: only 'matmul' (separable real transforms) is
         ported; 'fft' and 'cg' raise NotImplementedError. nu_species: one
-        diffusivity per passive scalar."""
+        diffusivity per passive scalar. Reads X3D2_PALLAS ("0": no kernel
+        branch, the einsum paths on either device) and
+        X3D2_MATMUL_PRECISION (the sweeps' band: W=32 for "highest"; an
+        unknown value raises ValueError) now, as x3d2_tpu's build does;
+        the kernel mode is kept as ``_terms``."""
         if poisson_method != "matmul":
             raise NotImplementedError(
                 f"poisson_method {poisson_method!r} is not ported yet")
         device = resolve_device(device)
+        terms = matmul_terms()
+        # x3d2_tpu's switch of all its kernel branches (solver.py:106)
+        kernels = os.environ.get("X3D2_PALLAS", "1") != "0"
         ops = build_all_ops(mesh, dtype=dtype, device=device,
                             **(schemes or {}))
         poisson = MatmulPoisson(mesh, ops, dtype=dtype, device=device)
@@ -148,17 +170,19 @@ class NavierStokes:
         # products
         sweeps = species = v1 = None
         shape = mesh.dims(DataLoc.VERT)
-        route = transport_route(ns, shape)
+        route = transport_route(ns, shape) if kernels else "dense"
         if route == "sweeps" and dtype == torch.float32:
             try:
-                sweeps = make_fused_transeq(ops, nu, shape, device=device)
+                sweeps = make_fused_transeq(ops, nu, shape, device=device,
+                                            terms=terms)
                 if ns.nu_species and len(ns.nu_species) <= MAX_SPECIES:
                     species = make_fused_species(ops, ns.nu_species, shape,
-                                                 device=device)
+                                                 device=device, terms=terms)
             except ValueError:
                 pass
         elif route == "v1":
             v1 = make_transeq_dense(ops, nu, shape, device=device)
+        object.__setattr__(ns, "_terms", terms)
         object.__setattr__(ns, "_transport", route)
         object.__setattr__(ns, "_sweeps", sweeps)
         object.__setattr__(ns, "_v1", v1)
@@ -168,7 +192,7 @@ class NavierStokes:
         # _projection_gap: why the card cannot run the kernels x3d2_tpu
         # runs here (None where it can, or where x3d2_tpu runs none)
         pipe = slab = gap = None
-        proute = projection_route(ns)
+        proute = projection_route(ns) if kernels else None
         if proute == "pipe3" and os.environ.get("X3D2_PIPE3", "1") == "0":
             # x3d2_tpu builds the slab alone (solver.py:161-168)
             proute = "slab"
@@ -471,7 +495,11 @@ class NavierStokes:
         """The slab projection up to the gradient x stage: (q or None,
         p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
         inputs (the xdiv sweep's), so the x stage is skipped; without
-        want_q the spectral solution is not returned."""
+        want_q the spectral solution is not returned. Raises
+        NotImplementedError with X3D2_MID_SPLIT=1, read here as x3d2_tpu
+        reads it (solver.py:512)."""
+        if os.environ.get("X3D2_MID_SPLIT", "0") == "1":
+            raise NotImplementedError(MID_SPLIT_GAP)
         du, dv, dw = (divs if divs is not None
                       else self._x_stage(_X_FWD, (u, v, w)))
         return pressure_slab.pressure_mid(du, dv, dw, self._slab,
