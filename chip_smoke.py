@@ -10,8 +10,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
 2. Build: compiles every kernel source (csrc/transeq_sweep.cu and
    csrc/transeq_sweep_w32.cu, the sweep and species kernels of
    csrc/transeq_sweep.cuh at W = 16 and at the HIGHEST mode's W = 32,
-   csrc/pressure_pipe.cu and csrc/transeq_dense.cu) with nvcc for sm_90a,
-   one nvcc per source, all started together.
+   csrc/pressure_pipe.cu, csrc/pipe_c_d2.cu and csrc/transeq_dense.cu) with
+   nvcc for sm_90a, one nvcc per source, all started together.
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
    Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
@@ -43,7 +43,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
      inputs the previous stage's plain version gives;
    - the slab projection: x_div3, the mid with q, the mid without q (its
-     outputs bit-equal to the mid with q) and x_gradsub3.
+     outputs bit-equal to the mid with q), the mid's halves div_solve and
+     grad (X3D2_MID_SPLIT=1, path BS; bit-equal to the mid) and
+     x_gradsub3;
+   - stage C with the carry, pipe_c[d2] (X3D2_D2C=1, path D), on the
+     inputs the plain pipe_a, pipe_b give: u', v', w' as pipe_c, the carry
+     to 1e-5 of plain float32 and to 5e-7 of the plain float64 carry of
+     the kernel's own u', v', w' (its function; the carry of plain float64
+     end to end printed beside it), timed beside pipe_c and the z sweep it
+     takes out of the step.
    At 256^3 (path A, and the same grid with X3D2_XDIV_FUSED=0): the
    sweeps z; y accumulate; the xdiv sweep (x accumulate + AB3 + the
    x-transformed divergence inputs) with the steady and a startup row, run
@@ -56,9 +64,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    bfloat16 partials, the xdiv sweep with a bfloat16 history alone, with
    bfloat16 partials alone and with both) and y accumulate + AB3 with a
    bfloat16 history; at W = 32 (phase 8's HIGHEST chains) z, x and y
-   accumulate, the xdiv sweep and the species sweeps;
+   accumulate, y accumulate + AB3 (the carry's chain), the xdiv sweep and
+   the species sweeps;
    the species sweeps; the mid without q and x_gradsub3, the mid also on
-   white noise; the one-field parity x applies.
+   white noise; the one-field parity x applies; the mid's halves, the mid
+   with q and pipe_c[d2] (phase 8's X3D2_MID_SPLIT=1 and X3D2_D2C=1
+   chains).
    At 128^3 (path T128): the dense transport sweeps z, x, y, held to 5e-7
    * scale of plain f64 (the bound of x3d2_tpu's HIGHEST mode), and the
    pipeline's stages.
@@ -70,6 +81,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    mid over the 512 x planes with the Nyquist mask, on plane waves and on
    white noise; the solve epilogue with the mask on tables made regular
    on the zeroed line (the line exactly 0, the rest as the plain version).
+   At (65, 128, 128) (phase 8's cylinders): the dense x applies, the mid
+   with q and its halves.
+   X3D2_BFLY=0 (the slab's dense forms; path BD at 512^3 and phase 8's
+   dense chains at 128 x 128 x 256): the dense x applies of a periodic x
+   (each beside one torch.matmul / torch.addmm), the dense mid with q
+   (and at 128 x 128 x 256 without q, and its halves div_solve[dense] and
+   grad[dense]) on plane waves, and on white noise (mid_on_noise). The
+   dense y and z applies are launches of the mid, not wrappers of their
+   own: they are held inside it.
    max |kernel - plain f32| <= 1e-5 * scale and max |kernel - plain f64|
    <= 3e-5 * scale (scale = max |plain f64|); kernel and plain times (CUDA
    events, median) beside the bound. The mid's inputs there are plane
@@ -104,12 +124,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - path HI: the main path, 10 steps;
    - path HK: with compensated stepping (the production-accuracy mode),
      10 steps, the launches of path K at W = 32.
+4d. Path D: the main path with X3D2_D2C=1, 10 steps: per step the x
+   and y sweeps from the carried partials, pipe_a, pipe_b and pipe_c[d2]
+   (3 launches), and one boot z sweep per run (the partials made anew
+   from the state entering run); one step counted alone shows no z sweep;
+   the main path's checks; ms/step.
 5. Path B: the same case with keep_pressure=True, 10 steps: 3 sweeps, 1
    x_div3, the mid's 6 and 1 x_gradsub3 launch per step and no pipeline
    launch; the same KE and divergence checks; the physical pressure of the
    last step against the transform-folded chain's on the same input
    (p_tolerance: 1e-5 of max |p| plus four float32 roundings of the
-   velocity); ms/step.
+   velocity); ms/step. Path BS: the same with X3D2_MID_SPLIT=1 (x_div3,
+   div_solve, grad, x_gradsub3); path BD: with X3D2_BFLY=0 (the z, x, y
+   chain, 3 x_apply, the dense mid with q, 3 x_apply[sub]); both with the
+   pressure check; ms/step.
 6. Path A: TGV 256^3, keep_pressure=False, 20 steps: the xdiv chain's 3
    sweeps, the mid's 6 and 1 x_gradsub3 launch per step, no pipeline and
    no x_div3 launch; KE and divergence checks; a second run from the same
@@ -159,7 +187,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
    with keep_pressure=True and X3D2_XDIV_FUSED=0; the cylinder at (65,
    128, 128) compensated (the dense x applies without the correction). In
    the HIGHEST mode, counted (W = 32 sweeps only): the xdiv path,
-   compensated, RK3 with two scalars.
+   compensated, RK3 with two scalars. The projection switches, counted:
+   X3D2_D2C=1 with X3D2_XDIV_FUSED=0, also in the HIGHEST mode and with a
+   bfloat16 history; X3D2_MID_SPLIT=1 on the xdiv path and with
+   keep_pressure=True; X3D2_BFLY=0 with keep_pressure=True, with
+   keep_pressure=False (the z, x, y chain and the pipeline), compensated,
+   with X3D2_MID_SPLIT=1 (keep_pressure=True) and with X3D2_PIPE3=0 (the
+   dense mid without q); the cylinder at (65, 128, 128) with
+   X3D2_MID_SPLIT=1.
    max |du, dv, dw| <= 1e-5 and max |dphi| <= 1e-5, KE relative
    difference <= 1e-6, p within p_tolerance; with bfloat16 stores each of
    the first two widened by what one bfloat16 ulp of the largest rhs (or
@@ -171,11 +206,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    HIGHEST + compensated against the float64 einsum leg (X3D2_PALLAS=0),
    both on the card (x3d2_tpu_torch.tools.ke_parity): max |dKE| / KE0 <=
    KE_LIMIT.
-9. The total wall time (and, before, when each phase started), the
-   kernels line (JSON; one entry per kernel and
-   size a path gives it, named kernel@n, n the edge of a cubic grid or
-   nx x ny x nz, its launches those of the path run at that size), the
-   card line, and the result line.
+9. Every held kernel was launched on a path at its size, and every kernel
+   a counted path launched was held at that size; the total wall time
+   (and, before, when each phase started), the kernels line (JSON; one
+   entry per kernel and size a path gives it, named kernel@n, n the edge
+   of a cubic grid or nx x ny x nz, its launches those of the path run at
+   that size), the card line, and the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -189,6 +225,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from functools import partial
 
 NS = 512                    # grid of the main path, paths B, S, R, R4
 NA = 256                    # grid of path A (the xdiv chain)
@@ -236,6 +273,8 @@ SWEEP_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep.cu"
 # the kernels of csrc/transeq_sweep.cuh at one block geometry each
 SWEEP32_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep_w32.cu"
 PIPE_SOURCE = "x3d2_tpu_torch/csrc/pressure_pipe.cu"
+# the last launch of pipe_c[d2] (its first two: PIPE_SOURCE's template)
+CARRY_SOURCE = "x3d2_tpu_torch/csrc/pipe_c_d2.cu"
 DENSE_SOURCE = "x3d2_tpu_torch/csrc/transeq_dense.cu"
 REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             0: "x3d2_tpu/ops/pallas_kernels.py:172",
@@ -245,8 +284,15 @@ REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             "pipe_b": "x3d2_tpu/ops/pallas_poisson.py:1405",
             "pipe_c": "x3d2_tpu/ops/pallas_poisson.py:1455",
             "x_div3": "x3d2_tpu/ops/pallas_poisson.py:1067",
+            "pipe_c[d2]": "x3d2_tpu/ops/pallas_poisson.py:1455",
             "pressure_mid[q]": "x3d2_tpu/ops/pallas_poisson.py:354",
             "pressure_mid": "x3d2_tpu/ops/pallas_poisson.py:354",
+            "pressure_mid[q,dense]": "x3d2_tpu/ops/pallas_poisson.py:354",
+            "pressure_mid[dense]": "x3d2_tpu/ops/pallas_poisson.py:354",
+            "div_solve": "x3d2_tpu/ops/pallas_poisson.py:327",
+            "grad": "x3d2_tpu/ops/pallas_poisson.py:340",
+            "div_solve[dense]": "x3d2_tpu/ops/pallas_poisson.py:327",
+            "grad[dense]": "x3d2_tpu/ops/pallas_poisson.py:340",
             "x_gradsub3": "x3d2_tpu/ops/pallas_poisson.py:1106",
             "transeq_dense": "x3d2_tpu/ops/pallas_transeq.py:42",
             "x_apply": "x3d2_tpu/ops/pallas_poisson.py:954",
@@ -352,24 +398,51 @@ def pipe_cost(stage, shape, w):
     return 4 * npts * fields, npts * per_pt
 
 
-def slab_cost(stage, shape, w):
+def slab_cost(stage, shape, w, dense=False):
     """(bytes, flops) of one function of the slab projection, counted as
     pipe_cost counts: x_div3 three parity x applies, 3 fields in and 3
     out; x_gradsub3 three inverse parity x applies and the correction, 6
     in and 3 out; the mid 6 banded y applies (Iy du, Sy dv, Iy dw; Giy,
-    Gsy, Giy), 4 parity z applies (Iz, Sz; Gzi, Gzs), 3 parity y applies
-    (Ty; Ti_y twice) and the solve, 3 in and 3 out, one more with q."""
+    Gsy, Giy), 4 z transforms (Iz, Sz; Gzi, Gzs), 3 y transforms (Ty;
+    Ti_y twice) and the solve, 3 in and 3 out, one more with q; its halves
+    div_solve (3 banded, 2 z, 1 y and the solve; 3 in, q out) and grad (2
+    z, 2 y, 3 banded; q in, 3 out). A transform is a parity split (n/2
+    multiply-adds and the combine per output) or, dense, n multiply-adds
+    per output."""
     nx, ny, nz = shape
     npts = nx * ny * nz
     band = 2 * (2 * w + 1) + 0.0
+    tz, ty = ((2 * nz, 2 * ny) if dense else (nz + 1, ny + 1))
+    div = 3 * band + 2 * tz + ty + 5
+    grd = 2 * tz + 2 * ty + 3 * band
     if stage == "x_div3":
         per_pt, fields = 3 * (nx + 1), 6
     elif stage == "x_gradsub3":
         per_pt, fields = 3 * (nx + 1) + 3, 9
+    elif stage.startswith("div_solve"):
+        per_pt, fields = div, 4
+    elif stage.startswith("grad"):
+        per_pt, fields = grd, 4
     else:
-        per_pt = 6 * band + 4 * (nz + 1) + 3 * (ny + 1) + 5
-        fields = 7 if stage == "pressure_mid[q]" else 6
+        per_pt = div + grd
+        fields = 7 if stage.startswith("pressure_mid[q") else 6
     return 4 * npts * fields, npts * per_pt
+
+
+def carry_cost(shape, w, wp):
+    """(bytes, flops) of stage C with the carry, counted as pipe_cost
+    counts stage C but y first, as the function needs it: 2 inverse y
+    transforms (Tyi X, Tyi Y), 3 banded y applies at wp, 3 inverse z
+    transforms (Gzi, Gzi, Gzs) and the subtraction; 5 fields in and 6 out
+    (u', v', w' and the carried partials); per point and component the
+    carry's 2w + 1 taps of D1, D2 and D1d (at the w the kernel uses), the
+    q*conv product and the combine."""
+    nx, ny, nz = shape
+    npts = nx * ny * nz
+    band = 2 * (2 * wp + 1)
+    per_pt = (2 * (ny + 1) + 3 * band + 3 * (nz + 1) + 3
+              + 3 * (2 * 3 * (2 * w + 1) + 1 + 5))
+    return 4 * npts * (5 + 6), npts * per_pt
 
 
 def x_parity_cost(shape, sub):
@@ -513,10 +586,11 @@ def main():
 
     # ---- 2. build -------------------------------------------------------
     libs = _build.build_all(["transeq_sweep", "transeq_sweep_w32",
-                             "pressure_pipe", "transeq_dense"])
+                             "pressure_pipe", "pipe_c_d2", "transeq_dense"])
     ts._lib(16)
     ts._lib(32)
     oa.lib()
+    pp._carry_lib()
     td._lib()
     for name, lib in libs.items():
         print(f"[build] {lib.name}: {_build.BUILD_SECONDS[name]:.1f} s",
@@ -528,12 +602,16 @@ def main():
             # BASE_SEP, PREC>, transeq_xdiv_kernel<BS, W, NOLDS, PREC>
             # (PREC: 1 a bfloat16 history, 2 bfloat16 partials),
             # species_sweep_kernel<BS, W, AXIS, ACC>, mat_apply_kernel<MODE,
-            # TRANS, EPI>, transeq_dense_kernel<TRANS, EXACT>
-            found = re.search(r"(?<=\d)([a-z_]+_kernel)I((?:L[ib]\d+E)+)E",
-                              line)
+            # TRANS, EPI>, pipe_c_d2_kernel<NZ>, transeq_dense_kernel<TRANS,
+            # EXACT>
+            # (mangled: <length><name>; the length is checked, since the
+            # anonymous namespace before the name may end in digits too)
+            found = [m for m in re.finditer(
+                r"(?=(\d+)([a-z][a-z0-9_]*_kernel)I((?:L[ib]\d+E)+)E)", line)
+                if int(m.group(1)) == len(m.group(2))]
             if found:
-                inst = found.group(1) + "<" + ",".join(
-                    re.findall(r"L[ib](\d+)E", found.group(2))) + ">"
+                inst = found[0].group(2) + "<" + ",".join(
+                    re.findall(r"L[ib](\d+)E", found[0].group(3))) + ">"
             elif "registers" in line or "spill" in line:
                 print(f"[build {name} {inst}] " + line.strip())
 
@@ -889,36 +967,60 @@ def main():
     def mid_nq(du, dv, dw, m):
         return sl.pressure_mid(du, dv, dw, m, emit_q=False)
 
-    def mid_q_plain(du, dv, dw, m):
-        return sl.pressure_mid_plain(du, dv, dw, m, True)
+    def mid_q_plain(du, dv, dw, m, dense=False):
+        return sl.pressure_mid_plain(du, dv, dw, m, True, dense)
 
-    def mid_nq_plain(du, dv, dw, m):
-        return sl.pressure_mid_plain(du, dv, dw, m, False)
+    def mid_nq_plain(du, dv, dw, m, dense=False):
+        return sl.pressure_mid_plain(du, dv, dw, m, False, dense)
 
-    def slab_rows(shape, mesh_, pm, on_path):
-        """x_div3, the mid with and without q and x_gradsub3 at `shape`,
-        on plane waves; the names in `on_path` enter the kernels line. The
-        mid without q gives the bits of the mid with q."""
+    def div_solve_k(du, dv, dw, pm):
+        return (sl.div_solve(du, dv, dw, pm),)
+
+    def div_solve_p(du, dv, dw, m, dense=False):
+        return (sl.div_solve_plain(du, dv, dw, m, dense),)
+
+    def slab_rows(shape, mesh_, pm, on_path, n=None):
+        """The mid with and without q and its halves (div_solve, grad), in
+        pm's forms, and on a periodic x x_div3 and x_gradsub3, at `shape`
+        on plane waves; the names in `on_path` enter the kernels line, at
+        the size label n (default: of the shape). The mid without q gives
+        the bits of the mid with q, and the halves give them too."""
         m32 = pm.mats(torch.float32)
         su, sv, sw = wave_fields(mesh_)
-        dp = tuple(t.contiguous() for t in sl.x_div3_plain(su, sv, sw, m32))
+        dp = tuple(t.contiguous() for t in div_plain((su, sv, sw), m32, pm))
+        qp = sl.div_solve_plain(*dp, m32, pm.dense).contiguous()
         gp = tuple(t.contiguous()
-                   for t in sl.pressure_mid_plain(*dp, m32, False)[1:])
-        for name, ins, kern_fn, plain_fn in [
-                ("x_div3", (su, sv, sw), sl.x_div3, sl.x_div3_plain),
-                ("pressure_mid[q]", dp, mid_q, mid_q_plain),
-                ("pressure_mid", dp, mid_nq, mid_nq_plain),
-                ("x_gradsub3", gp + (su, sv, sw), sl.x_gradsub3,
-                 sl.x_gradsub3_plain)]:
+                   for t in sl.grad_plain(qp, m32, pm.dense))
+        form = {"dense": pm.dense}
+        jobs = [(sl.stage_name("pressure_mid", pm, True), dp, mid_q,
+                 partial(mid_q_plain, **form)),
+                (sl.stage_name("pressure_mid", pm), dp, mid_nq,
+                 partial(mid_nq_plain, **form)),
+                (sl.stage_name("div_solve", pm), dp, div_solve_k,
+                 partial(div_solve_p, **form)),
+                (sl.stage_name("grad", pm), (qp,), sl.grad,
+                 partial(sl.grad_plain, **form))]
+        if pm.x_perm is not None:
+            jobs = [("x_div3", (su, sv, sw), sl.x_div3, sl.x_div3_plain)] \
+                + jobs + [("x_gradsub3", gp + (su, sv, sw), sl.x_gradsub3,
+                           sl.x_gradsub3_plain)]
+        for name, ins, kern_fn, plain_fn in jobs:
             stage_row(name, ins, kern_fn, plain_fn,
-                      slab_cost(name, shape, BW), pm, name in on_path)
+                      slab_cost(name, pm.shape, BW, pm.dense), pm,
+                      name in on_path, n=n)
         with_q, no_q = mid_q(*dp, pm), mid_nq(*dp, pm)
+        q = sl.div_solve(*dp, pm)
+        halves = (q,) + sl.grad(q, pm)
         check(no_q[0] is None and with_q[0] is not None
               and all(torch.equal(a, b)
-                      for a, b in zip(with_q[1:], no_q[1:])),
-              "the mid without q must give the bits of the mid with q")
-        print(f"[pressure_mid {size_label(shape)}] without q: p_zy, dpdy, "
-              "dpdz bit-equal to the mid with q", flush=True)
+                      for a, b in zip(with_q[1:], no_q[1:]))
+              and all(torch.equal(a, b) for a, b in zip(with_q, halves)),
+              "the mid without q and the mid's halves must give the bits "
+              "of the mid with q")
+        print(f"[{sl.stage_name('pressure_mid', pm)} "
+              f"{n or size_label(shape)}] without q: p_zy, dpdy, dpdz "
+              "bit-equal to the mid with q; div_solve then grad: q, p_zy, "
+              "dpdy, dpdz bit-equal to it", flush=True)
 
     def div_plain(fields, m, pm):
         """The mid's inputs from velocities: the parity x stage, or the
@@ -952,14 +1054,15 @@ def main():
         m32, m64 = pm.mats(torch.float32), pm.mats(d64)
         ins = tuple(t.contiguous() for t in div_plain(fields, m32, pm))
         kern = [t.to(d64) for t in mid_q(*ins, pm)]
-        plain32 = [t.to(d64) for t in mid_q_plain(*ins, m32)]
-        plain64 = mid_q_plain(*to64(ins), m64)
+        plain32 = [t.to(d64) for t in mid_q_plain(*ins, m32, pm.dense)]
+        plain64 = mid_q_plain(*to64(ins), m64, pm.dense)
 
         def dist(a, b, weight=None):
             d = (a - b) if weight is None else (a - b) * weight
             return float(d.abs().max()), float(d.pow(2).mean().sqrt())
 
-        tag = f"pressure_mid[q] {size_label(shape)} on {label}"
+        tag = (f"{sl.stage_name('pressure_mid', pm, True)} "
+               f"{size_label(shape)} on {label}")
         for name, k, p32, p64 in zip(("q", "p_zy", "dpdy", "dpdz"), kern,
                                      plain32, plain64):
             kp, k6, p6 = dist(k, p32), dist(k, p64), dist(p32, p64)
@@ -987,6 +1090,61 @@ def main():
                   f"1e-5), vs plain f64 rel {f64:.2e} (<= 3e-5)", flush=True)
             check(f32 <= 1e-5 and f64 <= 3e-5,
                   f"{tag}: weighted q {f32}, {f64}")
+
+    def carry_rows(shape, ns_, fields):
+        """pipe_c[d2] on the inputs the plain pipe_a, pipe_b give from
+        `fields`: u', v', w' held as pipe_c's outputs; the carry to 1e-5
+        of plain float32, and to 5e-7 of the plain float64 carry of the
+        kernel's own u', v', w' (the carry's function, whose float32
+        evaluation and band are the kernel's own: the bound of x3d2_tpu's
+        HIGHEST mode, tests/test_pallas_v3.py:114, in both modes), and to
+        5e-7 of the plain float64 carry end to end (stage C's float32
+        rounding of u', v', w' carried through the z operators). Timed
+        beside pipe_c and the z sweep (W = 16 and 32) it takes out of the
+        step."""
+        pm_ = ns_._pipe.mats
+        n = size_label(shape)
+        carry = pp.build_carry_mats(ns_.ops[2], nu, device=dev)
+        m32 = pm_.mats(torch.float32)
+        X_, Y_ = pp.pipe_b_plain(*pp.pipe_a_plain(*fields, m32), m32)
+        ins = (X_.contiguous(), Y_.contiguous()) + tuple(fields)
+        new, rhsp = pp.pipe_c_d2(*ins, pm_, carry)
+        torch.cuda.synchronize()
+        p32 = flat(pp.pipe_c_d2_plain(*ins, m32, carry))
+        err32, rel32 = rel_err(list(new) + list(rhsp), p32)
+        del p32
+        p64 = pp.pipe_c_d2_plain(*to64(ins), pm_.mats(d64), carry)
+        _, rel64 = rel_err(new, p64[0])
+        _, rel_e2e = rel_err(rhsp, p64[1])
+        del p64
+        own64 = ts.transeq_sweep_plain(*to64(new), carry.blocks, nu)
+        _, rel_own = rel_err(rhsp, own64)
+        del own64, new, rhsp
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: pp.pipe_c_d2(*ins, pm_, carry), 10, torch)
+        plain_ms = cuda_ms(lambda: pp.pipe_c_d2_plain(*ins, m32, carry), 5,
+                           torch)
+        alt = {}
+        for terms in (2, 3):
+            blocks = ts.build_sweep_blocks(ns_.ops[2], 2, device=dev,
+                                           terms=terms)
+            alt[terms] = cuda_ms(lambda: ts.transeq_sweep(
+                *pp.pipe_c(*ins, pm_), blocks, nu), 10, torch)
+        pc_ms = cuda_ms(lambda: pp.pipe_c(*ins, pm_), 10, torch)
+        txt = row("pipe_c[d2]", n, CARRY_SOURCE, REPLACES["pipe_c[d2]"],
+                  err32, ms, plain_ms, carry_cost(shape, pp.CARRY_W, BW))
+        report(f"pipe_c[d2] {n}", err32, rel32, rel64, ms, plain_ms,
+               txt + f"  (u', v', w' vs plain64; the step without the "
+               f"carry: pipe_c {pc_ms:.3f} ms, pipe_c + z sweep "
+               f"{alt[2]:.3f} ms at W = 16, {alt[3]:.3f} ms at W = 32)")
+        print(f"[pipe_c[d2] {n}] the carry vs the plain float64 carry of "
+              f"the kernel's u', v', w': rel {rel_own:.2e} (<= 5e-7); vs "
+              f"plain float64 end to end: rel {rel_e2e:.2e} (<= 5e-7)",
+              flush=True)
+        check(rel_own <= 5e-7, f"pipe_c[d2] {n}: the carry vs plain f64 "
+                               f"{rel_own}")
+        check(rel_e2e <= 5e-7, f"pipe_c[d2] {n}: the carry vs plain f64 "
+                               f"end to end {rel_e2e}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1067,8 +1225,11 @@ def main():
     pm = ns._slab
     u, v, w = randn(), randn(), randn()
     pipe_rows(shape, (u, v, w), pm)
+    carry_rows(shape, ns, (u, v, w))
+    torch.cuda.empty_cache()
     # the mid without q is on no path at this size: held, not listed
-    slab_rows(shape, mesh, pm, ("x_div3", "pressure_mid[q]", "x_gradsub3"))
+    slab_rows(shape, mesh, pm, ("x_div3", "pressure_mid[q]", "x_gradsub3",
+                                "div_solve", "grad"))
     # path K's gradients (x_pinv) and path M's one-field x stage
     parity_rows(shape, pm, randn, ("x_pfwd", "x_pinv", "x_pinv[sub]"))
     torch.cuda.empty_cache()
@@ -1174,19 +1335,29 @@ def main():
         ("y,acc,ab3 steady", 1, {"acc": acc_e, "olds": olds_e,
                                  "dtc": ti.ab_row(3, DT)})], randn_e)
     # phase 8's HIGHEST chains at this grid, W = 32: the xdiv chain, the
-    # compensated one (z, x + acc, y + acc) and RK3 with two scalars
-    # (the same, and the species sweeps)
+    # compensated one (z, x + acc, y + acc), RK3 with two scalars (the
+    # same, and the species sweeps) and the carry's (x + acc, y + acc +
+    # AB3)
     sweep_rows(SMALL, ns_e.ops, xdiv_variants(ns_e, SMALL[0], acc_e, olds_e,
                                               3)
-               + [("x,acc", 0, {"acc": acc_e})], randn_e, terms=3)
+               + [("x,acc", 0, {"acc": acc_e}),
+                  ("y,acc,ab3 steady", 1, {"acc": acc_e, "olds": olds_e,
+                                           "dtc": ti.ab_row(3, DT)}),
+                  ("y,acc,ab3 startup", 1, {"acc": acc_e, "olds": olds_e,
+                                            "dtc": ti.ab_row(1, DT)})],
+               randn_e, terms=3)
     species_rows(SMALL, ns_e.ops, randn_e, terms=3)
     del olds16, acc_e, olds_e
     species_rows(SMALL, ns_e.ops, randn_e)
     pm_e = ns_e._slab
     # phase 8's chains also launch x_div3, the mid with q and the pipeline
     slab_rows(SMALL, mesh_e, pm_e, ("x_div3", "pressure_mid[q]",
-                                    "pressure_mid", "x_gradsub3"))
-    pipe_rows(SMALL, (randn_e(), randn_e(), randn_e()), pm_e)
+                                    "pressure_mid", "x_gradsub3",
+                                    "div_solve", "grad"))
+    fields_e = (randn_e(), randn_e(), randn_e())
+    pipe_rows(SMALL, fields_e, pm_e)
+    carry_rows(SMALL, ns_e, fields_e)
+    del fields_e
     # phase 8's compensated chains (x_pinv) and X3D2_MERGED_X=0 chain
     parity_rows(SMALL, pm_e, randn_e, ("x_pfwd", "x_pinv", "x_pinv[sub]"))
     mid_on_noise(SMALL, pm_e, (randn_e(), randn_e(), randn_e()),
@@ -1335,14 +1506,42 @@ def main():
         x_apply_hold(op, pm_k, randn_k(), None, lab_k)
     for op in ("gxs", "gxi"):
         x_apply_hold(op, pm_k, randn_kc(), None, lab_k)
-    dp_k = tuple(t.contiguous() for t in div_plain(
-        wave_fields(Mesh.from_config(cfg_c.domain)),
-        pm_k.mats(torch.float32), pm_k))
-    stage_row("pressure_mid[q]", dp_k, mid_q, mid_q_plain,
-              slab_cost("pressure_mid[q]", tuple(pm_k.shape), BW), pm_k,
-              n=lab_k)
-    del ns_k, pm_k, dp_k
+    # with the correction: phase 8's cylinder with X3D2_MID_SPLIT=1
+    for op in ("gxs", "gxi"):
+        x_apply_hold(op, pm_k, randn_kc(), randn_k(), lab_k)
+    # the mid with q (compensated) and its halves (X3D2_MID_SPLIT=1)
+    slab_rows(CYL_SMALL, Mesh.from_config(cfg_c.domain), pm_k,
+              ("pressure_mid[q]", "div_solve", "grad"), n=lab_k)
+    del ns_k, pm_k
     torch.cuda.empty_cache()
+
+    # -- 3f. X3D2_BFLY=0: the slab's dense forms, at 512^3 (path BD) and at
+    # 128 x 128 x 256 (phase 8's dense chains): the dense x applies of a
+    # periodic x, the dense mid and its halves --
+    for shape_d, on_path in (((NS,) * 3, ("pressure_mid[q,dense]",)),
+                             (SMALL, ("pressure_mid[q,dense]",
+                                      "pressure_mid[dense]",
+                                      "div_solve[dense]", "grad[dense]"))):
+        mesh_d = Mesh(shape_d, (2 * math.pi,) * 3, per)
+        with env_set({"X3D2_BFLY": "0"}):
+            ns_d = NavierStokes.build(mesh_d, nu, device=dev)
+        pm_d, lab_d = ns_d._slab, size_label(shape_d)
+        check(pm_d.dense and pm_d.x_perm is None and ns_d._pipe is not None
+              and not ns_d._pipe.mats.dense,
+              "X3D2_BFLY=0: the slab's dense forms beside the pipeline's "
+              "parity splits")
+        randn_d = randn_of(shape_d)
+        for op in ("sx", "ix", "gxs", "gxi"):
+            x_apply_hold(op, pm_d, randn_d(), None, lab_d)
+        for op in ("gxs", "gxi"):
+            x_apply_hold(op, pm_d, randn_d(), randn_d(), lab_d)
+        torch.cuda.empty_cache()
+        slab_rows(shape_d, mesh_d, pm_d, on_path)
+        torch.cuda.empty_cache()
+        mid_on_noise(shape_d, pm_d, (randn_d(), randn_d(), randn_d()),
+                     "white noise", True)
+        del ns_d, pm_d, randn_d
+        torch.cuda.empty_cache()
 
     # ---- 4-7. the paths ------------------------------------------------------
     stamp("phases 4-7 (the paths)")
@@ -1372,10 +1571,14 @@ def main():
         return {**ts.launch_counts(), **oa.launch_counts(),
                 **spm.launch_counts(), **td.launch_counts()}
 
-    def run_counted(tag, case, state, steps, per_step):
+    # kernels a counted run launched at a size phase 3 did not hold them at
+    unheld = set()
+
+    def run_counted(tag, case, state, steps, per_step, per_run=()):
         """case.run for `steps` steps from `state`, with every launch count
         set to 0 just before and read just after. per_step names each
-        kernel call of a step (a name once per call); the counts must be
+        kernel call of a step (a name once per call), per_run each call
+        made once a run (the carry's boot z sweep); the counts must be
         exactly those. A kernel's entry in the kernels line takes the
         launches of the first path that runs it at that size. Returns
         (state, counts)."""
@@ -1388,18 +1591,23 @@ def main():
         torch.cuda.synchronize()
         counts = counts_now()
         print(f"[{tag}] launches {counts}", flush=True)
-        want = {name: steps * k * oa.LAUNCHES_PER_CALL.get(name, 1)
-                for name, k in Counter(per_step).items()}
+        calls = Counter({name: steps * k
+                         for name, k in Counter(per_step).items()})
+        calls.update(per_run)
+        want = {name: k * oa.LAUNCHES_PER_CALL.get(name, 1)
+                for name, k in calls.items()}
         check(counts == want, f"{tag}: expected launches {want}, got "
                               f"{counts}")
         n = size_label(case.mesh.dims(DataLoc.VERT))
         for name in counts:
-            if (name, n) in rows and not rows[name, n]["launches"]:
+            if (name, n) not in rows:
+                unheld.add(f"{name}@{n}")
+            elif not rows[name, n]["launches"]:
                 rows[name, n]["launches"] = counts[name]
         return state, counts
 
     def drive(tag, mesh_, params_, keep_pressure, steps, per_step,
-              spy=None, fused=True):
+              spy=None, fused=True, per_run=()):
         """One TGV run through TGVCase.run (run_counted). fused: the step
         takes a fused sweep chain (else the unfused AB step). Checks the
         counts, KE and the divergence, and with scalars phi and its
@@ -1418,7 +1626,8 @@ def main():
         print(f"[{tag}] TGV {size_label(dims)} {params_.time_intg} "
               f"n_species={params_.n_species} keep_pressure={keep_pressure} "
               f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
-        state, counts = run_counted(tag, case, state, steps, per_step)
+        state, counts = run_counted(tag, case, state, steps, per_step,
+                                    per_run)
         mon = case.monitor.rows
         ke = [r[4] for r in mon]
         ens = [r[1] for r in mon]
@@ -1470,6 +1679,17 @@ def main():
                 chain_ms += cuda_ms(lambda: stage(*f, f, ks, dtc), 10, torch)
                 ks.append(stage(*f, f, ks, dtc)[1])
             del ks
+        elif "rhsp" in state:
+            # the d2-in-C carry: the chain without its z sweep, then the
+            # pipeline with the carry (timed as the projection)
+            chain = "sweeps x, y"
+            scratch = tuple(tuple(o.clone() for o in p)
+                            for p in state["olds"][:3])
+            acc0 = tuple(r.clone() for r in state["rhsp"])
+            dtc = ti.ab_row(3, DT, feedback=case._olds_dtype is not None)
+            chain_ms = cuda_ms(lambda: case._fused_ab_nod2(
+                *f, scratch, dtc, acc0), 10, torch)
+            del scratch, acc0
         else:
             scratch = tuple(tuple(o.clone() for o in p)
                             for p in state["olds"][:3])
@@ -1486,6 +1706,8 @@ def main():
             # compensated: the gradients, added through the compensation
             proj_ms = cuda_ms(lambda: case.solver.pressure_grads(
                 *f, keep_pressure=case.keep_pressure), 10, torch)
+        elif "rhsp" in state:
+            proj_ms = cuda_ms(lambda: case._pipe_d2c(*f), 10, torch)
         else:
             proj_ms = nsub * cuda_ms(lambda: case.solver.pressure_correction(
                 *f, keep_pressure=case.keep_pressure, divs=divs), 10, torch)
@@ -1503,6 +1725,32 @@ def main():
                            sweeps_zxy + pipe3)
     check(not case._ab_is_xdiv, "512^3 must not take the xdiv chain")
     modes_ms = {"main": step_times("main", case, state)}
+    del case, state
+    torch.cuda.empty_cache()
+
+    # 4d. path D: the main path with the d2-in-C carry (X3D2_D2C=1): the
+    # chain from the carried partials, pipe_a, pipe_b, pipe_c[d2]; one
+    # boot z sweep a run (the partials made anew as the state enters run)
+    sweeps_nod2 = sweeps_zxy[1:]
+    carried = sweeps_nod2 + ["pipe_a", "pipe_b", "pipe_c[d2]"]
+    with env_set({"X3D2_D2C": "1"}):
+        case, state, _ = drive("path D", mesh, params, False, STEPS, carried,
+                               per_run=[sweeps_zxy[0]])
+    check(case._pipe_d2c is not None and "rhsp" in state,
+          "path D must take the carry")
+    # one carried step alone: no z sweep
+    torch.cuda.synchronize()
+    ts.reset_launch_counts()
+    oa.reset_launch_counts()
+    state = case.step(state)
+    torch.cuda.synchronize()
+    one = counts_now()
+    print(f"[path D] launches in one carried step: {one} "
+          f"({sweeps_zxy[0]}: {one.get(sweeps_zxy[0], 0)})", flush=True)
+    check(one == {name: oa.LAUNCHES_PER_CALL.get(name, 1)
+                  for name in carried},
+          f"path D: a carried step launches {one}")
+    modes_ms["path D"] = step_times("path D", case, state)
     del case, state
     torch.cuda.empty_cache()
 
@@ -1577,7 +1825,9 @@ def main():
     print("[modes] 512^3 ms/step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in modes_ms.items()), flush=True)
 
-    # 5. path B: 512^3, keep_pressure=True
+    # 5. path B: 512^3, keep_pressure=True; path BS: with the mid's halves
+    # (X3D2_MID_SPLIT=1); path BD: with the slab's dense forms
+    # (X3D2_BFLY=0: the z, x, y chain, the dense x applies, the dense mid)
     last = {}
 
     def spy_projection(case):
@@ -1589,32 +1839,49 @@ def main():
 
         object.__setattr__(case.solver, "pressure_correction", spy)
 
-    case, state, _ = drive("path B", mesh, params, True, STEPS,
-                           sweeps_zxy + ["x_div3", "pressure_mid[q]",
-                                         "x_gradsub3"], spy=spy_projection)
-    p = state["p"]
-    p_ref = case.solver.pressure_grads_folded(*last["in"],
-                                              keep_pressure=True)[3]
-    err_p, _ = rel_err([p], [p_ref])
-    tol_p = p_tolerance(p_ref, last["in"])
-    # for the record: both float32 formulations against the float64 one
     ns64 = NavierStokes.build(mesh, nu, dtype=d64, device=dev)
-    p64 = ns64.pressure_grads_folded(*to64(last["in"]), keep_pressure=True)[3]
-    _, rel_k64 = rel_err([p], [p64])
-    _, rel_f64 = rel_err([p_ref], [p64])
-    print(f"[path B] physical p of the last step vs the folded chain: "
-          f"max|dp| {err_p:.3e} (<= {tol_p:.3e} = 1e-5 max|p| + 4 eps "
-          f"max|u'|), max|p| {float(p_ref.abs().max()):.3e}; against the "
-          f"float64 folded chain: kernels rel {rel_k64:.2e}, float32 "
-          f"folded chain rel {rel_f64:.2e}", flush=True)
-    check(torch.isfinite(p).all().item() and err_p <= tol_p,
-          f"path B: pressure differs by {err_p} (limit {tol_p})")
-    del p_ref, p, p64, ns64
-    last.clear()
-    object.__delattr__(case.solver, "pressure_correction")
-    step_times("path B", case, state)
-    del case, state
+    for tag, env, per_step in (
+            ("path B", {}, sweeps_zxy + ["x_div3", "pressure_mid[q]",
+                                         "x_gradsub3"]),
+            ("path BS", {"X3D2_MID_SPLIT": "1"},
+             sweeps_zxy + ["x_div3", "div_solve", "grad", "x_gradsub3"]),
+            ("path BD", {"X3D2_BFLY": "0"},
+             sweeps_zxy + ["x_apply"] * 3 + ["pressure_mid[q,dense]"]
+             + ["x_apply[sub]"] * 3)):
+        with env_set(env):
+            case, state, _ = drive(tag, mesh, params, True, STEPS, per_step,
+                                   spy=spy_projection)
+            p = state["p"]
+            p_ref = case.solver.pressure_grads_folded(*last["in"],
+                                                      keep_pressure=True)[3]
+            err_p, _ = rel_err([p], [p_ref])
+            tol_p = p_tolerance(p_ref, last["in"])
+            # for the record: both float32 formulations against the float64
+            # one
+            p64 = ns64.pressure_grads_folded(*to64(last["in"]),
+                                             keep_pressure=True)[3]
+            _, rel_k64 = rel_err([p], [p64])
+            _, rel_f64 = rel_err([p_ref], [p64])
+            print(f"[{tag}] physical p of the last step vs the folded chain: "
+                  f"max|dp| {err_p:.3e} (<= {tol_p:.3e} = 1e-5 max|p| + 4 "
+                  f"eps max|u'|), max|p| {float(p_ref.abs().max()):.3e}; "
+                  f"against the float64 folded chain: kernels rel "
+                  f"{rel_k64:.2e}, float32 folded chain rel {rel_f64:.2e}",
+                  flush=True)
+            check(torch.isfinite(p).all().item() and err_p <= tol_p,
+                  f"{tag}: pressure differs by {err_p} (limit {tol_p})")
+            del p_ref, p, p64
+            last.clear()
+            object.__delattr__(case.solver, "pressure_correction")
+            modes_ms[tag] = step_times(tag, case, state)
+        del case, state
+        torch.cuda.empty_cache()
+    del ns64
     torch.cuda.empty_cache()
+    print("[modes] 512^3 ms/step, the projection switches: " + ", ".join(
+        f"{k} {modes_ms[k]:.3f}" for k in ("main", "path D", "path B",
+                                            "path BS", "path BD")),
+        flush=True)
 
     # 6. path A: 256^3, keep_pressure=False: the xdiv chain and the slab
     names_a = sweeps_xdiv + ["pressure_mid", "x_gradsub3"]
@@ -1854,6 +2121,50 @@ def main():
                     sweeps_rhs32 + grads),
                    ("RK3 + 2 species (unfused)", params_rs, "rk-unfused",
                     (sweeps_rhs32 + species32 + pipe3) * 3))]
+    # the projection switches: the carry (the chain from the carried
+    # partials; a boot z sweep a run), the mid's halves, the dense forms
+    d2c = {"X3D2_D2C": "1", **xdiv_off}
+    split = {"X3D2_MID_SPLIT": "1"}
+    dense = {"X3D2_BFLY": "0"}
+    pipe_d2 = ["pipe_a", "pipe_b", "pipe_c[d2]"]
+    dense_x, dense_sub = ["x_apply"] * 3, ["x_apply[sub]"] * 3
+    halves = ["div_solve", "grad"]
+    boots = {}
+    for label, prm, keep, env, chain, per_step, nround in (
+            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0", params, False, d2c, "zxy",
+             sweeps_nod2 + pipe_d2, 0),
+            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0, HIGHEST", params, False,
+             {**d2c, **hi}, "zxy", sweeps_zxy32[1:] + pipe_d2, 0),
+            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0, bfloat16 history", params,
+             False, {**d2c, **b16}, "zxy", sweeps_h[1:] + pipe_d2, 1),
+            ("X3D2_MID_SPLIT=1, xdiv path", params, False, split, "xdiv",
+             sweeps_xdiv + halves + ["x_gradsub3"], 0),
+            ("X3D2_MID_SPLIT=1, keep_pressure=True", params, True, split,
+             "xdiv", sweeps_xdiv + halves + ["x_gradsub3"], 0),
+            ("X3D2_BFLY=0, keep_pressure=True", params, True, dense, "zxy",
+             sweeps_zxy + dense_x + ["pressure_mid[q,dense]"] + dense_sub,
+             0),
+            ("X3D2_BFLY=0, keep_pressure=False", params, False, dense, "zxy",
+             sweeps_zxy + pipe3, 0),
+            ("X3D2_BFLY=0, compensated", params_k, False, dense,
+             "ab-unfused", sweeps_rhs + dense_x + ["pressure_mid[q,dense]"]
+             + dense_x, 0),
+            ("X3D2_MID_SPLIT=1, X3D2_BFLY=0, keep_pressure=True", params,
+             True, {**split, **dense}, "zxy", sweeps_zxy + dense_x
+             + ["div_solve[dense]", "grad[dense]"] + dense_sub, 0),
+            ("X3D2_BFLY=0, X3D2_PIPE3=0", params, False,
+             {**dense, "X3D2_PIPE3": "0"}, "zxy", sweeps_zxy + dense_x
+             + ["pressure_mid[dense]"] + dense_sub, 0)):
+        label = f"{SMALL} {label}"
+        chains.append((label, tgv_on(small, prm, keep), prm, keep, env,
+                       chain, per_step, nround))
+        if "X3D2_D2C" in env:
+            boots[label] = [ts.variant_name(2, False, 0,
+                                            w=32 if "X3D2_MATMUL_PRECISION"
+                                            in env else 16)]
+    chains.append((f"cylinder {size_label(CYL_SMALL)} X3D2_MID_SPLIT=1",
+                   cyl_make, cyl_prm, False, split, "ab-unfused",
+                   dense_x + halves + dense_sub, 0))
     ab3 = TimeIntegrator("AB3")
     # |c_j| of every coefficient a rounded value meets, and the feedback's
     coeff_sum = float(sum(abs(c) for c in ab3.ab_row(3, 1.0))) + abs(
@@ -1871,7 +2182,7 @@ def main():
                                      f"{chain}")
                 if d == "cuda" and per_step is not None:
                     s, _ = run_counted(label, c, c.initial_state(), 10,
-                                       per_step)
+                                       per_step, boots.get(label, ()))
                 else:
                     s = c.run(n_iters=10, n_output=10)
                 res[d] = (s, c.monitor.rows[-1][4], c)
@@ -1942,6 +2253,8 @@ def main():
     # ---- 9. result lines ---------------------------------------------------
     idle = [r["name"] for r in rows.values() if r["launches"] <= 0]
     check(not idle, f"never launched on a path: {idle}")
+    check(not unheld, f"launched on a path, not held against the plain "
+                      f"version at that size: {sorted(unheld)}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s wall", flush=True)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -25,8 +25,10 @@ the step reads, and the switches a case once refused at any value.
   tests/test_pallas_poisson.py:50-54) and plain float64 (1e-12 * scale).
 - Branch choice: with x3d2_tpu's backend reported as a TPU (so its gates
   build its kernel branches; nothing is run), the port takes the branches
-  x3d2_tpu takes under each switch; X3D2_BFLY=0 and X3D2_D2C=1 raise
-  exactly where x3d2_tpu would take their kernels.
+  x3d2_tpu takes under each switch; X3D2_D2C=1 takes the carry and
+  X3D2_BFLY=0 the slab's dense forms exactly where x3d2_tpu does
+  (tests/test_torch_d2c.py and test_torch_mid_forms.py hold them against
+  x3d2_tpu's kernels).
 """
 
 import contextlib
@@ -472,9 +474,11 @@ def test_branch_choice_under_switches_matches_x3d2_tpu(shape, env, comp,
     ({"X3D2_D2C": "1", "X3D2_XDIV_FUSED": "0"}, True),
     ({"X3D2_D2C": "1", "X3D2_XDIV_FUSED": "0", "X3D2_BF16_ACC": "1"}, False)])
 def test_d2c_raises_where_x3d2_tpu_takes_it(env, keep):
-    """X3D2_D2C=1 takes _pipe_c_kernel d2=True where x3d2_tpu's carry gate
-    holds (cases/base.py:182-194) and the step uses it (keep_pressure=
-    False); elsewhere x3d2_tpu ignores it, and so does the port."""
+    """X3D2_D2C=1 builds the carry where x3d2_tpu's carry gate holds
+    (cases/base.py:182-211), and the state carries the z partials where
+    the step uses them (keep_pressure=False, :326-330); elsewhere
+    x3d2_tpu ignores the switch, and so does the port (the name is from
+    when the port raised there)."""
     for k, val in env.items():
         os.environ[k] = val
     try:
@@ -482,50 +486,58 @@ def test_d2c_raises_where_x3d2_tpu_takes_it(env, keep):
         with _tpu_gates():
             jcase = JTGVCase(JMesh(SHAPE, L, JPER), JSolverParams(dt=1e-3),
                              dtype=jnp.float32, **kw)
-        takes = jcase._pipe_d2c is not None and not keep
-        if takes:
-            with pytest.raises(NotImplementedError, match="d2=True"):
-                TGVCase(Mesh(SHAPE, L, PER), SolverParams(dt=1e-3),
-                        device="cpu", **kw)
-        else:
-            TGVCase(Mesh(SHAPE, L, PER), SolverParams(dt=1e-3),
-                    device="cpu", **kw)
+        case = TGVCase(Mesh(SHAPE, L, PER), SolverParams(dt=1e-3),
+                       device="cpu", **kw)
+        state = case.initial_state()
     finally:
         for k in env:
             del os.environ[k]
+    built = jcase._pipe_d2c is not None
+    assert (case._pipe_d2c is not None) == built
+    takes = built and not keep
+    assert ("rhsp" in state) == takes
+    if takes:
+        assert len(state["rhsp"]) == 3 and not case._ab_is_xdiv
     assert takes == (env.get("X3D2_XDIV_FUSED") == "0" and not keep
                      and "X3D2_BF16_ACC" not in env)
 
 
 def test_bfly_and_merged_x_are_not_ignored(monkeypatch):
-    """X3D2_BFLY=0 on a slab grid takes the dense-Ty and dense-z branches
-    of the mid, which the port lacks: it raises naming them (on a grid
-    without the slab x3d2_tpu ignores it, and so does the port).
-    X3D2_MERGED_X=0 switches the x stage (above)."""
+    """X3D2_BFLY=0 on a slab grid takes the dense-Ty and dense-z forms of
+    the mid and the dense x stage, as x3d2_tpu (pallas_poisson.py:588-708;
+    the pipeline keeps its parity splits, :1593-1604); on a grid without
+    the slab x3d2_tpu ignores it, and so does the port. X3D2_MERGED_X=0
+    switches the x stage (above)."""
     monkeypatch.setenv("X3D2_BFLY", "0")
-    with pytest.raises(NotImplementedError, match="_pressure_mid_kernel"):
-        TGVCase(Mesh(SHAPE, L, PER), SolverParams(), device="cpu",
-                monitor_path=None)
+    case = TGVCase(Mesh(SHAPE, L, PER), SolverParams(), device="cpu",
+                   monitor_path=None)
+    slab = case.solver._slab
+    assert slab.dense and slab.x_perm is None and slab.q_perm is None
+    assert not case.solver._pipe.mats.dense and not case._ab_is_xdiv
     case = TGVCase(Mesh((32,) * 3, L, PER), SolverParams(), device="cpu",
                    monitor_path=None)
     assert case.solver._slab is None
     monkeypatch.setenv("X3D2_BFLY", "1")
-    TGVCase(Mesh(SHAPE, L, PER), SolverParams(), device="cpu",
-            monitor_path=None)
+    case = TGVCase(Mesh(SHAPE, L, PER), SolverParams(), device="cpu",
+                   monitor_path=None)
+    assert not case.solver._slab.dense and case._ab_is_xdiv
 
 
 def test_bfly_raises_where_the_solver_builds_the_slab(monkeypatch):
     """X3D2_BFLY is read where the slab is built, as in x3d2_tpu
-    (pallas_poisson.py:589-603): NavierStokes.build itself raises on a
-    slab grid, also with the pipeline switched off, so a caller that
-    builds the solver without a case cannot take the butterfly branches
-    with the switch set; without the slab it is ignored."""
+    (pallas_poisson.py:589-603): NavierStokes.build itself builds the
+    dense forms on a slab grid, also with the pipeline switched off, and
+    the pipeline's own operator set keeps the parity splits; without the
+    slab the switch is ignored (the name is from when the port raised
+    there)."""
     from x3d2_tpu_torch.solver import NavierStokes
     monkeypatch.setenv("X3D2_BFLY", "0")
     for pipe3 in ("1", "0"):
         monkeypatch.setenv("X3D2_PIPE3", pipe3)
-        with pytest.raises(NotImplementedError, match="dense Ty/Ti_y"):
-            NavierStokes.build(Mesh(SHAPE, L, PER), 1e-3, device="cpu")
+        ns = NavierStokes.build(Mesh(SHAPE, L, PER), 1e-3, device="cpu")
+        assert ns._slab.dense and ns._slab.x_perm is None
+        assert (ns._pipe is not None) == (pipe3 == "1")
+        assert ns._pipe is None or not ns._pipe.mats.dense
     assert NavierStokes.build(Mesh((32,) * 3, L, PER), 1e-3,
                               device="cpu")._slab is None
 
@@ -540,8 +552,8 @@ def test_unported_switches_raise_naming_their_kernels(monkeypatch, switch,
                                                       value, expect):
     """The four switches a case refused at any value until they were read
     where x3d2_tpu reads them. X3D2_MID_SPLIT=1 and X3D2_CHUNK=0 on a grid
-    without the slab: the case runs, as x3d2_tpu's (the mid split raises
-    where the slab's mid runs: tests/test_torch_highest.py).
+    without the slab: the case runs, as x3d2_tpu's (where the slab's mid
+    runs the split takes its two halves: tests/test_torch_switches.py).
     X3D2_MATMUL_PRECISION=highest: the sweeps at the W = 32 band; an
     unknown value raises ValueError (x3d2_tpu: KeyError). X3D2_PALLAS=0:
     the einsum paths, no kernel branch."""

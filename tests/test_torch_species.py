@@ -277,20 +277,25 @@ def test_species_state_handover_from_x3d2_tpu_continues_exactly():
 
 
 def test_unported_options_with_species_raise(monkeypatch):
-    # the bfloat16 history and compensated stepping are ported (with
-    # scalars too: tests/test_torch_bf16.py, test_torch_compensated.py);
-    # the mid cut at q is not: it raises where the slab's mid runs (read
-    # there, as x3d2_tpu reads it), and a grid without the slab runs
+    # the bfloat16 history, compensated stepping and the mid cut at q are
+    # ported (with scalars too: tests/test_torch_bf16.py,
+    # test_torch_compensated.py, test_torch_switches.py; the name is from
+    # when the cut raised): the cut is read where the slab's mid runs, as
+    # x3d2_tpu reads it, and gives the merged mid's bits there; a grid
+    # without the slab runs as without it
     monkeypatch.setenv("X3D2_MID_SPLIT", "1")
     case, _ = _cases()
     assert case.solver._slab is None
     ns = NavierStokes.build(Mesh((128, 128, 256), L,
                                  ((BC.PERIODIC, BC.PERIODIC),) * 3),
                             1e-3, device="cpu", nu_species=(1e-3, 1e-3))
-    zero = torch.zeros((128, 128, 256))
-    with pytest.raises(NotImplementedError, match="X3D2_MID_SPLIT"):
-        ns.pressure_correction(zero, zero, zero, keep_pressure=True)
+    rng = np.random.default_rng(5)
+    f = [torch.from_numpy(rng.standard_normal((128, 128, 256))
+                          .astype(np.float32)) for _ in range(3)]
+    split = ns.pressure_correction(*f, keep_pressure=True)
     monkeypatch.delenv("X3D2_MID_SPLIT")
+    merged = ns.pressure_correction(*f, keep_pressure=True)
+    assert all(torch.equal(a, b) for a, b in zip(split, merged))
     mesh = Mesh((32,) * 3, L, ((BC.PERIODIC, BC.PERIODIC),) * 3)
     params = SolverParams(n_species=2, pr_species=PR, compensated=True)
     case = TGVCase(mesh, params, device="cpu", monitor_path=None)

@@ -2,9 +2,10 @@
 x3d2_tpu reads them, on the CPU against x3d2_tpu's branches (built with
 its backend reported as a TPU; nothing of it is run):
 
-- X3D2_MID_SPLIT=1 raises where the slab's mid runs (the xdiv chain's
-  projection, keep_pressure=True, pressure_grads) naming the split
-  kernels, and not on the pipeline, which never reads it;
+- X3D2_MID_SPLIT=1 takes the mid's two halves (div_solve, grad) where
+  the slab's mid runs (the xdiv chain's projection, keep_pressure=True,
+  pressure_grads), with the bits of the merged mid, and not on the
+  pipeline, which never reads it;
 - X3D2_PALLAS=0 takes the dense transport and the transform-folded
   projection, as x3d2_tpu builds no kernel branch;
 - X3D2_CHUNK=0 or 1 runs the same steps;
@@ -75,22 +76,37 @@ def _tpu_gates():
 
 def test_mid_split_raises_where_the_slab_mid_runs(monkeypatch):
     """X3D2_MID_SPLIT=1 is read in the slab's mid (x3d2_tpu solver.py:512):
-    the xdiv chain's projection and keep_pressure=True raise naming the
-    split kernels; the pipeline (X3D2_XDIV_FUSED=0, keep_pressure=False)
-    never reads it and runs, as in x3d2_tpu, which builds both there."""
-    monkeypatch.setenv("X3D2_MID_SPLIT", "1")
+    the xdiv chain's projection, keep_pressure=True and pressure_grads take
+    the halves, div_solve then grad (the name is from when the port
+    raised there), with the merged mid's bits; the pipeline
+    (X3D2_XDIV_FUSED=0, keep_pressure=False) never reads it and runs, as
+    in x3d2_tpu, which builds both there."""
+    from x3d2_tpu_torch.ops import pressure_slab as sl
     ns = NavierStokes.build(Mesh(SHAPE, L, PER), NU, device="cpu")
     rng = np.random.default_rng(3)
     u, v, w = (torch.from_numpy(rng.standard_normal(SHAPE)
                                 .astype(np.float32)) for _ in range(3))
-    for keep in (True, False):
-        divs = None if keep else ns._x_stage(("sx", "ix", "ix"), (u, v, w))
-        with pytest.raises(NotImplementedError, match="_div_solve_kernel"):
-            ns.pressure_correction(u, v, w, keep_pressure=keep, divs=divs)
-    with pytest.raises(NotImplementedError, match="_grad_kernel"):
-        ns.pressure_grads(u, v, w)
+    calls = []
+    for half in ("div_solve", "grad"):
+        inner = getattr(sl, half)
+        monkeypatch.setattr(sl, half, lambda *a, _f=inner, _h=half: (
+            calls.append(_h), _f(*a))[1])
+    divs = ns._x_stage(("sx", "ix", "ix"), (u, v, w))
+    merged = [ns.pressure_correction(u, v, w, keep_pressure=keep,
+                                      divs=None if keep else divs)
+              for keep in (True, False)] + [ns.pressure_grads(u, v, w)]
+    assert calls == []
+    monkeypatch.setenv("X3D2_MID_SPLIT", "1")
+    split = [ns.pressure_correction(u, v, w, keep_pressure=keep,
+                                     divs=None if keep else divs)
+             for keep in (True, False)] + [ns.pressure_grads(u, v, w)]
+    assert calls == ["div_solve", "grad"] * 3
+    for a, b in zip(merged, split):
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or torch.equal(x, y)
     out = ns.pressure_correction(u, v, w, keep_pressure=False)
     assert ns._pipe is not None and out[3] is None
+    assert calls == ["div_solve", "grad"] * 3
     monkeypatch.delenv("X3D2_MID_SPLIT")
     ref = ns.pressure_correction(u, v, w, keep_pressure=False)
     for a, b in zip(out[:3], ref[:3]):

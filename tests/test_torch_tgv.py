@@ -124,20 +124,25 @@ def test_tgv_xdiv_switch_off_takes_pipeline_f32(monkeypatch):
 
 
 def test_unported_switches_still_raise(monkeypatch):
-    # X3D2_PIPE3 routes between ported branches now (tests/test_torch_
-    # bf16.py); the mid cut at q still has no port. X3D2_MID_SPLIT is read
-    # where the slab's mid runs, as x3d2_tpu reads it (solver.py:512): a
-    # grid without the slab runs as without it, and the slab grid's mid
-    # raises naming the kernels it would take
+    # X3D2_PIPE3 routes between ported branches (tests/test_torch_bf16.py),
+    # and the mid cut at q is ported too (the name is from when it
+    # raised). X3D2_MID_SPLIT is read where the slab's mid runs, as
+    # x3d2_tpu reads it (solver.py:512): a grid without the slab runs as
+    # without it, and the slab grid's mid takes the two halves, with the
+    # merged mid's bits
     monkeypatch.setenv("X3D2_MID_SPLIT", "1")
     case, _ = _cases((32,) * 3, torch.float64, jnp.float64)
     assert case.solver._slab is None
     case.run(n_iters=1, n_output=1)
     case, _ = _cases((128, 128, 256), torch.float32, jnp.float32,
                      keep_pressure=True)
-    zero = torch.zeros((128, 128, 256))
-    with pytest.raises(NotImplementedError, match="X3D2_MID_SPLIT"):
-        case.solver.pressure_correction(zero, zero, zero)
+    rng = np.random.default_rng(6)
+    f = [torch.from_numpy(rng.standard_normal((128, 128, 256))
+                          .astype(np.float32)) for _ in range(3)]
+    split = case.solver.pressure_correction(*f)
+    monkeypatch.delenv("X3D2_MID_SPLIT")
+    merged = case.solver.pressure_correction(*f)
+    assert all(torch.equal(a, b) for a, b in zip(split, merged))
 
 
 @pytest.fixture(scope="module")

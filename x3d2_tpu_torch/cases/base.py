@@ -47,14 +47,20 @@ X3D2_XDIV_FUSED, X3D2_FUSED_RK (here) and X3D2_PIPE3, X3D2_MERGED_X,
 X3D2_PALLAS (the solver) route between ported branches as in x3d2_tpu;
 X3D2_MATMUL_PRECISION=highest builds every sweep chain (the solver's and
 the fused AB and RK chains here) at the W=32 band, as x3d2_tpu's terms=3
-(cases/base.py:139, :226). X3D2_BFLY=0 on a slab grid (the solver's
-build), X3D2_D2C=1 where x3d2_tpu's carry gate holds, X3D2_MID_SPLIT=1
-where the slab's mid runs (the solver), and a bfloat16 history or
-partials on the fused AB chain in the HIGHEST mode take TPU kernels the
-port lacks and raise NotImplementedError naming them. X3D2_CHUNK is
-accepted at any value: x3d2_tpu chains the steps between outputs into one
-dispatch or not (cases/base.py:566), the same steps either way, and the
-port's ``run`` dispatches per step.
+(cases/base.py:139, :226). X3D2_D2C=1, under x3d2_tpu's carry gate
+(cases/base.py:174-211: the fused AB chain that is not the xdiv one, no
+bfloat16 partials, no scalars, no compensation, identity define_bc,
+apply_bc and body, the pipeline built), carries the next step's z sweep
+in the projection: with keep_pressure=False the state holds ``rhsp``, the
+z partials of its velocities (a boot z sweep in ``initial_state``, again
+whenever a state enters ``run``), and the step runs the chain without its
+z sweep from them, then the pipeline whose stage C also returns the next
+``rhsp`` (ops/pressure_pipe.py pipe_c_d2; :420-434, the hooks skipped).
+A bfloat16 history or partials on the fused AB chain in the HIGHEST mode
+take TPU kernels the port lacks and raise NotImplementedError naming
+them. X3D2_CHUNK is accepted at any value: x3d2_tpu chains the steps
+between outputs into one dispatch or not (cases/base.py:566), the same
+steps either way, and the port's ``run`` dispatches per step.
 
 On the card a case runs what x3d2_tpu runs: its kernels as the port's
 kernels, its XLA parts (einsums, elementwise updates, boundary hooks) as
@@ -82,15 +88,12 @@ from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.compact import matmul_terms
+from ..ops.pressure_pipe import (build_carry_mats, carry_kernel_supported,
+                                 make_pressure_pipe_d2)
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
-                                 make_fused_transeq_rk)
+                                 make_fused_transeq_rk, make_transeq_sweep)
 from ..solver import _UNPORTED_SPECIES, NavierStokes
 from ..time_integrators import TimeIntegrator, kahan_add
-
-# what X3D2_D2C=1 takes where it acts (X3D2_BFLY=0: solver.BFLY_GAP)
-_D2C_GAP = ("X3D2_D2C=1 takes _pipe_c_kernel d2=True (x3d2_tpu/ops/"
-            "pallas_poisson.py:1455, :1523-1552) with the chain that skips "
-            "its z sweep, not ported")
 
 
 @dataclass
@@ -220,16 +223,38 @@ class BaseCase:
                     # steps unfused; the card has no kernel for it
                     if on_card:
                         raise
-        # x3d2_tpu's d2-in-C carry gate (cases/base.py:182-194), where the
-        # step would take it (keep_pressure=False: :326-330, :420-434)
+        # x3d2_tpu's d2-in-C carry gate (cases/base.py:182-211; the fused
+        # AB chain implies no compensation): the pipeline with the carry,
+        # the chain without its z sweep and the boot z sweep at the mode's
+        # band; the step takes them with keep_pressure=False (:326-330,
+        # :420-434)
+        self._pipe_d2c = None
         if (os.environ.get("X3D2_D2C", "0") == "1"
                 and self._fused_ab is not None and self._acc_dtype is None
                 and not self._ab_is_xdiv and not nsp
                 and type(self).define_bc is BaseCase.define_bc
                 and type(self).apply_bc is BaseCase.apply_bc
                 and type(self).body is BaseCase.body
-                and self.solver._pipe is not None and not keep_pressure):
-            raise NotImplementedError(_D2C_GAP)
+                and self.solver._pipe is not None):
+            try:
+                self._pipe_d2c = make_pressure_pipe_d2(
+                    self.solver._pipe.mats,
+                    build_carry_mats(self.solver.ops[2], self.solver.nu,
+                                     device=self.device))
+                self._fused_ab_nod2 = make_fused_transeq_ab(
+                    self.solver.ops, self.solver.nu, dims, self.ti.nolds,
+                    skip_d2=True, **chain)
+                self._d2_boot = make_transeq_sweep(
+                    self.solver.ops[2], self.solver.nu, 2, dims,
+                    device=self.device, terms=terms)
+            except ValueError:
+                self._pipe_d2c = None
+            if (on_card and self._pipe_d2c is not None and not keep_pressure
+                    and not carry_kernel_supported(dims)):
+                raise NotImplementedError(
+                    f"X3D2_D2C=1 on mesh {dims}: the card's carry kernel "
+                    "(_pipe_c_kernel d2=True, x3d2_tpu/ops/pallas_poisson.py:"
+                    "1455) holds whole z lines of 256 or 512 points")
         # transport + RK substage update in one chain per substage, under
         # x3d2_tpu's gate (cases/base.py:212-232); scalars ride the unfused
         # branch
@@ -306,6 +331,10 @@ class BaseCase:
             # the Kahan compensation, one per field (x3d2_tpu
             # cases/base.py:323-325)
             state["comp"] = tuple(torch.zeros_like(f) for f in tmpl)
+        if self._pipe_d2c is not None and not self.keep_pressure:
+            # the d2-in-C carry: the z sweep's partials of the velocities
+            # (derived from them; x3d2_tpu cases/base.py:326-330)
+            state["rhsp"] = tuple(self._d2_boot(u, v, w))
         return state
 
     def _rhs(self, fields, istep):
@@ -381,6 +410,18 @@ class BaseCase:
             # with a bfloat16 history its 5th entry is the error feedback
             dtc = self.ti.ab_row(istep, dt, self.dtype,
                                  feedback=self._olds_dtype is not None)
+            if "rhsp" in state:
+                # the d2-in-C carry (x3d2_tpu cases/base.py:420-434): the
+                # chain starts at the x sweep from the carried z partials,
+                # and the projection returns the next ones; the hooks are
+                # the identity by the gate, and p is carried
+                mom, rhs = self._fused_ab_nod2(*fields, olds, dtc,
+                                               state["rhsp"])
+                (un, vn, wn), rhsp = self._pipe_d2c(*mom)
+                return {"u": un, "v": vn, "w": wn, "p": state["p"],
+                        "istep": istep + 1, "rng": rng, "rhsp": rhsp,
+                        "olds": tuple((r,) + tuple(o[:-1])
+                                      for r, o in zip(rhs, olds))}
             prhs = None
             if self.nsp:
                 # the scalars' RHS on the velocities before the update (the
@@ -463,6 +504,12 @@ class BaseCase:
                 fresh = True
         if fresh is None:
             fresh = int(state["istep"]) == 1
+        if "rhsp" in state:
+            # the carried z partials are derived from u, v, w: made anew
+            # whenever a state enters the loop (x3d2_tpu cases/base.py:
+            # 545-552)
+            state = dict(state, rhsp=tuple(self._d2_boot(
+                state["u"], state["v"], state["w"])))
         if fresh and int(state["istep"]) == 1:
             self.postprocess(0, 0.0, state)
         t0 = time.perf_counter()

@@ -10,7 +10,10 @@ history: x3d2_tpu's has no ``olds``, the port's has an empty tuple per
 field. The cylinder's IBM mask ``ep`` is no part of the state: it is the
 case's parameter (``CylinderCase(..., ibm_mask=ep)``). A compensated AB
 state also carries ``comp``, the Kahan compensation per field (the fields'
-structure). A history stored in bfloat16 (X3D2_BF16_OLDS) travels as
+structure). A state of the d2-in-C carry (X3D2_D2C=1) also carries
+``rhsp``, the z transport partials of its velocities (3 fields; derived
+state, which ``run`` makes anew from u, v, w). A history stored in
+bfloat16 (X3D2_BF16_OLDS) travels as
 float32 arrays, since numpy has no bfloat16 without extra packages:
 widening bfloat16 to float32 is exact and narrowing it back is exact, so
 ``state_from_numpy(..., olds_dtype=torch.bfloat16)`` restores the stored
@@ -57,6 +60,8 @@ def state_from_numpy(np_state, device=None, seed=0, olds_dtype=None):
               for o in per_field) for per_field in olds)
     if "comp" in np_state:
         state["comp"] = tuple(t(c) for c in np_state["comp"])
+    if "rhsp" in np_state:
+        state["rhsp"] = tuple(t(r) for r in np_state["rhsp"])
     return state
 
 
@@ -77,4 +82,6 @@ def state_to_numpy(state):
         out["phi"] = a(state["phi"])
     if "comp" in state:
         out["comp"] = tuple(a(c) for c in state["comp"])
+    if "rhsp" in state:
+        out["rhsp"] = tuple(a(r) for r in state["rhsp"])
     return out

@@ -1,0 +1,314 @@
+// Stage C of the pressure pipeline with the d2-in-C carry (X3D2_D2C=1),
+// for Hopper (sm_90a), behind a plain C interface: the last of pipe_c[d2]'s
+// three launches (ops/pressure_pipe.py pipe_c_d2).
+//
+// Replaces the TPU kernel _pipe_c_kernel with d2=True
+// (x3d2_tpu/ops/pallas_poisson.py:1455, the carry at :1523-1552, built at
+// :1681-1718): stage C of the projection, u' = u - Giy Gzi X,
+// v' = v - Gsy Gzi Y, w' = w - Giy Gzs Y, plus the NEXT step's z transport
+// partials of the corrected velocities while they are still on chip,
+//     r_q = -1/2 (w' D1 q + D1d (q w')) + nu D2 q,   q in (u', v', w'),
+// with (D1, D1d, D2) = (D1s, D1, D2s) for u', v' and (D1, D1s, D2) for w'
+// (the z sweep, x3d2_tpu _pencil_kernel, pallas_kernels.py:671). The
+// step's transport chain then starts at the x sweep with these partials,
+// so the separate z sweep's three full-field reads leave the step.
+//
+// The y and z operators commute (pallas_poisson.py:386-410), so stage C
+// runs y first: two launches of the operator-apply template
+// (csrc/pressure_pipe.cu: the inverse y transform of X and Y, then the
+// banded Giy, Gsy, Giy) give A_u = Giy Tyi X, A_v = Gsy Tyi Y,
+// A_w = Giy Tyi Y, and this kernel finishes: u' = u - Gzi A_u,
+// v' = v - Gzi A_v, w' = w - Gzs A_w, then the carry. A block owns 32
+// whole z lines (the (x, y) columns b*32 ... b*32 + 31 of the row-major
+// field) of all three fields in shared memory, [z][line] with the line
+// stride padded to 36 floats (float4 rows; conflict-free per lane):
+//   1. stage A_u, A_v, A_w (each warp load: 4 lines x 8 z, whose
+//      transposed stores hit 32 distinct banks);
+//   2. per field, the inverse parity z transform [a + b; a - b],
+//      a = Me A_e, b = Mo A_o (Gz_i for u, v; Gz_s for w): a thread owns
+//      R output rows of the half (2 at nz = 512, 1 at 256) for its share
+//      of the lines (16 at nz = 512), the operators streamed from L2
+//      transposed (coalesced over the rows) and loaded KB = 8 rows ahead
+//      of their use (one block a SM: the loads' latency is covered by the
+//      thread's own FMAs, not by other warps), the lines' k-th values read
+//      as float4 broadcasts, each feeding 8 R multiply-adds;
+//      u' = s - (a +/- b) written to global memory once and over the
+//      staged field in shared memory;
+//   3. the carry's z sweep on the resident lines, lane = line: each
+//      thread takes runs of 8 consecutive z outputs of one line and
+//      slides an 8-value window of q and q w' over the 2W + 1 = 65 taps
+//      of the circulant operators (periodic uniform z: every row is a
+//      shift of the first, checked at build), three accumulations per
+//      tap. W = 32: the compact-6 z operators drop 4e-14 of their
+//      largest entry beyond it (x3d2_tpu's band for the carry is 64, at
+//      128-point blocks: the dense operator to float64 rounding).
+//
+// Bound on an H100 at 512^3, for the whole of pipe_c[d2] (the function of
+// the TPU kernel, stage C run y first): its parity products (2 inverse y,
+// 3 inverse z transforms, 3 banded y applies and the subtraction: ~2.96e3
+// flops per point) and the carry's 3 x 3 x 65 taps (~1.19e3) against 11
+// field passes of device memory: bound by operations (~8.3 ms at 67
+// TFLOP/s FP32, ~1.8 ms of bytes; chip_smoke.py carry_cost). What
+// the design does: the carry costs no field pass (it reads the lines the
+// transform left in shared memory), and the z transform's operand rows
+// come from shared memory as broadcasts, 4 lines per load. The operator
+// is read from L2 once per block and field (512 KB at nz = 512), the cost
+// of owning whole lines: 32 lines a block is what the 227 KB of shared
+// memory hold at nz = 512 (221 KB for the three fields). The y stage runs
+// before it in two template launches, not stage C's three.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int L = 32;            // z lines per block
+constexpr int LP = L + 4;        // padded line stride of the shared tiles
+constexpr int NT = 256;          // threads per block
+constexpr int W = 32;            // the carry's band half-width
+constexpr int NTAP = 2 * W + 1;  // taps per operator
+constexpr int RUN = 8;           // consecutive z outputs per thread (carry)
+constexpr int KB = 8;            // operator rows a thread loads ahead
+
+struct CarryArgs {
+  const float* A[3];   // A_u, A_v, A_w: (lines, nz)
+  const float* S[3];   // u, v, w
+  const float* G[2];   // [Me^T; Mo^T] (nz, nz/2) of Gz_i (u, v), Gz_s (w)
+  const float* taps;   // (4, NTAP): D1, D1s, D2, D2s at offsets -W..W
+  float* U[3];         // u', v', w'
+  float* R[3];         // r_u, r_v, r_w
+  float nu;
+};
+
+template <int NZ>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (3 * NZ * LP + 4 * NTAP);
+}
+
+template <int NZ>
+__global__ void __launch_bounds__(NT, 1)
+pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
+  constexpr int H = NZ / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* T = smem;                    // [3][NZ][LP]
+  float* C = smem + 3 * NZ * LP;      // [4][NTAP]
+  const int tid = threadIdx.x;
+  const long long line0 = (long long)blockIdx.x * L;
+
+  for (int i = tid; i < 4 * NTAP; i += NT) C[i] = a.taps[i];
+
+  // 1. stage: lanes (z 0..7, line 0..3) of a warp; 8 warps walk the tiles
+  {
+    const int zl = tid & 7, ll = (tid >> 3) & 3, warp = tid >> 5;
+    for (int c = 0; c < 3; ++c) {
+      const float* src = a.A[c] + line0 * NZ;
+      float* dst = T + c * NZ * LP;
+      for (int it = warp; it < (L / 4) * (NZ / 8); it += NT / 32) {
+        const int l = (it % (L / 4)) * 4 + ll;
+        const int z = (it / (L / 4)) * 8 + zl;
+        dst[z * LP + l] = __ldg(src + (long long)l * NZ + z);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. the inverse parity z transforms and the correction: R output rows
+  // of the half and LPT lines a thread (each float4 of a line's k-th
+  // values feeds 8 R multiply-adds)
+  constexpr int R = NZ >= 512 ? 2 : 1;
+  constexpr int NRG = H / R;            // row groups
+  constexpr int LPT = L / (NT / NRG);   // lines per thread
+  static_assert(NZ % 64 == 0 && (NZ & (NZ - 1)) == 0 && NT % NRG == 0
+                    && H % KB == 0 && LPT % 4 == 0,
+                "NZ: a power of two the block's row and line groups tile");
+  const int rg = tid % NRG;
+  const int lb = (tid / NRG) * LPT;
+  for (int c = 0; c < 3; ++c) {
+    const float* G = a.G[c == 2 ? 1 : 0];
+    float* Tc = T + c * NZ * LP;
+    const float* Ge = G + rg;
+    const float* Go = G + H * H + rg;
+    float acc_a[R][LPT], acc_b[R][LPT];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int l = 0; l < LPT; ++l) acc_a[r][l] = acc_b[r][l] = 0.f;
+    float me[KB][R], mo[KB][R];
+#pragma unroll
+    for (int j = 0; j < KB; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        me[j][r] = __ldg(Ge + j * H + r * NRG);
+        mo[j][r] = __ldg(Go + j * H + r * NRG);
+      }
+    for (int k0 = 0; k0 < H; k0 += KB) {
+      const int kn = k0 + KB < H ? k0 + KB : k0;
+      float nme[KB][R], nmo[KB][R];
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          nme[j][r] = __ldg(Ge + (kn + j) * H + r * NRG);
+          nmo[j][r] = __ldg(Go + (kn + j) * H + r * NRG);
+        }
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        const float* te = Tc + (k0 + j) * LP + lb;
+        const float* to = Tc + (H + k0 + j) * LP + lb;
+#pragma unroll
+        for (int l = 0; l < LPT; l += 4) {
+          const float4 e = *reinterpret_cast<const float4*>(te + l);
+          const float4 o = *reinterpret_cast<const float4*>(to + l);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc_a[r][l] = fmaf(me[j][r], e.x, acc_a[r][l]);
+            acc_a[r][l + 1] = fmaf(me[j][r], e.y, acc_a[r][l + 1]);
+            acc_a[r][l + 2] = fmaf(me[j][r], e.z, acc_a[r][l + 2]);
+            acc_a[r][l + 3] = fmaf(me[j][r], e.w, acc_a[r][l + 3]);
+            acc_b[r][l] = fmaf(mo[j][r], o.x, acc_b[r][l]);
+            acc_b[r][l + 1] = fmaf(mo[j][r], o.y, acc_b[r][l + 1]);
+            acc_b[r][l + 2] = fmaf(mo[j][r], o.z, acc_b[r][l + 2]);
+            acc_b[r][l + 3] = fmaf(mo[j][r], o.w, acc_b[r][l + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          me[j][r] = nme[j][r];
+          mo[j][r] = nmo[j][r];
+        }
+    }
+    __syncthreads();   // every thread has read the staged field
+    const float* S = a.S[c] + line0 * NZ;
+    float* Uo = a.U[c] + line0 * NZ;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = rg + r * NRG;
+#pragma unroll
+      for (int l = 0; l < LPT; ++l) {
+        const int ln = lb + l;
+        const float u0 = __ldg(S + (long long)ln * NZ + i)
+                         - (acc_a[r][l] + acc_b[r][l]);
+        const float u1 = __ldg(S + (long long)ln * NZ + H + i)
+                         - (acc_a[r][l] - acc_b[r][l]);
+        Uo[(long long)ln * NZ + i] = u0;
+        Uo[(long long)ln * NZ + H + i] = u1;
+        Tc[i * LP + ln] = u0;
+        Tc[(H + i) * LP + ln] = u1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the carry: lane = line, runs of RUN z outputs per warp in turn
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* Tw = T + 2 * NZ * LP;   // w', the convecting component
+  for (int c = 0; c < 3; ++c) {
+    const float* Tq = T + c * NZ * LP;
+    // dq = D1 q, d2q = D2 q, dqd = D1s (q w') for w'; D1s, D2s, D1 else
+    const float* cd = C + (c == 2 ? 0 : 1) * NTAP;
+    const float* c2 = C + (c == 2 ? 2 : 3) * NTAP;
+    const float* cp = C + (c == 2 ? 1 : 0) * NTAP;
+    float* Rc = a.R[c] + (line0 + lane) * NZ;
+    for (int z0 = warp * RUN; z0 < NZ; z0 += (NT / 32) * RUN) {
+      float dq[RUN], d2[RUN], dd[RUN], qw[RUN], pw[RUN];
+      // the window at offset -W: inputs z0 + j - W
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        const int z = (z0 + j - W) & (NZ - 1);
+        const float q = Tq[z * LP + lane];
+        qw[j] = q;
+        pw[j] = q * Tw[z * LP + lane];
+        dq[j] = d2[j] = dd[j] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k) {
+        const float wd = cd[k], w2 = c2[k], wp = cp[k];
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+          dq[j] = fmaf(wd, qw[j], dq[j]);
+          d2[j] = fmaf(w2, qw[j], d2[j]);
+          dd[j] = fmaf(wp, pw[j], dd[j]);
+        }
+        if (k + 1 < NTAP) {
+          // slide: the window at offset k + 1 - W
+#pragma unroll
+          for (int j = 0; j < RUN - 1; ++j) {
+            qw[j] = qw[j + 1];
+            pw[j] = pw[j + 1];
+          }
+          const int z = (z0 + RUN + k - W) & (NZ - 1);
+          const float q = Tq[z * LP + lane];
+          qw[RUN - 1] = q;
+          pw[RUN - 1] = q * Tw[z * LP + lane];
+        }
+      }
+      float r[RUN];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        const float conv = Tw[(z0 + j) * LP + lane];
+        r[j] = -0.5f * (conv * dq[j] + dd[j]) + a.nu * d2[j];
+      }
+      *reinterpret_cast<float4*>(Rc + z0) =
+          make_float4(r[0], r[1], r[2], r[3]);
+      *reinterpret_cast<float4*>(Rc + z0 + 4) =
+          make_float4(r[4], r[5], r[6], r[7]);
+    }
+  }
+}
+
+template <int NZ>
+cudaError_t launch(const CarryArgs& a, long long nlines,
+                   cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      pipe_c_d2_kernel<NZ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<NZ>());
+  if (err != cudaSuccess) return err;
+  pipe_c_d2_kernel<NZ><<<(unsigned)(nlines / L), NT, smem_bytes<NZ>(),
+                         stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Compile-time geometry, for the wrapper's checks: lines per block, W.
+int pipe_c_d2_geometry(int* lines, int* w) {
+  *lines = L;
+  *w = W;
+  return 0;
+}
+
+// One launch. ptrs: A_u, A_v, A_w, u, v, w, Gz_i^T, Gz_s^T, taps, u', v',
+// w', r_u, r_v, r_w (15, all 16-byte aligned, contiguous (lines, nz)
+// fields). nlines = nx * ny, a multiple of 32; nz 256 or 512. Returns the
+// cudaError_t of the launch (0 on success).
+int pipe_c_d2_launch(void* const* ptrs, float nu, long long nlines, int nz,
+                     void* stream) {
+  if (nlines <= 0 || nlines % L) return (int)cudaErrorInvalidValue;
+  CarryArgs a = {};
+  for (int c = 0; c < 3; ++c) {
+    a.A[c] = static_cast<const float*>(ptrs[c]);
+    a.S[c] = static_cast<const float*>(ptrs[3 + c]);
+    a.U[c] = static_cast<float*>(ptrs[9 + c]);
+    a.R[c] = static_cast<float*>(ptrs[12 + c]);
+  }
+  a.G[0] = static_cast<const float*>(ptrs[6]);
+  a.G[1] = static_cast<const float*>(ptrs[7]);
+  a.taps = static_cast<const float*>(ptrs[8]);
+  a.nu = nu;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nz) {
+    case 256: return (int)launch<256>(a, nlines, s);
+    case 512: return (int)launch<512>(a, nlines, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* pipe_c_d2_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

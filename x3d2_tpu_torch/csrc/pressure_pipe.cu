@@ -40,12 +40,20 @@
 //   - _x_parity_gradsub3_kernel  pallas_poisson.py:1106  one PINV launch
 //     along x with three jobs and the subtracting epilogue
 //   - _x_apply_kernel            pallas_poisson.py:954   the dense x stage
-//     of a wall-bounded x axis: one DENSE launch per field, out = M f
-//     (sx, ix: (ncx, nvx)) or out = s - M f (gx_s, gx_i: (nvx, ncx)). The
-//     TPU kernel K-blocks the contraction over its grid; here the k-loop
-//     of the block runs over all of K, and the operand loads are guarded,
-//     so K and the output rows need not be multiples of the tiles (513 on
-//     a Dirichlet axis of 512 cells).
+//     of a wall-bounded x axis (and of any x with X3D2_BFLY=0): one DENSE
+//     launch per field, out = M f (sx, ix: (ncx, nvx)) or out = s - M f
+//     (gx_s, gx_i: (nvx, ncx)). The TPU kernel K-blocks the contraction
+//     over its grid; here the k-loop of the block runs over all of K, and
+//     the operand loads are guarded, so K and the output rows need not be
+//     multiples of the tiles (513 on a Dirichlet axis of 512 cells).
+//   - the dense forms of _pressure_mid_kernel (X3D2_BFLY=0; the dense-Ty
+//     and dense-z branches of _div_solve_body / _grad_body,
+//     pallas_poisson.py:189-310, which _div_solve_kernel :327 and
+//     _grad_kernel :340 share): the mid's six launches with DENSE in
+//     place of PFWD and PINV, along y batched over x planes (the forward
+//     Ty with the SOLVE_PLANE epilogue, the inverse Ty) and, transposed,
+//     along the contiguous z axis (Iz . + Sz ., Gzi q and Gzs q). They do
+//     twice the operations of the parity forms.
 //
 // Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
 // point (the dense parity halves dominate; the banded applies count their
@@ -166,7 +174,8 @@ mat_apply_kernel(const __grid_constant__ Args a) {
     const float* B = J.B[s] + base;
     if (MODE == DENSE) {
       // rows past nout and k past K read as zeros: the operator's rows
-      // are K long (no float4 alignment), the field has K rows
+      // are K long (no float4 alignment), the field has K rows (TRANS:
+      // K a multiple of 8, so a float4 of k is whole or past K)
       float v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -176,8 +185,9 @@ mat_apply_kernel(const __grid_constant__ Args a) {
       }
       ra = make_float4(v[0], v[1], v[2], v[3]);
       const int r = kt + bk;
-      rb[0] = r < a.K ? ld4(B + (long long)r * a.ld + n0 + bn)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      const long long off = TRANS ? (long long)(n0 + bn) * a.ld + r
+                                  : (long long)r * a.ld + n0 + bn;
+      rb[0] = r < a.K ? ld4(B + off) : make_float4(0.f, 0.f, 0.f, 0.f);
       rb[1] = rb[0];   // both row groups read the same operand rows
       return;
     }
@@ -378,8 +388,11 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
                         void* const* tabs, int batch, int K, int nrow,
                         int nout, int bw, long long ld, long long pstride,
                         long long ncols, int mtiles, void* stream) {
+  // DENSE transposed: square (the output's rows share the input's
+  // stride), K tiled by the k-step and the rows by the block
   if (njobs < 1 || njobs > 3 || batch < 1 || ncols % BN
-      || (mode != DENSE && K % BK) || (mode == DENSE && (trans || batch != 1)))
+      || (mode != DENSE && K % BK)
+      || (mode == DENSE && trans && (K % BK || nout != K || nout % BM)))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int j = 0; j < njobs; ++j) {
@@ -423,6 +436,9 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
     case PINV * 100 + 10 + STORE:  return launch<PINV, true, STORE>(a, grid, s);
     case DENSE * 100 + 0 + STORE:  return launch<DENSE, false, STORE>(a, grid, s);
     case DENSE * 100 + 0 + SUB:    return launch<DENSE, false, SUB>(a, grid, s);
+    case DENSE * 100 + 0 + SOLVE_PLANE:
+      return launch<DENSE, false, SOLVE_PLANE>(a, grid, s);
+    case DENSE * 100 + 10 + STORE: return launch<DENSE, true, STORE>(a, grid, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,9 +7,11 @@ axis of (nx, ny, nz) float32 fields in one of three forms (BANDED, PFWD,
 PINV), up to three fields a launch and two summed sources a field, with an
 epilogue (STORE, SUB, SOLVE after an x apply, SOLVE_PLANE after a y apply
 batched over x planes; the solves take the Nyquist mask where the operator
-set has one). ``apply_dense`` launches the fourth form, DENSE: one dense
-(n_out, n_in) operator along x, out = M f or out = s - M f, any extents
-(the x stage of a wall-bounded x axis). Both check their operands, launch
+set has one), or the fourth form, DENSE, along y or z: a square dense
+operator (the dense forms of the mid, X3D2_BFLY=0). ``apply_dense``
+launches DENSE along x: one dense (n_out, n_in) operator, out = M f or
+out = s - M f, any extents (the x stage of a wall-bounded x axis, and of
+any x with X3D2_BFLY=0). Both check their operands, launch
 or raise, and add one to the launch count of the wrapper named in
 ``stage``; nothing else counts. ``route`` is the wrappers' device switch:
 CUDA tensors launch, CPU tensors take the plain version, anything else
@@ -30,7 +32,11 @@ STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 
 # kernel launches per call of each wrapper
 LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
+                     "pipe_c[d2]": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
+                     "pressure_mid[dense]": 6, "pressure_mid[q,dense]": 6,
+                     "div_solve": 3, "grad": 3, "div_solve[dense]": 3,
+                     "grad[dense]": 3,
                      "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1,
                      "x_pfwd": 1, "x_pinv": 1, "x_pinv[sub]": 1}
 
@@ -89,7 +95,8 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     """One kernel launch applying operators along `axis` of (nx, ny, nz)
     fields. jobs: (mats, fields, out, sub) per field, with 1-2 (mat, field)
     sources summed into `out` (sub: the field it is subtracted from).
-    tabs: the solve's A, B, k2x, tx2 [, Myz, mx: the Nyquist mask]."""
+    tabs: the solve's A, B, k2x, tx2 [, Myz, mx: the Nyquist mask]. DENSE
+    takes square (n, n) operators along y or z (along x: apply_dense)."""
     shape = tuple(jobs[0][1][0].shape)
     nx, ny, nz = shape
     n = shape[axis]
@@ -97,11 +104,13 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
             or (axis < 2 and nz % TILE):
         raise ValueError(f"shape {shape} is not tiled by {TILE} along "
                          f"axis {axis}")
+    if mode == DENSE and axis == 0:
+        raise ValueError("the dense x apply is apply_dense")
     trans, batch, ld, pstride, ncols = {
         0: (0, 1, ny * nz, 0, ny * nz),
         1: (0, nx, nz, ny * nz, nz),
         2: (1, 1, nz, 0, nx * ny)}[axis]
-    K = WIN if mode == BANDED else n // 2
+    K = WIN if mode == BANDED else n if mode == DENSE else n // 2
     mtiles = n // 2 // BBS if mode == PINV else n // TILE
     ptrs, nsrc = [], []
     for mats, fields, out, sub in jobs:
@@ -172,6 +181,12 @@ def _launch(stage, mode, trans, epi, jobs, ptrs, nsrc, tabs, batch, K, nrow,
     if err != 0:
         msg = lib().pressure_pipe_error_string(err).decode()
         raise RuntimeError(f"pressure_pipe launch failed: {msg} ({err})")
+    count_launch(stage)
+
+
+def count_launch(stage):
+    """One launch of the wrapper named `stage` (also the carry kernel's,
+    ops/pressure_pipe.py)."""
     _LAUNCHES[stage] = _LAUNCHES.get(stage, 0) + 1
 
 

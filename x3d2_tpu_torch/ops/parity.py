@@ -17,6 +17,14 @@ structural conditions hold (a wall-bounded x axis among them: its x stage
 is then the dense transform-folded x apply, x_perm None, and the Poisson
 variant may zero a Nyquist line), the pipeline inside that where
 pipe3_supported holds (every axis periodic).
+
+With X3D2_BFLY=0 x3d2_tpu's slab keeps its transforms dense
+(make_pressure_slab, pallas_poisson.py:588-635, :657-708): one dense
+Ty = real_dft_matrix(ny) and its inverse around the banded y applies, the
+dense transform-folded z matrices, the dense x stage, and q in natural
+order on every axis (``dense=True`` here: x_perm, q_perm and z_perm None).
+Its pipeline keeps the parity splits whatever the switch
+(pallas_poisson.py:1593-1604), so a grid with both builds both sets.
 """
 
 from __future__ import annotations
@@ -134,8 +142,8 @@ def x_is_parity(solver) -> bool:
     """Whether the slab's x stage is the parity split (x3d2_tpu
     make_pressure_slab, pallas_poisson.py:681-708: it takes the split where
     the transform-folded x matrices have the half-period symmetry, which a
-    periodic x axis of even extent gives) rather than the dense x applies
-    (``x_perm`` None there)."""
+    periodic x axis of even extent gives, unless X3D2_BFLY is "0") rather
+    than the dense x applies (``x_perm`` None there)."""
     d64 = solver._fp_mats64()
     try:
         for name in ("sx", "ix"):
@@ -149,12 +157,13 @@ def x_is_parity(solver) -> bool:
     return True
 
 
-def slab_gap(solver) -> str | None:
+def slab_gap(solver, dense=False) -> str | None:
     """Why the port's slab kernels cannot serve a grid x3d2_tpu's slab
-    gate admits, or None when they can: the port has the fast y and z
-    branches (periodic y and z, banded y, parity y and z, extents tiled by
-    the kernel's 128) and both x stages (the parity split, tiled by 128,
-    and the dense x applies)."""
+    gate admits, or None when they can: the port has the y and z branches
+    of periodic y and z (banded y, parity or dense y and z transforms,
+    extents tiled by the kernel's 128) and both x stages (the parity
+    split, tiled by 128, and the dense x applies). ``dense``: the
+    transforms kept dense (X3D2_BFLY=0)."""
     po = solver.poisson
     nx, ny, nz = po.nc
     if 1 in po.folded or 2 in po.folded:
@@ -164,7 +173,7 @@ def slab_gap(solver) -> str | None:
         return (f"y and z extents tiled by {TILE} (the banded y and parity "
                 "z branches of _pressure_mid_kernel, x3d2_tpu/ops/"
                 "pallas_poisson.py:354, at other extents)")
-    if x_is_parity(solver) and nx % TILE:
+    if not dense and x_is_parity(solver) and nx % TILE:
         return (f"an x extent tiled by {TILE} (the parity x kernels "
                 "_x_parity_fwd3_kernel and _x_parity_gradsub3_kernel, "
                 "x3d2_tpu/ops/pallas_poisson.py:1067, :1106, at other "
@@ -172,10 +181,10 @@ def slab_gap(solver) -> str | None:
     return None
 
 
-def projection_supported(solver) -> bool:
+def projection_supported(solver, dense=False) -> bool:
     """The grids the port's kernel projections serve: x3d2_tpu's slab gate
     holds (slab_supported) and nothing of it is left to port (slab_gap)."""
-    return slab_supported(solver) and slab_gap(solver) is None
+    return slab_supported(solver) and slab_gap(solver, dense) is None
 
 
 @dataclass
@@ -187,20 +196,23 @@ class ProjectionMats:
     (the inverse y transform with its row weights folded in), and gxs, gxi
     on a periodic x. On a wall-bounded x the dense transform-folded x
     matrices instead: sx, ix (ncx, nvx) and gxs, gxi (nvx, ncx), natural
-    order. Solve tables (block-parity order on periodic axes): tab_a, tab_b
+    order. With ``dense`` (X3D2_BFLY=0) ty, tyi, iz, sz, gzi, gzs and the x
+    matrices are the dense ones, in natural order. Solve tables (block-parity order on periodic axes): tab_a, tab_b
     per (y, z) column, k2x, tx2 per x mode; where the Poisson variant zeros
     a Nyquist line, its indicators myz per (y, z) column and mx per x mode
     (q is multiplied by 1 - mx myz). Inverse transforms with columns in the
     order of q's modes, for the physical pressure: ti_x, ti_y, ti_z.
     x_perm, q_perm, z_perm give the natural mode of each slot along x, y,
-    z; x_perm is None on the dense x stage, as in x3d2_tpu."""
+    z; x_perm is None on the dense x stage, and all three are None with
+    ``dense``, as in x3d2_tpu."""
 
     shape: tuple
     m64: dict
     device: torch.device
     x_perm: np.ndarray | None
-    q_perm: np.ndarray
-    z_perm: np.ndarray
+    q_perm: np.ndarray | None
+    z_perm: np.ndarray | None
+    dense: bool = False
     _dev: dict = field(default_factory=dict)
 
     def mats(self, dtype) -> dict:
@@ -211,14 +223,15 @@ class ProjectionMats:
         return self._dev[dtype]
 
 
-def build_projection_mats(solver) -> ProjectionMats:
+def build_projection_mats(solver, dense=False) -> ProjectionMats:
     """The projections' operators from the solver (x3d2_tpu
     make_pressure_pipe3, pallas_poisson.py:1584-1680, and
-    make_pressure_slab, :553-708, :919-936, the fast y and z branches with
-    either x stage). Raises ValueError outside ``projection_supported`` or
-    when a y operator's band is wider than W at the truncation
-    tolerance."""
-    if not projection_supported(solver):
+    make_pressure_slab, :553-708, :919-936, the banded y branch with the
+    parity transforms or, with ``dense`` (X3D2_BFLY=0), the dense ones,
+    :588-635, and either x stage). Raises ValueError outside
+    ``projection_supported`` or when a y operator's band is wider than W
+    at the truncation tolerance."""
+    if not projection_supported(solver, dense):
         raise ValueError("the kernel projections need x3d2_tpu's slab grid "
                          f"with periodic y and z tiled by {TILE}")
     d64 = solver._fp_mats64()
@@ -235,27 +248,34 @@ def build_projection_mats(solver) -> ProjectionMats:
     def inv(M):
         return np.concatenate(parity_split_folded(M, 1))
 
-    te, to, wvec = parity_split(ny)
-    h = ny // 2
-    w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
-    yp, zp = parity_perm(ny), parity_perm(nz)
-    xp = parity_perm(nx) if x_is_parity(solver) else None
+    xp = None if dense or not x_is_parity(solver) else parity_perm(nx)
     xo = xp if xp is not None else np.arange(nx)
     ti = [np.asarray(T, np.float64) for T in po.Ti64]
-    m = {
-        "biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
-        "ty": np.concatenate([te, to]),
-        "iz": fwd(d64["iz"]), "sz": fwd(d64["sz"]),
-        "gzi": inv(d64["gz_i"]), "gzs": inv(d64["gz_s"]),
-        "tyi": np.concatenate([te.T * w_perm[None, :h],
-                               to.T * w_perm[None, h:]]),
-        "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v),
-        "tab_a": np.asarray(po.tab_A)[yp][:, zp].reshape(-1),
-        "tab_b": np.asarray(po.tab_B)[yp][:, zp].reshape(-1),
-        "k2x": po.k2_1d[0][xo],
-        "tx2": (po.T_1d[0] ** 2)[xo],
-        "ti_x": ti[0][:, xo], "ti_y": ti[1][:, yp], "ti_z": ti[2][:, zp],
-    }
+    m = {"biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
+         "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v)}
+    if dense:
+        # x3d2_tpu's banded y without the butterfly (pallas_poisson.py:
+        # 627-630): Ty = real_dft_matrix(ny) and its inverse; the folded
+        # z matrices whole; q's modes in natural order
+        yp = zp = None
+        yo, zo = np.arange(ny), np.arange(nz)
+        m.update(ty=po.Tf64[1], tyi=np.linalg.inv(po.Tf64[1]),
+                 iz=d64["iz"], sz=d64["sz"], gzi=d64["gz_i"],
+                 gzs=d64["gz_s"])
+    else:
+        te, to, wvec = parity_split(ny)
+        h = ny // 2
+        w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
+        yp, zp = yo, zo = parity_perm(ny), parity_perm(nz)
+        m.update(ty=np.concatenate([te, to]),
+                 iz=fwd(d64["iz"]), sz=fwd(d64["sz"]),
+                 gzi=inv(d64["gz_i"]), gzs=inv(d64["gz_s"]),
+                 tyi=np.concatenate([te.T * w_perm[None, :h],
+                                     to.T * w_perm[None, h:]]))
+    m.update(tab_a=np.asarray(po.tab_A)[yo][:, zo].reshape(-1),
+             tab_b=np.asarray(po.tab_B)[yo][:, zo].reshape(-1),
+             k2x=po.k2_1d[0][xo], tx2=(po.T_1d[0] ** 2)[xo],
+             ti_x=ti[0][:, xo], ti_y=ti[1][:, yo], ti_z=ti[2][:, zo])
     if xp is not None:
         m.update(sx=fwd(d64["sx"]), ix=fwd(d64["ix"]),
                  gxs=inv(d64["gx_s"]), gxi=inv(d64["gx_i"]))
@@ -270,9 +290,9 @@ def build_projection_mats(solver) -> ProjectionMats:
                else (np.arange(n) == n // 2).astype(np.float64)
                for a, n in enumerate((nx, ny, nz))]
         m["mx"] = ind[0][xo]
-        m["myz"] = np.outer(ind[1][yp], ind[2][zp]).reshape(-1)
+        m["myz"] = np.outer(ind[1][yo], ind[2][zo]).reshape(-1)
     return ProjectionMats(shape=(nx, ny, nz), m64=m, device=solver.device,
-                          x_perm=xp, q_perm=yp, z_perm=zp)
+                          x_perm=xp, q_perm=yp, z_perm=zp, dense=dense)
 
 
 # ---------------------------------------------------------------------------

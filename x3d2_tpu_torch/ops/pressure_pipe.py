@@ -11,6 +11,11 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_pipe3
                                           X = Gxs q, Y = Gxi q
     C  _pipe_c_kernel (:1455)  X, Y, u, v, w -> u - Giy Gzi X,
                                           v - Gsy Gzi Y, w - Giy Gzs Y
+    C with d2=True (:1523-1552, built :1681-1718; X3D2_D2C=1): stage C and
+       the carry, the next step's z transport partials of the corrected
+       velocities, r = -1/2 (w' D1 q + D1d (q w')) + nu D2 q for q in
+       (u', v', w') (pipe_c_d2; the carried step's chain skips its z sweep,
+       ops/transeq_sweep.py make_fused_transeq_ab(skip_d2=True))
 
 The y interpolation and staggered derivative are band-truncated per block
 of 64 rows (ops/banded.py, W=32); the periodic transforms use the parity
@@ -21,6 +26,19 @@ splits and the plain applies are shared with the slab projection
 (ops/parity.py); so is the kernel template, behind its launcher
 (ops/operator_apply.py).
 
+The carry's plain version is x3d2_tpu's: the sweep's banded blocks of the
+z operators at its 128-point blocks and 64-point band in both modes
+(zbs, zw; at 64 points the compact-6 operators are exact to float64
+rounding). On the card stage C runs y first (the y and z operators
+commute, pallas_poisson.py:386-410): the inverse y transform of X and Y
+(two PINV applies, not stage C's three), the banded Giy, Gsy, Giy, then
+``csrc/pipe_c_d2.cu``, whose block owns 32 whole z lines of the three
+fields: it applies the inverse parity z transforms, subtracts from u, v,
+w, writes u', v', w' once, and runs the carry's z sweep on the lines it
+holds, with the circulant z operators' 2W + 1 taps at W = 32 (they drop
+4e-14 of the largest entry beyond it); the separate z sweep's three field
+reads leave the step.
+
 A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
 runs the plain version. The pipeline serves the all-periodic uniform grid
 whose every extent is a multiple of 128 (``parity.projection_supported``), as
@@ -30,10 +48,31 @@ pallas_poisson.py:1555).
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
 import torch
 
-from .operator_apply import BANDED, PFWD, PINV, SOLVE, SUB, apply, route
+from ..common import resolve_device
+from .banded import banded_blocks
+from .operator_apply import (BANDED, PFWD, PINV, SOLVE, SUB, apply,
+                             count_launch, route)
 from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
+from .transeq_sweep import SweepBlocks, transeq_sweep_plain
+
+# x3d2_tpu's carry blocks (pallas_poisson.py:1683), in both modes, and its
+# band truncation tolerance (pallas_kernels.py:143)
+ZBS, ZW = 128, 64
+_BAND_TOL = 1e-6
+# the carry kernel: band half-width, z lines per block, the z extents it
+# is built for (whole lines of three fields in shared memory)
+CARRY_W = 32
+CARRY_LINES = 32
+CARRY_NZ = (256, 512)
+# circulant to float64 rounding; the taps beyond CARRY_W, which the kernel
+# leaves out, far below float32 rounding (the compact-6 operators: 4e-14)
+_CIRCULANT_TOL = _TAIL_TOL = 1e-12
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +171,183 @@ def pipe_c(X, Y, u, v, w, pm: ProjectionMats):
     if route(X, "pipe_c"):
         return _pipe_c_cuda(X, Y, u, v, w, pm.mats(torch.float32))
     return pipe_c_plain(X, Y, u, v, w, pm.mats(X.dtype))
+
+
+# ---------------------------------------------------------------------------
+# stage C with the carry (X3D2_D2C=1)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CarryMats:
+    """The carry's operators: the z sweep's banded blocks at x3d2_tpu's
+    (ZBS, ZW) (the plain version's), the circulant taps of D1, D1s, D2,
+    D2s at offsets -CARRY_W..CARRY_W (float64, (4, 2 CARRY_W + 1); the
+    kernel's), the viscosity, and device copies."""
+
+    blocks: SweepBlocks
+    taps: np.ndarray
+    nu: float
+    device: torch.device
+    _dev: dict = field(default_factory=dict)
+
+    def kernel_mats(self, pm: ProjectionMats):
+        """(taps, Gzi^T, Gzs^T) for the kernel, float32: the inverse parity
+        z operators [Me; Mo] of pm as [Me^T; Mo^T] (nz, nz/2), row k of the
+        first half holding column k of Me (cached for the last pm)."""
+        def halves_t(M):
+            h = M.shape[0] // 2
+            return np.concatenate([M[:h].T, M[h:].T])
+
+        if self._dev.get("pm") is not pm:
+            self._dev["pm"] = pm
+            self._dev["kernel"] = tuple(
+                torch.as_tensor(a, dtype=torch.float32,
+                                device=self.device).contiguous()
+                for a in (self.taps, halves_t(pm.m64["gzi"]),
+                          halves_t(pm.m64["gzs"])))
+        return self._dev["kernel"]
+
+
+def build_carry_mats(ops_z, nu, device=None) -> CarryMats:
+    """The carry's operators from the z axis' (x3d2_tpu make_pressure_pipe3
+    d2_sweep, pallas_poisson.py:1681-1697). Raises ValueError where
+    x3d2_tpu does (a z extent not tiled by ZBS or shorter than ZBS + 2 ZW)
+    and where the z operators are not circulant (a periodic uniform z, as
+    every pipeline grid has) or reach beyond CARRY_W."""
+    n = ops_z.der1st.n_out
+    if n % ZBS or n < ZBS + 2 * ZW:
+        raise ValueError("d2-in-C needs a lane-tileable z extent")
+
+    def bb(op):
+        return banded_blocks(op, ZW, ZBS, tol=_BAND_TOL)
+
+    d1, d1s = ops_z.der1st, ops_z.der1st_sym
+    d2, d2s = ops_z.der2nd, ops_z.der2nd_sym
+    m64 = {"sa": np.concatenate([bb(d1), bb(d2)], axis=1),
+           "st": np.concatenate([bb(d1s), bb(d2s)], axis=1),
+           "da": bb(d1s), "dt": bb(d1)}
+    device = resolve_device(device)
+    offs = np.arange(-CARRY_W, CARRY_W + 1)
+    far = np.abs(np.arange(n) - n // 2) < n // 2 - CARRY_W
+    taps = []
+    for op in (d1, d1s, d2, d2s):
+        M = op.M64
+        scale = np.abs(M).max()
+        circ = np.stack([np.roll(M[0], i) for i in range(n)])
+        if M.shape != (n, n) or np.abs(M - circ).max() > \
+                _CIRCULANT_TOL * scale:
+            raise ValueError("the carry kernel needs circulant z operators "
+                             "(a periodic uniform z axis)")
+        # taps beyond CARRY_W: the ones the kernel leaves out
+        if np.abs(M[0][far]).max(initial=0.0) > _TAIL_TOL * scale:
+            raise ValueError(f"the z operators reach beyond {CARRY_W} "
+                             "points")
+        taps.append(M[0][offs % n])
+    return CarryMats(
+        blocks=SweepBlocks(axis=2, m64=m64, device=device, bs=ZBS, w=ZW),
+        taps=np.stack(taps), nu=float(nu), device=device)
+
+
+def carry_kernel_supported(shape) -> bool:
+    """Whether the carry kernel serves the grid: a z extent it is built
+    for, and the lines tiled by its block."""
+    nx, ny, nz = shape
+    return nz in CARRY_NZ and (nx * ny) % CARRY_LINES == 0
+
+
+def pipe_c_d2_plain(X, Y, u, v, w, m, carry: CarryMats):
+    """Stage C and the carry in plain PyTorch: ((u', v', w'),
+    (r_u, r_v, r_w))."""
+    new = pipe_c_plain(X, Y, u, v, w, m)
+    return new, transeq_sweep_plain(*new, carry.blocks, carry.nu)
+
+
+_CARRY_LIB = None
+
+
+def _carry_lib():
+    """The carry kernel's library, built and typed at first use."""
+    global _CARRY_LIB
+    if _CARRY_LIB is None:
+        from .. import _build
+
+        so = _build.load("pipe_c_d2")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        so.pipe_c_d2_launch.argtypes = [p, ctypes.c_float, ctypes.c_longlong,
+                                        i, p]
+        so.pipe_c_d2_launch.restype = i
+        so.pipe_c_d2_error_string.argtypes = [i]
+        so.pipe_c_d2_error_string.restype = ctypes.c_char_p
+        so.pipe_c_d2_geometry.argtypes = [ctypes.POINTER(i)] * 2
+        so.pipe_c_d2_geometry.restype = i
+        geo = [i() for _ in range(2)]
+        so.pipe_c_d2_geometry(*geo)
+        if tuple(g.value for g in geo) != (CARRY_LINES, CARRY_W):
+            raise RuntimeError("pipe_c_d2.cu geometry "
+                               f"{tuple(g.value for g in geo)} differs from "
+                               f"the wrapper's {(CARRY_LINES, CARRY_W)}")
+        _CARRY_LIB = so
+    return _CARRY_LIB
+
+
+def _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry):
+    shape = tuple(X.shape)
+    if not carry_kernel_supported(shape):
+        raise ValueError(f"the carry kernel holds whole z lines of "
+                         f"{CARRY_NZ} points, {CARRY_LINES} lines a block; "
+                         f"got {shape}")
+    m = pm.mats(torch.float32)
+    # y first: Tyi X, Tyi Y, then Giy (Tyi X), Gsy (Tyi Y), Giy (Tyi Y)
+    gx, gy = torch.empty_like(X), torch.empty_like(X)
+    apply("pipe_c[d2]", PINV, 1, [([m["tyi"]], [X], gx, None),
+                                  ([m["tyi"]], [Y], gy, None)])
+    a = [torch.empty_like(X) for _ in range(3)]
+    apply("pipe_c[d2]", BANDED, 1, [([m["bgiy"]], [gx], a[0], None),
+                                    ([m["bgsy"]], [gy], a[1], None),
+                                    ([m["bgiy"]], [gy], a[2], None)])
+    taps, gzi_t, gzs_t = carry.kernel_mats(pm)
+    for t in (u, v, w):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != X.device:
+            raise ValueError("the carry kernel takes contiguous float32 "
+                             f"fields of shape {shape} on {X.device}")
+    new = [torch.empty_like(X) for _ in range(3)]
+    # gx, gy are dead: two of the partials take their buffers
+    rhsp = [gx, gy, torch.empty_like(X)]
+    ptrs = [t.data_ptr() for t in a + [u, v, w]] + [
+        gzi_t.data_ptr(), gzs_t.data_ptr(), taps.data_ptr()] + [
+        t.data_ptr() for t in new + rhsp]
+    parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    with torch.cuda.device(X.device):
+        err = _carry_lib().pipe_c_d2_launch(
+            parr, carry.nu, shape[0] * shape[1], shape[2], stream)
+    if err != 0:
+        msg = _carry_lib().pipe_c_d2_error_string(err).decode()
+        raise RuntimeError(f"pipe_c_d2 launch failed: {msg} ({err})")
+    count_launch("pipe_c[d2]")
+    return tuple(new), tuple(rhsp)
+
+
+def pipe_c_d2(X, Y, u, v, w, pm: ProjectionMats, carry: CarryMats):
+    """Stage C with the carry: (X, Y, u, v, w) -> ((u', v', w'), (r_u, r_v,
+    r_w)), counted as pipe_c[d2] (3 launches)."""
+    if route(X, "pipe_c_d2"):
+        return _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry)
+    return pipe_c_d2_plain(X, Y, u, v, w, pm.mats(X.dtype), carry)
+
+
+def make_pressure_pipe_d2(pm: ProjectionMats, carry: CarryMats):
+    """fn(u, v, w) -> ((u', v', w'), (r_u, r_v, r_w)): the pipeline with
+    the carry (x3d2_tpu make_pressure_pipe3(d2_sweep=True))."""
+
+    def fn(u, v, w):
+        a, e = pipe_a(u, v, w, pm)
+        X, Y = pipe_b(a, e, pm)
+        return pipe_c_d2(X, Y, u, v, w, pm, carry)
+
+    fn.mats, fn.carry = pm, carry
+    return fn
 
 
 def make_pressure_pipe(pm: ProjectionMats):

@@ -17,6 +17,11 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
                  F = Ty (Iz duv + Sz dwm); q = -F / waves;
                  p_z = Gzi q, dpdz_s = Gzs q; GH = Ti_y [p_z, dpdz_s];
                  p_zy = Giy GH1, dpdy = Gsy GH1, dpdz = Giy GH2
+    div_solve    _div_solve_kernel (:327; call :725): the mid's first half,
+                 du, dv, dw -> q (X3D2_MID_SPLIT=1, x3d2_tpu solver.py:
+                 512-518)
+    grad         _grad_kernel (:340; call :738): its second half,
+                 q -> p_zy, dpdy, dpdz
     x_gradsub3   _x_parity_gradsub3_kernel (:1106)
                  u - Gxs p_zy, v - Gxi dpdy, w - Gxi dpdz
     x_apply      _x_apply_kernel (:954), make_x_apply (:1258): the dense x
@@ -35,11 +40,15 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
 Spectral indices are in block-parity order [even modes; odd modes] on
 every periodic axis, as the TPU kernels keep them, and in natural order on
 a wall-bounded x; the operator set is the one the pipeline uses
-(ops/parity.py). The y and z branches here are the fast ones of the TPU
-slab (banded y, parity y and z): the ones it takes where y and z are
-periodic (``parity.projection_supported``; the structural gate of
-x3d2_tpu, slab_pressure_supported, pallas_poisson.py:515-534, also admits
-wall-bounded y and z through the dense and folded branches, not ported).
+(ops/parity.py). The y and z branches here are those of the TPU slab
+where y and z are periodic (``parity.projection_supported``; the
+structural gate of x3d2_tpu, slab_pressure_supported, pallas_poisson.py:
+515-534, also admits wall-bounded y and z through the folded branches,
+not ported): banded y with parity y and z transforms, or with X3D2_BFLY=0
+the dense forms (the operator set's ``dense``: one dense Ty and its
+inverse, the dense z matrices, q in natural order, pallas_poisson.py:
+206-243, :283-310), which take twice the operations; the launches and
+their order are the same.
 The x stage is the parity split on a periodic x (x_div3, x_gradsub3) and
 the dense x apply on a wall-bounded one (x_apply). The Nyquist mask of the
 TPU kernel (q times 1 - mx Myz) is applied in the solve's epilogue where
@@ -52,7 +61,9 @@ the mid is not one whole-plane kernel as on the TPU but six launches of
 the operator-apply template, with the solve in the epilogue of the forward
 y transform; its intermediates, q among them, pass through device memory.
 Without ``emit_q`` q is scratch the caller never sees, and the gradient
-slabs are bit-identical to the ``emit_q`` call (the same launches).
+slabs are bit-identical to the ``emit_q`` call (the same launches). The
+two halves (div_solve, grad) are the first three and the last three of
+those launches, so the split gives the bits of the merged mid.
 
 A wrapper on CUDA tensors launches the kernel (or raises); on CPU tensors
 it runs the plain version. All take the projections' operator set
@@ -66,8 +77,8 @@ from __future__ import annotations
 import torch
 
 from .compact import apply_matrix
-from .operator_apply import (BANDED, PFWD, PINV, SOLVE_PLANE, STORE, SUB,
-                             apply, apply_dense, route)
+from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE_PLANE, STORE,
+                             SUB, apply, apply_dense, route)
 from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
 
 
@@ -80,17 +91,32 @@ def x_div3_plain(u, v, w, m):
     return pfwd(m["sx"], u, 0), pfwd(m["ix"], v, 0), pfwd(m["ix"], w, 0)
 
 
-def pressure_mid_plain(du, dv, dw, m, emit_q=True):
-    """(q or None, p_zy, dpdy, dpdz): y and z divergence stages, solve, z
-    and y gradient stages (the x gradient stage follows in x_gradsub3)."""
+def div_solve_plain(du, dv, dw, m, dense=False):
+    """q: the y and z divergence stages and the solve; the transforms'
+    parity stacks, or with `dense` (ProjectionMats.dense) the dense
+    matrices."""
+    fwd = apply_matrix if dense else pfwd
     duv = banded_apply(m["biy"], du, 1) + banded_apply(m["bsy"], dv, 1)
     dwm = banded_apply(m["biy"], dw, 1)
-    F = pfwd(m["ty"], pfwd(m["iz"], duv, 2) + pfwd(m["sz"], dwm, 2), 1)
-    q = F * solve_factor(m, tuple(du.shape))
-    gh1 = pinv(m["tyi"], pinv(m["gzi"], q, 2), 1)
-    gh2 = pinv(m["tyi"], pinv(m["gzs"], q, 2), 1)
-    return (q if emit_q else None, banded_apply(m["bgiy"], gh1, 1),
-            banded_apply(m["bgsy"], gh1, 1), banded_apply(m["bgiy"], gh2, 1))
+    F = fwd(m["ty"], fwd(m["iz"], duv, 2) + fwd(m["sz"], dwm, 2), 1)
+    return F * solve_factor(m, tuple(du.shape))
+
+
+def grad_plain(q, m, dense=False):
+    """(p_zy, dpdy, dpdz): the z and y gradient stages (the x gradient
+    stage follows in x_gradsub3 or the x applies), in the transforms' form
+    as div_solve_plain."""
+    inv = apply_matrix if dense else pinv
+    gh1 = inv(m["tyi"], inv(m["gzi"], q, 2), 1)
+    gh2 = inv(m["tyi"], inv(m["gzs"], q, 2), 1)
+    return (banded_apply(m["bgiy"], gh1, 1), banded_apply(m["bgsy"], gh1, 1),
+            banded_apply(m["bgiy"], gh2, 1))
+
+
+def pressure_mid_plain(du, dv, dw, m, emit_q=True, dense=False):
+    """(q or None, p_zy, dpdy, dpdz): div_solve_plain, then grad_plain."""
+    q = div_solve_plain(du, dv, dw, m, dense)
+    return (q if emit_q else None,) + grad_plain(q, m, dense)
 
 
 def x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, m):
@@ -133,30 +159,54 @@ def _x_div3_cuda(u, v, w, m):
     return du, dv, dw
 
 
-def _pressure_mid_cuda(du, dv, dw, m, emit_q):
-    name = "pressure_mid[q]" if emit_q else "pressure_mid"
-    t = [torch.empty_like(du) for _ in range(4)]
+def _forms(pm):
+    """The launch forms of the mid's transforms: (forward, inverse)."""
+    return (DENSE, DENSE) if pm.dense else (PFWD, PINV)
+
+
+def _div_solve_cuda(du, dv, dw, m, fwd, name):
+    """The mid's first three launches: banded y, the z transforms, the y
+    transform with the solve in its epilogue. Returns (q, t1, t2): t1 and
+    t2 are dead scratch fields the second half may take."""
+    t = [torch.empty_like(du) for _ in range(3)]
     apply(name, BANDED, 1, [([m["biy"], m["bsy"]], [du, dv], t[0], None),
                             ([m["biy"]], [dw], t[1], None)])
     # Sz first: the kernel sums both sources in one chain, and for the low
     # z modes, which carry the solution after the solve, Sz's part is
     # small; behind Iz's it would be rounded at Iz's magnitude
-    apply(name, PFWD, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
+    apply(name, fwd, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
     q = t[0]
     mask = (m["myz"], m["mx"]) if "myz" in m else ()
-    apply(name, PFWD, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
+    apply(name, fwd, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
           tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]) + mask)
-    apply(name, PINV, 2, [([m["gzi"]], [q], t[1], None),
-                          ([m["gzs"]], [q], t[2], None)])
-    gh1, gh2 = t[3], torch.empty_like(du)
-    apply(name, PINV, 1, [([m["tyi"]], [t[1]], gh1, None),
-                          ([m["tyi"]], [t[2]], gh2, None)])
+    return q, t[1], t[2]
+
+
+def _grad_cuda(q, m, inv, name, scratch=()):
+    """The mid's last three launches: the inverse z transforms, the
+    inverse y transform, banded y. `scratch`: two dead fields of q's shape
+    to write p_z and dpdz_s into."""
+    pz, dz = scratch or (torch.empty_like(q), torch.empty_like(q))
+    apply(name, inv, 2, [([m["gzi"]], [q], pz, None),
+                         ([m["gzs"]], [q], dz, None)])
+    gh1, gh2 = torch.empty_like(q), torch.empty_like(q)
+    apply(name, inv, 1, [([m["tyi"]], [pz], gh1, None),
+                         ([m["tyi"]], [dz], gh2, None)])
     # p_z and dpdz_s are dead: two of the results take their buffers
-    p_zy, dpdy, dpdz = t[1], t[2], torch.empty_like(du)
+    p_zy, dpdy, dpdz = pz, dz, torch.empty_like(q)
     apply(name, BANDED, 1, [([m["bgiy"]], [gh1], p_zy, None),
                             ([m["bgsy"]], [gh1], dpdy, None),
                             ([m["bgiy"]], [gh2], dpdz, None)])
-    return (q if emit_q else None), p_zy, dpdy, dpdz
+    return p_zy, dpdy, dpdz
+
+
+def _pressure_mid_cuda(du, dv, dw, pm, emit_q):
+    m = pm.mats(torch.float32)
+    fwd, inv = _forms(pm)
+    name = stage_name("pressure_mid", pm, emit_q)
+    q, t1, t2 = _div_solve_cuda(du, dv, dw, m, fwd, name)
+    return ((q if emit_q else None),) + _grad_cuda(q, m, inv, name,
+                                                   (t1, t2))
 
 
 def _x_gradsub3_cuda(p_zy, dpdy, dpdz, u, v, w, m):
@@ -174,11 +224,38 @@ def x_div3(u, v, w, pm: ProjectionMats):
     return x_div3_plain(u, v, w, pm.mats(u.dtype))
 
 
+def stage_name(base, pm: ProjectionMats, emit_q=False):
+    """The launch-count name of a mid function over pm: pressure_mid,
+    div_solve, grad, with "q" where the mid emits q and "dense" for the
+    dense forms (pressure_mid[q,dense], div_solve[dense], ...)."""
+    tags = (["q"] if emit_q else []) + (["dense"] if pm.dense else [])
+    return base + (f"[{','.join(tags)}]" if tags else "")
+
+
 def pressure_mid(du, dv, dw, pm: ProjectionMats, emit_q=True):
     """(du, dv, dw) -> (q or None, p_zy, dpdy, dpdz)."""
     if route(du, "pressure_mid"):
-        return _pressure_mid_cuda(du, dv, dw, pm.mats(torch.float32), emit_q)
-    return pressure_mid_plain(du, dv, dw, pm.mats(du.dtype), emit_q)
+        return _pressure_mid_cuda(du, dv, dw, pm, emit_q)
+    return pressure_mid_plain(du, dv, dw, pm.mats(du.dtype), emit_q,
+                              pm.dense)
+
+
+def div_solve(du, dv, dw, pm: ProjectionMats):
+    """(du, dv, dw) -> q: the mid's first half (_div_solve_kernel),
+    counted as div_solve (div_solve[dense] for the dense forms)."""
+    if route(du, "div_solve"):
+        return _div_solve_cuda(du, dv, dw, pm.mats(torch.float32),
+                               _forms(pm)[0], stage_name("div_solve", pm))[0]
+    return div_solve_plain(du, dv, dw, pm.mats(du.dtype), pm.dense)
+
+
+def grad(q, pm: ProjectionMats):
+    """q -> (p_zy, dpdy, dpdz): the mid's second half (_grad_kernel),
+    counted as grad (grad[dense] for the dense forms)."""
+    if route(q, "grad"):
+        return _grad_cuda(q, pm.mats(torch.float32), _forms(pm)[1],
+                          stage_name("grad", pm))
+    return grad_plain(q, pm.mats(q.dtype), pm.dense)
 
 
 def x_apply(name, f, pm: ProjectionMats, s=None):

@@ -708,7 +708,8 @@ def make_fused_transeq_rk(solver_ops, nu, shape, order, device=None,
 
 
 def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
-                          xdiv=None, olds_dtype=None, acc_dtype=None, terms=2):
+                          xdiv=None, olds_dtype=None, acc_dtype=None, terms=2,
+                          skip_d2=False):
     """Transport + Adams-Bashforth update in one chain of three sweeps
     (x3d2_tpu make_fused_transeq_ab_v3, pallas_kernels.py:862, chain at
     :936-939): z sweep -> accumulating x sweep -> accumulating y sweep with
@@ -742,12 +743,28 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
     partials and u' into new tensors. The caller's olds tuples are
     therefore consumed. terms: x3d2_tpu's kernel mode (3: the W=32 band;
     with a reduced history or partials it raises NotImplementedError,
-    BF16_W32_GAP)."""
+    BF16_W32_GAP).
+
+    With skip_d2 (the d2-in-C carry, X3D2_D2C=1; x3d2_tpu's skip_d2,
+    pallas_kernels.py:892-896, :929-934) the chain runs no z sweep: it
+    takes the z partials the previous projection carried,
+
+        fn(u, v, w, olds, dtc, acc0) -> ((u', v', w'), rhs)
+
+    the x sweep adds into acc0 in place, and the final sweep's buffers are
+    final_out's with acc0 in the z sweep's partials' place. skip_d2 raises
+    ValueError with acc_dtype or xdiv, as x3d2_tpu does."""
     device = resolve_device(device)
+    if skip_d2 and acc_dtype is not None:
+        # the carry comes from the projection at the state's precision
+        raise ValueError("skip_d2 and acc_dtype are exclusive")
+    if skip_d2 and xdiv is not None:
+        raise ValueError("skip_d2 and xdiv are exclusive chains")
     olds_red = _reduced(olds_dtype, "the history")
     acc_red = _reduced(acc_dtype, "the partials")
     kw = dict(device=device, acc_dtype=acc_dtype, terms=terms)
-    d2 = make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw)
+    d2 = (None if skip_d2
+          else make_transeq_sweep(solver_ops[2], nu, 2, shape, **kw))
 
     def final_out(acc, olds, like):
         """(u' buffers, rhs buffers) of the final sweep."""
@@ -776,6 +793,15 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
                             **kw)
     d1 = make_transeq_sweep(solver_ops[1], nu, 1, shape, accumulate=True,
                             nolds=nolds, olds_dtype=olds_dtype, **kw)
+
+    if skip_d2:
+        def fns(u, v, w_, olds, dtc, acc0):
+            acc = d0(u, v, w_, acc=tuple(acc0), out=tuple(acc0))
+            return d1(u, v, w_, acc=acc, olds=olds, dtc=dtc,
+                      out=final_out(acc, olds, u))
+
+        fns.sweeps = (d0, d1)
+        return fns
 
     def fn(u, v, w_, olds, dtc):
         acc = d2(u, v, w_)

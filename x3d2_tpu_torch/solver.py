@@ -46,10 +46,14 @@ X3D2_PALLAS and X3D2_MATMUL_PRECISION in ``NavierStokes.build``
 (solver.py:106, :124-127: "0" takes the einsum paths above on either
 device, the dense products and the folded chain; "highest" builds the
 sweeps at the W=32 band, ops/compact.py matmul_terms), X3D2_PIPE3,
-X3D2_BFLY and X3D2_MERGED_X where the projection is built, and
+X3D2_BFLY and X3D2_MERGED_X where the projection is built (X3D2_BFLY=0:
+the slab's dense forms, the dense transforms of the mid and the dense x
+stage, pallas_poisson.py:588-708; the pipeline keeps its parity splits,
+:1593-1604, so it has an operator set of its own then), and
 X3D2_MID_SPLIT where the slab's mid runs (``_slab_mid``, solver.py:512:
-"1" takes _div_solve_kernel and _grad_kernel, which the port lacks, and
-raises NotImplementedError there; the pipeline never reads it).
+"1" takes the mid as its two halves, pressure_slab.div_solve and grad,
+the counterparts of _div_solve_kernel and _grad_kernel; the pipeline
+never reads it).
 """
 
 from __future__ import annotations
@@ -83,15 +87,6 @@ _UNPORTED_SPECIES = ("the species sweeps serve float32 uniform grids the "
                      "277-282), which is not ported to the card")
 # the slab's x-stage operators, forward (divergence) and inverse (gradient)
 _X_FWD, _X_INV = ("sx", "ix", "ix"), ("gxs", "gxi", "gxi")
-# what X3D2_BFLY=0 takes on a grid with the slab, on either device
-BFLY_GAP = ("X3D2_BFLY=0 takes the banded y branch of _pressure_mid_kernel "
-            "with the dense Ty/Ti_y and the dense z stages (x3d2_tpu/ops/"
-            "pallas_poisson.py:206-243, :283-310), not ported")
-# what X3D2_MID_SPLIT=1 takes where the slab's mid runs, on either device
-MID_SPLIT_GAP = ("X3D2_MID_SPLIT=1 takes the mid as two kernels, "
-                 "_div_solve_kernel and _grad_kernel (x3d2_tpu/ops/"
-                 "pallas_poisson.py:327, :340; solver.py:512-518), not "
-                 "ported")
 
 
 def transport_route(solver, shape) -> str:
@@ -196,17 +191,18 @@ class NavierStokes:
         if proute == "pipe3" and os.environ.get("X3D2_PIPE3", "1") == "0":
             # x3d2_tpu builds the slab alone (solver.py:161-168)
             proute = "slab"
-        if proute is not None and os.environ.get("X3D2_BFLY", "1") == "0":
-            # x3d2_tpu reads it where it builds the slab
-            # (pallas_poisson.py:589-603, :676)
-            raise NotImplementedError(BFLY_GAP)
+        # x3d2_tpu reads X3D2_BFLY where it builds the slab
+        # (pallas_poisson.py:589-603, :676): "0" keeps the slab's
+        # transforms and x stage dense; its pipeline ignores it
+        dense = os.environ.get("X3D2_BFLY", "1") == "0"
         if proute is not None:
-            gap = slab_gap(ns)
+            gap = slab_gap(ns, dense)
         if proute is not None and gap is None:
             try:
-                slab = build_projection_mats(ns)
+                slab = build_projection_mats(ns, dense)
                 if proute == "pipe3":
-                    pipe = make_pressure_pipe(slab)
+                    pipe = make_pressure_pipe(
+                        build_projection_mats(ns) if dense else slab)
             except ValueError as err:
                 # a band wider than the kernel's: the CPU keeps the folded
                 # chain; the card raises in pressure_correction
@@ -495,13 +491,15 @@ class NavierStokes:
         """The slab projection up to the gradient x stage: (q or None,
         p_zy, dpdy, dpdz). `divs` supplies the x-transformed divergence
         inputs (the xdiv sweep's), so the x stage is skipped; without
-        want_q the spectral solution is not returned. Raises
-        NotImplementedError with X3D2_MID_SPLIT=1, read here as x3d2_tpu
-        reads it (solver.py:512)."""
-        if os.environ.get("X3D2_MID_SPLIT", "0") == "1":
-            raise NotImplementedError(MID_SPLIT_GAP)
+        want_q the spectral solution is not returned. With X3D2_MID_SPLIT=1,
+        read here as x3d2_tpu reads it (solver.py:512-518), the mid runs as
+        its two halves, div_solve (q, always formed) then grad."""
         du, dv, dw = (divs if divs is not None
                       else self._x_stage(_X_FWD, (u, v, w)))
+        if os.environ.get("X3D2_MID_SPLIT", "0") == "1":
+            q = pressure_slab.div_solve(du, dv, dw, self._slab)
+            return ((q if want_q else None),) + pressure_slab.grad(
+                q, self._slab)
         return pressure_slab.pressure_mid(du, dv, dw, self._slab,
                                           emit_q=want_q)
 
