@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    csrc/transeq_sweep_w32.cu, the sweep and species kernels of
    csrc/transeq_sweep.cuh at W = 16 and at the HIGHEST mode's W = 32,
    csrc/pressure_pipe.cu, csrc/pipe_c_d2.cu and csrc/transeq_dense.cu) with
-   nvcc for sm_90a, one nvcc per source, all started together.
+   nvcc for sm_90a, one nvcc per source, all started together; prints each
+   instance's registers and spills (the sweeps' halo forms named so).
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
    Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
@@ -90,6 +91,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    grad[dense]) on plane waves, and on white noise (mid_on_noise). The
    dense y and z applies are launches of the mid, not wrappers of their
    own: they are held inside it.
+   The sharded step's kernels (phase 9) at the blocks its ranks hold: 512 x
+   256 x 256 (512^3 on (2, 2)) and 128^3 (128 x 256 x 256 on (2, 2), also
+   in the HIGHEST mode and with the species sweeps, and 128 x 128 x 512 on
+   (1, 4)): the sweeps z, x + acc, y + acc, in the halo form on a sharded
+   axis (their extended operands sliced from a global field, at the last
+   rank: a nonzero block offset), the one-field x_pfwd and x_pinv[sub], and
+   the mid over the rank's x batch with its table slices
+   (pressure_mid[q,local] at 128 x 512 x 512, 32 x 256 x 256 and 32 x 128
+   x 512, on plane waves); at 128 x 256 x 256 on (2, 2) also X3D2_BFLY=0's
+   dense x applies of the block (x_apply, x_apply[sub] at 128^3) and
+   dense mid over the x batch (pressure_mid[q,dense,local] at 32 x 256 x
+   256).
    max |kernel - plain f32| <= 1e-5 * scale and max |kernel - plain f64|
    <= 3e-5 * scale (scale = max |plain f64|); kernel and plain times (CUDA
    events, median) beside the bound. The mid's inputs there are plane
@@ -195,6 +208,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    with X3D2_MID_SPLIT=1 (keep_pressure=True) and with X3D2_PIPE3=0 (the
    dense mid without q); the cylinder at (65, 128, 128) with
    X3D2_MID_SPLIT=1.
+   A chain whose CPU leg is bit-identical to an earlier one's (with
+   X3D2_MID_SPLIT=1: the xdiv path, keep_pressure=True, X3D2_BFLY=0 with
+   keep_pressure=True and the cylinder; X3D2_BFLY=0 with
+   keep_pressure=False as X3D2_XDIV_FUSED=0) takes that CPU leg.
    max |du, dv, dw| <= 1e-5 and max |dphi| <= 1e-5, KE relative
    difference <= 1e-6, p within p_tolerance; with bfloat16 stores each of
    the first two widened by what one bfloat16 ulp of the largest rhs (or
@@ -206,7 +223,30 @@ Phases, each printing its own lines; any failed check exits non-zero:
    HIGHEST + compensated against the float64 einsum leg (X3D2_PALLAS=0),
    both on the card (x3d2_tpu_torch.tools.ke_parity): max |dKE| / KE0 <=
    KE_LIMIT.
-9. Every held kernel was launched on a path at its size, and every kernel
+9. The sharded step (x3d2_tpu make_sharded_step's counterpart,
+   x3d2_tpu_torch.parallel): 4 ranks spawned on this host
+   (x3d2_tpu_torch.tools.shard_run), on one card with gloo (the exchanges
+   staged through host memory), one card per rank with nccl where the
+   cards cover the ranks; the transport and placement printed. Per rank
+   the launches (set to 0 just before the timed steps), ms/step (host
+   clock, the device synchronised) and the share of the halo exchanges and
+   the all-to-alls; a failing rank fails the run. Runs: the main sharded
+   path, TGV 512^3 AB3 float32 keep_pressure=False on (2, 2), 2 warm-up
+   and 3 timed steps (per rank and step: transeq_sweep[z,halo], [x,acc],
+   [y,acc,halo], 3 x_pfwd, pressure_mid[q,local] (6 launches), 3
+   x_pinv[sub]; no pipeline, no x_div3); TGV 128 x 256 x 256 on (2, 2)
+   with 2 scalars, 10 steps, and the same in the HIGHEST mode (the W = 32
+   halo instances); TGV 128 x 128 x 512 on (1, 4), 10 steps; TGV 128 x
+   256 x 256 on (2, 2) RK3 with X3D2_FUSED_RK=0 (the sharded unfused RK
+   step, 3 substages a step) and keep_pressure=True, 3 steps, and AB3
+   with X3D2_BFLY=0 (3 x_apply, pressure_mid[q,dense,local], 3
+   x_apply[sub]) and keep_pressure=True, 10 steps. Each gathered u, v, w
+   (phi) against the port's single-card step of the same arithmetic
+   (X3D2_FUSED_AB=0, X3D2_MERGED_X=0, keep_pressure=True, the run's
+   switches) after the same steps, run by rank 0 with the ranks' BLAS
+   threads: within 1e-6 * max |u|, bit-equality reported; a kept p within
+   p_tolerance of the single-card p.
+10. Every held kernel was launched on a path at its size, and every kernel
    a counted path launched was held at that size; the total wall time
    (and, before, when each phase started), the kernels line (JSON; one
    entry per kernel and size a path gives it, named kernel@n, n the edge
@@ -216,7 +256,6 @@ Phases, each printing its own lines; any failed check exits non-zero:
 It imports nothing of JAX or of the JAX package.
 """
 
-import contextlib
 import json
 import math
 import os
@@ -231,6 +270,10 @@ NS = 512                    # grid of the main path, paths B, S, R, R4
 NA = 256                    # grid of path A (the xdiv chain)
 NT = 128                    # grid of path T128 (the dense sweeps)
 SMALL = (128, 128, 256)     # whole-slice comparison grid, the example's
+# phase 9's checked sharded runs: (2, 2) (with scalars, and in the HIGHEST
+# mode) and z only (1, 4); both give every rank a 128^3 block
+SHARD_SMALL = (128, 256, 256)
+SHARD_Z = (128, 128, 512)
 EXAMPLE = "examples/TGV_species/input.x3d"   # path S-ex
 CYL_EXAMPLE = "examples/cylinder/input.x3d"  # paths C and C-ex
 # path C: the example refined 2x in x and y and 4x in z (the smallest span
@@ -299,8 +342,43 @@ REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             "x_apply[sub]": "x3d2_tpu/ops/pallas_poisson.py:954",
             "x_pfwd": "x3d2_tpu/ops/pallas_poisson.py:997",
             "x_pinv": "x3d2_tpu/ops/pallas_poisson.py:1025",
-            "x_pinv[sub]": "x3d2_tpu/ops/pallas_poisson.py:1025"}
+            "x_pinv[sub]": "x3d2_tpu/ops/pallas_poisson.py:1025",
+            # the halo_ext forms (n_shards > 1) and make_mid_local
+            "halo": "x3d2_tpu/ops/pallas_kernels.py:238",
+            "species_halo": "x3d2_tpu/ops/pallas_kernels.py:1061",
+            "pressure_mid[q,local]": "x3d2_tpu/ops/pallas_poisson.py:780",
+            "pressure_mid[q,dense,local]":
+                "x3d2_tpu/ops/pallas_poisson.py:780"}
+# phase 8's chains whose CPU leg is that of another chain (label, then the
+# label of the chain it takes the leg from; "cylinder" names the cylinder
+# at CYL_SMALL, else TGV at SMALL): the plain versions run the same
+# operations, so the legs are bit-identical. The mid's halves compose to the
+# mid, and with keep_pressure=False X3D2_BFLY=0 leaves the z, x, y chain and
+# the pipeline (which keeps its parity splits) as X3D2_XDIV_FUSED=0 has
+# them. Each label names its chain's switches (chain_switches);
+# tests/test_torch_shared_legs.py steps each pair on the CPU and asserts
+# the states bit-equal.
+CPU_SAME = (("X3D2_MID_SPLIT=1, xdiv path", "xdiv path"),
+            ("X3D2_MID_SPLIT=1, keep_pressure=True", "keep_pressure=True"),
+            ("X3D2_MID_SPLIT=1, X3D2_BFLY=0, keep_pressure=True",
+             "X3D2_BFLY=0, keep_pressure=True"),
+            ("X3D2_BFLY=0, keep_pressure=False", "X3D2_XDIV_FUSED=0"),
+            ("cylinder, X3D2_MID_SPLIT=1", "cylinder"))
 BF16_ULP = 2.0 ** -7        # a bfloat16 ulp, relative to the value's binade
+
+
+def chain_switches(label):
+    """(case, switches, keep_pressure) that a CPU_SAME label names: its
+    comma-separated items X3D2_...=value and keep_pressure=True|False;
+    case "cylinder" where the label starts with it, else "tgv"."""
+    env, keep = {}, False
+    for item in label.split(", "):
+        key, _, val = item.partition("=")
+        if key.startswith("X3D2_"):
+            env[key] = val
+        elif key == "keep_pressure":
+            keep = val == "True"
+    return ("cylinder" if label.startswith("cylinder") else "tgv"), env, keep
 
 
 def fail(msg):
@@ -337,7 +415,7 @@ def size_label(shape):
 
 
 def sweep_cost(shape, accumulate, nolds, w, xdiv=False, upd=None,
-               base_sep=False, olds_bf16=False, acc_bf16=False):
+               base_sep=False, olds_bf16=False, acc_bf16=False, ext=1.0):
     """(bytes, flops) the sweep function needs: each input field read once
     and each output written once; the band taps each output needs (2w + 1
     per operator: D1, D2 and D1d, for 3 components), the q*conv products,
@@ -348,11 +426,13 @@ def sweep_cost(shape, accumulate, nolds, w, xdiv=False, upd=None,
     applies. A bfloat16 history (olds_bf16: the history read, rhs written)
     and bfloat16 partials (acc_bf16: acc read, and r written without the
     update) are 2-byte streams; the history's error feedback adds a
-    rounding, a subtraction and a multiply-add per output."""
+    rounding, a subtraction and a multiply-add per output. ext: the halo
+    form's u, v, w are read from their extended operands, (n + 2W) / n of a
+    field each."""
     upd = nolds > 0 if upd is None else upd
     npts = shape[0] * shape[1] * shape[2]
     hb, ab = (2 if olds_bf16 else 4), (2 if acc_bf16 else 4)
-    nbytes = 4 * 3 * (1 + (1 if base_sep else 0) + (1 if xdiv else 0)) \
+    nbytes = 4 * 3 * (ext + (1 if base_sep else 0) + (1 if xdiv else 0)) \
         + (3 * ab if accumulate else 0) + 3 * nolds * hb \
         + ((3 * 4 + 3 * hb) if upd else 3 * ab)
     per_pt = 3 * (2 * 3 * (2 * w + 1) + 1 + 5) + (3 if accumulate else 0)
@@ -363,13 +443,14 @@ def sweep_cost(shape, accumulate, nolds, w, xdiv=False, upd=None,
     return npts * nbytes, npts * per_pt
 
 
-def species_cost(shape, nsp, accumulate, w):
+def species_cost(shape, nsp, accumulate, w, ext=1.0):
     """(bytes, flops) of the species sweep function, counted as sweep_cost
     counts: the conv and each scalar read once (and each accumulator), each
     scalar's rhs written once; per scalar the band taps of D1, D2 and D1s,
-    the phi*conv product and the combine."""
+    the phi*conv product and the combine. ext: as sweep_cost's, for conv
+    and the scalars."""
     npts = shape[0] * shape[1] * shape[2]
-    nfields = 1 + nsp * (2 + (1 if accumulate else 0))
+    nfields = (1 + nsp) * ext + nsp * (1 + (1 if accumulate else 0))
     per_pt = nsp * (2 * 3 * (2 * w + 1) + 1 + 5 + (1 if accumulate else 0))
     return 4 * npts * nfields, npts * per_pt
 
@@ -552,7 +633,7 @@ def main():
     import x3d2_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
     from x3d2_tpu_torch import _build, config
     from x3d2_tpu_torch.cases import CylinderCase, SolverParams, TGVCase
-    from x3d2_tpu_torch.common import BC, DataLoc
+    from x3d2_tpu_torch.common import BC, DataLoc, env_set
     from x3d2_tpu_torch.mesh import Mesh
     from x3d2_tpu_torch.ops import operator_apply as oa
     from x3d2_tpu_torch.ops import pressure_pipe as pp
@@ -613,21 +694,11 @@ def main():
                 inst = found[0].group(2) + "<" + ",".join(
                     re.findall(r"L[ib](\d+)E", found[0].group(3))) + ">"
             elif "registers" in line or "spill" in line:
-                print(f"[build {name} {inst}] " + line.strip())
-
-    @contextlib.contextmanager
-    def env_set(env):
-        """The environment switches in `env` set while the block runs."""
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
-            yield
-        finally:
-            for k, val in saved.items():
-                if val is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = val
+                # the halo forms: HALO, the last template argument, set
+                halo = (" (halo form)" if inst.startswith(
+                    ("transeq_sweep_kernel", "species_sweep_kernel"))
+                    and inst.endswith(",1>") else "")
+                print(f"[build {name} {inst}{halo}] " + line.strip())
 
     def stamp(phase):
         print(f"[time] {phase} starts at {time.perf_counter() - t_start:.1f}"
@@ -1543,6 +1614,144 @@ def main():
         del ns_d, pm_d, randn_d
         torch.cuda.empty_cache()
 
+    # -- 3h. the sharded step's kernels (phase 9) at the ranks' blocks: the
+    # sweeps (the halo form on a sharded axis, its extended operands sliced
+    # from the global field as the neighbour exchange gives them, at the
+    # last rank of the mesh: a nonzero block offset), the species sweeps,
+    # the one-field parity x applies and the mid over the rank's x batch
+    # (its table slices; plane waves, as slab_rows) --
+    def halo_args(glob, axis, mesh_s, coords, w):
+        """The rank's block of each global field, and along a sharded axis
+        its halo-extended operand (None along an unsharded one)."""
+        blk, ext = [], []
+        for f in glob:
+            sl_ = [slice(None)] * 3
+            for a, (p, c) in zip((1, 2), zip(mesh_s, coords)):
+                n = f.shape[a] // p
+                sl_[a] = slice(c * n, (c + 1) * n)
+            blk.append(f[tuple(sl_)].contiguous())
+            p = mesh_s[axis - 1] if axis else 1
+            if p > 1:
+                n, N = blk[-1].shape[axis], f.shape[axis]
+                c = coords[axis - 1]
+                idx = torch.arange(c * n - w, (c + 1) * n + w,
+                                   device=dev) % N
+                sl_[axis] = idx
+                ext.append(f[tuple(sl_)].contiguous())
+        return blk, (tuple(ext) if ext else None)
+
+    for gdims, mesh_s, modes, scalars in (
+            ((NS,) * 3, (2, 2), (2,), False),
+            (SHARD_SMALL, (2, 2), (2, 3), True),
+            (SHARD_Z, (1, 4), (2,), False)):
+        ns_h = NavierStokes.build(Mesh(gdims, (2 * math.pi,) * 3, per), nu,
+                                  device=dev)
+        local = (gdims[0], gdims[1] // mesh_s[0], gdims[2] // mesh_s[1])
+        lab = size_label(local)
+        coords = (mesh_s[0] - 1, mesh_s[1] - 1)
+        randn_g, randn_l = randn_of(gdims), randn_of(local)
+        glob = (randn_g(), randn_g(), randn_g())
+        acc_l = tuple(randn_l(100.0) for _ in range(3))
+        for terms in modes:
+            bs, w = ts.geometry(terms)
+            w32 = w != ts.W
+            for axis, a in ((2, None), (0, acc_l), (1, acc_l)):
+                blocks = ts.build_sweep_blocks(ns_h.ops[axis], axis,
+                                               device=dev, terms=terms)
+                (u, v, w_), ext = halo_args(glob, axis, mesh_s, coords, w)
+                off = coords[axis - 1] * (local[axis] // bs) if ext else 0
+                frac = (local[axis] + 2 * w) / local[axis] if ext else 1.0
+
+                def kern(u, v, w_, a, e, blocks=blocks, off=off):
+                    return ts.transeq_sweep(u, v, w_, blocks, nu, acc=a,
+                                            exts=e, off=off)
+
+                def plain(u, v, w_, a, e, blocks=blocks, off=off):
+                    return ts.transeq_sweep_plain(u, v, w_, blocks, nu,
+                                                  acc=a, exts=e, off=off)
+
+                name = ts.variant_name(axis, a is not None, 0, w=w,
+                                       halo=ext is not None)
+                hold(f"sweep {name[14:-1]} {gdims} on {mesh_s}", lab, kern,
+                     plain, (u, v, w_, a, ext), name,
+                     REPLACES["halo" if ext else axis],
+                     sweep_cost(local, a is not None, 0, w, ext=frac),
+                     source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
+                     lim64=5e-7 if w32 else 3e-5)
+                if not scalars:
+                    continue
+                phis = (randn_g(), randn_g())
+                (conv, p1, p2), sext = halo_args(
+                    (glob[axis],) + phis, axis, mesh_s, coords, w)
+                sa = acc_l[:2] if a is not None else None
+
+                def skern(phis, conv, a, e, blocks=blocks, off=off):
+                    return spm.species_sweep(phis, conv, blocks, nus, acc=a,
+                                             exts=e, off=off)
+
+                def splain(phis, conv, a, e, blocks=blocks, off=off):
+                    return spm.species_sweep_plain(phis, conv, blocks, nus,
+                                                   acc=a, exts=e, off=off)
+
+                sname = spm.variant_name(axis, a is not None, w,
+                                         halo=sext is not None)
+                hold(f"{sname} {gdims} on {mesh_s}", lab, skern, splain,
+                     ((p1, p2), conv, sa, sext), sname,
+                     REPLACES["species_halo" if sext else "species"],
+                     species_cost(local, len(nus), a is not None, w,
+                                  ext=frac),
+                     source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
+                     lim64=5e-7 if w32 else 3e-5)
+                del phis, conv, p1, p2, sext
+            torch.cuda.empty_cache()
+        del glob, acc_l
+        pm_h = ns_h._slab
+        # the x stage of the repencilled projection, one field a launch
+        parity_rows(local, pm_h, randn_l, ("x_pfwd", "x_pinv[sub]"))
+        # the mid over the rank's x batch: the x-transformed plane waves'
+        # planes of that batch, the solve tables sliced there
+        nx_loc = gdims[0] // (mesh_s[0] * mesh_s[1])
+        off_x = (coords[0] * mesh_s[1] + coords[1]) * nx_loc
+        m32 = pm_h.mats(torch.float32)
+        dp = tuple(t[off_x:off_x + nx_loc].contiguous() for t in div_plain(
+            wave_fields(Mesh(gdims, (2 * math.pi,) * 3, per)), m32, pm_h))
+
+        def mid_loc(du, dv, dw, pm, off_x=off_x, n=nx_loc):
+            m_ = pm.mats(torch.float32)
+            return sl.pressure_mid_local(du, dv, dw, pm,
+                                         m_["k2x"][off_x:off_x + n],
+                                         m_["tx2"][off_x:off_x + n])
+
+        def mid_loc_plain(du, dv, dw, m, off_x=off_x, n=nx_loc,
+                          dense=False):
+            return sl.pressure_mid_plain(
+                du, dv, dw, sl.local_tables(m, off_x, n), True, dense)
+
+        stage_row("pressure_mid[q,local]", dp, mid_loc, mid_loc_plain,
+                  slab_cost("pressure_mid[q]", dp[0].shape, BW), pm_h)
+        del ns_h, pm_h, m32, dp
+        torch.cuda.empty_cache()
+        if gdims != SHARD_SMALL:
+            continue
+        # X3D2_BFLY=0 (phase 9's dense run): the dense x applies of the
+        # rank's block, the dense mid over its x batch
+        mesh_h = Mesh(gdims, (2 * math.pi,) * 3, per)
+        with env_set({"X3D2_BFLY": "0"}):
+            pm_d = NavierStokes.build(mesh_h, nu, device=dev)._slab
+        check(pm_d.dense and pm_d.x_perm is None,
+              "X3D2_BFLY=0: the dense forms at the sharded grid")
+        for op in ("sx", "ix"):
+            x_apply_hold(op, pm_d, randn_l(), None, lab)
+        for op in ("gxs", "gxi"):
+            x_apply_hold(op, pm_d, randn_l(), randn_l(), lab)
+        dd = tuple(t[off_x:off_x + nx_loc].contiguous() for t in div_plain(
+            wave_fields(mesh_h), pm_d.mats(torch.float32), pm_d))
+        stage_row("pressure_mid[q,dense,local]", dd, mid_loc,
+                  partial(mid_loc_plain, dense=True),
+                  slab_cost("pressure_mid[q]", dd[0].shape, BW, True), pm_d)
+        del pm_d, dd
+        torch.cuda.empty_cache()
+
     # ---- 4-7. the paths ------------------------------------------------------
     stamp("phases 4-7 (the paths)")
     params = SolverParams(Re=1600.0, time_intg="AB3", dt=DT)
@@ -2165,6 +2374,24 @@ def main():
     chains.append((f"cylinder {size_label(CYL_SMALL)} X3D2_MID_SPLIT=1",
                    cyl_make, cyl_prm, False, split, "ab-unfused",
                    dense_x + halves + dense_sub, 0))
+    # CPU legs bit-identical to an earlier chain's (CPU_SAME) are run once;
+    # each chain of a pair has the switches and keep_pressure its label names
+    def chain_label(short):
+        if short.startswith("cylinder"):
+            return f"cylinder {size_label(CYL_SMALL)}" + short[8:].replace(
+                ",", "", 1)
+        return f"{SMALL} {short}"
+
+    cpu_same = {chain_label(a): chain_label(b) for a, b in CPU_SAME}
+    shorts = {chain_label(x): x for pair in CPU_SAME for x in pair}
+    for label, _, _, keep, env, *_ in chains:
+        if label in shorts:
+            check(chain_switches(shorts[label])[1:] == (env, keep),
+                  f"{label}: the chain's switches {env}, keep_pressure "
+                  f"{keep} are not those its label names")
+    check(set(shorts) <= {c[0] for c in chains},
+          f"CPU_SAME names a chain phase 8 lacks: {sorted(shorts)}")
+    cpu_legs = {}
     ab3 = TimeIntegrator("AB3")
     # |c_j| of every coefficient a rounded value meets, and the feedback's
     coeff_sum = float(sum(abs(c) for c in ab3.ab_row(3, 1.0))) + abs(
@@ -2173,6 +2400,9 @@ def main():
         with env_set(env):
             res = {}
             for d in ("cuda", "cpu"):
+                if d == "cpu" and label in cpu_same:
+                    res[d] = cpu_legs[cpu_same[label]]
+                    continue
                 c = make(d)
                 took = ("rk" if c._fused_rk is not None
                         else "rk-unfused" if c.ti.kind == "RK"
@@ -2186,6 +2416,8 @@ def main():
                 else:
                     s = c.run(n_iters=10, n_output=10)
                 res[d] = (s, c.monitor.rows[-1][4], c)
+        if label in cpu_same.values():
+            cpu_legs[label] = res["cpu"]
         cpu = res["cpu"][0]
         du = max(float((res["cuda"][0][k].cpu() - cpu[k]).abs().max())
                  for k in ("u", "v", "w"))
@@ -2225,6 +2457,8 @@ def main():
             txt += f"  max|dphi|={dphi:.3e} (<= {du_tol:.3e})"
             check(dphi <= du_tol, f"{label}: card vs CPU phi difference "
                                   f"{dphi}")
+        if label in cpu_same:
+            txt += f"  (CPU leg: that of {cpu_same[label]})"
         print(f"[slice] {label}, 10 steps card vs CPU: "
               f"max|du,dv,dw|={du:.3e} (<= {du_tol:.3e})  KE rel "
               f"{ke_rel:.3e} (<= {ke_tol:.3e}){txt}", flush=True)
@@ -2250,7 +2484,150 @@ def main():
     check(math.isfinite(ke_rel) and ke_rel <= KE_LIMIT,
           f"KE of the HIGHEST compensated run vs float64: {ke_rel}")
 
-    # ---- 9. result lines ---------------------------------------------------
+    # ---- 9. the sharded step ------------------------------------------------
+    stamp("phase 9 (the sharded step)")
+    from x3d2_tpu_torch.tools import shard_run
+    ncard = torch.cuda.device_count()
+    transport = "nccl" if ncard >= 4 else "gloo"
+    print(f"[sharded] transport {transport}: " + (
+        "one card per rank, rank r on cuda:r" if transport == "nccl" else
+        f"{ncard} card, all 4 ranks on cuda:0, the halo planes and the "
+        "all-to-all buffers staged through host memory (gloo takes CPU "
+        "tensors): the kernels and the arithmetic of a 4-rank run, not "
+        "multi-card communication"), flush=True)
+
+    def sharded_launches(w, mesh_s, scalars, dense=False):
+        """The per-rank kernel calls of one sharded AB step (an RK
+        substage): the z, x + acc, y + acc sweeps (the halo form on a
+        sharded axis; and the scalars'), 3 x_pfwd, the local mid (6
+        launches), 3 x_pinv[sub]; with X3D2_BFLY=0 (dense) 3 x_apply, the
+        dense local mid, 3 x_apply[sub]."""
+        halo = {1: mesh_s[0] > 1, 2: mesh_s[1] > 1, 0: False}
+        out = [ts.variant_name(a, a != 2, 0, w=w, halo=halo[a])
+               for a in (2, 0, 1)]
+        if scalars:
+            out += [spm.variant_name(a, a != 2, w, halo=halo[a])
+                    for a in (2, 0, 1)]
+        if dense:
+            return out + ["x_apply"] * 3 + ["pressure_mid[q,dense,local]"] \
+                + ["x_apply[sub]"] * 3
+        return out + ["x_pfwd"] * 3 + ["pressure_mid[q,local]"] \
+            + ["x_pinv[sub]"] * 3
+
+    base = {"device": "cuda", "backend": transport, "dtype": "float32",
+            "reference": True}
+    sh_runs = [
+        ("main sharded path: TGV 512^3 AB3 float32 keep_pressure=False",
+         {"dims": (NS,) * 3, "mesh": (2, 2), "warmup": 2, "steps": 3},
+         sharded_launches(ts.W, (2, 2), False)),
+        (f"TGV {size_label(SHARD_SMALL)} AB3, 2 scalars",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 10,
+          "n_species": 2, "pr": PR},
+         sharded_launches(ts.W, (2, 2), True)),
+        (f"TGV {size_label(SHARD_SMALL)} AB3, 2 scalars, HIGHEST",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 10, "n_species": 2,
+          "pr": PR, "env": hi}, sharded_launches(32, (2, 2), True)),
+        (f"TGV {size_label(SHARD_Z)} AB3", {"dims": SHARD_Z, "mesh": (1, 4),
+                                            "steps": 10},
+         sharded_launches(ts.W, (1, 4), False)),
+        # the branches a user opens beside the main one: the unfused RK
+        # step (X3D2_FUSED_RK=0) with the physical pressure, and the dense
+        # x stage and mid (X3D2_BFLY=0), each with its p held too
+        (f"TGV {size_label(SHARD_SMALL)} RK3 (X3D2_FUSED_RK=0), "
+         "keep_pressure=True",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 3,
+          "time_intg": "RK3", "keep_pressure": True,
+          "env": {"X3D2_FUSED_RK": "0"}},
+         sharded_launches(ts.W, (2, 2), False) * 3),
+        (f"TGV {size_label(SHARD_SMALL)} AB3, X3D2_BFLY=0, "
+         "keep_pressure=True",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 10,
+          "keep_pressure": True, "env": {"X3D2_BFLY": "0"}},
+         sharded_launches(ts.W, (2, 2), False, dense=True))]
+    t0 = time.perf_counter()
+    sh_res = shard_run.run_many([{**base, **spec} for _, spec, _ in sh_runs],
+                                threads=2)
+    print(f"[sharded] 4 ranks spawned, {len(sh_runs)} runs: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for (label, spec, per_step), res in zip(sh_runs, sh_res):
+        mesh_s, dims = spec["mesh"], tuple(spec["dims"])
+        tag = f"sharded {label} on {mesh_s}"
+        lab = size_label((dims[0], dims[1] // mesh_s[0],
+                          dims[2] // mesh_s[1]))
+        want = {name: spec["steps"] * k * oa.LAUNCHES_PER_CALL.get(name, 1)
+                for name, k in Counter(per_step).items()}
+        for r in res:
+            ms, comm = r["ms_per_step"], r["comm_ms_per_step"]
+            print(f"[{tag}] rank {r['rank']} on {r['device']} "
+                  f"({r['backend']}): {ms:.3f} ms/step (host clock, the "
+                  f"device synchronised), halo exchanges {comm['halo']:.3f} "
+                  f"ms ({comm['halo'] / ms:.1%}), all-to-alls "
+                  f"{comm['a2a']:.3f} ms ({comm['a2a'] / ms:.1%}); launches "
+                  f"{r['counts']}", flush=True)
+            check(r["counts"] == want, f"{tag} rank {r['rank']}: expected "
+                                       f"launches {want}, got {r['counts']}")
+            check(r["solver"] == {"_sharded_transeq": True,
+                                  "_sharded_species": bool(
+                                      spec.get("n_species")),
+                                  "_repencil_pressure": True,
+                                  "_halo_mode": True}
+                  and r["dense_mid"] == ("X3D2_BFLY" in spec.get("env", {})),
+                  f"{tag}: the branches {r['solver']}, dense mid "
+                  f"{r['dense_mid']}")
+        # the mid runs over the rank's x batch, the rest over its block
+        lab_mid = size_label((dims[0] // (mesh_s[0] * mesh_s[1]),) + dims[1:])
+        for name in want:
+            n = lab_mid if name.startswith("pressure_mid") else lab
+            if (name, n) not in rows:
+                unheld.add(f"{name}@{n}")
+            elif not rows[name, n]["launches"]:
+                rows[name, n]["launches"] = sum(r["counts"].get(name, 0)
+                                                for r in res)
+        # the single-card step of the same arithmetic (the unfused AB step,
+        # the same sweeps, the one-field parity x stage and the mid with q:
+        # X3D2_FUSED_AB=0, X3D2_MERGED_X=0, keep_pressure=True, and the
+        # run's switches), run by rank 0 after its sharded run, so its
+        # host-built operators have the ranks' bits (the float64 transforms
+        # from LAPACK vary in their last bits with the BLAS thread count).
+        # A kept pressure is held as two float32 evaluations of p
+        # (p_tolerance): the sharded step forms it from q on the x batch,
+        # y and z first
+        nsp = spec.get("n_species", 0)
+        st1 = {k: torch.as_tensor(a, device=dev)
+               for k, a in res[0]["reference"].items()}
+        got = res[0]["state"]
+        scale = float(st1["u"].abs().max())
+        names = ("u", "v", "w") + (("phi",) if nsp else ())
+        diffs = {k: float((torch.as_tensor(got[k], device=dev) - st1[k])
+                          .abs().max()) for k in names}
+        err = max(diffs.values()) / scale
+        finite = all(bool(torch.isfinite(st1[k]).all()) and
+                     math.isfinite(float(abs(got[k]).max())) for k in names)
+        steps = spec.get("warmup", 0) + spec["steps"]
+        print(f"[{tag}] after {steps} steps vs the single-card step on "
+              f"rank 0 (X3D2_FUSED_AB=0, X3D2_MERGED_X=0, keep_pressure=True)"
+              f": max "
+              f"|d| / max|u| {err:.3e} (<= 1e-6), "
+              f"{'bit-equal' if err == 0 else 'not bit-equal'}; KE "
+              f"{res[0]['obs']['ke']:.10e}", flush=True)
+        check(finite and err <= 1e-6, f"{tag}: vs the single-card step "
+                                      f"{diffs}")
+        if spec.get("keep_pressure"):
+            p1 = torch.as_tensor(res[0]["reference"]["p"], device=dev)
+            p_err = float((torch.as_tensor(got["p"], device=dev) - p1)
+                          .abs().max())
+            p_tol = p_tolerance(p1, [st1[k] for k in ("u", "v", "w")])
+            print(f"[{tag}] p vs the single-card step: max|dp| "
+                  f"{p_err:.3e} (<= {p_tol:.3e}, max|p| "
+                  f"{float(p1.abs().max()):.3e})", flush=True)
+            check(p_err <= p_tol, f"{tag}: p vs the single-card step "
+                                  f"{p_err}")
+            del p1
+        del st1, got, res
+        torch.cuda.empty_cache()
+    del sh_res
+
+    # ---- 10. result lines ---------------------------------------------------
     idle = [r["name"] for r in rows.values() if r["launches"] <= 0]
     check(not idle, f"never launched on a path: {idle}")
     check(not unheld, f"launched on a path, not held against the plain "

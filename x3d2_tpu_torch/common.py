@@ -10,7 +10,9 @@ Reference: x3d2 src/common.f90:27-44 (enums), :84-88 (move_data_loc).
 
 from __future__ import annotations
 
+import contextlib
 import enum
+import os
 
 
 class BC(enum.IntEnum):
@@ -78,3 +80,20 @@ def resolve_device(device=None):
                 "available; pass device='cpu' explicitly to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def env_set(env):
+    """The environment variables in `env` set while the block runs, and
+    restored (or removed) after it. The port's switches (X3D2_*) are read
+    when a case or a kernel set is built, so set them around the build."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val

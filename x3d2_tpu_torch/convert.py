@@ -23,6 +23,12 @@ PRNG ``key`` is dropped on the way in, and the port's state gets its own
 numbers from one seed; the cylinder's inflow noise is drawn from it); the
 way out drops ``rng`` and gives plain numpy arrays that the caller turns
 into its own arrays.
+
+On a process mesh (parallel/topo.py) a global state, x3d2_tpu's as numpy
+(a sharded jax.Array read back with np.asarray is the global array), goes
+to each rank as its local block (``state_from_numpy_sharded``), and the
+ranks' blocks come back as the global numpy state
+(``state_to_numpy_gathered``, collective); the round trip is bit for bit.
 """
 
 from __future__ import annotations
@@ -85,3 +91,33 @@ def state_to_numpy(state):
     if "rhsp" in state:
         out["rhsp"] = tuple(a(r) for r in state["rhsp"])
     return out
+
+
+def state_from_numpy_sharded(np_state, pmesh, device=None, seed=0,
+                             olds_dtype=None):
+    """This rank's local state from a global numpy state: every field
+    sliced to the rank's block (parallel.topo.local_slices), then as
+    state_from_numpy."""
+    from .parallel.topo import local_slices
+
+    def cut(a):
+        a = np.asarray(a)
+        return a[local_slices(pmesh, a.shape)] if a.ndim >= 3 else a
+
+    def walk(v):
+        if isinstance(v, (tuple, list)):
+            return tuple(walk(x) for x in v)
+        return cut(v)
+
+    local = {k: (v if k == "istep" else walk(v))
+             for k, v in np_state.items() if k != "key"}
+    return state_from_numpy(local, device=device, seed=seed,
+                            olds_dtype=olds_dtype)
+
+
+def state_to_numpy_gathered(local_state, pmesh, mesh):
+    """The global numpy state from the ranks' local states (collective:
+    every rank calls it and gets it). mesh: the case's Mesh."""
+    from .parallel.topo import gather_state
+
+    return state_to_numpy(gather_state(pmesh, local_state, mesh))

@@ -98,6 +98,20 @@
 // of each window, so no registers hold it: 172 KB of shared memory (137 KB
 // at BS = 32), one block per SM.
 //
+// The halo form (HALO, the sharded sweeps of x3d2_tpu's make_sharded_
+// transeq_v3 and make_sharded_species_v3, shard_kernels.py:105-207; the
+// halo_ext kernels, pallas_kernels.py:238-252, :404-427, :1061-1070): the
+// fields are one rank's shard along the sweep axis, and the windows are
+// read from the halo-extended operands instead, each the shard with the
+// W planes of the previous rank before it and the W planes of the next
+// rank after it (n + 2W along the sweep axis). The window of output block b
+// starts at b*BS there and never wraps. The operator blocks are the global
+// stack's, from this shard's first block (the wrapper passes the stack at
+// its block offset), so the closure rows of a non-periodic axis fall on the
+// ranks that own them. Outputs, partials and the conv rows of the combine
+// are the shard's. Built without the time update (x3d2_tpu shards only
+// the partial sweeps; the update is elementwise there).
+//
 // The xdiv variant is a kernel of its own (transeq_xdiv_kernel). The TPU
 // kernel carries the sum over x blocks in scratch memory along its
 // sequential innermost grid axis; blocks of a CUDA grid run in no order.
@@ -156,7 +170,7 @@ struct Geo {
 };
 
 struct SweepArgs {
-  const float* f[3];               // u, v, w
+  const float* f[3];               // u, v, w (HALO: the extended operands)
   const float* sa;
   const float* st;
   const float* da;
@@ -177,6 +191,7 @@ struct SweepArgs {
 
 struct SpeciesArgs {
   const float* conv;               // the velocity component along the axis
+                                   // (HALO: conv and phi extended)
   const float* sa;                 // [D1; D2] (nb, 2BS, WIN)
   const float* da;                 // D1s (nb, BS, WIN)
   const float* phi[MAX_SPECIES];
@@ -234,6 +249,18 @@ __device__ __forceinline__ void tile_geometry(int n0, int n1_, int n2_,
     lstride = n2;
     sstride = 1;
   }
+}
+
+// The same tile in the operand the windows are read from: the field itself,
+// or with HALO its extension by W planes on both sides of the sweep axis.
+template <int AXIS, bool HALO, int W>
+__device__ __forceinline__ void source_geometry(int n0, int n1, int n2,
+                                                long long t, long long& base,
+                                                long long& lstride,
+                                                long long& sstride, int& n) {
+  constexpr int E = HALO ? 2 * W : 0;
+  tile_geometry<AXIS>(n0 + (AXIS == 0 ? E : 0), n1 + (AXIS == 1 ? E : 0),
+                      n2 + (AXIS == 2 ? E : 0), t, base, lstride, sstride, n);
 }
 
 // Window element i of a tile as (sweep index k, line l): consecutive i run
@@ -548,9 +575,10 @@ __device__ __forceinline__ void combine_line(
 }
 
 template <int BS, int W, int AXIS, bool ACC, int NOLDS, bool UPD,
-          bool BASE_SEP, int PREC>
+          bool BASE_SEP, int PREC, bool HALO>
 __global__ void __launch_bounds__(NT, 1)
 transeq_sweep_kernel(SweepArgs a, long long ntiles) {
+  static_assert(!HALO || (!UPD && PREC == 0), "the halo form is a partial sweep");
   using G = Geo<BS, W>;
   constexpr int WIN = G::WIN, RPT = G::RPT;
   extern __shared__ __align__(16) float smem[];
@@ -571,14 +599,16 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
 
   long long t = blockIdx.x;
   if (t >= ntiles) return;
-  long long base, ls, ss;
-  int n;
+  long long base, ls, ss;     // the outputs' tile
+  long long sb, sls, sss;     // the windows' source tile
+  int n, sn;
   tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
-  const int k0 = b * BS - W;
+  source_geometry<AXIS, HALO, W>(a.n0, a.n1, a.n2, t, sb, sls, sss, sn);
+  const int k0 = HALO ? b * BS : b * BS - W;
   // the first tile's windows
   for (int c = 0; c < 3; ++c) {
     float pre[G::PER_THREAD];
-    fetch_window<BS, W, AXIS>(a.f[c], base, k0, n, ls, ss, pre);
+    fetch_window<BS, W, AXIS>(a.f[c], sb, k0, sn, sls, sss, pre);
     put_window<BS, W, AXIS>(F + c * WIN * LDW, pre);
   }
   __syncthreads();
@@ -586,9 +616,13 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
   for (; t < ntiles; t += gridDim.x) {
     const long long tn = t + gridDim.x;
     const bool has_next = tn < ntiles;
-    long long nbase = 0, nls = 0, nss = 0;
-    int nn = n;
-    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+    long long nbase = 0, nls = 0, nss = 0, nsb = 0, nsls = 0, nsss = 0;
+    int nn = n, nsn = sn;
+    if (has_next) {
+      tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+      source_geometry<AXIS, HALO, W>(a.n0, a.n1, a.n2, tn, nsb, nsls, nsss,
+                                     nsn);
+    }
 
     // the two transverse components first, the aligned one last: its
     // window is every component's conv. While a component computes, the
@@ -599,7 +633,7 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
       const int c = ci == 2 ? AXIS : ci + (ci >= AXIS ? 1 : 0);
       float pre[G::PER_THREAD];
       if (has_next)
-        fetch_window<BS, W, AXIS>(a.f[c], nbase, k0, nn, nls, nss, pre);
+        fetch_window<BS, W, AXIS>(a.f[c], nsb, k0, nsn, nsls, nsss, pre);
 
       const float* Q = F + c * WIN * LDW;
       float dq[RPT][2], d2[RPT][2], dd[RPT][2];
@@ -623,6 +657,10 @@ transeq_sweep_kernel(SweepArgs a, long long ntiles) {
     ls = nls;
     ss = nss;
     n = nn;
+    sb = nsb;
+    sls = nsls;
+    sss = nsss;
+    sn = nsn;
   }
 }
 
@@ -775,7 +813,7 @@ transeq_xdiv_kernel(SweepArgs a, long long ntiles) {
 // The species sweep (see the head of the file). Grid (blocks per output
 // block, output blocks); a block stages its output block's aligned pairing
 // and walks line tiles, and within a tile the scalars.
-template <int BS, int W, int AXIS, bool ACC>
+template <int BS, int W, int AXIS, bool ACC, bool HALO>
 __global__ void __launch_bounds__(NT, 1)
 species_sweep_kernel(SpeciesArgs a, long long ntiles) {
   using G = Geo<BS, W>;
@@ -798,21 +836,27 @@ species_sweep_kernel(SpeciesArgs a, long long ntiles) {
 
   long long t = blockIdx.x;
   if (t >= ntiles) return;
-  long long base, ls, ss;
-  int n;
+  long long base, ls, ss;     // the outputs' tile
+  long long sb, sls, sss;     // the windows' source tile
+  int n, sn;
   tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
-  const int k0 = b * BS - W;
-  copy_window_async<BS, W, AXIS>(Cw, a.conv, base, k0, n, ls, ss);
-  copy_window_async<BS, W, AXIS>(Qw, a.phi[0], base, k0, n, ls, ss);
+  source_geometry<AXIS, HALO, W>(a.n0, a.n1, a.n2, t, sb, sls, sss, sn);
+  const int k0 = HALO ? b * BS : b * BS - W;
+  copy_window_async<BS, W, AXIS>(Cw, a.conv, sb, k0, sn, sls, sss);
+  copy_window_async<BS, W, AXIS>(Qw, a.phi[0], sb, k0, sn, sls, sss);
   cp_async_wait();
   __syncthreads();
 
   for (; t < ntiles; t += gridDim.x) {
     const long long tn = t + gridDim.x;
     const bool has_next = tn < ntiles;
-    long long nbase = 0, nls = 0, nss = 0;
-    int nn = n;
-    if (has_next) tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+    long long nbase = 0, nls = 0, nss = 0, nsb = 0, nsls = 0, nsss = 0;
+    int nn = n, nsn = sn;
+    if (has_next) {
+      tile_geometry<AXIS>(a.n0, a.n1, a.n2, tn, nbase, nls, nss, nn);
+      source_geometry<AXIS, HALO, W>(a.n0, a.n1, a.n2, tn, nsb, nsls, nsss,
+                                     nsn);
+    }
 
 #pragma unroll 1
     for (int s = 0; s < a.nsp; ++s) {
@@ -822,10 +866,12 @@ species_sweep_kernel(SpeciesArgs a, long long ntiles) {
       // first scalar and of the conv (their buffers were last read before
       // the previous barrier)
       if (!last) {
-        copy_window_async<BS, W, AXIS>(Qn, a.phi[s + 1], base, k0, n, ls, ss);
+        copy_window_async<BS, W, AXIS>(Qn, a.phi[s + 1], sb, k0, sn, sls,
+                                       sss);
       } else if (has_next) {
-        copy_window_async<BS, W, AXIS>(Qn, a.phi[0], nbase, k0, nn, nls, nss);
-        copy_window_async<BS, W, AXIS>(Cn, a.conv, nbase, k0, nn, nls, nss);
+        copy_window_async<BS, W, AXIS>(Qn, a.phi[0], nsb, k0, nsn, nsls,
+                                       nsss);
+        copy_window_async<BS, W, AXIS>(Cn, a.conv, nsb, k0, nsn, nsls, nsss);
       }
 
       float dq[RPT][2], d2[RPT][2], dd[RPT][2];
@@ -857,16 +903,20 @@ species_sweep_kernel(SpeciesArgs a, long long ntiles) {
     ls = nls;
     ss = nss;
     n = nn;
+    sb = nsb;
+    sls = nsls;
+    sss = nsss;
+    sn = nsn;
   }
 }
 
 template <int BS, int W, int AXIS, bool ACC, int NOLDS, bool UPD,
-          bool BASE_SEP, int PREC = 0>
+          bool BASE_SEP, int PREC = 0, bool HALO = false>
 cudaError_t launch(const SweepArgs& a, long long ntiles, int nb, int grid_x,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BS, W, AXIS>();
-  auto kern =
-      transeq_sweep_kernel<BS, W, AXIS, ACC, NOLDS, UPD, BASE_SEP, PREC>;
+  auto kern = transeq_sweep_kernel<BS, W, AXIS, ACC, NOLDS, UPD, BASE_SEP,
+                                   PREC, HALO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -886,11 +936,11 @@ cudaError_t launch_xdiv(const SweepArgs& a, long long ntiles, int grid_x,
   return cudaGetLastError();
 }
 
-template <int BS, int W, int AXIS, bool ACC>
+template <int BS, int W, int AXIS, bool ACC, bool HALO = false>
 cudaError_t launch_species(const SpeciesArgs& a, long long ntiles, int nb,
                            int grid_x, cudaStream_t stream) {
   constexpr size_t smem = species_smem_bytes<BS, W, AXIS>();
-  auto kern = species_sweep_kernel<BS, W, AXIS, ACC>;
+  auto kern = species_sweep_kernel<BS, W, AXIS, ACC, HALO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -961,8 +1011,21 @@ cudaError_t dispatch_prec(int accumulate, int nolds, int upd, int base_sep,
 // WITH_PREC the reduced-precision ones (dispatch_prec).
 template <int BS, int W, int AXIS, bool WITH_PREC>
 cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
-                          int prec, const SweepArgs& a, long long ntiles,
-                          int nb, int grid_x, cudaStream_t s) {
+                          int prec, int halo, const SweepArgs& a,
+                          long long ntiles, int nb, int grid_x,
+                          cudaStream_t s) {
+  if (halo) {
+    // the halo form: the partial sweeps of the sharded axes (y, z)
+    if (AXIS == 0 || upd || nolds != 0 || base_sep || prec != 0)
+      return cudaErrorInvalidValue;
+    if constexpr (AXIS != 0) {
+      return accumulate
+                 ? launch<BS, W, AXIS, true, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s)
+                 : launch<BS, W, AXIS, false, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s);
+    }
+  }
   if (prec != 0)
     return dispatch_prec<BS, W, AXIS, WITH_PREC>(accumulate, nolds, upd,
                                                  base_sep, prec, a, ntiles,
@@ -1017,9 +1080,20 @@ cudaError_t dispatch_xdiv(int nolds, const SweepArgs& a, long long ntiles,
 }
 
 template <int BS, int W, int AXIS>
-cudaError_t dispatch_species(int accumulate, const SpeciesArgs& a,
+cudaError_t dispatch_species(int accumulate, int halo, const SpeciesArgs& a,
                              long long ntiles, int nb, int grid_x,
                              cudaStream_t s) {
+  if (halo) {
+    // the halo form: the sharded axes (y, z)
+    if constexpr (AXIS == 0) {
+      return cudaErrorInvalidValue;
+    } else {
+      return accumulate ? launch_species<BS, W, AXIS, true, true>(
+                              a, ntiles, nb, grid_x, s)
+                        : launch_species<BS, W, AXIS, false, true>(
+                              a, ntiles, nb, grid_x, s);
+    }
+  }
   return accumulate
              ? launch_species<BS, W, AXIS, true>(a, ntiles, nb, grid_x, s)
              : launch_species<BS, W, AXIS, false>(a, ntiles, nb, grid_x, s);
@@ -1045,8 +1119,8 @@ int geometry(int* bs, int* w, int* tl, int* xdiv_max_nb, int* max_species) {
 
 template <int BS, int W, bool WITH_PREC>
 int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
-                 int xdiv, int prec, void* const* ptrs, int n0, int n1,
-                 int n2, float nu, const float* dtc, int grid_x,
+                 int xdiv, int prec, int halo, void* const* ptrs, int n0,
+                 int n1, int n2, float nu, const float* dtc, int grid_x,
                  void* stream) {
   SweepArgs a;
   int i = 0;
@@ -1074,7 +1148,8 @@ int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
   const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (xdiv) {
-    if (axis != 0 || !accumulate || !upd || base_sep || n > XDIV_MAX_N)
+    if (axis != 0 || !accumulate || !upd || base_sep || halo ||
+        n > XDIV_MAX_N)
       return cudaErrorInvalidValue;
     if (prec == 0) return dispatch_xdiv<BS, W, 0>(nolds, a, ntiles, grid_x, s);
     if constexpr (WITH_PREC) {
@@ -1092,19 +1167,22 @@ int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
   }
   switch (axis) {
     case 0: return dispatch_axis<BS, W, 0, WITH_PREC>(
-        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+        accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
+        s);
     case 1: return dispatch_axis<BS, W, 1, WITH_PREC>(
-        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+        accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
+        s);
     case 2: return dispatch_axis<BS, W, 2, WITH_PREC>(
-        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+        accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
+        s);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int BS, int W>
-int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
-                   int n0, int n1, int n2, const float* nus, int grid_x,
-                   void* stream) {
+int species_launch(int axis, int accumulate, int halo, int nsp,
+                   void* const* ptrs, int n0, int n1, int n2,
+                   const float* nus, int grid_x, void* stream) {
   if (nsp < 1 || nsp > MAX_SPECIES) return cudaErrorInvalidValue;
   SpeciesArgs a;
   int i = 0;
@@ -1128,12 +1206,12 @@ int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
   const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (axis) {
-    case 0: return dispatch_species<BS, W, 0>(accumulate, a, ntiles, nb,
-                                              grid_x, s);
-    case 1: return dispatch_species<BS, W, 1>(accumulate, a, ntiles, nb,
-                                              grid_x, s);
-    case 2: return dispatch_species<BS, W, 2>(accumulate, a, ntiles, nb,
-                                              grid_x, s);
+    case 0: return dispatch_species<BS, W, 0>(accumulate, halo, a,
+                                              ntiles, nb, grid_x, s);
+    case 1: return dispatch_species<BS, W, 1>(accumulate, halo, a,
+                                              ntiles, nb, grid_x, s);
+    case 2: return dispatch_species<BS, W, 2>(accumulate, halo, a,
+                                              ntiles, nb, grid_x, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1141,7 +1219,8 @@ int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
 }  // namespace sweep
 
 // The C interface of one geometry: ptrs of transeq_sweep_launch are u, v,
-// w, sa, st, da, dt, acc[3], old[j][c] (9, j-major), out[3], rhs[3], for
+// w (with halo the extended operands, n + 2W along the sweep axis, and sa
+// ... dt the global stacks from the shard's first block), sa, st, da, dt, acc[3], old[j][c] (9, j-major), out[3], rhs[3], for
 // xdiv the Sx and Ix slices and du, dv, dw, then for base_sep the base
 // fields; unused entries may be null. prec: the PREC flags (OLDS_BF16 = 1,
 // ACC_BF16 = 2). dtc: 5 floats (the 5th: the error feedback of a bfloat16
@@ -1149,8 +1228,9 @@ int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
 // species_sweep_launch: nsp (1..MAX_SPECIES) scalars; ptrs conv, sa, da,
 // phi[MAX_SPECIES], acc[MAX_SPECIES], out[MAX_SPECIES], entries past nsp
 // (and acc without accumulate) may be null; nus: nsp floats; grid_x:
-// blocks per output block. Each returns the cudaError_t of the launch (0
-// on success).
+// blocks per output block. halo: the halo form (axes 1 and 2, no update);
+// n0, n1, n2 are the shard's extents. Each returns the cudaError_t of the
+// launch (0 on success).
 #define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC)                           \
   extern "C" {                                                                \
   int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,      \
@@ -1158,19 +1238,19 @@ int species_launch(int axis, int accumulate, int nsp, void* const* ptrs,
     return sweep::geometry<BS, W>(bs, w, tl, xdiv_max_nb, max_species);       \
   }                                                                           \
   int transeq_sweep_launch(int axis, int accumulate, int nolds, int upd,      \
-                           int base_sep, int xdiv, int prec,                  \
+                           int base_sep, int xdiv, int prec, int halo,        \
                            void* const* ptrs, int n0, int n1, int n2,         \
                            float nu, const float* dtc, int grid_x,            \
                            void* stream) {                                    \
     return sweep::sweep_launch<BS, W, WITH_PREC>(                             \
-        axis, accumulate, nolds, upd, base_sep, xdiv, prec, ptrs, n0, n1, n2, \
-        nu, dtc, grid_x, stream);                                             \
+        axis, accumulate, nolds, upd, base_sep, xdiv, prec, halo, ptrs, n0,   \
+        n1, n2, nu, dtc, grid_x, stream);                                     \
   }                                                                           \
-  int species_sweep_launch(int axis, int accumulate, int nsp,                 \
+  int species_sweep_launch(int axis, int accumulate, int halo, int nsp,       \
                            void* const* ptrs, int n0, int n1, int n2,         \
                            const float* nus, int grid_x, void* stream) {      \
-    return sweep::species_launch<BS, W>(axis, accumulate, nsp, ptrs, n0, n1,  \
-                                        n2, nus, grid_x, stream);             \
+    return sweep::species_launch<BS, W>(axis, accumulate, halo, nsp, ptrs,    \
+                                        n0, n1, n2, nus, grid_x, stream);     \
   }                                                                           \
   const char* transeq_sweep_error_string(int err) {                           \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                 \

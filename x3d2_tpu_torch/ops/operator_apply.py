@@ -35,6 +35,8 @@ LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
                      "pipe_c[d2]": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
                      "pressure_mid[dense]": 6, "pressure_mid[q,dense]": 6,
+                     "pressure_mid[q,local]": 6,
+                     "pressure_mid[q,dense,local]": 6,
                      "div_solve": 3, "grad": 3, "div_solve[dense]": 3,
                      "grad[dense]": 3,
                      "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1,

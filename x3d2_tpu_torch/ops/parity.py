@@ -223,20 +223,27 @@ class ProjectionMats:
         return self._dev[dtype]
 
 
-def build_projection_mats(solver, dense=False) -> ProjectionMats:
+def build_projection_mats(solver, dense=False,
+                          kernel_tiling=True) -> ProjectionMats:
     """The projections' operators from the solver (x3d2_tpu
     make_pressure_pipe3, pallas_poisson.py:1584-1680, and
     make_pressure_slab, :553-708, :919-936, the banded y branch with the
     parity transforms or, with ``dense`` (X3D2_BFLY=0), the dense ones,
     :588-635, and either x stage). Raises ValueError outside
     ``projection_supported`` or when a y operator's band is wider than W
-    at the truncation tolerance."""
-    if not projection_supported(solver, dense):
+    at the truncation tolerance. Without ``kernel_tiling`` (the plain
+    versions' set, e.g. the repencilled projection on the CPU) the
+    extents need not be tiled by the kernels' 128: x3d2_tpu's slab grid
+    with periodic y and z suffices."""
+    po = solver.poisson
+    if kernel_tiling and not projection_supported(solver, dense):
         raise ValueError("the kernel projections need x3d2_tpu's slab grid "
                          f"with periodic y and z tiled by {TILE}")
+    if not slab_supported(solver) or 1 in po.folded or 2 in po.folded:
+        raise ValueError("the projections' operator set needs x3d2_tpu's "
+                         "slab grid with periodic y and z")
     d64 = solver._fp_mats64()
     oy = solver.ops[1]
-    po = solver.poisson
     nx, ny, nz = po.nc
 
     def band(op):

@@ -65,6 +65,17 @@ slabs are bit-identical to the ``emit_q`` call (the same launches). The
 two halves (div_solve, grad) are the first three and the last three of
 those launches, so the split gives the bits of the merged mid.
 
+The local-batch mid (``make_mid_local``, x3d2_tpu make_mid_local,
+pallas_poisson.py:780-937: the mid over one rank's batch of x planes in the
+repencilled sharded projection, parallel/shard_kernels.py) is the same six
+launches over nx_loc planes, with the solve's per-x-mode tables k2x, tx2
+(and mx) passed at run time as that rank's slices, in the order of the x
+stage's modes, counted as pressure_mid[q,local]. Its ``einsum`` (x3d2_tpu's
+X3D2_EINSUM_MID=1 replay, XLA there) is the plain version on either device;
+where x3d2_tpu takes the y/z-tiled mid (planes past its VMEM cap,
+``tiled_supported``) the port raises NotImplementedError naming
+_mid_t1/_t2/_t3_kernel.
+
 A wrapper on CUDA tensors launches the kernel (or raises); on CPU tensors
 it runs the plain version. All take the projections' operator set
 (``parity.ProjectionMats``), which also carries the block-parity orderings
@@ -74,12 +85,28 @@ ti_y, ti_z) that turn q into the physical pressure.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .compact import apply_matrix
 from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE_PLANE, STORE,
                              SUB, apply, apply_dense, route)
-from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
+from .banded import banded_blocks
+from .parity import (ProjectionMats, banded_apply, parity_split,
+                     parity_split_folded, pfwd, pinv, solve_factor)
+
+# what x3d2_tpu runs where its full-plane mid exceeds its VMEM cap
+TILED_MID_GAP = ("the y/z-tiled mid _mid_t1_kernel, _mid_t2_kernel and "
+                 "_mid_t3_kernel (x3d2_tpu/ops/pallas_poisson.py:413, :430, "
+                 ":468; make_mid_local.tiled, :850-909), taken by the "
+                 "repencilled projection where full (y, z) planes exceed "
+                 "the TPU's VMEM cap, is not ported")
+# x3d2_tpu's scoped-VMEM cap (pallas_transeq.py:39), which decides between
+# its full-plane and its tiled mid; a TPU limit, read here only to take the
+# branch x3d2_tpu takes
+TPU_VMEM_CAP = 64 * 2 ** 20
+_TPU_BAND_TOL = 1e-6        # x3d2_tpu's _BAND_TOL (pallas_kernels.py:143)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +227,10 @@ def _grad_cuda(q, m, inv, name, scratch=()):
     return p_zy, dpdy, dpdz
 
 
-def _pressure_mid_cuda(du, dv, dw, pm, emit_q):
-    m = pm.mats(torch.float32)
+def _pressure_mid_cuda(du, dv, dw, pm, emit_q, m=None, name=None):
+    m = m if m is not None else pm.mats(torch.float32)
     fwd, inv = _forms(pm)
-    name = stage_name("pressure_mid", pm, emit_q)
+    name = name or stage_name("pressure_mid", pm, emit_q)
     q, t1, t2 = _div_solve_cuda(du, dv, dw, m, fwd, name)
     return ((q if emit_q else None),) + _grad_cuda(q, m, inv, name,
                                                    (t1, t2))
@@ -224,11 +251,13 @@ def x_div3(u, v, w, pm: ProjectionMats):
     return x_div3_plain(u, v, w, pm.mats(u.dtype))
 
 
-def stage_name(base, pm: ProjectionMats, emit_q=False):
+def stage_name(base, pm: ProjectionMats, emit_q=False, local=False):
     """The launch-count name of a mid function over pm: pressure_mid,
-    div_solve, grad, with "q" where the mid emits q and "dense" for the
-    dense forms (pressure_mid[q,dense], div_solve[dense], ...)."""
-    tags = (["q"] if emit_q else []) + (["dense"] if pm.dense else [])
+    div_solve, grad, with "q" where the mid emits q, "dense" for the
+    dense forms and "local" over a local x batch (pressure_mid[q,dense],
+    div_solve[dense], pressure_mid[q,local], ...)."""
+    tags = (["q"] if emit_q else []) + (["dense"] if pm.dense else []) \
+        + (["local"] if local else [])
     return base + (f"[{','.join(tags)}]" if tags else "")
 
 
@@ -297,3 +326,163 @@ def x_gradsub3(p_zy, dpdy, dpdz, u, v, w, pm: ProjectionMats):
         return _x_gradsub3_cuda(p_zy, dpdy, dpdz, u, v, w,
                                 pm.mats(torch.float32))
     return x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, pm.mats(u.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the local-batch mid of the repencilled sharded projection
+# ---------------------------------------------------------------------------
+
+def tpu_slab_vmem_ok(solver, terms):
+    """x3d2_tpu slab_pressure_supported's VMEM-footprint condition
+    (pallas_poisson.py:535-550) at the mode's terms: the merged mid's
+    planes, matrix parts, tables and scratch within the TPU's 64 MB cap.
+    Where it fails, x3d2_tpu's repencilled projection takes its tiled mid."""
+    from ..common import DataLoc
+    ncx, ncy, ncz = solver.poisson.nc
+    _, nvy, nvz = solver.mesh.dims(DataLoc.VERT)
+    planes = 2 * 4 * (6 * nvy * nvz + ncy * ncz)
+    mats = 2 * terms * (2 * ncy * nvy + 2 * ncz * nvz
+                        + nvz * ncz + 2 * nvy * ncy)
+    tables = 3 * 4 * ncy * ncz
+    scratch = 4 * 4 * max(ncy * ncz, nvy * nvz)
+    return planes + mats + tables + scratch <= TPU_VMEM_CAP
+
+
+def tiled_mid_supported(solver, terms):
+    """x3d2_tpu make_mid_local.tiled_supported (pallas_poisson.py:568-612,
+    :833-848): banded y with the parity y and z transforms (periodic y and
+    z, X3D2_BFLY not "0"), tiles that divide the plane, and its per-kernel
+    VMEM estimate within the cap."""
+    from ..common import DataLoc
+    po = solver.poisson
+    _, ny, nz = po.nc
+    _, nvy, nvz = solver.mesh.dims(DataLoc.VERT)
+    oy = solver.ops[1]
+    bw, bbs = (32 if terms >= 3 else 16), 64
+    flip = os.environ.get("X3D2_BFLY", "1") != "0"
+    banded_y = (1 not in po.folded and nvy == ny and ny % bbs == 0
+                and oy.interpl_v2p.n_out == oy.interpl_v2p.n_in)
+    if banded_y:
+        try:
+            for op in (oy.interpl_v2p, oy.stagder_v2p, oy.interpl_p2v,
+                       oy.stagder_p2v):
+                banded_blocks(op, bw, bbs, tol=_TPU_BAND_TOL)
+        except ValueError:
+            banded_y = False
+    bfly = banded_y and ny % 16 == 0 and flip
+    if bfly:
+        try:
+            parity_split(ny)
+        except ValueError:
+            bfly = False
+    bfz = 2 not in po.folded and nvz == nz and nz % 16 == 0 and flip
+    if bfz:
+        d64 = solver._fp_mats64()
+        try:
+            for k, a in (("iz", 0), ("sz", 0), ("gz_i", 1), ("gz_s", 1)):
+                parity_split_folded(d64[k], a)
+        except ValueError:
+            bfz = False
+    ty = next((t for t in (128, 64, 32, 16, 8) if ny % t == 0), None)
+    tz = next((t for t in (256, 128) if nz % t == 0), None)
+    if not (banded_y and bfly and bfz and nvy == ny and nvz == nz
+            and ty is not None and tz is not None):
+        return False
+    nb = ny // bbs
+    by = 2 * terms * nb * bbs * (bbs + 2 * bw)
+    tf = 2 * terms * (ny // 2) ** 2
+    zp = 4 * terms * (nz // 2) ** 2
+    gz = 2 * terms * nvz * (nz // 2)
+    v1 = 2 * 4 * 5 * ny * tz + 2 * (by + tf) + 6 * 4 * ny * tz
+    v2 = (2 * 4 * 5 * ty * nz + 2 * (zp + gz) + 2 * 3 * 4 * ty * nz
+          + 6 * 4 * ty * nz)
+    v3 = 2 * 4 * 5 * ny * tz + 2 * (tf + by) + 6 * 4 * ny * tz
+    return max(v1, v2, v3) <= TPU_VMEM_CAP
+
+
+def local_tables(m, off, n):
+    """The operator set m with the solve's per-x-mode tables cut to the x
+    batch [off, off + n) (in the x stage's mode order)."""
+    return _local_mats(m, m["k2x"][off:off + n], m["tx2"][off:off + n],
+                       m["mx"][off:off + n] if "mx" in m else None)
+
+
+def _local_mats(m, k2x, tx2, mx):
+    """The operator set m with the solve's per-x-mode tables replaced by
+    one x batch's slices."""
+    lm = dict(m)
+    lm["k2x"], lm["tx2"] = k2x, tx2
+    if mx is not None:
+        lm["mx"] = mx
+    return lm
+
+
+def _table(t):
+    """A table slice as the kernel takes it: contiguous, 16-byte aligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pressure_mid_local_plain(du, dv, dw, pm, k2x, tx2, mx=None):
+    """(q, p_zy, dpdy, dpdz) of the mid over an x batch whose solve tables
+    are the slices k2x, tx2 (mx)."""
+    m = _local_mats(pm.mats(du.dtype), k2x.to(du.dtype), tx2.to(du.dtype),
+                    None if mx is None else mx.to(du.dtype))
+    return pressure_mid_plain(du, dv, dw, m, True, pm.dense)
+
+
+def pressure_mid_local(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
+    """(du, dv, dw) over a batch of nx_loc x planes -> (q, p_zy, dpdy, dpdz):
+    the mid (always with q, as x3d2_tpu's make_mid_local) with the batch's
+    solve-table slices. Counted as pressure_mid[q,local] ([q,dense,local]
+    for the dense forms)."""
+    if route(du, "pressure_mid_local"):
+        m = _local_mats(pm.mats(torch.float32), _table(k2x), _table(tx2),
+                        None if mx is None else _table(mx))
+        name = stage_name("pressure_mid", pm, True, local=True)
+        return _pressure_mid_cuda(du, dv, dw, pm, True, m, name)
+    return pressure_mid_local_plain(du, dv, dw, pm, k2x, tx2, mx)
+
+
+def make_mid_local(solver, pm: ProjectionMats, terms=2):
+    """Counterpart of x3d2_tpu make_pressure_slab(...)[4], make_mid_local
+    (pallas_poisson.py:780-937): make_mid_local(nx_loc) ->
+    mid_local(du, dv, dw, k2x_l, tx2_l, mx_l) -> (q, p_zy, dpdy, dpdz) over
+    a local batch of nx_loc x planes (pressure_mid_local). Attributes as
+    x3d2_tpu's: ``einsum(nx_loc)``, the plain replay (X3D2_EINSUM_MID=1; on
+    either device, as x3d2_tpu runs XLA there); ``tiled(nx_loc)``, which
+    raises NotImplementedError (TILED_MID_GAP); ``tiled_supported``;
+    ``tables``, the solve tables (tab_a, tab_b, myz, k2x, tx2, mx; myz and
+    mx None without a Nyquist mask; at the solver's dtype), k2x, tx2 and mx
+    in the x stage's mode order; ``ti_x``, ``ti_y``, ``ti_z``, the inverse transforms with
+    columns in q's mode order."""
+
+    def check(du, nx_loc):
+        if du.shape[0] != nx_loc:
+            raise ValueError(f"an x batch of {nx_loc} planes, got "
+                             f"{du.shape[0]}")
+
+    def make(nx_loc):
+        def mid_local(du, dv, dw, k2x_l, tx2_l, mx_l=None):
+            check(du, nx_loc)
+            return pressure_mid_local(du, dv, dw, pm, k2x_l, tx2_l, mx_l)
+        return mid_local
+
+    def make_einsum(nx_loc):
+        def mid_einsum(du, dv, dw, k2x_l, tx2_l, mx_l=None):
+            check(du, nx_loc)
+            return pressure_mid_local_plain(du, dv, dw, pm, k2x_l, tx2_l,
+                                            mx_l)
+        return mid_einsum
+
+    def make_tiled(nx_loc):
+        raise NotImplementedError(TILED_MID_GAP)
+
+    m = pm.mats(solver.dtype)
+    make.einsum = make_einsum
+    make.tiled = make_tiled
+    make.tiled_supported = tiled_mid_supported(solver, terms)
+    make.tables = (m["tab_a"], m["tab_b"], m.get("myz"), m["k2x"], m["tx2"],
+                   m.get("mx"))
+    make.ti_x, make.ti_y, make.ti_z = m["ti_x"], m["ti_y"], m["ti_z"]
+    return make

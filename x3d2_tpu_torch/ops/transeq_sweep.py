@@ -43,6 +43,18 @@ that the window stays 96 wide: the truncation falls to float32 epsilon
 float32 only. The operators are f32 (no bf16 hi/lo splits: those worked
 around the TPU matrix unit), and the kernel accumulates in f32 FMA.
 
+The halo form (x3d2_tpu's halo_ext sweeps, make_transeq_dir_v3(...,
+n_shards > 1), pallas_kernels.py:238-252, :404-427, :556-630; the sharded
+chain of parallel/shard_kernels.py): u, v, w are one rank's shard along
+the sweep axis, ``exts`` the halo-extended operands (the shard between the
+previous rank's last W planes and the next rank's first W planes, n + 2W
+along the axis; W the port's band, 16 or 32, not x3d2_tpu's 64-plane lane
+halo), the windows are read from them without a wrap, and the operator
+blocks are the global stack's from block ``off`` (the rank's position on
+the axis times its nb blocks), so a non-periodic axis' closure rows land on
+the ranks that own them. Partial sweeps only, as in x3d2_tpu (its halo
+sweeps take no update).
+
 ``transeq_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs ``transeq_sweep_plain`` for CPU tensors only.
 """
@@ -91,13 +103,15 @@ BF16_W32_GAP = ("_transeq_kernel_v3 olds_dtype/acc_dtype at w=32 (x3d2_tpu/"
 def variant_name(axis: int, accumulate: bool, nolds: int,
                  xdiv: bool = False, upd: bool | None = None,
                  base_sep: bool = False, olds_bf16: bool = False,
-                 acc_bf16: bool = False, w: int = W) -> str:
+                 acc_bf16: bool = False, w: int = W,
+                 halo: bool = False) -> str:
     """The kernel instance's name. upd (default: nolds > 0) is the fused
     update; an update with history and the sweep's own base is the AB one
     (``ab<k>``), the others are the RK substage updates (``rk<nolds>``, and
     ``f0`` where the base is the step-initial field). ``bf16olds``,
-    ``bf16acc``: the bfloat16 history, the bfloat16 partials; ``w32``: the
-    HIGHEST mode's band (w, the band half-width)."""
+    ``bf16acc``: the bfloat16 history, the bfloat16 partials; ``halo``: the
+    halo form of a sharded axis; ``w32``: the HIGHEST mode's band (w, the
+    band half-width)."""
     if upd is None:
         upd = nolds > 0
     tags = ["xyz"[axis]] + (["acc"] if accumulate else [])
@@ -106,7 +120,8 @@ def variant_name(axis: int, accumulate: bool, nolds: int,
     elif upd:
         tags.append(f"ab{nolds + 1}")
     tags += (["xdiv"] if xdiv else []) + (["bf16olds"] if olds_bf16 else []) \
-        + (["bf16acc"] if acc_bf16 else []) + ([f"w{w}"] if w != W else [])
+        + (["bf16acc"] if acc_bf16 else []) + (["halo"] if halo else []) \
+        + ([f"w{w}"] if w != W else [])
     return "transeq_sweep[" + ",".join(tags) + "]"
 
 
@@ -294,6 +309,28 @@ def _windows(q, axis, nb, bs, w):
     return q.movedim(axis, 0).reshape(n, -1)[idx]
 
 
+def _ext_windows(ext, axis, nb, bs, w):
+    """(nb, bs+2w, lines) windows of a halo-extended operand along `axis`
+    (the window of block b starts at b*bs; no wrap)."""
+    k = torch.arange(bs + 2 * w, device=ext.device)
+    b = torch.arange(nb, device=ext.device)
+    idx = b[:, None] * bs + k[None, :]
+    return ext.movedim(axis, 0).reshape(ext.shape[axis], -1)[idx]
+
+
+def window_source(blocks, shape, exts=None, off=0):
+    """(windows of field i, the selection of operator blocks, nb) for the
+    plain sweeps: win(q, i) gives the periodic windows of q, and all blocks
+    are taken; with `exts` (the halo form) the windows of the extended
+    operand exts[i], and the nb blocks from `off`."""
+    axis, bs, w = blocks.axis, blocks.bs, blocks.w
+    nb = shape[axis] // bs
+    if exts is None:
+        return (lambda q, i: _windows(q, axis, nb, bs, w)), slice(None), nb
+    return (lambda q, i: _ext_windows(exts[i], axis, nb, bs, w)), \
+        slice(off, off + nb), nb
+
+
 def _field(y, shape, axis):
     """Inverse of the windows' layout: (nb, bs, lines) -> field."""
     moved = (shape[axis],) + tuple(s for a, s in enumerate(shape)
@@ -303,7 +340,7 @@ def _field(y, shape, axis):
 
 def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
                         olds=None, dtc=None, xdiv: XdivMats | None = None,
-                        base=None, acc_dtype=None):
+                        base=None, acc_dtype=None, exts=None, off=0):
     """The sweep's function in plain PyTorch, at the inputs' dtype: gather
     the windows with periodic indices, then batched products with the
     blocks. Returns (r_u, r_v, r_w), or ((u', v', w'), (rhs_u, rhs_v,
@@ -313,18 +350,21 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
     history is widened to the inputs' dtype before any arithmetic; without
     the update r is stored at `acc_dtype` (default the inputs' dtype); with
     a bfloat16 history rhs is stored at bfloat16 and u' gains the error
-    feedback dtc[4] * (r - bf16(r))."""
+    feedback dtc[4] * (r - bf16(r)). With `exts` (the halo form: the
+    extended operands of u, v, w; `blocks` the global stack) the windows
+    come from them and the blocks from `off`."""
     axis = blocks.axis
     dtype = u.dtype
-    sa, st, da, dt = blocks.mats(dtype)
-    nb, bs, w = blocks.nb, blocks.bs, blocks.w
     comps = (u, v, w_)
     shape = tuple(u.shape)
-    cw = _windows(comps[axis], axis, nb, bs, w)
+    win, sel, _ = window_source(blocks, shape, exts, off)
+    sa, st, da, dt = (m[sel] for m in blocks.mats(dtype))
+    bs, w = blocks.bs, blocks.w
+    cw = win(comps[axis], axis)
     conv = cw[:, w:w + bs]
     outs = []
     for c in range(3):
-        qw = cw if c == axis else _windows(comps[c], axis, nb, bs, w)
+        qw = cw if c == axis else win(comps[c], c)
         S, D = (sa, da) if c == axis else (st, dt)
         both = torch.bmm(S, qw)
         dqd = torch.bmm(D, qw * cw)
@@ -369,9 +409,10 @@ def _lib(w=W):
         lib = _build.load(_LIB_NAME[w])
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.transeq_sweep_launch.argtypes = [
-            i, i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
+            i, i, i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
         lib.transeq_sweep_launch.restype = i
-        lib.species_sweep_launch.argtypes = [i, i, i, p, i, i, i, p, i, p]
+        lib.species_sweep_launch.argtypes = [i, i, i, i, p, i, i, i, p, i,
+                                             p]
         lib.species_sweep_launch.restype = i
         lib.transeq_sweep_error_string.argtypes = [i]
         lib.transeq_sweep_error_string.restype = ctypes.c_char_p
@@ -389,13 +430,29 @@ def _lib(w=W):
     return _LIBS[w]
 
 
-def sweep_shape_ok(shape, axis, bs=BS, w=W) -> bool:
+def sweep_shape_ok(shape, axis, bs=BS, w=W, halo=False) -> bool:
     """The kernel's tiling rules for one sweep axis at the geometry (bs,
-    w)."""
+    w); with `halo` for a shard of the halo form (a block at least, and the
+    W planes a neighbour takes)."""
     n0, n1, n2 = shape
     n = shape[axis]
-    return (n % bs == 0 and n >= bs + 2 * w and n2 % TL == 0
-            and (n0 * n1) % TL == 0)
+    return (n % bs == 0 and n >= (max(bs, w) if halo else bs + 2 * w)
+            and n2 % TL == 0 and (n0 * n1) % TL == 0)
+
+
+def check_exts(exts, shape, axis, w, nb_loc, nb_glob, off):
+    """Raise ValueError unless `exts` are halo-extended operands of `shape`
+    (n + 2w along `axis`) and the shard's blocks [off, off + nb_loc) are
+    blocks of the global stack of nb_glob at a shard boundary."""
+    want = list(shape)
+    want[axis] += 2 * w
+    for e in exts:
+        if tuple(e.shape) != tuple(want):
+            raise ValueError(f"a halo-extended operand is {tuple(want)}, got "
+                             f"{tuple(e.shape)}")
+    if not 0 <= off <= nb_glob - nb_loc or off % nb_loc:
+        raise ValueError(f"block offset {off} of {nb_loc} blocks outside the "
+                         f"global stack of {nb_glob}")
 
 
 def launch_error(err, w=W) -> str:
@@ -425,14 +482,19 @@ def _reduced(dtype, what):
 
 
 def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
-            base=None, acc_dtype=None):
+            base=None, acc_dtype=None, exts=None, off=0):
     axis = blocks.axis
     bs, w = blocks.bs, blocks.w
     shape = tuple(u.shape)
-    if len(shape) != 3 or not sweep_shape_ok(shape, axis, bs, w):
+    halo = exts is not None
+    if len(shape) != 3 or not sweep_shape_ok(shape, axis, bs, w, halo):
         raise ValueError(f"shape {shape} is not tileable by the sweep "
                          f"kernel along axis {axis}")
     upd = dtc is not None
+    if halo and (upd or xdiv is not None or acc_dtype is not None
+                 or axis == 0):
+        raise ValueError("the halo form is a float32 partial sweep of a "
+                         "sharded axis (y or z), without an update")
     olds = olds if upd and olds is not None else ((), (), ())
     nolds = len(olds[0])
     if upd and acc is None:
@@ -461,6 +523,14 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     mats = blocks.mats(torch.float32)
     if mats[0].device != u.device:
         raise ValueError("operator blocks and fields are on different devices")
+    nb = shape[axis] // bs
+    if halo:
+        check_exts(exts, shape, axis, w, nb, blocks.nb, off)
+        for t in exts:
+            _check(t, tuple(t.shape), "halo-extended operand")
+        mats = tuple(m[off:off + nb] for m in mats)
+    elif blocks.nb != nb:
+        raise ValueError(f"{blocks.nb} operator blocks for {nb} of the field")
     # outputs: u' (float32) and rhs (at the history's dtype) with the
     # update, else r at the partials' dtype
     odts = [torch.float32] * 3 + [hdt] * 3 if upd else [pdt] * 3
@@ -481,7 +551,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
                 raise ValueError("out may not alias the base: the RK "
                                  "substages after this one read it")
     null = None
-    ptrs = [u.data_ptr(), v.data_ptr(), w_.data_ptr()]
+    ptrs = [t.data_ptr() for t in (exts if halo else (u, v, w_))]
     ptrs += [m.data_ptr() for m in mats]
     ptrs += [t.data_ptr() for t in acc] if acc is not None else [null] * 3
     old_ptrs = [null] * 9
@@ -491,7 +561,6 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     ptrs += old_ptrs
     ptrs += [t.data_ptr() for t in outs[:3]]
     ptrs += [t.data_ptr() for t in outs[3:]] if upd else [null] * 3
-    nb = shape[axis] // bs
     lines = shape[0] * shape[1] * shape[2] // shape[axis]
     divs = None
     if xdiv is not None:
@@ -522,13 +591,13 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     with torch.cuda.device(u.device):
         err = _lib(w).transeq_sweep_launch(
             axis, int(acc is not None), nolds, int(upd), int(base is not None),
-            int(xdiv is not None), prec, parr, *shape, float(nu), carr,
-            grid_x, stream)
+            int(xdiv is not None), prec, int(halo), parr, *shape, float(nu),
+            carr, grid_x, stream)
     if err != 0:
         raise RuntimeError(f"transeq_sweep launch failed: "
                            f"{launch_error(err, w)} ({err})")
     name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
-                        base is not None, olds_bf16, acc_bf16, w)
+                        base is not None, olds_bf16, acc_bf16, w, halo)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     if xdiv is not None:
         return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)
@@ -539,7 +608,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
 
 def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
                   dtc=None, out=None, xdiv: XdivMats | None = None,
-                  base=None, acc_dtype=None):
+                  base=None, acc_dtype=None, exts=None, off=0):
     """One direction sweep: -> (r_u, r_v, r_w), or with `dtc` (the
     dt-scaled update row, host floats; 5 entries with a bfloat16 history,
     the 5th the error feedback) -> ((u', v', w'), (rhs_u, rhs_v, rhs_w)),
@@ -550,18 +619,23 @@ def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
     rhs is stored at it. `out` names the tensors to write (in place): 3
     tensors, or ((u'x3), (rhs x3)) with `dtc` (du, dv, dw are always new
     tensors). An output may alias `acc` or the history at its dtype (each
-    point reads them before it writes), never u, v, w or the base.
+    point reads them before it writes), never u, v, w or the base. `exts`,
+    `off`: the halo form (the extended operands of u, v, w; `blocks` the
+    global stack, from block `off`).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     version."""
     if u.is_cuda:
         return _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv, base,
-                       acc_dtype)
+                       acc_dtype, exts, off)
     if u.device.type != "cpu":
         raise ValueError(f"no transeq sweep for device {u.device}")
+    if exts is not None:
+        check_exts(exts, tuple(u.shape), blocks.axis, blocks.w,
+                   u.shape[blocks.axis] // blocks.bs, blocks.nb, off)
     res = transeq_sweep_plain(u, v, w_, blocks, nu, acc=acc, olds=olds,
                               dtc=dtc, xdiv=xdiv, base=base,
-                              acc_dtype=acc_dtype)
+                              acc_dtype=acc_dtype, exts=exts, off=off)
     if out is None:
         return res
     flat_res = list(res[0]) + list(res[1]) if dtc is not None else list(res)
@@ -579,7 +653,8 @@ def transeq_sweep(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
 
 def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
                        device=None, xdiv_mats=None, upd=None, base_sep=False,
-                       olds_dtype=None, acc_dtype=None, terms=2):
+                       olds_dtype=None, acc_dtype=None, terms=2,
+                       n_shards=1):
     """One direction sweep as a function, the counterpart of
     make_transeq_dir_v3 / make_pencil_sweep:
     fn(u, v, w[, acc][, olds, dtc][, out][, base]) -> as transeq_sweep.
@@ -591,9 +666,22 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     blocks along x differ). olds_dtype, acc_dtype: bfloat16 for the
     reduced history and partials (None: the state's dtype), where the
     kernel is built with them (_check_prec_instance). terms: x3d2_tpu's
-    kernel mode, 2 (default) or 3 (HIGHEST: the W=32 band)."""
+    kernel mode, 2 (default) or 3 (HIGHEST: the W=32 band). n_shards > 1:
+    the halo form over a shard (`shape` the shard's, the operators the
+    global axis' of n_shards times its extent), x3d2_tpu's n_shards;
+    fn(u, v, w[, acc], exts=, off=) with the extended operands and the
+    shard's block offset (partial sweeps only, as in x3d2_tpu)."""
     if upd is None:
         upd = nolds > 0
+    halo = n_shards > 1
+    if halo and (upd or nolds or base_sep or xdiv_mats is not None
+                 or acc_dtype is not None or olds_dtype is not None):
+        raise ValueError("fused-update sweeps must be single-shard "
+                         "(x3d2_tpu rule); the halo form is a float32 "
+                         "partial sweep")
+    if halo and ops_axis.der1st.n_in != shape[axis] * n_shards:
+        raise ValueError("local extent * n_shards must match the global "
+                         "operator size")
     if (upd or nolds) and not accumulate:
         raise ValueError("fused-update sweeps accumulate (x3d2_tpu rule)")
     if (nolds or base_sep) and not upd:
@@ -605,7 +693,7 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
                          xdiv_mats is not None,
                          _reduced(olds_dtype, "the history"),
                          _reduced(acc_dtype, "the partials"), w)
-    if not sweep_shape_ok(tuple(shape), axis, bs, w):
+    if not sweep_shape_ok(tuple(shape), axis, bs, w, halo):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
     xdiv = None
     if xdiv_mats is not None:
@@ -616,9 +704,11 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     if xdiv is not None:
         blocks.require_equal_blocks()
 
-    def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None, base=None):
+    def fn(u, v, w_, acc=None, olds=None, dtc=None, out=None, base=None,
+           exts=None, off=None):
         if (accumulate != (acc is not None) or upd != (dtc is not None)
-                or base_sep != (base is not None)):
+                or base_sep != (base is not None)
+                or halo != (exts is not None) or halo != (off is not None)):
             raise ValueError("arguments do not match the sweep variant")
         if nolds and any(len(o) != nolds for o in olds):
             raise ValueError(f"need {nolds} history fields per component")
@@ -627,7 +717,8 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
                              f"takes {olds_dtype or u.dtype}")
         return transeq_sweep(u, v, w_, blocks, nu, acc=acc, olds=olds,
                              dtc=dtc, out=out, xdiv=xdiv, base=base,
-                             acc_dtype=acc_dtype)
+                             acc_dtype=acc_dtype, exts=exts,
+                             off=int(off or 0))
 
     fn.blocks = blocks
     fn.xdiv = xdiv

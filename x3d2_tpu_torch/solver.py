@@ -41,6 +41,18 @@ tensors a branch x3d2_tpu runs on a kernel the port lacks raises
 NotImplementedError naming it: the port never substitutes plain PyTorch
 for a kernel on the card.
 
+On a process mesh (parallel/topo.py make_sharded_step) the solver is a copy
+over one rank's blocks (``_sharded``), with x3d2_tpu's sharded branches
+(solver.py:206-219, :311-318, :420-431, :529-545): transeq takes the
+sharded sweep chain (``_sharded_transeq``, parallel/shard_kernels.py) where
+it is built, else in halo mode (``_halo_mode``: operators along sharded
+axes applied through halo exchanges, parallel/halo.py) one operator a
+product, never row-stacked; the scalars likewise (``_sharded_species``);
+gradient_p2v in halo mode one operator a product; pressure_correction the
+repencilled projection (``_repencil_pressure``) where it is built. The
+projection x3d2_tpu runs otherwise on a sharded mesh, its GSPMD spectral
+pressure_grads, raises NotImplementedError (topo.GSPMD_GAP).
+
 The switches x3d2_tpu's solver reads are read where it reads them:
 X3D2_PALLAS and X3D2_MATMUL_PRECISION in ``NavierStokes.build``
 (solver.py:106, :124-127: "0" takes the einsum paths above on either
@@ -243,6 +255,9 @@ class NavierStokes:
         use (der1st_sym, der1st, der2nd_sym) (omp/backend.f90:235-262). The
         6 products u_i*u_j are computed once; dq and d2q share one
         row-stacked product."""
+        sharded = getattr(self, "_sharded_transeq", None)
+        if sharded is not None:
+            return sharded(u, v, w)
         if self._sweeps is not None:
             return self._sweeps(u, v, w)
         if self._v1 is not None:
@@ -251,6 +266,20 @@ class NavierStokes:
             raise NotImplementedError(f"transeq on the card: "
                                       f"{self.transport_gap()}")
         comps = (u, v, w)
+        if getattr(self, "_halo_mode", False):
+            # sharded axes: one operator a product, each with its own halo
+            # exchange (x3d2_tpu solver.py:206-219)
+            rhs = [0.0, 0.0, 0.0]
+            for axis in range(3):
+                o = self.ops[axis]
+                for c in range(3):
+                    if c == axis:
+                        ops = (o.der1st, o.der1st_sym, o.der2nd)
+                    else:
+                        ops = (o.der1st_sym, o.der1st, o.der2nd_sym)
+                    rhs[c] = rhs[c] + self._transeq_component(
+                        comps[c], comps[axis], axis, *ops, self.nu)
+            return tuple(rhs)
         prods = {}
 
         def prod(i, j):
@@ -281,6 +310,18 @@ class NavierStokes:
                 rhs[c] = rhs[c] - 0.5 * (conv * dq + dqd) + self.nu * d2q
         return tuple(rhs)
 
+    def _transeq_component(self, q, conv, axis, op_du, op_dud, op_d2u, nu):
+        """One component's RHS along one axis, one operator a product:
+        -0.5 (conv dq + d(q conv)) + nu d2q, with the stretched-mesh
+        correction (x3d2_tpu solver.py:170-180)."""
+        dq = op_du(q, axis)
+        dqd = op_dud(q * conv, axis)
+        d2q = op_d2u(q, axis)
+        corr = op_d2u.stretch_correct
+        if corr is not None and np.any(corr):
+            d2q = d2q + dq * _bcast(corr, axis, q)
+        return -0.5 * (conv * dq + dqd) + nu * d2q
+
     def transeq_species(self, phi, u, v, w, nu_s):
         """Species convection-diffusion RHS on the dense operator matrices
         (solver.f90:507-601): the scalar uses (der1st, der1st_sym, der2nd)
@@ -309,6 +350,11 @@ class NavierStokes:
         per direction) where it is built, else the dense per-species path
         (CPU tensors only)."""
         nsp = len(self.nu_species)
+        sharded = getattr(self, "_sharded_species", None)
+        if sharded is not None:
+            out = torch.empty_like(phi)
+            sharded(phi.unbind(0), u, v, w, out=out.unbind(0))
+            return out
         if self._species_sweeps is not None:
             out = torch.empty_like(phi)
             self._species_sweeps(phi.unbind(0), u, v, w, out=out.unbind(0))
@@ -338,8 +384,15 @@ class NavierStokes:
 
     def gradient_p2v(self, p):
         """grad(p) from CELL to VERT grid (vector_calculus.f90:248-332),
-        z -> y -> x; operator pairs sharing an input are row-stacked."""
+        z -> y -> x; operator pairs sharing an input are row-stacked (in
+        halo mode one operator a product, x3d2_tpu solver.py:311-318)."""
         ox, oy, oz = self.ops
+        if getattr(self, "_halo_mode", False):
+            p_z, dpdz = oz.interpl_p2v(p, 2), oz.stagder_p2v(p, 2)
+            p_zy, dpdy = oy.interpl_p2v(p_z, 1), oy.stagder_p2v(p_z, 1)
+            dpdz = oy.interpl_p2v(dpdz, 1)
+            return (ox.stagder_p2v(p_zy, 0), ox.interpl_p2v(dpdy, 0),
+                    ox.interpl_p2v(dpdz, 0))
         Mz = torch.cat([oz.interpl_p2v.M, oz.stagder_p2v.M])
         p_z, dpdz = _halves(apply_matrix(Mz, p, 2), oz.interpl_p2v.n_out, 2)
         My = torch.cat([oy.interpl_p2v.M, oy.stagder_p2v.M])
@@ -412,7 +465,14 @@ class NavierStokes:
         parity x apply on a periodic x or the dense x apply on a
         wall-bounded one. Elsewhere the transform-folded chain
         (pressure_grads_folded). p: the physical pressure with
-        keep_pressure, else the spectral-basis solution q."""
+        keep_pressure, else the spectral-basis solution q. On a process
+        mesh x3d2_tpu runs its GSPMD spectral chain here (solver.py:420-431)
+        and the port raises NotImplementedError."""
+        if getattr(self, "_sharded", False):
+            from .parallel.topo import GSPMD_GAP
+            raise NotImplementedError(GSPMD_GAP.format(
+                what="the spectral pressure_grads (divergence, the Poisson "
+                     "transforms across ranks, gradient)"))
         slab = self._slab
         if slab is None:
             if u.is_cuda and self._projection_gap is not None:
@@ -511,7 +571,14 @@ class NavierStokes:
         pressure is not formed on the kernel grids and p is None (the
         caller carries its previous pressure, as x3d2_tpu does). `divs`:
         pre-transformed divergence inputs from the xdiv sweep (slab
-        projection only)."""
+        projection only). On a process mesh, the repencilled projection
+        (x3d2_tpu solver.py:529-533) where it is built."""
+        rp = getattr(self, "_repencil_pressure", None)
+        if rp is not None:
+            if divs is not None:
+                raise ValueError("the repencilled projection takes no "
+                                 "pre-transformed divergence inputs")
+            return rp(u, v, w, keep_pressure)
         if self._pipe is not None and divs is None and not keep_pressure:
             return (*self._pipe(u, v, w), None)
         if self._slab is not None:
