@@ -13,7 +13,9 @@ the step reads, and the switches a case once refused at any value.
   bfloat16 history stores RNE(r) and adds dtc4 (r - RNE(r)) to u'.
 - The fused AB chain, z-x-y and xdiv, with a bfloat16 history, bfloat16
   partials or both, against x3d2_tpu's make_fused_transeq_ab_v3(...,
-  interpret=True, olds_dtype=, acc_dtype=) at (128, 128, 256): u' within
+  interpret=True, olds_dtype=, acc_dtype=) at (128, 128, 256), in the
+  default mode and in the HIGHEST one (terms=3: x3d2_tpu's w = 32, the
+  port's W = 32 instances): u' within
   5e-4 * scale and rhs within 2e-2 * max |rhs| (tests/test_bf16_acc.py's
   own bounds: two bfloat16 roundings of dt-scaled partial sums, and the
   quantisation of rhs itself); its buffers alias as x3d2_tpu's do.
@@ -217,11 +219,23 @@ def test_bf16_history_sweep_stores_rne_and_feeds_back(case32):
 # the fused AB chain against x3d2_tpu's kernel chain (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("chain,olds_red,acc_red", [
-    ("zxy", True, False), ("zxy", False, True), ("zxy", True, True),
-    ("xdiv", True, False), ("xdiv", True, True)])
+# (chain, bfloat16 history, bfloat16 partials, x3d2_tpu's kernel terms: 3
+# is the HIGHEST mode, X3D2_MATMUL_PRECISION=highest, the port's W = 32)
+CHAINS = [("zxy", True, False, 2), ("zxy", False, True, 2),
+          ("zxy", True, True, 2), ("xdiv", True, False, 2),
+          ("xdiv", True, True, 2), ("zxy", True, False, 3),
+          ("zxy", False, True, 3), ("zxy", True, True, 3),
+          ("xdiv", True, True, 3)]
+
+
+@pytest.mark.parametrize("chain,olds_red,acc_red,terms", [
+    pytest.param(*c, id=f"{c[0]}-{c[1]}-{c[2]}"
+                 + ("-highest" if c[3] == 3 else "")) for c in CHAINS])
 def test_fused_chain_matches_x3d2_tpu_kernel_chain(case32, jops32, chain,
-                                                   olds_red, acc_red):
+                                                   olds_red, acc_red, terms):
+    """At x3d2_tpu's terms 2 and, in the HIGHEST mode, 3 (its w = 32 chain
+    against the port's W = 32 instances' plain versions); the bounds are
+    the bfloat16 streams', the same in both modes."""
     rng = _rng(4)
     ops, nu = case32.solver.ops, case32.solver.nu
     u, v, w, o0, o1, o2 = (0.1 * rng.standard_normal(SHAPE)
@@ -236,7 +250,7 @@ def test_fused_chain_matches_x3d2_tpu_kernel_chain(case32, jops32, chain,
     dt = 1e-3
     row = [dt, 1.5 * dt, -0.5 * dt, 0.0] + ([dt] if olds_red else [])
     jfn = make_fused_transeq_ab_v3(
-        jops32, nu, SHAPE, nolds=2, interpret=True, xdiv=xdiv,
+        jops32, nu, SHAPE, nolds=2, interpret=True, xdiv=xdiv, terms=terms,
         olds_dtype=jnp.bfloat16 if olds_red else None,
         acc_dtype=jnp.bfloat16 if acc_red else None)
     jout = jfn(*(jnp.asarray(a) for a in (u, v, w)),
@@ -245,7 +259,9 @@ def test_fused_chain_matches_x3d2_tpu_kernel_chain(case32, jops32, chain,
                      for p in holds),
                jnp.asarray(row, jnp.float32))
     fn = ts.make_fused_transeq_ab(ops, nu, SHAPE, 2, device="cpu",
-                                  xdiv=xdiv, olds_dtype=odt, acc_dtype=adt)
+                                  xdiv=xdiv, olds_dtype=odt, acc_dtype=adt,
+                                  terms=terms)
+    assert {f.blocks.w for f in fn.sweeps} == {16 if terms == 2 else 32}
     olds = tuple(tuple(torch.from_numpy(x).to(odt or torch.float32)
                        for x in p) for p in holds)
     oldest = [p[-1] for p in olds]

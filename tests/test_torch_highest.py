@@ -20,7 +20,8 @@ read where x3d2_tpu reads them.
   reported as a TPU (nothing is run): the same transport, fused chains,
   pipeline and slab; x3d2_tpu's band on its non-lane axes is 32, the
   port's on every axis. A bfloat16 history or partials on the fused AB
-  chain raise NotImplementedError naming the unported instances.
+  chain (and the carry's chain, X3D2_D2C=1) build from the W = 32
+  reduced-precision instances and step.
 - TGV (128, 128, 256) compensated in the HIGHEST mode against x3d2_tpu's
   compensated einsum step: float64, 1 step, at test_torch_compensated's
   tolerances (u, v, w within 1e-10 * scale, the compensation within 4
@@ -347,19 +348,42 @@ def test_branch_choice_under_highest_matches_x3d2_tpu(monkeypatch, shape,
 @pytest.mark.parametrize("env", [{"X3D2_BF16_OLDS": "1"},
                                  {"X3D2_BF16_ACC": "1"},
                                  {"X3D2_BF16_OLDS": "1",
-                                  "X3D2_XDIV_FUSED": "0"}])
+                                  "X3D2_XDIV_FUSED": "0"},
+                                 {"X3D2_BF16_OLDS": "1",
+                                  "X3D2_XDIV_FUSED": "0", "X3D2_D2C": "1"}])
 def test_bf16_chains_at_w32_raise(monkeypatch, env):
     """x3d2_tpu builds its reduced-precision AB chains at w = 32 in the
-    HIGHEST mode; the port does not: NotImplementedError naming them. The
-    compensated step (no fused chain) keeps its bfloat16 history."""
+    HIGHEST mode, and so does the port (it once raised NotImplementedError
+    here): the fused chain, xdiv at this grid (z-x-y with
+    X3D2_XDIV_FUSED=0; with X3D2_D2C=1 also the carry's chain without its z
+    sweep and the boot z sweep), every sweep at W = 32 with the bfloat16
+    streams the switches ask for; two steps finite, the history bfloat16.
+    The compensated step (no fused chain) keeps its bfloat16 history.
+    tests/test_torch_bf16.py holds the chains against x3d2_tpu's."""
     monkeypatch.setenv("X3D2_MATMUL_PRECISION", "highest")
     for k, val in env.items():
         monkeypatch.setenv(k, val)
     kw = dict(monitor_path=None, verbose=False, keep_pressure=False,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="at w=32"):
-        TGVCase(Mesh(SHAPE, L, PER), SolverParams(dt=DT), **kw)
-    if "X3D2_BF16_OLDS" in env:
+    olds = "X3D2_BF16_OLDS" in env
+    case = TGVCase(Mesh(SHAPE, L, PER), SolverParams(dt=DT), **kw)
+    assert case._fused_ab is not None
+    assert case._ab_is_xdiv == ("X3D2_XDIV_FUSED" not in env)
+    assert (case._olds_dtype == torch.bfloat16) == olds
+    assert (case._acc_dtype == torch.bfloat16) == ("X3D2_BF16_ACC" in env)
+    assert _port_widths(case) == {32}
+    d2c = "X3D2_D2C" in env
+    assert (case._pipe_d2c is not None) == d2c
+    if d2c:
+        assert {f.blocks.w for f in case._fused_ab_nod2.sweeps} == {32}
+        assert case._d2_boot.blocks.w == 32
+    s = case.initial_state()
+    for _ in range(2):
+        s = case.step(s)
+    assert all(bool(torch.isfinite(s[k]).all()) for k in ("u", "v", "w"))
+    if olds:
+        assert {o.dtype for p in s["olds"] for o in p} == {torch.bfloat16}
+    if olds:
         case = TGVCase(Mesh(SHAPE, L, PER),
                        SolverParams(dt=DT, compensated=True), **kw)
         assert case._olds_dtype == torch.bfloat16 and case._fused_ab is None

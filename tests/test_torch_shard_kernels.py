@@ -30,7 +30,8 @@ x3d2_tpu, on the CPU (one process, one shard at a time).
   repencil_supported, the full-plane mid's VMEM gate and tiled_supported)
   against x3d2_tpu's on 512^3 and 1024^3 on (2, 2), (128, 256, 256) on
   (2, 2), (128, 128, 512) on (1, 4), 64 x 128 x 256 on (2, 2) and 32^3 on
-  (2, 4); where x3d2_tpu takes its tiled mid (1024^3) the port raises.
+  (2, 4); where x3d2_tpu takes its tiled mid (1024^3) the port takes its
+  own (tests/test_torch_tiled_mid.py holds it against x3d2_tpu's).
 - The halo applies' operator blocks (shard_operator_blocks) against
   x3d2_tpu's, periodic and Dirichlet, and one rank's apply on its
   extended operand against the dense apply (the exchange itself runs in
@@ -339,16 +340,20 @@ def test_mid_local(mids, form):
 
 
 def test_mid_local_is_the_mid_on_a_batch(mids):
-    """In float64 the batch's mid is the whole-x mid's planes of that
-    batch (the tables sliced in the x stage's order), and the orderings
-    and inverse transforms are x3d2_tpu's."""
+    """In float64 the batch's mid, and its tiled form (the reassociated
+    stage order of x3d2_tpu's tiled mid), are the whole-x mid's planes of
+    that batch (the tables sliced in the x stage's order), and the
+    orderings and inverse transforms are x3d2_tpu's."""
     ns, pm, mk, jmk = mids
     d = _fields(3, 61, shape=MID_SHAPE)
     whole = sl.pressure_mid_plain(*_t(d), pm.mats(torch.float64))
-    got = mk(NX_LOC)(*_t([x[MID_OFF:MID_OFF + NX_LOC] for x in d]),
-                     *_tables(pm.mats(torch.float64)))
-    for g, e in zip(got, whole):
-        assert _rel(g.numpy(), e.numpy()[MID_OFF:MID_OFF + NX_LOC]) < 1e-12
+    batch = _t([x[MID_OFF:MID_OFF + NX_LOC] for x in d])
+    tabs = _tables(pm.mats(torch.float64))
+    for mid in (mk(NX_LOC), mk.tiled(NX_LOC)):
+        got = mid(*batch, *tabs)
+        for g, e in zip(got, whole):
+            assert _rel(g.numpy(),
+                        e.numpy()[MID_OFF:MID_OFF + NX_LOC]) < 1e-12
     for a, b in ((pm.x_perm, jmk.x_perm), (pm.q_perm, jmk.q_perm),
                  (pm.z_perm, jmk.z_perm)):
         np.testing.assert_array_equal(a, b)
@@ -356,8 +361,6 @@ def test_mid_local_is_the_mid_on_a_batch(mids):
         np.testing.assert_allclose(getattr(mk, name).numpy(),
                                    np.asarray(getattr(jmk, name)),
                                    rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="_mid_t1_kernel"):
-        mk.tiled(NX_LOC)
 
 
 # ---------------------------------------------------------------------------
@@ -401,23 +404,35 @@ def test_gates_match_x3d2_tpu(dims, mesh, want):
         assert tiled == make_pressure_slab(jns, terms=2,
                                            interpret=True)[4].tiled_supported
         assert tiled
-        with pytest.raises(NotImplementedError, match="_mid_t1_kernel"):
-            psk.make_repencilled_pressure(ns, pmesh, terms=2)
+        fn = psk.make_repencilled_pressure(ns, pmesh, terms=2)
+        assert fn.mid.__name__ == "mid_tiled"
 
 
 def test_tiled_mid_raises(monkeypatch):
     """Where the full-plane mid fails x3d2_tpu's VMEM gate and the tiled
-    one is supported, the repencilled projection is x3d2_tpu's tiled mid,
-    which the port raises on (forced at a small grid, as x3d2_tpu's own
-    tests/test_shard_kernels.py forces its gate closed)."""
+    one is supported, the repencilled projection is x3d2_tpu's tiled mid
+    (forced at a small grid, as x3d2_tpu's own tests/test_shard_kernels.py
+    forces its gate closed), which the port once raised on: it is taken,
+    and gives the plain tiled form's result on the rank's batch, within
+    1e-12 of the full-plane mid's in float64 (tests/test_torch_tiled_mid.py
+    holds both against x3d2_tpu's)."""
     ns, _ = _solvers(shape=MID_SHAPE)
     pmesh = ProcessMesh(2, 2)
     assert psk.repencil_supported(ns, pmesh)
     fn = psk.make_repencilled_pressure(ns, pmesh, terms=2)
-    assert fn.x_offset == 0
+    assert fn.x_offset == 0 and fn.mid.__name__ == "mid_local"
     monkeypatch.setattr(sl, "tpu_slab_vmem_ok", lambda solver, terms: False)
-    with pytest.raises(NotImplementedError, match="_mid_t3_kernel"):
-        psk.make_repencilled_pressure(ns, pmesh, terms=2)
+    fn_t = psk.make_repencilled_pressure(ns, pmesh, terms=2)
+    assert fn_t.mid.__name__ == "mid_tiled"
+    m64 = fn_t.mats.mats(torch.float64)
+    d = _t(_fields(3, 62, shape=(NX_LOC,) + MID_SHAPE[1:]))
+    tabs = (m64["k2x"][:NX_LOC], m64["tx2"][:NX_LOC])
+    got = fn_t.mid(*d, *tabs)
+    want = sl.pressure_mid_tiled_local_plain(*d, fn_t.mats, *tabs)
+    full = fn.mid(*d, *tabs)
+    for g, e, f in zip(got, want, full):
+        assert torch.equal(g, e)
+        assert _rel(g.numpy(), f.numpy()) < 1e-12
     # X3D2_EINSUM_MID=1: the plain replay, as x3d2_tpu's XLA replay
     monkeypatch.setenv("X3D2_EINSUM_MID", "1")
     fn = psk.make_repencilled_pressure(ns, pmesh, terms=2)

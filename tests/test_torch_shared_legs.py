@@ -2,9 +2,10 @@
 (chip_smoke.CPU_SAME): the card leg of one chain is held against the CPU
 leg of another, on the grounds that on the CPU the two run the same
 operations. Each pair is stepped here on the CPU, in float32 from the
-same initial state, and its states must be bit-equal (u, v, w, p and the
-monitor's KE), 2 steps at the grid phase 8 runs it at: TGV (128, 128,
-256), the cylinder (65, 128, 128).
+same initial state, and its states must be bit-equal (u, v, w, the
+monitor's KE and, where both chains keep the pressure or neither does, p;
+phase 8 holds p only where a chain keeps it), 2 steps at the grid phase 8
+runs it at: TGV (128, 128, 256), the cylinder (65, 128, 128).
 """
 
 import importlib.util
@@ -76,6 +77,7 @@ def test_labels_name_their_switches():
 def test_shared_cpu_leg_is_bit_equal(label, shared):
     got, ke = _leg(label)
     want, ke_want = _leg(shared)
-    for k in ("u", "v", "w", "p"):
+    alike = smoke.chain_switches(label)[2] == smoke.chain_switches(shared)[2]
+    for k in ("u", "v", "w") + (("p",) if alike else ()):
         assert torch.equal(got[k], want[k]), k
     assert ke == ke_want

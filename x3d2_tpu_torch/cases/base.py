@@ -57,8 +57,8 @@ whenever a state enters ``run``), and the step runs the chain without its
 z sweep from them, then the pipeline whose stage C also returns the next
 ``rhsp`` (ops/pressure_pipe.py pipe_c_d2; :420-434, the hooks skipped).
 A bfloat16 history or partials on the fused AB chain in the HIGHEST mode
-take TPU kernels the port lacks and raise NotImplementedError naming
-them. X3D2_CHUNK is accepted at any value: x3d2_tpu chains the steps
+build the chain from the W=32 reduced-precision instances, as x3d2_tpu
+builds them at terms=3. X3D2_CHUNK is accepted at any value: x3d2_tpu chains the steps
 between outputs into one dispatch or not (cases/base.py:566), the same
 steps either way, and the port's ``run`` dispatches per step.
 

@@ -22,12 +22,13 @@
 // The contraction runs along the slow axis of a row-major slab (x, or y
 // batched over x-planes) or, transposed, along the contiguous z axis. A
 // launch takes up to 3 jobs (fields) and a job up to 2 sources summed into
-// one result (Iz p2 + Sz p3; Sx a + Ix e). Epilogues: store, subtract from
-// a field (the velocity correction), or the spectral solve (multiply by
-// -1/waves rebuilt from separable tables, with the zero-wave guard, and by
-// the Nyquist mask 1 - mx * Myz where the Poisson variant zeros a line;
-// on the all-periodic grids of the pipeline there is no mask and the
-// epilogue reads no mask table).
+// one result (Iz p2 + Sz p3; Sx a + Ix e), each source in a chain of its
+// own, the two sums added as the plain version adds them. Epilogues:
+// store, subtract from a field (the velocity correction), or the spectral
+// solve (multiply by -1/waves rebuilt from separable tables, with the
+// zero-wave guard, and by the Nyquist mask 1 - mx * Myz where the Poisson
+// variant zeros a line; on the all-periodic grids of the pipeline there is
+// no mask and the epilogue reads no mask table).
 //
 // The same template carries the slab projection (make_pressure_slab,
 // pallas_poisson.py:553; wrappers in ops/pressure_slab.py):
@@ -82,6 +83,9 @@ constexpr int BN = 128;   // output columns per block
 constexpr int BK = 8;     // k-step
 constexpr int NT = 256;   // threads per block
 constexpr int PAD = 4;    // shared-memory row pad (keeps float4 alignment)
+// dynamic shared memory of a two-source launch: the stash of the block's
+// 128 x 128 sums of its first source
+constexpr int STASH_BYTES = BM * BN * 4;
 
 enum { BANDED = 0, PFWD = 1, PINV = 2, DENSE = 3 };
 enum { STORE = 0, SUB = 1, SOLVE = 2, SOLVE_PLANE = 3 };
@@ -121,13 +125,14 @@ __device__ __forceinline__ float4 axpy4(float4 x, float s, float4 y) {
                      x.w + s * y.w);
 }
 
-template <int MODE, bool TRANS, int EPI>
+template <int MODE, bool TRANS, int EPI, bool TWO>
 __global__ void __launch_bounds__(NT, 2)
 mat_apply_kernel(const __grid_constant__ Args a) {
   // two stages of operands: the next k-step is staged while the current
   // one is read, so one barrier per k-step suffices
   __shared__ __align__(16) float As[2][BK][BM + PAD];
   __shared__ __align__(16) float Bs[2][2][BK][BN + PAD];
+  extern __shared__ float4 stash4[];   // TWO: STASH_BYTES
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -238,6 +243,27 @@ mat_apply_kernel(const __grid_constant__ Args a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
+  // A two-source job (TWO) sums each source in a chain of its own and
+  // adds the two sums, as the plain version adds its two products: the
+  // first source's sums wait in shared memory, 64 floats a thread at
+  // stride NT (conflict-free), and are added to the second's. Each thread
+  // reads back only what it wrote: no barrier.
+  auto stash = [&](bool put) {
+    float* st = reinterpret_cast<float*>(stash4) + tid;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* p = st + (i * 8 + j) * NT;
+        if (put) {
+          *p = acc[i][j];
+          acc[i][j] = 0.f;
+        } else {
+          acc[i][j] = *p + acc[i][j];
+        }
+      }
+  };
+
   fetch(0);
   stage(0);
   __syncthreads();
@@ -271,10 +297,12 @@ mat_apply_kernel(const __grid_constant__ Args a) {
           acc[4 + i][j] = fmaf(av[4 + i], bv1[j], acc[4 + i][j]);
         }
     }
+    if (TWO && J.nsrc == 2 && t == ktiles - 1) stash(true);
     // the other stage was last read before the previous barrier
     if (t + 1 < ntiles) stage(buf ^ 1);
     __syncthreads();
   }
+  if (TWO && J.nsrc == 2) stash(false);
 
   // epilogue: thread rows g*64 + 4*ty + i (i < 4) of the block's groups,
   // columns 4*tx + j and 64 + 4*tx + j
@@ -359,9 +387,21 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   }
 }
 
-template <int MODE, bool TRANS, int EPI>
+template <int MODE, bool TRANS, int EPI, bool TWO = false>
 cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream) {
-  mat_apply_kernel<MODE, TRANS, EPI><<<grid, NT, 0, stream>>>(a);
+  if (TWO) {
+    // the stash is dynamic shared memory past the static 48 KB, opted in
+    // on the current device; two blocks an SM still fit (2 x 89 KB). No
+    // carveout hint: with CUDA's own choice the mid at 512^3 runs as
+    // fast as with one chain, with the largest shared carveout (the
+    // least L1) ~2% slower (tools/mid_probe.py)
+    const cudaError_t e = cudaFuncSetAttribute(
+        mat_apply_kernel<MODE, TRANS, EPI, TWO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_BYTES);
+    if (e != cudaSuccess) return e;
+  }
+  mat_apply_kernel<MODE, TRANS, EPI, TWO>
+      <<<grid, NT, TWO ? STASH_BYTES : 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -422,7 +462,25 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
   const dim3 grid((unsigned)(ncols / BN), (unsigned)mtiles,
                   (unsigned)(njobs * batch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool two = false;
+  for (int j = 0; j < njobs; ++j) two = two || nsrc[j] == 2;
   const int key = mode * 100 + trans * 10 + epi;
+  if (two) {
+    // the forms that take two-source jobs: the mid's banded y (Iy du +
+    // Sy dv) and z transforms (Iz . + Sz ., parity or dense), pipe A's z
+    // and pipe B's x (Sx a + Ix e, with the solve)
+    switch (key) {
+      case BANDED * 100 + 0 + STORE:
+        return launch<BANDED, false, STORE, true>(a, grid, s);
+      case PFWD * 100 + 10 + STORE:
+        return launch<PFWD, true, STORE, true>(a, grid, s);
+      case PFWD * 100 + 0 + SOLVE:
+        return launch<PFWD, false, SOLVE, true>(a, grid, s);
+      case DENSE * 100 + 10 + STORE:
+        return launch<DENSE, true, STORE, true>(a, grid, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (key) {
     case BANDED * 100 + 0 + STORE: return launch<BANDED, false, STORE>(a, grid, s);
     case BANDED * 100 + 0 + SUB:   return launch<BANDED, false, SUB>(a, grid, s);

@@ -9,7 +9,8 @@
 //     terms = 2), with the reduced-precision (bfloat16) instances;
 //   - transeq_sweep_w32.cu  BS = 32, W = 32 (x3d2_tpu's HIGHEST mode,
 //     X3D2_MATMUL_PRECISION=highest, terms = 3: w = 32 on the non-lane
-//     axes, pallas_kernels.py:484, :747, :1131), float32 only.
+//     axes, pallas_kernels.py:484, :747, :1131), with the same
+//     reduced-precision instances.
 //
 // Replaces three TPU kernels of x3d2_tpu, which compute two functions:
 //   - _pencil_kernel      x3d2_tpu/ops/pallas_kernels.py:671  (z sweep)

@@ -115,8 +115,6 @@ def _pipe_a_cuda(u, v, w, m):
                                 ([m["bsy"]], [v], p[1], None),
                                 ([m["biy"]], [w], p[2], None)])
     z1, z23 = torch.empty_like(u), torch.empty_like(u)
-    # Sz before Iz: one chain sums both sources, and for the low z modes,
-    # which carry the solution after the solve, Sz's part is the small one
     apply("pipe_a", PFWD, 2, [([m["iz"]], [p[0]], z1, None),
                               ([m["sz"], m["iz"]], [p[2], p[1]], z23, None)])
     # p1 and p2 are dead: a and e take their buffers

@@ -2,7 +2,9 @@
 which also forms the spectral solution q (and from it the physical
 pressure) and takes pre-transformed divergence inputs from the xdiv sweep.
 The wrappers launch the Hopper operator-apply kernel of
-``csrc/pressure_pipe.cu``; the plain PyTorch versions are beside them.
+``csrc/pressure_pipe.cu`` (the tiled mid's, those of
+``csrc/pressure_mid_tiled.cu``); the plain PyTorch versions are beside
+them.
 
 Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
 (pallas_poisson.py:553) with make_x_div3 (:1150) and make_x_gradsub3
@@ -71,10 +73,25 @@ repencilled sharded projection, parallel/shard_kernels.py) is the same six
 launches over nx_loc planes, with the solve's per-x-mode tables k2x, tx2
 (and mx) passed at run time as that rank's slices, in the order of the x
 stage's modes, counted as pressure_mid[q,local]. Its ``einsum`` (x3d2_tpu's
-X3D2_EINSUM_MID=1 replay, XLA there) is the plain version on either device;
-where x3d2_tpu takes the y/z-tiled mid (planes past its VMEM cap,
-``tiled_supported``) the port raises NotImplementedError naming
-_mid_t1/_t2/_t3_kernel.
+X3D2_EINSUM_MID=1 replay, XLA there) is the plain version on either device.
+Its ``tiled`` is x3d2_tpu's y/z-tiled mid (make_mid_local.tiled,
+pallas_poisson.py:850-909), which the repencilled projection takes where
+whole (y, z) planes exceed the TPU's VMEM (``tiled_supported``; 1024^2
+planes):
+
+    pressure_mid[tiled,t1]  _mid_t1_kernel (:413; call :888)
+                 a = Ty (Iy du + Sy dv), d = Ty (Iy dw)
+    pressure_mid[tiled,t2]  _mid_t2_kernel (:430; call :894)
+                 F = Iz a + Sz d; q = -F / waves; p_z = Gzi q,
+                 dpdz_s = Gzs q
+    pressure_mid[tiled,t3]  _mid_t3_kernel (:468; call :901)
+                 GH = Ti_y [p_z | dpdz_s]; p_zy = Giy GH1,
+                 dpdy = Gsy GH1, dpdz = Giy GH2
+
+three launches of ``csrc/pressure_mid_tiled.cu`` (one kernel each, on
+column tiles of all of y, or row tiles of all of z, held in shared
+memory), the mid's results up to the reassociation of the y and z stages
+(the forward y transform before the z ones).
 
 A wrapper on CUDA tensors launches the kernel (or raises); on CPU tensors
 it runs the plain version. All take the projections' operator set
@@ -85,23 +102,19 @@ ti_y, ti_z) that turn q into the physical pressure.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
 from .compact import apply_matrix
 from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE_PLANE, STORE,
-                             SUB, apply, apply_dense, route)
+                             SUB, apply, apply_dense, count_launch, route)
 from .banded import banded_blocks
-from .parity import (ProjectionMats, banded_apply, parity_split,
-                     parity_split_folded, pfwd, pinv, solve_factor)
+from .parity import (BBS, BW, WIN, ProjectionMats, banded_apply,
+                     parity_split, parity_split_folded, pfwd, pinv,
+                     solve_factor)
 
-# what x3d2_tpu runs where its full-plane mid exceeds its VMEM cap
-TILED_MID_GAP = ("the y/z-tiled mid _mid_t1_kernel, _mid_t2_kernel and "
-                 "_mid_t3_kernel (x3d2_tpu/ops/pallas_poisson.py:413, :430, "
-                 ":468; make_mid_local.tiled, :850-909), taken by the "
-                 "repencilled projection where full (y, z) planes exceed "
-                 "the TPU's VMEM cap, is not ported")
 # x3d2_tpu's scoped-VMEM cap (pallas_transeq.py:39), which decides between
 # its full-plane and its tiled mid; a TPU limit, read here only to take the
 # branch x3d2_tpu takes
@@ -144,6 +157,41 @@ def pressure_mid_plain(du, dv, dw, m, emit_q=True, dense=False):
     """(q or None, p_zy, dpdy, dpdz): div_solve_plain, then grad_plain."""
     q = div_solve_plain(du, dv, dw, m, dense)
     return (q if emit_q else None,) + grad_plain(q, m, dense)
+
+
+def mid_t1_plain(du, dv, dw, m):
+    """(a, d): the tiled mid's y stage (_mid_t1_kernel), the banded y
+    applies and the forward y transform of each field: a = Ty (Iy du +
+    Sy dv), d = Ty (Iy dw)."""
+    return (pfwd(m["ty"], banded_apply(m["biy"], du, 1)
+                 + banded_apply(m["bsy"], dv, 1), 1),
+            pfwd(m["ty"], banded_apply(m["biy"], dw, 1), 1))
+
+
+def mid_t2_plain(a, d, m):
+    """(q, p_z, dpdz_s): the tiled mid's z stage (_mid_t2_kernel), the
+    forward z transforms F = Iz a + Sz d, the solve (m's tables: the
+    planes' k2x, tx2 and mx) and the inverse z transforms of q."""
+    q = (pfwd(m["iz"], a, 2) + pfwd(m["sz"], d, 2)) \
+        * solve_factor(m, tuple(a.shape))
+    return q, pinv(m["gzi"], q, 2), pinv(m["gzs"], q, 2)
+
+
+def mid_t3_plain(pz, dz, m):
+    """(p_zy, dpdy, dpdz): the tiled mid's last y stage (_mid_t3_kernel),
+    the inverse y transform of each field and the banded y applies."""
+    gh1, gh2 = pinv(m["tyi"], pz, 1), pinv(m["tyi"], dz, 1)
+    return (banded_apply(m["bgiy"], gh1, 1), banded_apply(m["bgsy"], gh1, 1),
+            banded_apply(m["bgiy"], gh2, 1))
+
+
+def pressure_mid_tiled_plain(du, dv, dw, m):
+    """(q, p_zy, dpdy, dpdz): the y/z-tiled mid in its stage order, the
+    plain version of its three kernels (mid_t1_plain, mid_t2_plain,
+    mid_t3_plain). The merged mid transforms along z before y; the results
+    agree up to that reassociation."""
+    q, pz, dz = mid_t2_plain(*mid_t1_plain(du, dv, dw, m), m)
+    return (q,) + mid_t3_plain(pz, dz, m)
 
 
 def x_gradsub3_plain(p_zy, dpdy, dpdz, u, v, w, m):
@@ -198,9 +246,6 @@ def _div_solve_cuda(du, dv, dw, m, fwd, name):
     t = [torch.empty_like(du) for _ in range(3)]
     apply(name, BANDED, 1, [([m["biy"], m["bsy"]], [du, dv], t[0], None),
                             ([m["biy"]], [dw], t[1], None)])
-    # Sz first: the kernel sums both sources in one chain, and for the low
-    # z modes, which carry the solution after the solve, Sz's part is
-    # small; behind Iz's it would be rounded at Iz's magnitude
     apply(name, fwd, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
     q = t[0]
     mask = (m["myz"], m["mx"]) if "myz" in m else ()
@@ -444,14 +489,182 @@ def pressure_mid_local(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
     return pressure_mid_local_plain(du, dv, dw, pm, k2x, tx2, mx)
 
 
+# the launch-count names of the tiled mid's kernels, in launch order
+TILED_STAGES = ("pressure_mid[tiled,t1]", "pressure_mid[tiled,t2]",
+                "pressure_mid[tiled,t3]")
+# the most points along y or z the tiled kernels take (MAXN of
+# csrc/pressure_mid_tiled.cu: a column or row of two fields in shared
+# memory); x3d2_tpu's gate admits larger planes
+TILED_MAXN = 1024
+TILED_BIG_GAP = ("the y/z-tiled mid _mid_t1_kernel, _mid_t2_kernel and "
+                 "_mid_t3_kernel (x3d2_tpu/ops/pallas_poisson.py:413, :430, "
+                 ":468) on planes of more than {} points along y or z "
+                 "(got {} x {}) is not ported")
+_TILED_LIB = None
+
+
+def _tiled_lib():
+    """The tiled mid's kernel library, built and typed at first use."""
+    global _TILED_LIB
+    if _TILED_LIB is None:
+        from .. import _build
+
+        so = _build.load("pressure_mid_tiled")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        so.pressure_mid_tiled_launch.argtypes = [i, p, i, i, i, p]
+        so.pressure_mid_tiled_launch.restype = i
+        so.pressure_mid_tiled_error_string.argtypes = [i]
+        so.pressure_mid_tiled_error_string.restype = ctypes.c_char_p
+        so.pressure_mid_tiled_geometry.argtypes = [ctypes.POINTER(i)] * 4
+        so.pressure_mid_tiled_geometry.restype = i
+        geo = [i() for _ in range(4)]
+        so.pressure_mid_tiled_geometry(*geo)
+        geo = tuple(g.value for g in geo)
+        if geo[1:] != (BW, BBS, TILED_MAXN):
+            raise RuntimeError(f"pressure_mid_tiled.cu band and extent "
+                               f"{geo[1:]} differ from the operators' "
+                               f"{(BW, BBS, TILED_MAXN)}")
+        so.geometry = geo
+        _TILED_LIB = so
+    return _TILED_LIB
+
+
+def _tap_major(pm: ProjectionMats):
+    """The banded y operators (biy, bsy, bgiy, bgsy) as the tiled kernels
+    read them: per 64-row block, tap-major, (ny / 64, 128, 64) float32."""
+    key = "tap_major"
+    if key not in pm._dev:
+        m = pm.mats(torch.float32)
+        pm._dev[key] = {k: m[k].reshape(-1, BBS, WIN).transpose(1, 2)
+                        .contiguous() for k in ("biy", "bsy", "bgiy",
+                                                "bgsy")}
+    return pm._dev[key]
+
+
+def _tiled_launch(stage, tensors, shape):
+    """One launch of the tiled mid's kernel `stage` (1-3) on float32 CUDA
+    tensors (None: a null pointer), its error check and its count."""
+    for t in tensors:
+        if t is not None and (not t.is_cuda or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.data_ptr() % 16):
+            raise ValueError("the tiled mid takes contiguous, 16-byte "
+                             "aligned float32 CUDA tensors")
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _tiled_lib().pressure_mid_tiled_launch(stage, ptrs, *shape,
+                                                     stream)
+    if err != 0:
+        msg = _tiled_lib().pressure_mid_tiled_error_string(err).decode()
+        raise RuntimeError(f"pressure_mid_tiled launch {stage} failed: "
+                           f"{msg} ({err})")
+    count_launch(TILED_STAGES[stage - 1])
+
+
+def _tiled_shape(t):
+    """The (nx_loc, ny, nz) of the tiled kernels' fields, checked."""
+    nx, ny, nz = shape = tuple(t.shape)
+    tc, _, _, maxn = _tiled_lib().geometry
+    if ny % BBS or nz % tc or max(ny, nz) > maxn:
+        raise ValueError(f"the tiled mid kernels take y a multiple of {BBS}"
+                         f", z of {tc}, both at most {maxn}: got {shape}")
+    return shape
+
+
+def _fields_of(shape, *fields):
+    for t in fields:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fields of shape {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def mid_tiled_t1(du, dv, dw, pm: ProjectionMats):
+    """(du, dv, dw) -> (a, d): _mid_t1_kernel, one launch counted as
+    pressure_mid[tiled,t1] (mid_t1_plain on CPU tensors)."""
+    if not route(du, "mid_tiled_t1"):
+        return mid_t1_plain(du, dv, dw, pm.mats(du.dtype))
+    shape = _tiled_shape(du)
+    _fields_of(shape, dv, dw)
+    taps = _tap_major(pm)
+    a, d = torch.empty_like(du), torch.empty_like(du)
+    _tiled_launch(1, [du, dv, dw, taps["biy"], taps["bsy"],
+                      pm.mats(torch.float32)["ty"], a, d], shape)
+    return a, d
+
+
+def mid_tiled_t2(a, d, pm: ProjectionMats, k2x, tx2, mx=None):
+    """(a, d) -> (q, p_z, dpdz_s) with the x batch's table slices k2x, tx2
+    (mx): _mid_t2_kernel, one launch counted as pressure_mid[tiled,t2]
+    (mid_t2_plain on CPU tensors)."""
+    if not route(a, "mid_tiled_t2"):
+        m = _local_mats(pm.mats(a.dtype), k2x.to(a.dtype), tx2.to(a.dtype),
+                        None if mx is None else mx.to(a.dtype))
+        return mid_t2_plain(a, d, m)
+    shape = _tiled_shape(a)
+    _fields_of(shape, d)
+    m = pm.mats(torch.float32)
+    q, pz, dz = (torch.empty_like(a) for _ in range(3))
+    _tiled_launch(2, [a, d, m["iz"], m["sz"], m["gzi"], m["gzs"],
+                      m["tab_a"], m["tab_b"], m.get("myz"), _table(k2x),
+                      _table(tx2), None if mx is None else _table(mx), q,
+                      pz, dz], shape)
+    return q, pz, dz
+
+
+def mid_tiled_t3(pz, dz, pm: ProjectionMats, out=()):
+    """(p_z, dpdz_s) -> (p_zy, dpdy, dpdz): _mid_t3_kernel, one launch
+    counted as pressure_mid[tiled,t3] (mid_t3_plain on CPU tensors). out:
+    up to three buffers of the fields' shape for the results (none may be
+    p_z or dpdz_s)."""
+    if not route(pz, "mid_tiled_t3"):
+        return mid_t3_plain(pz, dz, pm.mats(pz.dtype))
+    shape = _tiled_shape(pz)
+    _fields_of(shape, dz, *out)
+    res = list(out) + [torch.empty_like(pz) for _ in range(3 - len(out))]
+    if {t.data_ptr() for t in res} & {pz.data_ptr(), dz.data_ptr()}:
+        raise ValueError("the results may not alias p_z or dpdz_s")
+    taps = _tap_major(pm)
+    _tiled_launch(3, [pz, dz, pm.mats(torch.float32)["tyi"], taps["bgiy"],
+                      taps["bgsy"]] + res, shape)
+    return tuple(res)
+
+
+def pressure_mid_tiled_local_plain(du, dv, dw, pm, k2x, tx2, mx=None):
+    """(q, p_zy, dpdy, dpdz) of the tiled mid over an x batch whose solve
+    tables are the slices k2x, tx2 (mx)."""
+    m = _local_mats(pm.mats(du.dtype), k2x.to(du.dtype), tx2.to(du.dtype),
+                    None if mx is None else mx.to(du.dtype))
+    return pressure_mid_tiled_plain(du, dv, dw, m)
+
+
+def pressure_mid_tiled(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
+    """(du, dv, dw) over a batch of nx_loc x planes -> (q, p_zy, dpdy,
+    dpdz): the y/z-tiled mid with the batch's solve-table slices, its three
+    kernels (mid_tiled_t1, _t2, _t3) in turn. The parity forms only, as
+    x3d2_tpu's tiled mid (not with X3D2_BFLY=0)."""
+    if pm.dense:
+        raise ValueError("the tiled mid takes the parity transforms")
+    if not route(du, "pressure_mid_tiled"):
+        return pressure_mid_tiled_local_plain(du, dv, dw, pm, k2x, tx2, mx)
+    a, d = mid_tiled_t1(du, dv, dw, pm)
+    q, pz, dz = mid_tiled_t2(a, d, pm, k2x, tx2, mx)
+    # a and d are dead: two of the results take their buffers
+    return (q,) + mid_tiled_t3(pz, dz, pm, out=(a, d))
+
+
 def make_mid_local(solver, pm: ProjectionMats, terms=2):
     """Counterpart of x3d2_tpu make_pressure_slab(...)[4], make_mid_local
     (pallas_poisson.py:780-937): make_mid_local(nx_loc) ->
     mid_local(du, dv, dw, k2x_l, tx2_l, mx_l) -> (q, p_zy, dpdy, dpdz) over
     a local batch of nx_loc x planes (pressure_mid_local). Attributes as
     x3d2_tpu's: ``einsum(nx_loc)``, the plain replay (X3D2_EINSUM_MID=1; on
-    either device, as x3d2_tpu runs XLA there); ``tiled(nx_loc)``, which
-    raises NotImplementedError (TILED_MID_GAP); ``tiled_supported``;
+    either device, as x3d2_tpu runs XLA there); ``tiled(nx_loc)``, the
+    y/z-tiled mid (pressure_mid_tiled; ValueError where x3d2_tpu has none:
+    not ``tiled_supported``; NotImplementedError on planes past the
+    kernels' TILED_MAXN, TILED_BIG_GAP); ``tiled_supported``;
     ``tables``, the solve tables (tab_a, tab_b, myz, k2x, tx2, mx; myz and
     mx None without a Nyquist mask; at the solver's dtype), k2x, tx2 and mx
     in the x stage's mode order; ``ti_x``, ``ti_y``, ``ti_z``, the inverse transforms with
@@ -476,7 +689,19 @@ def make_mid_local(solver, pm: ProjectionMats, terms=2):
         return mid_einsum
 
     def make_tiled(nx_loc):
-        raise NotImplementedError(TILED_MID_GAP)
+        if not make.tiled_supported:
+            raise ValueError("the tiled mid needs x3d2_tpu's fast path: "
+                             "banded y with the parity y and z transforms "
+                             "(tiled_mid_supported)")
+        _, ny, nz = solver.poisson.nc
+        if max(ny, nz) > TILED_MAXN:
+            raise NotImplementedError(TILED_BIG_GAP.format(TILED_MAXN, ny,
+                                                           nz))
+
+        def mid_tiled(du, dv, dw, k2x_l, tx2_l, mx_l=None):
+            check(du, nx_loc)
+            return pressure_mid_tiled(du, dv, dw, pm, k2x_l, tx2_l, mx_l)
+        return mid_tiled
 
     m = pm.mats(solver.dtype)
     make.einsum = make_einsum

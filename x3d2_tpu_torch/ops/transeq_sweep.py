@@ -39,8 +39,8 @@ in the HIGHEST mode (terms=3) W=32, x3d2_tpu's band on its non-lane axes
 (pallas_kernels.py:484, :747, :1131), here on every axis, with BS=32 so
 that the window stays 96 wide: the truncation falls to float32 epsilon
 (pallas_kernels.py:24-25, :480-483). Each geometry is its own library
-(``transeq_sweep.cu``, ``transeq_sweep_w32.cu``); the W=32 one is
-float32 only. The operators are f32 (no bf16 hi/lo splits: those worked
+(``transeq_sweep.cu``, ``transeq_sweep_w32.cu``), both with the
+reduced-precision instances. The operators are f32 (no bf16 hi/lo splits: those worked
 around the TPU matrix unit), and the kernel accumulates in f32 FMA.
 
 The halo form (x3d2_tpu's halo_ext sweeps, make_transeq_dir_v3(...,
@@ -93,11 +93,6 @@ RK_INSTANCES = {(0, False), (0, True), (2, True), (3, True)}
 
 # launches of the kernel per variant name, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
-# what x3d2_tpu runs in the HIGHEST mode with a reduced-precision AB chain
-BF16_W32_GAP = ("_transeq_kernel_v3 olds_dtype/acc_dtype at w=32 (x3d2_tpu/"
-                "ops/pallas_kernels.py:172, :304-326, :448-460, terms=3): the "
-                "bfloat16 history and partials with X3D2_MATMUL_PRECISION="
-                "highest are not ported")
 
 
 def variant_name(axis: int, accumulate: bool, nolds: int,
@@ -133,19 +128,16 @@ def geometry(terms: int) -> tuple[int, int]:
 
 
 def _check_prec_instance(axis, accumulate, upd, nolds, base_sep, xdiv,
-                         olds_bf16, acc_bf16, w=W):
+                         olds_bf16, acc_bf16):
     """Raise ValueError for a reduced-precision variant the kernel is not
     built with. Built: those of the fused AB chains (x3d2_tpu
     make_fused_transeq_ab_v3, pallas_kernels.py:862-941): the partial
     sweeps with bfloat16 partials (z without accumulate, x and y with), and
     the AB update (history, the sweep's own base) of the y sweep or of the
-    xdiv sweep with a bfloat16 history, partials or both; at W=16 only:
-    at W=32 (the HIGHEST mode) they raise NotImplementedError
-    (BF16_W32_GAP)."""
+    xdiv sweep with a bfloat16 history, partials or both; at both bands
+    (W=16, and W=32 in the HIGHEST mode)."""
     if not (olds_bf16 or acc_bf16):
         return
-    if w != W:
-        raise NotImplementedError(BF16_W32_GAP)
     if upd:
         ok = nolds > 0 and not base_sep and (axis == 1 or xdiv)
     else:
@@ -513,7 +505,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     olds_bf16, acc_bf16 = _reduced(hdt, "the history"), \
         _reduced(pdt, "the partials")
     _check_prec_instance(axis, acc is not None, upd, nolds, base is not None,
-                         xdiv is not None, olds_bf16, acc_bf16, w)
+                         xdiv is not None, olds_bf16, acc_bf16)
     for i, t in enumerate([u, v, w_] + list(base or ())):
         _check(t, shape, f"input {i}")
     for t in acc or ():
@@ -692,7 +684,7 @@ def make_transeq_sweep(ops_axis, nu, axis, shape, accumulate=False, nolds=0,
     _check_prec_instance(axis, accumulate, upd, nolds, base_sep,
                          xdiv_mats is not None,
                          _reduced(olds_dtype, "the history"),
-                         _reduced(acc_dtype, "the partials"), w)
+                         _reduced(acc_dtype, "the partials"))
     if not sweep_shape_ok(tuple(shape), axis, bs, w, halo):
         raise ValueError(f"shape {shape} not tileable along axis {axis}")
     xdiv = None
@@ -832,9 +824,8 @@ def make_fused_transeq_ab(solver_ops, nu, shape, nolds, device=None,
     history and u' over the partials; with bfloat16 partials alone u' over
     the oldest history and rhs into new tensors; with both rhs over the
     partials and u' into new tensors. The caller's olds tuples are
-    therefore consumed. terms: x3d2_tpu's kernel mode (3: the W=32 band;
-    with a reduced history or partials it raises NotImplementedError,
-    BF16_W32_GAP).
+    therefore consumed. terms: x3d2_tpu's kernel mode (3: the W=32 band,
+    with the reduced history and partials as at W=16).
 
     With skip_d2 (the d2-in-C carry, X3D2_D2C=1; x3d2_tpu's skip_d2,
     pallas_kernels.py:892-896, :929-934) the chain runs no z sweep: it

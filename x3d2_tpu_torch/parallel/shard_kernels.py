@@ -22,9 +22,9 @@ fused kernels over locally owned pencils, cuda/kernels/distributed.f90:
 - projection (make_repencilled_pressure): the one-field forward x applies
   on the rank's block, tiled all-to-alls over y then z into a batch of
   nx / (nproc_y nproc_z) whole (y, z) planes, the mid on that batch with
-  its slices of the solve tables (ops/pressure_slab.py make_mid_local),
-  the all-to-alls back over z then y, and the subtracting inverse x
-  applies.
+  its slices of the solve tables (ops/pressure_slab.py make_mid_local; at
+  planes past x3d2_tpu's VMEM cap, 1024^2, its y/z-tiled mid), the
+  all-to-alls back over z then y, and the subtracting inverse x applies.
 
 This module adds no kernel of its own.
 """
@@ -263,9 +263,9 @@ def make_repencilled_pressure(solver, pmesh, terms=2):
     nx_loc, the all-to-alls back, the subtracting inverse x applies
     (x_pinv[sub], or x_apply[sub]). The mid is x3d2_tpu's choice
     (shard_kernels.py:307-315): the full-plane mid where its VMEM gate
-    holds and X3D2_EINSUM_MID is not "1"; else its tiled mid, which raises
-    NotImplementedError here (pressure_slab.TILED_MID_GAP); else the plain
-    replay. With keep_pressure the physical pressure: the inverse y and z
+    holds and X3D2_EINSUM_MID is not "1"; else its y/z-tiled mid (the three
+    kernels of pressure_slab.pressure_mid_tiled), where tiled_supported;
+    else the plain replay. With keep_pressure the physical pressure: the inverse y and z
     transforms of q on the x batch (whole y and z there; x3d2_tpu
     contracts them across ranks with GSPMD), the all-to-alls back, then
     the inverse x transform. Without it p is None (the caller carries its

@@ -3,17 +3,21 @@
 against the plain float32 and float64 versions on the same inputs, then the
 whole mid over several white-noise seeds.
 
-    python3 -m x3d2_tpu_torch.tools.mid_probe [n ...]     (default 512 256)
+    python3 -m x3d2_tpu_torch.tools.mid_probe [n | NXxNYxNZ ...] \
+        [--dense] [--seeds N]                     (default 512 256, 4 seeds)
 
 Needs one NVIDIA GPU. Per launch it prints max |kernel - plain32|,
 max |kernel - plain64| and max |plain32 - plain64|, each over
-max |plain64|: the launches with one source per field are bit-equal to
-their plain versions, the two-source launches (Iy du + Sy dv; Iz . + Sz .)
-accumulate both sources in one chain and differ, and the solve differs by
-a fused multiply-add. Then, per seed and output of the whole mid, the same
-three distances as maxima and as root-mean-square values, and q weighted by
-its wave factor (the solve's input, mode by mode). The chip smoke run holds
-the mid on white noise to bounds read off this output.
+max |plain64|: the launches are bit-equal to their plain versions (a
+two-source launch, Iy du + Sy dv or Iz . + Sz ., sums each source apart
+and adds the two sums, as the plain version does), but the solve, which
+differs by a fused multiply-add. Then, per seed and output of the whole
+mid, the same three distances as maxima and as root-mean-square values, and
+q weighted by its wave factor (the solve's input, mode by mode); last, the
+whole mid's time on the card (the median of 10 runs, CUDA events). The chip
+smoke run holds the mid on white noise to bounds read off this output. With
+--dense the mid's dense forms (X3D2_BFLY=0: the whole mid over the seeds
+and its time only).
 """
 
 import math
@@ -21,7 +25,7 @@ import sys
 
 import torch
 
-from ..common import BC
+from ..common import BC, env_set
 from ..mesh import Mesh
 from ..ops import operator_apply as oa
 from ..ops import pressure_slab as sl
@@ -39,18 +43,79 @@ def dist(a, b, weight=None):
     return float(d.abs().max()), float(d.pow(2).mean().sqrt())
 
 
-def probe(n, dev):
+def probe(shape, dev, dense=False, seeds=SEEDS):
     per = ((BC.PERIODIC, BC.PERIODIC),) * 3
-    ns = NavierStokes.build(Mesh((n,) * 3, (2 * math.pi,) * 3, per),
-                            1 / 1600, device=dev)
+    with env_set({"X3D2_BFLY": "0"} if dense else {}):
+        ns = NavierStokes.build(Mesh(shape, (2 * math.pi,) * 3, per),
+                                1 / 1600, device=dev)
     pm = ns._slab
     m, M = pm.mats(torch.float32), pm.mats(D64)
     tabs = (m["tab_a"], m["tab_b"], m["k2x"], m["tx2"])
+    n = "x".join(map(str, shape)) + (" dense" if dense else "")
 
     def noise(seed):
         g = torch.Generator(device=dev).manual_seed(seed)
-        f = (torch.randn((n,) * 3, generator=g, device=dev) for _ in range(3))
+        f = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+        if dense:
+            return tuple(sl.x_apply_plain(m[k], t).contiguous()
+                         for k, t in zip(("sx", "ix", "ix"), f))
         return tuple(t.contiguous() for t in sl.x_div3_plain(*f, m))
+
+    def up(*ts):
+        return [t.to(D64) for t in ts]
+
+    if not dense:
+        sf64 = launches(n, shape, m, M, tabs, noise, up)
+    else:
+        sf64 = solve_factor(M, tuple(shape))
+    # -- the whole mid over seeds
+    waves = torch.where(sf64 != 0, 1 / sf64.abs(), torch.zeros_like(sf64))
+    del sf64
+    for seed in range(1, seeds + 1):
+        ins = noise(seed)
+        k = sl.pressure_mid(*ins, pm, emit_q=True)
+        p32 = sl.pressure_mid_plain(*ins, m, True, dense)
+        p64 = sl.pressure_mid_plain(*up(*ins), M, True, dense)
+        for name, x, y, z in zip(("q", "p_zy", "dpdy", "dpdz"), k, p32, p64):
+            kp, k6, p6 = dist(x, y), dist(x, z), dist(y, z)
+            s = float(z.abs().max())
+            print(f"[{n}] seed {seed} {name}: max kernel-plain32 "
+                  f"{kp[0] / s:.2e} kernel-plain64 {k6[0] / s:.2e} "
+                  f"plain32-plain64 {p6[0] / s:.2e} ({kp[0] / p6[0]:.2f}x, "
+                  f"{k6[0] / p6[0]:.2f}x); rms {kp[1] / p6[1]:.2f}x, "
+                  f"{k6[1] / p6[1]:.2f}x the plain32-plain64 one",
+                  flush=True)
+        s = float((p64[0] * waves).abs().max())
+        print(f"[{n}] seed {seed} q times its wave factor: kernel-plain32 "
+              f"{dist(k[0], p32[0], waves)[0] / s:.2e} kernel-plain64 "
+              f"{dist(k[0], p64[0], waves)[0] / s:.2e} plain32-plain64 "
+              f"{dist(p32[0], p64[0], waves)[0] / s:.2e}", flush=True)
+        del k, p32, p64
+        if seed == seeds:
+            print(f"[{n}] the whole mid: {mid_ms(ins, pm):.3f} ms",
+                  flush=True)
+        del ins
+        torch.cuda.empty_cache()
+
+
+def mid_ms(ins, pm, reps=10):
+    """Median time of the mid with q on `ins`, by CUDA events."""
+    sl.pressure_mid(*ins, pm, emit_q=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        sl.pressure_mid(*ins, pm, emit_q=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def launches(n, shape, m, M, tabs, noise, up):
+    """The parity mid launch by launch, each on the plain float32 result of
+    the one before; returns the float64 solve factor."""
 
     def show(tag, k, p32, p64):
         s = float(p64.abs().max())
@@ -62,9 +127,6 @@ def probe(n, dev):
         out = torch.empty_like(fields[0])
         oa.apply("probe", mode, axis, [(mats, fields, out, None)], **kw)
         return out
-
-    def up(*ts):
-        return [t.to(D64) for t in ts]
 
     # -- launch by launch, each on the plain float32 result of the one before
     du, dv, dw = noise(0)
@@ -86,8 +148,8 @@ def probe(n, dev):
     zz = p32.contiguous()
     F32, F64 = pfwd(m["ty"], zz, 1), pfwd(M["ty"], zz.to(D64), 1)
     show("forward y", launch(oa.PFWD, 1, [m["ty"]], [zz]), F32, F64)
-    sf64 = solve_factor(M, (n,) * 3)
-    q32 = F32 * solve_factor(m, (n,) * 3)
+    sf64 = solve_factor(M, tuple(shape))
+    q32 = F32 * solve_factor(m, tuple(shape))
     show("forward y + solve", launch(oa.PFWD, 1, [m["ty"]], [zz],
                                      epi=oa.SOLVE_PLANE, tabs=tabs),
          q32, F64 * sf64)
@@ -104,39 +166,24 @@ def probe(n, dev):
          banded_apply(m["bgsy"], gh, 1),
          banded_apply(M["bgsy"], gh.to(D64), 1))
     del du, dv, dw, duv, dwm, zz, F32, F64, q32, q, pz, gh, p32, p64, a, b
-
-    # -- the whole mid over seeds
-    waves = torch.where(sf64 != 0, 1 / sf64.abs(), torch.zeros_like(sf64))
-    del sf64
-    for seed in range(1, SEEDS + 1):
-        ins = noise(seed)
-        k = sl.pressure_mid(*ins, pm, emit_q=True)
-        p32 = sl.pressure_mid_plain(*ins, m, True)
-        p64 = sl.pressure_mid_plain(*up(*ins), M, True)
-        for name, x, y, z in zip(("q", "p_zy", "dpdy", "dpdz"), k, p32, p64):
-            kp, k6, p6 = dist(x, y), dist(x, z), dist(y, z)
-            s = float(z.abs().max())
-            print(f"[{n}] seed {seed} {name}: max kernel-plain32 "
-                  f"{kp[0] / s:.2e} kernel-plain64 {k6[0] / s:.2e} "
-                  f"plain32-plain64 {p6[0] / s:.2e} ({kp[0] / p6[0]:.2f}x, "
-                  f"{k6[0] / p6[0]:.2f}x); rms {kp[1] / p6[1]:.2f}x, "
-                  f"{k6[1] / p6[1]:.2f}x the plain32-plain64 one",
-                  flush=True)
-        s = float((p64[0] * waves).abs().max())
-        print(f"[{n}] seed {seed} q times its wave factor: kernel-plain32 "
-              f"{dist(k[0], p32[0], waves)[0] / s:.2e} kernel-plain64 "
-              f"{dist(k[0], p64[0], waves)[0] / s:.2e} plain32-plain64 "
-              f"{dist(p32[0], p64[0], waves)[0] / s:.2e}", flush=True)
-        del ins, k, p32, p64
-        torch.cuda.empty_cache()
+    return sf64
 
 
 def main(argv):
     if not torch.cuda.is_available():
         print("mid_probe needs a GPU", file=sys.stderr)
         return 2
-    for n in [int(a) for a in argv] or [512, 256]:
-        probe(n, torch.device("cuda"))
+    dense = "--dense" in argv
+    seeds = SEEDS
+    if "--seeds" in argv:
+        seeds = int(argv[argv.index("--seeds") + 1])
+        argv = argv[:argv.index("--seeds")] + argv[argv.index("--seeds")
+                                                    + 2:]
+    sizes = [a for a in argv if not a.startswith("--")] or ["512", "256"]
+    for a in sizes:
+        shape = tuple(int(x) for x in a.split("x"))
+        probe(shape * 3 if len(shape) == 1 else shape, torch.device("cuda"),
+              dense, seeds)
         torch.cuda.empty_cache()
     return 0
 

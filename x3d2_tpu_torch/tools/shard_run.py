@@ -53,11 +53,15 @@ def _tgv_run(rank, world, spec):
     (switches, set by tgv_rank), keep_pressure (False), warmup (0: steps
     before the counted and timed ones), gather (True), state (a global
     numpy state to start from, convert.py's structure), reference (False:
-    rank 0 then also runs the single-card step, _single_card). Returns a
-    dict: the launch counts of the counted steps, ms/step, the halo and
-    all-to-all seconds, the observables of the last state, the branches
-    taken, and on rank 0 the gathered fields as numpy (and the
-    reference's under "reference")."""
+    rank 0 then also runs the single-card step, _single_card, and compares
+    its gathered state with it, _compare). Returns a dict: the launch
+    counts of the counted steps, ms/step, the halo and all-to-all seconds,
+    the observables of the last state, the branches taken (and the
+    repencilled projection's mid: mid_local, mid_tiled or mid_einsum), the
+    seconds of the run's stages (set-up, warm-up, the timed steps, the
+    gather, rank 0's reference), and on rank 0 the gathered fields as numpy
+    under "state", or with a reference, in their place, the comparison under
+    "compare"."""
     import math
 
     import torch
@@ -71,6 +75,7 @@ def _tgv_run(rank, world, spec):
     from ..ops import transeq_sweep as ts
     from .. import parallel
 
+    t_start = time.perf_counter()
     dtype = getattr(torch, spec.get("dtype", "float32"))
     backend = spec.get("backend", "gloo")
     device = spec.get("device", "cuda")
@@ -97,9 +102,13 @@ def _tgv_run(rank, world, spec):
                                       device=pmesh.device)
     sync = (lambda: torch.cuda.synchronize(pmesh.device)) \
         if pmesh.device.type == "cuda" else (lambda: None)
+    sync()
+    stages = {"setup": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
     for _ in range(spec.get("warmup", 0)):
         st = step(st)
     sync()
+    stages["warmup"] = time.perf_counter() - t0
     for mod in (ts, spm, oa):
         mod.reset_launch_counts()
     pmesh.timing = True
@@ -125,22 +134,48 @@ def _tgv_run(rank, world, spec):
                       for k in ("_sharded_transeq", "_sharded_species",
                                 "_repencil_pressure")}
            | {"_halo_mode": bool(case._sharded_solver._halo_mode)},
-           "dense_mid": rp is not None and rp.mats.dense}
+           "dense_mid": rp is not None and rp.mats.dense,
+           "mid": None if rp is None else rp.mid.__name__,
+           "seconds": stages}
+    stages["steps"] = seconds
     names = ("u", "v", "w", "p") + (("phi",) if nsp else ())
     if spec.get("gather", True):
+        t0 = time.perf_counter()
         g = state_to_numpy_gathered({**{k: st[k] for k in names + ("istep",)},
                                      "olds": ()}, pmesh, mesh)
         if rank == 0:
             out["state"] = {k: g[k] for k in names}
+        stages["gather"] = time.perf_counter() - t0
     if spec.get("reference") and rank == 0:
         del step, st, case, rp
         if pmesh.device.type == "cuda":
             torch.cuda.empty_cache()
-        out["reference"] = _single_card(
+        t0 = time.perf_counter()
+        ref = _single_card(
             mesh, params, dtype, pmesh.device,
             spec.get("warmup", 0) + spec["steps"],
             tuple(k for k in names
                   if k != "p" or spec.get("keep_pressure", False)))
+        stages["reference"] = time.perf_counter() - t0
+        out["compare"] = _compare(out.pop("state"), ref)
+    return out
+
+
+def _compare(got, ref):
+    """The gathered state against the reference, as floats: max |got - ref|
+    per field of the reference, max |u| of the reference (the scale),
+    whether both are finite, the largest max |u|, |v|, |w| of the reference
+    and, with p, max |p|."""
+    import numpy as np
+
+    out = {"diffs": {k: float(np.abs(got[k] - ref[k]).max()) for k in ref},
+           "scale": float(np.abs(ref["u"]).max()),
+           "finite": all(bool(np.isfinite(got[k]).all())
+                         and bool(np.isfinite(ref[k]).all()) for k in ref),
+           "vel_max": max(float(np.abs(ref[k]).max())
+                          for k in ("u", "v", "w"))}
+    if "p" in ref:
+        out["p_max"] = float(np.abs(ref["p"]).max())
     return out
 
 
