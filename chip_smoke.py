@@ -11,9 +11,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    csrc/transeq_sweep_w32.cu, the sweep and species kernels of
    csrc/transeq_sweep.cuh at W = 16 and at the HIGHEST mode's W = 32, both
    with the bfloat16 instances, csrc/pressure_pipe.cu, csrc/pipe_c_d2.cu,
-   csrc/transeq_dense.cu and csrc/pressure_mid_tiled.cu) with nvcc for
-   sm_90a, one nvcc per source, all started together; prints each
-   instance's registers and spills (the sweeps' halo forms named so).
+   csrc/transeq_dense.cu, csrc/pressure_mid_tiled.cu and
+   csrc/x_apply_manual.cu) with nvcc for sm_90a, one nvcc per source, all
+   started together; prints each instance's registers and spills (the
+   sweeps' halo forms named so; the template's instances
+   mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
+   ones, 1 the general ones). Then starts
+   phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
+   BLAS thread each), which run on the host while phases 3-7 use the
+   card.
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
    Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
@@ -123,6 +129,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
    its wave factor (every mode, so every solve-table entry) to the limits
    above (mid_on_noise). The whole projection on the slab kernels is held
    to 1e-5 * scale of the transform-folded chain and of the pipeline.
+   The tails (the template's general instance, at extents x3d2_tpu's gates
+   admit past its 128-point tiles): at PX = 320 x 256 x 384 the sweeps z,
+   x + acc, y + acc + AB3 (both rows), the pipeline's stages, and held but
+   on no path pipe_c[d2] (the carry at nz = 384), x_pfwd and x_pinv[sub]
+   at x = 320 (beside torch.matmul / addmm); at PY = 384 x 192 x 384 the
+   pipeline's stages, the slab (x_div3, the mid with and without q, its
+   halves, x_gradsub3) and the local mid over a rank's batch of 32 planes
+   (held); at YD = 256 x 200 x 256 the slab on the folded y (the mid in 4
+   launches: the dense y at 200, the z transforms with the solve, their
+   inverse, the dense y). The manual-pipeline x apply
+   (csrc/x_apply_manual.cu) in its five forms (dense, dense with the
+   subtraction, parity forward, inverse, inverse with the subtraction) on
+   tools/prof_manual.py's operators at 512^3 and (held) at x = 320, each
+   beside one torch.matmul / torch.addmm.
 4. Main path: TGV 512^3 AB3 float32, keep_pressure=False, through
    TGVCase.run(n_iters=10), with every launch count set to 0 just before:
    3 sweep launches and the pipeline's 8 launches per step, finite and
@@ -190,6 +210,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - path T128: TGV 128^3 AB3, 20 steps: the unfused AB step x3d2_tpu
      takes there, the dense transport sweeps z, x, y and the pipeline's 8
      launches a step, no sweep launch; ms/step and the shares.
+7d. The tails' paths, TGV AB3, 10 counted steps, ms/step and the
+   projection's share: PX (320 x 256 x 384: the z, x, y sweeps and the
+   pipeline), PY (384 x 192 x 384: x3d2_tpu's einsum transport, plain
+   matrix products, and the pipeline), PYB (PY with keep_pressure=True:
+   x_div3, the mid with q, x_gradsub3; the physical pressure held as path
+   B's), YD (256 x 200 x 256: the einsum transport and the slab on the
+   folded y without q); the launches counted, the main path's KE and
+   divergence checks.
+7c. tools/prof_manual.py once at 512^3 (the manual x apply's entry point:
+   the template's x apply, the manual kernel at S = 2, 3, 4, 6 and one
+   torch call of each form, held to 1e-5 / 3e-5 of plain f32 / f64), its
+   JSON line printed; its launches are the manual kernel's in the kernels
+   line.
 7b. The cylinder (x inflow and convective outflow, IBM), AB3,
    keep_pressure=False, built by the port's config.py from
    examples/cylinder/input.x3d:
@@ -224,7 +257,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    keep_pressure=False (the z, x, y chain and the pipeline), compensated,
    with X3D2_MID_SPLIT=1 (keep_pressure=True) and with X3D2_PIPE3=0 (the
    dense mid without q); the cylinder at (65, 128, 128) with
-   X3D2_MID_SPLIT=1.
+   X3D2_MID_SPLIT=1. The tails: TGV (192, 128, 256) (the sweeps and the
+   pipeline at an x tail) and (128, 136, 128) (the slab on the folded y).
+   The CPU legs come from the worker processes started after phase 2.
    A chain whose CPU leg is bit-identical to an earlier one's (with
    X3D2_MID_SPLIT=1: the xdiv path, keep_pressure=True, X3D2_BFLY=0 with
    keep_pressure=True and the cylinder; X3D2_BFLY=0 with
@@ -238,6 +273,13 @@ Phases, each printing its own lines; any failed check exits non-zero:
    stream and step can give: 10 n dt 4.58 2^-7 R (n = 1 with the history,
    2 with the partials alone, 3 with both), and the KE limit by that times mean(|u| +
    |v| + |w|) / KE.
+8q. The paths' step times on a quiet host: phases 4-7 time their steps
+   while phase 8's CPU legs keep 7 of the host's cores busy, so once the
+   legs are done the main path and the tails' paths PX, PY, PYB, YD are
+   built and timed again (3 warm-up steps, then 10) and each median is
+   printed beside the one taken with the legs running, with the ratio.
+   Every ms/step of phases 4-7 also prints the fastest and slowest of its
+   10 steps.
 8b. KE in the HIGHEST mode: TGV (128, 128, 256) to t = KE_T, float32
    HIGHEST + compensated against the float64 einsum leg (X3D2_PALLAS=0),
    both on the card (x3d2_tpu_torch.tools.ke_parity): max |dKE| / KE0 <=
@@ -284,6 +326,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -304,6 +347,15 @@ SHARD_Z = (128, 128, 512)
 SHARD_TILED = (128, 1024, 1024)
 # the tiled mid held at a small size too: the batch of this grid on (2, 2)
 TILED_SMALL = (64, 128, 256)
+# the tails' paths: extents x3d2_tpu's gates admit past the template's
+# 128-point tiles. PX: x3d2_tpu's sweeps and pipe3 with an x tail (parity
+# halves of 160); PY (and PYB, with the pressure kept): its dense-einsum
+# transport and pipe3 (the slab) with a y tail (3 banded blocks of 64,
+# halves of 96); YD: the slab on the folded y (a periodic y not tiled by
+# 64), where pipe3 is not admitted
+PX = (320, 256, 384)
+PY = (384, 192, 384)
+YD = (256, 200, 256)
 EXAMPLE = "examples/TGV_species/input.x3d"   # path S-ex
 CYL_EXAMPLE = "examples/cylinder/input.x3d"  # paths C and C-ex
 # path C: the example refined 2x in x and y and 4x in z (the smallest span
@@ -329,7 +381,10 @@ DT = 1e-3
 # 7.5e-6, 2.4e-5 and 7.3e-5 at 64^3, 128^3 and 256^3 after two TGV steps
 # (about 3x per doubling, the derivative operators' 1/dx growth), so about
 # 2e-4 is expected at 512^3. The limits are 5x the expected level.
-DIV_LIMIT = {512: 1e-3, 256: 3.65e-4, 128: 1.2e-4}   # by max(dims)
+# At 384 (paths PX, PY), the 3x-per-doubling growth from 256 gives about
+# 1.35e-4; the limit is 5x that.
+DIV_LIMIT = {512: 1e-3, 384: 6.8e-4, 256: 3.65e-4,
+             128: 1.2e-4}   # by max(dims)
 # path C: after one step of the cylinder (the first projection of the white
 # initial noise; the level falls after it) the float32 plain path on the
 # CPU reaches 2.56e-5, 2.88e-5 and 3.07e-5 at (65, 128, 128), (129, 128,
@@ -352,6 +407,8 @@ CARRY_SOURCE = "x3d2_tpu_torch/csrc/pipe_c_d2.cu"
 DENSE_SOURCE = "x3d2_tpu_torch/csrc/transeq_dense.cu"
 # the y/z-tiled mid of the repencilled projection at 1024^2 planes
 TILED_SOURCE = "x3d2_tpu_torch/csrc/pressure_mid_tiled.cu"
+# the manual-pipeline x apply, on no solver path (tools/prof_manual.py)
+MANUAL_SOURCE = "x3d2_tpu_torch/csrc/x_apply_manual.cu"
 REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             0: "x3d2_tpu/ops/pallas_kernels.py:172",
             1: "x3d2_tpu/ops/pallas_kernels.py:172",
@@ -384,7 +441,13 @@ REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
                 "x3d2_tpu/ops/pallas_poisson.py:780",
             "pressure_mid[tiled,t1]": "x3d2_tpu/ops/pallas_poisson.py:413",
             "pressure_mid[tiled,t2]": "x3d2_tpu/ops/pallas_poisson.py:430",
-            "pressure_mid[tiled,t3]": "x3d2_tpu/ops/pallas_poisson.py:468"}
+            "pressure_mid[tiled,t3]": "x3d2_tpu/ops/pallas_poisson.py:468",
+            # the folded y (its branches of _div_solve_body, _grad_body)
+            "pressure_mid[folded_y]": "x3d2_tpu/ops/pallas_poisson.py:354",
+            "pressure_mid[q,folded_y]": "x3d2_tpu/ops/pallas_poisson.py:354",
+            "div_solve[folded_y]": "x3d2_tpu/ops/pallas_poisson.py:327",
+            "grad[folded_y]": "x3d2_tpu/ops/pallas_poisson.py:340",
+            "x_apply_manual": "x3d2_tpu/ops/pallas_manual.py:200"}
 # phase 8's chains whose CPU leg is that of another chain (label, then the
 # label of the chain it takes the leg from; "cylinder" names the cylinder
 # at CYL_SMALL, else TGV at SMALL): the plain versions run the same
@@ -519,7 +582,7 @@ def pipe_cost(stage, shape, w):
     return 4 * npts * fields, npts * per_pt
 
 
-def slab_cost(stage, shape, w, dense=False):
+def slab_cost(stage, shape, w, y="parity", z="parity"):
     """(bytes, flops) of one function of the slab projection, counted as
     pipe_cost counts: x_div3 three parity x applies, 3 fields in and 3
     out; x_gradsub3 three inverse parity x applies and the correction, 6
@@ -529,13 +592,20 @@ def slab_cost(stage, shape, w, dense=False):
     div_solve (3 banded, 2 z, 1 y and the solve; 3 in, q out) and grad (2
     z, 2 y, 3 banded; q in, 3 out). A transform is a parity split (n/2
     multiply-adds and the combine per output) or, dense, n multiply-adds
-    per output."""
+    per output; y and z: the forms (parity.Forms). On the folded y the y
+    stages are 3 dense y applies each way (Iy du, Sy dv, Iy dw; Giy, Gsy,
+    Giy) in place of the banded ones and the y transforms."""
     nx, ny, nz = shape
     npts = nx * ny * nz
     band = 2 * (2 * w + 1) + 0.0
-    tz, ty = ((2 * nz, 2 * ny) if dense else (nz + 1, ny + 1))
-    div = 3 * band + 2 * tz + ty + 5
-    grd = 2 * tz + 2 * ty + 3 * band
+    tz = nz + 1 if z == "parity" else 2 * nz
+    ty = ny + 1 if y == "parity" else 2 * ny
+    if y == "folded":
+        div = 3 * 2 * ny + 2 * tz + 5
+        grd = 2 * tz + 3 * 2 * ny
+    else:
+        div = 3 * band + 2 * tz + ty + 5
+        grd = 2 * tz + 2 * ty + 3 * band
     if stage == "x_div3":
         per_pt, fields = 3 * (nx + 1), 6
     elif stage == "x_gradsub3":
@@ -683,7 +753,224 @@ def p_tolerance_of(p_max, vel_max):
     return 1e-5 * p_max + 4 * 2.0 ** -24 * vel_max
 
 
+# phase 8's solver parameters by name (SolverParams' keywords)
+CHAIN_PARAMS = {
+    "AB3": dict(Re=1600.0, time_intg="AB3", dt=DT),
+    "AB3 + 2 species": dict(Re=1600.0, time_intg="AB3", dt=DT, n_species=2,
+                            pr_species=PR),
+    "AB3 compensated": dict(Re=1600.0, time_intg="AB3", dt=DT,
+                            compensated=True),
+    "AB3 compensated + 2 species": dict(Re=1600.0, time_intg="AB3", dt=DT,
+                                       n_species=2, pr_species=PR,
+                                       compensated=True),
+    "RK3": dict(Re=1600.0, time_intg="RK3", dt=DT),
+    "RK3 + 2 species": dict(Re=1600.0, time_intg="RK3", dt=DT, n_species=2,
+                            pr_species=PR)}
+# phase 8's chains at the tails' grids: the sweeps and the pipeline at an x
+# tail (parity halves of 96), the slab on the folded y
+TAIL_X_SMALL = (192, 128, 256)
+TAIL_Y_SMALL = (128, 136, 128)
+CHAIN_STEPS = 10
+# processes computing phase 8's CPU legs while phases 3-7 run on the card
+# (one torch and one BLAS thread each; the host has 8 cores, and the main
+# process keeps one)
+CPU_LEG_WORKERS = 7
+
+
+def phase8_chains():
+    """Phase 8's chains as data, in order: label; kind "tgv" on dims, or
+    "cylinder" at CYL_SMALL (its parameters from its input file, with
+    compensated); params (a CHAIN_PARAMS name); keep_pressure; the
+    switches; the chain the case must take; nround, the bfloat16 stores a
+    point feeds into u' a step (the history's, and the two partials'). The
+    card legs' launch counts are main's."""
+    b16 = {"X3D2_BF16_OLDS": "1"}
+    acc16 = {"X3D2_BF16_ACC": "1"}
+    xoff = {"X3D2_XDIV_FUSED": "0"}
+    hi = {"X3D2_MATMUL_PRECISION": "highest"}
+    d2c = {"X3D2_D2C": "1", **xoff}
+    split = {"X3D2_MID_SPLIT": "1"}
+    dense = {"X3D2_BFLY": "0"}
+
+    def tgv(label, prm, keep, env, chain, nround=0, dims=SMALL):
+        return dict(label=label, kind="tgv", dims=dims, params=prm,
+                    keep=keep, env=env, chain=chain, nround=nround)
+
+    def small(label, *a, **kw):
+        return tgv(f"{SMALL} {label}", *a, **kw)
+
+    def cyl(label, env, compensated):
+        return dict(label=f"cylinder {size_label(CYL_SMALL)}{label}",
+                    kind="cylinder", dims=CYL_SMALL, params=None,
+                    compensated=compensated, keep=False, env=env,
+                    chain="ab-unfused", nround=0)
+
+    return [
+        small("xdiv path", "AB3", False, {}, "xdiv"),
+        small("keep_pressure=True", "AB3", True, {}, "xdiv"),
+        small("X3D2_XDIV_FUSED=0", "AB3", False, xoff, "zxy"),
+        small("AB3 + 2 species", "AB3 + 2 species", False, {}, "xdiv"),
+        small("RK3 fused", "RK3", False, {}, "rk"),
+        small("RK3 + 2 species (unfused)", "RK3 + 2 species", False, {},
+              "rk-unfused"),
+        tgv("TGV 128^3 (dense sweeps)", "AB3", False, {}, "ab-unfused",
+            dims=(NT,) * 3),
+        cyl("", {}, False),
+        # the AB step's modes
+        small("xdiv path, bfloat16 history", "AB3", False, b16, "xdiv", 1),
+        small("xdiv path, bfloat16 partials", "AB3", False, acc16, "xdiv",
+              2),
+        small("xdiv path, bfloat16 history and partials", "AB3", False,
+              {**b16, **acc16}, "xdiv", 3),
+        small("X3D2_XDIV_FUSED=0, bfloat16 history", "AB3", False,
+              {**b16, **xoff}, "zxy", 1),
+        small("compensated + 2 species, bfloat16 history",
+              "AB3 compensated + 2 species", False, b16, "ab-unfused", 1),
+        small("X3D2_MERGED_X=0, keep_pressure=True, X3D2_XDIV_FUSED=0",
+              "AB3", True, {"X3D2_MERGED_X": "0", **xoff}, "zxy"),
+        cyl(" compensated", {}, True),
+        # the HIGHEST mode
+        small("HIGHEST, xdiv path", "AB3", False, hi, "xdiv"),
+        small("HIGHEST, compensated", "AB3 compensated", False, hi,
+              "ab-unfused"),
+        small("HIGHEST, RK3 + 2 species (unfused)", "RK3 + 2 species",
+              False, hi, "rk-unfused"),
+        small("HIGHEST, xdiv path, bfloat16 history", "AB3", False,
+              {**hi, **b16}, "xdiv", 1),
+        small("HIGHEST, xdiv path, bfloat16 partials", "AB3", False,
+              {**hi, **acc16}, "xdiv", 2),
+        # the projection switches
+        small("X3D2_D2C=1, X3D2_XDIV_FUSED=0", "AB3", False, d2c, "zxy"),
+        small("X3D2_D2C=1, X3D2_XDIV_FUSED=0, HIGHEST", "AB3", False,
+              {**d2c, **hi}, "zxy"),
+        small("X3D2_D2C=1, X3D2_XDIV_FUSED=0, bfloat16 history", "AB3",
+              False, {**d2c, **b16}, "zxy", 1),
+        small("X3D2_MID_SPLIT=1, xdiv path", "AB3", False, split, "xdiv"),
+        small("X3D2_MID_SPLIT=1, keep_pressure=True", "AB3", True, split,
+              "xdiv"),
+        small("X3D2_BFLY=0, keep_pressure=True", "AB3", True, dense, "zxy"),
+        small("X3D2_BFLY=0, keep_pressure=False", "AB3", False, dense,
+              "zxy"),
+        small("X3D2_BFLY=0, compensated", "AB3 compensated", False, dense,
+              "ab-unfused"),
+        small("X3D2_MID_SPLIT=1, X3D2_BFLY=0, keep_pressure=True", "AB3",
+              True, {**split, **dense}, "zxy"),
+        small("X3D2_BFLY=0, X3D2_PIPE3=0", "AB3", False,
+              {**dense, "X3D2_PIPE3": "0"}, "zxy"),
+        cyl(" X3D2_MID_SPLIT=1", split, False),
+        # the tails
+        tgv(f"{TAIL_X_SMALL} x tail: the sweeps and the pipeline", "AB3",
+            False, {}, "zxy", dims=TAIL_X_SMALL),
+        tgv(f"{TAIL_Y_SMALL} folded y: the slab", "AB3", False, {},
+            "ab-unfused", dims=TAIL_Y_SMALL)]
+
+
+def chain_label(short):
+    """Phase 8's label of a chain CPU_SAME names: "cylinder" ones at
+    CYL_SMALL, else TGV at SMALL."""
+    if short.startswith("cylinder"):
+        return f"cylinder {size_label(CYL_SMALL)}" + short[8:].replace(
+            ",", "", 1)
+    return f"{SMALL} {short}"
+
+
+def chain_case(spec, device):
+    """A phase 8 chain's case on `device` (the caller sets its switches)."""
+    import torch
+    from x3d2_tpu_torch import config
+    from x3d2_tpu_torch.cases import SolverParams, TGVCase
+    from x3d2_tpu_torch.common import BC
+    from x3d2_tpu_torch.mesh import Mesh
+
+    if spec["kind"] == "cylinder":
+        cfg_ = config.Config.from_file(CYL_EXAMPLE)
+        cfg_.domain.dims_global = CYL_SMALL
+        cfg_.cylinder.inlet_noise = (0.0, 0.0, 0.0)
+        cfg_.solver.compensated = spec["compensated"]
+        return config.make_case(cfg_, monitor_path=None, verbose=False,
+                                keep_pressure=False, device=device)
+    per = ((BC.PERIODIC, BC.PERIODIC),) * 3
+    return TGVCase(Mesh(spec["dims"], (2 * math.pi,) * 3, per),
+                   SolverParams(**CHAIN_PARAMS[spec["params"]]),
+                   dtype=torch.float32, monitor_path=None, verbose=False,
+                   keep_pressure=spec["keep"], device=device)
+
+
+def chain_took(c):
+    """The chain a case's step takes."""
+    return ("rk" if c._fused_rk is not None
+            else "rk-unfused" if c.ti.kind == "RK"
+            else "ab-unfused" if c._fused_ab is None
+            else "xdiv" if c._ab_is_xdiv else "zxy")
+
+
+def cpu_leg(spec, out_dir):
+    """A phase 8 chain's CPU leg (in a worker with one torch and one BLAS
+    thread): after CHAIN_STEPS steps, the .npy files of its state's float
+    fields in out_dir (the fields go through files, not the pool's result
+    pipe: unpickling a leg's 80 MB in the main process held its
+    interpreter lock, and path PYB's host-clock step read ~240 ms instead
+    of ~27 on an H100 80GB HBM3 at 700 W), the monitor's last KE, the
+    chain it took, and R, the largest
+    value stored in bfloat16 (the history's newest rhs; with nround > 1 also
+    the z and x sweeps' partials of the final state; 0 without rounding)."""
+    import numpy as np
+    import torch
+    from x3d2_tpu_torch.common import env_set
+
+    torch.set_num_threads(1)
+    with env_set(spec["env"]):
+        c = chain_case(spec, "cpu")
+        st = c.run(n_iters=CHAIN_STEPS, n_output=CHAIN_STEPS)
+    rmax = 0.0
+    if spec["nround"]:
+        rmax = max(float(p_[0].float().abs().max()) for p_ in st["olds"])
+        if spec["nround"] > 1:
+            fab = c._fused_ab
+            part = fab.sweeps[0](st["u"], st["v"], st["w"])
+            rmax = max([rmax] + [float(t.float().abs().max()) for t in part])
+            part = fab.sweeps[1](st["u"], st["v"], st["w"], acc=part)
+            rmax = max([rmax] + [float(t.float().abs().max()) for t in part])
+    stem = re.sub(r"[^A-Za-z0-9]+", "_", spec["label"])
+    files = {}
+    for k in ("u", "v", "w", "p", "phi"):
+        if torch.is_tensor(st.get(k)):
+            files[k] = os.path.join(out_dir, f"{stem}_{k}.npy")
+            np.save(files[k], st[k].numpy())
+    return files, c.monitor.rows[-1][4], chain_took(c), rmax
+
+
+def start_cpu_legs(specs, shared, out_dir):
+    """Phase 8's CPU legs, but those `shared` (CPU_SAME's first labels), on
+    a pool of CPU_LEG_WORKERS spawned processes, each with one torch and
+    one BLAS thread, their fields written to out_dir, the longest submitted
+    first: (pool, {label: its pending result})."""
+    import multiprocessing as mp
+
+    from x3d2_tpu_torch.common import env_set
+
+    os.makedirs(out_dir, exist_ok=True)
+    with env_set({k: "1" for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                                   "OPENBLAS_NUM_THREADS")}):
+        pool = mp.get_context("spawn").Pool(CPU_LEG_WORKERS)
+
+    def cost(spec):
+        # the longest legs first, so that no long one starts last and keeps
+        # phase 8 waiting: RK3 runs three substages a step, the scalars'
+        # sweeps and the HIGHEST mode's W = 32 sweeps about double a step
+        prm = spec["params"] or ""
+        return ((3 if prm.startswith("RK3") else 1)
+                * (2 if "species" in prm else 1)
+                * (2 if "X3D2_MATMUL_PRECISION" in spec["env"] else 1))
+
+    legs = sorted((s for s in specs if s["label"] not in shared), key=cost,
+                  reverse=True)
+    return pool, {s["label"]: pool.apply_async(cpu_leg, (s, out_dir))
+                  for s in legs}
+
+
 def main():
+    import numpy as np
     import torch
 
     t_start = time.perf_counter()
@@ -703,7 +990,9 @@ def main():
     from x3d2_tpu_torch.ops import species_sweep as spm
     from x3d2_tpu_torch.ops import transeq_dense as td
     from x3d2_tpu_torch.ops import transeq_sweep as ts
-    from x3d2_tpu_torch.ops.parity import (BW, ProjectionMats,
+    from x3d2_tpu_torch.ops import x_apply_manual as xm
+    from x3d2_tpu_torch.tools import prof_manual as pmt
+    from x3d2_tpu_torch.ops.parity import (BW, Forms, ProjectionMats,
                                            build_projection_mats, pfwd,
                                            solve_factor)
     from x3d2_tpu_torch.solver import NavierStokes
@@ -731,13 +1020,14 @@ def main():
     # ---- 2. build -------------------------------------------------------
     libs = _build.build_all(["transeq_sweep", "transeq_sweep_w32",
                              "pressure_pipe", "pipe_c_d2", "transeq_dense",
-                             "pressure_mid_tiled"])
+                             "pressure_mid_tiled", "x_apply_manual"])
     ts._lib(16)
     ts._lib(32)
     oa.lib()
     pp._carry_lib()
     td._lib()
     sl._tiled_lib()
+    xm.lib()
     for name, lib in libs.items():
         print(f"[build] {lib.name}: {_build.BUILD_SECONDS[name]:.1f} s",
               flush=True)
@@ -748,8 +1038,10 @@ def main():
             # BASE_SEP, PREC>, transeq_xdiv_kernel<BS, W, NOLDS, PREC>
             # (PREC: 1 a bfloat16 history, 2 bfloat16 partials),
             # species_sweep_kernel<BS, W, AXIS, ACC>, mat_apply_kernel<MODE,
-            # TRANS, EPI>, pipe_c_d2_kernel<NZ>, transeq_dense_kernel<TRANS,
-            # EXACT>
+            # TRANS, EPI, TWO, TAIL> (TAIL 0: the 128-tiled instances, 1:
+            # the general ones),
+            # pipe_c_d2_kernel<NZ>, transeq_dense_kernel<TRANS, EXACT>,
+            # x_apply_manual_kernel<FORM, SUB>
             # (mangled: <length><name>; the length is checked, since the
             # anonymous namespace before the name may end in digits too)
             found = [m for m in re.finditer(
@@ -775,6 +1067,13 @@ def main():
     def stamp(phase):
         print(f"[time] {phase} starts at {time.perf_counter() - t_start:.1f}"
               " s", flush=True)
+
+    # phase 8's CPU legs, on the host while phases 3-7 use the card (the
+    # legs CPU_SAME shares are not computed twice)
+    chain_specs = phase8_chains()
+    legs_dir = str(_build.BUILD_DIR.parent / "smoke_legs")
+    cpu_pool, cpu_legs = start_cpu_legs(
+        chain_specs, {chain_label(a) for a, _ in CPU_SAME}, legs_dir)
 
     # ---- 3. kernels vs plain ---------------------------------------------
     stamp("phase 3 (kernels vs plain)")
@@ -983,12 +1282,13 @@ def main():
                                               feedback=olds is olds16)}))
         return out
 
-    def parity_rows(shape, pm, randn, stages):
+    def parity_rows(shape, pm, randn, stages, listed=True):
         """The one-field parity x applies (stages among x_pfwd, x_pinv,
         x_pinv[sub]) of pm's operators against their plain version, beside
         one torch.matmul (torch.addmm with the correction) of the dense
         nx x nx operator the parity split stands for, in block-parity order,
-        over the field as an (nx, ny nz) matrix."""
+        over the field as an (nx, ny nz) matrix. listed=False: held, kept
+        out of the kernels line."""
         n = size_label(shape)
         nx = shape[0]
         eye = torch.eye(nx, dtype=d64, device=dev).unsqueeze(-1)
@@ -1016,7 +1316,7 @@ def main():
 
                 hold(f"{stage}[{op}]", n, kern, plain, args, stage,
                      REPLACES[stage], x_parity_cost(shape, sub),
-                     source=PIPE_SOURCE, library=library)
+                     source=PIPE_SOURCE, library=library, listed=listed)
 
     def species_rows(shape, ops, randn, terms=2):
         """The species sweeps of the two scalars, z; x + acc; y + acc (at
@@ -1109,17 +1409,17 @@ def main():
     def mid_nq(du, dv, dw, m):
         return sl.pressure_mid(du, dv, dw, m, emit_q=False)
 
-    def mid_q_plain(du, dv, dw, m, dense=False):
-        return sl.pressure_mid_plain(du, dv, dw, m, True, dense)
+    def mid_q_plain(du, dv, dw, m, forms=Forms()):
+        return sl.pressure_mid_plain(du, dv, dw, m, True, forms)
 
-    def mid_nq_plain(du, dv, dw, m, dense=False):
-        return sl.pressure_mid_plain(du, dv, dw, m, False, dense)
+    def mid_nq_plain(du, dv, dw, m, forms=Forms()):
+        return sl.pressure_mid_plain(du, dv, dw, m, False, forms)
 
     def div_solve_k(du, dv, dw, pm):
         return (sl.div_solve(du, dv, dw, pm),)
 
-    def div_solve_p(du, dv, dw, m, dense=False):
-        return (sl.div_solve_plain(du, dv, dw, m, dense),)
+    def div_solve_p(du, dv, dw, m, forms=Forms()):
+        return (sl.div_solve_plain(du, dv, dw, m, forms),)
 
     def slab_rows(shape, mesh_, pm, on_path, n=None):
         """The mid with and without q and its halves (div_solve, grad), in
@@ -1130,10 +1430,10 @@ def main():
         m32 = pm.mats(torch.float32)
         su, sv, sw = wave_fields(mesh_)
         dp = tuple(t.contiguous() for t in div_plain((su, sv, sw), m32, pm))
-        qp = sl.div_solve_plain(*dp, m32, pm.dense).contiguous()
+        qp = sl.div_solve_plain(*dp, m32, pm.forms).contiguous()
         gp = tuple(t.contiguous()
-                   for t in sl.grad_plain(qp, m32, pm.dense))
-        form = {"dense": pm.dense}
+                   for t in sl.grad_plain(qp, m32, pm.forms))
+        form = {"forms": pm.forms}
         jobs = [(sl.stage_name("pressure_mid", pm, True), dp, mid_q,
                  partial(mid_q_plain, **form)),
                 (sl.stage_name("pressure_mid", pm), dp, mid_nq,
@@ -1148,8 +1448,8 @@ def main():
                            sl.x_gradsub3_plain)]
         for name, ins, kern_fn, plain_fn in jobs:
             stage_row(name, ins, kern_fn, plain_fn,
-                      slab_cost(name, pm.shape, BW, pm.dense), pm,
-                      name in on_path, n=n)
+                      slab_cost(name, pm.shape, BW, pm.forms.y,
+                                pm.forms.z), pm, name in on_path, n=n)
         with_q, no_q = mid_q(*dp, pm), mid_nq(*dp, pm)
         q = sl.div_solve(*dp, pm)
         halves = (q,) + sl.grad(q, pm)
@@ -1204,8 +1504,8 @@ def main():
         lab_q = size_label(shape)
         if batch is None:
             kern = [t.to(d64) for t in mid_q(*ins, pm)]
-            plain32 = [t.to(d64) for t in mid_q_plain(*ins, m32, pm.dense)]
-            plain64 = mid_q_plain(*to64(ins), m64, pm.dense)
+            plain32 = [t.to(d64) for t in mid_q_plain(*ins, m32, pm.forms)]
+            plain64 = mid_q_plain(*to64(ins), m64, pm.forms)
         else:
             off, n_b = batch
             ins = tuple(t[off:off + n_b].contiguous() for t in ins)
@@ -1316,7 +1616,7 @@ def main():
                      "white noise", True, batch=(off_x, nx_loc))
         torch.cuda.empty_cache()
 
-    def carry_rows(shape, ns_, fields):
+    def carry_rows(shape, ns_, fields, listed=True):
         """pipe_c[d2] on the inputs the plain pipe_a, pipe_b give from
         `fields`: u', v', w' held as pipe_c's outputs; the carry to 1e-5
         of plain float32, and to 5e-7 of the plain float64 carry of the
@@ -1326,7 +1626,7 @@ def main():
         5e-7 of the plain float64 carry end to end (stage C's float32
         rounding of u', v', w' carried through the z operators). Timed
         beside pipe_c and the z sweep (W = 16 and 32) it takes out of the
-        step."""
+        step. listed=False: held, kept out of the kernels line."""
         pm_ = ns_._pipe.mats
         n = size_label(shape)
         carry = pp.build_carry_mats(ns_.ops[2], nu, device=dev)
@@ -1358,6 +1658,8 @@ def main():
         pc_ms = cuda_ms(lambda: pp.pipe_c(*ins, pm_), 10, torch)
         txt = row("pipe_c[d2]", n, CARRY_SOURCE, REPLACES["pipe_c[d2]"],
                   err32, ms, plain_ms, carry_cost(shape, pp.CARRY_W, BW))
+        if not listed:
+            del rows["pipe_c[d2]", n]
         report(f"pipe_c[d2] {n}", err32, rel32, rel64, ms, plain_ms,
                txt + f"  (u', v', w' vs plain64; the step without the "
                f"carry: pipe_c {pc_ms:.3f} ms, pipe_c + z sweep "
@@ -1887,8 +2189,7 @@ def main():
             # at a small size, held but not listed
             check(sl.tiled_mid_supported(ns_h, 2),
                   f"{gdims}: the tiled mid must be supported")
-            tiled_rows(gdims, build_projection_mats(ns_h,
-                                                    kernel_tiling=False),
+            tiled_rows(gdims, build_projection_mats(ns_h),
                        off_x, nx_loc, True)
             del ns_h, pm_h
             torch.cuda.empty_cache()
@@ -1896,7 +2197,7 @@ def main():
                                            per), nu, device=dev)
             n_s = TILED_SMALL[0] // 4
             tiled_rows(TILED_SMALL, build_projection_mats(
-                ns_s, kernel_tiling=False), 3 * n_s, n_s, False)
+                ns_s), 3 * n_s, n_s, False)
             del ns_s
             torch.cuda.empty_cache()
             continue
@@ -1911,9 +2212,9 @@ def main():
                                          m_["tx2"][off_x:off_x + n])
 
         def mid_loc_plain(du, dv, dw, m, off_x=off_x, n=nx_loc,
-                          dense=False):
+                          forms=Forms()):
             return sl.pressure_mid_plain(
-                du, dv, dw, sl.local_tables(m, off_x, n), True, dense)
+                du, dv, dw, sl.local_tables(m, off_x, n), True, forms)
 
         stage_row("pressure_mid[q,local]", dp, mid_loc, mid_loc_plain,
                   slab_cost("pressure_mid[q]", dp[0].shape, BW), pm_h)
@@ -1935,9 +2236,113 @@ def main():
         dd = tuple(t[off_x:off_x + nx_loc].contiguous() for t in div_plain(
             wave_fields(mesh_h), pm_d.mats(torch.float32), pm_d))
         stage_row("pressure_mid[q,dense,local]", dd, mid_loc,
-                  partial(mid_loc_plain, dense=True),
-                  slab_cost("pressure_mid[q]", dd[0].shape, BW, True), pm_d)
+                  partial(mid_loc_plain, forms=pm_d.forms),
+                  slab_cost("pressure_mid[q]", dd[0].shape, BW, "dense",
+                            "dense"), pm_d)
         del pm_d, dd
+        torch.cuda.empty_cache()
+
+    # -- 3i. the tails: the template's general instance at the extents
+    # x3d2_tpu's gates admit past its 128-point tiles, at the grids of path
+    # PX (the sweeps and the pipeline; its x applies on parity halves of
+    # 160), paths PY and PYB (the pipeline, and the slab with q; their y
+    # applies on 3 banded blocks of 64 and halves of 96) and path YD (the
+    # slab without q on the folded y: the dense y at 200) --
+    for dims, on_path in ((PX, ()), (PY, ("x_div3", "pressure_mid[q]",
+                                          "x_gradsub3")),
+                          (YD, ("x_div3", "pressure_mid[folded_y]",
+                                "x_gradsub3"))):
+        mesh_x = Mesh(dims, (2 * math.pi,) * 3, per)
+        ns_x = NavierStokes.build(mesh_x, nu, device=dev)
+        pm_x = ns_x._slab
+        check(ns_x._projection_gap is None, f"{dims}: a projection gap")
+        randn_x = randn_of(dims)
+        if dims == PX:
+            acc = tuple(randn_x(100.0) for _ in range(3))
+            olds = tuple(tuple(randn_x(100.0) for _ in range(2))
+                         for _ in range(3))
+            sweep_rows(dims, ns_x.ops, [
+                ("z", 2, {}),
+                ("x,acc", 0, {"acc": acc}),
+                ("y,acc,ab3 steady", 1, {"acc": acc, "olds": olds,
+                                         "dtc": ti.ab_row(3, DT)}),
+                ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
+                                          "dtc": ti.ab_row(1, DT)})],
+                randn_x)
+            del acc, olds
+            torch.cuda.empty_cache()
+        fields = (randn_x(), randn_x(), randn_x())
+        if ns_x._pipe is not None:
+            pipe_rows(dims, fields, pm_x)
+        if dims == PX:
+            # the carry at nz = 384 (X3D2_D2C=1 on this grid, as x3d2_tpu
+            # takes it with the sweeps) and the one-field parity x applies
+            # at x = 320: held, on no path here
+            carry_rows(dims, ns_x, fields, listed=False)
+            parity_rows(dims, pm_x, randn_x, ("x_pfwd", "x_pinv[sub]"),
+                        listed=False)
+        slab_rows(dims, mesh_x, pm_x, on_path)
+        if dims == PY:
+            # the local mid over a rank's batch of 32 x planes at the y tail
+            # (the sharded projection's, as at 384 x 192 x 384 on (2, 2) or
+            # (1, 4)): held, on no path here
+            off_l, n_l = 2 * 32, 32
+            m32 = pm_x.mats(torch.float32)
+            dl = tuple(t[off_l:off_l + n_l].contiguous() for t in div_plain(
+                wave_fields(mesh_x), m32, pm_x))
+
+            def mid_l(du, dv, dw, pm, off=off_l, n=n_l):
+                m_ = pm.mats(torch.float32)
+                return sl.pressure_mid_local(du, dv, dw, pm,
+                                             m_["k2x"][off:off + n],
+                                             m_["tx2"][off:off + n])
+
+            def mid_l_plain(du, dv, dw, m, off=off_l, n=n_l):
+                return sl.pressure_mid_plain(
+                    du, dv, dw, sl.local_tables(m, off, n), True)
+
+            stage_row("pressure_mid[q,local]", dl, mid_l, mid_l_plain,
+                      slab_cost("pressure_mid[q]", dl[0].shape, BW), pm_x,
+                      on_path=False)
+            del dl, m32
+        del ns_x, pm_x, fields
+        torch.cuda.empty_cache()
+
+    # -- 3j. the manual-pipeline x apply (ops/x_apply_manual.py, on no
+    # solver path; tools/prof_manual.py, phase 7c, is its path) on the
+    # operators of tools/prof_manual.py at 512^3 and at x = 320, each form
+    # beside one torch.matmul / torch.addmm of the dense operator --
+    for dims, listed in (((NS,) * 3, True), (PX, False)):
+        n_m = dims[0]
+        Mf, Mi = pmt.operators(n_m)
+        randn_m = randn_of(dims)
+        for _, parity, sub in pmt.FORMS:
+            M = Mi if parity == "inv" else Mf
+            fn = xm.make_x_apply_manual(M, sub=sub, parity=parity,
+                                        device=dev)
+            Md = torch.as_tensor(M, dtype=torch.float32, device=dev)
+
+            def kern(f, s_, fn=fn):
+                return (fn(f, s_),)
+
+            def plain(f, s_, fn=fn, parity=parity):
+                return (xm.x_apply_manual_plain(fn.op(f.dtype), f, s_,
+                                                parity),)
+
+            def library(f, s_, Md=Md, n_m=n_m):
+                f2 = f.reshape(n_m, -1)
+                r = (torch.matmul(Md, f2) if s_ is None else
+                     torch.addmm(s_.reshape(n_m, -1), Md, f2, alpha=-1.0))
+                return r.reshape(f.shape)
+
+            name = xm.stage_name(parity, sub)
+            cost = (x_apply_cost(n_m, n_m, dims[1], dims[2], sub)
+                    if parity is None else x_parity_cost(dims, sub))
+            hold(name, size_label(dims), kern, plain,
+                 (randn_m(), randn_m() if sub else None), name,
+                 REPLACES["x_apply_manual"], cost, source=MANUAL_SOURCE,
+                 library=library, listed=listed)
+            del fn, Md
         torch.cuda.empty_cache()
 
     # ---- 4-7. the paths ------------------------------------------------------
@@ -1966,7 +2371,8 @@ def main():
 
     def counts_now():
         return {**ts.launch_counts(), **oa.launch_counts(),
-                **spm.launch_counts(), **td.launch_counts()}
+                **spm.launch_counts(), **td.launch_counts(),
+                **xm.launch_counts()}
 
     # kernels a counted run launched at a size phase 3 did not hold them at
     unheld = set()
@@ -1984,6 +2390,7 @@ def main():
         oa.reset_launch_counts()
         spm.reset_launch_counts()
         td.reset_launch_counts()
+        xm.reset_launch_counts()
         state = case.run(n_iters=steps, state=state, n_output=1, fresh=True)
         torch.cuda.synchronize()
         counts = counts_now()
@@ -2060,6 +2467,7 @@ def main():
             times.append((time.perf_counter() - t0) * 1e3)
         times.sort()
         step_ms = times[len(times) // 2]
+        spread = times[0], times[-1]
         f = (state["u"], state["v"], state["w"])
         nsub, species_ms, divs = 1, 0.0, None
         chain = "sweeps"
@@ -2111,7 +2519,8 @@ def main():
         txt = (f"  species sweeps {species_ms:.3f} ms "
                f"({100 * species_ms / step_ms:.1f}%)" if "phi" in state
                else "")
-        print(f"[{tag}] step {step_ms:.3f} ms (median of 10, host clock)  "
+        print(f"[{tag}] step {step_ms:.3f} ms (median of 10, host clock; "
+              f"{spread[0]:.3f}-{spread[1]:.3f})  "
               f"{chain} {chain_ms:.3f} ms ({100 * chain_ms / step_ms:.1f}%)"
               f"{txt}  projection {proj_ms:.3f} ms "
               f"({100 * proj_ms / step_ms:.1f}%)", flush=True)
@@ -2394,6 +2803,67 @@ def main():
     del case, state
     torch.cuda.empty_cache()
 
+    # 7d. the tails' paths, keep_pressure=False but PYB: PX 320 x 256 x 384
+    # (the z, x, y sweep chain and the pipeline, its x applies in the
+    # general instance), PY 384 x 192 x 384 (x3d2_tpu's einsum transport,
+    # plain matrix products, and the pipeline: its y applies in the general
+    # instance), PYB (PY with the pressure kept: x_div3, the mid with q,
+    # x_gradsub3), YD 256 x 200 x 256 (the einsum transport and the slab
+    # on the folded y: x_div3, the mid without q in 4 launches, x_gradsub3)
+    tails_ms = {}
+    slab_q = ["x_div3", "pressure_mid[q]", "x_gradsub3"]
+    for tag, dims, keep, per_step, fused in (
+            ("path PX", PX, False, sweeps_zxy + pipe3, True),
+            ("path PY", PY, False, pipe3, False),
+            ("path PYB", PY, True, slab_q, False),
+            ("path YD", YD, False, ["x_div3", "pressure_mid[folded_y]",
+                                    "x_gradsub3"], False)):
+        mesh_x = Mesh(dims, (2 * math.pi,) * 3, per)
+        case, state, _ = drive(tag, mesh_x, params, keep, STEPS, per_step,
+                               spy=spy_projection if keep else None,
+                               fused=fused)
+        check(case.solver._projection_gap is None
+              and not case._ab_is_xdiv, f"{tag}: the branch x3d2_tpu takes")
+        if keep:
+            p = state["p"]
+            p_ref = case.solver.pressure_grads_folded(*last["in"],
+                                                      keep_pressure=True)[3]
+            err_p, _ = rel_err([p], [p_ref])
+            tol_p = p_tolerance(p_ref, last["in"])
+            print(f"[{tag}] physical p of the last step vs the folded chain: "
+                  f"max|dp| {err_p:.3e} (<= {tol_p:.3e}), max|p| "
+                  f"{float(p_ref.abs().max()):.3e}", flush=True)
+            check(torch.isfinite(p).all().item() and err_p <= tol_p,
+                  f"{tag}: pressure differs by {err_p} (limit {tol_p})")
+            del p, p_ref
+            last.clear()
+            object.__delattr__(case.solver, "pressure_correction")
+        tails_ms[tag] = step_times(tag, case, state)
+        del case, state
+        torch.cuda.empty_cache()
+    print("[tails] ms/step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tails_ms.items()), flush=True)
+
+    # 7c. tools/prof_manual.py, the manual x apply's entry point, once at
+    # 512^3: its launches are the kernels line's for x_apply_manual
+    stamp("phase 7c (tools/prof_manual.py)")
+    torch.cuda.synchronize()
+    xm.reset_launch_counts()
+    prof, prof_ok = pmt.profile(NS, 20, dev=dev)
+    torch.cuda.synchronize()
+    prof_counts = xm.launch_counts()
+    print(json.dumps({"prof_manual": {"card": card, "shape": [NS] * 3,
+                                      "forms": prof, "ok": prof_ok}}),
+          flush=True)
+    check(prof_ok, "prof_manual: a kernel differs from the plain versions")
+    for name, k in prof_counts.items():
+        if (name, str(NS)) not in rows:
+            unheld.add(f"{name}@{NS}")
+        else:
+            rows[name, str(NS)]["launches"] = k
+    del prof
+    torch.cuda.empty_cache()
+
     # 7b. the cylinder through the port's config.py
     stamp("phase 7b (the cylinder)")
     def drive_cylinder(tag, dims, steps, per_step):
@@ -2446,31 +2916,6 @@ def main():
 
     # ---- 8. slice as a whole: card vs CPU ---------------------------------
     stamp("phase 8 (card vs CPU)")
-    small = Mesh(SMALL, (2 * math.pi,) * 3, per)
-    params_rs = SolverParams(Re=1600.0, time_intg="RK3", dt=DT, n_species=2,
-                             pr_species=PR)
-    params_cs = SolverParams(Re=1600.0, time_intg="AB3", dt=DT, n_species=2,
-                             pr_species=PR, compensated=True)
-
-    def tgv_on(mesh_, prm, keep):
-        return lambda d: TGVCase(mesh_, prm, dtype=torch.float32,
-                                 monitor_path=None, verbose=False,
-                                 keep_pressure=keep, device=d)
-
-    def cylinder_on(compensated):
-        cfg_ = config.Config.from_file(CYL_EXAMPLE)
-        cfg_.domain.dims_global = CYL_SMALL
-        cfg_.cylinder.inlet_noise = (0.0, 0.0, 0.0)
-        cfg_.solver.compensated = compensated
-        return cfg_.solver, lambda d: config.make_case(
-            cfg_, monitor_path=None, verbose=False, keep_pressure=False,
-            device=d)
-
-    cyl_prm, cyl_make = cylinder_on(False)
-    cylk_prm, cylk_make = cylinder_on(True)
-    b16 = {"X3D2_BF16_OLDS": "1"}
-    b16a = {"X3D2_BF16_OLDS": "1", "X3D2_BF16_ACC": "1"}
-    xdiv_off = {"X3D2_XDIV_FUSED": "0"}
     x16 = [ts.variant_name(2, False, 0), ts.variant_name(1, True, 0),
            ts.variant_name(0, True, 2, True, olds_bf16=True)]
     x16p = [ts.variant_name(2, False, 0, acc_bf16=True),
@@ -2482,205 +2927,171 @@ def main():
                             acc_bf16=True)]
     slab_tail = ["pressure_mid", "x_gradsub3"]
     grads = ["x_div3", "pressure_mid[q]"] + ["x_pinv"] * 3
-    # (label, make, params, keep_pressure, switches, chain, the card run's
-    # launches a step (None: not counted), bfloat16 stores a point feeds
-    # into u' a step: the history's, and the two partials')
-    chains = [(f"{SMALL} {label}", tgv_on(small, prm, keep), prm, keep, env,
-               chain, None, 0) for label, prm, keep, env, chain in (
-                   ("xdiv path", params, False, {}, "xdiv"),
-                   ("keep_pressure=True", params, True, {}, "xdiv"),
-                   ("X3D2_XDIV_FUSED=0", params, False, xdiv_off, "zxy"),
-                   ("AB3 + 2 species", params_s, False, {}, "xdiv"),
-                   ("RK3 fused", params_r, False, {}, "rk"),
-                   ("RK3 + 2 species (unfused)", params_rs, False, {},
-                    "rk-unfused"))]
-    chains += [("TGV 128^3 (dense sweeps)", tgv_on(mesh_t, params, False),
-                params, False, {}, "ab-unfused", None, 0),
-               (f"cylinder {size_label(CYL_SMALL)}", cyl_make, cyl_prm,
-                False, {}, "ab-unfused", None, 0)]
-    # the AB step's modes
-    chains += [(f"{SMALL} {label}", tgv_on(small, prm, keep), prm, keep, env,
-                chain, per_step, nround)
-               for label, prm, keep, env, chain, per_step, nround in (
-                   ("xdiv path, bfloat16 history", params, False, b16,
-                    "xdiv", x16 + slab_tail, 1),
-                   ("xdiv path, bfloat16 partials", params, False,
-                    {"X3D2_BF16_ACC": "1"}, "xdiv", x16p + slab_tail, 2),
-                   ("xdiv path, bfloat16 history and partials", params,
-                    False, b16a, "xdiv", x16a + slab_tail, 3),
-                   ("X3D2_XDIV_FUSED=0, bfloat16 history", params, False,
-                    {**b16, **xdiv_off}, "zxy", sweeps_h + pipe3, 1),
-                   ("compensated + 2 species, bfloat16 history", params_cs,
-                    False, b16, "ab-unfused", sweeps_rhs + species + grads,
-                    1),
-                   ("X3D2_MERGED_X=0, keep_pressure=True, "
-                    "X3D2_XDIV_FUSED=0", params, True,
-                    {"X3D2_MERGED_X": "0", **xdiv_off}, "zxy",
-                    sweeps_zxy + ["x_pfwd"] * 3 + ["pressure_mid[q]"]
-                    + ["x_pinv[sub]"] * 3, 0))]
-    chains += [(f"cylinder {size_label(CYL_SMALL)} compensated", cylk_make,
-                cylk_prm, False, {}, "ab-unfused",
-                ["x_apply"] * 6 + ["pressure_mid[q]"], 0)]
-    # the HIGHEST mode: only W = 32 sweeps launch; with a bfloat16 history,
-    # and with bfloat16 partials, the xdiv chain on the W = 32 instances
     x16_32 = [ts.variant_name(2, False, 0, w=32),
               ts.variant_name(1, True, 0, w=32),
               ts.variant_name(0, True, 2, True, olds_bf16=True, w=32)]
     x16p_32 = [ts.variant_name(2, False, 0, acc_bf16=True, w=32),
                ts.variant_name(1, True, 0, acc_bf16=True, w=32),
                ts.variant_name(0, True, 2, True, acc_bf16=True, w=32)]
-    chains += [(f"{SMALL} HIGHEST, {label}", tgv_on(small, prm, False), prm,
-                False, {**hi, **env}, chain, per_step, nround)
-               for label, prm, env, chain, per_step, nround in (
-                   ("xdiv path", params, {}, "xdiv",
-                    sweeps_xdiv32 + slab_tail, 0),
-                   ("compensated", params_k, {}, "ab-unfused",
-                    sweeps_rhs32 + grads, 0),
-                   ("RK3 + 2 species (unfused)", params_rs, {}, "rk-unfused",
-                    (sweeps_rhs32 + species32 + pipe3) * 3, 0),
-                   ("xdiv path, bfloat16 history", params, b16, "xdiv",
-                    x16_32 + slab_tail, 1),
-                   ("xdiv path, bfloat16 partials", params,
-                    {"X3D2_BF16_ACC": "1"}, "xdiv", x16p_32 + slab_tail,
-                    2))]
-    # the projection switches: the carry (the chain from the carried
-    # partials; a boot z sweep a run), the mid's halves, the dense forms
-    d2c = {"X3D2_D2C": "1", **xdiv_off}
-    split = {"X3D2_MID_SPLIT": "1"}
-    dense = {"X3D2_BFLY": "0"}
     pipe_d2 = ["pipe_a", "pipe_b", "pipe_c[d2]"]
     dense_x, dense_sub = ["x_apply"] * 3, ["x_apply[sub]"] * 3
     halves = ["div_solve", "grad"]
-    boots = {}
-    for label, prm, keep, env, chain, per_step, nround in (
-            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0", params, False, d2c, "zxy",
-             sweeps_nod2 + pipe_d2, 0),
-            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0, HIGHEST", params, False,
-             {**d2c, **hi}, "zxy", sweeps_zxy32[1:] + pipe_d2, 0),
-            ("X3D2_D2C=1, X3D2_XDIV_FUSED=0, bfloat16 history", params,
-             False, {**d2c, **b16}, "zxy", sweeps_h[1:] + pipe_d2, 1),
-            ("X3D2_MID_SPLIT=1, xdiv path", params, False, split, "xdiv",
-             sweeps_xdiv + halves + ["x_gradsub3"], 0),
-            ("X3D2_MID_SPLIT=1, keep_pressure=True", params, True, split,
-             "xdiv", sweeps_xdiv + halves + ["x_gradsub3"], 0),
-            ("X3D2_BFLY=0, keep_pressure=True", params, True, dense, "zxy",
-             sweeps_zxy + dense_x + ["pressure_mid[q,dense]"] + dense_sub,
-             0),
-            ("X3D2_BFLY=0, keep_pressure=False", params, False, dense, "zxy",
-             sweeps_zxy + pipe3, 0),
-            ("X3D2_BFLY=0, compensated", params_k, False, dense,
-             "ab-unfused", sweeps_rhs + dense_x + ["pressure_mid[q,dense]"]
-             + dense_x, 0),
-            ("X3D2_MID_SPLIT=1, X3D2_BFLY=0, keep_pressure=True", params,
-             True, {**split, **dense}, "zxy", sweeps_zxy + dense_x
-             + ["div_solve[dense]", "grad[dense]"] + dense_sub, 0),
-            ("X3D2_BFLY=0, X3D2_PIPE3=0", params, False,
-             {**dense, "X3D2_PIPE3": "0"}, "zxy", sweeps_zxy + dense_x
-             + ["pressure_mid[dense]"] + dense_sub, 0)):
-        label = f"{SMALL} {label}"
-        chains.append((label, tgv_on(small, prm, keep), prm, keep, env,
-                       chain, per_step, nround))
-        if "X3D2_D2C" in env:
-            boots[label] = [ts.variant_name(2, False, 0,
-                                            w=32 if "X3D2_MATMUL_PRECISION"
-                                            in env else 16)]
-    chains.append((f"cylinder {size_label(CYL_SMALL)} X3D2_MID_SPLIT=1",
-                   cyl_make, cyl_prm, False, split, "ab-unfused",
-                   dense_x + halves + dense_sub, 0))
-    # CPU legs bit-identical to an earlier chain's (CPU_SAME) are run once;
-    # each chain of a pair has the switches and keep_pressure its label names
-    def chain_label(short):
-        if short.startswith("cylinder"):
-            return f"cylinder {size_label(CYL_SMALL)}" + short[8:].replace(
-                ",", "", 1)
-        return f"{SMALL} {short}"
+    dmid = "pressure_mid[q,dense]"
+    # the card legs counted as the paths' (a kernel's launches a step);
+    # the other chains' card legs are not counted
+    small_counts = {
+        "xdiv path, bfloat16 history": x16 + slab_tail,
+        "xdiv path, bfloat16 partials": x16p + slab_tail,
+        "xdiv path, bfloat16 history and partials": x16a + slab_tail,
+        "X3D2_XDIV_FUSED=0, bfloat16 history": sweeps_h + pipe3,
+        "compensated + 2 species, bfloat16 history":
+            sweeps_rhs + species + grads,
+        "X3D2_MERGED_X=0, keep_pressure=True, X3D2_XDIV_FUSED=0":
+            sweeps_zxy + ["x_pfwd"] * 3 + ["pressure_mid[q]"]
+            + ["x_pinv[sub]"] * 3,
+        "HIGHEST, xdiv path": sweeps_xdiv32 + slab_tail,
+        "HIGHEST, compensated": sweeps_rhs32 + grads,
+        "HIGHEST, RK3 + 2 species (unfused)":
+            (sweeps_rhs32 + species32 + pipe3) * 3,
+        "HIGHEST, xdiv path, bfloat16 history": x16_32 + slab_tail,
+        "HIGHEST, xdiv path, bfloat16 partials": x16p_32 + slab_tail,
+        "X3D2_D2C=1, X3D2_XDIV_FUSED=0": sweeps_nod2 + pipe_d2,
+        "X3D2_D2C=1, X3D2_XDIV_FUSED=0, HIGHEST":
+            sweeps_zxy32[1:] + pipe_d2,
+        "X3D2_D2C=1, X3D2_XDIV_FUSED=0, bfloat16 history":
+            sweeps_h[1:] + pipe_d2,
+        "X3D2_MID_SPLIT=1, xdiv path": sweeps_xdiv + halves + ["x_gradsub3"],
+        "X3D2_MID_SPLIT=1, keep_pressure=True":
+            sweeps_xdiv + halves + ["x_gradsub3"],
+        "X3D2_BFLY=0, keep_pressure=True":
+            sweeps_zxy + dense_x + [dmid] + dense_sub,
+        "X3D2_BFLY=0, keep_pressure=False": sweeps_zxy + pipe3,
+        "X3D2_BFLY=0, compensated": sweeps_rhs + dense_x + [dmid] + dense_x,
+        "X3D2_MID_SPLIT=1, X3D2_BFLY=0, keep_pressure=True":
+            sweeps_zxy + dense_x + ["div_solve[dense]", "grad[dense]"]
+            + dense_sub,
+        "X3D2_BFLY=0, X3D2_PIPE3=0":
+            sweeps_zxy + dense_x + ["pressure_mid[dense]"] + dense_sub}
+    counted = {f"{SMALL} {k}": v for k, v in small_counts.items()}
+    counted[f"cylinder {size_label(CYL_SMALL)} compensated"] = \
+        ["x_apply"] * 6 + ["pressure_mid[q]"]
+    counted[f"cylinder {size_label(CYL_SMALL)} X3D2_MID_SPLIT=1"] = \
+        dense_x + halves + dense_sub
+    # the carry's chains launch one boot z sweep a run
+    boots = {s_["label"]: [ts.variant_name(2, False, 0, w=32 if (
+        "X3D2_MATMUL_PRECISION" in s_["env"]) else 16)]
+        for s_ in chain_specs if "X3D2_D2C" in s_["env"]}
+    check(set(counted) <= {s_["label"] for s_ in chain_specs},
+          f"counted chains phase 8 lacks: {sorted(counted)}")
 
+    # CPU legs bit-identical to an earlier chain's (CPU_SAME) are that
+    # chain's; each chain of a pair has the switches and keep_pressure its
+    # label names
     cpu_same = {chain_label(a): chain_label(b) for a, b in CPU_SAME}
     shorts = {chain_label(x): x for pair in CPU_SAME for x in pair}
-    for label, _, _, keep, env, *_ in chains:
-        if label in shorts:
-            check(chain_switches(shorts[label])[1:] == (env, keep),
-                  f"{label}: the chain's switches {env}, keep_pressure "
-                  f"{keep} are not those its label names")
-    check(set(shorts) <= {c[0] for c in chains},
+    for s_ in chain_specs:
+        if s_["label"] in shorts:
+            check(chain_switches(shorts[s_["label"]])[1:]
+                  == (s_["env"], s_["keep"]),
+                  f"{s_['label']}: the chain's switches {s_['env']}, "
+                  f"keep_pressure {s_['keep']} are not those its label "
+                  "names")
+    check(set(shorts) <= {s_["label"] for s_ in chain_specs},
           f"CPU_SAME names a chain phase 8 lacks: {sorted(shorts)}")
-    cpu_legs = {}
     ab3 = TimeIntegrator("AB3")
     # |c_j| of every coefficient a rounded value meets, and the feedback's
     coeff_sum = float(sum(abs(c) for c in ab3.ab_row(3, 1.0))) + abs(
         ab3.future_coeff_sum())
-    for label, make, prm, keep, env, chain, per_step, nround in chains:
+    t_wait = 0.0
+    for spec in chain_specs:
+        label, keep, nround = spec["label"], spec["keep"], spec["nround"]
+        per_step = counted.get(label)
         t_chain = time.perf_counter()
-        with env_set(env):
-            res = {}
-            for d in ("cuda", "cpu"):
-                if d == "cpu" and label in cpu_same:
-                    res[d] = cpu_legs[cpu_same[label]]
-                    continue
-                c = make(d)
-                took = ("rk" if c._fused_rk is not None
-                        else "rk-unfused" if c.ti.kind == "RK"
-                        else "ab-unfused" if c._fused_ab is None
-                        else "xdiv" if c._ab_is_xdiv else "zxy")
-                check(took == chain, f"{label}: took the {took} chain, not "
-                                     f"{chain}")
-                if d == "cuda" and per_step is not None:
-                    s, _ = run_counted(label, c, c.initial_state(), 10,
-                                       per_step, boots.get(label, ()))
-                else:
-                    s = c.run(n_iters=10, n_output=10)
-                res[d] = (s, c.monitor.rows[-1][4], c)
-        if label in cpu_same.values():
-            cpu_legs[label] = res["cpu"]
-        cpu = res["cpu"][0]
-        du = max(float((res["cuda"][0][k].cpu() - cpu[k]).abs().max())
+        with env_set(spec["env"]):
+            c = chain_case(spec, "cuda")
+            took = chain_took(c)
+            check(took == spec["chain"], f"{label}: took the {took} chain, "
+                                         f"not {spec['chain']}")
+            if per_step is not None:
+                on_card, _ = run_counted(label, c, c.initial_state(),
+                                      CHAIN_STEPS, per_step,
+                                      boots.get(label, ()))
+            else:
+                on_card = c.run(n_iters=CHAIN_STEPS, n_output=CHAIN_STEPS)
+            card_ke = c.monitor.rows[-1][4]
+        del c
+        t0 = time.perf_counter()
+        files, cpu_ke, cpu_took, rmax = cpu_legs[
+            cpu_same.get(label, label)].get()
+        t_wait += time.perf_counter() - t0
+        check(cpu_took == spec["chain"], f"{label}: the CPU leg took the "
+                                         f"{cpu_took} chain")
+        cpu = {k: torch.from_numpy(np.load(f)) for k, f in files.items()}
+        du = max(float((on_card[k].cpu() - cpu[k]).abs().max())
                  for k in ("u", "v", "w"))
-        ke_rel = abs(res["cuda"][1] - res["cpu"][1]) / abs(res["cpu"][1])
+        ke_rel = abs(card_ke - cpu_ke) / abs(cpu_ke)
         # a bfloat16 store rounds to the neighbouring value where card and
         # CPU differ by a float32 ulp: one bfloat16 ulp (2^-7 of the value,
         # at most of the largest rhs or partial R) entering u' through
         # dt |c_j| (and the feedback), for each rounded stream, each step
         extra, txt = 0.0, ""
         if nround:
-            rmax = max(float(p_[0].float().abs().max())
-                       for p_ in cpu["olds"])
-            if nround > 1:
-                fab = res["cpu"][2]._fused_ab
-                part = fab.sweeps[0](cpu["u"], cpu["v"], cpu["w"])
-                rmax = max(rmax, max(float(t.float().abs().max())
-                                     for t in part))
-                part = fab.sweeps[1](cpu["u"], cpu["v"], cpu["w"], acc=part)
-                rmax = max(rmax, max(float(t.float().abs().max())
-                                     for t in part))
-                del part
-            extra = nround * 10 * DT * coeff_sum * BF16_ULP * rmax
+            extra = nround * CHAIN_STEPS * DT * coeff_sum * BF16_ULP * rmax
             txt = f"  bfloat16 stores: + {extra:.3e} (R {rmax:.3e})"
         vel = sum(float(cpu[k].abs().mean()) for k in ("u", "v", "w"))
         du_tol = 1e-5 + extra
-        ke_tol = 1e-6 + extra * vel / res["cpu"][1]
+        ke_tol = 1e-6 + extra * vel / cpu_ke
         if keep:
             p_cpu = cpu["p"]
-            p_err, _ = rel_err([res["cuda"][0]["p"].cpu()], [p_cpu])
+            p_err, _ = rel_err([on_card["p"].cpu()], [p_cpu])
             p_tol = p_tolerance(p_cpu, [cpu[k] for k in ("u", "v", "w")])
             txt += f"  max|dp| {p_err:.3e} (<= {p_tol:.3e}, max|p| " \
                    f"{float(p_cpu.abs().max()):.3e})"
             check(p_err <= p_tol, f"card vs CPU pressure difference {p_err}")
-        if prm.n_species:
-            dphi = float((res["cuda"][0]["phi"].cpu() - cpu["phi"])
-                         .abs().max())
+        if "phi" in cpu:
+            dphi = float((on_card["phi"].cpu() - cpu["phi"]).abs().max())
             txt += f"  max|dphi|={dphi:.3e} (<= {du_tol:.3e})"
             check(dphi <= du_tol, f"{label}: card vs CPU phi difference "
                                   f"{dphi}")
         if label in cpu_same:
             txt += f"  (CPU leg: that of {cpu_same[label]})"
         txt += f"  ({time.perf_counter() - t_chain:.1f} s)"
-        print(f"[slice] {label}, 10 steps card vs CPU: "
+        print(f"[slice] {label}, {CHAIN_STEPS} steps card vs CPU: "
               f"max|du,dv,dw|={du:.3e} (<= {du_tol:.3e})  KE rel "
               f"{ke_rel:.3e} (<= {ke_tol:.3e}){txt}", flush=True)
         check(du <= du_tol, f"{label}: card vs CPU velocity difference {du}")
         check(ke_rel <= ke_tol, f"{label}: card vs CPU KE difference "
                                 f"{ke_rel}")
-        del res, cpu
+        del on_card, cpu
+    cpu_pool.close()
+    cpu_pool.join()
+    shutil.rmtree(legs_dir)
+    print(f"[slice] the CPU legs ({len(cpu_legs)} in {CPU_LEG_WORKERS} "
+          f"processes, one thread each, since phase 3) kept phase 8 waiting "
+          f"{t_wait:.1f} s", flush=True)
+
+    # ---- 8q. the paths' step times on a quiet host ------------------------
+    # phases 4-7 timed their steps with the CPU legs running on 7 of the
+    # host's cores; with the legs done, the main path and the tails' paths
+    # again, beside what was read with them
+    stamp("phase 8q (step times on a quiet host)")
+    busy = {"main": modes_ms["main"], **tails_ms}
+    quiet = {}
+    for tag, dims, keep in (("main", (NS,) * 3, False),
+                            ("path PX", PX, False), ("path PY", PY, False),
+                            ("path PYB", PY, True), ("path YD", YD, False)):
+        case = TGVCase(Mesh(dims, (2 * math.pi,) * 3, per), params,
+                       dtype=torch.float32, monitor_path=None, verbose=False,
+                       keep_pressure=keep, device=dev)
+        state = case.initial_state()
+        for _ in range(3):
+            state = case.step(state)
+        quiet[tag] = step_times(f"{tag}, quiet host", case, state)
+        del case, state
+        torch.cuda.empty_cache()
+    print("[quiet host] ms/step with the CPU legs running -> without: "
+          + ", ".join(f"{k} {busy[k]:.3f} -> {v:.3f} ({busy[k] / v:.3f}x)"
+                      for k, v in quiet.items()), flush=True)
 
     # ---- 8b. KE against float64 in the HIGHEST mode -------------------------
     stamp("phase 8b (KE, HIGHEST + compensated vs float64)")

@@ -153,7 +153,10 @@ def test_carry_taps_are_the_operators(carry, solver32):
         pp.build_carry_mats(small.ops[2], NU, device="cpu")
     assert pp.carry_kernel_supported((512, 512, 512))
     assert pp.carry_kernel_supported(SHAPE)
-    assert not pp.carry_kernel_supported((128, 128, 384))
+    # the z extents the kernel is built for: 256, 384 (the x-tail grid
+    # 320 x 256 x 384 of x3d2_tpu's sweep chain) and 512
+    assert pp.carry_kernel_supported((320, 256, 384))
+    assert not pp.carry_kernel_supported((128, 128, 640))
 
 
 def _ab_inputs(seed):

@@ -309,7 +309,7 @@ MID_OFF = (1 * 2 + 0) * NX_LOC
 @pytest.fixture(scope="module")
 def mids():
     ns, jns = _solvers(shape=MID_SHAPE)
-    pm = build_projection_mats(ns, kernel_tiling=False)
+    pm = build_projection_mats(ns)
     mk = sl.make_mid_local(ns, pm, terms=3)
     jmk = make_pressure_slab(jns, terms=3, interpret=True)[4]
     return ns, pm, mk, jmk

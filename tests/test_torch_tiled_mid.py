@@ -92,7 +92,7 @@ def solvers():
         ns = NavierStokes.build(Mesh(DIMS, L, PER), NU, device="cpu")
         jns = JNavierStokes.build(JMesh(DIMS, L, JPER), NU,
                                   dtype=jnp.float32)
-    return ns, build_projection_mats(ns, kernel_tiling=False), jns
+    return ns, build_projection_mats(ns), jns
 
 
 def _waves(ns, pm):

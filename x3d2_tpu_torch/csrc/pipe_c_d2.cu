@@ -26,8 +26,10 @@
 //      transposed stores hit 32 distinct banks);
 //   2. per field, the inverse parity z transform [a + b; a - b],
 //      a = Me A_e, b = Mo A_o (Gz_i for u, v; Gz_s for w): a thread owns
-//      R output rows of the half (2 at nz = 512, 1 at 256) for its share
-//      of the lines (16 at nz = 512), the operators streamed from L2
+//      R output rows of the half (2 at nz = 512, 3 at 384, 1 at 256)
+//      for its share of the lines (16 at nz = 512, 8 at 384; z taken
+//      periodically by a mask at the powers of two, by a compare at 384),
+//      the operators streamed from L2
 //      transposed (coalesced over the rows) and loaded KB = 8 rows ahead
 //      of their use (one block a SM: the loads' latency is covered by the
 //      thread's own FMAs, not by other warps), the lines' k-th values read
@@ -79,6 +81,16 @@ struct CarryArgs {
   float nu;
 };
 
+// a z index in [-W, NZ + W) taken periodically into [0, NZ)
+template <int NZ>
+__device__ __forceinline__ int wrap(int z) {
+  if constexpr ((NZ & (NZ - 1)) == 0) {
+    return z & (NZ - 1);
+  } else {
+    return z < 0 ? z + NZ : z >= NZ ? z - NZ : z;
+  }
+}
+
 template <int NZ>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (3 * NZ * LP + 4 * NTAP);
@@ -114,12 +126,12 @@ pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
   // 2. the inverse parity z transforms and the correction: R output rows
   // of the half and LPT lines a thread (each float4 of a line's k-th
   // values feeds 8 R multiply-adds)
-  constexpr int R = NZ >= 512 ? 2 : 1;
+  constexpr int R = NZ == 384 ? 3 : NZ >= 512 ? 2 : 1;
   constexpr int NRG = H / R;            // row groups
   constexpr int LPT = L / (NT / NRG);   // lines per thread
-  static_assert(NZ % 64 == 0 && (NZ & (NZ - 1)) == 0 && NT % NRG == 0
-                    && H % KB == 0 && LPT % 4 == 0,
-                "NZ: a power of two the block's row and line groups tile");
+  static_assert(NZ % 64 == 0 && NT % NRG == 0 && H % KB == 0
+                    && LPT % 4 == 0,
+                "NZ: an extent the block's row and line groups tile");
   const int rg = tid % NRG;
   const int lb = (tid / NRG) * LPT;
   for (int c = 0; c < 3; ++c) {
@@ -216,7 +228,7 @@ pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
       // the window at offset -W: inputs z0 + j - W
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
-        const int z = (z0 + j - W) & (NZ - 1);
+        const int z = wrap<NZ>(z0 + j - W);
         const float q = Tq[z * LP + lane];
         qw[j] = q;
         pw[j] = q * Tw[z * LP + lane];
@@ -238,7 +250,7 @@ pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
             qw[j] = qw[j + 1];
             pw[j] = pw[j + 1];
           }
-          const int z = (z0 + RUN + k - W) & (NZ - 1);
+          const int z = wrap<NZ>(z0 + RUN + k - W);
           const float q = Tq[z * LP + lane];
           qw[RUN - 1] = q;
           pw[RUN - 1] = q * Tw[z * LP + lane];
@@ -283,7 +295,7 @@ int pipe_c_d2_geometry(int* lines, int* w) {
 
 // One launch. ptrs: A_u, A_v, A_w, u, v, w, Gz_i^T, Gz_s^T, taps, u', v',
 // w', r_u, r_v, r_w (15, all 16-byte aligned, contiguous (lines, nz)
-// fields). nlines = nx * ny, a multiple of 32; nz 256 or 512. Returns the
+// fields). nlines = nx * ny, a multiple of 32; nz 256, 384 or 512. Returns the
 // cudaError_t of the launch (0 on success).
 int pipe_c_d2_launch(void* const* ptrs, float nu, long long nlines, int nz,
                      void* stream) {
@@ -302,6 +314,7 @@ int pipe_c_d2_launch(void* const* ptrs, float nu, long long nlines, int nz,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nz) {
     case 256: return (int)launch<256>(a, nlines, s);
+    case 384: return (int)launch<384>(a, nlines, s);
     case 512: return (int)launch<512>(a, nlines, s);
   }
   return (int)cudaErrorInvalidValue;

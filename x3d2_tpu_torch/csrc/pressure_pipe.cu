@@ -55,7 +55,24 @@
 //     Ty with the SOLVE_PLANE epilogue, the inverse Ty) and, transposed,
 //     along the contiguous z axis (Iz . + Sz ., Gzi q and Gzs q). They do
 //     twice the operations of the parity forms.
+//   - the folded y of _div_solve_body / _grad_body (pallas_poisson.py:
+//     238-241, :307-310: a periodic y not a multiple of 64, where x3d2_tpu
+//     has no banded y): four launches, DENSE y with two sources (Iy du +
+//     Sy dv; Iy dw, the transform-folded (ncy, nvy) operators), the z
+//     transforms with the solve in their epilogue (TRANS SOLVE), the
+//     inverse z transforms, DENSE y with three jobs (gy_i, gy_s, gy_i).
 //
+// One kernel body with two kinds of instances (mat_apply_kernel<..., TAIL>):
+// the 128-tiled ones (TAIL = false: every extent a multiple of the tiles,
+// rows, columns, parity halves of 64) and the general ones (TAIL = true:
+// every extent x3d2_tpu's gates admit, an x of 144 or 320, a y of 192 or
+// 200, x y columns not a multiple of 128, and the forms the tiled ones
+// lack, TRANS SOLVE, DENSE y with two sources or a rectangular operator).
+// The general instances' guards are compiled out of the tiled ones, and the
+// launcher (ops/operator_apply.py geometry) takes a tiled instance wherever
+// it tiles the launch, so results, registers and times on those grids are
+// as they were before the tails (tools/template_bits.py checks that).
+
 // Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
 // point (the dense parity halves dominate; the banded applies count their
 // 2*BW + 1 band taps), about 17.7 ms at the 67 TFLOP/s FP32 rate, against
@@ -114,6 +131,12 @@ struct Args {
   // indicators Myz and mx, laid out as A and k2x; null without a mask.
   const float* tab[3];
   const float* col[3];
+  // the general instance's: the output's row (TRANS: column) and plane
+  // strides, the columns, and the columns of one x plane (TRANS SOLVE)
+  long long ldo;
+  long long pstrideo;
+  long long ncols;
+  int cpp;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -125,14 +148,36 @@ __device__ __forceinline__ float4 axpy4(float4 x, float s, float4 y) {
                      x.w + s * y.w);
 }
 
-template <int MODE, bool TRANS, int EPI, bool TWO>
+// One kernel body, two kinds of instances. TAIL = false, the 128-tiled
+// instances: every extent a multiple of the tiles (rows, columns, parity
+// halves of 64), TWO chosen at compile time. TAIL = true, the general
+// instances: every extent x3d2_tpu's gates admit, and the forms the tiled
+// ones lack; they compute what the tiled ones compute, with the same k-order
+// of their multiply-adds (so on a grid both serve they give the same bits),
+// and guard what the tiled ones take for granted, under `if (TAIL)`:
+//   - output rows in tails: BANDED blocks of GR rows (y a multiple of 64);
+//     PFWD and PINV in halves of any length ho = nout / 2, a block taking
+//     GR rows of each half (group 0 the even-mode half, group 1 the odd),
+//     so a half need not be a multiple of GR; DENSE any nout. Rows past
+//     a group's end (nv) are neither loaded nor stored.
+//   - any contraction length K: the operator read a float4 a load where K
+//     is a multiple of 4, else one float, the operand's k past K read as
+//     zeros;
+//   - columns past ncols (TRANS: nx * ny a multiple of 4, not of 128);
+//   - rectangular DENSE operators along y and z: the output has its own
+//     row (TRANS: column) stride ldo and plane stride pstrideo;
+//   - the solve after the z apply (TRANS SOLVE: the folded y branch of
+//     the mid, where the z stage is the last before the solve): the x
+//     mode is column / cpp, the table entry (column % cpp) * ldo + row.
+// A general instance takes two-source jobs at run time (nsrc == 2).
+template <int MODE, bool TRANS, int EPI, bool TWO, bool TAIL>
 __global__ void __launch_bounds__(NT, 2)
 mat_apply_kernel(const __grid_constant__ Args a) {
   // two stages of operands: the next k-step is staged while the current
   // one is read, so one barrier per k-step suffices
   __shared__ __align__(16) float As[2][BK][BM + PAD];
   __shared__ __align__(16) float Bs[2][2][BK][BN + PAD];
-  extern __shared__ float4 stash4[];   // TWO: STASH_BYTES
+  extern __shared__ float4 stash4[];   // two sources: STASH_BYTES
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -141,10 +186,12 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   const long long base = (long long)(blockIdx.z % a.batch) * a.pstride;
   const int n0 = blockIdx.x * BN;
   const int mt = blockIdx.y;
+  const int ho = a.nout / 2;   // TAIL PFWD, PINV: rows of an output half
 
   // first operator row of each 64-row group; first field row of each
-  // group's operand at k = 0; PFWD sign of each group's half
-  int arow[2], brow[2];
+  // group's operand at k = 0; PFWD sign of each group's half; TAIL: the
+  // group's rows in range
+  int arow[2], brow[2], nv[2];
   float sg[2] = {1.f, 1.f};
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
@@ -152,14 +199,22 @@ mat_apply_kernel(const __grid_constant__ Args a) {
       arow[g] = mt * BM + g * GR;
       brow[g] = 0;
     } else if (MODE == PINV) {
-      arow[g] = g * a.h + mt * GR;
+      arow[g] = g * (TAIL ? ho : a.h) + mt * GR;
       brow[g] = g * a.h;
+    } else if (TAIL && MODE == PFWD) {
+      arow[g] = g * ho + mt * GR;
+      brow[g] = 0;
     } else {
       arow[g] = mt * BM + g * GR;
       brow[g] = 0;
     }
     if (MODE == BANDED) brow[g] = (arow[g] - a.bw + a.nrow) % a.nrow;
-    if (MODE == PFWD) sg[g] = arow[g] < a.h ? 1.f : -1.f;
+    if (MODE == PFWD) sg[g] = (TAIL ? g == 0 : arow[g] < a.h) ? 1.f : -1.f;
+    if (TAIL) {
+      const int lim = MODE == PFWD || MODE == PINV ? ho - mt * GR
+                      : (MODE == BANDED ? a.nrow : a.nout) - arow[g];
+      nv[g] = lim < 0 ? 0 : (lim > GR ? GR : lim);
+    }
   }
 
   // staging assignment: A as (row tid/2, k 4*(tid&1)); B as
@@ -168,8 +223,14 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   const int ak = (tid & 1) * 4;
   const int bk = TRANS ? (tid & 1) * 4 : tid >> 5;
   const int bn = TRANS ? tid >> 1 : (tid & 31) * 4;
-  const int ktiles = (a.K + BK - 1) / BK;   // DENSE: K may be ragged
+  const int ktiles = (a.K + BK - 1) / BK;   // DENSE, TAIL: K may be ragged
   const int ntiles = J.nsrc * ktiles;
+  // TAIL: the thread's staging column in range; whole float4 loads of the
+  // operator's rows where K is a multiple of 4, and (TRANS) of the
+  // operand's k where its rows are aligned
+  const bool colok = !TAIL || n0 + bn < a.ncols;
+  const bool vec_op = (a.K & 3) == 0;
+  const bool vec_in = (a.ld & 3) == 0 && vec_op;
 
   float4 ra, rb[2];
   auto fetch = [&](int t) {
@@ -177,26 +238,62 @@ mat_apply_kernel(const __grid_constant__ Args a) {
     const int kt = (t - s * ktiles) * BK;
     const int ar = (am < GR ? arow[0] : arow[1]) + (am & (GR - 1));
     const float* B = J.B[s] + base;
-    if (MODE == DENSE) {
-      // rows past nout and k past K read as zeros: the operator's rows
-      // are K long (no float4 alignment), the field has K rows (TRANS:
-      // K a multiple of 8, so a float4 of k is whole or past K)
-      float v[4];
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (MODE == DENSE || TAIL) {
+      // rows out of range and k past K read as zeros (DENSE: the
+      // operator's rows are K long, no float4 alignment)
+      const bool rok = TAIL ? (am & (GR - 1)) < (am < GR ? nv[0] : nv[1])
+                            : ar < a.nout;
+      if (TAIL && vec_op) {
+        // K a multiple of 4: the row's float4 of k is whole or past K
+        ra = (rok && kt + ak < a.K) ? ld4(J.A[s] + (long long)ar * a.K
+                                          + kt + ak)
+                                    : zero;
+      } else {
+        float v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = kt + ak + i;
-        v[i] = (ar < a.nout && k < a.K)
-                   ? __ldg(J.A[s] + (long long)ar * a.K + k) : 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const int k = kt + ak + i;
+          v[i] = (rok && k < a.K)
+                     ? __ldg(J.A[s] + (long long)ar * a.K + k) : 0.f;
+        }
+        ra = make_float4(v[0], v[1], v[2], v[3]);
       }
-      ra = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      ra = ld4(J.A[s] + (long long)ar * a.K + kt + ak);
+    }
+    if (TAIL && TRANS && !vec_in) {
+      // unaligned rows: one float a load, each k guarded
+      float w[2][4] = {};
+#pragma unroll
+      for (int g = 0; g < (MODE == DENSE ? 1 : 2); ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = kt + bk + i;
+          const int row = MODE == PINV ? brow[g] + k
+                          : MODE == PFWD ? g * a.K + k : k;
+          w[g][i] = (colok && k < a.K)
+                        ? __ldg(B + (long long)(n0 + bn) * a.ld + row) : 0.f;
+        }
+      rb[0] = make_float4(w[0][0], w[0][1], w[0][2], w[0][3]);
+      rb[1] = MODE == DENSE ? rb[0]
+                            : make_float4(w[1][0], w[1][1], w[1][2], w[1][3]);
+      return;
+    }
+    if (TAIL && (!colok || kt + bk >= a.K)) {
+      rb[0] = rb[1] = zero;
+      return;
+    }
+    if (MODE == DENSE) {
+      // the field has K rows (TRANS: K a multiple of 8, or a multiple of
+      // 4 in the general instance, so a float4 of k is whole or past K)
       const int r = kt + bk;
       const long long off = TRANS ? (long long)(n0 + bn) * a.ld + r
                                   : (long long)r * a.ld + n0 + bn;
-      rb[0] = r < a.K ? ld4(B + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+      rb[0] = r < a.K ? ld4(B + off) : zero;
       rb[1] = rb[0];   // both row groups read the same operand rows
       return;
     }
-    ra = ld4(J.A[s] + (long long)ar * a.K + kt + ak);
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
       if (MODE == PFWD && g == 1) break;
@@ -243,11 +340,11 @@ mat_apply_kernel(const __grid_constant__ Args a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  // A two-source job (TWO) sums each source in a chain of its own and
-  // adds the two sums, as the plain version adds its two products: the
-  // first source's sums wait in shared memory, 64 floats a thread at
-  // stride NT (conflict-free), and are added to the second's. Each thread
-  // reads back only what it wrote: no barrier.
+  // A two-source job sums each source in a chain of its own and adds the
+  // two sums, as the plain version adds its two products: the first
+  // source's sums wait in shared memory, 64 floats a thread at stride NT
+  // (conflict-free), and are added to the second's. Each thread reads back
+  // only what it wrote: no barrier.
   auto stash = [&](bool put) {
     float* st = reinterpret_cast<float*>(stash4) + tid;
 #pragma unroll
@@ -297,17 +394,19 @@ mat_apply_kernel(const __grid_constant__ Args a) {
           acc[4 + i][j] = fmaf(av[4 + i], bv1[j], acc[4 + i][j]);
         }
     }
-    if (TWO && J.nsrc == 2 && t == ktiles - 1) stash(true);
+    if ((TWO || TAIL) && J.nsrc == 2 && t == ktiles - 1) stash(true);
     // the other stage was last read before the previous barrier
     if (t + 1 < ntiles) stage(buf ^ 1);
     __syncthreads();
   }
-  if (TWO && J.nsrc == 2) stash(false);
+  if ((TWO || TAIL) && J.nsrc == 2) stash(false);
 
   // epilogue: thread rows g*64 + 4*ty + i (i < 4) of the block's groups,
-  // columns 4*tx + j and 64 + 4*tx + j
-  float* C = J.C + base;
-  const float* S = EPI == SUB ? J.S + base : nullptr;
+  // columns 4*tx + j and 64 + 4*tx + j; TAIL: the output's own strides
+  const long long baseo =
+      TAIL ? (long long)(blockIdx.z % a.batch) * a.pstrideo : base;
+  float* C = J.C + baseo;
+  const float* S = EPI == SUB ? J.S + baseo : nullptr;
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int n = n0 + c * 64 + tx * 4;
@@ -315,6 +414,7 @@ mat_apply_kernel(const __grid_constant__ Args a) {
       // rows are contiguous: per column, one float4 for each group
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        if (TAIL && n + j >= a.ncols) continue;
         float4 o[2];
         float* ov = reinterpret_cast<float*>(o);
 #pragma unroll
@@ -328,17 +428,45 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             ov[4 + i] = x1;
           }
         }
-        const long long cb = (long long)(n + j) * a.ld;
+        const long long cb = (long long)(n + j) * (TAIL ? a.ldo : a.ld);
         const int m0 = MODE == PINV ? mt * GR + ty * 4 : arow[0] + ty * 4;
-        const int m1 = MODE == PINV ? a.h + m0 : arow[1] + ty * 4;
-        *reinterpret_cast<float4*>(C + cb + m0) = o[0];
-        *reinterpret_cast<float4*>(C + cb + m1) = o[1];
+        const int m1 = MODE == PINV ? (TAIL ? ho : a.h) + m0
+                                    : arow[1] + ty * 4;
+        if (!TAIL) {
+          *reinterpret_cast<float4*>(C + cb + m0) = o[0];
+          *reinterpret_cast<float4*>(C + cb + m1) = o[1];
+          continue;
+        }
+        // one float a store (ldo need not be a multiple of 4), rows in
+        // range; SOLVE: the x mode of the column and its table row
+        const int xm = (n + j) / a.cpp;
+        const long long tb = (long long)((n + j) % a.cpp) * a.ldo;
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int m = g == 0 ? m0 : m1;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (ty * 4 + i >= nv[MODE == PINV ? 0 : g]) continue;
+            float v = ov[4 * g + i];
+            if (EPI == SOLVE) {
+              const float waves =
+                  a.col[0][xm] * __ldg(a.tab[0] + tb + m + i)
+                  + a.col[1][xm] * __ldg(a.tab[1] + tb + m + i);
+              v *= fabsf(waves) >= 1e-16f ? -1.f / waves : 0.f;
+              if (a.tab[2] != nullptr)
+                v *= 1.f - a.col[2][xm] * __ldg(a.tab[2] + tb + m + i);
+            }
+            C[cb + m + i] = v;
+          }
+        }
       }
     } else {
+      if (TAIL && n >= a.ncols) continue;
 #pragma unroll
       for (int g = 0; g < 2; ++g) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
+          if (TAIL && ty * 4 + i >= nv[MODE == PINV ? 0 : g]) continue;
           float v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -346,10 +474,11 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             v[j] = MODE == PINV ? (g == 0 ? x0 + x1 : x0 - x1)
                                 : (g == 0 ? x0 : x1);
           }
-          const int m = MODE == PINV ? g * a.h + mt * GR + ty * 4 + i
-                                     : arow[g] + ty * 4 + i;
-          if (MODE == DENSE && m >= a.nout) continue;
-          const long long off = (long long)m * a.ld + n;
+          const int m = MODE == PINV
+                            ? g * (TAIL ? ho : a.h) + mt * GR + ty * 4 + i
+                            : arow[g] + ty * 4 + i;
+          if (!TAIL && MODE == DENSE && m >= a.nout) continue;
+          const long long off = (long long)m * (TAIL ? a.ldo : a.ld) + n;
           if (EPI == SUB) {
             const float4 s = ld4(S + off);
             v[0] = s.x - v[0];
@@ -387,21 +516,21 @@ mat_apply_kernel(const __grid_constant__ Args a) {
   }
 }
 
-template <int MODE, bool TRANS, int EPI, bool TWO = false>
-cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream) {
-  if (TWO) {
+template <int MODE, bool TRANS, int EPI, bool TWO = false, bool TAIL = false>
+cudaError_t launch(const Args& a, dim3 grid, bool two, cudaStream_t stream) {
+  if (two) {
     // the stash is dynamic shared memory past the static 48 KB, opted in
     // on the current device; two blocks an SM still fit (2 x 89 KB). No
     // carveout hint: with CUDA's own choice the mid at 512^3 runs as
     // fast as with one chain, with the largest shared carveout (the
     // least L1) ~2% slower (tools/mid_probe.py)
     const cudaError_t e = cudaFuncSetAttribute(
-        mat_apply_kernel<MODE, TRANS, EPI, TWO>,
+        mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_BYTES);
     if (e != cudaSuccess) return e;
   }
-  mat_apply_kernel<MODE, TRANS, EPI, TWO>
-      <<<grid, NT, TWO ? STASH_BYTES : 0, stream>>>(a);
+  mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>
+      <<<grid, NT, two ? STASH_BYTES : 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -421,18 +550,26 @@ int pressure_pipe_geometry(int* bm, int* gr, int* bn, int* bk) {
 // One launch of the operator apply. ptrs: per job A0, A1, B0, B1, C, S (6
 // each, unused may be null); nsrc: sources per job; tabs: A, B, k2x, tx2,
 // Myz, mx (SOLVE only, else null; Myz and mx null without a Nyquist mask).
-// nout: the operator's rows (DENSE). Grid: (ncols / BN, mtiles, njobs *
-// batch). Returns the cudaError_t of the launch (0 on success).
+// nout: the operator's rows. tail: the general instance (any extents,
+// ldo, pstrideo and cpp read), else the 128-tiled one. Grid: (ncols / BN
+// rounded up, mtiles, njobs * batch). Returns the cudaError_t of the
+// launch (0 on success).
 int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
                         void* const* ptrs, const int* nsrc,
                         void* const* tabs, int batch, int K, int nrow,
                         int nout, int bw, long long ld, long long pstride,
-                        long long ncols, int mtiles, void* stream) {
+                        long long ncols, int mtiles, int tail,
+                        long long ldo, long long pstrideo, int cpp,
+                        void* stream) {
   // DENSE transposed: square (the output's rows share the input's
   // stride), K tiled by the k-step and the rows by the block
-  if (njobs < 1 || njobs > 3 || batch < 1 || ncols % BN
-      || (mode != DENSE && K % BK)
-      || (mode == DENSE && trans && (K % BK || nout != K || nout % BM)))
+  if (njobs < 1 || njobs > 3 || batch < 1 || mtiles < 1
+      || (!tail && (ncols % BN || (mode != DENSE && K % BK)
+                    || (mode == DENSE && trans
+                        && (K % BK || nout != K || nout % BM))))
+      || (tail && (ncols % 4 || K < 1 || cpp < 1
+                   || (mode == BANDED && (trans || nrow % GR))
+                   || ((mode == PFWD || mode == PINV) && nout % 2))))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int j = 0; j < njobs; ++j) {
@@ -459,44 +596,94 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
   a.bw = bw;
   a.ld = ld;
   a.pstride = pstride;
-  const dim3 grid((unsigned)(ncols / BN), (unsigned)mtiles,
+  a.ldo = ldo;
+  a.pstrideo = pstrideo;
+  a.ncols = ncols;
+  a.cpp = cpp;
+  const dim3 grid((unsigned)((ncols + BN - 1) / BN), (unsigned)mtiles,
                   (unsigned)(njobs * batch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool two = false;
   for (int j = 0; j < njobs; ++j) two = two || nsrc[j] == 2;
   const int key = mode * 100 + trans * 10 + epi;
+  if (tail) {
+    switch (key) {
+      case BANDED * 100 + 0 + STORE:
+        return launch<BANDED, false, STORE, false, true>(a, grid, two, s);
+      case BANDED * 100 + 0 + SUB:
+        return launch<BANDED, false, SUB, false, true>(a, grid, two, s);
+      case PFWD * 100 + 0 + STORE:
+        return launch<PFWD, false, STORE, false, true>(a, grid, two, s);
+      case PFWD * 100 + 0 + SOLVE:
+        return launch<PFWD, false, SOLVE, false, true>(a, grid, two, s);
+      case PFWD * 100 + 0 + SOLVE_PLANE:
+        return launch<PFWD, false, SOLVE_PLANE, false, true>(a, grid, two, s);
+      case PFWD * 100 + 10 + STORE:
+        return launch<PFWD, true, STORE, false, true>(a, grid, two, s);
+      case PFWD * 100 + 10 + SOLVE:
+        return launch<PFWD, true, SOLVE, false, true>(a, grid, two, s);
+      case PINV * 100 + 0 + STORE:
+        return launch<PINV, false, STORE, false, true>(a, grid, two, s);
+      case PINV * 100 + 0 + SUB:
+        return launch<PINV, false, SUB, false, true>(a, grid, two, s);
+      case PINV * 100 + 10 + STORE:
+        return launch<PINV, true, STORE, false, true>(a, grid, two, s);
+      case DENSE * 100 + 0 + STORE:
+        return launch<DENSE, false, STORE, false, true>(a, grid, two, s);
+      case DENSE * 100 + 0 + SUB:
+        return launch<DENSE, false, SUB, false, true>(a, grid, two, s);
+      case DENSE * 100 + 0 + SOLVE_PLANE:
+        return launch<DENSE, false, SOLVE_PLANE, false, true>(a, grid, two, s);
+      case DENSE * 100 + 10 + STORE:
+        return launch<DENSE, true, STORE, false, true>(a, grid, two, s);
+      case DENSE * 100 + 10 + SOLVE:
+        return launch<DENSE, true, SOLVE, false, true>(a, grid, two, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (two) {
     // the forms that take two-source jobs: the mid's banded y (Iy du +
     // Sy dv) and z transforms (Iz . + Sz ., parity or dense), pipe A's z
     // and pipe B's x (Sx a + Ix e, with the solve)
     switch (key) {
       case BANDED * 100 + 0 + STORE:
-        return launch<BANDED, false, STORE, true>(a, grid, s);
+        return launch<BANDED, false, STORE, true>(a, grid, true, s);
       case PFWD * 100 + 10 + STORE:
-        return launch<PFWD, true, STORE, true>(a, grid, s);
+        return launch<PFWD, true, STORE, true>(a, grid, true, s);
       case PFWD * 100 + 0 + SOLVE:
-        return launch<PFWD, false, SOLVE, true>(a, grid, s);
+        return launch<PFWD, false, SOLVE, true>(a, grid, true, s);
       case DENSE * 100 + 10 + STORE:
-        return launch<DENSE, true, STORE, true>(a, grid, s);
+        return launch<DENSE, true, STORE, true>(a, grid, true, s);
     }
     return (int)cudaErrorInvalidValue;
   }
   switch (key) {
-    case BANDED * 100 + 0 + STORE: return launch<BANDED, false, STORE>(a, grid, s);
-    case BANDED * 100 + 0 + SUB:   return launch<BANDED, false, SUB>(a, grid, s);
-    case PFWD * 100 + 0 + STORE:   return launch<PFWD, false, STORE>(a, grid, s);
-    case PFWD * 100 + 0 + SOLVE:   return launch<PFWD, false, SOLVE>(a, grid, s);
+    case BANDED * 100 + 0 + STORE:
+      return launch<BANDED, false, STORE>(a, grid, false, s);
+    case BANDED * 100 + 0 + SUB:
+      return launch<BANDED, false, SUB>(a, grid, false, s);
+    case PFWD * 100 + 0 + STORE:
+      return launch<PFWD, false, STORE>(a, grid, false, s);
+    case PFWD * 100 + 0 + SOLVE:
+      return launch<PFWD, false, SOLVE>(a, grid, false, s);
     case PFWD * 100 + 0 + SOLVE_PLANE:
-      return launch<PFWD, false, SOLVE_PLANE>(a, grid, s);
-    case PFWD * 100 + 10 + STORE:  return launch<PFWD, true, STORE>(a, grid, s);
-    case PINV * 100 + 0 + STORE:   return launch<PINV, false, STORE>(a, grid, s);
-    case PINV * 100 + 0 + SUB:     return launch<PINV, false, SUB>(a, grid, s);
-    case PINV * 100 + 10 + STORE:  return launch<PINV, true, STORE>(a, grid, s);
-    case DENSE * 100 + 0 + STORE:  return launch<DENSE, false, STORE>(a, grid, s);
-    case DENSE * 100 + 0 + SUB:    return launch<DENSE, false, SUB>(a, grid, s);
+      return launch<PFWD, false, SOLVE_PLANE>(a, grid, false, s);
+    case PFWD * 100 + 10 + STORE:
+      return launch<PFWD, true, STORE>(a, grid, false, s);
+    case PINV * 100 + 0 + STORE:
+      return launch<PINV, false, STORE>(a, grid, false, s);
+    case PINV * 100 + 0 + SUB:
+      return launch<PINV, false, SUB>(a, grid, false, s);
+    case PINV * 100 + 10 + STORE:
+      return launch<PINV, true, STORE>(a, grid, false, s);
+    case DENSE * 100 + 0 + STORE:
+      return launch<DENSE, false, STORE>(a, grid, false, s);
+    case DENSE * 100 + 0 + SUB:
+      return launch<DENSE, false, SUB>(a, grid, false, s);
     case DENSE * 100 + 0 + SOLVE_PLANE:
-      return launch<DENSE, false, SOLVE_PLANE>(a, grid, s);
-    case DENSE * 100 + 10 + STORE: return launch<DENSE, true, STORE>(a, grid, s);
+      return launch<DENSE, false, SOLVE_PLANE>(a, grid, false, s);
+    case DENSE * 100 + 10 + STORE:
+      return launch<DENSE, true, STORE>(a, grid, false, s);
   }
   return (int)cudaErrorInvalidValue;
 }

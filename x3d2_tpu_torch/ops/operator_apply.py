@@ -3,24 +3,29 @@ launcher: what the wrappers of both kernel projections (pressure_pipe.py,
 pressure_slab.py) share on the card.
 
 ``apply`` is one launch of the kernel template: operators applied along one
-axis of (nx, ny, nz) float32 fields in one of three forms (BANDED, PFWD,
-PINV), up to three fields a launch and two summed sources a field, with an
-epilogue (STORE, SUB, SOLVE after an x apply, SOLVE_PLANE after a y apply
-batched over x planes; the solves take the Nyquist mask where the operator
-set has one), or the fourth form, DENSE, along y or z: a square dense
-operator (the dense forms of the mid, X3D2_BFLY=0). ``apply_dense``
-launches DENSE along x: one dense (n_out, n_in) operator, out = M f or
-out = s - M f, any extents (the x stage of a wall-bounded x axis, and of
-any x with X3D2_BFLY=0). Both check their operands, launch
-or raise, and add one to the launch count of the wrapper named in
-``stage``; nothing else counts. ``route`` is the wrappers' device switch:
-CUDA tensors launch, CPU tensors take the plain version, anything else
-raises.
+axis of (nx, ny, nz) float32 fields in one of four forms (BANDED, PFWD,
+PINV, and DENSE along y or z: any (n_out, n) operator, rectangular on a
+wall-bounded axis), up to three fields a launch and two summed sources a
+field, with an epilogue (STORE, SUB, SOLVE after an x or a z apply,
+SOLVE_PLANE after a y apply batched over x planes; the solves take the
+Nyquist mask where the operator set has one). ``apply_dense`` launches
+DENSE along x: one dense (n_out, n_in) operator, out = M f or out = s - M f
+(the x stage of a wall-bounded x axis, and of any x with X3D2_BFLY=0).
+``geometry`` computes every launch's block grid, strides and instance in
+one place: the 128-tiled instance where the extents are multiples of its
+tiles and the form is one it has (its results and registers as before),
+the general instance elsewhere (any extent x3d2_tpu's gates admit);
+``out_rows`` gives the output row of each block row. Both launchers check
+their operands, launch or raise, and add one to the launch count of the
+wrapper named in ``stage``; nothing else counts. ``route`` is the
+wrappers' device switch: CUDA tensors launch, CPU tensors take the plain
+version, anything else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -41,6 +46,14 @@ LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
                      "grad[dense]": 3,
                      "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1,
                      "x_pfwd": 1, "x_pinv": 1, "x_pinv[sub]": 1}
+# the mid on the folded y: the dense y stage, the z transforms (and the
+# solve), the inverse z transforms, the dense y stage
+for _d in ("", "dense,"):
+    LAUNCHES_PER_CALL[f"div_solve[{_d}folded_y]"] = 2
+    LAUNCHES_PER_CALL[f"grad[{_d}folded_y]"] = 2
+    for _q in ("", "q,"):
+        for _l in ("", ",local"):
+            LAUNCHES_PER_CALL[f"pressure_mid[{_q}{_d}folded_y{_l}]"] = 4
 
 # launches of the kernel per wrapper, counted where it is launched
 _LAUNCHES: dict[str, int] = {}
@@ -66,7 +79,8 @@ def lib():
         so = _build.load("pressure_pipe")
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         so.pressure_pipe_apply.argtypes = [
-            i, i, i, i, p, p, p, i, i, i, i, i, ll, ll, ll, i, p]
+            i, i, i, i, p, p, p, i, i, i, i, i, ll, ll, ll, i, i, ll, ll, i,
+            p]
         so.pressure_pipe_apply.restype = i
         so.pressure_pipe_error_string.argtypes = [i]
         so.pressure_pipe_error_string.restype = ctypes.c_char_p
@@ -93,35 +107,141 @@ def _check(t, shape, name):
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
+# (mode, transposed, epilogue, two sources) of the 128-tiled instances;
+# every other launch, and every launch whose extents they do not tile,
+# takes the general instance (Geometry.tail)
+_TILED = {(BANDED, 0, STORE, False), (BANDED, 0, SUB, False),
+          (PFWD, 0, STORE, False), (PFWD, 0, SOLVE, False),
+          (PFWD, 0, SOLVE_PLANE, False), (PFWD, 1, STORE, False),
+          (PINV, 0, STORE, False), (PINV, 0, SUB, False),
+          (PINV, 1, STORE, False), (DENSE, 0, STORE, False),
+          (DENSE, 0, SUB, False), (DENSE, 0, SOLVE_PLANE, False),
+          (DENSE, 1, STORE, False),
+          (BANDED, 0, STORE, True), (PFWD, 1, STORE, True),
+          (PFWD, 0, SOLVE, True), (DENSE, 1, STORE, True)}
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of the template: operators (nout, K) applied along
+    `axis` of (nx, ny, nz) fields (``shape``, the input's), out of shape
+    ``shape_out`` (nout along the axis); nrow: the input's extent along
+    it. trans: the contraction runs along the contiguous z; batch: x planes
+    a job (y applies); ld, ldo: the input's
+    and the output's row strides (transposed: column strides); pstride,
+    pstrideo: their plane strides; ncols: columns a plane; cpp: columns of
+    one x plane (the solve after a transposed apply). The block grid:
+    ntiles column tiles of TILE, mtiles row tiles; tail: the general
+    instance (out_rows gives its row mapping)."""
+
+    mode: int
+    axis: int
+    shape: tuple
+    shape_out: tuple
+    trans: int
+    batch: int
+    K: int
+    nrow: int
+    nout: int
+    ld: int
+    ldo: int
+    pstride: int
+    pstrideo: int
+    ncols: int
+    cpp: int
+    mtiles: int
+    ntiles: int
+    tail: bool
+
+
+def geometry(mode, axis, shape, nout, K, epi=STORE, two=False) -> Geometry:
+    """The launch geometry of operators (nout, K) in form `mode` along
+    `axis` of fields of `shape`, computed here once for the launcher and
+    the tests. Raises ValueError on what the template does not take."""
+    nx, ny, nz = shape
+    n = shape[axis]
+    out = list(shape)
+    out[axis] = nout
+    want_k = {BANDED: WIN, PFWD: n // 2, PINV: n // 2, DENSE: n}[mode]
+    if K != want_k or (mode == BANDED and (nout != n or n % BBS)) \
+            or (mode in (PFWD, PINV) and (n % 2 or nout % 2)):
+        raise ValueError(f"form {mode} along axis {axis} of {shape} takes "
+                         f"operators with {want_k} columns (BANDED: {n} "
+                         f"rows, the parity forms an even count), got "
+                         f"({nout}, {K})")
+    if (epi == SOLVE and axis == 1) or (epi == SOLVE_PLANE and axis != 1) \
+            or (epi == SUB and axis == 2) or (mode == BANDED and axis == 2):
+        raise ValueError(f"epilogue {epi} with form {mode} along axis {axis}"
+                         " is not a form of the template")
+    trans = int(axis == 2)
+    batch = nx if axis == 1 else 1
+    ld, ldo = {0: (ny * nz, ny * nz), 1: (nz, nz), 2: (nz, nout)}[axis]
+    pstride, pstrideo = (n * nz, nout * nz) if axis == 1 else (0, 0)
+    ncols = {0: ny * nz, 1: nz, 2: nx * ny}[axis]
+    if ncols % 4:
+        raise ValueError(f"columns in whole float4s: {ncols} along axis "
+                         f"{axis} of {shape}")
+    fast = (mode, trans, epi, two) in _TILED and ncols % TILE == 0 and {
+        BANDED: n % TILE == 0,
+        PFWD: n % TILE == 0 and nout == n,
+        PINV: (n // 2) % BBS == 0 and nout == n,
+        DENSE: (K % 8 == 0 and nout == K and nout % TILE == 0) if trans
+        else (nout == K or batch == 1),
+    }[mode]
+    if mode in (PFWD, PINV) and not (fast and mode == PFWD):
+        # PINV, and the general PFWD: a block takes BBS rows of each half
+        mtiles = -(-(nout // 2) // BBS)
+    else:
+        mtiles = -(-nout // TILE)
+    return Geometry(mode, axis, tuple(shape), tuple(out), trans, batch, K,
+                    n, nout, ld, ldo, pstride, pstrideo, ncols, ny, mtiles,
+                    -(-ncols // TILE), not fast)
+
+
+def out_rows(geo: Geometry):
+    """The output row each (row tile, group, row) of the blocks writes,
+    -1 where the row is masked: (mtiles, 2, BBS) int array. PINV's group g
+    holds the a + b (g = 0) and the a - b (g = 1) halves' rows."""
+    import numpy as np
+
+    mt = np.arange(geo.mtiles)[:, None, None]
+    g = np.arange(2)[None, :, None]
+    r = np.arange(BBS)[None, None, :]
+    ho = geo.nout // 2
+    if geo.mode == PINV or (geo.mode == PFWD and geo.tail):
+        rows = g * ho + mt * BBS + r
+        ok = mt * BBS + r < ho
+    else:
+        rows = mt * TILE + g * BBS + r
+        ok = rows < geo.nout
+    return np.where(ok, rows, -1)
+
+
 def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     """One kernel launch applying operators along `axis` of (nx, ny, nz)
     fields. jobs: (mats, fields, out, sub) per field, with 1-2 (mat, field)
     sources summed into `out` (sub: the field it is subtracted from).
-    tabs: the solve's A, B, k2x, tx2 [, Myz, mx: the Nyquist mask]. DENSE
-    takes square (n, n) operators along y or z (along x: apply_dense)."""
+    tabs: the solve's A, B (per (y, z) of the output), k2x, tx2 (per x of
+    it) [, Myz, mx: the Nyquist mask]. The operators are (n_out, K): BANDED
+    (n, WIN), PFWD and PINV [Me; Mo] (n_out, n/2), DENSE along y or z any
+    (n_out, n) (along x: apply_dense); out and sub have n_out along the
+    axis."""
     shape = tuple(jobs[0][1][0].shape)
-    nx, ny, nz = shape
-    n = shape[axis]
-    if n % TILE or (axis == 2 and (nx * ny) % TILE) \
-            or (axis < 2 and nz % TILE):
-        raise ValueError(f"shape {shape} is not tiled by {TILE} along "
-                         f"axis {axis}")
     if mode == DENSE and axis == 0:
         raise ValueError("the dense x apply is apply_dense")
-    trans, batch, ld, pstride, ncols = {
-        0: (0, 1, ny * nz, 0, ny * nz),
-        1: (0, nx, nz, ny * nz, nz),
-        2: (1, 1, nz, 0, nx * ny)}[axis]
-    K = WIN if mode == BANDED else n if mode == DENSE else n // 2
-    mtiles = n // 2 // BBS if mode == PINV else n // TILE
+    nout, K = jobs[0][0][0].shape
+    two = any(len(j[0]) == 2 for j in jobs)
+    geo = geometry(mode, axis, shape, nout, K, epi, two)
     ptrs, nsrc = [], []
     for mats, fields, out, sub in jobs:
         if not 1 <= len(mats) == len(fields) <= 2:
             raise ValueError("a job takes one or two sources")
         for M in mats:
-            _check(M, (n, K), "operator")
-        for t in fields + [out] + ([sub] if sub is not None else []):
+            _check(M, (nout, K), "operator")
+        for t in fields:
             _check(t, shape, "field")
+        for t in [out] + ([sub] if sub is not None else []):
+            _check(t, geo.shape_out, "field")
         if out.data_ptr() in {t.data_ptr() for t in fields}:
             raise ValueError("the output may not alias an input")
         if (sub is not None) != (epi == SUB):
@@ -135,51 +255,45 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     if (len(tabs) in (4, 6)) != solve:
         raise ValueError("the solve epilogue takes its 4 tables, 6 with "
                          "the Nyquist mask")
-    if (epi == SOLVE and axis != 0) or (epi == SOLVE_PLANE and axis != 1):
-        raise ValueError("the solve follows an x apply, or a y apply "
-                         "batched over x planes")
     if solve:
-        for t, k in zip(tabs, (ny * nz, ny * nz, nx, nx, ny * nz, nx)):
+        ox, oy, oz = geo.shape_out
+        for t, k in zip(tabs, (oy * oz, oy * oz, ox, ox, oy * oz, ox)):
             _check(t, (k,), "solve table")
-    _launch(stage, mode, trans, epi, jobs, ptrs, nsrc, tabs, batch, K, n, n,
-            ld, pstride, ncols, mtiles)
+    _launch(stage, geo, epi, jobs[0][2].device, ptrs, nsrc, tabs)
 
 
 def apply_dense(stage, M, f, out, sub=None):
     """One DENSE launch along x: out = M f, or out = sub - M f with the
     subtracting epilogue. M (n_out, n_in); f (n_in, ny, nz); out and sub
-    (n_out, ny, nz); n_in and n_out any, ny * nz a multiple of 128."""
+    (n_out, ny, nz); n_in and n_out any, ny * nz a multiple of 4."""
     n_out, n_in = M.shape
     _, ny, nz = f.shape
-    if (ny * nz) % TILE:
-        raise ValueError(f"the dense x apply needs ny * nz tiled by {TILE}, "
-                         f"got {(ny, nz)}")
     _check(M, (n_out, n_in), "operator")
     _check(f, (n_in, ny, nz), "field")
     for t in (out,) + ((sub,) if sub is not None else ()):
         _check(t, (n_out, ny, nz), "field")
     if out.data_ptr() == f.data_ptr():
         raise ValueError("the output may not alias an input")
+    epi = SUB if sub is not None else STORE
+    geo = geometry(DENSE, 0, tuple(f.shape), n_out, n_in, epi)
     ptrs = [M.data_ptr(), None, f.data_ptr(), None, out.data_ptr(),
             sub.data_ptr() if sub is not None else None]
-    _launch(stage, DENSE, 0, SUB if sub is not None else STORE,
-            [(None, None, out, None)], ptrs, [1], (), 1, n_in, n_in, n_out,
-            ny * nz, 0, ny * nz, -(-n_out // TILE))
+    _launch(stage, geo, epi, out.device, ptrs, [1], ())
 
 
-def _launch(stage, mode, trans, epi, jobs, ptrs, nsrc, tabs, batch, K, nrow,
-            nout, ld, pstride, ncols, mtiles):
+def _launch(stage, geo, epi, dev, ptrs, nsrc, tabs):
     """The launch itself, its error check and its count."""
     tab_ptrs = [t.data_ptr() for t in tabs] + [None] * (6 - len(tabs))
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     narr = (ctypes.c_int * len(nsrc))(*nsrc)
     tarr = (ctypes.c_void_p * 6)(*tab_ptrs)
-    dev = jobs[0][2].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib().pressure_pipe_apply(
-            mode, trans, epi, len(jobs), parr, narr, tarr, batch, K, nrow,
-            nout, BW, ld, pstride, ncols, mtiles, stream)
+            geo.mode, geo.trans, epi, len(nsrc), parr, narr, tarr, geo.batch,
+            geo.K, geo.nrow, geo.nout, BW, geo.ld, geo.pstride, geo.ncols,
+            geo.mtiles, int(geo.tail), geo.ldo, geo.pstrideo, geo.cpp,
+            stream)
     if err != 0:
         msg = lib().pressure_pipe_error_string(err).decode()
         raise RuntimeError(f"pressure_pipe launch failed: {msg} ({err})")

@@ -16,7 +16,10 @@ The gates mirror x3d2_tpu's: the slab where slab_pressure_supported's
 structural conditions hold (a wall-bounded x axis among them: its x stage
 is then the dense transform-folded x apply, x_perm None, and the Poisson
 variant may zero a Nyquist line), the pipeline inside that where
-pipe3_supported holds (every axis periodic).
+pipe3_supported holds (every axis periodic). The kernels serve every
+extent those gates admit; the stage forms (``Forms``) are the ones
+x3d2_tpu's slab takes on the grid, the transform-folded dense y among them
+where y is not banded.
 
 With X3D2_BFLY=0 x3d2_tpu's slab keeps its transforms dense
 (make_pressure_slab, pallas_poisson.py:588-635, :657-708): one dense
@@ -42,7 +45,7 @@ from .matmul_poisson import MatmulPoisson, real_dft_matrix
 BW = 32                # band half-width of the y operators
 BBS = 64               # banded block (rows per output block)
 WIN = BBS + 2 * BW     # band window
-TILE = 128             # the kernel's output tile along every axis
+TILE = 128             # the kernel's output and column tile
 # at W=32 the uniform compact interpolation and staggered derivative drop
 # entries below 1e-15 of their largest: the band is exact to float64
 # rounding (W=16, the TPU's bf16x3 choice, drops 1e-7)
@@ -157,54 +160,72 @@ def x_is_parity(solver) -> bool:
     return True
 
 
-def slab_gap(solver, dense=False) -> str | None:
+def slab_gap(solver) -> str | None:
     """Why the port's slab kernels cannot serve a grid x3d2_tpu's slab
-    gate admits, or None when they can: the port has the y and z branches
-    of periodic y and z (banded y, parity or dense y and z transforms,
-    extents tiled by the kernel's 128) and both x stages (the parity
-    split, tiled by 128, and the dense x applies). ``dense``: the
-    transforms kept dense (X3D2_BFLY=0)."""
+    gate admits, or None when they can. The port has every branch the gate
+    reaches, at every extent it admits (the template's general instance
+    takes the extents its 128-tiled one does not): banded y with the parity
+    or dense y transforms, the transform-folded dense y of a periodic y
+    not tiled by 64, the parity or dense z transforms, and both x stages.
+    A wall-bounded y or z is named: no gate of x3d2_tpu reaches it (there
+    n_cell = n_vert - 1, so the CELL and VERT extents are never both
+    multiples of 8 along y, nor of 128 along z), and its branches,
+    _div_solve_body / _grad_body's folded y and dense z
+    (x3d2_tpu/ops/pallas_poisson.py:238-241, :307-310), are reached by no
+    path of x3d2_tpu; the port's slab builds there when called directly
+    (build_projection_mats). What is still unported, the y/z-tiled mid on
+    planes past its kernels' extent, is refused where the sharded
+    projection takes it (pressure_slab.make_mid_local). The transforms
+    kept dense (X3D2_BFLY=0) are served alike."""
     po = solver.poisson
-    nx, ny, nz = po.nc
     if 1 in po.folded or 2 in po.folded:
-        return ("the dense and folded y/z branches of _pressure_mid_kernel "
-                "(x3d2_tpu/ops/pallas_poisson.py:354)")
-    if ny % TILE or nz % TILE:
-        return (f"y and z extents tiled by {TILE} (the banded y and parity "
-                "z branches of _pressure_mid_kernel, x3d2_tpu/ops/"
-                "pallas_poisson.py:354, at other extents)")
-    if not dense and x_is_parity(solver) and nx % TILE:
-        return (f"an x extent tiled by {TILE} (the parity x kernels "
-                "_x_parity_fwd3_kernel and _x_parity_gradsub3_kernel, "
-                "x3d2_tpu/ops/pallas_poisson.py:1067, :1106, at other "
-                "extents)")
+        return ("a wall-bounded y or z on x3d2_tpu's slab gate, which no "
+                "gate of x3d2_tpu admits (n_cell = n_vert - 1 along a "
+                "wall-bounded axis); the port's slab builds there when "
+                "called directly (parity.build_projection_mats)")
     return None
 
 
-def projection_supported(solver, dense=False) -> bool:
+def projection_supported(solver) -> bool:
     """The grids the port's kernel projections serve: x3d2_tpu's slab gate
     holds (slab_supported) and nothing of it is left to port (slab_gap)."""
-    return slab_supported(solver) and slab_gap(solver, dense) is None
+    return slab_supported(solver) and slab_gap(solver) is None
+
+
+@dataclass(frozen=True)
+class Forms:
+    """The mid's y and z stage forms, as x3d2_tpu's make_pressure_slab
+    chooses them (pallas_poisson.py:565-603): y "parity" (banded y and the
+    parity-split Ty: banded_y and bfly), "dense" (banded y and the dense
+    Ty: banded_y, X3D2_BFLY=0) or "folded" (the transform-folded dense iy,
+    sy and gy_i, gy_s: not banded_y, a wall-bounded y or a periodic one
+    not tiled by 64); z "parity" (bfz) or "dense"."""
+
+    y: str = "parity"
+    z: str = "parity"
 
 
 @dataclass
 class ProjectionMats:
     """The projections' operators as float64 numpy masters, with device
-    copies per dtype. Banded (stacked (n, WIN) blocks): biy, bsy
-    (divergence), bgiy, bgsy (gradient). Forward parity [Me; Mo]: ty, iz,
-    sz, and sx, ix on a periodic x. Inverse parity [Me; Mo]: gzi, gzs, tyi
-    (the inverse y transform with its row weights folded in), and gxs, gxi
-    on a periodic x. On a wall-bounded x the dense transform-folded x
-    matrices instead: sx, ix (ncx, nvx) and gxs, gxi (nvx, ncx), natural
-    order. With ``dense`` (X3D2_BFLY=0) ty, tyi, iz, sz, gzi, gzs and the x
-    matrices are the dense ones, in natural order. Solve tables (block-parity order on periodic axes): tab_a, tab_b
-    per (y, z) column, k2x, tx2 per x mode; where the Poisson variant zeros
-    a Nyquist line, its indicators myz per (y, z) column and mx per x mode
-    (q is multiplied by 1 - mx myz). Inverse transforms with columns in the
-    order of q's modes, for the physical pressure: ti_x, ti_y, ti_z.
-    x_perm, q_perm, z_perm give the natural mode of each slot along x, y,
-    z; x_perm is None on the dense x stage, and all three are None with
-    ``dense``, as in x3d2_tpu."""
+    copies per dtype, in the forms ``forms`` names. The y stage: banded
+    (stacked (n, WIN) blocks) biy, bsy (divergence), bgiy, bgsy (gradient),
+    with the forward y transform ty and the inverse tyi (its row weights
+    folded in), as parity stacks [Me; Mo] (y "parity") or dense (y
+    "dense"); or (y "folded") the transform-folded dense iy, sy (ncy, nvy)
+    and gyi, gys (nvy, ncy). The z stage: iz, sz (forward) and gzi, gzs
+    (inverse), parity stacks or dense (ncz, nvz) and (nvz, ncz). The x
+    stage: sx, ix (forward) and gxs, gxi (inverse), parity stacks on a
+    periodic x, else the dense transform-folded matrices (x_perm None).
+    ``dense`` (X3D2_BFLY=0): every transform dense, as in x3d2_tpu. Solve
+    tables (in q's mode order): tab_a, tab_b per (y, z) cell column, k2x,
+    tx2 per x mode; where the Poisson variant zeros a Nyquist line, its
+    indicators myz per (y, z) column and mx per x mode (q is multiplied by
+    1 - mx myz). Inverse transforms with columns in the order of q's modes,
+    for the physical pressure: ti_x, ti_y, ti_z. x_perm, q_perm, z_perm
+    give the natural mode of each slot along x, y, z (None: natural
+    order). shape: the CELL extents (q's); vert: the VERT ones (the
+    fields')."""
 
     shape: tuple
     m64: dict
@@ -213,6 +234,8 @@ class ProjectionMats:
     q_perm: np.ndarray | None
     z_perm: np.ndarray | None
     dense: bool = False
+    forms: Forms = Forms()
+    vert: tuple | None = None
     _dev: dict = field(default_factory=dict)
 
     def mats(self, dtype) -> dict:
@@ -223,28 +246,28 @@ class ProjectionMats:
         return self._dev[dtype]
 
 
-def build_projection_mats(solver, dense=False,
-                          kernel_tiling=True) -> ProjectionMats:
+def build_projection_mats(solver, dense=False) -> ProjectionMats:
     """The projections' operators from the solver (x3d2_tpu
     make_pressure_pipe3, pallas_poisson.py:1584-1680, and
-    make_pressure_slab, :553-708, :919-936, the banded y branch with the
-    parity transforms or, with ``dense`` (X3D2_BFLY=0), the dense ones,
-    :588-635, and either x stage). Raises ValueError outside
-    ``projection_supported`` or when a y operator's band is wider than W
-    at the truncation tolerance. Without ``kernel_tiling`` (the plain
-    versions' set, e.g. the repencilled projection on the CPU) the
-    extents need not be tiled by the kernels' 128: x3d2_tpu's slab grid
-    with periodic y and z suffices."""
+    make_pressure_slab, :553-708, :919-936), in the forms x3d2_tpu's slab
+    takes on the grid (``Forms``): banded y where y is periodic with
+    ny % 64 == 0 and a square interpolation, with the parity y transform
+    unless ``dense`` (X3D2_BFLY=0), else the transform-folded dense y; the
+    parity z transforms on a periodic z unless ``dense``; the parity x
+    stage where the folded x matrices have the half-period symmetry unless
+    ``dense``. Any extents, and any boundary conditions of the uniform
+    spectral Poisson solve (a wall-bounded y or z, which no x3d2_tpu gate
+    reaches, takes the folded y and the dense z); a y operator wider than
+    the band at its truncation tolerance takes the folded y, as in
+    x3d2_tpu. Raises ValueError on another Poisson solver."""
     po = solver.poisson
-    if kernel_tiling and not projection_supported(solver, dense):
-        raise ValueError("the kernel projections need x3d2_tpu's slab grid "
-                         f"with periodic y and z tiled by {TILE}")
-    if not slab_supported(solver) or 1 in po.folded or 2 in po.folded:
-        raise ValueError("the projections' operator set needs x3d2_tpu's "
-                         "slab grid with periodic y and z")
+    if not isinstance(po, MatmulPoisson) or po.stretch_solver is not None:
+        raise ValueError("the projections' operator set needs the uniform "
+                         "spectral Poisson solve")
     d64 = solver._fp_mats64()
     oy = solver.ops[1]
     nx, ny, nz = po.nc
+    vert = tuple(solver.mesh.dims(DataLoc.VERT))
 
     def band(op):
         return banded_blocks(op, BW, BBS, tol=_BAND_TOL).reshape(-1, WIN)
@@ -255,30 +278,67 @@ def build_projection_mats(solver, dense=False,
     def inv(M):
         return np.concatenate(parity_split_folded(M, 1))
 
+    banded_y = (1 not in po.folded and vert[1] == ny and ny % BBS == 0
+                and oy.interpl_v2p.n_out == oy.interpl_v2p.n_in)
+    bands = {}
+    if banded_y:
+        # x3d2_tpu takes the folded y where the band check fails
+        # (pallas_poisson.py:580-587); the port's check is the stricter
+        # (W = 32 at 1e-12 against x3d2_tpu's 1e-6), so the port takes it
+        # wherever x3d2_tpu does
+        try:
+            bands = {k: band(op) for k, op in (
+                ("biy", oy.interpl_v2p), ("bsy", oy.stagder_v2p),
+                ("bgiy", oy.interpl_p2v), ("bgsy", oy.stagder_p2v))}
+        except ValueError:
+            banded_y = False
+    y_form = "folded"
+    if banded_y:
+        y_form = "dense"
+        if not dense and ny % 16 == 0:
+            try:
+                te, to, wvec = parity_split(ny)
+                y_form = "parity"
+            except ValueError:
+                pass
+    z_form = "dense"
+    if not dense and 2 not in po.folded and vert[2] == nz and nz % 16 == 0:
+        try:
+            z = {k: f(d64[k]) for k, f in (("iz", fwd), ("sz", fwd),
+                                           ("gz_i", inv), ("gz_s", inv))}
+            z_form = "parity"
+        except ValueError:
+            pass
     xp = None if dense or not x_is_parity(solver) else parity_perm(nx)
     xo = xp if xp is not None else np.arange(nx)
+    yp = parity_perm(ny) if y_form == "parity" else None
+    zp = parity_perm(nz) if z_form == "parity" else None
+    yo = yp if yp is not None else np.arange(ny)
+    zo = zp if zp is not None else np.arange(nz)
     ti = [np.asarray(T, np.float64) for T in po.Ti64]
-    m = {"biy": band(oy.interpl_v2p), "bsy": band(oy.stagder_v2p),
-         "bgiy": band(oy.interpl_p2v), "bgsy": band(oy.stagder_p2v)}
-    if dense:
-        # x3d2_tpu's banded y without the butterfly (pallas_poisson.py:
-        # 627-630): Ty = real_dft_matrix(ny) and its inverse; the folded
-        # z matrices whole; q's modes in natural order
-        yp = zp = None
-        yo, zo = np.arange(ny), np.arange(nz)
-        m.update(ty=po.Tf64[1], tyi=np.linalg.inv(po.Tf64[1]),
-                 iz=d64["iz"], sz=d64["sz"], gzi=d64["gz_i"],
-                 gzs=d64["gz_s"])
+    m = {}
+    if y_form == "folded":
+        # x3d2_tpu's non-banded y (pallas_poisson.py:631-633): the
+        # transform-folded matrices, the stacked gy_is as its two halves
+        m.update(iy=d64["iy"], sy=d64["sy"], gyi=d64["gy_i"],
+                 gys=d64["gy_s"])
     else:
-        te, to, wvec = parity_split(ny)
+        m.update(bands)
+    if y_form == "parity":
         h = ny // 2
         w_perm = np.concatenate([wvec[0::2], wvec[1::2]])
-        yp, zp = yo, zo = parity_perm(ny), parity_perm(nz)
         m.update(ty=np.concatenate([te, to]),
-                 iz=fwd(d64["iz"]), sz=fwd(d64["sz"]),
-                 gzi=inv(d64["gz_i"]), gzs=inv(d64["gz_s"]),
                  tyi=np.concatenate([te.T * w_perm[None, :h],
                                      to.T * w_perm[None, h:]]))
+    elif y_form == "dense":
+        # x3d2_tpu's banded y without the butterfly (pallas_poisson.py:
+        # 627-630): Ty = real_dft_matrix(ny) and its inverse
+        m.update(ty=po.Tf64[1], tyi=np.linalg.inv(po.Tf64[1]))
+    if z_form == "parity":
+        m.update(iz=z["iz"], sz=z["sz"], gzi=z["gz_i"], gzs=z["gz_s"])
+    else:
+        m.update(iz=d64["iz"], sz=d64["sz"], gzi=d64["gz_i"],
+                 gzs=d64["gz_s"])
     m.update(tab_a=np.asarray(po.tab_A)[yo][:, zo].reshape(-1),
              tab_b=np.asarray(po.tab_B)[yo][:, zo].reshape(-1),
              k2x=po.k2_1d[0][xo], tx2=(po.T_1d[0] ** 2)[xo],
@@ -299,7 +359,8 @@ def build_projection_mats(solver, dense=False,
         m["mx"] = ind[0][xo]
         m["myz"] = np.outer(ind[1][yo], ind[2][zo]).reshape(-1)
     return ProjectionMats(shape=(nx, ny, nz), m64=m, device=solver.device,
-                          x_perm=xp, q_perm=yp, z_perm=zp, dense=dense)
+                          x_perm=xp, q_perm=yp, z_perm=zp, dense=dense,
+                          forms=Forms(y_form, z_form), vert=vert)
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,12 @@ holds, with the circulant z operators' 2W + 1 taps at W = 32 (they drop
 reads leave the step.
 
 A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
-runs the plain version. The pipeline serves the all-periodic uniform grid
-whose every extent is a multiple of 128 (``parity.projection_supported``), as
-x3d2_tpu's pipe3 serves its periodic-even fast path (pipe3_supported,
-pallas_poisson.py:1555).
+runs the plain version. The pipeline serves every grid x3d2_tpu's pipe3
+serves (pipe3_supported, pallas_poisson.py:1555: all-periodic and uniform,
+x and z multiples of 16, y of 64): where an extent is not a multiple of
+the template's 128-point tiles (an x of 320: parity halves of 160; a y of
+192: three banded blocks of 64, halves of 96) the launches take the
+template's general instance (operator_apply.geometry).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ from ..common import resolve_device
 from .banded import banded_blocks
 from .operator_apply import (BANDED, PFWD, PINV, SOLVE, SUB, apply,
                              count_launch, route)
-from .parity import ProjectionMats, banded_apply, pfwd, pinv, solve_factor
+from .parity import (Forms, ProjectionMats, banded_apply, pfwd, pinv,
+                     solve_factor)
 from .transeq_sweep import SweepBlocks, transeq_sweep_plain
 
 # x3d2_tpu's carry blocks (pallas_poisson.py:1683), in both modes, and its
@@ -69,7 +72,7 @@ _BAND_TOL = 1e-6
 # is built for (whole lines of three fields in shared memory)
 CARRY_W = 32
 CARRY_LINES = 32
-CARRY_NZ = (256, 512)
+CARRY_NZ = (256, 384, 512)
 # circulant to float64 rounding; the taps beyond CARRY_W, which the kernel
 # leaves out, far below float32 rounding (the compact-6 operators: 4e-14)
 _CIRCULANT_TOL = _TAIL_TOL = 1e-12
@@ -351,8 +354,13 @@ def make_pressure_pipe_d2(pm: ProjectionMats, carry: CarryMats):
 def make_pressure_pipe(pm: ProjectionMats):
     """fn(u, v, w) -> (u', v', w'): the keep_pressure=False projection as
     the three stages (x3d2_tpu make_pressure_pipe3) over the operator set
-    `pm` (parity.build_projection_mats, which raises ValueError outside
-    ``parity.projection_supported``)."""
+    `pm` (parity.build_projection_mats, in the parity forms the pipeline
+    takes: on the grids ``parity.pipe3_supported`` admits). Raises
+    ValueError where the set has another form (a y operator wider than the
+    band: x3d2_tpu's make_pressure_pipe3 raises there too)."""
+    if pm.forms != Forms() or pm.x_perm is None:
+        raise ValueError(f"the pipeline takes the banded y and the parity "
+                         f"transforms, got the forms {pm.forms}")
 
     def fn(u, v, w):
         a, e = pipe_a(u, v, w, pm)

@@ -40,17 +40,21 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
                  ...; and pressure_grads: gx_s p_zy, gx_i dpdy, gx_i dpdz)
 
 Spectral indices are in block-parity order [even modes; odd modes] on
-every periodic axis, as the TPU kernels keep them, and in natural order on
-a wall-bounded x; the operator set is the one the pipeline uses
-(ops/parity.py). The y and z branches here are those of the TPU slab
-where y and z are periodic (``parity.projection_supported``; the
-structural gate of x3d2_tpu, slab_pressure_supported, pallas_poisson.py:
-515-534, also admits wall-bounded y and z through the folded branches,
-not ported): banded y with parity y and z transforms, or with X3D2_BFLY=0
-the dense forms (the operator set's ``dense``: one dense Ty and its
-inverse, the dense z matrices, q in natural order, pallas_poisson.py:
-206-243, :283-310), which take twice the operations; the launches and
-their order are the same.
+every axis with a parity split, as the TPU kernels keep them, and in
+natural order elsewhere; the operator set is the one the pipeline uses
+(ops/parity.py), in the stage forms x3d2_tpu's slab takes on the grid
+(``parity.Forms``): banded y with the parity y and z transforms, or with
+X3D2_BFLY=0 the dense forms (one dense Ty and its inverse, the dense z
+matrices, q in natural order, pallas_poisson.py:206-243, :283-310), which
+take twice the operations, with the same launches in the same order; and
+where y is not banded (a periodic y not a multiple of 64, and a
+wall-bounded y, which no gate of x3d2_tpu reaches) the folded y of
+_div_solve_body / _grad_body (:238-241, :307-310): the transform-folded
+dense iy, sy (ncy, nvy) in one two-source DENSE y launch (Iy du + Sy dv,
+Iy dw), the z transforms with the solve in their epilogue, the inverse z
+transforms, then gy_i, gy_s (nvy, ncy) in one DENSE y launch of three
+jobs: four launches a mid (``stage_name``'s "folded_y"), two a half. Any
+extent the gates admit (the template's general instance takes the tails).
 The x stage is the parity split on a periodic x (x_div3, x_gradsub3) and
 the dense x apply on a wall-bounded one (x_apply). The Nyquist mask of the
 TPU kernel (q times 1 - mx Myz) is applied in the solve's epilogue where
@@ -60,8 +64,9 @@ carries no mask and the epilogue reads none.
 
 A 512 x 512 plane is 1 MB against 227 KB of shared memory per block, so
 the mid is not one whole-plane kernel as on the TPU but six launches of
-the operator-apply template, with the solve in the epilogue of the forward
-y transform; its intermediates, q among them, pass through device memory.
+the operator-apply template (four on the folded y), with the solve in the
+epilogue of the forward y transform (of the z transforms on the folded
+y); its intermediates, q among them, pass through device memory.
 Without ``emit_q`` q is scratch the caller never sees, and the gradient
 slabs are bit-identical to the ``emit_q`` call (the same launches). The
 two halves (div_solve, grad) are the first three and the last three of
@@ -108,10 +113,11 @@ import os
 import torch
 
 from .compact import apply_matrix
-from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE_PLANE, STORE,
-                             SUB, apply, apply_dense, count_launch, route)
+from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE, SOLVE_PLANE,
+                             STORE, SUB, apply, apply_dense, count_launch,
+                             route)
 from .banded import banded_blocks
-from .parity import (BBS, BW, WIN, ProjectionMats, banded_apply,
+from .parity import (BBS, BW, WIN, Forms, ProjectionMats, banded_apply,
                      parity_split, parity_split_folded, pfwd, pinv,
                      solve_factor)
 
@@ -131,32 +137,44 @@ def x_div3_plain(u, v, w, m):
     return pfwd(m["sx"], u, 0), pfwd(m["ix"], v, 0), pfwd(m["ix"], w, 0)
 
 
-def div_solve_plain(du, dv, dw, m, dense=False):
-    """q: the y and z divergence stages and the solve; the transforms'
-    parity stacks, or with `dense` (ProjectionMats.dense) the dense
-    matrices."""
-    fwd = apply_matrix if dense else pfwd
-    duv = banded_apply(m["biy"], du, 1) + banded_apply(m["bsy"], dv, 1)
-    dwm = banded_apply(m["biy"], dw, 1)
-    F = fwd(m["ty"], fwd(m["iz"], duv, 2) + fwd(m["sz"], dwm, 2), 1)
-    return F * solve_factor(m, tuple(du.shape))
+def div_solve_plain(du, dv, dw, m, forms=Forms()):
+    """q: the y and z divergence stages and the solve, in the stage forms
+    ``forms`` (ProjectionMats.forms): banded y then the z transforms and
+    the y transform (parity stacks or dense), or on the folded y the
+    transform-folded y matrices then the z transforms."""
+    fz = pfwd if forms.z == "parity" else apply_matrix
+    if forms.y == "folded":
+        duv = apply_matrix(m["iy"], du, 1) + apply_matrix(m["sy"], dv, 1)
+        dwm = apply_matrix(m["iy"], dw, 1)
+        F = fz(m["iz"], duv, 2) + fz(m["sz"], dwm, 2)
+    else:
+        fy = pfwd if forms.y == "parity" else apply_matrix
+        duv = banded_apply(m["biy"], du, 1) + banded_apply(m["bsy"], dv, 1)
+        dwm = banded_apply(m["biy"], dw, 1)
+        F = fy(m["ty"], fz(m["iz"], duv, 2) + fz(m["sz"], dwm, 2), 1)
+    return F * solve_factor(m, tuple(F.shape))
 
 
-def grad_plain(q, m, dense=False):
+def grad_plain(q, m, forms=Forms()):
     """(p_zy, dpdy, dpdz): the z and y gradient stages (the x gradient
-    stage follows in x_gradsub3 or the x applies), in the transforms' form
-    as div_solve_plain."""
-    inv = apply_matrix if dense else pinv
-    gh1 = inv(m["tyi"], inv(m["gzi"], q, 2), 1)
-    gh2 = inv(m["tyi"], inv(m["gzs"], q, 2), 1)
+    stage follows in x_gradsub3 or the x applies), in the forms as
+    div_solve_plain."""
+    iz = pinv if forms.z == "parity" else apply_matrix
+    if forms.y == "folded":
+        pz, dz = iz(m["gzi"], q, 2), iz(m["gzs"], q, 2)
+        return (apply_matrix(m["gyi"], pz, 1), apply_matrix(m["gys"], pz, 1),
+                apply_matrix(m["gyi"], dz, 1))
+    iy = pinv if forms.y == "parity" else apply_matrix
+    gh1 = iy(m["tyi"], iz(m["gzi"], q, 2), 1)
+    gh2 = iy(m["tyi"], iz(m["gzs"], q, 2), 1)
     return (banded_apply(m["bgiy"], gh1, 1), banded_apply(m["bgsy"], gh1, 1),
             banded_apply(m["bgiy"], gh2, 1))
 
 
-def pressure_mid_plain(du, dv, dw, m, emit_q=True, dense=False):
+def pressure_mid_plain(du, dv, dw, m, emit_q=True, forms=Forms()):
     """(q or None, p_zy, dpdy, dpdz): div_solve_plain, then grad_plain."""
-    q = div_solve_plain(du, dv, dw, m, dense)
-    return (q if emit_q else None,) + grad_plain(q, m, dense)
+    q = div_solve_plain(du, dv, dw, m, forms)
+    return (q if emit_q else None,) + grad_plain(q, m, forms)
 
 
 def mid_t1_plain(du, dv, dw, m):
@@ -235,37 +253,75 @@ def _x_div3_cuda(u, v, w, m):
 
 
 def _forms(pm):
-    """The launch forms of the mid's transforms: (forward, inverse)."""
-    return (DENSE, DENSE) if pm.dense else (PFWD, PINV)
+    """The launch forms of the mid's y and z transforms: ((y forward, y
+    inverse), (z forward, z inverse))."""
+    return tuple((PFWD, PINV) if f == "parity" else (DENSE, DENSE)
+                 for f in (pm.forms.y, pm.forms.z))
 
 
-def _div_solve_cuda(du, dv, dw, m, fwd, name):
-    """The mid's first three launches: banded y, the z transforms, the y
-    transform with the solve in its epilogue. Returns (q, t1, t2): t1 and
-    t2 are dead scratch fields the second half may take."""
-    t = [torch.empty_like(du) for _ in range(3)]
+def _field(shape, like, scratch=None):
+    """A field of `shape`: the first dead buffer of that shape in the
+    list `scratch` (taken from it), else a new one like `like`."""
+    for i, t in enumerate(scratch or ()):
+        if tuple(t.shape) == tuple(shape):
+            return scratch.pop(i)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _div_solve_cuda(du, dv, dw, pm, m, name):
+    """The mid's first launches: banded y, the z transforms, the y
+    transform with the solve in its epilogue; on the folded y the dense y
+    stage (two sources), then the z transforms with the solve in theirs.
+    Returns (q, scratch): dead fields the second half may take."""
+    (yf, _), (zf, _) = _forms(pm)
+    nx, _, nvz = du.shape          # nx: the planes of this batch
+    _, ncy, ncz = pm.shape
+    mask = (m["myz"], m["mx"]) if "myz" in m else ()
+    tabs = (m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]) + mask
+    if pm.forms.y == "folded":
+        t = [_field((nx, ncy, nvz), du) for _ in range(2)]
+        apply(name, DENSE, 1, [([m["iy"], m["sy"]], [du, dv], t[0], None),
+                               ([m["iy"]], [dw], t[1], None)])
+        q = _field((nx, ncy, ncz), du)
+        apply(name, zf, 2, [([m["sz"], m["iz"]], [t[1], t[0]], q, None)],
+              epi=SOLVE, tabs=tabs)
+        return q, t
+    t = [torch.empty_like(du) for _ in range(2)]
     apply(name, BANDED, 1, [([m["biy"], m["bsy"]], [du, dv], t[0], None),
                             ([m["biy"]], [dw], t[1], None)])
-    apply(name, fwd, 2, [([m["sz"], m["iz"]], [t[1], t[0]], t[2], None)])
-    q = t[0]
-    mask = (m["myz"], m["mx"]) if "myz" in m else ()
-    apply(name, fwd, 1, [([m["ty"]], [t[2]], q, None)], epi=SOLVE_PLANE,
-          tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]) + mask)
-    return q, t[1], t[2]
+    z = _field((nx, ncy, ncz), du)
+    apply(name, zf, 2, [([m["sz"], m["iz"]], [t[1], t[0]], z, None)])
+    scratch = t[1:]
+    q = t[0] if tuple(t[0].shape) == (nx, ncy, ncz) else _field(
+        (nx, ncy, ncz), du)
+    apply(name, yf, 1, [([m["ty"]], [z], q, None)], epi=SOLVE_PLANE,
+          tabs=tabs)
+    return q, scratch + [z]
 
 
-def _grad_cuda(q, m, inv, name, scratch=()):
-    """The mid's last three launches: the inverse z transforms, the
-    inverse y transform, banded y. `scratch`: two dead fields of q's shape
-    to write p_z and dpdz_s into."""
-    pz, dz = scratch or (torch.empty_like(q), torch.empty_like(q))
-    apply(name, inv, 2, [([m["gzi"]], [q], pz, None),
-                         ([m["gzs"]], [q], dz, None)])
-    gh1, gh2 = torch.empty_like(q), torch.empty_like(q)
-    apply(name, inv, 1, [([m["tyi"]], [pz], gh1, None),
-                         ([m["tyi"]], [dz], gh2, None)])
+def _grad_cuda(q, pm, m, name, scratch=None):
+    """The mid's last launches: the inverse z transforms, the inverse y
+    transform, banded y; on the folded y the inverse z transforms, then the
+    dense y stage (three jobs). `scratch`: dead fields the results may
+    take (a list, taken from)."""
+    (_, yi), (_, zi) = _forms(pm)
+    nx, ncy, _ = q.shape
+    nvy, nvz = pm.vert[1:]
+    scratch = list(scratch or ())
+    pz, dz = (_field((nx, ncy, nvz), q, scratch) for _ in range(2))
+    apply(name, zi, 2, [([m["gzi"]], [q], pz, None),
+                        ([m["gzs"]], [q], dz, None)])
+    if pm.forms.y == "folded":
+        res = [_field((nx, nvy, nvz), q, scratch) for _ in range(3)]
+        apply(name, DENSE, 1, [([m["gyi"]], [pz], res[0], None),
+                               ([m["gys"]], [pz], res[1], None),
+                               ([m["gyi"]], [dz], res[2], None)])
+        return tuple(res)
+    gh1, gh2 = torch.empty_like(pz), torch.empty_like(pz)
+    apply(name, yi, 1, [([m["tyi"]], [pz], gh1, None),
+                        ([m["tyi"]], [dz], gh2, None)])
     # p_z and dpdz_s are dead: two of the results take their buffers
-    p_zy, dpdy, dpdz = pz, dz, torch.empty_like(q)
+    p_zy, dpdy, dpdz = pz, dz, torch.empty_like(pz)
     apply(name, BANDED, 1, [([m["bgiy"]], [gh1], p_zy, None),
                             ([m["bgsy"]], [gh1], dpdy, None),
                             ([m["bgiy"]], [gh2], dpdz, None)])
@@ -274,11 +330,9 @@ def _grad_cuda(q, m, inv, name, scratch=()):
 
 def _pressure_mid_cuda(du, dv, dw, pm, emit_q, m=None, name=None):
     m = m if m is not None else pm.mats(torch.float32)
-    fwd, inv = _forms(pm)
     name = name or stage_name("pressure_mid", pm, emit_q)
-    q, t1, t2 = _div_solve_cuda(du, dv, dw, m, fwd, name)
-    return ((q if emit_q else None),) + _grad_cuda(q, m, inv, name,
-                                                   (t1, t2))
+    q, scratch = _div_solve_cuda(du, dv, dw, pm, m, name)
+    return ((q if emit_q else None),) + _grad_cuda(q, pm, m, name, scratch)
 
 
 def _x_gradsub3_cuda(p_zy, dpdy, dpdz, u, v, w, m):
@@ -299,9 +353,12 @@ def x_div3(u, v, w, pm: ProjectionMats):
 def stage_name(base, pm: ProjectionMats, emit_q=False, local=False):
     """The launch-count name of a mid function over pm: pressure_mid,
     div_solve, grad, with "q" where the mid emits q, "dense" for the
-    dense forms and "local" over a local x batch (pressure_mid[q,dense],
-    div_solve[dense], pressure_mid[q,local], ...)."""
+    dense forms, "folded_y" on the folded y (4 launches a mid, not 6) and
+    "local" over a local x batch (pressure_mid[q,dense],
+    div_solve[dense], pressure_mid[q,folded_y], pressure_mid[q,local],
+    ...)."""
     tags = (["q"] if emit_q else []) + (["dense"] if pm.dense else []) \
+        + (["folded_y"] if pm.forms.y == "folded" else []) \
         + (["local"] if local else [])
     return base + (f"[{','.join(tags)}]" if tags else "")
 
@@ -311,25 +368,25 @@ def pressure_mid(du, dv, dw, pm: ProjectionMats, emit_q=True):
     if route(du, "pressure_mid"):
         return _pressure_mid_cuda(du, dv, dw, pm, emit_q)
     return pressure_mid_plain(du, dv, dw, pm.mats(du.dtype), emit_q,
-                              pm.dense)
+                              pm.forms)
 
 
 def div_solve(du, dv, dw, pm: ProjectionMats):
     """(du, dv, dw) -> q: the mid's first half (_div_solve_kernel),
     counted as div_solve (div_solve[dense] for the dense forms)."""
     if route(du, "div_solve"):
-        return _div_solve_cuda(du, dv, dw, pm.mats(torch.float32),
-                               _forms(pm)[0], stage_name("div_solve", pm))[0]
-    return div_solve_plain(du, dv, dw, pm.mats(du.dtype), pm.dense)
+        return _div_solve_cuda(du, dv, dw, pm, pm.mats(torch.float32),
+                               stage_name("div_solve", pm))[0]
+    return div_solve_plain(du, dv, dw, pm.mats(du.dtype), pm.forms)
 
 
 def grad(q, pm: ProjectionMats):
     """q -> (p_zy, dpdy, dpdz): the mid's second half (_grad_kernel),
     counted as grad (grad[dense] for the dense forms)."""
     if route(q, "grad"):
-        return _grad_cuda(q, pm.mats(torch.float32), _forms(pm)[1],
+        return _grad_cuda(q, pm, pm.mats(torch.float32),
                           stage_name("grad", pm))
-    return grad_plain(q, pm.mats(q.dtype), pm.dense)
+    return grad_plain(q, pm.mats(q.dtype), pm.forms)
 
 
 def x_apply(name, f, pm: ProjectionMats, s=None):
@@ -473,7 +530,7 @@ def pressure_mid_local_plain(du, dv, dw, pm, k2x, tx2, mx=None):
     are the slices k2x, tx2 (mx)."""
     m = _local_mats(pm.mats(du.dtype), k2x.to(du.dtype), tx2.to(du.dtype),
                     None if mx is None else mx.to(du.dtype))
-    return pressure_mid_plain(du, dv, dw, m, True, pm.dense)
+    return pressure_mid_plain(du, dv, dw, m, True, pm.forms)
 
 
 def pressure_mid_local(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
@@ -645,7 +702,7 @@ def pressure_mid_tiled(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
     dpdz): the y/z-tiled mid with the batch's solve-table slices, its three
     kernels (mid_tiled_t1, _t2, _t3) in turn. The parity forms only, as
     x3d2_tpu's tiled mid (not with X3D2_BFLY=0)."""
-    if pm.dense:
+    if pm.forms != Forms():
         raise ValueError("the tiled mid takes the parity transforms")
     if not route(du, "pressure_mid_tiled"):
         return pressure_mid_tiled_local_plain(du, dv, dw, pm, k2x, tx2, mx)

@@ -272,23 +272,18 @@ def make_repencilled_pressure(solver, pmesh, terms=2):
     previous pressure, as the single-card step does; x3d2_tpu returns the
     spectral q there).
 
-    Raises NotImplementedError where the mid's y or z is wall-bounded (its
-    folded branches are not ported), and on the card where an x extent
-    is not tiled by the kernels' 128 (slab_gap)."""
+    Raises NotImplementedError where the mid's y or z is wall-bounded
+    (x3d2_tpu's repencil gate, slab_pressure_supported's structure, admits
+    neither)."""
     dense = os.environ.get("X3D2_BFLY", "1") == "0"
     po = solver.poisson
     if 1 in po.folded or 2 in po.folded:
         raise NotImplementedError(
             "the repencilled projection over wall-bounded y or z: the "
-            "dense and folded y/z branches of _pressure_mid_kernel "
-            "(x3d2_tpu/ops/pallas_poisson.py:354)")
-    pm = build_projection_mats(solver, dense, kernel_tiling=False)
-    if solver.device.type == "cuda":
-        from ..ops.parity import slab_gap
-        gap = slab_gap(solver, dense)
-        if gap is not None:
-            raise NotImplementedError(f"the repencilled projection on the "
-                                      f"card: the port lacks {gap}")
+            "folded branches of _pressure_mid_kernel (x3d2_tpu/ops/"
+            "pallas_poisson.py:354) on a mesh, which no gate of x3d2_tpu "
+            "reaches")
+    pm = build_projection_mats(solver, dense)
     nxc = solver.mesh.dims(DataLoc.CELL)[0]
     nx_loc = nxc // pmesh.size
     mk = pressure_slab.make_mid_local(solver, pm, terms)

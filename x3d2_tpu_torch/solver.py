@@ -208,18 +208,12 @@ class NavierStokes:
         # transforms and x stage dense; its pipeline ignores it
         dense = os.environ.get("X3D2_BFLY", "1") == "0"
         if proute is not None:
-            gap = slab_gap(ns, dense)
+            gap = slab_gap(ns)
         if proute is not None and gap is None:
-            try:
-                slab = build_projection_mats(ns, dense)
-                if proute == "pipe3":
-                    pipe = make_pressure_pipe(
-                        build_projection_mats(ns) if dense else slab)
-            except ValueError as err:
-                # a band wider than the kernel's: the CPU keeps the folded
-                # chain; the card raises in pressure_correction
-                slab = pipe = None
-                gap = f"the y operators' band ({err})"
+            slab = build_projection_mats(ns, dense)
+            if proute == "pipe3":
+                pipe = make_pressure_pipe(
+                    build_projection_mats(ns) if dense else slab)
         object.__setattr__(ns, "_pipe", pipe)
         object.__setattr__(ns, "_slab", slab)
         object.__setattr__(ns, "_projection_gap", gap)

@@ -74,8 +74,8 @@ def probe(shape, dev, dense=False, seeds=SEEDS):
     for seed in range(1, seeds + 1):
         ins = noise(seed)
         k = sl.pressure_mid(*ins, pm, emit_q=True)
-        p32 = sl.pressure_mid_plain(*ins, m, True, dense)
-        p64 = sl.pressure_mid_plain(*up(*ins), M, True, dense)
+        p32 = sl.pressure_mid_plain(*ins, m, True, pm.forms)
+        p64 = sl.pressure_mid_plain(*up(*ins), M, True, pm.forms)
         for name, x, y, z in zip(("q", "p_zy", "dpdy", "dpdz"), k, p32, p64):
             kp, k6, p6 = dist(x, y), dist(x, z), dist(y, z)
             s = float(z.abs().max())
