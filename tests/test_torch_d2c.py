@@ -31,7 +31,8 @@
   with wrong ones steps as the main path does: within 1e-6 of max |u|,
   float32 rounding); state_from_numpy / state_to_numpy carry them.
 - CPU tensors take the plain versions and count no launch; the carry's
-  build raises where x3d2_tpu's does.
+  build raises where x3d2_tpu's does; the kernel serves 640, 1024 and 2048
+  points along z (its streamed form) and refuses what both refuse.
 """
 
 
@@ -147,16 +148,24 @@ def test_carry_taps_are_the_operators(carry, solver32):
         for i in (0, 37, n - 1):
             np.testing.assert_allclose(row, M[i][(i + offs) % n], rtol=0,
                                        atol=1e-12 * np.abs(M).max())
+    # an extent x3d2_tpu's carry gate refuses (nz < 256) is refused by both
+    small = (128, 128, 128)
     with pytest.raises(ValueError, match="lane-tileable"):
-        small = NavierStokes.build(Mesh((128, 128, 128), L, PER), NU,
-                                   device="cpu")
-        pp.build_carry_mats(small.ops[2], NU, device="cpu")
+        ns = NavierStokes.build(Mesh(small, L, PER), NU, device="cpu")
+        pp.build_carry_mats(ns.ops[2], NU, device="cpu")
+    jns = JNavierStokes.build(JMesh(small, L, JPER), NU, dtype=jnp.float32)
+    with pytest.raises(ValueError, match="lane-tileable"):
+        make_pressure_pipe3(jns, terms=2, d2_sweep=True)
+    assert not pp.carry_kernel_supported(small)
     assert pp.carry_kernel_supported((512, 512, 512))
     assert pp.carry_kernel_supported(SHAPE)
-    # the z extents the kernel is built for: 256, 384 (the x-tail grid
-    # 320 x 256 x 384 of x3d2_tpu's sweep chain) and 512
+    # the resident form's z extents: 256, 384 (the x-tail grid 320 x 256 x
+    # 384 of x3d2_tpu's sweep chain) and 512; the streamed form past them,
+    # at every extent x3d2_tpu's gate admits
     assert pp.carry_kernel_supported((320, 256, 384))
-    assert not pp.carry_kernel_supported((128, 128, 640))
+    for nz in (640, 1024, 2048):
+        assert pp.carry_kernel_supported((128, 128, nz))
+        assert pp.carry_geometry((128, 128, nz))["form"] == "streamed"
 
 
 def _ab_inputs(seed):

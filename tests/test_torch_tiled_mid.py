@@ -19,10 +19,10 @@ that takes it.
 - In float64 the tiled form is the merged mid (pressure_mid_plain) up to
   reassociation, 1e-12 * scale (measured 5e-15), on white noise, over the
   whole x range and over one rank's x batch with its table slices.
-- At 2048^2 planes, past the kernels' 1024 points along y or z, where
-  x3d2_tpu's gates still give the repencilled projection its tiled mid,
-  building the projection raises NotImplementedError naming the TPU
-  kernels.
+- At 2048^2 planes, past the kernels' wide form (1024 points along y or
+  z), where x3d2_tpu's gates still give the repencilled projection its
+  tiled mid, the projection builds with the tiled mid in the kernels' long
+  form (tests/test_torch_tiled_long.py holds that form's plane sizes).
 - The sharded step with the tiled mid: TGV 64 x 128 x 256 AB3 float64 on a
   (2, 2) mesh, 3 steps, keep_pressure=False, on spawned gloo ranks, the
   full-plane mid's VMEM gate forced closed inside the rank function (as
@@ -176,9 +176,10 @@ def test_planes_past_the_kernels_raise():
     one's per-kernel estimate holds: the port's copies of the gates, held
     against x3d2_tpu's in tests/test_torch_shard_kernels.py
     test_gates_match_x3d2_tpu, where building x3d2_tpu's solver at this
-    size would cost a minute); the port's tiled kernels take at most
-    TILED_MAXN points along y or z, so the projection raises
-    NotImplementedError naming the TPU kernels when it is built."""
+    size would cost a minute). The port's kernels once stopped at 1024
+    points and the projection raised here (the name is from then); their
+    long form serves these planes, so the projection builds and takes the
+    tiled mid, each of its three kernels in the long form."""
     dims = (128, 2048, 2048)
     with env_set({"X3D2_PALLAS": "0"}):
         ns = NavierStokes.build(Mesh(dims, L, PER), NU, device="cpu")
@@ -186,9 +187,10 @@ def test_planes_past_the_kernels_raise():
     assert psk.repencil_supported(ns, pmesh)
     assert not sl.tpu_slab_vmem_ok(ns, 2)
     assert sl.tiled_mid_supported(ns, 2)
-    assert max(dims[1:]) > sl.TILED_MAXN
-    with pytest.raises(NotImplementedError, match="_mid_t1_kernel"):
-        psk.make_repencilled_pressure(ns, pmesh, terms=2)
+    assert all(sl.tiled_geometry(s, *dims[1:])["form"] == "long"
+               for s in (1, 2, 3))
+    fn = psk.make_repencilled_pressure(ns, pmesh, terms=2)
+    assert fn.mid.__name__ == "mid_tiled"
 
 
 # ---------------------------------------------------------------------------

@@ -64,11 +64,11 @@ steps either way, and the port's ``run`` dispatches per step.
 
 On the card a case runs what x3d2_tpu runs: its kernels as the port's
 kernels, its XLA parts (einsums, elementwise updates, boundary hooks) as
-plain PyTorch. Where x3d2_tpu takes a kernel the port lacks (the slab's
-wall-bounded y and z branches), or scalars off the species sweeps (its
-dense per-species einsums, not ported to the card yet), the case raises
-NotImplementedError at construction. The CPU runs every case, with plain
-versions and dense products.
+plain PyTorch, among them the per-species einsums of the scalars off the
+species sweeps (past 8 scalars, the v1 and dense transport routes). Where
+x3d2_tpu takes a kernel the port lacks (the slab's wall-bounded y and z
+branches), the case raises NotImplementedError at construction. The CPU
+runs every case, with plain versions and dense products.
 
 The step consumes its state: like the JAX step's donated buffers, the
 fused AB chain writes its outputs over the history's and the partials'
@@ -88,11 +88,10 @@ from ..common import DataLoc, resolve_device
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.compact import matmul_terms
-from ..ops.pressure_pipe import (build_carry_mats, carry_kernel_supported,
-                                 make_pressure_pipe_d2)
+from ..ops.pressure_pipe import build_carry_mats, make_pressure_pipe_d2
 from ..ops.transeq_sweep import (XDIV_MAX_N, make_fused_transeq_ab,
                                  make_fused_transeq_rk, make_transeq_sweep)
-from ..solver import _UNPORTED_SPECIES, NavierStokes
+from ..solver import NavierStokes
 from ..time_integrators import TimeIntegrator, kahan_add
 
 
@@ -174,10 +173,12 @@ class BaseCase:
         if on_card and self.solver.transport_gap() is not None:
             raise NotImplementedError(
                 f"transeq on the card: {self.solver.transport_gap()}")
-        if on_card and nsp and self.solver._species_sweeps is None:
+        # the scalars off x3d2_tpu's species sweeps take its einsums, which
+        # the port runs as plain PyTorch on either device
+        if on_card and self.solver.species_gap() is not None:
             raise NotImplementedError(
                 f"{nsp} passive scalars on mesh {dims} at {dtype}: "
-                f"{_UNPORTED_SPECIES}")
+                f"{self.solver.species_gap()}")
         # transport + AB update in one chain of three sweep kernels, under
         # x3d2_tpu's gate (cases/base.py:131-135: its v3 sweeps are there)
         self._fused_ab = None
@@ -249,12 +250,6 @@ class BaseCase:
                     device=self.device, terms=terms)
             except ValueError:
                 self._pipe_d2c = None
-            if (on_card and self._pipe_d2c is not None and not keep_pressure
-                    and not carry_kernel_supported(dims)):
-                raise NotImplementedError(
-                    f"X3D2_D2C=1 on mesh {dims}: the card's carry kernel "
-                    "(_pipe_c_kernel d2=True, x3d2_tpu/ops/pallas_poisson.py:"
-                    "1455) holds whole z lines of 256 or 512 points")
         # transport + RK substage update in one chain per substage, under
         # x3d2_tpu's gate (cases/base.py:212-232); scalars ride the unfused
         # branch

@@ -58,6 +58,33 @@
 // of owning whole lines: 32 lines a block is what the 227 KB of shared
 // memory hold at nz = 512 (221 KB for the three fields). The y stage runs
 // before it in two template launches, not stage C's three.
+//
+// Two forms, picked per launch by the wrapper (ops/pressure_pipe.py
+// carry_geometry):
+//   - resident (above): nz 256, 384 and 512, one instance each, the three
+//     fields' lines in shared memory (3 nz (L + 4) floats: 221 KB at 512,
+//     the most that fits);
+//   - streamed: any nz that is a multiple of 128 (x3d2_tpu's carry gate,
+//     pallas_poisson.py:1684-1686, has no upper bound; its slab's VMEM
+//     estimate stops it at 1536 on 128 x 128 planes, a limit of the TPU's
+//     scoped memory that the port does not take over), nz taken at run
+//     time. A block still owns 32 whole lines, but holds none of them:
+//       1. per field, the inverse parity z transform in passes of 128 rows
+//          of the half (64 row groups of 2 rows, 8 lines a thread), the
+//          operand A streamed through shared memory in steps of 32 rows
+//          of each half (2 x 32 x 36 floats, 9 KB), the operators from L2
+//          as in the resident form; u' = s - (a +/- b) written to global
+//          memory once;
+//       2. the carry in chunks of 128 z outputs: the chunk's q and w' with
+//          their W = 32 halo on each side read back from the block's own
+//          lines just written (L2; 2 x 192 x 36 floats, 54 KB), the
+//          resident form's sliding window on them.
+//     Shared memory 55 KB at every nz; the price is one read of the three
+//     corrected fields (and of w' twice more) back from L2 with a 1.5x
+//     halo, and A read once a pass: 3 + 3 x 1.5 + 3 ceil(nz / 256) field
+//     passes of L2 traffic where the resident form has none. Bound and
+//     times at 512 x 512 x 1024 and 128 x 128 x 640 ... 4096 on the H100:
+//     PERF.md section 6 (chip_smoke.py carry_cost).
 
 #include <cuda_runtime.h>
 
@@ -94,6 +121,86 @@ __device__ __forceinline__ int wrap(int z) {
 template <int NZ>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (3 * NZ * LP + 4 * NTAP);
+}
+
+// One k row of the inverse parity z transform: the row's R operator values
+// of each half (me, mo) times the LPT staged lines' k-th values of the even
+// (te) and odd (to) halves, each float4 feeding 4 R multiply-adds a half.
+template <int R, int LPT>
+__device__ __forceinline__ void transform_row(const float (&me)[R],
+                                              const float (&mo)[R],
+                                              const float* te,
+                                              const float* to,
+                                              float (&acc_a)[R][LPT],
+                                              float (&acc_b)[R][LPT]) {
+#pragma unroll
+  for (int l = 0; l < LPT; l += 4) {
+    const float4 e = *reinterpret_cast<const float4*>(te + l);
+    const float4 o = *reinterpret_cast<const float4*>(to + l);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc_a[r][l] = fmaf(me[r], e.x, acc_a[r][l]);
+      acc_a[r][l + 1] = fmaf(me[r], e.y, acc_a[r][l + 1]);
+      acc_a[r][l + 2] = fmaf(me[r], e.z, acc_a[r][l + 2]);
+      acc_a[r][l + 3] = fmaf(me[r], e.w, acc_a[r][l + 3]);
+      acc_b[r][l] = fmaf(mo[r], o.x, acc_b[r][l]);
+      acc_b[r][l + 1] = fmaf(mo[r], o.y, acc_b[r][l + 1]);
+      acc_b[r][l + 2] = fmaf(mo[r], o.z, acc_b[r][l + 2]);
+      acc_b[r][l + 3] = fmaf(mo[r], o.w, acc_b[r][l + 3]);
+    }
+  }
+}
+
+// The carry of RUN consecutive z outputs of the thread's line (lane): q
+// (Tq) and the convecting w' (Tv) in [z][LP] tiles, the window of inputs
+// z0 - W + k at offset row(k) (k < RUN + 2W), so the outputs' own points at
+// row(j + W); slides an RUN-value window of q and q w' over the 2W + 1
+// taps of the circulant operators (dq = cd q, d2 = c2 q, dd = cp (q w')),
+// three accumulations per tap; writes the RUN partials to out.
+template <typename Row>
+__device__ __forceinline__ void carry_run(const float* Tq, const float* Tv,
+                                          const float* cd, const float* c2,
+                                          const float* cp, float nu, int lane,
+                                          Row row, float* out) {
+  float dq[RUN], d2[RUN], dd[RUN], qw[RUN], pw[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    const int o = row(j) + lane;
+    const float q = Tq[o];
+    qw[j] = q;
+    pw[j] = q * Tv[o];
+    dq[j] = d2[j] = dd[j] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < NTAP; ++k) {
+    const float wd = cd[k], w2 = c2[k], wp = cp[k];
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      dq[j] = fmaf(wd, qw[j], dq[j]);
+      d2[j] = fmaf(w2, qw[j], d2[j]);
+      dd[j] = fmaf(wp, pw[j], dd[j]);
+    }
+    if (k + 1 < NTAP) {
+      // slide: the window at offset k + 1 - W
+#pragma unroll
+      for (int j = 0; j < RUN - 1; ++j) {
+        qw[j] = qw[j + 1];
+        pw[j] = pw[j + 1];
+      }
+      const int o = row(RUN + k) + lane;
+      const float q = Tq[o];
+      qw[RUN - 1] = q;
+      pw[RUN - 1] = q * Tv[o];
+    }
+  }
+  float r[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    const float conv = Tv[row(j + W) + lane];
+    r[j] = -0.5f * (conv * dq[j] + dd[j]) + nu * d2[j];
+  }
+  *reinterpret_cast<float4*>(out) = make_float4(r[0], r[1], r[2], r[3]);
+  *reinterpret_cast<float4*>(out + 4) = make_float4(r[4], r[5], r[6], r[7]);
 }
 
 template <int NZ>
@@ -163,26 +270,9 @@ pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
           nmo[j][r] = __ldg(Go + (kn + j) * H + r * NRG);
         }
 #pragma unroll
-      for (int j = 0; j < KB; ++j) {
-        const float* te = Tc + (k0 + j) * LP + lb;
-        const float* to = Tc + (H + k0 + j) * LP + lb;
-#pragma unroll
-        for (int l = 0; l < LPT; l += 4) {
-          const float4 e = *reinterpret_cast<const float4*>(te + l);
-          const float4 o = *reinterpret_cast<const float4*>(to + l);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            acc_a[r][l] = fmaf(me[j][r], e.x, acc_a[r][l]);
-            acc_a[r][l + 1] = fmaf(me[j][r], e.y, acc_a[r][l + 1]);
-            acc_a[r][l + 2] = fmaf(me[j][r], e.z, acc_a[r][l + 2]);
-            acc_a[r][l + 3] = fmaf(me[j][r], e.w, acc_a[r][l + 3]);
-            acc_b[r][l] = fmaf(mo[j][r], o.x, acc_b[r][l]);
-            acc_b[r][l + 1] = fmaf(mo[j][r], o.y, acc_b[r][l + 1]);
-            acc_b[r][l + 2] = fmaf(mo[j][r], o.z, acc_b[r][l + 2]);
-            acc_b[r][l + 3] = fmaf(mo[j][r], o.w, acc_b[r][l + 3]);
-          }
-        }
-      }
+      for (int j = 0; j < KB; ++j)
+        transform_row<R, LPT>(me[j], mo[j], Tc + (k0 + j) * LP + lb,
+                              Tc + (H + k0 + j) * LP + lb, acc_a, acc_b);
 #pragma unroll
       for (int j = 0; j < KB; ++j)
 #pragma unroll
@@ -223,49 +313,141 @@ pipe_c_d2_kernel(const __grid_constant__ CarryArgs a) {
     const float* c2 = C + (c == 2 ? 2 : 3) * NTAP;
     const float* cp = C + (c == 2 ? 1 : 0) * NTAP;
     float* Rc = a.R[c] + (line0 + lane) * NZ;
-    for (int z0 = warp * RUN; z0 < NZ; z0 += (NT / 32) * RUN) {
-      float dq[RUN], d2[RUN], dd[RUN], qw[RUN], pw[RUN];
-      // the window at offset -W: inputs z0 + j - W
+    for (int z0 = warp * RUN; z0 < NZ; z0 += (NT / 32) * RUN)
+      carry_run(Tq, Tw, cd, c2, cp, a.nu, lane,
+                [z0](int k) { return wrap<NZ>(z0 - W + k) * LP; }, Rc + z0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the streamed form: nz at run time
+// ---------------------------------------------------------------------------
+
+constexpr int SLPT = 8;                 // lines a thread (transform)
+constexpr int SNRG = NT / (L / SLPT);   // row groups a pass
+constexpr int SR = 2;                   // rows of the half a row group
+constexpr int SPASS = SNRG * SR;        // rows of the half a pass
+constexpr int KC = 32;                  // rows of each half a staging step
+constexpr int CZ = 128;                 // carry outputs a chunk
+constexpr int CW = CZ + 2 * W;          // a chunk's rows with the halo
+constexpr int S_STAGE = 2 * KC * LP;    // floats: A's staged step
+constexpr int S_CARRY = 2 * CW * LP;    // floats: a chunk's q and w'
+static_assert(SNRG * (L / SLPT) == NT && SLPT % 4 == 0
+                  && CZ % (RUN * NT / 32) == 0,
+              "the streamed form's thread groups tile the block");
+
+constexpr size_t streamed_smem_bytes() {
+  return sizeof(float) * ((S_CARRY > S_STAGE ? S_CARRY : S_STAGE)
+                          + 4 * NTAP);
+}
+
+__global__ void __launch_bounds__(NT)
+pipe_c_d2_streamed_kernel(const __grid_constant__ CarryArgs a, int nz) {
+  const int H = nz / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* C = smem;                 // [4][NTAP]
+  float* T = smem + 4 * NTAP;      // the staged step or the chunk
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long line0 = (long long)blockIdx.x * L;
+
+  for (int i = tid; i < 4 * NTAP; i += NT) C[i] = a.taps[i];
+
+  // 1. per field the inverse parity z transform and the correction, in
+  // passes over the rows of the half; A streamed KC rows of each half a
+  // step, each warp load 4 lines x 8 z (transposed stores on 32 banks)
+  const int zl = tid & 7, ll = (tid >> 3) & 3;
+  const int rg = tid % SNRG;
+  const int lb = (tid / SNRG) * SLPT;
+  for (int c = 0; c < 3; ++c) {
+    const float* G = a.G[c == 2 ? 1 : 0];
+    const float* src = a.A[c] + line0 * nz;
+    const float* S = a.S[c] + line0 * nz;
+    float* Uo = a.U[c] + line0 * nz;
+    for (int p0 = 0; p0 < H; p0 += SPASS) {
+      int row[SR];
+      bool ok[SR];
 #pragma unroll
-      for (int j = 0; j < RUN; ++j) {
-        const int z = wrap<NZ>(z0 + j - W);
-        const float q = Tq[z * LP + lane];
-        qw[j] = q;
-        pw[j] = q * Tw[z * LP + lane];
-        dq[j] = d2[j] = dd[j] = 0.f;
+      for (int r = 0; r < SR; ++r) {
+        row[r] = p0 + rg + r * SNRG;
+        ok[r] = row[r] < H;
       }
+      float acc_a[SR][SLPT], acc_b[SR][SLPT];
 #pragma unroll
-      for (int k = 0; k < NTAP; ++k) {
-        const float wd = cd[k], w2 = c2[k], wp = cp[k];
+      for (int r = 0; r < SR; ++r)
 #pragma unroll
-        for (int j = 0; j < RUN; ++j) {
-          dq[j] = fmaf(wd, qw[j], dq[j]);
-          d2[j] = fmaf(w2, qw[j], d2[j]);
-          dd[j] = fmaf(wp, pw[j], dd[j]);
+        for (int l = 0; l < SLPT; ++l) acc_a[r][l] = acc_b[r][l] = 0.f;
+      for (int k0 = 0; k0 < H; k0 += KC) {
+        __syncthreads();   // the previous step's reads are done
+        for (int it = warp; it < 2 * (L / 4) * (KC / 8); it += NT / 32) {
+          const int half = it / ((L / 4) * (KC / 8));
+          const int t = it % ((L / 4) * (KC / 8));
+          const int l = (t % (L / 4)) * 4 + ll;
+          const int z = (t / (L / 4)) * 8 + zl;
+          T[(half * KC + z) * LP + l] =
+              __ldg(src + (long long)l * nz + half * H + k0 + z);
         }
-        if (k + 1 < NTAP) {
-          // slide: the window at offset k + 1 - W
+        __syncthreads();
+        for (int j0 = 0; j0 < KC; j0 += 8) {
+          float me[8][SR], mo[8][SR];
 #pragma unroll
-          for (int j = 0; j < RUN - 1; ++j) {
-            qw[j] = qw[j + 1];
-            pw[j] = pw[j + 1];
-          }
-          const int z = wrap<NZ>(z0 + RUN + k - W);
-          const float q = Tq[z * LP + lane];
-          qw[RUN - 1] = q;
-          pw[RUN - 1] = q * Tw[z * LP + lane];
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int r = 0; r < SR; ++r) {
+              const long long k = k0 + j0 + j;
+              me[j][r] = ok[r] ? __ldg(G + k * H + row[r]) : 0.f;
+              mo[j][r] = ok[r] ? __ldg(G + (H + k) * H + row[r]) : 0.f;
+            }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            transform_row<SR, SLPT>(me[j], mo[j], T + (j0 + j) * LP + lb,
+                                    T + (KC + j0 + j) * LP + lb, acc_a,
+                                    acc_b);
         }
       }
-      float r[RUN];
 #pragma unroll
-      for (int j = 0; j < RUN; ++j) {
-        const float conv = Tw[(z0 + j) * LP + lane];
-        r[j] = -0.5f * (conv * dq[j] + dd[j]) + a.nu * d2[j];
+      for (int r = 0; r < SR; ++r) {
+        if (!ok[r]) continue;
+        const int i = row[r];
+#pragma unroll
+        for (int l = 0; l < SLPT; ++l) {
+          const long long o = (long long)(lb + l) * nz;
+          Uo[o + i] = __ldg(S + o + i) - (acc_a[r][l] + acc_b[r][l]);
+          Uo[o + H + i] = __ldg(S + o + H + i) - (acc_a[r][l] - acc_b[r][l]);
+        }
       }
-      *reinterpret_cast<float4*>(Rc + z0) =
-          make_float4(r[0], r[1], r[2], r[3]);
-      *reinterpret_cast<float4*>(Rc + z0 + 4) =
-          make_float4(r[4], r[5], r[6], r[7]);
+    }
+  }
+  __syncthreads();   // u', v', w' of the block's lines are in memory
+
+  // 2. the carry, chunk by chunk: rows [z0c - W, z0c + CZ + W) of q and w'
+  // read back (plain loads: written by this kernel), lane = line
+  float* Tq = T;             // [CW][LP]
+  float* Tw = T + CW * LP;   // [CW][LP]
+  const float* Wsrc = a.U[2] + line0 * nz;
+  for (int c = 0; c < 3; ++c) {
+    const float* Qsrc = a.U[c] + line0 * nz;
+    const float* Tv = c == 2 ? Tq : Tw;   // w': the convecting component
+    const float* cd = C + (c == 2 ? 0 : 1) * NTAP;
+    const float* c2 = C + (c == 2 ? 2 : 3) * NTAP;
+    const float* cp = C + (c == 2 ? 1 : 0) * NTAP;
+    float* Rc = a.R[c] + (line0 + lane) * nz;
+    for (int z0c = 0; z0c < nz; z0c += CZ) {
+      for (int it = warp; it < (L / 4) * (CW / 8); it += NT / 32) {
+        const int l = (it % (L / 4)) * 4 + ll;
+        const int j = (it / (L / 4)) * 8 + zl;
+        int z = z0c - W + j;
+        z = z < 0 ? z + nz : z >= nz ? z - nz : z;
+        const long long o = (long long)l * nz + z;
+        Tq[j * LP + l] = Qsrc[o];
+        if (c != 2) Tw[j * LP + l] = Wsrc[o];
+      }
+      __syncthreads();
+      // the window rows: jz + k for the inputs z0c + jz - W + k
+      for (int jz = warp * RUN; jz < CZ; jz += (NT / 32) * RUN)
+        carry_run(Tq, Tv, cd, c2, cp, a.nu, lane,
+                  [jz](int k) { return (jz + k) * LP; }, Rc + z0c + jz);
+      __syncthreads();   // the chunk's reads are done
     }
   }
 }
@@ -286,19 +468,26 @@ cudaError_t launch(const CarryArgs& a, long long nlines,
 
 extern "C" {
 
-// Compile-time geometry, for the wrapper's checks: lines per block, W.
-int pipe_c_d2_geometry(int* lines, int* w) {
+// Compile-time geometry, for the wrapper's checks: lines per block, W,
+// and of the streamed form the rows of the half a pass, the z outputs a
+// chunk and its shared memory in bytes.
+int pipe_c_d2_geometry(int* lines, int* w, int* pass_rows, int* chunk,
+                       int* smem) {
   *lines = L;
   *w = W;
+  *pass_rows = SPASS;
+  *chunk = CZ;
+  *smem = (int)streamed_smem_bytes();
   return 0;
 }
 
 // One launch. ptrs: A_u, A_v, A_w, u, v, w, Gz_i^T, Gz_s^T, taps, u', v',
 // w', r_u, r_v, r_w (15, all 16-byte aligned, contiguous (lines, nz)
-// fields). nlines = nx * ny, a multiple of 32; nz 256, 384 or 512. Returns the
-// cudaError_t of the launch (0 on success).
+// fields). nlines = nx * ny, a multiple of 32. form 0: the resident form,
+// nz 256, 384 or 512; form 1: the streamed form, nz a multiple of 128 (at
+// least 256). Returns the cudaError_t of the launch (0 on success).
 int pipe_c_d2_launch(void* const* ptrs, float nu, long long nlines, int nz,
-                     void* stream) {
+                     int form, void* stream) {
   if (nlines <= 0 || nlines % L) return (int)cudaErrorInvalidValue;
   CarryArgs a = {};
   for (int c = 0; c < 3; ++c) {
@@ -312,6 +501,18 @@ int pipe_c_d2_launch(void* const* ptrs, float nu, long long nlines, int nz,
   a.taps = static_cast<const float*>(ptrs[8]);
   a.nu = nu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 1) {
+    if (nz < 256 || nz % CZ) return (int)cudaErrorInvalidValue;
+    const size_t smem = streamed_smem_bytes();
+    const cudaError_t err = cudaFuncSetAttribute(
+        pipe_c_d2_streamed_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    pipe_c_d2_streamed_kernel<<<(unsigned)(nlines / L), NT, smem, s>>>(a,
+                                                                        nz);
+    return (int)cudaGetLastError();
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   switch (nz) {
     case 256: return (int)launch<256>(a, nlines, s);
     case 384: return (int)launch<384>(a, nlines, s);

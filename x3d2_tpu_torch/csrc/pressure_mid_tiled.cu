@@ -53,10 +53,28 @@
 // the 67 TFLOP/s FP32 rate, against its 7 field passes (3 in, q and 3 out:
 // 0.28 ms at 3.35 TB/s): bound by operations. The tiled order does one
 // forward y transform more (a and d each), 8.4% more operations, and moves
-// 15 field passes: the price of tiling. The limits of this design: n <= 1024
-// on y and z (a staged tile of 1024 rows of 32 floats and the operator step
-// fill 192 KB of the 227 KB a block may hold), y a multiple of 64 and z of
-// 16.
+// 15 field passes: the price of tiling. The limits of this form (the wide
+// one): n <= 1024 along the axis a kernel transforms (a staged tile of 1024
+// rows of 32 floats and the operator step fill 192 KB of the 227 KB a block
+// may hold), y a multiple of 64 and z of 16.
+//
+// Past 1024 points along the axis it transforms, a kernel takes its long
+// form (chosen per launch by ops/pressure_slab.py tiled_geometry; x3d2_tpu's
+// gate admits up to 3968 points along y and 2560 along z at terms 2):
+//   - one field a block for t1 and t3 (blockIdx.z: a or d; p_z or dpdz_s),
+//     TCL = 16 columns where the transform's 2 x 4 rows a thread x 8
+//     columns cover the axis (n <= 2048), else TCL = 8 (n <= 4096); t2
+//     keeps both a and d of TCL rows (TCL = 16 up to 1664 points, 8 up to
+//     3548);
+//   - the staged tile alone in shared memory (n x TCL floats a field:
+//     128 KB at n = 4096, TCL = 8; t2 2 x 2560 x 8 floats, 160 KB, at its
+//     2560); the transforms' operators are read by each thread straight
+//     from L2, transposed ((h, 2h): a k row's 4 rows of each half one
+//     float4, coalesced), two k rows ahead, with no barrier in the k loop.
+// The sums are the wide form's, in the same order: each output a
+// multiply-add chain over k = 0 .. h - 1, the banded applies tap by tap.
+// The price: 8 or 16 columns a block read the operator from L2 where the
+// wide form's 32 do.
 
 #include <cuda_runtime.h>
 
@@ -493,7 +511,340 @@ mid_t3_kernel(const float* __restrict__ pz, const float* __restrict__ dz,
   }
 }
 
-size_t smem_bytes(int stage, int ny, int nz) {
+// ---------------------------------------------------------------------------
+// the long form: n > MAXN along the transformed axis
+// ---------------------------------------------------------------------------
+
+// One parity transform of a staged operand with the operator read from L2:
+//   acc[g][i][j] += sum_k A[g h + m0 + i][k] * B[g h + k][c0 + j]
+// as transform() but At = A transposed, (h, 2h) row-major (At[k][g h + m]
+// = A[g h + m][k]), and the operand's rows TCL floats apart. No barrier.
+template <int TCL>
+__device__ __forceinline__ void transform_l2(const float* __restrict__ At,
+                                             int h, const float* Bs, int m0,
+                                             int c0, float (&acc)[2][4][8]) {
+  const float* p = At + m0;
+  const long long ld = 2LL * h;
+  float4 ca[2], cb[2], na[2], nb[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    ca[u] = ld4(p + u * ld);
+    cb[u] = ld4(p + u * ld + h);
+  }
+  for (int k = 0; k < h; k += 2) {
+    if (k + 2 < h) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        na[u] = ld4(p + (k + 2 + u) * ld);
+        nb[u] = ld4(p + (k + 2 + u) * ld + h);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float a0[4] = {ca[u].x, ca[u].y, ca[u].z, ca[u].w};
+      const float a1[4] = {cb[u].x, cb[u].y, cb[u].z, cb[u].w};
+      const float* b = Bs + (k + u) * TCL + c0;
+      const float* bo = Bs + (h + k + u) * TCL + c0;
+      const float4 b00 = lds4(b), b01 = lds4(b + 4);
+      const float4 b10 = lds4(bo), b11 = lds4(bo + 4);
+      const float b0[8] = {b00.x, b00.y, b00.z, b00.w,
+                           b01.x, b01.y, b01.z, b01.w};
+      const float b1[8] = {b10.x, b10.y, b10.z, b10.w,
+                           b11.x, b11.y, b11.z, b11.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[0][i][j] = fmaf(a0[i], b0[j], acc[0][i][j]);
+          acc[1][i][j] = fmaf(a1[i], b1[j], acc[1][i][j]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      ca[u] = na[u];
+      cb[u] = nb[u];
+    }
+  }
+}
+
+// The banded y apply of one field's (ny, TCL) tile, 8 rows x 4 columns a
+// lane, a unit (block b, column group) per 8 lanes: Iy u + Sy v (two
+// sources, ws non-null) or Iy u; u, v: the first window row's columns,
+// rows `stride` floats apart, read by ld (device memory or the staged
+// tile). Calls out(b, r0, cg, res) with the unit's 8 x 4 results.
+template <int TCL, typename Load, typename Out>
+__device__ __forceinline__ void banded_units(int ny, const float* wi_op,
+                                             const float* ws_op, Load ld,
+                                             Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (lane & 7) * 8;
+  const int nunits = (ny / BBS) * (TCL / 4);
+  for (int u = warp * 4 + (lane >> 3); u < nunits; u += NWARP * 4) {
+    const int b = u / (TCL / 4), cg = u - b * (TCL / 4);
+    float res[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) res[i][j] = 0.f;
+#pragma unroll 2
+    for (int t = 0; t < WIN; ++t) {
+      const int row = window_row(b, t, ny);
+      float wi[8];
+      band_taps(wi_op, b, t, r0, wi);
+      const float4 fu = ld(0, row, cg);
+      const float u4[4] = {fu.x, fu.y, fu.z, fu.w};
+      if (ws_op != nullptr) {
+        float ws[8];
+        band_taps(ws_op, b, t, r0, ws);
+        const float4 fv = ld(1, row, cg);
+        const float v4[4] = {fv.x, fv.y, fv.z, fv.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            res[i][j] = fmaf(ws[i], v4[j], fmaf(wi[i], u4[j], res[i][j]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            res[i][j] = fmaf(wi[i], u4[j], res[i][j]);
+      }
+    }
+    out(b, r0, cg, res);
+  }
+}
+
+// _mid_t1_kernel, long form: grid (nz / TCL, nx_loc, 2); field 0 a = Ty (Iy
+// du + Sy dv), field 1 d = Ty (Iy dw). tyt: [Te; To] transposed, (h, 2h).
+template <int TCL>
+__global__ void __launch_bounds__(NT, 1)
+mid_t1_long_kernel(const float* __restrict__ du, const float* __restrict__ dv,
+                   const float* __restrict__ dw, const float* __restrict__ biy,
+                   const float* __restrict__ bsy,
+                   const float* __restrict__ tyt, float* __restrict__ a_out,
+                   float* __restrict__ d_out, int ny, int nz) {
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);   // [ny][TCL]
+  const int tid = threadIdx.x;
+  const int f = blockIdx.z;
+  const long long pbase = (long long)blockIdx.y * ny * nz;
+  const int z0 = blockIdx.x * TCL;
+  const float* s0 = (f == 0 ? du : dw) + pbase + z0;
+  const float* s1 = dv + pbase + z0;
+
+  // 1. banded y into the tile
+  banded_units<TCL>(
+      ny, biy, f == 0 ? bsy : nullptr,
+      [&](int src, int row, int cg) {
+        return ld4((src == 0 ? s0 : s1) + (long long)row * nz + cg * 4);
+      },
+      [&](int b, int r0, int cg, float (&res)[8][4]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          st4(Bs + (b * BBS + r0 + i) * TCL + cg * 4, res[i]);
+      });
+  __syncthreads();
+  // 2. the forward parity combine in place
+  const int h = ny / 2;
+  for (int e = tid; e < h * TCL; e += NT) {
+    const float x1 = Bs[e], x2 = Bs[e + h * TCL];
+    Bs[e] = x1 + x2;
+    Bs[e + h * TCL] = x1 - x2;
+  }
+  __syncthreads();
+  // 3. the forward y transform
+  const int m0 = (tid / (TCL / 8)) * 4, c0 = (tid % (TCL / 8)) * 8;
+  if (m0 >= h) return;
+  float acc[2][4][8];
+  zero(acc);
+  transform_l2<TCL>(tyt, h, Bs, m0, c0, acc);
+  float* out = (f == 0 ? a_out : d_out) + pbase + z0 + c0;
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* p = out + (long long)(g * h + m0 + i) * nz;
+      st4(p, acc[g][i]);
+      st4(p + 4, acc[g][i] + 4);
+    }
+}
+
+// _mid_t2_kernel, long form: grid (ny / TCL, nx_loc); the operators
+// transposed, (h, 2h); arguments otherwise mid_t2_kernel's.
+template <int TCL>
+__global__ void __launch_bounds__(NT, 1)
+mid_t2_long_kernel(const float* __restrict__ a_in,
+                   const float* __restrict__ d_in,
+                   const float* __restrict__ izt, const float* __restrict__ szt,
+                   const float* __restrict__ gzit,
+                   const float* __restrict__ gzst,
+                   const float* __restrict__ tabA,
+                   const float* __restrict__ tabB,
+                   const float* __restrict__ myz, const float* __restrict__ k2x,
+                   const float* __restrict__ tx2, const float* __restrict__ mx,
+                   float* __restrict__ q_out, float* __restrict__ pz_out,
+                   float* __restrict__ dz_out, int ny, int nz) {
+  extern __shared__ float4 smem4[];
+  float* Ba = reinterpret_cast<float*>(smem4);   // [nz][TCL], k-major
+  float* Bd = Ba + nz * TCL;
+  const int tid = threadIdx.x;
+  const int plane = blockIdx.y;
+  const long long pbase = (long long)plane * ny * nz;
+  const int y0 = blockIdx.x * TCL;
+  const int h = nz / 2;
+
+  // 1. the tile's a and d, combined and stored k-major
+  for (int e = tid; e < TCL * h; e += NT) {
+    const int n = e / h, k = e - n * h;
+    const long long off = pbase + (long long)(y0 + n) * nz + k;
+    const float a1 = __ldg(a_in + off), a2 = __ldg(a_in + off + h);
+    const float d1 = __ldg(d_in + off), d2 = __ldg(d_in + off + h);
+    Ba[k * TCL + n] = a1 + a2;
+    Ba[(h + k) * TCL + n] = a1 - a2;
+    Bd[k * TCL + n] = d1 + d2;
+    Bd[(h + k) * TCL + n] = d1 - d2;
+  }
+  __syncthreads();
+  const int m0 = (tid / (TCL / 8)) * 4, c0 = (tid % (TCL / 8)) * 8;
+  const bool active = m0 < h;
+  float acc[2][4][8];
+  zero(acc);
+  // 2. F = Sz d + Iz a
+  if (active) {
+    transform_l2<TCL>(szt, h, Bd, m0, c0, acc);
+    transform_l2<TCL>(izt, h, Ba, m0, c0, acc);
+  }
+  // 3. the solve
+  const float k2 = k2x[plane], t2 = tx2[plane];
+  const float mxp = mx != nullptr ? mx[plane] : 0.f;
+  if (active) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int y = y0 + c0 + j;
+        const long long tn = (long long)y * nz + g * h + m0;
+        float q4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float waves = k2 * __ldg(tabA + tn + i)
+                              + t2 * __ldg(tabB + tn + i);
+          float q = acc[g][i][j] * (fabsf(waves) >= EPS ? -1.f / waves
+                                                         : 0.f);
+          if (myz != nullptr) q *= 1.f - mxp * __ldg(myz + tn + i);
+          acc[g][i][j] = q4[i] = q;
+        }
+        st4(q_out + pbase + tn, q4);
+      }
+  }
+  __syncthreads();   // every thread has read a's operand: q takes it
+  if (active) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          Ba[(g * h + m0 + i) * TCL + c0 + j] = acc[g][i][j];
+  }
+  __syncthreads();
+  // 4. the inverse z transforms of q
+  if (!active) return;
+  for (int f = 0; f < 2; ++f) {
+    zero(acc);
+    transform_l2<TCL>(f == 0 ? gzit : gzst, h, Ba, m0, c0, acc);
+    float* out = (f == 0 ? pz_out : dz_out) + pbase;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float s4[4], d4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s4[i] = acc[0][i][j] + acc[1][i][j];
+        d4[i] = acc[0][i][j] - acc[1][i][j];
+      }
+      float* p = out + (long long)(y0 + c0 + j) * nz + m0;
+      st4(p, s4);
+      st4(p + h, d4);
+    }
+  }
+}
+
+// _mid_t3_kernel, long form: grid (nz / TCL, nx_loc, 2); field 0 p_z ->
+// p_zy = Giy GH1, dpdy = Gsy GH1; field 1 dpdz_s -> dpdz = Giy GH2. tyit:
+// the inverse y transform with its row weights, transposed (h, 2h).
+template <int TCL>
+__global__ void __launch_bounds__(NT, 1)
+mid_t3_long_kernel(const float* __restrict__ pz, const float* __restrict__ dz,
+                   const float* __restrict__ tyit,
+                   const float* __restrict__ bgiy,
+                   const float* __restrict__ bgsy,
+                   float* __restrict__ pzy_out, float* __restrict__ dpdy_out,
+                   float* __restrict__ dpdz_out, int ny, int nz) {
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);   // [ny][TCL]
+  const int tid = threadIdx.x;
+  const int f = blockIdx.z;
+  const long long pbase = (long long)blockIdx.y * ny * nz;
+  const int z0 = blockIdx.x * TCL;
+  const int h = ny / 2;
+
+  // 1. the field's tile
+  const float* src = (f == 0 ? pz : dz) + pbase + z0;
+  for (int e = tid; e < ny * (TCL / 4); e += NT) {
+    const int y = e / (TCL / 4), q = e - y * (TCL / 4);
+    *reinterpret_cast<float4*>(Bs + y * TCL + 4 * q) =
+        ld4(src + (long long)y * nz + 4 * q);
+  }
+  __syncthreads();
+  // 2. GH = Ti_y of the tile, over it once every thread has read it
+  const int m0 = (tid / (TCL / 8)) * 4, c0 = (tid % (TCL / 8)) * 8;
+  const bool active = m0 < h;
+  float acc[2][4][8];
+  zero(acc);
+  if (active) transform_l2<TCL>(tyit, h, Bs, m0, c0, acc);
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float s8[8], d8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s8[j] = acc[0][i][j] + acc[1][i][j];
+        d8[j] = acc[0][i][j] - acc[1][i][j];
+      }
+      float* p = Bs + (m0 + i) * TCL + c0;
+      float* q = Bs + (h + m0 + i) * TCL + c0;
+      st4(p, s8);
+      st4(p + 4, s8 + 4);
+      st4(q, d8);
+      st4(q + 4, d8 + 4);
+    }
+  }
+  __syncthreads();
+  // 3. banded y: p_zy = Giy GH1 and dpdy = Gsy GH1, or dpdz = Giy GH2
+  auto from_tile = [&](int, int row, int cg) {
+    return lds4(Bs + row * TCL + cg * 4);
+  };
+  auto store = [&](float* dst) {
+    return [=](int b, int r0, int cg, float (&res)[8][4]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        st4(dst + pbase + (long long)(b * BBS + r0 + i) * nz + z0 + cg * 4,
+            res[i]);
+    };
+  };
+  if (f == 0) {
+    banded_units<TCL>(ny, bgiy, nullptr, from_tile, store(pzy_out));
+    banded_units<TCL>(ny, bgsy, nullptr, from_tile, store(dpdy_out));
+  } else {
+    banded_units<TCL>(ny, bgiy, nullptr, from_tile, store(dpdz_out));
+  }
+}
+
+size_t smem_bytes(int stage, int tcl, int ny, int nz) {
+  if (tcl != 0)
+    return sizeof(float) * (stage == 2 ? 2 * nz * tcl : ny * tcl);
   if (stage == 2) return sizeof(float) * (2 * nz * TC + a_stage_floats(nz));
   return sizeof(float) * (ny * LDB + a_stage_floats(ny));
 }
@@ -509,33 +860,80 @@ cudaError_t prepare(K kern, size_t smem) {
 
 extern "C" {
 
-// Compile-time geometry, for the wrapper's checks: the tile (columns or
-// rows of one field), the band half-width, the banded block, the most
-// points along y or z.
-int pressure_mid_tiled_geometry(int* tc, int* bw, int* bbs, int* maxn) {
+// Compile-time geometry, for the wrapper's checks: the wide form's tile
+// (columns or rows of one field), the band half-width, the banded block,
+// the wide form's most points along the transformed axis, and the long
+// form's: threads a block (4 rows of each half a thread, 8 columns).
+int pressure_mid_tiled_geometry(int* tc, int* bw, int* bbs, int* maxn,
+                                int* nt) {
   *tc = TC;
   *bw = BW;
   *bbs = BBS;
   *maxn = MAXN;
+  *nt = NT;
   return 0;
 }
 
-// One launch of kernel `stage` (1, 2, 3) over nx planes of (ny, nz). ptrs:
+// One launch of kernel `stage` (1, 2, 3) over nx planes of (ny, nz), in the
+// wide form (tcl 0: n <= MAXN along the axis the kernel transforms) or the
+// long one with tcl = 8 or 16 columns (t1, t3) or rows (t2) a block. ptrs:
 //   1: du, dv, dw, biy, bsy (tap-major (ny/64, 128, 64)), ty, a, d
 //   2: a, d, iz, sz, gzi, gzs, tabA, tabB, Myz, k2x, tx2, mx (Myz and mx
 //      null without a Nyquist mask), q, p_z, dpdz_s
 //   3: p_z, dpdz_s, tyi, bgiy, bgsy (tap-major), p_zy, dpdy, dpdz
-// Returns the cudaError_t of the launch (0 on success).
-int pressure_mid_tiled_launch(int stage, void* const* ptrs, int nx, int ny,
-                              int nz, void* stream) {
-  if (nx < 1 || nx > 65535 || ny < BBS || ny % BBS || ny > MAXN
-      || nz < TC || nz % TC || nz > MAXN)
+// the transforms [Me; Mo] (n, n/2) in the wide form, transposed (n/2, n)
+// in the long one. Returns the cudaError_t of the launch (0 on success).
+int pressure_mid_tiled_launch(int stage, int tcl, void* const* ptrs, int nx,
+                              int ny, int nz, void* stream) {
+  const int n = stage == 2 ? nz : ny;
+  const int tile = tcl == 0 ? TC : tcl;
+  if (nx < 1 || nx > 65535 || ny < BBS || ny % BBS || nz < TC || nz % TC
+      || (stage == 2 ? ny : nz) % tile
+      || (tcl == 0 && n > MAXN)
+      || (tcl != 0 && (tcl != 8 && tcl != 16)))
+    return (int)cudaErrorInvalidValue;
+  // the long form: 4 rows of each half a thread, 8 columns
+  if (tcl != 0 && (n / 2) > NT * 4 / (tcl / 8))
     return (int)cudaErrorInvalidValue;
   auto f = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   auto o = [&](int i) { return static_cast<float*>(ptrs[i]); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(stage, ny, nz);
+  const size_t smem = smem_bytes(stage, tcl, ny, nz);
   cudaError_t e;
+  if (tcl != 0) {
+    const dim3 g1(nz / tcl, nx, 2), g2(ny / tcl, nx);
+#define X3D2_LONG(TCV)                                                       \
+    switch (stage) {                                                         \
+      case 1:                                                                \
+        e = prepare(mid_t1_long_kernel<TCV>, smem);                          \
+        if (e != cudaSuccess) return (int)e;                                 \
+        mid_t1_long_kernel<TCV><<<g1, NT, smem, s>>>(                        \
+            f(0), f(1), f(2), f(3), f(4), f(5), o(6), o(7), ny, nz);         \
+        break;                                                               \
+      case 2:                                                                \
+        e = prepare(mid_t2_long_kernel<TCV>, smem);                          \
+        if (e != cudaSuccess) return (int)e;                                 \
+        mid_t2_long_kernel<TCV><<<g2, NT, smem, s>>>(                        \
+            f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9),      \
+            f(10), f(11), o(12), o(13), o(14), ny, nz);                      \
+        break;                                                               \
+      case 3:                                                                \
+        e = prepare(mid_t3_long_kernel<TCV>, smem);                          \
+        if (e != cudaSuccess) return (int)e;                                 \
+        mid_t3_long_kernel<TCV><<<g1, NT, smem, s>>>(                        \
+            f(0), f(1), f(2), f(3), f(4), o(5), o(6), o(7), ny, nz);         \
+        break;                                                               \
+      default:                                                               \
+        return (int)cudaErrorInvalidValue;                                   \
+    }
+    if (tcl == 8) {
+      X3D2_LONG(8)
+    } else {
+      X3D2_LONG(16)
+    }
+#undef X3D2_LONG
+    return (int)cudaGetLastError();
+  }
   switch (stage) {
     case 1:
       e = prepare(mid_t1_kernel, smem);

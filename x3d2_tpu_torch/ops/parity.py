@@ -173,10 +173,9 @@ def slab_gap(solver) -> str | None:
     _div_solve_body / _grad_body's folded y and dense z
     (x3d2_tpu/ops/pallas_poisson.py:238-241, :307-310), are reached by no
     path of x3d2_tpu; the port's slab builds there when called directly
-    (build_projection_mats). What is still unported, the y/z-tiled mid on
-    planes past its kernels' extent, is refused where the sharded
-    projection takes it (pressure_slab.make_mid_local). The transforms
-    kept dense (X3D2_BFLY=0) are served alike."""
+    (build_projection_mats). The y/z-tiled mid of the sharded projection
+    serves every plane its gate admits (pressure_slab.tiled_geometry). The
+    transforms kept dense (X3D2_BFLY=0) are served alike."""
     po = solver.poisson
     if 1 in po.folded or 2 in po.folded:
         return ("a wall-bounded y or z on x3d2_tpu's slab gate, which no "

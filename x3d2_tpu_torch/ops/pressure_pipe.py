@@ -34,10 +34,14 @@ commute, pallas_poisson.py:386-410): the inverse y transform of X and Y
 (two PINV applies, not stage C's three), the banded Giy, Gsy, Giy, then
 ``csrc/pipe_c_d2.cu``, whose block owns 32 whole z lines of the three
 fields: it applies the inverse parity z transforms, subtracts from u, v,
-w, writes u', v', w' once, and runs the carry's z sweep on the lines it
-holds, with the circulant z operators' 2W + 1 taps at W = 32 (they drop
-4e-14 of the largest entry beyond it); the separate z sweep's three field
-reads leave the step.
+w, writes u', v', w' once, and runs the carry's z sweep on the lines,
+with the circulant z operators' 2W + 1 taps at W = 32 (they drop 4e-14 of
+the largest entry beyond it); the separate z sweep's three field reads
+leave the step. At nz 256, 384 and 512 the lines stay in shared memory
+(the resident form); at every other z extent x3d2_tpu's carry gate admits
+(a multiple of 128, at least 256) the streamed form takes nz at run time:
+the transform streams its operand through shared memory and the carry
+reads the corrected lines back in chunks (``carry_geometry``).
 
 A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
 runs the plain version. The pipeline serves every grid x3d2_tpu's pipe3
@@ -68,11 +72,18 @@ from .transeq_sweep import SweepBlocks, transeq_sweep_plain
 # band truncation tolerance (pallas_kernels.py:143)
 ZBS, ZW = 128, 64
 _BAND_TOL = 1e-6
-# the carry kernel: band half-width, z lines per block, the z extents it
-# is built for (whole lines of three fields in shared memory)
+# the carry kernel: band half-width, z lines per block; the z extents of
+# its resident form (whole lines of three fields in shared memory), and of
+# the streamed form the rows of the half a pass and the z outputs a chunk
 CARRY_W = 32
 CARRY_LINES = 32
-CARRY_NZ = (256, 384, 512)
+RESIDENT_NZ = (256, 384, 512)
+STREAM_PASS, STREAM_CHUNK = 128, 128
+# shared memory of the streamed form: the larger of A's staged step (2 x 32
+# rows of 36 floats) and a chunk's q and w' (2 x (128 + 2 W) rows of 36),
+# and the taps
+STREAM_SMEM = 4 * (max(2 * 32 * 36, 2 * (STREAM_CHUNK + 2 * CARRY_W) * 36)
+                   + 4 * (2 * CARRY_W + 1))
 # circulant to float64 rounding; the taps beyond CARRY_W, which the kernel
 # leaves out, far below float32 rounding (the compact-6 operators: 4e-14)
 _CIRCULANT_TOL = _TAIL_TOL = 1e-12
@@ -250,10 +261,37 @@ def build_carry_mats(ops_z, nu, device=None) -> CarryMats:
 
 
 def carry_kernel_supported(shape) -> bool:
-    """Whether the carry kernel serves the grid: a z extent it is built
-    for, and the lines tiled by its block."""
+    """Whether the carry kernel serves the grid: x3d2_tpu's z extents (a
+    multiple of ZBS, at least ZBS + 2 ZW: make_pressure_pipe3's d2_sweep
+    gate, pallas_poisson.py:1684-1686, which has no upper bound), and the
+    lines tiled by its block (every grid of x3d2_tpu's sweeps: x and y
+    multiples of 64)."""
     nx, ny, nz = shape
-    return nz in CARRY_NZ and (nx * ny) % CARRY_LINES == 0
+    return (nz % ZBS == 0 and nz >= ZBS + 2 * ZW
+            and (nx * ny) % CARRY_LINES == 0)
+
+
+def carry_geometry(shape) -> dict:
+    """The launch of the carry kernel on `shape`: its form ("resident" at
+    nz 256, 384, 512, one instance each; "streamed" at every other z
+    extent carry_kernel_supported admits, nz at run time), blocks of
+    CARRY_LINES lines, the shared memory in bytes, and for the streamed
+    form the passes of STREAM_PASS rows of the half and the chunks of
+    STREAM_CHUNK carry outputs. Raises ValueError where the kernel does
+    not serve the grid."""
+    nx, ny, nz = shape
+    if not carry_kernel_supported(shape):
+        raise ValueError(f"the carry kernel takes z a multiple of {ZBS} of "
+                         f"at least {ZBS + 2 * ZW} points and x * y a "
+                         f"multiple of {CARRY_LINES}; got {shape}")
+    geo = {"blocks": nx * ny // CARRY_LINES, "lines": CARRY_LINES}
+    if nz in RESIDENT_NZ:
+        # 3 fields x nz z rows of 36 floats (32 lines, padded), the taps
+        return dict(geo, form="resident",
+                    smem=4 * (3 * nz * 36 + 4 * (2 * CARRY_W + 1)))
+    return dict(geo, form="streamed", smem=STREAM_SMEM,
+                passes=-(-(nz // 2) // STREAM_PASS),
+                chunks=nz // STREAM_CHUNK)
 
 
 def pipe_c_d2_plain(X, Y, u, v, w, m, carry: CarryMats):
@@ -275,28 +313,26 @@ def _carry_lib():
         so = _build.load("pipe_c_d2")
         i, p = ctypes.c_int, ctypes.c_void_p
         so.pipe_c_d2_launch.argtypes = [p, ctypes.c_float, ctypes.c_longlong,
-                                        i, p]
+                                        i, i, p]
         so.pipe_c_d2_launch.restype = i
         so.pipe_c_d2_error_string.argtypes = [i]
         so.pipe_c_d2_error_string.restype = ctypes.c_char_p
-        so.pipe_c_d2_geometry.argtypes = [ctypes.POINTER(i)] * 2
+        so.pipe_c_d2_geometry.argtypes = [ctypes.POINTER(i)] * 5
         so.pipe_c_d2_geometry.restype = i
-        geo = [i() for _ in range(2)]
+        geo = [i() for _ in range(5)]
         so.pipe_c_d2_geometry(*geo)
-        if tuple(g.value for g in geo) != (CARRY_LINES, CARRY_W):
+        want = (CARRY_LINES, CARRY_W, STREAM_PASS, STREAM_CHUNK, STREAM_SMEM)
+        if tuple(g.value for g in geo) != want:
             raise RuntimeError("pipe_c_d2.cu geometry "
                                f"{tuple(g.value for g in geo)} differs from "
-                               f"the wrapper's {(CARRY_LINES, CARRY_W)}")
+                               f"the wrapper's {want}")
         _CARRY_LIB = so
     return _CARRY_LIB
 
 
-def _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry):
+def _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry, form=None):
     shape = tuple(X.shape)
-    if not carry_kernel_supported(shape):
-        raise ValueError(f"the carry kernel holds whole z lines of "
-                         f"{CARRY_NZ} points, {CARRY_LINES} lines a block; "
-                         f"got {shape}")
+    form = form or carry_geometry(shape)["form"]
     m = pm.mats(torch.float32)
     # y first: Tyi X, Tyi Y, then Giy (Tyi X), Gsy (Tyi Y), Giy (Tyi Y)
     gx, gy = torch.empty_like(X), torch.empty_like(X)
@@ -322,7 +358,8 @@ def _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry):
     stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
         err = _carry_lib().pipe_c_d2_launch(
-            parr, carry.nu, shape[0] * shape[1], shape[2], stream)
+            parr, carry.nu, shape[0] * shape[1], shape[2],
+            int(form == "streamed"), stream)
     if err != 0:
         msg = _carry_lib().pipe_c_d2_error_string(err).decode()
         raise RuntimeError(f"pipe_c_d2 launch failed: {msg} ({err})")
@@ -330,11 +367,14 @@ def _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry):
     return tuple(new), tuple(rhsp)
 
 
-def pipe_c_d2(X, Y, u, v, w, pm: ProjectionMats, carry: CarryMats):
+def pipe_c_d2(X, Y, u, v, w, pm: ProjectionMats, carry: CarryMats,
+              form=None):
     """Stage C with the carry: (X, Y, u, v, w) -> ((u', v', w'), (r_u, r_v,
-    r_w)), counted as pipe_c[d2] (3 launches)."""
+    r_w)), counted as pipe_c[d2] (3 launches). form: the carry kernel's
+    form, carry_geometry's by default ("streamed" also serves the resident
+    form's extents, with the same sums in the same order)."""
     if route(X, "pipe_c_d2"):
-        return _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry)
+        return _pipe_c_d2_cuda(X, Y, u, v, w, pm, carry, form)
     return pipe_c_d2_plain(X, Y, u, v, w, pm.mats(X.dtype), carry)
 
 

@@ -485,16 +485,25 @@ def tiled_mid_supported(solver, terms):
                 parity_split_folded(d64[k], a)
         except ValueError:
             bfz = False
+    return (banded_y and bfly and bfz and nvy == ny and nvz == nz
+            and tiled_vmem_ok(ny, nz, terms))
+
+
+def tiled_vmem_ok(ny, nz, terms):
+    """The plane part of x3d2_tpu's tiled gate (pallas_poisson.py:827-848):
+    tiles that divide the (ny, nz) plane (y by 8 to 128, z by 128 or 256)
+    and its per-kernel VMEM estimate, at the mode's band (16, or 32 at
+    terms 3), within the TPU's 64 MB cap."""
+    bw, bbs = (32 if terms >= 3 else 16), 64
     ty = next((t for t in (128, 64, 32, 16, 8) if ny % t == 0), None)
     tz = next((t for t in (256, 128) if nz % t == 0), None)
-    if not (banded_y and bfly and bfz and nvy == ny and nvz == nz
-            and ty is not None and tz is not None):
+    if ty is None or tz is None:
         return False
     nb = ny // bbs
     by = 2 * terms * nb * bbs * (bbs + 2 * bw)
     tf = 2 * terms * (ny // 2) ** 2
     zp = 4 * terms * (nz // 2) ** 2
-    gz = 2 * terms * nvz * (nz // 2)
+    gz = 2 * terms * nz * (nz // 2)
     v1 = 2 * 4 * 5 * ny * tz + 2 * (by + tf) + 6 * 4 * ny * tz
     v2 = (2 * 4 * 5 * ty * nz + 2 * (zp + gz) + 2 * 3 * 4 * ty * nz
           + 6 * 4 * ty * nz)
@@ -549,15 +558,48 @@ def pressure_mid_local(du, dv, dw, pm: ProjectionMats, k2x, tx2, mx=None):
 # the launch-count names of the tiled mid's kernels, in launch order
 TILED_STAGES = ("pressure_mid[tiled,t1]", "pressure_mid[tiled,t2]",
                 "pressure_mid[tiled,t3]")
-# the most points along y or z the tiled kernels take (MAXN of
-# csrc/pressure_mid_tiled.cu: a column or row of two fields in shared
-# memory); x3d2_tpu's gate admits larger planes
-TILED_MAXN = 1024
-TILED_BIG_GAP = ("the y/z-tiled mid _mid_t1_kernel, _mid_t2_kernel and "
-                 "_mid_t3_kernel (x3d2_tpu/ops/pallas_poisson.py:413, :430, "
-                 ":468) on planes of more than {} points along y or z "
-                 "(got {} x {}) is not ported")
+# csrc/pressure_mid_tiled.cu's forms: the wide one (two fields of 16
+# columns or rows a block, the operators staged in shared memory) up to
+# WIDE_MAXN points along the axis a kernel transforms, the long one (8 or
+# 16 a block, the operators read from L2, transposed) past it; threads a
+# block, and the shared memory a block may hold on the H100
+WIDE_TC, WIDE_MAXN, TILED_NT = 16, 1024, 512
+SMEM_MAX = 227 * 1024
 _TILED_LIB = None
+
+
+def tiled_geometry(stage, ny, nz) -> dict:
+    """The launch of the tiled mid's kernel `stage` (1-3) on (ny, nz)
+    planes: its form ("wide" or "long"), tc (columns of z a block for t1
+    and t3, rows of y for t2; the long form's 16 where its threads' 4 rows
+    of each half cover the transformed axis, else 8) and the shared memory
+    in bytes (the long form's: the staged tile alone). Raises ValueError
+    where no form serves the planes."""
+    n = nz if stage == 2 else ny
+    if ny % BBS or nz % WIDE_TC or ny < BBS:
+        raise ValueError(f"the tiled mid takes y a multiple of {BBS} and z "
+                         f"of {WIDE_TC}: got {ny} x {nz}")
+    if n <= WIDE_MAXN:
+        # the staged tile (two fields) and the operator's double-buffered
+        # k-steps of 8 rows (a_stage_floats)
+        tile = 2 * n * WIDE_TC
+        geo = dict(form="wide", tc=WIDE_TC,
+                   smem=4 * (tile + 2 * 8 * (n + 4)))
+    else:
+        fields = 2 if stage == 2 else 1
+        for tc in (16, 8):
+            smem = 4 * fields * n * tc
+            if n // 2 <= TILED_NT * 4 // (tc // 8) and smem <= SMEM_MAX:
+                break
+        else:
+            raise ValueError(f"no form of the tiled mid's t{stage} serves "
+                             f"{n} points along {'z' if stage == 2 else 'y'}")
+        geo = dict(form="long", tc=tc, smem=smem)
+    if (ny if stage == 2 else nz) % geo["tc"]:
+        raise ValueError(f"the tiled mid's t{stage} takes {geo['tc']}-point "
+                         f"tiles along {'y' if stage == 2 else 'z'}: got "
+                         f"{ny} x {nz}")
+    return geo
 
 
 def _tiled_lib():
@@ -568,20 +610,19 @@ def _tiled_lib():
 
         so = _build.load("pressure_mid_tiled")
         i, p = ctypes.c_int, ctypes.c_void_p
-        so.pressure_mid_tiled_launch.argtypes = [i, p, i, i, i, p]
+        so.pressure_mid_tiled_launch.argtypes = [i, i, p, i, i, i, p]
         so.pressure_mid_tiled_launch.restype = i
         so.pressure_mid_tiled_error_string.argtypes = [i]
         so.pressure_mid_tiled_error_string.restype = ctypes.c_char_p
-        so.pressure_mid_tiled_geometry.argtypes = [ctypes.POINTER(i)] * 4
+        so.pressure_mid_tiled_geometry.argtypes = [ctypes.POINTER(i)] * 5
         so.pressure_mid_tiled_geometry.restype = i
-        geo = [i() for _ in range(4)]
+        geo = [i() for _ in range(5)]
         so.pressure_mid_tiled_geometry(*geo)
         geo = tuple(g.value for g in geo)
-        if geo[1:] != (BW, BBS, TILED_MAXN):
-            raise RuntimeError(f"pressure_mid_tiled.cu band and extent "
-                               f"{geo[1:]} differ from the operators' "
-                               f"{(BW, BBS, TILED_MAXN)}")
-        so.geometry = geo
+        want = (WIDE_TC, BW, BBS, WIDE_MAXN, TILED_NT)
+        if geo != want:
+            raise RuntimeError(f"pressure_mid_tiled.cu geometry {geo} "
+                               f"differs from the wrapper's {want}")
         _TILED_LIB = so
     return _TILED_LIB
 
@@ -598,9 +639,24 @@ def _tap_major(pm: ProjectionMats):
     return pm._dev[key]
 
 
-def _tiled_launch(stage, tensors, shape):
-    """One launch of the tiled mid's kernel `stage` (1-3) on float32 CUDA
-    tensors (None: a null pointer), its error check and its count."""
+def _tiled_ops(pm: ProjectionMats, keys, geo):
+    """The transforms `keys` of pm as the form of `geo` reads them: [Me;
+    Mo] (n, n/2) for the wide form, transposed (n/2, n) for the long one
+    (cached on pm)."""
+    m = pm.mats(torch.float32)
+    if geo["form"] == "wide":
+        return [m[k] for k in keys]
+    cache = pm._dev.setdefault("tiled_t", {})
+    for k in keys:
+        if k not in cache:
+            cache[k] = m[k].t().contiguous()
+    return [cache[k] for k in keys]
+
+
+def _tiled_launch(stage, tensors, shape, geo):
+    """One launch of the tiled mid's kernel `stage` (1-3) in the form of
+    `geo` on float32 CUDA tensors (None: a null pointer), its error check
+    and its count."""
     for t in tensors:
         if t is not None and (not t.is_cuda or t.dtype != torch.float32
                               or not t.is_contiguous()
@@ -612,8 +668,9 @@ def _tiled_launch(stage, tensors, shape):
     dev = tensors[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _tiled_lib().pressure_mid_tiled_launch(stage, ptrs, *shape,
-                                                     stream)
+        err = _tiled_lib().pressure_mid_tiled_launch(
+            stage, 0 if geo["form"] == "wide" else geo["tc"], ptrs, *shape,
+            stream)
     if err != 0:
         msg = _tiled_lib().pressure_mid_tiled_error_string(err).decode()
         raise RuntimeError(f"pressure_mid_tiled launch {stage} failed: "
@@ -621,14 +678,11 @@ def _tiled_launch(stage, tensors, shape):
     count_launch(TILED_STAGES[stage - 1])
 
 
-def _tiled_shape(t):
-    """The (nx_loc, ny, nz) of the tiled kernels' fields, checked."""
-    nx, ny, nz = shape = tuple(t.shape)
-    tc, _, _, maxn = _tiled_lib().geometry
-    if ny % BBS or nz % tc or max(ny, nz) > maxn:
-        raise ValueError(f"the tiled mid kernels take y a multiple of {BBS}"
-                         f", z of {tc}, both at most {maxn}: got {shape}")
-    return shape
+def _tiled_shape(t, stage):
+    """The (nx_loc, ny, nz) of the tiled kernels' fields and the launch's
+    geometry (tiled_geometry), checked."""
+    shape = tuple(t.shape)
+    return shape, tiled_geometry(stage, *shape[1:])
 
 
 def _fields_of(shape, *fields):
@@ -643,12 +697,12 @@ def mid_tiled_t1(du, dv, dw, pm: ProjectionMats):
     pressure_mid[tiled,t1] (mid_t1_plain on CPU tensors)."""
     if not route(du, "mid_tiled_t1"):
         return mid_t1_plain(du, dv, dw, pm.mats(du.dtype))
-    shape = _tiled_shape(du)
+    shape, geo = _tiled_shape(du, 1)
     _fields_of(shape, dv, dw)
     taps = _tap_major(pm)
     a, d = torch.empty_like(du), torch.empty_like(du)
-    _tiled_launch(1, [du, dv, dw, taps["biy"], taps["bsy"],
-                      pm.mats(torch.float32)["ty"], a, d], shape)
+    _tiled_launch(1, [du, dv, dw, taps["biy"], taps["bsy"]]
+                  + _tiled_ops(pm, ("ty",), geo) + [a, d], shape, geo)
     return a, d
 
 
@@ -660,14 +714,14 @@ def mid_tiled_t2(a, d, pm: ProjectionMats, k2x, tx2, mx=None):
         m = _local_mats(pm.mats(a.dtype), k2x.to(a.dtype), tx2.to(a.dtype),
                         None if mx is None else mx.to(a.dtype))
         return mid_t2_plain(a, d, m)
-    shape = _tiled_shape(a)
+    shape, geo = _tiled_shape(a, 2)
     _fields_of(shape, d)
     m = pm.mats(torch.float32)
     q, pz, dz = (torch.empty_like(a) for _ in range(3))
-    _tiled_launch(2, [a, d, m["iz"], m["sz"], m["gzi"], m["gzs"],
-                      m["tab_a"], m["tab_b"], m.get("myz"), _table(k2x),
-                      _table(tx2), None if mx is None else _table(mx), q,
-                      pz, dz], shape)
+    _tiled_launch(2, [a, d] + _tiled_ops(pm, ("iz", "sz", "gzi", "gzs"), geo)
+                  + [m["tab_a"], m["tab_b"], m.get("myz"), _table(k2x),
+                     _table(tx2), None if mx is None else _table(mx), q, pz,
+                     dz], shape, geo)
     return q, pz, dz
 
 
@@ -678,14 +732,14 @@ def mid_tiled_t3(pz, dz, pm: ProjectionMats, out=()):
     p_z or dpdz_s)."""
     if not route(pz, "mid_tiled_t3"):
         return mid_t3_plain(pz, dz, pm.mats(pz.dtype))
-    shape = _tiled_shape(pz)
+    shape, geo = _tiled_shape(pz, 3)
     _fields_of(shape, dz, *out)
     res = list(out) + [torch.empty_like(pz) for _ in range(3 - len(out))]
     if {t.data_ptr() for t in res} & {pz.data_ptr(), dz.data_ptr()}:
         raise ValueError("the results may not alias p_z or dpdz_s")
     taps = _tap_major(pm)
-    _tiled_launch(3, [pz, dz, pm.mats(torch.float32)["tyi"], taps["bgiy"],
-                      taps["bgsy"]] + res, shape)
+    _tiled_launch(3, [pz, dz] + _tiled_ops(pm, ("tyi",), geo)
+                  + [taps["bgiy"], taps["bgsy"]] + res, shape, geo)
     return tuple(res)
 
 
@@ -720,8 +774,7 @@ def make_mid_local(solver, pm: ProjectionMats, terms=2):
     x3d2_tpu's: ``einsum(nx_loc)``, the plain replay (X3D2_EINSUM_MID=1; on
     either device, as x3d2_tpu runs XLA there); ``tiled(nx_loc)``, the
     y/z-tiled mid (pressure_mid_tiled; ValueError where x3d2_tpu has none:
-    not ``tiled_supported``; NotImplementedError on planes past the
-    kernels' TILED_MAXN, TILED_BIG_GAP); ``tiled_supported``;
+    not ``tiled_supported``); ``tiled_supported``;
     ``tables``, the solve tables (tab_a, tab_b, myz, k2x, tx2, mx; myz and
     mx None without a Nyquist mask; at the solver's dtype), k2x, tx2 and mx
     in the x stage's mode order; ``ti_x``, ``ti_y``, ``ti_z``, the inverse transforms with
@@ -750,10 +803,6 @@ def make_mid_local(solver, pm: ProjectionMats, terms=2):
             raise ValueError("the tiled mid needs x3d2_tpu's fast path: "
                              "banded y with the parity y and z transforms "
                              "(tiled_mid_supported)")
-        _, ny, nz = solver.poisson.nc
-        if max(ny, nz) > TILED_MAXN:
-            raise NotImplementedError(TILED_BIG_GAP.format(TILED_MAXN, ny,
-                                                           nz))
 
         def mid_tiled(du, dv, dw, k2x_l, tx2_l, mx_l=None):
             check(du, nx_loc)

@@ -23,7 +23,8 @@ fused kernels over locally owned pencils, cuda/kernels/distributed.f90:
   on the rank's block, tiled all-to-alls over y then z into a batch of
   nx / (nproc_y nproc_z) whole (y, z) planes, the mid on that batch with
   its slices of the solve tables (ops/pressure_slab.py make_mid_local; at
-  planes past x3d2_tpu's VMEM cap, 1024^2, its y/z-tiled mid), the
+  planes past x3d2_tpu's VMEM cap, 1024^2 and up to the tiled gate's
+  3968 points along y and 2560 along z, its y/z-tiled mid), the
   all-to-alls back over z then y, and the subtracting inverse x applies.
 
 This module adds no kernel of its own.

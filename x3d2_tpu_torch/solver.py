@@ -91,12 +91,12 @@ from .ops.transeq_dense import make_transeq_dense, transeq_dense_supported
 from .ops.transeq_sweep import (MAX_SPECIES, make_fused_transeq,
                                 transeq_sweep_supported)
 
-# the TPU kernels behind the cases that raise on the card
-_UNPORTED_SPECIES = ("the species sweeps serve float32 uniform grids the "
-                     "sweep kernel tiles, at most 8 scalars (_species_kernel"
-                     "_v3, x3d2_tpu/ops/pallas_kernels.py:1038); x3d2_tpu "
-                     "takes its dense per-species path past that (solver.py:"
-                     "277-282), which is not ported to the card")
+# why a case with scalars raises on the card: x3d2_tpu takes its species
+# sweeps there and the port has not built them
+_UNPORTED_SPECIES = ("x3d2_tpu runs its species sweeps here (_species_kernel"
+                     "_v3, x3d2_tpu/ops/pallas_kernels.py:1038: the sweeps' "
+                     "grids, at most 8 scalars); the port's species kernel "
+                     "was not built for this grid")
 # the slab's x-stage operators, forward (divergence) and inverse (gradient)
 _X_FWD, _X_INV = ("sx", "ix", "ix"), ("gxs", "gxi", "gxi")
 
@@ -236,6 +236,18 @@ class NavierStokes:
                 f"kernel takes float32 and operators within its band "
                 f"(dtype {self.dtype})")
 
+    def species_gap(self):
+        """Why the card cannot run this solver's scalars, or None: x3d2_tpu
+        takes its species sweeps here (the sweeps' grids, at most 8
+        scalars: solver.py:125-136, :277-279) and the port has not built
+        them. Elsewhere both run the per-species einsums (past 8 scalars,
+        the v1 and dense transport routes, X3D2_PALLAS=0)."""
+        nsp = len(self.nu_species)
+        if (0 < nsp <= MAX_SPECIES and self._transport == "sweeps"
+                and self._species_sweeps is None):
+            return _UNPORTED_SPECIES
+        return None
+
     # ------------------------------------------------------------------
     # transport equation RHS
     # ------------------------------------------------------------------
@@ -320,10 +332,9 @@ class NavierStokes:
         """Species convection-diffusion RHS on the dense operator matrices
         (solver.f90:507-601): the scalar uses (der1st, der1st_sym, der2nd)
         against the velocity component aligned with each direction
-        (omp/backend.f90:226-231). CPU tensors only."""
-        if phi.is_cuda:
-            raise NotImplementedError(
-                f"dense species transport on the card: {_UNPORTED_SPECIES}")
+        (omp/backend.f90:226-231). x3d2_tpu's per-species einsums
+        (solver.py:260-268), which it runs past the species sweeps: on the
+        card as plain PyTorch, as the einsum transport."""
         comps = (u, v, w)
         rhs = 0.0
         for axis in range(3):
@@ -342,7 +353,8 @@ class NavierStokes:
         """All scalars' RHS from a stacked (nsp, nx, ny, nz) field: the
         species sweep chain (one conv window read shared by the scalars
         per direction) where it is built, else the dense per-species path
-        (CPU tensors only)."""
+        (x3d2_tpu solver.py:270-282: past 8 scalars, off the sweeps'
+        grids)."""
         nsp = len(self.nu_species)
         sharded = getattr(self, "_sharded_species", None)
         if sharded is not None:
