@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    started together; prints each instance's registers and spills (the
    sweeps' halo forms named so; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
-   ones, 1 the general ones). Then starts
+   ones, 1 the general ones; the split-TF32 x-apply kernel
+   x_apply_tc_kernel<FORM, SUB> and its dynamic shared memory at S = 2, 4,
+   8). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
    card.
@@ -88,8 +90,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
    At 513 x 256 x 128 (path C, the cylinder): the dense x applies sx, ix,
    gx_s, gx_i and, with the correction, gx_s, gx_i, each beside one
    torch.matmul or torch.addmm on the same operands; the same applies at
-   17 -> 16 and 16 -> 17 points (a remainder in K and in rows; held, not
-   listed); the
+   17 -> 16 and 16 -> 17 points (a remainder in K and in rows) and at 201
+   -> 199 points on 36 x 20 columns (n_in, n_out and ny nz all off the
+   kernel's tiles; held, not listed). Every dense x apply (here, at (65,
+   128, 128), with X3D2_BFLY=0 and on the sharded blocks) is the
+   split-TF32 x-apply kernel (csrc/x_apply_manual.cu): launched twice,
+   bit-equal, its share of the split-TF32 bound (max(bytes / 3.35 TB/s, 3
+   x operations / 495 TFLOP/s)) printed beside the FP32 bound and the
+   library call, a time below the bound a failure; the
    mid over the 512 x planes with the Nyquist mask, on plane waves and on
    white noise; the solve epilogue with the mask on tables made regular
    on the zeroed line (the line exactly 0, the rest as the plain version).
@@ -138,11 +146,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    halves, x_gradsub3) and the local mid over a rank's batch of 32 planes
    (held); at YD = 256 x 200 x 256 the slab on the folded y (the mid in 4
    launches: the dense y at 200, the z transforms with the solve, their
-   inverse, the dense y). The manual-pipeline x apply
+   inverse, the dense y). The x-apply kernel's manual entry
    (csrc/x_apply_manual.cu) in its five forms (dense, dense with the
    subtraction, parity forward, inverse, inverse with the subtraction) on
    tools/prof_manual.py's operators at 512^3 and (held) at x = 320, each
-   beside one torch.matmul / torch.addmm.
+   at S = 4 beside one torch.matmul / torch.addmm, and at 512^3 at S = 2,
+   3, 6 bit-equal to S = 4 and timed.
    PR 11: the carry's streamed form (csrc/pipe_c_d2.cu past nz = 512)
    and the tiled mid's long form (csrc/pressure_mid_tiled.cu past 1024
    points along y or z). At (128, 128, 640) (phase 8's carried chain) the
@@ -245,11 +254,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    B's), YD (256 x 200 x 256: the einsum transport and the slab on the
    folded y without q); the launches counted, the main path's KE and
    divergence checks.
-7c. tools/prof_manual.py once at 512^3 (the manual x apply's entry point:
-   the template's x apply, the manual kernel at S = 2, 3, 4, 6 and one
-   torch call of each form, held to 1e-5 / 3e-5 of plain f32 / f64), its
-   JSON line printed; its launches are the manual kernel's in the kernels
-   line.
+7c. tools/prof_manual.py once at 512^3 (the manual entry point of the
+   x-apply kernel: the kernel at S = 2, 3, 4, 6, in the parity forms the
+   template's x_pfwd / x_pinv, and one torch call of each form, held to
+   1e-5 / 3e-5 of plain f32 / f64), its JSON line and one line a form
+   (times, shares of the split-TF32 bound) printed; its launches are the
+   manual entry's in the kernels line.
 7b. The cylinder (x inflow and convective outflow, IBM), AB3,
    keep_pressure=False, built by the port's config.py from
    examples/cylinder/input.x3d:
@@ -258,7 +268,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
      else (the transport is x3d2_tpu's einsums: plain matrix products);
      u, v, w finite, the inflow plane's mean within 0.1 of 1, |u| < 0.5
      at the body's centre, div_u_max below CYL_DIV_LIMIT; ms/step and the
-     projection's share;
+     projection's share, beside PR 11's ms/step (as path BD's and SH-d's,
+     the runs that take the dense x apply);
    - path C-ex: the example at its own 257 x 128 x 32, 10 steps: no kernel
      launch at all (x3d2_tpu runs none there), finite.
 8. Slice as a whole: float32, 10 steps on the card (kernels) and on the
@@ -301,6 +312,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    keep_pressure=False as X3D2_XDIV_FUSED=0; X3D2_BFLY=0 with
    X3D2_PIPE3=0 as X3D2_BFLY=0 with keep_pressure=True, its velocities)
    takes that CPU leg.
+   Each leg prints the card's ms/step (10 steps, monitoring on).
    max |du, dv, dw| <= 1e-5 and max |dphi| <= 1e-5, KE relative
    difference <= 1e-6, p within p_tolerance; with bfloat16 stores each of
    the first two widened by what one bfloat16 ulp of the largest rhs (or
@@ -458,6 +470,7 @@ CYL_DIV_LIMIT = 1.1e-3
 # H100 SXM data-sheet rates (NVIDIA), dense, at the 700 W limit
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 SWEEP_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep.cu"
 # the W = 32 instances (X3D2_MATMUL_PRECISION=highest); both sources hold
 # the kernels of csrc/transeq_sweep.cuh at one block geometry each
@@ -468,8 +481,13 @@ CARRY_SOURCE = "x3d2_tpu_torch/csrc/pipe_c_d2.cu"
 DENSE_SOURCE = "x3d2_tpu_torch/csrc/transeq_dense.cu"
 # the y/z-tiled mid of the repencilled projection at 1024^2 planes
 TILED_SOURCE = "x3d2_tpu_torch/csrc/pressure_mid_tiled.cu"
-# the manual-pipeline x apply, on no solver path (tools/prof_manual.py)
+# the split-TF32 x-apply kernel: the dense x apply (x_apply, x_apply[sub])
+# and the manual entry, on no solver path (tools/prof_manual.py)
 MANUAL_SOURCE = "x3d2_tpu_torch/csrc/x_apply_manual.cu"
+# PR 11's ms/step (its final run, H100 80GB HBM3, 700 W) of the runs that
+# take the dense x apply, printed beside this run's; the compensated
+# cylinder's card leg (10 steps, counted) read 0.2 s in its log
+PR11_MS = {"path C": 18.612, "path BD": 107.261, "SH-d": 181.713}
 REPLACES = {2: "x3d2_tpu/ops/pallas_kernels.py:671",
             0: "x3d2_tpu/ops/pallas_kernels.py:172",
             1: "x3d2_tpu/ops/pallas_kernels.py:172",
@@ -772,8 +790,13 @@ def x_apply_cost(n_out, n_in, ny, nz, sub):
     return nbytes, cols * n_out * (2 * n_in + (1 if sub else 0))
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def bound(nbytes, flops, tc=False):
+    """(bound ms, its kind, bytes ms, operations ms): the function's
+    bytes at the memory rate, its operations at the FP32 rate; tc: the
+    split-TF32 x-apply kernel's, three TF32 products of every operation at
+    the tensor cores' rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (3 * flops / PEAK_TF32 if tc else flops / PEAK_FP32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                  else "operations"), t_bytes, t_ops
 
@@ -1176,6 +1199,13 @@ def main():
                     and inst.endswith(",1>") else "")
                 print(f"[build {name} {inst}{halo}] " + line.strip())
 
+    # the x-apply kernel's shared memory is dynamic: its S-stage ring
+    print("[build x_apply_manual] x_apply_tc_kernel dynamic shared memory "
+          "(the ring and its barriers), bytes: " + ", ".join(
+              f"{tag} S={S} {xm.geometry(form, 256, 128, 128, 132, S).smem}"
+              for tag, form in (("dense/inv", xm.DENSE), ("fwd", xm.FWD))
+              for S in (2, 4, 8)), flush=True)
+
     def stamp(phase):
         print(f"[time] {phase} starts at {time.perf_counter() - t_start:.1f}"
               " s", flush=True)
@@ -1197,17 +1227,32 @@ def main():
     rows = {}     # (kernel name, size label) -> its entry of the kernels line
 
     def row(name, n, source, replaces, err, ms, plain_ms, cost,
-            library_ms=None):
-        b, by, t_bytes, t_ops = bound(*cost)
+            library_ms=None, tc=False):
+        b, by, t_bytes, t_ops = bound(*cost, tc=tc)
         rows[name, n] = {"name": f"{name}@{n}", "route": "cuda",
                          "source": source, "replaces": replaces,
                          "launches": 0, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                          "library_ms": library_ms}
+        if tc:
+            return tc_txt(name, n, ms, cost, library_ms)
         lib_txt = ("" if library_ms is None
                    else f"  library {library_ms:.3f} ms")
         return f"bound {b:.3f} ms ({by}: bytes {t_bytes:.3f}, ops " \
                f"{t_ops:.3f}){lib_txt}"
+
+    def tc_txt(name, n, ms, cost, library_ms):
+        """The split-TF32 x-apply kernel's bound and share of one call,
+        the FP32 bound and the library call beside them; a time below the
+        bound fails (the bound would be wrong)."""
+        b, by, t_bytes, t_ops = bound(*cost, tc=True)
+        check(b <= ms, f"{name}@{n}: {ms:.4f} ms beats its bound {b:.4f}")
+        lib_txt = ("" if library_ms is None else
+                   f"  library {library_ms:.3f} ms (kernel/library "
+                   f"{ms / library_ms:.2f})")
+        return f"split-TF32 bound {b:.3f} ms ({by}: bytes {t_bytes:.3f}, " \
+               f"3 x TF32 ops {t_ops:.3f}), share {b / ms:.0%}; FP32 bound " \
+               f"{bound(*cost)[0]:.3f} ms{lib_txt}"
 
     def report(label, err32, rel32, rel64, ms, plain_ms, txt, lim64=3e-5,
                lim32=1e-5):
@@ -1238,7 +1283,7 @@ def main():
 
     def hold(label, n, kern, plain, args, name, replaces, cost, again=False,
              source=SWEEP_SOURCE, lim64=3e-5, library=None, listed=True,
-             fold=None, tail64=None, cut=None):
+             fold=None, tail64=None, cut=None, tc=False):
         """Hold kern(*args) against plain(*args) in float32 and plain on
         the float64 args; time both (and `library`, one PyTorch call of the
         same function, where there is one). A name met before at this size
@@ -1255,7 +1300,7 @@ def main():
         acts along y or z alone) under which the kernel's outputs and the
         plain versions' inputs are compared, for grids whose plain float64
         version would not fit the card beside the kernel's (both are timed
-        whole)."""
+        whole). tc: the split-TF32 x-apply kernel (its bound, row())."""
         reduced = fold is not None
         fold = fold or (lambda outs: (outs, []))
         got = flat(kern(*args))
@@ -1280,6 +1325,11 @@ def main():
                 del p32
                 p32 = None
             p64 = fold(flat(plain(*to64(pargs))))[0]
+            if tc:
+                # the split-TF32 kernel's distance to float64 beside plain
+                # float32's own
+                tail_txt = (f"  plain32 vs plain64 rel "
+                            f"{rel_err(p32, p64)[1]:.2e}")
             if tail64 is None:
                 _, rel64 = rel_err(g32, p64)
             else:
@@ -1302,10 +1352,10 @@ def main():
         if (name, n) in rows:   # the startup row: the steady one's times
             rows[name, n]["max_abs_err"] = max(err,
                                                rows[name, n]["max_abs_err"])
-            txt = ""
+            txt = tc_txt(name, n, ms, cost, lib_ms) if tc else ""
         else:
             txt = row(name, n, source, replaces, err, ms, plain_ms, cost,
-                      lib_ms)
+                      lib_ms, tc)
             if not listed:
                 del rows[name, n]
         txt += tail_txt
@@ -2153,8 +2203,9 @@ def main():
 
     def x_apply_hold(op, pm, f, s, n, listed=True):
         """The dense x apply of pm's operator `op` (with the correction
-        when s is given) against its plain version, beside one torch.matmul
-        or torch.addmm on the same operands."""
+        when s is given; the split-TF32 kernel of MANUAL_SOURCE) against its
+        plain version, beside one torch.matmul or torch.addmm on the same
+        operands; two launches must give the same bits."""
         M = pm.mats(torch.float32)[op]
         n_out, n_in = M.shape
         name = "x_apply" if s is None else "x_apply[sub]"
@@ -2174,7 +2225,8 @@ def main():
         hold(f"{name}[{op}]", n, kern, plain,
              (f,) if s is None else (f, s), name, REPLACES[name],
              x_apply_cost(n_out, n_in, f.shape[1], f.shape[2], s is not None),
-             source=PIPE_SOURCE, library=library, listed=listed)
+             again=True, source=MANUAL_SOURCE, library=library,
+             listed=listed, tc=True)
 
     randn_c, randn_cc = randn_of(CYL), randn_of(ncell)
     for op in ("sx", "ix"):
@@ -2186,7 +2238,8 @@ def main():
     for op in ("gxs", "gxi"):
         x_apply_hold(op, pm_c, randn_cc(), randn_c(), lab_c)
     # a remainder in K and in the output rows, at 17 -> 16 and 16 -> 17
-    # points (random operators; held, not listed)
+    # points, and n_in, n_out and ny nz all off the kernel's tiles, 201 ->
+    # 199 points on 36 x 20 columns (random operators; held, not listed)
     rng_r = torch.Generator(device="cpu").manual_seed(1)
     pm_r = ProjectionMats(
         shape=(16, 128, 128), device=dev, x_perm=None, q_perm=None,
@@ -2194,12 +2247,17 @@ def main():
         m64={"m17": torch.randn(16, 17, generator=rng_r,
                                 dtype=d64).numpy(),
              "m16": torch.randn(17, 16, generator=rng_r,
-                                dtype=d64).numpy()})
-    for op, n_in, n_out in (("m17", 17, 16), ("m16", 16, 17)):
-        f_r = randn_of((n_in, 128, 128))()
-        s_r = randn_of((n_out, 128, 128))()
-        x_apply_hold(op, pm_r, f_r, None, f"{n_in}x128x128", listed=False)
-        x_apply_hold(op, pm_r, f_r, s_r, f"{n_in}x128x128", listed=False)
+                                dtype=d64).numpy(),
+             "m201": torch.randn(199, 201, generator=rng_r,
+                                 dtype=d64).numpy()})
+    for op, n_in, n_out, yz in (("m17", 17, 16, (128, 128)),
+                                ("m16", 16, 17, (128, 128)),
+                                ("m201", 201, 199, (36, 20))):
+        f_r = randn_of((n_in,) + yz)()
+        s_r = randn_of((n_out,) + yz)()
+        lab_r = size_label((n_in,) + yz)
+        x_apply_hold(op, pm_r, f_r, None, lab_r, listed=False)
+        x_apply_hold(op, pm_r, f_r, s_r, lab_r, listed=False)
     del pm_r, f_r, s_r
     # the mid over the 512 x planes (keep_pressure=False: without q)
     m32_c = pm_c.mats(torch.float32)
@@ -2587,24 +2645,27 @@ def main():
         torch.cuda.empty_cache()
 
     stamp("phase 3j")
-    # -- 3j. the manual-pipeline x apply (ops/x_apply_manual.py, on no
-    # solver path; tools/prof_manual.py, phase 7c, is its path) on the
-    # operators of tools/prof_manual.py at 512^3 and at x = 320, each form
-    # beside one torch.matmul / torch.addmm of the dense operator --
+    # -- 3j. the manual entry of the x-apply kernel (ops/x_apply_manual.py,
+    # on no solver path; tools/prof_manual.py, phase 7c, is its path) on
+    # the operators of tools/prof_manual.py at 512^3 and at x = 320: each
+    # form held at S = 4 beside one torch.matmul / torch.addmm of the dense
+    # operator, then at S = 2, 3, 6 (at 512^3) bit-equal to S = 4 and
+    # timed --
     for dims, listed in (((NS,) * 3, True), (PX, False)):
         n_m = dims[0]
         Mf, Mi = pmt.operators(n_m)
         randn_m = randn_of(dims)
         for _, parity, sub in pmt.FORMS:
             M = Mi if parity == "inv" else Mf
-            fn = xm.make_x_apply_manual(M, sub=sub, parity=parity,
-                                        device=dev)
+            fns = {S: xm.make_x_apply_manual(M, sub=sub, parity=parity,
+                                             slots=S, device=dev)
+                   for S in pmt.SLOTS}
             Md = torch.as_tensor(M, dtype=torch.float32, device=dev)
 
-            def kern(f, s_, fn=fn):
+            def kern(f, s_, fn=fns[4]):
                 return (fn(f, s_),)
 
-            def plain(f, s_, fn=fn, parity=parity):
+            def plain(f, s_, fn=fns[4], parity=parity):
                 return (xm.x_apply_manual_plain(fn.op(f.dtype), f, s_,
                                                 parity),)
 
@@ -2617,11 +2678,29 @@ def main():
             name = xm.stage_name(parity, sub)
             cost = (x_apply_cost(n_m, n_m, dims[1], dims[2], sub)
                     if parity is None else x_parity_cost(dims, sub))
-            hold(name, size_label(dims), kern, plain,
-                 (randn_m(), randn_m() if sub else None), name,
-                 REPLACES["x_apply_manual"], cost, source=MANUAL_SOURCE,
-                 library=library, listed=listed)
-            del fn, Md
+            args = (randn_m(), randn_m() if sub else None)
+            hold(name, size_label(dims), kern, plain, args, name,
+                 REPLACES["x_apply_manual"], cost, again=True,
+                 source=MANUAL_SOURCE, library=library, listed=listed,
+                 tc=True)
+            if listed:
+                ref = fns[4](*args)
+                lib_ms = cuda_ms(lambda: library(*args), 10, torch)
+                times = {}
+                b_tc = bound(*cost, tc=True)[0]
+                for S in pmt.SLOTS:
+                    check(torch.equal(fns[S](*args), ref),
+                          f"{name}: S = {S} differs from S = 4")
+                    times[S] = cuda_ms(lambda S=S: fns[S](*args), 10, torch)
+                    check(b_tc <= times[S], f"{name} S = {S}: beats its "
+                                            "bound")
+                print(f"[{name} {size_label(dims)}, S = 2, 3, 4, 6] bit-"
+                      "equal; ms " + ", ".join(
+                          f"S={S} {t:.3f} ({b_tc / t:.0%} of the split-TF32 "
+                          "bound)" for S, t in times.items())
+                      + f"; library {lib_ms:.3f}", flush=True)
+                del ref
+            del fns, Md, args
         torch.cuda.empty_cache()
 
     # ---- 4-7. the paths ------------------------------------------------------
@@ -2827,6 +2906,7 @@ def main():
     torch.cuda.synchronize()
     ts.reset_launch_counts()
     oa.reset_launch_counts()
+    xm.reset_launch_counts()
     state = case.step(state)
     torch.cuda.synchronize()
     one = counts_now()
@@ -3002,6 +3082,8 @@ def main():
         f"{k} {modes_ms[k]:.3f}" for k in ("main", "path D", "path B",
                                             "path BS", "path BD")),
         flush=True)
+    print(f"[path BD] {modes_ms['path BD']:.3f} ms/step; PR 11's final run "
+          f"{PR11_MS['path BD']:.3f} ({card})", flush=True)
 
     # 6. path A: 256^3, keep_pressure=False: the xdiv chain and the slab
     names_a = sweeps_xdiv + ["pressure_mid", "x_gradsub3"]
@@ -3156,6 +3238,22 @@ def main():
                                       "forms": prof, "ok": prof_ok}}),
           flush=True)
     check(prof_ok, "prof_manual: a kernel differs from the plain versions")
+    for label, parity, sub in pmt.FORMS:
+        e = prof[label]
+        cost = (x_apply_cost(NS, NS, NS, NS, sub) if parity is None
+                else x_parity_cost((NS,) * 3, sub))
+        b_tc = bound(*cost, tc=True)[0]
+        ms_s = {S: e[f"manual[S={S}]"]["ms"] for S in pmt.SLOTS}
+        check(all(b_tc <= t for t in ms_s.values()),
+              f"prof_manual {label}: a time beats its bound")
+        tmpl = (f", template {e['template']['ms']:.3f}" if "template" in e
+                else "")
+        print(f"[prof_manual {label} {NS}] ms " + ", ".join(
+            f"S={S} {t:.3f} ({b_tc / t:.0%})" for S, t in ms_s.items())
+            + f"{tmpl}; torch {e['torch_ms']:.3f}; split-TF32 bound "
+            f"{b_tc:.3f}, FP32 bound {bound(*cost)[0]:.3f}; vs plain64 rel "
+            f"{e['manual[S=4]']['rel64']:.2e}, plain32 vs plain64 "
+            f"{e['plain32_vs_64']:.2e}", flush=True)
     for name, k in prof_counts.items():
         if (name, str(NS)) not in rows:
             unheld.add(f"{name}@{NS}")
@@ -3205,7 +3303,9 @@ def main():
           flush=True)
     check(div_max < CYL_DIV_LIMIT,
           f"path C: div_u_max {div_max} >= {CYL_DIV_LIMIT}")
-    step_times("path C", case, state)
+    ms_c = step_times("path C", case, state)
+    print(f"[path C] {ms_c:.3f} ms/step; PR 11's final run "
+          f"{PR11_MS['path C']:.3f} ({card})", flush=True)
     del case, state
     torch.cuda.empty_cache()
     case, state, _ = drive_cylinder("path C-ex", (257, 128, 32), STEPS, [])
@@ -3316,12 +3416,16 @@ def main():
             took = chain_took(c)
             check(took == spec["chain"], f"{label}: took the {took} chain, "
                                          f"not {spec['chain']}")
+            torch.cuda.synchronize()
+            t_card = time.perf_counter()
             if per_step is not None:
                 on_card, _ = run_counted(label, c, c.initial_state(),
                                          steps, per_step,
                                          boots.get(label, ()))
             else:
                 on_card = c.run(n_iters=steps, n_output=steps)
+            torch.cuda.synchronize()
+            t_card = (time.perf_counter() - t_card) * 1e3 / steps
             card_ke = c.monitor.rows[-1][4]
         del c
         t0 = time.perf_counter()
@@ -3359,8 +3463,12 @@ def main():
                                   f"{dphi}")
         if label in cpu_same:
             txt += f"  (CPU leg: that of {cpu_same[label]})"
-        txt += (f"  ({time.perf_counter() - t_chain:.1f} s; the CPU leg "
+        txt += (f"  ({time.perf_counter() - t_chain:.1f} s; the card "
+                f"{t_card:.3f} ms/step with monitoring; the CPU leg "
                 f"{cpu_s:.1f} s)")
+        if label == "cylinder 65x128x128 compensated":
+            txt += ("  (PR 11's log: the leg 0.2 s, set-up, 10 steps and "
+                    "compare)")
         print(f"[slice] {label}, {steps} steps card vs CPU: "
               f"max|du,dv,dw|={du:.3e} (<= {du_tol:.3e})  KE rel "
               f"{ke_rel:.3e} (<= {ke_tol:.3e}){txt}", flush=True)
@@ -3528,6 +3636,10 @@ def main():
         print(f"[{tag}] rank 0's seconds: " + ", ".join(
             f"{k} {v:.1f}" for k, v in res[0]["seconds"].items()),
             flush=True)
+        if "X3D2_BFLY" in spec.get("env", {}):
+            print(f"[{tag}] SH-d: rank 0 {res[0]['ms_per_step']:.3f} ms/step;"
+                  f" PR 11's final run {PR11_MS['SH-d']:.3f} ({card})",
+                  flush=True)
         # the mid runs over the rank's x batch, the rest over its block
         lab_mid = size_label((dims[0] // (mesh_s[0] * mesh_s[1]),) + dims[1:])
         for name in want:

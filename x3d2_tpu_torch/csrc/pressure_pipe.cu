@@ -40,13 +40,9 @@
 //     SOLVE_PLANE), PINV z (Gzi q, Gzs q), PINV y, banded y (Giy, Gsy, Giy)
 //   - _x_parity_gradsub3_kernel  pallas_poisson.py:1106  one PINV launch
 //     along x with three jobs and the subtracting epilogue
-//   - _x_apply_kernel            pallas_poisson.py:954   the dense x stage
-//     of a wall-bounded x axis (and of any x with X3D2_BFLY=0): one DENSE
-//     launch per field, out = M f (sx, ix: (ncx, nvx)) or out = s - M f
-//     (gx_s, gx_i: (nvx, ncx)). The TPU kernel K-blocks the contraction
-//     over its grid; here the k-loop of the block runs over all of K, and
-//     the operand loads are guarded, so K and the output rows need not be
-//     multiples of the tiles (513 on a Dirichlet axis of 512 cells).
+//   (the dense x stage, _x_apply_kernel pallas_poisson.py:954, is the
+//   split-TF32 tensor-core kernel of x_apply_manual.cu, not a form of
+//   this template)
 //   - the dense forms of _pressure_mid_kernel (X3D2_BFLY=0; the dense-Ty
 //     and dense-z branches of _div_solve_body / _grad_body,
 //     pallas_poisson.py:189-310, which _div_solve_kernel :327 and
@@ -630,8 +626,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
         return launch<PINV, true, STORE, false, true>(a, grid, two, s);
       case DENSE * 100 + 0 + STORE:
         return launch<DENSE, false, STORE, false, true>(a, grid, two, s);
-      case DENSE * 100 + 0 + SUB:
-        return launch<DENSE, false, SUB, false, true>(a, grid, two, s);
       case DENSE * 100 + 0 + SOLVE_PLANE:
         return launch<DENSE, false, SOLVE_PLANE, false, true>(a, grid, two, s);
       case DENSE * 100 + 10 + STORE:
@@ -678,8 +672,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
       return launch<PINV, true, STORE>(a, grid, false, s);
     case DENSE * 100 + 0 + STORE:
       return launch<DENSE, false, STORE>(a, grid, false, s);
-    case DENSE * 100 + 0 + SUB:
-      return launch<DENSE, false, SUB>(a, grid, false, s);
     case DENSE * 100 + 0 + SOLVE_PLANE:
       return launch<DENSE, false, SOLVE_PLANE>(a, grid, false, s);
     case DENSE * 100 + 10 + STORE:

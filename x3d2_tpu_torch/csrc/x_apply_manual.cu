@@ -1,372 +1,665 @@
-// The x apply with its own multi-stage copy pipeline, for Hopper (sm_90a),
-// behind a plain C interface: out = M @_x f, or out = s - M @_x f, for M
-// (n_out, n_in) float32 and f (n_in, ny, nz) float32 in three forms:
-//   DENSE  out = M f;
-//   FWD    the forward parity split of a transform-folded M:
-//          [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f;
-//   INV    the inverse one: [a + b; a - b], a = Me f_e, b = Mo f_o (with
-//          or without the subtraction from s).
+// The x apply on the tensor cores, for Hopper (sm_90a), behind a plain C
+// interface: out = M @_x f, or out = s - M @_x f, for M (n_out, n_in)
+// float32 and f (n_in, ny, nz) float32, in five forms:
+//   DENSE   out = M f, and DENSE + SUB: out = s - M f;
+//   FWD     the forward parity split of a transform-folded M:
+//           [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f;
+//   INV     the inverse one: [a + b; a - b], a = Me f_e, b = Mo f_o, and
+//           INV + SUB.
 // FWD and INV take the stacked [Me; Mo] (n_out, n_in / 2).
 //
-// Replaces the TPU kernel of x3d2_tpu's manual-DMA x apply
-// (make_x_apply_manual, x3d2_tpu/ops/pallas_manual.py:62; its inner
-// `kernel` :114, pl.pallas_call :200): one gridless kernel that drives its
-// own S-slot HBM <-> VMEM pipeline over (y, z) tiles, with a lookahead of
-// S - 2 tiles and the output DMAs overlapped. No path of the solver calls
-// it, in x3d2_tpu or here; tools/prof_manual.py is its entry point.
+// Replaces two TPU kernels of x3d2_tpu, which compute the same function:
+//   - _x_apply_kernel (pallas_poisson.py:954, pl.pallas_call :1346), the
+//     dense x stage of a wall-bounded x and of any x with X3D2_BFLY=0
+//     (DENSE, DENSE + SUB), launched by ops/operator_apply.py apply_dense
+//     for the slab's x_apply and the sharded step's XApplyOp;
+//   - the manual-DMA x apply (make_x_apply_manual, pallas_manual.py:62;
+//     its `kernel` :114, pl.pallas_call :200), which is _x_apply_kernel
+//     with its own S-slot copy pipeline, in every form, launched by
+//     ops/x_apply_manual.py (on no solver path; tools/prof_manual.py).
+// Both sum bf16 hi/lo splits of their operands in float32 on the MXU
+// (split_hi_lo, pallas_kernels.py:60; _mm_left, pallas_poisson.py:54).
+// Here the split is TF32's, to float32 accuracy:
+//   x = hi + lo, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi),
+//   P = A_lo B_hi + A_hi B_lo + A_hi B_hi   (the small terms first),
+// three TF32 tensor-core products into float32 accumulators; the dropped
+// lo lo term is below 2^-22 of |A| |B|. The tensor cores do not round
+// their float32 sums to nearest, so they sum one k chunk (16 k, six
+// products) at a time, and each chunk's P is added to the output's sums
+// in registers by FP32 adds (round to nearest): with the tensor cores'
+// sums running over all of K, 513 points read 5x plain float32's
+// distance to float64.
 //
-// Bound on an H100 at 512^3: 2 n_in multiply-adds an output (n_in / 2 in
-// the parity forms), 2.7e11 (1.4e11) operations, about 4.1 (2.1) ms at the
-// 67 TFLOP/s FP32 rate, against 2 field passes (3 with s) of device
-// memory, about 0.32 (0.48) ms at 3.35 TB/s: bound by operations.
+// Bound on an H100: n_in multiply-adds an output (n_in / 2 in the parity
+// forms), three times over in TF32: the dense apply at 512^3 is 1.4e11
+// operations, 0.83 ms at 3 x the 495 TFLOP/s TF32 rate, against 0.32 ms
+// for its two field passes at 3.35 TB/s: bound by operations (2.05 ms at
+// the 67 TFLOP/s FP32 rate the SIMT x applies had).
 //
-// What the design does about it: a persistent kernel, one block of 256
-// threads an SM, walks work items (a pass of up to TR = 256 output rows,
-// and a tile of BN = 32 columns of the (y, z) plane), block b taking items
-// b, b + grid, ... Each item's contraction is cut into chunks of KC = 16
-// k: the operator's KC x TR block (the operator is passed transposed, (K,
-// n_out), so a thread's 8 rows are two float4 reads of shared memory) and
-// the field's KC x BN block (FWD: the two halves' blocks) are copied into
-// one of S shared-memory stages by cp.async (16 bytes a copy where the
-// rows are aligned, else 4; rows and k past the ends zero-filled), S - 1
-// chunks ahead of the one in use, and
-// the chunk sequence runs on from one item into the next: the stores of
-// item i's outputs (from registers) overlap the loads of item i + 1's
-// first chunks. The stages are handed over by cp.async commit groups and
-// one block barrier a chunk (not mbarriers). A thread holds 8 rows x 4
-// columns of sums (INV: both a and b, the second source's chunks following
-// the first's), f32 multiply-adds in k order, as the template's x apply.
-// The operator is read again for every column tile (from L2: at 512 it is
-// 1 MB), s with the output in the epilogue (not through the stages). S is
-// a launch parameter (2 to 8; default 4, as in the JAX).
+// Design. wgmma reads TF32 operands from shared memory K-major only, and
+// the field (n_in, ny nz) is contiguous along its columns, so the kernel
+// computes the transposed tile: D^T (plane columns x output rows) =
+// F^T M^T. F^T is the A operand, read from the staged field tile into
+// registers and split there (FWD forms f1 +/- f2 first); M_hi and M_lo
+// are the B operands, in shared memory as M lies (row-major (n_out, K) is
+// K-major). The operator's split is made once per operator on the host
+// (ops/x_apply_manual.py pack), padded to whole tiles and laid out in
+// device memory as the shared-memory image of each (row tile, k chunk)
+// block: BN rows of KC = 16 tf32 (64 bytes, 64-byte swizzled), hi then
+// lo, so one bulk copy brings a stage's operator. The field comes by TMA
+// through a tensor map made at each launch: boxes of 32 plane columns by
+// KC rows, 128-byte swizzled, zero-filled past the field's extents (four
+// boxes a 128-column tile: one copy a field row cost the issuing warp as
+// much as the tensor cores' work).
+// A persistent grid, one block an SM, walks work items: a column tile of
+// BM = 128 plane columns and a row tile of BN output rows (128; FWD 64, so
+// its two field blocks fit the same stage; INV 64, so its two sets of sums
+// fit the registers), block b taking items b, b + grid, ... An item's
+// contraction runs over k chunks of KC in one fixed order whatever the
+// extents (INV: the a source's chunks, then the b source's, into sums of
+// their own): no split-K and no atomics, so two launches give the same
+// bits and a column's result does not depend on the other columns.
+// One producer warp keeps the chunks in flight through an S-stage ring of
+// shared memory (full mbarriers completed by the copies' bytes, empty
+// ones by the consumer warps); its warpgroup hands its registers to the
+// two consumer warpgroups (setmaxnreg). A consumer warpgroup takes 64
+// plane columns (a_columns in the wrapper: the column order that makes
+// its fragment loads conflict-free on the swizzled boxes) and, per chunk,
+// issues 3 wgmma m64nBNk8 for each of its two k steps of 8, loads and
+// splits the next chunk's fragments while they run, then adds the
+// chunk's sum to its registers and frees the stage. Rows past the
+// operator's (n_out, or the half) are zero in the packed operator and
+// masked at the store; k past K is zero in the packed operator and masked
+// in the A fragments; columns past ny nz are zero-filled and not stored.
+// The epilogue stores each thread's sums from its registers (SUB: all of
+// the item's s loaded first), 16-byte runs of a row (no staging: the
+// shared memory is the ring's).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;       // threads a block
-constexpr int TR = 256;       // output rows an item (a pass)
-constexpr int BN = 32;        // columns an item
-constexpr int KC = 16;        // k a chunk
-constexpr int TRP = TR + 4;   // padded k-row of the operator's stage block
+constexpr int NCONS = 256;           // consumer threads: two warpgroups
+constexpr int NTHR = NCONS + 128;    // and the producer warpgroup
+constexpr int NCW = NCONS / 32;      // consumer warps (empty arrivals)
+constexpr int BM = 128;              // plane columns an item
+constexpr int KC = 16;               // k a chunk: one 64-byte row of tf32
+constexpr int FBOX = 32;             // plane columns a field box (128 B)
+constexpr int FBOX_BYTES = FBOX * KC * 4;
 constexpr int MAX_S = 8;
+// registers a thread after the hand-over (setmaxnreg): the block starts
+// with three warpgroups of 168; the producer warpgroup (one warp copies,
+// three leave) keeps 40 and the two consumer warpgroups take 232
+// (128 x 40 + 256 x 232 <= 65536)
+constexpr int PROD_REGS = 40;
+constexpr int CONS_REGS = 232;
 
 enum { DENSE = 0, FWD = 1, INV = 2 };
 
-struct ManualArgs {
-  const float* M;   // the operator transposed, (K, n_out): DENSE K = n_in;
-                    // FWD, INV K = n_in / 2 ([Me; Mo] transposed)
-  const float* f;   // (n_in, ncols)
-  const float* s;   // (n_out, ncols) or null
-  float* out;       // (n_out, ncols)
-  int nout;
+// output rows an item (the wgmma N): FWD's stage holds two field blocks,
+// INV's registers hold two sets of sums
+__host__ __device__ constexpr int tile_rows(int form) {
+  return form == DENSE ? 128 : 64;
+}
+// bytes of the operator's block of a stage (hi and lo)
+__host__ __device__ constexpr int op_bytes(int form) {
+  return 2 * tile_rows(form) * KC * 4;
+}
+// bytes of a stage: the operator's block, then the field's (FWD: two),
+// each BM / FBOX boxes of KC rows of 128 bytes; every block starts on a
+// 1024-byte swizzle atom
+__host__ __device__ constexpr int stage_bytes(int form) {
+  return op_bytes(form) + (form == FWD ? 2 : 1) * (BM / FBOX) * FBOX_BYTES;
+}
+__host__ __device__ constexpr int smem_bytes(int form, int slots) {
+  return slots * stage_bytes(form) + 2 * 8 * MAX_S + 1024;
+}
+
+struct TcArgs {
+  const float* op;   // packed: (parts, rtiles, ktiles, 2, BN * KC)
+  const float* f;    // (n_in, ncols): DENSE n_in = K, FWD and INV 2 K
+  const float* s;    // (n_out, ncols) or null
+  float* out;        // (n_out, ncols)
+  int rows;          // output rows of a part: DENSE n_out, else n_out / 2
   int K;
+  int rtiles;        // row tiles of a part
+  int ktiles;        // k chunks (the packed operator's K padded to KC)
   long long ncols;
-  int ctiles;       // ncols / BN
-  int passes;       // row passes: of n_out (DENSE) or of n_out / 2
   int nitems;
-  int slots;        // S
+  int slots;
 };
 
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
-// wait until at most n commit groups are pending (n = S - 2, 0 .. 6)
-__device__ __forceinline__ void wait_pending(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 6;\n" ::); break;
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// floats of one stage: the transposed operator's KC x TR block (k-rows
-// padded to TRP) and the field's KC x BN block (FWD: both halves')
-template <int FORM>
-constexpr int STAGE_FLOATS = KC * TRP + (FORM == FWD ? 2 : 1) * KC * BN;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
 
-// one chunk's multiply-adds into a thread's 8 x 4 sums: rows 8 ty .. 8 ty
-// + 7, columns 4 tx .. 4 tx + 3; FWD combines the halves' blocks first,
-// f1 + f2 (f1 - f2 for the odd half)
-template <int FORM>
-__device__ __forceinline__ void chunk_fma(float (&acc)[8][4],
-                                          const float* As, const float* Bs,
-                                          bool odd, int tx, int ty) {
+// a bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a TMA load of one field box (FBOX columns from c0, KC rows from row0;
+// past the field's extents zero-filled) into shared memory, completing on
+// mbarrier `bar`
+__device__ __forceinline__ void box_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int row0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(row0), "r"(bar)
+      : "memory");
+}
+
+// the operand of a k step's wgmma: BN rows of the operator's block from
+// shared address `addr`, K-major with the 64-byte swizzle (rows of 64
+// bytes, 8-row atoms 512 bytes apart; the leading offset is not read for
+// a swizzled K-major operand); the next k step of 8 tf32 starts 32 bytes
+// on
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// x = hi + lo, both tf32 (cvt.rna, ties away from zero; the low 13 bits
+// cleared)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xFFFFE000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
+  hi = h;
+  lo = l & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// the accumulators are read and written only after the wgmma that writes
+// them has been waited for, and an A fragment stays in its registers until
+// the wgmma that reads it is done
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    float4 b = *reinterpret_cast<const float4*>(Bs + kk * BN + tx * 4);
-    if (FORM == FWD) {
-      const float4 b2 =
-          *reinterpret_cast<const float4*>(Bs + (KC + kk) * BN + tx * 4);
-      b = odd ? make_float4(b.x - b2.x, b.y - b2.y, b.z - b2.z, b.w - b2.w)
-              : make_float4(b.x + b2.x, b.y + b2.y, b.z + b2.z, b.w + b2.w);
-    }
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-    const float4 a0 = *reinterpret_cast<const float4*>(As + kk * TRP + ty * 8);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(As + kk * TRP + ty * 8 + 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_reg(uint32_t (&r)[2][4]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  for (int i = 0; i < 8; ++i)
+    asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+}
+
+// D (64 x 64, 32 floats a thread) = D acc + A (64 x 8, tf32 from
+// registers)
+// . B (8 x 64, tf32 in shared memory, K-major, 64-byte swizzle)
+__device__ __forceinline__ void mma_n64(float (&d)[32],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// D (64 x 128, 64 floats a thread) = D acc + A (64 x 8, tf32 from
+// registers)
+// . B (8 x 128, tf32 in shared memory, K-major, 64-byte swizzle)
+__device__ __forceinline__ void mma_n128(float (&d)[64],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// the three products of one k step into d: A_lo B_hi, A_hi B_lo, A_hi
+// B_hi; acc = 0: the first replaces d
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2],
+                                     const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint64_t dhi,
+                                     uint64_t dlo, int acc) {
+  if constexpr (N == 128) {
+    mma_n128(d, alo, dhi, acc);
+    mma_n128(d, ahi, dlo, 1);
+    mma_n128(d, ahi, dhi, 1);
+  } else {
+    mma_n64(d, alo, dhi, acc);
+    mma_n64(d, ahi, dlo, 1);
+    mma_n64(d, ahi, dhi, 1);
   }
 }
 
 template <int FORM, bool SUB>
-__global__ void __launch_bounds__(NT, 1)
-x_apply_manual_kernel(const __grid_constant__ ManualArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int NB = FORM == FWD ? 2 : 1;     // field blocks a chunk
-  constexpr int NSRC = FORM == INV ? 2 : 1;   // sources an item
-  constexpr int SF = STAGE_FLOATS<FORM>;
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;     // columns 4 tx .. 4 tx + 3
-  const int ty = tid >> 3;    // rows 8 ty .. 8 ty + 7
+__global__ void __launch_bounds__(NTHR, 1)
+x_apply_tc_kernel(const __grid_constant__ TcArgs a,
+                  const __grid_constant__ CUtensorMap fmap) {
+  constexpr int BN = tile_rows(FORM);
+  constexpr int NB = FORM == FWD ? 2 : 1;       // field blocks a stage
+  constexpr int NSRC = FORM == INV ? 2 : 1;     // sources an item
+  constexpr int OPB = op_bytes(FORM);
+  constexpr int ST = stage_bytes(FORM);
+  constexpr int NBOX = BM / FBOX;               // field boxes a block
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  const unsigned char* smem = smem_raw + pad;
+  const uint32_t sbase = raw + pad;
   const int S = a.slots;
-  const int K = a.K;
-  const int ho = a.nout / 2;
-  const int nk = (K + KC - 1) / KC;
-  const int per_item = NSRC * nk;
-  const int my_items =
-      a.nitems > (int)blockIdx.x
-          ? (a.nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
-  const int nchunks = my_items * per_item;
-  // whole 16-byte copies of the operator's rows where they are aligned
-  const bool vec_a = (a.nout & 3) == 0 && (FORM == DENSE || (ho & 3) == 0);
+  const uint32_t bar_full = sbase + S * ST;
+  const uint32_t bar_empty = bar_full + 8 * MAX_S;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, NCW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // an item: its first output row (the a + b row in INV), its rows in
-  // range, its first operator row, its first column
+  const int per_ct = (FORM == FWD ? 2 : 1) * a.rtiles;   // items a tile
+  const int nk = a.ktiles;
+  const int my = a.nitems > (int)blockIdx.x
+                     ? (a.nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                     : 0;
+  // item j of the block: its column tile's first column, its half (FWD),
+  // its row tile
   struct Item {
-    int orow, nrows, arow;
     long long c0;
+    int h, rt;
   };
   auto item_of = [&](int j) {
     const int it = (int)blockIdx.x + j * (int)gridDim.x;
-    const int ct = it % a.ctiles;
-    const int rest = it / a.ctiles;
-    const int pass = rest % a.passes;
+    const int r = it % per_ct;
     Item m;
-    m.c0 = (long long)ct * BN;
-    if (FORM == DENSE) {
-      m.orow = m.arow = pass * TR;
-      m.nrows = a.nout - pass * TR;
-    } else {
-      const int half = FORM == FWD ? rest / a.passes : 0;
-      m.orow = m.arow = half * ho + pass * TR;
-      m.nrows = ho - pass * TR;
-    }
-    if (m.nrows > TR) m.nrows = TR;
+    m.c0 = (long long)(it / per_ct) * BM;
+    m.h = FORM == FWD ? r / a.rtiles : 0;
+    m.rt = FORM == FWD ? r % a.rtiles : r;
     return m;
   };
 
-  // a position in the block's chunk sequence, advanced one chunk at a
-  // time (no division in the loop): item j (its geometry m), chunk c of
-  // it, stage s of the ring
-  struct Pos {
-    int j, c, s;
-    Item m;
-  };
-  auto advance = [&](Pos& p) {
-    if (++p.s == S) p.s = 0;
-    if (++p.c == per_item) {
-      p.c = 0;
-      if (++p.j < my_items) p.m = item_of(p.j);
-    }
-  };
-
-  int gi = 0;                       // chunks requested
-  Pos pi = {0, 0, 0, item_of(0)};   // the next chunk to request
-  auto request = [&]() {
-    if (gi < nchunks) {
-      const Item& m = pi.m;
-      const int src = pi.c >= nk;   // INV: the second source's chunks
-      const int k0 = (pi.c - src * nk) * KC;
-      float* As = smem + pi.s * SF;
-      float* Bs = As + KC * TRP;
-      const int arow = m.arow + (src == 1 ? ho : 0);
-      // the transposed operator's rows k0 .. k0 + KC - 1, columns (output
-      // rows) arow .. arow + TR - 1
-      if (vec_a) {
-#pragma unroll
-        for (int i = 0; i < TR * KC / 4 / NT; ++i) {
-          const int q = tid + i * NT;
-          const int kk = q / (TR / 4), r = (q % (TR / 4)) * 4;
-          const bool ok = r < m.nrows && k0 + kk < K;
-          cp16(As + kk * TRP + r,
-               ok ? a.M + (long long)(k0 + kk) * a.nout + arow + r : a.M,
-               ok);
-        }
-      } else {
-#pragma unroll 4
-        for (int i = 0; i < TR * KC / NT; ++i) {
-          const int q = tid + i * NT;
-          const int kk = q / TR, r = q % TR;
-          const bool ok = r < m.nrows && k0 + kk < K;
-          cp4(As + kk * TRP + r,
-              ok ? a.M + (long long)(k0 + kk) * a.nout + arow + r : a.M, ok);
-        }
-      }
-      if (tid < NB * KC * BN / 4) {
-        const int b = tid / (KC * BN / 4);
-        const int q = tid % (KC * BN / 4);
-        const int kk = q / (BN / 4), cq = (q % (BN / 4)) * 4;
-        const int k = k0 + kk;
-        // the operand rows: f (DENSE), f1 and f2 (FWD), f_e or f_o (INV)
-        const int frow = k + (b == 1 || src == 1 ? K : 0);
-        const bool ok = k < K;
-        cp16(Bs + (b * KC + kk) * BN + cq,
-             ok ? a.f + (long long)frow * a.ncols + m.c0 + cq : a.f, ok);
-      }
-      advance(pi);
-    }
-    ++gi;
-    commit();
-  };
-
-  float acc0[8][4], acc1[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc0[i][j] = acc1[i][j] = 0.f;
-
-  for (int g = 0; g < S - 1; ++g) request();
-  Pos pc = {0, 0, 0, item_of(0)};   // the chunk in use
-  for (int g = 0; g < nchunks; ++g) {
-    wait_pending(S - 2);
-    __syncthreads();   // chunk g landed for all; stage (g - 1) % S is free
-    request();
-    const int c = pc.c;
-    const Item m = pc.m;
-    const float* As = smem + pc.s * SF;
-    const float* Bs = As + KC * TRP;
-    if (FORM == INV && c >= nk) {
-      chunk_fma<FORM>(acc1, As, Bs, false, tx, ty);
-    } else {
-      chunk_fma<FORM>(acc0, As, Bs, FORM == FWD && m.orow >= ho, tx, ty);
-    }
-    advance(pc);
-    if (c != per_item - 1) continue;
-    // the item's last chunk: its outputs, while the next item's chunks
-    // are in flight
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      if (r < m.nrows) {
-#pragma unroll
-        for (int h = 0; h < (FORM == INV ? 2 : 1); ++h) {
-          float v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] = FORM != INV ? acc0[i][j]
-                   : h == 0 ? acc0[i][j] + acc1[i][j]
-                            : acc0[i][j] - acc1[i][j];
-          const long long off =
-              (long long)(m.orow + h * ho + r) * a.ncols + m.c0 + tx * 4;
-          if (SUB) {
-            const float4 sv =
-                __ldg(reinterpret_cast<const float4*>(a.s + off));
-            v[0] = sv.x - v[0];
-            v[1] = sv.y - v[1];
-            v[2] = sv.z - v[2];
-            v[3] = sv.w - v[3];
+  if (threadIdx.x >= NCONS) {
+    // ---- the producer warpgroup gives its registers to the consumers;
+    // its first warp walks the chunks of the block's items, in order,
+    // each into the next stage once the consumers have freed it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PROD_REGS));
+    if (threadIdx.x >= NCONS + 32) return;
+    const int lane = threadIdx.x & 31;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int j = 0; j < my; ++j) {
+      const Item m = item_of(j);
+      for (int src = 0; src < NSRC; ++src) {
+        // the operator's part: Me (FWD's even half, INV's a), Mo
+        const int part = FORM == FWD ? m.h : src;
+        const float* opb =
+            a.op + (long long)(part * a.rtiles + m.rt) * nk * (OPB / 4);
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(bar_empty + 8 * st, ph ^ 1);
+          const uint32_t full = bar_full + 8 * st;
+          const uint32_t dst = sbase + st * ST;
+          if (lane == 0) {
+            mbar_expect_tx(full, OPB + NB * NBOX * FBOX_BYTES);
+            bulk_load(dst, opb + (long long)kc * (OPB / 4), OPB, full);
           }
-          *reinterpret_cast<float4*>(a.out + off) =
-              make_float4(v[0], v[1], v[2], v[3]);
+          __syncwarp();
+          if (lane < NB * NBOX) {
+            // the field's rows k0 .. k0 + KC - 1 of f (DENSE), f1 and f2
+            // (FWD), f_e or f_o (INV); rows past K are read (f2's, or
+            // zeros past the field) and masked in the A fragments
+            const int b = lane / NBOX, q = lane % NBOX;
+            box_load(dst + OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
+                     (int)m.c0 + q * FBOX,
+                     kc * KC + (b == 1 || src == 1 ? a.K : 0), full);
+          }
+          if (++st == S) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup g takes the field boxes 2 g and 2 g + 1
+  // of the item (64 plane columns), warp w of it 16 columns of box 2 g + (w
+  // >> 1): its A rows gid and gid + 8 (wgmma's) are the columns 4 a[h] +
+  // (gid & 3) of the box, a[h] = 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1,
+  // so that the 32 lanes of a fragment load read 32 banks of the 128-byte
+  // swizzled rows (ops/x_apply_manual.py a_columns); its k columns tig and
+  // tig + 4 of each k step
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int box = 2 * (t >> 7) + ((t >> 5) & 3) / 2;
+  const int ach[2] = {2 * ((t >> 5) & 1) + 4 * (gid >> 2),
+                      2 * ((t >> 5) & 1) + 1 + 4 * (gid >> 2)};
+  const int nkc = NSRC * nk;              // chunks an item
+  float acc[BN / 2];
+  float acc2[FORM == INV ? BN / 2 : 1];   // INV: b's sums
+  float part[BN / 2];                     // a chunk's tensor-core sum
+  // the A fragments of a chunk's two k steps, split: a0 (row gid, k), a1
+  // (gid + 8, k), a2 (gid, k + 4), a3 (gid + 8, k + 4), k = 8 step + tig;
+  // the chunk in the tensor cores' hands (ahi, alo) and the next (nhi,
+  // nlo)
+  uint32_t ahi[2][4], alo[2][4], nhi[2][4], nlo[2][4];
+  auto load_a = [&](const Item& m, int c, int stage, uint32_t ph_,
+                    uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+    mbar_wait(bar_full + 8 * stage, ph_);
+    // the box: KC rows of 128 bytes, the 16-byte chunk a of row k at a ^
+    // (k & 7) (TMA's 128-byte swizzle)
+    const unsigned char* F =
+        smem + stage * ST + OPB + box * FBOX_BYTES + (gid & 3) * 4;
+    const int k0 = (c % nk) * KC;
+#pragma unroll
+    for (int step = 0; step < 2; ++step)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = step * 8 + tig + (i >> 1) * 4;
+        const int off = kk * 128 + ((ach[i & 1] ^ (kk & 7)) << 4);
+        float x = *reinterpret_cast<const float*>(F + off);
+        if (FORM == FWD) {
+          const float x2 = *reinterpret_cast<const float*>(
+              F + NBOX * FBOX_BYTES + off);
+          x = m.h == 0 ? x + x2 : x - x2;
+        }
+        if (k0 + kk >= a.K) x = 0.f;
+        split_tf32(x, hi[step][i], lo[step][i]);
+      }
+  };
+  int st = 0;
+  uint32_t ph = 0;
+  for (int j = 0; j < my; ++j) {
+    const Item m = item_of(j);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (FORM == INV ? BN / 2 : 1); ++i) acc2[i] = 0.f;
+    load_a(m, 0, st, ph, ahi, alo);
+    for (int c = 0; c < nkc; ++c) {
+      // the chunk's six products into `part` (k step `step` starts 32
+      // bytes, 2 descriptor units, on)
+      const uint32_t ob = sbase + st * ST;
+      const uint64_t dhi = b_desc(ob), dlo = b_desc(ob + OPB / 2);
+      wgmma_fence();
+#pragma unroll
+      for (int step = 0; step < 2; ++step)
+        mma3<BN>(part, ahi[step], alo[step], dhi + 2 * step,
+                 dlo + 2 * step, step);
+      wgmma_commit();
+      // the next chunk's fragments while the tensor cores work
+      const int st1 = st + 1 == S ? 0 : st + 1;
+      const uint32_t ph1 = st1 == 0 ? ph ^ 1 : ph;
+      if (c + 1 < nkc) load_a(m, c + 1, st1, ph1, nhi, nlo);
+      wgmma_wait();
+      fence_acc(part);
+      fence_reg(ahi);
+      fence_reg(alo);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      st = st1;
+      ph = ph1;
+#pragma unroll
+      for (int step = 0; step < 2; ++step)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ahi[step][i] = nhi[step][i];
+          alo[step][i] = nlo[step][i];
+        }
+      // added to the item's sums in FP32 (round to nearest): the tensor
+      // cores' own sum spans one chunk
+      if constexpr (FORM == INV) {
+        if (c >= nk) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc2[i] += part[i];
+          continue;
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc0[i][j] = acc1[i][j] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
     }
+    // the item's outputs: d[4 j + 2 c + q] is (A row gid + 8 c, that is
+    // column 4 ach[c] + (gid & 3) of the box, output row 8 j + 2 tig + q);
+    // group g: the output half (FWD h, INV 0 for a + b and 1 for a - b);
+    // SUB reads all of its s first, then stores
+    constexpr int G = FORM == INV ? 2 : 1;
+    const int nrows = a.rows - m.rt * BN < BN ? a.rows - m.rt * BN : BN;
+    const long long col[2] = {m.c0 + box * FBOX + 4 * ach[0] + (gid & 3),
+                              m.c0 + box * FBOX + 4 * ach[1] + (gid & 3)};
+    const bool okc[2] = {col[0] < a.ncols, col[1] < a.ncols};
+    auto row_of = [&](int g, int n) {
+      return (long long)(g + m.h) * a.rows + m.rt * BN + n;
+    };
+    float sv[SUB ? G * BN / 2 : 1];
+    if constexpr (SUB) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+          const int c = (i >> 1) & 1;
+          sv[g * BN / 2 + i] =
+              n < nrows && okc[c]
+                  ? __ldg(a.s + row_of(g, n) * a.ncols + col[c]) : 0.f;
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+        const int c = (i >> 1) & 1;
+        if (n >= nrows || !okc[c]) continue;
+        float v = acc[i];
+        if constexpr (FORM == INV) v = g == 0 ? v + acc2[i] : v - acc2[i];
+        if constexpr (SUB) v = sv[g * BN / 2 + i] - v;
+        a.out[row_of(g, n) * a.ncols + col[c]] = v;
+      }
   }
-  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 template <int FORM, bool SUB>
-cudaError_t launch(const ManualArgs& a, int grid, cudaStream_t stream) {
-  const int bytes = a.slots * STAGE_FLOATS<FORM> * (int)sizeof(float);
+cudaError_t launch(const TcArgs& a, const CUtensorMap& fmap, int grid,
+                   cudaStream_t stream) {
+  const int bytes = smem_bytes(FORM, a.slots);
   const cudaError_t e = cudaFuncSetAttribute(
-      x_apply_manual_kernel<FORM, SUB>,
+      x_apply_tc_kernel<FORM, SUB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  x_apply_manual_kernel<FORM, SUB><<<grid, NT, bytes, stream>>>(a);
+  x_apply_tc_kernel<FORM, SUB><<<grid, NTHR, bytes, stream>>>(a, fmap);
   return cudaGetLastError();
+}
+
+// the field's tensor map: (frows, ncols) float32, boxes of KC rows of FBOX
+// columns, 128-byte swizzled, zeros past the extents (the driver's encoder,
+// found through the runtime: no link to the driver library)
+cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
+                      long long ncols) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)ncols, (cuuint64_t)frows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ncols * 4};
+  const cuuint32_t boxd[2] = {FBOX, KC};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(f), dims,
+      strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Compile-time geometry, for the wrapper's checks: rows an item, columns
-// an item, k a chunk, the most stages.
-int x_apply_manual_geometry(int* tr, int* bn, int* kc, int* max_s) {
-  *tr = TR;
-  *bn = BN;
-  *kc = KC;
-  *max_s = MAX_S;
+// Compile-time geometry, for the wrapper's packing and checks: plane
+// columns an item, k a chunk, the staged field row, the most stages,
+// threads a block, the fixed dynamic shared memory, then output rows an
+// item and bytes of a stage for DENSE, FWD, INV.
+int x_apply_tc_geometry(int* g) {
+  g[0] = BM;
+  g[1] = KC;
+  g[2] = FBOX;
+  g[3] = MAX_S;
+  g[4] = NTHR;
+  g[5] = smem_bytes(DENSE, 0);
+  for (int form = DENSE; form <= INV; ++form) {
+    g[6 + form] = tile_rows(form);
+    g[9 + form] = stage_bytes(form);
+  }
   return 0;
 }
 
-// One launch. form: 0 dense, 1 parity forward, 2 parity inverse; M (the
-// operator transposed), f, s (null without the subtraction), out as
-// ManualArgs; ncols = ny * nz, a
-// multiple of BN; slots 2 .. MAX_S; grid: blocks (the SM count). Returns
-// the cudaError_t of the launch (0 on success).
-int x_apply_manual_launch(int form, const void* M, const void* f,
-                          const void* s, void* out, int nout, int K,
-                          long long ncols, int slots, int grid,
-                          void* stream) {
+// One launch. form: 0 dense, 1 parity forward, 2 parity inverse; op: the
+// packed split operator (ops/x_apply_manual.py pack) of `rows` output rows
+// a part and contraction K; f, s (null without the subtraction), out as
+// TcArgs; ncols = ny * nz, a multiple of 4; slots 2 .. MAX_S; grid: blocks
+// (the SM count). Returns the cudaError_t of the launch (0 on success).
+int x_apply_tc_launch(int form, const void* op, const void* f,
+                      const void* s, void* out, int rows, int K,
+                      long long ncols, int slots, int grid, void* stream) {
   if (form < DENSE || form > INV || (form == FWD && s != nullptr)
-      || nout < 1 || K < 1 || ncols % BN || slots < 2 || slots > MAX_S
-      || grid < 1 || (form != DENSE && nout % 2))
+      || rows < 1 || K < 1 || ncols < 4 || ncols % 4 || slots < 2
+      || slots > MAX_S || grid < 1)
     return (int)cudaErrorInvalidValue;
-  ManualArgs a = {};
-  a.M = static_cast<const float*>(M);
+  const int bn = tile_rows(form);
+  TcArgs a = {};
+  a.op = static_cast<const float*>(op);
   a.f = static_cast<const float*>(f);
   a.s = static_cast<const float*>(s);
   a.out = static_cast<float*>(out);
-  a.nout = nout;
+  a.rows = rows;
   a.K = K;
+  a.rtiles = (rows + bn - 1) / bn;
+  a.ktiles = (K + KC - 1) / KC;
   a.ncols = ncols;
-  a.ctiles = (int)(ncols / BN);
-  const int rows = form == DENSE ? nout : nout / 2;
-  a.passes = (rows + TR - 1) / TR;
-  a.nitems = a.ctiles * a.passes * (form == FWD ? 2 : 1);
+  const long long ctiles = (ncols + BM - 1) / BM;
+  const long long items = ctiles * a.rtiles * (form == FWD ? 2 : 1);
+  if (items > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  a.nitems = (int)items;
   a.slots = slots;
   if (grid > a.nitems) grid = a.nitems;
+  CUtensorMap fmap;
+  const cudaError_t e =
+      field_map(&fmap, f, (long long)K * (form == DENSE ? 1 : 2), ncols);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sub = s != nullptr;
   switch (form * 2 + (sub ? 1 : 0)) {
-    case DENSE * 2: return (int)launch<DENSE, false>(a, grid, st);
-    case DENSE * 2 + 1: return (int)launch<DENSE, true>(a, grid, st);
-    case FWD * 2: return (int)launch<FWD, false>(a, grid, st);
-    case INV * 2: return (int)launch<INV, false>(a, grid, st);
-    case INV * 2 + 1: return (int)launch<INV, true>(a, grid, st);
+    case DENSE * 2: return (int)launch<DENSE, false>(a, fmap, grid, st);
+    case DENSE * 2 + 1: return (int)launch<DENSE, true>(a, fmap, grid, st);
+    case FWD * 2: return (int)launch<FWD, false>(a, fmap, grid, st);
+    case INV * 2: return (int)launch<INV, false>(a, fmap, grid, st);
+    case INV * 2 + 1: return (int)launch<INV, true>(a, fmap, grid, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-const char* x_apply_manual_error_string(int err) {
+const char* x_apply_tc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -8,18 +8,21 @@ PINV, and DENSE along y or z: any (n_out, n) operator, rectangular on a
 wall-bounded axis), up to three fields a launch and two summed sources a
 field, with an epilogue (STORE, SUB, SOLVE after an x or a z apply,
 SOLVE_PLANE after a y apply batched over x planes; the solves take the
-Nyquist mask where the operator set has one). ``apply_dense`` launches
-DENSE along x: one dense (n_out, n_in) operator, out = M f or out = s - M f
-(the x stage of a wall-bounded x axis, and of any x with X3D2_BFLY=0).
-``geometry`` computes every launch's block grid, strides and instance in
-one place: the 128-tiled instance where the extents are multiples of its
-tiles and the form is one it has (its results and registers as before),
-the general instance elsewhere (any extent x3d2_tpu's gates admit);
-``out_rows`` gives the output row of each block row. Both launchers check
-their operands, launch or raise, and add one to the launch count of the
-wrapper named in ``stage``; nothing else counts. ``route`` is the
-wrappers' device switch: CUDA tensors launch, CPU tensors take the plain
-version, anything else raises.
+Nyquist mask where the operator set has one). ``apply_dense`` is the
+dense x apply, out = M f or out = s - M f (the x stage of a wall-bounded x
+axis, and of any x with X3D2_BFLY=0): one launch of the split-TF32
+tensor-core kernel of ``csrc/x_apply_manual.cu`` (ops/x_apply_manual.py),
+not of the template.
+``geometry`` computes every template launch's block grid, strides and
+instance in one place: the 128-tiled instance where the extents are
+multiples of its tiles and the form is one it has (its results and
+registers as before), the general instance elsewhere (any extent
+x3d2_tpu's gates admit); ``out_rows`` gives the output row of each block
+row. Both launchers check their operands, launch or raise, and add one to
+the launch count of the wrapper named in ``stage`` (the template's here,
+the dense x apply's in ops/x_apply_manual.py); nothing else counts.
+``route`` is the wrappers' device switch: CUDA tensors launch, CPU tensors
+take the plain version, anything else raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import x_apply_manual as xm
 from .parity import BBS, BW, TILE, WIN
 
 # operator forms and epilogues of the kernel template
@@ -115,7 +119,7 @@ _TILED = {(BANDED, 0, STORE, False), (BANDED, 0, SUB, False),
           (PFWD, 0, SOLVE_PLANE, False), (PFWD, 1, STORE, False),
           (PINV, 0, STORE, False), (PINV, 0, SUB, False),
           (PINV, 1, STORE, False), (DENSE, 0, STORE, False),
-          (DENSE, 0, SUB, False), (DENSE, 0, SOLVE_PLANE, False),
+          (DENSE, 0, SOLVE_PLANE, False),
           (DENSE, 1, STORE, False),
           (BANDED, 0, STORE, True), (PFWD, 1, STORE, True),
           (PFWD, 0, SOLVE, True), (DENSE, 1, STORE, True)}
@@ -170,7 +174,8 @@ def geometry(mode, axis, shape, nout, K, epi=STORE, two=False) -> Geometry:
                          f"rows, the parity forms an even count), got "
                          f"({nout}, {K})")
     if (epi == SOLVE and axis == 1) or (epi == SOLVE_PLANE and axis != 1) \
-            or (epi == SUB and axis == 2) or (mode == BANDED and axis == 2):
+            or (epi == SUB and (axis == 2 or mode == DENSE)) \
+            or (mode == BANDED and axis == 2) or (mode == DENSE and axis == 0):
         raise ValueError(f"epilogue {epi} with form {mode} along axis {axis}"
                          " is not a form of the template")
     trans = int(axis == 2)
@@ -186,7 +191,7 @@ def geometry(mode, axis, shape, nout, K, epi=STORE, two=False) -> Geometry:
         PFWD: n % TILE == 0 and nout == n,
         PINV: (n // 2) % BBS == 0 and nout == n,
         DENSE: (K % 8 == 0 and nout == K and nout % TILE == 0) if trans
-        else (nout == K or batch == 1),
+        else nout == K,
     }[mode]
     if mode in (PFWD, PINV) and not (fast and mode == PFWD):
         # PINV, and the general PFWD: a block takes BBS rows of each half
@@ -262,23 +267,14 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     _launch(stage, geo, epi, jobs[0][2].device, ptrs, nsrc, tabs)
 
 
-def apply_dense(stage, M, f, out, sub=None):
-    """One DENSE launch along x: out = M f, or out = sub - M f with the
-    subtracting epilogue. M (n_out, n_in); f (n_in, ny, nz); out and sub
-    (n_out, ny, nz); n_in and n_out any, ny * nz a multiple of 4."""
-    n_out, n_in = M.shape
-    _, ny, nz = f.shape
-    _check(M, (n_out, n_in), "operator")
-    _check(f, (n_in, ny, nz), "field")
-    for t in (out,) + ((sub,) if sub is not None else ()):
-        _check(t, (n_out, ny, nz), "field")
-    if out.data_ptr() == f.data_ptr():
-        raise ValueError("the output may not alias an input")
-    epi = SUB if sub is not None else STORE
-    geo = geometry(DENSE, 0, tuple(f.shape), n_out, n_in, epi)
-    ptrs = [M.data_ptr(), None, f.data_ptr(), None, out.data_ptr(),
-            sub.data_ptr() if sub is not None else None]
-    _launch(stage, geo, epi, out.device, ptrs, [1], ())
+def apply_dense(stage, op, f, out, sub=None):
+    """The dense x apply: out = M f, or out = sub - M f, in one launch of
+    the x-apply kernel (csrc/x_apply_manual.cu), counted as `stage` in
+    x_apply_manual's launch counts. op: M (n_out, n_in) packed for it
+    (x_apply_manual.pack, made once per operator); f (n_in, ny, nz); out
+    and sub (n_out, ny, nz); n_in and n_out any, ny * nz a multiple of
+    4."""
+    xm.launch(stage, op, f, sub, out=out)
 
 
 def _launch(stage, geo, epi, dev, ptrs, nsrc, tabs):

@@ -236,6 +236,7 @@ class ProjectionMats:
     forms: Forms = Forms()
     vert: tuple | None = None
     _dev: dict = field(default_factory=dict)
+    _packed: dict = field(default_factory=dict)
 
     def mats(self, dtype) -> dict:
         if dtype not in self._dev:
@@ -243,6 +244,16 @@ class ProjectionMats:
                 k: torch.as_tensor(M, dtype=dtype, device=self.device)
                 .contiguous() for k, M in self.m64.items()}
         return self._dev[dtype]
+
+    def packed_x(self, name):
+        """The dense x operator `name` split and packed for the x-apply
+        kernel (ops/x_apply_manual.py pack, from its float32 copy), made
+        once."""
+        if name not in self._packed:
+            from .x_apply_manual import DENSE, pack
+
+            self._packed[name] = pack(self.mats(torch.float32)[name], DENSE)
+        return self._packed[name]
 
 
 def build_projection_mats(solver, dense=False) -> ProjectionMats:

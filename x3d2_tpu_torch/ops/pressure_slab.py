@@ -3,8 +3,9 @@ which also forms the spectral solution q (and from it the physical
 pressure) and takes pre-transformed divergence inputs from the xdiv sweep.
 The wrappers launch the Hopper operator-apply kernel of
 ``csrc/pressure_pipe.cu`` (the tiled mid's, those of
-``csrc/pressure_mid_tiled.cu``); the plain PyTorch versions are beside
-them.
+``csrc/pressure_mid_tiled.cu``; the dense x apply's, the split-TF32
+x-apply kernel of ``csrc/x_apply_manual.cu``, its operators packed once
+per ProjectionMats); the plain PyTorch versions are beside them.
 
 Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
 (pallas_poisson.py:553) with make_x_div3 (:1150) and make_x_gradsub3
@@ -393,10 +394,10 @@ def x_apply(name, f, pm: ProjectionMats, s=None):
     """The dense x stage: pm's operator `name` (sx, ix, gxs, gxi) applied
     along x of f, or s minus it. Counted as x_apply, x_apply[sub] with s."""
     if route(f, "x_apply"):
-        M = pm.mats(torch.float32)[name]
-        out = torch.empty((M.shape[0],) + tuple(f.shape[1:]),
-                          dtype=f.dtype, device=f.device)
-        apply_dense("x_apply" if s is None else "x_apply[sub]", M, f, out, s)
+        op = pm.packed_x(name)
+        out = torch.empty((op.n_out,) + tuple(f.shape[1:]), dtype=f.dtype,
+                          device=f.device)
+        apply_dense("x_apply" if s is None else "x_apply[sub]", op, f, out, s)
         return out
     return x_apply_plain(pm.mats(f.dtype)[name], f, s)
 

@@ -16,8 +16,8 @@ fused kernels over locally owned pencils, cuda/kernels/distributed.f90:
   x3d2_tpu's (sharded_transeq_supported), which the port's blocking
   always tiles.
 - x applies (wrap_x_ops): x is never sharded, so the dense x operators of
-  the halo-mode solver are one dense x apply per rank (the x_apply kernel
-  of csrc/pressure_pipe.cu, x3d2_tpu's _x_apply_kernel via its
+  the halo-mode solver are one dense x apply per rank (the x-apply kernel
+  of csrc/x_apply_manual.cu, x3d2_tpu's _x_apply_kernel via its
   PallasXApplyOp).
 - projection (make_repencilled_pressure): the one-field forward x applies
   on the rank's block, tiled all-to-alls over y then z into a batch of
@@ -44,6 +44,7 @@ from ..ops.banded import banded_blocks
 from ..ops.compact import apply_matrix
 from ..ops.operator_apply import apply_dense
 from ..ops.parity import build_projection_mats, slab_supported
+from ..ops.x_apply_manual import DENSE, pack
 from ..ops.species_sweep import make_species_sweep
 from ..ops.transeq_sweep import (V3_BAND_TOL, V3_FREE, geometry,
                                  make_transeq_sweep)
@@ -179,10 +180,12 @@ def make_sharded_species(solver, pmesh, terms=2):
 class XApplyOp:
     """A CompactOp look-alike whose x apply is one dense x apply on the
     rank's block (x3d2_tpu PallasXApplyOp, shard_kernels.py:223-241): the
-    x_apply kernel on CUDA tensors, the plain product on CPU ones."""
+    x_apply kernel on CUDA tensors (the operator split and packed for it
+    at the first call), the plain product on CPU ones."""
 
     def __init__(self, op):
         self._op = op
+        self._packed = None
 
     def __getattr__(self, name):
         return getattr(self._op, name)
@@ -192,10 +195,11 @@ class XApplyOp:
             raise ValueError("x-apply op built for axis 0")
         M = self._op.M
         if f.is_cuda:
+            if self._packed is None:
+                self._packed = pack(M, DENSE, f.device)
             out = torch.empty((M.shape[0],) + tuple(f.shape[1:]),
                               dtype=f.dtype, device=f.device)
-            apply_dense("x_apply", M.to(torch.float32).contiguous(),
-                        f.contiguous(), out)
+            apply_dense("x_apply", self._packed, f.contiguous(), out)
             return out
         return apply_matrix(M.to(f.dtype), f, 0)
 

@@ -1,6 +1,7 @@
-"""The manual-pipeline x apply beside the template's and one torch call, on
-the card: the port's counterpart of tools/prof_manual.py, and the entry
-point of ops/x_apply_manual.py's kernel.
+"""The manual entry of the split-TF32 x-apply kernel beside one torch call
+(and, in the parity forms, the operator-apply template's x_pfwd / x_pinv),
+on the card: the port's counterpart of tools/prof_manual.py, and the entry
+point of ops/x_apply_manual.py's manual forms.
 
     python3 x3d2_tpu_torch/tools/prof_manual.py [n] [iters]
     python3 -m x3d2_tpu_torch.tools.prof_manual [n] [iters]
@@ -11,12 +12,13 @@ inverse Op T^-1, each divided by its largest eigenvalue modulus) and a
 random (n, n, n) float32 field (and s) on the card. For each form (dense,
 dense with the subtraction, parity forward, parity inverse, parity inverse
 with the subtraction) it times, by CUDA events over a warmed loop of
-`iters` calls (default n = 512, 20): the template's x apply
-(operator_apply: DENSE along x, or the PFWD / PINV launch), the manual
-kernel at S = 2, 3, 4, 6, and one torch.matmul (torch.addmm with the
-subtraction) of the same product; checks each kernel's result against the
-plain float32 and float64 versions (relative to max |plain float64|: 1e-5
-and 3e-5); and prints one JSON line: the card, the forms' times and errors.
+`iters` calls (default n = 512, 20): the kernel at S = 2, 3, 4, 6, in the
+parity forms the template's launch of the same function (operator_apply:
+PFWD / PINV along x, x_pfwd / x_pinv), and one torch.matmul (torch.addmm
+with the subtraction) of the same product; checks each kernel's result
+against the plain float32 and float64 versions (relative to max |plain
+float64|: 1e-5 and 3e-5); and prints one JSON line: the card, the forms'
+times and errors.
 Exits 1 where a check fails, 2 without a card.
 """
 
@@ -78,14 +80,11 @@ def rel(got, ref64):
 
 
 def template(M32, f, s, parity):
-    """The template's x apply of the same form (one launch)."""
+    """The template's parity x apply of the same form (one launch)."""
     out = torch.empty((M32.shape[0],) + tuple(f.shape[1:]), device=f.device)
-    if parity is None:
-        oa.apply_dense("x_apply", M32, f, out, s)
-    else:
-        oa.apply("x_pfwd" if parity == "fwd" else "x_pinv", oa.PFWD
-                 if parity == "fwd" else oa.PINV, 0, [([M32], [f], out, s)],
-                 epi=oa.SUB if s is not None else oa.STORE)
+    oa.apply("x_pfwd" if parity == "fwd" else "x_pinv", oa.PFWD
+             if parity == "fwd" else oa.PINV, 0, [([M32], [f], out, s)],
+             epi=oa.SUB if s is not None else oa.STORE)
     return out
 
 
@@ -110,7 +109,8 @@ def profile(n=512, iters=20, ny=None, nz=None, dev=None):
         entry = {"plain32_vs_64": rel(p32, p64)}
         checks = {f"manual[S={S}]": fn[S](f, s_) if sub else fn[S](f)
                   for S in SLOTS}
-        checks["template"] = template(M32, f, s_, parity)
+        if parity is not None:
+            checks["template"] = template(M32, f, s_, parity)
         for name, got in checks.items():
             e32, e64 = rel(got, p32.double()), rel(got, p64)
             entry[name] = {"rel32": e32, "rel64": e64}
@@ -120,8 +120,9 @@ def profile(n=512, iters=20, ny=None, nz=None, dev=None):
             entry[f"manual[S={S}]"]["ms"] = loop_ms(
                 (lambda S=S: fn[S](f, s_)) if sub else
                 (lambda S=S: fn[S](f)), iters)
-        entry["template"]["ms"] = loop_ms(lambda: template(M32, f, s_,
-                                                           parity), iters)
+        if parity is not None:
+            entry["template"]["ms"] = loop_ms(
+                lambda: template(M32, f, s_, parity), iters)
         # one torch call of the same product: the dense operator over the
         # field as an (n, ny nz) matrix (the parity forms stand for it)
         Md = torch.as_tensor(Mi if parity == "inv" else Mf,

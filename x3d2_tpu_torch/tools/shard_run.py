@@ -73,6 +73,7 @@ def _tgv_run(rank, world, spec):
     from ..ops import operator_apply as oa
     from ..ops import species_sweep as spm
     from ..ops import transeq_sweep as ts
+    from ..ops import x_apply_manual as xm
     from .. import parallel
 
     t_start = time.perf_counter()
@@ -109,7 +110,7 @@ def _tgv_run(rank, world, spec):
         st = step(st)
     sync()
     stages["warmup"] = time.perf_counter() - t0
-    for mod in (ts, spm, oa):
+    for mod in (ts, spm, oa, xm):
         mod.reset_launch_counts()
     pmesh.timing = True
     torch.distributed.barrier(group=pmesh.groups["world"])
@@ -121,7 +122,7 @@ def _tgv_run(rank, world, spec):
     steps = max(spec["steps"], 1)
     pmesh.timing = False
     counts = {**ts.launch_counts(), **spm.launch_counts(),
-              **oa.launch_counts()}
+              **oa.launch_counts(), **xm.launch_counts()}
     rp = getattr(case._sharded_solver, "_repencil_pressure", None)
     obs = {k: float(v) for k, v in case._sharded_case.monitor.fn(
         st["u"], st["v"], st["w"]).items()}
