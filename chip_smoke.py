@@ -17,8 +17,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    sweeps' halo forms named so; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
    ones, 1 the general ones; the split-TF32 x-apply kernel
-   x_apply_tc_kernel<FORM, SUB> and its dynamic shared memory at S = 2, 4,
-   8). Then starts
+   x_apply_tc_kernel<FORM, SUB, RES, NARROW> and its dynamic shared memory
+   at S = 2, 4, 6). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
    card.
@@ -46,7 +46,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - the one-field parity x applies: forward sx, ix (x_pfwd) and inverse
      gx_s, gx_i without (x_pinv, path K) and with the correction
      (x_pinv[sub], path M), each beside one torch.matmul or torch.addmm
-     of the dense operator the parity split stands for;
+     of the dense operator the parity split stands for; the
+     split-TF32 x-apply kernel (csrc/x_apply_manual.cu, FWD and INV
+     forms), held to TC_LIM of plain f64, launched twice and at S = 2, 3,
+     6 bit-equal to S = 4, each row with its device ms back to back and
+     host µs a call (tools/prof_xparity.py's timings) and its split-TF32
+     and FP32 bounds (parity_rows);
    - the species sweeps z; x accumulate; y accumulate, two scalars;
    - at W = 32: z; x accumulate; y accumulate + AB3 (both rows); y
      accumulate; the four RK updates; path HIA's reduced-precision sweeps
@@ -195,7 +200,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
      (6) and the one-field parity inverse without the correction (3), no
      pipeline launch; a finite compensation;
    - path M: X3D2_MERGED_X=0 with keep_pressure=True, 3 steps: the z, x, y
-     chain, 3 x_pfwd, the mid with q (6) and 3 x_pinv[sub].
+     chain, 3 x_pfwd, the mid with q (6) and 3 x_pinv[sub]; its ms/step
+     printed beside K and HK.
 4c. The HIGHEST mode (X3D2_MATMUL_PRECISION=highest) at 512^3, the main
    path's checks, ms/step, only W = 32 sweep instances launched:
    - path HI: the main path, 10 steps;
@@ -256,7 +262,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    divergence checks.
 7c. tools/prof_manual.py once at 512^3 (the manual entry point of the
    x-apply kernel: the kernel at S = 2, 3, 4, 6, in the parity forms the
-   template's x_pfwd / x_pinv, and one torch call of each form, held to
+   operator-apply template's PFWD / PINV along x (the one-field x applies'
+   kernel before the x-apply kernel took them), and one torch call of
+   each form, held to
    1e-5 / 3e-5 of plain f32 / f64), its JSON line and one line a form
    (times, shares of the split-TF32 bound) printed; its launches are the
    manual entry's in the kernels line.
@@ -481,9 +489,13 @@ CARRY_SOURCE = "x3d2_tpu_torch/csrc/pipe_c_d2.cu"
 DENSE_SOURCE = "x3d2_tpu_torch/csrc/transeq_dense.cu"
 # the y/z-tiled mid of the repencilled projection at 1024^2 planes
 TILED_SOURCE = "x3d2_tpu_torch/csrc/pressure_mid_tiled.cu"
-# the split-TF32 x-apply kernel: the dense x apply (x_apply, x_apply[sub])
-# and the manual entry, on no solver path (tools/prof_manual.py)
+# the split-TF32 x-apply kernel: the dense x apply (x_apply, x_apply[sub]),
+# the one-field parity x applies (x_pfwd, x_pinv, x_pinv[sub]) and
+# the manual entry, on no solver path (tools/prof_manual.py)
 MANUAL_SOURCE = "x3d2_tpu_torch/csrc/x_apply_manual.cu"
+# the split-TF32 kernel's limit against plain float64, relative to max
+# |plain f64|: under the HIGHEST mode's 5e-7 (tests/test_pallas_v3.py:114)
+TC_LIM = 4e-7
 # PR 11's ms/step (its final run, H100 80GB HBM3, 700 W) of the runs that
 # take the dense x apply, printed beside this run's; the compensated
 # cylinder's card leg (10 steps, counted) read 0.2 s in its log
@@ -1125,6 +1137,7 @@ def main():
     from x3d2_tpu_torch.ops import transeq_sweep as ts
     from x3d2_tpu_torch.ops import x_apply_manual as xm
     from x3d2_tpu_torch.tools import prof_manual as pmt
+    from x3d2_tpu_torch.tools import prof_xparity as pxp
     from x3d2_tpu_torch.ops.parity import (BW, Forms, ProjectionMats,
                                            build_projection_mats, pfwd,
                                            solve_factor)
@@ -1199,12 +1212,19 @@ def main():
                     and inst.endswith(",1>") else "")
                 print(f"[build {name} {inst}{halo}] " + line.strip())
 
-    # the x-apply kernel's shared memory is dynamic: its S-stage ring
+    # the x-apply kernel's shared memory is dynamic: its S-stage ring (and
+    # the parity forms' resident operator)
     print("[build x_apply_manual] x_apply_tc_kernel dynamic shared memory "
-          "(the ring and its barriers), bytes: " + ", ".join(
-              f"{tag} S={S} {xm.geometry(form, 256, 128, 128, 132, S).smem}"
-              for tag, form in (("dense/inv", xm.DENSE), ("fwd", xm.FWD))
-              for S in (2, 4, 8)), flush=True)
+          "(the ring, the resident operator, the barriers), bytes: "
+          + ", ".join(
+              f"{tag} S={S} "
+              f"{xm.geometry(form, n_o, k_, nc, 132, S).smem}"
+              for tag, form, n_o, k_, nc in (
+                  ("dense 512", xm.DENSE, 512, 512, 512 * 512),
+                  ("inv 512", xm.INV, 512, 256, 512 * 512),
+                  ("fwd 512", xm.FWD, 512, 256, 512 * 512),
+                  ("fwd resident 128", xm.FWD, 128, 64, 512 * 512))
+              for S in (2, 4, 6)), flush=True)
 
     def stamp(phase):
         print(f"[time] {phase} starts at {time.perf_counter() - t_start:.1f}"
@@ -1467,11 +1487,16 @@ def main():
 
     def parity_rows(shape, pm, randn, stages, listed=True):
         """The one-field parity x applies (stages among x_pfwd, x_pinv,
-        x_pinv[sub]) of pm's operators against their plain version, beside
-        one torch.matmul (torch.addmm with the correction) of the dense
-        nx x nx operator the parity split stands for, in block-parity order,
-        over the field as an (nx, ny nz) matrix. listed=False: held, kept
-        out of the kernels line."""
+        x_pinv[sub]: the split-TF32 x-apply kernel of MANUAL_SOURCE on
+        pm's operators packed in their parity forms) against their plain
+        version, within TC_LIM of plain float64, beside one torch.matmul
+        (torch.addmm with the correction) of the dense nx x nx operator the
+        parity split stands for, in block-parity order, over the field as
+        an (nx, ny nz) matrix; two launches, and S = 2, 3, 6 against S = 4,
+        bit-equal. Each row also prints the launch's device ms back to back
+        and its host µs a call, and the call's device ms
+        (tools/prof_xparity.py). listed=False: held, kept out of the
+        kernels line."""
         n = size_label(shape)
         nx = shape[0]
         eye = torch.eye(nx, dtype=d64, device=dev).unsqueeze(-1)
@@ -1498,8 +1523,29 @@ def main():
                     return r.reshape(f.shape)
 
                 hold(f"{stage}[{op}]", n, kern, plain, args, stage,
-                     REPLACES[stage], x_parity_cost(shape, sub),
-                     source=PIPE_SOURCE, library=library, listed=listed)
+                     REPLACES[stage], x_parity_cost(shape, sub), again=True,
+                     source=MANUAL_SOURCE, library=library, listed=listed,
+                     tc=True, lim64=TC_LIM)
+                packed = pm.packed_x(op)
+                ref = kern(*args)[0]
+                for S in (2, 3, 6):
+                    check(torch.equal(xm.launch(stage, packed, *args,
+                                                slots=S), ref),
+                          f"{stage}[{op}] {n}: S = {S} differs from S = 4")
+                del ref
+                geo = xm.geometry(packed.form, packed.n_out, packed.K,
+                                  shape[1] * shape[2],
+                                  torch.cuda.get_device_properties(
+                                      dev).multi_processor_count)
+                print(f"[{stage}[{op}] {n}] S = 2, 3, 6 bit-equal to S = 4;"
+                      f" device {pxp.device_ms(lambda: kern(*args), 20):.4f}"
+                      f" ms back to back, host "
+                      f"{pxp.host_us(lambda: kern(*args), 20):.1f} µs a "
+                      f"call; the call's device "
+                      f"{pxp.device_ms(lambda: library(*args), 20):.4f} ms;"
+                      f" {geo.nitems} items of {geo.bm} columns, operator "
+                      f"{'resident' if geo.resident else 'streamed'}",
+                      flush=True)
 
     def species_rows(shape, ops, randn, terms=2):
         """The species sweeps of the two scalars, z; x + acc; y + acc (at
@@ -2987,6 +3033,7 @@ def main():
         case, state, _ = drive("path M", mesh, params, True, STEPS_R4,
                                sweeps_zxy + ["x_pfwd"] * 3
                                + ["pressure_mid[q]"] + ["x_pinv[sub]"] * 3)
+        modes_ms["path M"] = step_times("path M", case, state)
     del case, state
     torch.cuda.empty_cache()
     # 4c. the HIGHEST mode at 512^3: path HI, the main path on the W = 32

@@ -58,6 +58,7 @@ from x3d2_tpu_torch.mesh import Mesh
 from x3d2_tpu_torch.ops import operator_apply as oa
 from x3d2_tpu_torch.ops import pressure_slab as sl
 from x3d2_tpu_torch.ops import transeq_sweep as ts
+from x3d2_tpu_torch.ops import x_apply_manual as xm
 from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
 # one thread for torch and for numpy's BLAS: the suite runs several workers
@@ -340,9 +341,13 @@ def test_x_apply_parity_matches_x3d2_tpu(case32, name, sub):
     want = np.asarray(jfn(jnp.asarray(f), *(() if s is None
                                             else (jnp.asarray(s),))))
     oa.reset_launch_counts()
+    xm.reset_launch_counts()
     got = sl.x_apply_parity(name, torch.from_numpy(f), pm,
                             None if s is None else torch.from_numpy(s))
-    assert oa.launch_counts() == {}   # CPU tensors take the plain version
+    # CPU tensors take the plain version: no launch of the x-apply kernel
+    # (csrc/x_apply_manual.cu, which serves them on the card) or the
+    # template
+    assert oa.launch_counts() == {} and xm.launch_counts() == {}
     scale = np.abs(want).max()
     assert np.abs(got.numpy() - want).max() <= 2e-4 * scale
     # plain float64 against the float64 operator (natural x order in and

@@ -266,16 +266,25 @@ GEO_CASES = [  # form, n_out, K, ncols: the paths' launches, then ragged
 @pytest.mark.parametrize("form,n_out,K,ncols", GEO_CASES)
 def test_geometry(form, n_out, K, ncols):
     for slots in range(2, xm.MAX_S + 1):
+        # every stage count where the ring fits: to MAX_S, but to 7 for
+        # FWD's 32 KB stage (both halves' blocks, streamed, 128-column
+        # items); always to 6
+        if xm.stage_bytes(form) * slots + xm.SMEM_FIXED > xm.SMEM_MAX:
+            assert slots > 6
+            with pytest.raises(ValueError, match="past the card"):
+                xm.geometry(form, n_out, K, ncols, 132, slots, False, False)
+            continue
         geo = xm.geometry(form, n_out, K, ncols, 132, slots)
         assert geo.smem <= xm.SMEM_MAX
+    geo = xm.geometry(form, n_out, K, ncols, 132)
     rows = xm.out_rows(geo)
     written = np.sort(rows[rows >= 0])
     np.testing.assert_array_equal(written, np.arange(n_out))
     assert geo.rows == (n_out if form == xm.DENSE else n_out // 2)
     assert geo.kpad % xm.KC == 0 and 0 <= geo.kpad - K < xm.KC
-    assert geo.ctiles * xm.BM >= ncols > (geo.ctiles - 1) * xm.BM
-    assert geo.nitems == geo.ctiles * geo.rtiles * (2 if form == xm.FWD
-                                                    else 1)
+    assert geo.ctiles * geo.bm >= ncols > (geo.ctiles - 1) * geo.bm
+    # an item: a column tile and a row tile (FWD and INV: of both halves)
+    assert geo.nitems == geo.ctiles * geo.rtiles
     assert geo.grid == min(132, geo.nitems)
     op = xm.pack(np.ones((n_out, K)), form)
     assert op.packed.shape == ((1 if form == xm.DENSE else 2), geo.rtiles,
@@ -297,12 +306,12 @@ def _walk(op, f, s=None):
     out = np.zeros((op.n_out, nc))
     hits = np.zeros((op.n_out, nc), int)
     rows = xm.out_rows(geo)
-    per_ct = (2 if op.form == xm.FWD else 1) * geo.rtiles
-    for it in range(geo.nitems):
-        ct, r = divmod(it, per_ct)
-        h, rt = divmod(r, geo.rtiles) if op.form == xm.FWD else (0, r)
-        c0 = ct * xm.BM
-        cols = np.arange(c0, min(c0 + xm.BM, nc))
+    for it, h in ((it, h) for it in range(geo.nitems)
+                  for h in range(2 if op.form == xm.FWD else 1)):
+        # an item: a column tile and a row tile; FWD computes both halves
+        ct, rt = divmod(it, geo.rtiles)
+        c0 = ct * geo.bm
+        cols = np.arange(c0, min(c0 + geo.bm, nc))
         acc = []
         for src in range(2 if op.form == xm.INV else 1):
             part = h if op.form == xm.FWD else src

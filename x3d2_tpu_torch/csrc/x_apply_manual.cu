@@ -8,16 +8,22 @@
 //           INV + SUB.
 // FWD and INV take the stacked [Me; Mo] (n_out, n_in / 2).
 //
-// Replaces two TPU kernels of x3d2_tpu, which compute the same function:
+// Replaces four TPU kernels of x3d2_tpu, which compute these functions:
 //   - _x_apply_kernel (pallas_poisson.py:954, pl.pallas_call :1346), the
 //     dense x stage of a wall-bounded x and of any x with X3D2_BFLY=0
 //     (DENSE, DENSE + SUB), launched by ops/operator_apply.py apply_dense
 //     for the slab's x_apply and the sharded step's XApplyOp;
+//   - _x_parity_fwd_kernel (pallas_poisson.py:997) and
+//     _x_parity_inv_kernel (:1025; pl.pallas_call :1310), the one-field
+//     parity x stage of a periodic x (FWD; INV, INV + SUB), launched by
+//     ops/pressure_slab.py x_apply_parity (x_pfwd, x_pinv, x_pinv[sub]:
+//     X3D2_MERGED_X=0, compensated stepping's pressure_grads, every
+//     sharded periodic step);
 //   - the manual-DMA x apply (make_x_apply_manual, pallas_manual.py:62;
 //     its `kernel` :114, pl.pallas_call :200), which is _x_apply_kernel
 //     with its own S-slot copy pipeline, in every form, launched by
 //     ops/x_apply_manual.py (on no solver path; tools/prof_manual.py).
-// Both sum bf16 hi/lo splits of their operands in float32 on the MXU
+// All sum bf16 hi/lo splits of their operands in float32 on the MXU
 // (split_hi_lo, pallas_kernels.py:60; _mm_left, pallas_poisson.py:54).
 // Here the split is TF32's, to float32 accuracy:
 //   x = hi + lo, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi),
@@ -34,7 +40,9 @@
 // forms), three times over in TF32: the dense apply at 512^3 is 1.4e11
 // operations, 0.83 ms at 3 x the 495 TFLOP/s TF32 rate, against 0.32 ms
 // for its two field passes at 3.35 TB/s: bound by operations (2.05 ms at
-// the 67 TFLOP/s FP32 rate the SIMT x applies had).
+// the 67 TFLOP/s FP32 rate the SIMT x applies had). The parity forms do
+// half the operations: 0.42 ms at 512^3, against 0.32 ms of bytes (0.48
+// with the subtraction's third field).
 //
 // Design. wgmma reads TF32 operands from shared memory K-major only, and
 // the field (n_in, ny nz) is contiguous along its columns, so the kernel
@@ -44,31 +52,39 @@
 // are the B operands, in shared memory as M lies (row-major (n_out, K) is
 // K-major). The operator's split is made once per operator on the host
 // (ops/x_apply_manual.py pack), padded to whole tiles and laid out in
-// device memory as the shared-memory image of each (row tile, k chunk)
-// block: BN rows of KC = 16 tf32 (64 bytes, 64-byte swizzled), hi then
-// lo, so one bulk copy brings a stage's operator. The field comes by TMA
-// through a tensor map made at each launch: boxes of 32 plane columns by
-// KC rows, 128-byte swizzled, zero-filled past the field's extents (four
-// boxes a 128-column tile: one copy a field row cost the issuing warp as
-// much as the tensor cores' work).
+// device memory as the shared-memory image of each (part, row tile, k
+// chunk) block: BN rows of KC = 16 tf32 (64 bytes, 64-byte swizzled), hi
+// then lo, so one bulk copy brings a block. The field comes by TMA
+// through a tensor map (cached by pointer and extents): boxes of 32 plane
+// columns by KC rows, 128-byte swizzled, zero-filled past the field's
+// extents (one copy a field row cost the issuing warp as much as the
+// tensor cores' work).
 // A persistent grid, one block an SM, walks work items: a column tile of
-// BM = 128 plane columns and a row tile of BN output rows (128; FWD 64, so
-// its two field blocks fit the same stage; INV 64, so its two sets of sums
-// fit the registers), block b taking items b, b + grid, ... An item's
-// contraction runs over k chunks of KC in one fixed order whatever the
-// extents (INV: the a source's chunks, then the b source's, into sums of
-// their own): no split-K and no atomics, so two launches give the same
-// bits and a column's result does not depend on the other columns.
+// BM = 128 plane columns and a row tile of BN output rows (DENSE 128; FWD
+// and INV 64 rows of each half, both halves an item: FWD forms s = f1 + f2
+// and d = f1 - f2 once from one read of f1 and f2 and sums E = Me s and O
+// = Mo d in two sets of sums, INV sums a and b apart), block b taking
+// items b, b + grid, ... An item's contraction runs over k chunks of KC in
+// one fixed order whatever the extents (INV: the a source's chunks, then
+// the b source's): no split-K and no atomics, so two launches give the
+// same bits and a column's result does not depend on the other columns.
+// Two choices of the parity forms' launch, made by ops/x_apply_manual.py
+// geometry where they measured faster: RES, the packed operator resident
+// (FWD where it fits beside the ring, K = 64: 64 KB, and a block takes 4
+// items or more): the block copies it once and the ring streams only
+// field boxes; NARROW, 64-column items (where 128-column ones leave more
+// than half the SMs idle): both consumer warpgroups on every item, each
+// on half its output rows (wgmma N = 32).
 // One producer warp keeps the chunks in flight through an S-stage ring of
 // shared memory (full mbarriers completed by the copies' bytes, empty
 // ones by the consumer warps); its warpgroup hands its registers to the
 // two consumer warpgroups (setmaxnreg). A consumer warpgroup takes 64
 // plane columns (a_columns in the wrapper: the column order that makes
 // its fragment loads conflict-free on the swizzled boxes) and, per chunk,
-// issues 3 wgmma m64nBNk8 for each of its two k steps of 8, loads and
-// splits the next chunk's fragments while they run, then adds the
-// chunk's sum to its registers and frees the stage. Rows past the
-// operator's (n_out, or the half) are zero in the packed operator and
+// issues 3 wgmma m64nNk8 for each of its two k steps of 8 and each set of
+// sums, loads and splits the next chunk's fragments while they run, then
+// adds the chunk's sums to its registers and frees the stage. Rows past
+// the operator's (n_out, or the half) are zero in the packed operator and
 // masked at the store; k past K is zero in the packed operator and masked
 // in the A fragments; columns past ny nz are zero-filled and not stored.
 // The epilogue stores each thread's sums from its registers (SUB: all of
@@ -86,10 +102,16 @@ constexpr int NCONS = 256;           // consumer threads: two warpgroups
 constexpr int NTHR = NCONS + 128;    // and the producer warpgroup
 constexpr int NCW = NCONS / 32;      // consumer warps (empty arrivals)
 constexpr int BM = 128;              // plane columns an item
+constexpr int BM_NARROW = 64;        // plane columns a narrow item
 constexpr int KC = 16;               // k a chunk: one 64-byte row of tf32
 constexpr int FBOX = 32;             // plane columns a field box (128 B)
 constexpr int FBOX_BYTES = FBOX * KC * 4;
 constexpr int MAX_S = 8;
+// the fixed dynamic shared memory: a full and an empty barrier a stage,
+// the resident operator's barrier, the 1024-byte alignment
+constexpr int SMEM_FIXED = 8 * (2 * MAX_S + 1) + 1024;
+constexpr int SMEM_MAX = 232448;     // a block's shared memory on an H100
+constexpr int MAX_DEV = 16;
 // registers a thread after the hand-over (setmaxnreg): the block starts
 // with three warpgroups of 168; the producer warpgroup (one warp copies,
 // three leave) keeps 40 and the two consumer warpgroups take 232
@@ -99,23 +121,27 @@ constexpr int CONS_REGS = 232;
 
 enum { DENSE = 0, FWD = 1, INV = 2 };
 
-// output rows an item (the wgmma N): FWD's stage holds two field blocks,
-// INV's registers hold two sets of sums
+// output rows of a part an item (the wgmma N of a wide item)
 __host__ __device__ constexpr int tile_rows(int form) {
   return form == DENSE ? 128 : 64;
 }
-// bytes of the operator's block of a stage (hi and lo)
+// bytes of an operator block (hi and lo)
 __host__ __device__ constexpr int op_bytes(int form) {
   return 2 * tile_rows(form) * KC * 4;
 }
-// bytes of a stage: the operator's block, then the field's (FWD: two),
-// each BM / FBOX boxes of KC rows of 128 bytes; every block starts on a
-// 1024-byte swizzle atom
-__host__ __device__ constexpr int stage_bytes(int form) {
-  return op_bytes(form) + (form == FWD ? 2 : 1) * (BM / FBOX) * FBOX_BYTES;
+// operator blocks and field blocks a stage holds: FWD both halves' (Me
+// and Mo; f1 and f2), the others one
+__host__ __device__ constexpr int stage_parts(int form) {
+  return form == FWD ? 2 : 1;
 }
-__host__ __device__ constexpr int smem_bytes(int form, int slots) {
-  return slots * stage_bytes(form) + 2 * 8 * MAX_S + 1024;
+// bytes of a stage: its operator blocks (none with the operator resident),
+// then its field blocks, each BM / FBOX (narrow: BM_NARROW / FBOX) boxes of
+// KC rows of 128 bytes; every block starts on a 1024-byte swizzle atom
+__host__ __device__ constexpr int stage_bytes(int form, bool res,
+                                              bool narrow) {
+  return stage_parts(form)
+         * ((res ? 0 : op_bytes(form))
+            + ((narrow ? BM_NARROW : BM) / FBOX) * FBOX_BYTES);
 }
 
 struct TcArgs {
@@ -130,6 +156,7 @@ struct TcArgs {
   long long ncols;
   int nitems;
   int slots;
+  int resbytes;      // bytes of the resident operator (0: streamed)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -187,7 +214,7 @@ __device__ __forceinline__ void box_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// the operand of a k step's wgmma: BN rows of the operator's block from
+// the operand of a k step's wgmma: N rows of the operator's block from
 // shared address `addr`, K-major with the 64-byte swizzle (rows of 64
 // bytes, 8-row atoms 512 bytes apart; the leading offset is not read for
 // a swizzled K-major operand); the next k step of 8 tf32 starts 32 bytes
@@ -234,6 +261,30 @@ __device__ __forceinline__ void fence_reg(uint32_t (&r)[2][4]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+}
+
+// D (64 x 32, 16 floats a thread) = D acc + A (64 x 8, tf32 from
+// registers)
+// . B (8 x 32, tf32 in shared memory, K-major, 64-byte swizzle)
+__device__ __forceinline__ void mma_n32(float (&d)[16],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // D (64 x 64, 32 floats a thread) = D acc + A (64 x 8, tf32 from
@@ -315,92 +366,116 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
     mma_n128(d, alo, dhi, acc);
     mma_n128(d, ahi, dlo, 1);
     mma_n128(d, ahi, dhi, 1);
-  } else {
+  } else if constexpr (N == 64) {
     mma_n64(d, alo, dhi, acc);
     mma_n64(d, ahi, dlo, 1);
     mma_n64(d, ahi, dhi, 1);
+  } else {
+    mma_n32(d, alo, dhi, acc);
+    mma_n32(d, ahi, dlo, 1);
+    mma_n32(d, ahi, dhi, 1);
   }
 }
 
-template <int FORM, bool SUB>
+template <int FORM, bool SUB, bool RES, bool NARROW>
 __global__ void __launch_bounds__(NTHR, 1)
 x_apply_tc_kernel(const __grid_constant__ TcArgs a,
                   const __grid_constant__ CUtensorMap fmap) {
   constexpr int BN = tile_rows(FORM);
-  constexpr int NB = FORM == FWD ? 2 : 1;       // field blocks a stage
+  constexpr int NW = NARROW ? BN / 2 : BN;      // a warpgroup's rows (N)
+  constexpr int NV = NW / 2;                    // its sums a set a thread
+  constexpr int NP = stage_parts(FORM);         // field blocks a stage
+  constexpr int NOP = RES ? 0 : NP;             // operator blocks a stage
   constexpr int NSRC = FORM == INV ? 2 : 1;     // sources an item
   constexpr int OPB = op_bytes(FORM);
-  constexpr int ST = stage_bytes(FORM);
-  constexpr int NBOX = BM / FBOX;               // field boxes a block
+  constexpr int NBOX = (NARROW ? BM_NARROW : BM) / FBOX;  // boxes a block
+  constexpr int FB = NBOX * FBOX_BYTES;         // bytes of a field block
+  constexpr int ST = stage_bytes(FORM, RES, NARROW);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
-  const unsigned char* smem = smem_raw + pad;
   const uint32_t sbase = raw + pad;
+  // the resident operator (RES), the ring, the barriers
+  const unsigned char* ring_p = smem_raw + pad + a.resbytes;
+  const uint32_t ring = sbase + a.resbytes;
   const int S = a.slots;
-  const uint32_t bar_full = sbase + S * ST;
+  const uint32_t bar_full = ring + S * ST;
   const uint32_t bar_empty = bar_full + 8 * MAX_S;
+  const uint32_t bar_op = bar_empty + 8 * MAX_S;
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(bar_full + 8 * i, 1);
       mbar_init(bar_empty + 8 * i, NCW);
     }
+    mbar_init(bar_op, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int per_ct = (FORM == FWD ? 2 : 1) * a.rtiles;   // items a tile
   const int nk = a.ktiles;
   const int my = a.nitems > (int)blockIdx.x
                      ? (a.nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                      : 0;
-  // item j of the block: its column tile's first column, its half (FWD),
-  // its row tile
+  // item j of the block: its column tile's first column, its row tile
   struct Item {
     long long c0;
-    int h, rt;
+    int rt;
   };
   auto item_of = [&](int j) {
     const int it = (int)blockIdx.x + j * (int)gridDim.x;
-    const int r = it % per_ct;
     Item m;
-    m.c0 = (long long)(it / per_ct) * BM;
-    m.h = FORM == FWD ? r / a.rtiles : 0;
-    m.rt = FORM == FWD ? r % a.rtiles : r;
+    m.c0 = (long long)(it / a.rtiles) * (NARROW ? BM_NARROW : BM);
+    m.rt = it % a.rtiles;
     return m;
+  };
+  // the operator block (part, row tile, k chunk) of the packed operator
+  auto op_block = [&](int part, int rt, int kc) {
+    return (part * a.rtiles + rt) * nk + kc;
   };
 
   if (threadIdx.x >= NCONS) {
     // ---- the producer warpgroup gives its registers to the consumers;
-    // its first warp walks the chunks of the block's items, in order,
-    // each into the next stage once the consumers have freed it
+    // its first warp copies the resident operator (RES), then walks the
+    // chunks of the block's items, in order, each into the next stage once
+    // the consumers have freed it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PROD_REGS));
     if (threadIdx.x >= NCONS + 32) return;
     const int lane = threadIdx.x & 31;
+    if constexpr (RES) {
+      if (my > 0) {
+        if (lane == 0) mbar_expect_tx(bar_op, a.resbytes);
+        __syncwarp();
+        for (int b = lane; b < a.resbytes / OPB; b += 32)
+          bulk_load(sbase + b * OPB, a.op + (long long)b * (OPB / 4), OPB,
+                    bar_op);
+      }
+    }
     int st = 0;
     uint32_t ph = 0;
     for (int j = 0; j < my; ++j) {
       const Item m = item_of(j);
       for (int src = 0; src < NSRC; ++src) {
-        // the operator's part: Me (FWD's even half, INV's a), Mo
-        const int part = FORM == FWD ? m.h : src;
-        const float* opb =
-            a.op + (long long)(part * a.rtiles + m.rt) * nk * (OPB / 4);
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(bar_empty + 8 * st, ph ^ 1);
           const uint32_t full = bar_full + 8 * st;
-          const uint32_t dst = sbase + st * ST;
+          const uint32_t dst = ring + st * ST;
           if (lane == 0) {
-            mbar_expect_tx(full, OPB + NB * NBOX * FBOX_BYTES);
-            bulk_load(dst, opb + (long long)kc * (OPB / 4), OPB, full);
+            mbar_expect_tx(full, NOP * OPB + NP * FB);
+            // the operator's parts: DENSE's one, FWD's Me and Mo, INV's
+            // source's (Me for a, Mo for b)
+            for (int o = 0; o < NOP; ++o)
+              bulk_load(dst + o * OPB,
+                        a.op + (long long)op_block(FORM == INV ? src : o,
+                                                   m.rt, kc) * (OPB / 4),
+                        OPB, full);
           }
           __syncwarp();
-          if (lane < NB * NBOX) {
+          if (lane < NP * NBOX) {
             // the field's rows k0 .. k0 + KC - 1 of f (DENSE), f1 and f2
             // (FWD), f_e or f_o (INV); rows past K are read (f2's, or
             // zeros past the field) and masked in the A fragments
             const int b = lane / NBOX, q = lane % NBOX;
-            box_load(dst + OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
+            box_load(dst + NOP * OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
                      (int)m.c0 + q * FBOX,
                      kc * KC + (b == 1 || src == 1 ? a.K : 0), full);
           }
@@ -414,36 +489,43 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     return;
   }
 
-  // ---- the consumers: warpgroup g takes the field boxes 2 g and 2 g + 1
-  // of the item (64 plane columns), warp w of it 16 columns of box 2 g + (w
-  // >> 1): its A rows gid and gid + 8 (wgmma's) are the columns 4 a[h] +
-  // (gid & 3) of the box, a[h] = 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1,
-  // so that the 32 lanes of a fragment load read 32 banks of the 128-byte
-  // swizzled rows (ops/x_apply_manual.py a_columns); its k columns tig and
-  // tig + 4 of each k step
+  // ---- the consumers: warpgroup g takes 64 plane columns, the field
+  // boxes 2 g and 2 g + 1 of a wide item (a narrow item: both its boxes,
+  // and the output rows g NW .. g NW + NW - 1 of each set), warp w of it
+  // 16 columns of box 2 g + (w >> 1) (narrow: w >> 1): its A rows gid and
+  // gid + 8 (wgmma's) are the columns 4 a[h] + (gid & 3) of the box, a[h] =
+  // 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1, so that the 32 lanes of a
+  // fragment load read 32 banks of the 128-byte swizzled rows
+  // (ops/x_apply_manual.py a_columns); its k columns tig and tig + 4 of
+  // each k step
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int box = 2 * (t >> 7) + ((t >> 5) & 3) / 2;
-  const int ach[2] = {2 * ((t >> 5) & 1) + 4 * (gid >> 2),
-                      2 * ((t >> 5) & 1) + 1 + 4 * (gid >> 2)};
-  const int nkc = NSRC * nk;              // chunks an item
-  float acc[BN / 2];
-  float acc2[FORM == INV ? BN / 2 : 1];   // INV: b's sums
-  float part[BN / 2];                     // a chunk's tensor-core sum
+  const int wg = t >> 7, w = (t >> 5) & 3;
+  const int box = (NARROW ? 0 : 2 * wg) + (w >> 1);
+  const int noff = NARROW ? wg * NW : 0;
+  const int ach[2] = {2 * (w & 1) + 4 * (gid >> 2),
+                      2 * (w & 1) + 1 + 4 * (gid >> 2)};
+  const int nkc = NSRC * nk;                  // chunks an item
+  float acc[NV];
+  float acc2[FORM == DENSE ? 1 : NV];         // FWD: O's sums; INV: b's
+  float part[NV];                             // a chunk's tensor-core sum
+  float part2[FORM == FWD ? NV : 1];          // FWD: O's
   // the A fragments of a chunk's two k steps, split: a0 (row gid, k), a1
   // (gid + 8, k), a2 (gid, k + 4), a3 (gid + 8, k + 4), k = 8 step + tig;
-  // the chunk in the tensor cores' hands (ahi, alo) and the next (nhi,
-  // nlo)
+  // the chunk in the tensor cores' hands (ahi, alo; FWD: of s, and bhi,
+  // blo of d) and the next (nhi, nlo; mhi, mlo)
   uint32_t ahi[2][4], alo[2][4], nhi[2][4], nlo[2][4];
-  auto load_a = [&](const Item& m, int c, int stage, uint32_t ph_,
-                    uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+  uint32_t bhi[2][4], blo[2][4], mhi[2][4], mlo[2][4];
+  auto load_a = [&](int c, int stage, uint32_t ph_, uint32_t (&hi)[2][4],
+                    uint32_t (&lo)[2][4], uint32_t (&hi2)[2][4],
+                    uint32_t (&lo2)[2][4]) {
     mbar_wait(bar_full + 8 * stage, ph_);
     // the box: KC rows of 128 bytes, the 16-byte chunk a of row k at a ^
     // (k & 7) (TMA's 128-byte swizzle)
     const unsigned char* F =
-        smem + stage * ST + OPB + box * FBOX_BYTES + (gid & 3) * 4;
+        ring_p + stage * ST + NOP * OPB + box * FBOX_BYTES + (gid & 3) * 4;
     const int k0 = (c % nk) * KC;
 #pragma unroll
     for (int step = 0; step < 2; ++step)
@@ -451,44 +533,71 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       for (int i = 0; i < 4; ++i) {
         const int kk = step * 8 + tig + (i >> 1) * 4;
         const int off = kk * 128 + ((ach[i & 1] ^ (kk & 7)) << 4);
-        float x = *reinterpret_cast<const float*>(F + off);
-        if (FORM == FWD) {
-          const float x2 = *reinterpret_cast<const float*>(
-              F + NBOX * FBOX_BYTES + off);
-          x = m.h == 0 ? x + x2 : x - x2;
+        const bool ok = k0 + kk < a.K;
+        const float x = *reinterpret_cast<const float*>(F + off);
+        if constexpr (FORM == FWD) {
+          const float x2 = *reinterpret_cast<const float*>(F + FB + off);
+          split_tf32(ok ? x + x2 : 0.f, hi[step][i], lo[step][i]);
+          split_tf32(ok ? x - x2 : 0.f, hi2[step][i], lo2[step][i]);
+        } else {
+          split_tf32(ok ? x : 0.f, hi[step][i], lo[step][i]);
         }
-        if (k0 + kk >= a.K) x = 0.f;
-        split_tf32(x, hi[step][i], lo[step][i]);
       }
   };
+  if constexpr (RES) {
+    if (my > 0) mbar_wait(bar_op, 0);
+  }
   int st = 0;
   uint32_t ph = 0;
   for (int j = 0; j < my; ++j) {
     const Item m = item_of(j);
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < (FORM == INV ? BN / 2 : 1); ++i) acc2[i] = 0.f;
-    load_a(m, 0, st, ph, ahi, alo);
+    for (int i = 0; i < (FORM == DENSE ? 1 : NV); ++i) acc2[i] = 0.f;
+    load_a(0, st, ph, ahi, alo, bhi, blo);
     for (int c = 0; c < nkc; ++c) {
-      // the chunk's six products into `part` (k step `step` starts 32
-      // bytes, 2 descriptor units, on)
-      const uint32_t ob = sbase + st * ST;
+      // the chunk's operator blocks (the source's part; FWD's Mo second),
+      // from the warpgroup's first row (64 bytes a row); k step `step`
+      // starts 32 bytes, 2 descriptor units, on
+      uint32_t ob, ob2;
+      if constexpr (RES) {
+        const int kc = c % nk;
+        ob = sbase + op_block(FORM == INV ? c / nk : 0, m.rt, kc) * OPB;
+        ob2 = sbase + op_block(1, m.rt, kc) * OPB;
+      } else {
+        ob = ring + st * ST;
+        ob2 = ob + OPB;
+      }
+      ob += noff * KC * 4;
+      ob2 += noff * KC * 4;
       const uint64_t dhi = b_desc(ob), dlo = b_desc(ob + OPB / 2);
       wgmma_fence();
 #pragma unroll
       for (int step = 0; step < 2; ++step)
-        mma3<BN>(part, ahi[step], alo[step], dhi + 2 * step,
+        mma3<NW>(part, ahi[step], alo[step], dhi + 2 * step,
                  dlo + 2 * step, step);
+      if constexpr (FORM == FWD) {
+        const uint64_t ehi = b_desc(ob2), elo = b_desc(ob2 + OPB / 2);
+#pragma unroll
+        for (int step = 0; step < 2; ++step)
+          mma3<NW>(part2, bhi[step], blo[step], ehi + 2 * step,
+                   elo + 2 * step, step);
+      }
       wgmma_commit();
       // the next chunk's fragments while the tensor cores work
       const int st1 = st + 1 == S ? 0 : st + 1;
       const uint32_t ph1 = st1 == 0 ? ph ^ 1 : ph;
-      if (c + 1 < nkc) load_a(m, c + 1, st1, ph1, nhi, nlo);
+      if (c + 1 < nkc) load_a(c + 1, st1, ph1, nhi, nlo, mhi, mlo);
       wgmma_wait();
       fence_acc(part);
       fence_reg(ahi);
       fence_reg(alo);
+      if constexpr (FORM == FWD) {
+        fence_acc(part2);
+        fence_reg(bhi);
+        fence_reg(blo);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * st);
       st = st1;
@@ -499,40 +608,48 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
         for (int i = 0; i < 4; ++i) {
           ahi[step][i] = nhi[step][i];
           alo[step][i] = nlo[step][i];
+          if constexpr (FORM == FWD) {
+            bhi[step][i] = mhi[step][i];
+            blo[step][i] = mlo[step][i];
+          }
         }
       // added to the item's sums in FP32 (round to nearest): the tensor
       // cores' own sum spans one chunk
+      if constexpr (FORM == FWD) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc2[i] += part2[i];
+      }
       if constexpr (FORM == INV) {
         if (c >= nk) {
 #pragma unroll
-          for (int i = 0; i < BN / 2; ++i) acc2[i] += part[i];
+          for (int i = 0; i < NV; ++i) acc2[i] += part[i];
           continue;
         }
       }
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      for (int i = 0; i < NV; ++i) acc[i] += part[i];
     }
     // the item's outputs: d[4 j + 2 c + q] is (A row gid + 8 c, that is
-    // column 4 ach[c] + (gid & 3) of the box, output row 8 j + 2 tig + q);
-    // group g: the output half (FWD h, INV 0 for a + b and 1 for a - b);
-    // SUB reads all of its s first, then stores
-    constexpr int G = FORM == INV ? 2 : 1;
+    // column 4 ach[c] + (gid & 3) of the box, output row noff + 8 j + 2
+    // tig + q of the tile); group g: the output half (FWD E, O; INV a + b,
+    // a - b); SUB reads all of its s first, then stores
+    constexpr int G = FORM == DENSE ? 1 : 2;
     const int nrows = a.rows - m.rt * BN < BN ? a.rows - m.rt * BN : BN;
     const long long col[2] = {m.c0 + box * FBOX + 4 * ach[0] + (gid & 3),
                               m.c0 + box * FBOX + 4 * ach[1] + (gid & 3)};
     const bool okc[2] = {col[0] < a.ncols, col[1] < a.ncols};
     auto row_of = [&](int g, int n) {
-      return (long long)(g + m.h) * a.rows + m.rt * BN + n;
+      return (long long)g * a.rows + m.rt * BN + n;
     };
-    float sv[SUB ? G * BN / 2 : 1];
+    float sv[SUB ? G * NV : 1];
     if constexpr (SUB) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+        for (int i = 0; i < NV; ++i) {
+          const int n = noff + (i >> 2) * 8 + 2 * tig + (i & 1);
           const int c = (i >> 1) & 1;
-          sv[g * BN / 2 + i] =
+          sv[g * NV + i] =
               n < nrows && okc[c]
                   ? __ldg(a.s + row_of(g, n) * a.ncols + col[c]) : 0.f;
         }
@@ -540,36 +657,72 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+      for (int i = 0; i < NV; ++i) {
+        const int n = noff + (i >> 2) * 8 + 2 * tig + (i & 1);
         const int c = (i >> 1) & 1;
         if (n >= nrows || !okc[c]) continue;
         float v = acc[i];
+        if constexpr (FORM == FWD) v = g == 0 ? acc[i] : acc2[i];
         if constexpr (FORM == INV) v = g == 0 ? v + acc2[i] : v - acc2[i];
-        if constexpr (SUB) v = sv[g * BN / 2 + i] - v;
+        if constexpr (SUB) v = sv[g * NV + i] - v;
         a.out[row_of(g, n) * a.ncols + col[c]] = v;
       }
   }
 }
 
-template <int FORM, bool SUB>
+// One launch of an instance; its shared-memory attribute is set once per
+// device and raised where a launch needs more
+template <int FORM, bool SUB, bool RES, bool NARROW>
 cudaError_t launch(const TcArgs& a, const CUtensorMap& fmap, int grid,
-                   cudaStream_t stream) {
-  const int bytes = smem_bytes(FORM, a.slots);
-  const cudaError_t e = cudaFuncSetAttribute(
-      x_apply_tc_kernel<FORM, SUB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                   int bytes, cudaStream_t stream) {
+  static int set_bytes[MAX_DEV] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  x_apply_tc_kernel<FORM, SUB><<<grid, NTHR, bytes, stream>>>(a, fmap);
+  if (dev >= MAX_DEV || set_bytes[dev] < bytes) {
+    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB, RES, NARROW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEV) set_bytes[dev] = bytes;
+  }
+  x_apply_tc_kernel<FORM, SUB, RES, NARROW>
+      <<<grid, NTHR, bytes, stream>>>(a, fmap);
   return cudaGetLastError();
+}
+
+template <int FORM, bool SUB>
+cudaError_t launch_parity(const TcArgs& a, const CUtensorMap& fmap,
+                          int grid, int bytes, bool res, bool narrow,
+                          cudaStream_t st) {
+  switch ((res ? 2 : 0) + (narrow ? 1 : 0)) {
+    case 0: return launch<FORM, SUB, false, false>(a, fmap, grid, bytes, st);
+    case 1: return launch<FORM, SUB, false, true>(a, fmap, grid, bytes, st);
+    case 2: return launch<FORM, SUB, true, false>(a, fmap, grid, bytes, st);
+    default: return launch<FORM, SUB, true, true>(a, fmap, grid, bytes, st);
+  }
 }
 
 // the field's tensor map: (frows, ncols) float32, boxes of KC rows of FBOX
 // columns, 128-byte swizzled, zeros past the extents (the driver's encoder,
-// found through the runtime: no link to the driver library)
+// found through the runtime: no link to the driver library); the last
+// few maps are kept by pointer and extents, which are all a map encodes
+struct CachedMap {
+  const void* f;
+  long long frows, ncols;
+  CUtensorMap map;
+};
+
 cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
                       long long ncols) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  static CachedMap cache[8] = {};
+  static int next = 0;
+  for (const CachedMap& c : cache)
+    if (c.f == f && c.frows == frows && c.ncols == ncols) {
+      *map = c.map;
+      return cudaSuccess;
+    }
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -589,7 +742,13 @@ cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
       strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  cache[next].f = f;
+  cache[next].frows = frows;
+  cache[next].ncols = ncols;
+  cache[next].map = *map;
+  next = (next + 1) % 8;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -597,19 +756,25 @@ cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
 extern "C" {
 
 // Compile-time geometry, for the wrapper's packing and checks: plane
-// columns an item, k a chunk, the staged field row, the most stages,
-// threads a block, the fixed dynamic shared memory, then output rows an
-// item and bytes of a stage for DENSE, FWD, INV.
+// columns a wide and a narrow item, k a chunk, the staged field row, the
+// most stages, threads a block, the fixed dynamic shared memory, a
+// block's most, then output rows an item and bytes of an operator block
+// for DENSE, FWD, INV, and bytes of a stage for each form with the
+// operator streamed and resident, wide and narrow (form, res, narrow).
 int x_apply_tc_geometry(int* g) {
   g[0] = BM;
-  g[1] = KC;
-  g[2] = FBOX;
-  g[3] = MAX_S;
-  g[4] = NTHR;
-  g[5] = smem_bytes(DENSE, 0);
+  g[1] = BM_NARROW;
+  g[2] = KC;
+  g[3] = FBOX;
+  g[4] = MAX_S;
+  g[5] = NTHR;
+  g[6] = SMEM_FIXED;
+  g[7] = SMEM_MAX;
   for (int form = DENSE; form <= INV; ++form) {
-    g[6 + form] = tile_rows(form);
-    g[9 + form] = stage_bytes(form);
+    g[8 + form] = tile_rows(form);
+    g[11 + form] = op_bytes(form);
+    for (int v = 0; v < 4; ++v)
+      g[14 + 4 * form + v] = stage_bytes(form, v >= 2, v & 1);
   }
   return 0;
 }
@@ -618,13 +783,16 @@ int x_apply_tc_geometry(int* g) {
 // packed split operator (ops/x_apply_manual.py pack) of `rows` output rows
 // a part and contraction K; f, s (null without the subtraction), out as
 // TcArgs; ncols = ny * nz, a multiple of 4; slots 2 .. MAX_S; grid: blocks
-// (the SM count). Returns the cudaError_t of the launch (0 on success).
+// (the SM count); res: the operator resident in shared memory, narrow:
+// 64-column items (the parity forms only). Returns the cudaError_t of the
+// launch (0 on success).
 int x_apply_tc_launch(int form, const void* op, const void* f,
                       const void* s, void* out, int rows, int K,
-                      long long ncols, int slots, int grid, void* stream) {
+                      long long ncols, int slots, int grid, int res,
+                      int narrow, void* stream) {
   if (form < DENSE || form > INV || (form == FWD && s != nullptr)
       || rows < 1 || K < 1 || ncols < 4 || ncols % 4 || slots < 2
-      || slots > MAX_S || grid < 1)
+      || slots > MAX_S || grid < 1 || (form == DENSE && (res || narrow)))
     return (int)cudaErrorInvalidValue;
   const int bn = tile_rows(form);
   TcArgs a = {};
@@ -637,24 +805,41 @@ int x_apply_tc_launch(int form, const void* op, const void* f,
   a.rtiles = (rows + bn - 1) / bn;
   a.ktiles = (K + KC - 1) / KC;
   a.ncols = ncols;
-  const long long ctiles = (ncols + BM - 1) / BM;
-  const long long items = ctiles * a.rtiles * (form == FWD ? 2 : 1);
-  if (items > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const int bm = narrow ? BM_NARROW : BM;
+  const long long ctiles = (ncols + bm - 1) / bm;
+  const long long items = ctiles * a.rtiles;
+  // the resident operator: both parts, every row tile and k chunk
+  const long long resbytes =
+      res ? 2LL * a.rtiles * a.ktiles * op_bytes(form) : 0;
+  const long long bytes =
+      resbytes + (long long)slots * stage_bytes(form, res, narrow)
+      + SMEM_FIXED;
+  if (items > 0x7FFFFFFFLL || bytes > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
   a.nitems = (int)items;
   a.slots = slots;
+  a.resbytes = (int)resbytes;
   if (grid > a.nitems) grid = a.nitems;
   CUtensorMap fmap;
   const cudaError_t e =
       field_map(&fmap, f, (long long)K * (form == DENSE ? 1 : 2), ncols);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool sub = s != nullptr;
-  switch (form * 2 + (sub ? 1 : 0)) {
-    case DENSE * 2: return (int)launch<DENSE, false>(a, fmap, grid, st);
-    case DENSE * 2 + 1: return (int)launch<DENSE, true>(a, fmap, grid, st);
-    case FWD * 2: return (int)launch<FWD, false>(a, fmap, grid, st);
-    case INV * 2: return (int)launch<INV, false>(a, fmap, grid, st);
-    case INV * 2 + 1: return (int)launch<INV, true>(a, fmap, grid, st);
+  const int nb = (int)bytes;
+  switch (form * 2 + (s != nullptr ? 1 : 0)) {
+    case DENSE * 2:
+      return (int)launch<DENSE, false, false, false>(a, fmap, grid, nb, st);
+    case DENSE * 2 + 1:
+      return (int)launch<DENSE, true, false, false>(a, fmap, grid, nb, st);
+    case FWD * 2:
+      return (int)launch_parity<FWD, false>(a, fmap, grid, nb, res, narrow,
+                                            st);
+    case INV * 2:
+      return (int)launch_parity<INV, false>(a, fmap, grid, nb, res, narrow,
+                                            st);
+    case INV * 2 + 1:
+      return (int)launch_parity<INV, true>(a, fmap, grid, nb, res, narrow,
+                                           st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,10 @@ pressure_slab.py) share on the card.
 axis of (nx, ny, nz) float32 fields in one of four forms (BANDED, PFWD,
 PINV, and DENSE along y or z: any (n_out, n) operator, rectangular on a
 wall-bounded axis), up to three fields a launch and two summed sources a
-field, with an epilogue (STORE, SUB, SOLVE after an x or a z apply,
-SOLVE_PLANE after a y apply batched over x planes; the solves take the
+field (the one-field PFWD and PINV along x, x_pfwd and x_pinv, are the
+x-apply kernel's: ops/pressure_slab.py x_apply_parity), with an epilogue
+(STORE, SUB, SOLVE after an x or a z apply, SOLVE_PLANE after a y apply
+batched over x planes; the solves take the
 Nyquist mask where the operator set has one). ``apply_dense`` is the
 dense x apply, out = M f or out = s - M f (the x stage of a wall-bounded x
 axis, and of any x with X3D2_BFLY=0): one launch of the split-TF32
@@ -48,8 +50,7 @@ LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
                      "pressure_mid[q,dense,local]": 6,
                      "div_solve": 3, "grad": 3, "div_solve[dense]": 3,
                      "grad[dense]": 3,
-                     "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1,
-                     "x_pfwd": 1, "x_pinv": 1, "x_pinv[sub]": 1}
+                     "x_gradsub3": 1, "x_apply": 1, "x_apply[sub]": 1}
 # the mid on the folded y: the dense y stage, the z transforms (and the
 # solve), the inverse z transforms, the dense y stage
 for _d in ("", "dense,"):

@@ -246,13 +246,17 @@ class ProjectionMats:
         return self._dev[dtype]
 
     def packed_x(self, name):
-        """The dense x operator `name` split and packed for the x-apply
-        kernel (ops/x_apply_manual.py pack, from its float32 copy), made
-        once."""
+        """The x operator `name` (sx, ix, gxs, gxi) split and packed for
+        the x-apply kernel (ops/x_apply_manual.py pack, from its float32
+        copy), made once: dense, or on a periodic x (x_perm) the parity
+        stack [Me; Mo] in its parity form (sx, ix forward; gxs, gxi
+        inverse)."""
         if name not in self._packed:
-            from .x_apply_manual import DENSE, pack
+            from .x_apply_manual import DENSE, FWD, INV, pack
 
-            self._packed[name] = pack(self.mats(torch.float32)[name], DENSE)
+            form = DENSE if self.x_perm is None else (
+                FWD if name in ("sx", "ix") else INV)
+            self._packed[name] = pack(self.mats(torch.float32)[name], form)
         return self._packed[name]
 
 

@@ -3,9 +3,10 @@ which also forms the spectral solution q (and from it the physical
 pressure) and takes pre-transformed divergence inputs from the xdiv sweep.
 The wrappers launch the Hopper operator-apply kernel of
 ``csrc/pressure_pipe.cu`` (the tiled mid's, those of
-``csrc/pressure_mid_tiled.cu``; the dense x apply's, the split-TF32
-x-apply kernel of ``csrc/x_apply_manual.cu``, its operators packed once
-per ProjectionMats); the plain PyTorch versions are beside them.
+``csrc/pressure_mid_tiled.cu``; the one-field x applies', dense and
+parity, the split-TF32 x-apply kernel of ``csrc/x_apply_manual.cu``, its
+operators packed once per ProjectionMats); the plain PyTorch versions are
+beside them.
 
 Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_slab
 (pallas_poisson.py:553) with make_x_div3 (:1150) and make_x_gradsub3
@@ -113,10 +114,10 @@ import os
 
 import torch
 
+from . import x_apply_manual as xm
 from .compact import apply_matrix
 from .operator_apply import (BANDED, DENSE, PFWD, PINV, SOLVE, SOLVE_PLANE,
-                             STORE, SUB, apply, apply_dense, count_launch,
-                             route)
+                             SUB, apply, apply_dense, count_launch, route)
 from .banded import banded_blocks
 from .parity import (BBS, BW, WIN, Forms, ProjectionMats, banded_apply,
                      parity_split, parity_split_folded, pfwd, pinv,
@@ -404,22 +405,19 @@ def x_apply(name, f, pm: ProjectionMats, s=None):
 
 def x_apply_parity(name, f, pm: ProjectionMats, s=None):
     """The parity x stage, one field: pm's operator `name` applied along x
-    of f as a parity split, forward (sx, ix: one PFWD launch, counted as
-    x_pfwd) or inverse (gxs, gxi: one PINV launch, x_pinv; s minus it with
-    the subtracting epilogue, x_pinv[sub])."""
+    of f as a parity split, forward (sx, ix: counted as x_pfwd) or inverse
+    (gxs, gxi: x_pinv; s minus it with the subtracting epilogue,
+    x_pinv[sub]), in one launch of the split-TF32 x-apply kernel
+    (csrc/x_apply_manual.cu, counted in ops/x_apply_manual.py) on the
+    operator's parity stack packed once (pm.packed_x)."""
     if pm.x_perm is None:
         raise ValueError("the parity x stage needs a periodic x (x_perm)")
+    if _PARITY_FORM[name] == PFWD and s is not None:
+        raise ValueError("the correction is an inverse-stage fusion")
     if route(f, "x_apply_parity"):
-        M = pm.mats(torch.float32)[name]
-        form = _PARITY_FORM[name]
-        if form == PFWD and s is not None:
-            raise ValueError("the correction is an inverse-stage fusion")
-        stage = ("x_pfwd" if form == PFWD
+        stage = ("x_pfwd" if _PARITY_FORM[name] == PFWD
                  else "x_pinv" if s is None else "x_pinv[sub]")
-        out = torch.empty_like(f)
-        apply(stage, form, 0, [([M], [f], out, s)],
-              epi=STORE if s is None else SUB)
-        return out
+        return xm.launch(stage, pm.packed_x(name), f, s)
     return x_apply_parity_plain(name, pm.mats(f.dtype)[name], f, s)
 
 

@@ -13,7 +13,10 @@ template's 128, so every launch takes a 128-tiled instance; a grid past
 the tiles, such as 320 x 256 x 384, takes the general instances and needs a
 reference that has them) the pipeline's stages (where the grid takes the
 pipeline), x_div3, the mid with q, div_solve, grad, x_gradsub3 and the
-one-field parity x applies run on the same random inputs through this
+template's one-field PFWD and PINV (with the subtraction) along x (the
+instances x_div3 and x_gradsub3 share; the one-field x applies of the
+solver, x_pfwd and x_pinv, are the x-apply kernel's; the template's are
+launched here directly) run on the same random inputs through this
 checkout's wrappers twice, launching once this library and once the
 reference (a reference whose entry point predates the general instances
 takes the arguments it had); the outputs must be equal bit for bit, and
@@ -43,6 +46,7 @@ from ..ops import operator_apply as oa
 from ..ops import pressure_pipe as pp
 from ..ops import pressure_slab as sl
 from ..solver import NavierStokes
+from .prof_manual import template
 
 
 def ptxas_registers(log):
@@ -131,6 +135,7 @@ def functions(ns, dev, gen):
         return torch.randn(dims, generator=gen, device=dev)
 
     u, v, w = randn(), randn(), randn()
+    m32 = pm.mats(torch.float32)
     d = sl.x_div3(u, v, w, pm)
     q = sl.div_solve(*d, pm)
     g = sl.grad(q, pm)
@@ -147,8 +152,8 @@ def functions(ns, dev, gen):
         ("div_solve", lambda: (sl.div_solve(*d, pm),)),
         ("grad", lambda: sl.grad(q, pm)),
         ("x_gradsub3", lambda: sl.x_gradsub3(*g, u, v, w, pm)),
-        ("x_pfwd", lambda: (sl.x_apply_parity("sx", u, pm),)),
-        ("x_pinv[sub]", lambda: (sl.x_apply_parity("gxs", g[0], pm, u),))]
+        ("x_pfwd", lambda: (template(m32["sx"], u, None, "fwd"),)),
+        ("x_pinv[sub]", lambda: (template(m32["gxs"], g[0], u, "inv"),))]
 
 
 def ms_of(fn, reps=10):
