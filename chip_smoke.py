@@ -17,7 +17,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
    sweeps' halo forms named so; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
    ones, 1 the general ones; the split-TF32 x-apply kernel
-   x_apply_tc_kernel<FORM, SUB, RES, NARROW> and its dynamic shared memory
+   x_apply_tc_kernel<FORM, SUB> and its dynamic shared memory
    at S = 2, 4, 6). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
@@ -1212,18 +1212,16 @@ def main():
                     and inst.endswith(",1>") else "")
                 print(f"[build {name} {inst}{halo}] " + line.strip())
 
-    # the x-apply kernel's shared memory is dynamic: its S-stage ring (and
-    # the parity forms' resident operator)
+    # the x-apply kernel's shared memory is dynamic: its S-stage ring
     print("[build x_apply_manual] x_apply_tc_kernel dynamic shared memory "
-          "(the ring, the resident operator, the barriers), bytes: "
+          "(the ring, the barriers), bytes: "
           + ", ".join(
               f"{tag} S={S} "
-              f"{xm.geometry(form, n_o, k_, nc, 132, S).smem}"
-              for tag, form, n_o, k_, nc in (
-                  ("dense 512", xm.DENSE, 512, 512, 512 * 512),
-                  ("inv 512", xm.INV, 512, 256, 512 * 512),
-                  ("fwd 512", xm.FWD, 512, 256, 512 * 512),
-                  ("fwd resident 128", xm.FWD, 128, 64, 512 * 512))
+              f"{xm.geometry(form, n_o, k_, 512 * 512, 132, S).smem}"
+              for tag, form, n_o, k_ in (
+                  ("dense 512", xm.DENSE, 512, 512),
+                  ("inv 512", xm.INV, 512, 256),
+                  ("fwd 512", xm.FWD, 512, 256))
               for S in (2, 4, 6)), flush=True)
 
     def stamp(phase):
@@ -1543,9 +1541,7 @@ def main():
                       f"{pxp.host_us(lambda: kern(*args), 20):.1f} µs a "
                       f"call; the call's device "
                       f"{pxp.device_ms(lambda: library(*args), 20):.4f} ms;"
-                      f" {geo.nitems} items of {geo.bm} columns, operator "
-                      f"{'resident' if geo.resident else 'streamed'}",
-                      flush=True)
+                      f" {geo.nitems} items", flush=True)
 
     def species_rows(shape, ops, randn, terms=2):
         """The species sweeps of the two scalars, z; x + acc; y + acc (at

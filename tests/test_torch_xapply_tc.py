@@ -267,12 +267,11 @@ GEO_CASES = [  # form, n_out, K, ncols: the paths' launches, then ragged
 def test_geometry(form, n_out, K, ncols):
     for slots in range(2, xm.MAX_S + 1):
         # every stage count where the ring fits: to MAX_S, but to 7 for
-        # FWD's 32 KB stage (both halves' blocks, streamed, 128-column
-        # items); always to 6
-        if xm.stage_bytes(form) * slots + xm.SMEM_FIXED > xm.SMEM_MAX:
-            assert slots > 6
-            with pytest.raises(ValueError, match="past the card"):
-                xm.geometry(form, n_out, K, ncols, 132, slots, False, False)
+        # FWD's 32 KB stage (both halves' blocks); always to 6
+        if xm.STAGE_BYTES[form] * slots + xm.SMEM_FIXED > xm.SMEM_MAX:
+            assert slots > 6 and slots > xm.MAX_SLOTS[form]
+            with pytest.raises(ValueError, match="stages"):
+                xm.geometry(form, n_out, K, ncols, 132, slots)
             continue
         geo = xm.geometry(form, n_out, K, ncols, 132, slots)
         assert geo.smem <= xm.SMEM_MAX
@@ -282,7 +281,7 @@ def test_geometry(form, n_out, K, ncols):
     np.testing.assert_array_equal(written, np.arange(n_out))
     assert geo.rows == (n_out if form == xm.DENSE else n_out // 2)
     assert geo.kpad % xm.KC == 0 and 0 <= geo.kpad - K < xm.KC
-    assert geo.ctiles * geo.bm >= ncols > (geo.ctiles - 1) * geo.bm
+    assert geo.ctiles * xm.BM >= ncols > (geo.ctiles - 1) * xm.BM
     # an item: a column tile and a row tile (FWD and INV: of both halves)
     assert geo.nitems == geo.ctiles * geo.rtiles
     assert geo.grid == min(132, geo.nitems)
@@ -310,8 +309,8 @@ def _walk(op, f, s=None):
                   for h in range(2 if op.form == xm.FWD else 1)):
         # an item: a column tile and a row tile; FWD computes both halves
         ct, rt = divmod(it, geo.rtiles)
-        c0 = ct * geo.bm
-        cols = np.arange(c0, min(c0 + geo.bm, nc))
+        c0 = ct * xm.BM
+        cols = np.arange(c0, min(c0 + xm.BM, nc))
         acc = []
         for src in range(2 if op.form == xm.INV else 1):
             part = h if op.form == xm.FWD else src

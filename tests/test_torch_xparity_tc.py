@@ -20,12 +20,11 @@ kernel takes, and a model of its arithmetic against float64 and x3d2_tpu.
   make_x_apply(parity=..., interpret=True) (its bf16-split terms=2
   products reach about 1e-5 of float64) for fwd, inv and inv + sub.
 - (c) geometry: the one-read FWD items (a column tile and a row tile,
-  both halves), the resident operator and the 64-column items where
-  geometry takes them; a walk of the items writes every output element
-  once for every even x the parity gate admits up to 4096 points, wide
-  and narrow, streamed and resident; shared memory within SMEM_MAX at S
-  = 2 to 6; ny * nz a multiple of 4 wherever make_x_apply's tiling
-  admits (ny, nz).
+  both halves), their 32 KB stage and the stage counts that fit (FWD 2 to
+  7); a walk of the items writes every output element once for every even
+  x the parity gate admits up to 4096 points; shared memory within
+  SMEM_MAX at S = 2 to 6; ny * nz a multiple of 4 wherever make_x_apply's
+  tiling admits (ny, nz).
 - (d) CPU tensors take the plain version, and no launch is counted in
   either launch counter (x_apply_manual's, operator_apply's).
 """
@@ -152,7 +151,7 @@ def _item_walk(op, f, s=None, one_read=True, slots=4):
         if op.form == xm.FWD else [(0,)]
     for it in range(geo.nitems):
         ct, rt = divmod(it, geo.rtiles)
-        cols = np.arange(ct * geo.bm, min((ct + 1) * geo.bm, nc))
+        cols = np.arange(ct * xm.BM, min((ct + 1) * xm.BM, nc))
         for hs in halves:
             sums = {}
             for src in range(2 if op.form == xm.INV else 1):
@@ -247,58 +246,50 @@ def test_item_model_at_the_tail_x():
 def test_geometry_parity_items_and_choices(form):
     """The paths' shapes: one item a (column tile, row tile) with both
     halves; the stage holds both halves' operator blocks and field blocks
-    (FWD) or one of each (INV), none of the operator where it is
-    resident."""
-    cases = {  # (nx, ny nz): (resident, narrow) as geometry takes them
-        (512, 512 * 512): (False, False), (128, 128 * 256): (False, False),
-        (128, 128 * 128): (False, False), (512, 256 * 256): (False, False),
-        (128, 512 * 512): (form == xm.FWD, False),
-        (320, 256 * 384): (False, False), (128, 64 * 128): (False, True),
-        (128, 8 * 128): (False, True)}
-    for (nx, ncols), (res, nar) in cases.items():
+    (FWD) or one of each (INV), so FWD's 32 KB stage fits 2 to 7 times and
+    INV's 2 to 8."""
+    for nx, ncols in ((512, 512 * 512), (128, 128 * 256), (128, 128 * 128),
+                      (512, 256 * 256), (128, 512 * 512), (320, 256 * 384),
+                      (128, 64 * 128), (128, 8 * 128)):
         geo = xm.geometry(form, nx, nx // 2, ncols, 132)
-        assert (geo.resident, geo.narrow) == (res, nar), (nx, ncols)
-        assert geo.bm == (xm.BM_NARROW if nar else xm.BM)
-        assert geo.ctiles == -(-ncols // geo.bm)
+        assert geo.ctiles == -(-ncols // xm.BM)
         assert geo.nitems == geo.ctiles * geo.rtiles
+        assert geo.grid == min(132, geo.nitems)
         assert geo.rtiles == -(-(nx // 2) // 64) and geo.bn == 64
         parts = 2 if form == xm.FWD else 1
-        field = parts * (geo.bm // xm.FBOX) * xm.FBOX * xm.KC * 4
-        op_bytes = 0 if res else parts * xm.OP_BYTES[form]
-        assert xm.stage_bytes(form, res, nar) == op_bytes + field
-        assert geo.resbytes == (2 * geo.rtiles * geo.ktiles
-                                * xm.OP_BYTES[form] if res else 0)
-        assert geo.smem == geo.resbytes + 4 * (op_bytes + field) \
-            + xm.SMEM_FIXED
+        stage = parts * (xm.OP_BYTES[form] + xm.BM * xm.KC * 4)
+        assert xm.STAGE_BYTES[form] == stage
+        assert geo.smem == 4 * stage + xm.SMEM_FIXED
     # the stage of the one-read FWD item: both halves' operator and field
-    # blocks, 32 KB
-    assert xm.stage_bytes(xm.FWD) == 32768
-    # forced choices: the resident operator past the card, and the dense
-    # form's, are refused
-    with pytest.raises(ValueError, match="past the card"):
-        xm.geometry(form, 512, 256, 512 * 512, 132, resident=True)
-    with pytest.raises(ValueError, match="dense form"):
-        xm.geometry(xm.DENSE, 128, 128, 128 * 128, 132, narrow=True)
+    # blocks, 32 KB; 8 of them are past the card
+    assert xm.STAGE_BYTES[xm.FWD] == 32768
+    top = 7 if form == xm.FWD else 8
+    assert xm.MAX_SLOTS[form] == top
+    assert xm.geometry(form, 512, 256, 512 * 512, 132, top).smem \
+        <= xm.SMEM_MAX
+    if form == xm.FWD:
+        assert 8 * 32768 + xm.SMEM_FIXED > xm.SMEM_MAX
+        with pytest.raises(ValueError, match="2 to 7 stages"):
+            xm.geometry(form, 512, 256, 512 * 512, 132, 8)
+        with pytest.raises(ValueError, match="2 to 7 stages"):
+            xm.make_x_apply_manual(np.eye(16), parity="fwd", slots=8,
+                                   device="cpu")
 
 
 def _coverage(geo, n_out, ncols):
     """How many times the kernel's items write each output element: per
-    consumer warpgroup g, the tile rows it holds (narrow: half of them)
-    and its columns of each item (wide: 64 of 128; narrow: all 64), in
-    units of 64 columns (ncols a multiple of 64); (n_out, ncols / 64)
-    counts."""
+    consumer warpgroup g, the tile rows of the item's row tile and its 64
+    of the item's 128 columns, in units of 64 columns (ncols a multiple of
+    64); (n_out, ncols / 64) counts."""
     rows_all = xm.out_rows(geo)                       # (2, rtiles, bn)
     units = np.arange(ncols // 64) * 64
     total = np.zeros((n_out, ncols // 64), np.int32)
-    nw = geo.bn // 2 if geo.narrow else geo.bn
+    r = rows_all.ravel()
+    rcount = np.bincount(r[r >= 0], minlength=n_out)
     for g in range(2):
-        noff = g * nw if geo.narrow else 0
-        r = rows_all[:, :, noff:noff + nw].ravel()
-        rcount = np.bincount(r[r >= 0], minlength=n_out)
-        c0 = 0 if geo.narrow else 64 * g
         ccount = np.zeros(ncols // 64, np.int32)
         for ct in range(geo.ctiles):
-            lo = ct * geo.bm + c0
+            lo = ct * xm.BM + 64 * g
             ccount[(units >= lo) & (units < lo + 64)] += 1
         # the items are every (column tile, row tile): rows and columns
         # are written independently
@@ -308,11 +299,9 @@ def _coverage(geo, n_out, ncols):
 
 def test_geometry_walk_writes_each_output_once():
     """Every even x up to 4096 points (the parity gate: even halves), on
-    the least plane x3d2_tpu's tiling admits (8 x 128: narrow items to
-    1024 points, wide past them) and at every 64th x on 128 x 256 (wide,
-    resident FWD where it fits); shared memory within SMEM_MAX at S = 2 to
-    6 at every one."""
-    seen = set()
+    the least plane x3d2_tpu's tiling admits (8 x 128) and at every 64th x
+    on 128 x 256; shared memory within SMEM_MAX at S = 2 to 6 at every
+    one."""
     for nx in range(2, 4097, 2):
         for ncols in ((8 * 128, 128 * 256) if nx % 64 == 0
                       else (8 * 128,)):
@@ -320,17 +309,8 @@ def test_geometry_walk_writes_each_output_once():
                 for slots in range(2, 7):
                     geo = xm.geometry(form, nx, nx // 2, ncols, 132, slots)
                     assert geo.smem <= xm.SMEM_MAX
-                seen.add((form, geo.resident, geo.narrow))
                 cov = _coverage(geo, nx, ncols)
                 assert cov.min() == 1 and cov.max() == 1, (nx, ncols, form)
-    # every choice geometry makes on these grids was walked
-    assert {(xm.FWD, False, True), (xm.FWD, False, False),
-            (xm.INV, False, True), (xm.INV, False, False)} <= seen
-    for res in (False, True):
-        for nar in (False, True):
-            geo = xm.geometry(xm.FWD, 128, 64, 16384, 132, 4, res, nar)
-            cov = _coverage(geo, 128, 16384)
-            assert cov.min() == 1 and cov.max() == 1, (res, nar)
 
 
 @pytest.mark.parametrize("ny,nz", [(8, 128), (16, 256), (24, 384), (8, 96),

@@ -55,7 +55,7 @@
 // device memory as the shared-memory image of each (part, row tile, k
 // chunk) block: BN rows of KC = 16 tf32 (64 bytes, 64-byte swizzled), hi
 // then lo, so one bulk copy brings a block. The field comes by TMA
-// through a tensor map (cached by pointer and extents): boxes of 32 plane
+// through a tensor map (encoded at each launch): boxes of 32 plane
 // columns by KC rows, 128-byte swizzled, zero-filled past the field's
 // extents (one copy a field row cost the issuing warp as much as the
 // tensor cores' work).
@@ -68,19 +68,15 @@
 // one fixed order whatever the extents (INV: the a source's chunks, then
 // the b source's): no split-K and no atomics, so two launches give the
 // same bits and a column's result does not depend on the other columns.
-// Two choices of the parity forms' launch, made by ops/x_apply_manual.py
-// geometry where they measured faster: RES, the packed operator resident
-// (FWD where it fits beside the ring, K = 64: 64 KB, and a block takes 4
-// items or more): the block copies it once and the ring streams only
-// field boxes; NARROW, 64-column items (where 128-column ones leave more
-// than half the SMs idle): both consumer warpgroups on every item, each
-// on half its output rows (wgmma N = 32).
 // One producer warp keeps the chunks in flight through an S-stage ring of
 // shared memory (full mbarriers completed by the copies' bytes, empty
-// ones by the consumer warps); its warpgroup hands its registers to the
-// two consumer warpgroups (setmaxnreg). A consumer warpgroup takes 64
-// plane columns (a_columns in the wrapper: the column order that makes
-// its fragment loads conflict-free on the swizzled boxes) and, per chunk,
+// ones by the consumer warps; a stage holds the chunk's operator blocks
+// and field blocks: DENSE 24 KB, FWD 32 KB (both halves'), INV 16 KB, so
+// FWD takes S = 2 to 7 and the others 2 to 8); its warpgroup hands its
+// registers to the two consumer warpgroups (setmaxnreg). A consumer
+// warpgroup takes 64 plane columns (a_columns in the wrapper: the column
+// order that makes its fragment loads conflict-free on the swizzled boxes)
+// and, per chunk,
 // issues 3 wgmma m64nNk8 for each of its two k steps of 8 and each set of
 // sums, loads and splits the next chunk's fragments while they run, then
 // adds the chunk's sums to its registers and frees the stage. Rows past
@@ -90,11 +86,16 @@
 // The epilogue stores each thread's sums from its registers (SUB: all of
 // the item's s loaded first), 16-byte runs of a row (no staging: the
 // shared memory is the ring's).
+// Host side: each instance's shared-memory attribute is set to the card's
+// most once per device (an atomic flag; any thread may launch); the
+// launch's own size is given at each launch.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -102,14 +103,13 @@ constexpr int NCONS = 256;           // consumer threads: two warpgroups
 constexpr int NTHR = NCONS + 128;    // and the producer warpgroup
 constexpr int NCW = NCONS / 32;      // consumer warps (empty arrivals)
 constexpr int BM = 128;              // plane columns an item
-constexpr int BM_NARROW = 64;        // plane columns a narrow item
 constexpr int KC = 16;               // k a chunk: one 64-byte row of tf32
 constexpr int FBOX = 32;             // plane columns a field box (128 B)
 constexpr int FBOX_BYTES = FBOX * KC * 4;
 constexpr int MAX_S = 8;
 // the fixed dynamic shared memory: a full and an empty barrier a stage,
-// the resident operator's barrier, the 1024-byte alignment
-constexpr int SMEM_FIXED = 8 * (2 * MAX_S + 1) + 1024;
+// the 1024-byte alignment
+constexpr int SMEM_FIXED = 8 * 2 * MAX_S + 1024;
 constexpr int SMEM_MAX = 232448;     // a block's shared memory on an H100
 constexpr int MAX_DEV = 16;
 // registers a thread after the hand-over (setmaxnreg): the block starts
@@ -121,7 +121,7 @@ constexpr int CONS_REGS = 232;
 
 enum { DENSE = 0, FWD = 1, INV = 2 };
 
-// output rows of a part an item (the wgmma N of a wide item)
+// output rows of a part an item (the wgmma N)
 __host__ __device__ constexpr int tile_rows(int form) {
   return form == DENSE ? 128 : 64;
 }
@@ -134,14 +134,11 @@ __host__ __device__ constexpr int op_bytes(int form) {
 __host__ __device__ constexpr int stage_parts(int form) {
   return form == FWD ? 2 : 1;
 }
-// bytes of a stage: its operator blocks (none with the operator resident),
-// then its field blocks, each BM / FBOX (narrow: BM_NARROW / FBOX) boxes of
-// KC rows of 128 bytes; every block starts on a 1024-byte swizzle atom
-__host__ __device__ constexpr int stage_bytes(int form, bool res,
-                                              bool narrow) {
-  return stage_parts(form)
-         * ((res ? 0 : op_bytes(form))
-            + ((narrow ? BM_NARROW : BM) / FBOX) * FBOX_BYTES);
+// bytes of a stage: its operator blocks, then its field blocks, each BM /
+// FBOX boxes of KC rows of 128 bytes; every block starts on a 1024-byte
+// swizzle atom
+__host__ __device__ constexpr int stage_bytes(int form) {
+  return stage_parts(form) * (op_bytes(form) + (BM / FBOX) * FBOX_BYTES);
 }
 
 struct TcArgs {
@@ -156,7 +153,6 @@ struct TcArgs {
   long long ncols;
   int nitems;
   int slots;
-  int resbytes;      // bytes of the resident operator (0: streamed)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -263,30 +259,6 @@ __device__ __forceinline__ void fence_reg(uint32_t (&r)[2][4]) {
     asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
 }
 
-// D (64 x 32, 16 floats a thread) = D acc + A (64 x 8, tf32 from
-// registers)
-// . B (8 x 32, tf32 in shared memory, K-major, 64-byte swizzle)
-__device__ __forceinline__ void mma_n32(float (&d)[16],
-                                        const uint32_t (&a)[4],
-                                        uint64_t desc, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-}
-
 // D (64 x 64, 32 floats a thread) = D acc + A (64 x 8, tf32 from
 // registers)
 // . B (8 x 64, tf32 in shared memory, K-major, 64-byte swizzle)
@@ -366,48 +338,39 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
     mma_n128(d, alo, dhi, acc);
     mma_n128(d, ahi, dlo, 1);
     mma_n128(d, ahi, dhi, 1);
-  } else if constexpr (N == 64) {
+  } else {
     mma_n64(d, alo, dhi, acc);
     mma_n64(d, ahi, dlo, 1);
     mma_n64(d, ahi, dhi, 1);
-  } else {
-    mma_n32(d, alo, dhi, acc);
-    mma_n32(d, ahi, dlo, 1);
-    mma_n32(d, ahi, dhi, 1);
   }
 }
 
-template <int FORM, bool SUB, bool RES, bool NARROW>
+template <int FORM, bool SUB>
 __global__ void __launch_bounds__(NTHR, 1)
 x_apply_tc_kernel(const __grid_constant__ TcArgs a,
                   const __grid_constant__ CUtensorMap fmap) {
   constexpr int BN = tile_rows(FORM);
-  constexpr int NW = NARROW ? BN / 2 : BN;      // a warpgroup's rows (N)
-  constexpr int NV = NW / 2;                    // its sums a set a thread
-  constexpr int NP = stage_parts(FORM);         // field blocks a stage
-  constexpr int NOP = RES ? 0 : NP;             // operator blocks a stage
+  constexpr int NV = BN / 2;                    // sums a set a thread
+  constexpr int NP = stage_parts(FORM);         // operator and field blocks
   constexpr int NSRC = FORM == INV ? 2 : 1;     // sources an item
   constexpr int OPB = op_bytes(FORM);
-  constexpr int NBOX = (NARROW ? BM_NARROW : BM) / FBOX;  // boxes a block
+  constexpr int NBOX = BM / FBOX;               // field boxes a block
   constexpr int FB = NBOX * FBOX_BYTES;         // bytes of a field block
-  constexpr int ST = stage_bytes(FORM, RES, NARROW);
+  constexpr int ST = stage_bytes(FORM);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
-  const uint32_t sbase = raw + pad;
-  // the resident operator (RES), the ring, the barriers
-  const unsigned char* ring_p = smem_raw + pad + a.resbytes;
-  const uint32_t ring = sbase + a.resbytes;
+  // the ring, then the barriers
+  const unsigned char* ring_p = smem_raw + pad;
+  const uint32_t ring = raw + pad;
   const int S = a.slots;
   const uint32_t bar_full = ring + S * ST;
   const uint32_t bar_empty = bar_full + 8 * MAX_S;
-  const uint32_t bar_op = bar_empty + 8 * MAX_S;
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(bar_full + 8 * i, 1);
       mbar_init(bar_empty + 8 * i, NCW);
     }
-    mbar_init(bar_op, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -424,7 +387,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   auto item_of = [&](int j) {
     const int it = (int)blockIdx.x + j * (int)gridDim.x;
     Item m;
-    m.c0 = (long long)(it / a.rtiles) * (NARROW ? BM_NARROW : BM);
+    m.c0 = (long long)(it / a.rtiles) * BM;
     m.rt = it % a.rtiles;
     return m;
   };
@@ -435,21 +398,11 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
 
   if (threadIdx.x >= NCONS) {
     // ---- the producer warpgroup gives its registers to the consumers;
-    // its first warp copies the resident operator (RES), then walks the
-    // chunks of the block's items, in order, each into the next stage once
-    // the consumers have freed it
+    // its first warp walks the chunks of the block's items, in order, each
+    // into the next stage once the consumers have freed it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PROD_REGS));
     if (threadIdx.x >= NCONS + 32) return;
     const int lane = threadIdx.x & 31;
-    if constexpr (RES) {
-      if (my > 0) {
-        if (lane == 0) mbar_expect_tx(bar_op, a.resbytes);
-        __syncwarp();
-        for (int b = lane; b < a.resbytes / OPB; b += 32)
-          bulk_load(sbase + b * OPB, a.op + (long long)b * (OPB / 4), OPB,
-                    bar_op);
-      }
-    }
     int st = 0;
     uint32_t ph = 0;
     for (int j = 0; j < my; ++j) {
@@ -460,10 +413,10 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
           const uint32_t full = bar_full + 8 * st;
           const uint32_t dst = ring + st * ST;
           if (lane == 0) {
-            mbar_expect_tx(full, NOP * OPB + NP * FB);
+            mbar_expect_tx(full, NP * (OPB + FB));
             // the operator's parts: DENSE's one, FWD's Me and Mo, INV's
             // source's (Me for a, Mo for b)
-            for (int o = 0; o < NOP; ++o)
+            for (int o = 0; o < NP; ++o)
               bulk_load(dst + o * OPB,
                         a.op + (long long)op_block(FORM == INV ? src : o,
                                                    m.rt, kc) * (OPB / 4),
@@ -475,7 +428,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
             // (FWD), f_e or f_o (INV); rows past K are read (f2's, or
             // zeros past the field) and masked in the A fragments
             const int b = lane / NBOX, q = lane % NBOX;
-            box_load(dst + NOP * OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
+            box_load(dst + NP * OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
                      (int)m.c0 + q * FBOX,
                      kc * KC + (b == 1 || src == 1 ? a.K : 0), full);
           }
@@ -489,22 +442,19 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     return;
   }
 
-  // ---- the consumers: warpgroup g takes 64 plane columns, the field
-  // boxes 2 g and 2 g + 1 of a wide item (a narrow item: both its boxes,
-  // and the output rows g NW .. g NW + NW - 1 of each set), warp w of it
-  // 16 columns of box 2 g + (w >> 1) (narrow: w >> 1): its A rows gid and
-  // gid + 8 (wgmma's) are the columns 4 a[h] + (gid & 3) of the box, a[h] =
-  // 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1, so that the 32 lanes of a
-  // fragment load read 32 banks of the 128-byte swizzled rows
-  // (ops/x_apply_manual.py a_columns); its k columns tig and tig + 4 of
-  // each k step
+  // ---- the consumers: warpgroup g takes the field boxes 2 g and 2 g + 1
+  // of the item (64 plane columns), warp w of it 16 columns of box 2 g + (w
+  // >> 1): its A rows gid and gid + 8 (wgmma's) are the columns 4 a[h] +
+  // (gid & 3) of the box, a[h] = 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1,
+  // so that the 32 lanes of a fragment load read 32 banks of the 128-byte
+  // swizzled rows (ops/x_apply_manual.py a_columns); its k columns tig and
+  // tig + 4 of each k step
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int wg = t >> 7, w = (t >> 5) & 3;
-  const int box = (NARROW ? 0 : 2 * wg) + (w >> 1);
-  const int noff = NARROW ? wg * NW : 0;
+  const int box = 2 * wg + (w >> 1);
   const int ach[2] = {2 * (w & 1) + 4 * (gid >> 2),
                       2 * (w & 1) + 1 + 4 * (gid >> 2)};
   const int nkc = NSRC * nk;                  // chunks an item
@@ -525,7 +475,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     // the box: KC rows of 128 bytes, the 16-byte chunk a of row k at a ^
     // (k & 7) (TMA's 128-byte swizzle)
     const unsigned char* F =
-        ring_p + stage * ST + NOP * OPB + box * FBOX_BYTES + (gid & 3) * 4;
+        ring_p + stage * ST + NP * OPB + box * FBOX_BYTES + (gid & 3) * 4;
     const int k0 = (c % nk) * KC;
 #pragma unroll
     for (int step = 0; step < 2; ++step)
@@ -544,9 +494,6 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
         }
       }
   };
-  if constexpr (RES) {
-    if (my > 0) mbar_wait(bar_op, 0);
-  }
   int st = 0;
   uint32_t ph = 0;
   for (int j = 0; j < my; ++j) {
@@ -557,31 +504,20 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     for (int i = 0; i < (FORM == DENSE ? 1 : NV); ++i) acc2[i] = 0.f;
     load_a(0, st, ph, ahi, alo, bhi, blo);
     for (int c = 0; c < nkc; ++c) {
-      // the chunk's operator blocks (the source's part; FWD's Mo second),
-      // from the warpgroup's first row (64 bytes a row); k step `step`
-      // starts 32 bytes, 2 descriptor units, on
-      uint32_t ob, ob2;
-      if constexpr (RES) {
-        const int kc = c % nk;
-        ob = sbase + op_block(FORM == INV ? c / nk : 0, m.rt, kc) * OPB;
-        ob2 = sbase + op_block(1, m.rt, kc) * OPB;
-      } else {
-        ob = ring + st * ST;
-        ob2 = ob + OPB;
-      }
-      ob += noff * KC * 4;
-      ob2 += noff * KC * 4;
+      // the chunk's operator blocks in the stage (the source's part; FWD's
+      // Mo second); k step `step` starts 32 bytes, 2 descriptor units, on
+      const uint32_t ob = ring + st * ST, ob2 = ob + OPB;
       const uint64_t dhi = b_desc(ob), dlo = b_desc(ob + OPB / 2);
       wgmma_fence();
 #pragma unroll
       for (int step = 0; step < 2; ++step)
-        mma3<NW>(part, ahi[step], alo[step], dhi + 2 * step,
+        mma3<BN>(part, ahi[step], alo[step], dhi + 2 * step,
                  dlo + 2 * step, step);
       if constexpr (FORM == FWD) {
         const uint64_t ehi = b_desc(ob2), elo = b_desc(ob2 + OPB / 2);
 #pragma unroll
         for (int step = 0; step < 2; ++step)
-          mma3<NW>(part2, bhi[step], blo[step], ehi + 2 * step,
+          mma3<BN>(part2, bhi[step], blo[step], ehi + 2 * step,
                    elo + 2 * step, step);
       }
       wgmma_commit();
@@ -630,8 +566,8 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       for (int i = 0; i < NV; ++i) acc[i] += part[i];
     }
     // the item's outputs: d[4 j + 2 c + q] is (A row gid + 8 c, that is
-    // column 4 ach[c] + (gid & 3) of the box, output row noff + 8 j + 2
-    // tig + q of the tile); group g: the output half (FWD E, O; INV a + b,
+    // column 4 ach[c] + (gid & 3) of the box, output row 8 j + 2 tig + q
+    // of the tile); group g: the output half (FWD E, O; INV a + b,
     // a - b); SUB reads all of its s first, then stores
     constexpr int G = FORM == DENSE ? 1 : 2;
     const int nrows = a.rows - m.rt * BN < BN ? a.rows - m.rt * BN : BN;
@@ -647,7 +583,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
-          const int n = noff + (i >> 2) * 8 + 2 * tig + (i & 1);
+          const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
           const int c = (i >> 1) & 1;
           sv[g * NV + i] =
               n < nrows && okc[c]
@@ -658,7 +594,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        const int n = noff + (i >> 2) * 8 + 2 * tig + (i & 1);
+        const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
         const int c = (i >> 1) & 1;
         if (n >= nrows || !okc[c]) continue;
         float v = acc[i];
@@ -670,59 +606,32 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   }
 }
 
-// One launch of an instance; its shared-memory attribute is set once per
-// device and raised where a launch needs more
-template <int FORM, bool SUB, bool RES, bool NARROW>
+// One launch of an instance at `bytes` of dynamic shared memory; the
+// instance's attribute is raised to SMEM_MAX once per device
+template <int FORM, bool SUB>
 cudaError_t launch(const TcArgs& a, const CUtensorMap& fmap, int grid,
                    int bytes, cudaStream_t stream) {
-  static int set_bytes[MAX_DEV] = {};
+  static std::atomic<bool> ready[MAX_DEV];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEV || set_bytes[dev] < bytes) {
-    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB, RES, NARROW>,
+  if (dev >= MAX_DEV || !ready[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+                             SMEM_MAX);
     if (e != cudaSuccess) return e;
-    if (dev < MAX_DEV) set_bytes[dev] = bytes;
+    if (dev < MAX_DEV) ready[dev].store(true, std::memory_order_release);
   }
-  x_apply_tc_kernel<FORM, SUB, RES, NARROW>
-      <<<grid, NTHR, bytes, stream>>>(a, fmap);
+  x_apply_tc_kernel<FORM, SUB><<<grid, NTHR, bytes, stream>>>(a, fmap);
   return cudaGetLastError();
-}
-
-template <int FORM, bool SUB>
-cudaError_t launch_parity(const TcArgs& a, const CUtensorMap& fmap,
-                          int grid, int bytes, bool res, bool narrow,
-                          cudaStream_t st) {
-  switch ((res ? 2 : 0) + (narrow ? 1 : 0)) {
-    case 0: return launch<FORM, SUB, false, false>(a, fmap, grid, bytes, st);
-    case 1: return launch<FORM, SUB, false, true>(a, fmap, grid, bytes, st);
-    case 2: return launch<FORM, SUB, true, false>(a, fmap, grid, bytes, st);
-    default: return launch<FORM, SUB, true, true>(a, fmap, grid, bytes, st);
-  }
 }
 
 // the field's tensor map: (frows, ncols) float32, boxes of KC rows of FBOX
 // columns, 128-byte swizzled, zeros past the extents (the driver's encoder,
-// found through the runtime: no link to the driver library); the last
-// few maps are kept by pointer and extents, which are all a map encodes
-struct CachedMap {
-  const void* f;
-  long long frows, ncols;
-  CUtensorMap map;
-};
-
+// found through the runtime: no link to the driver library)
 cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
                       long long ncols) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  static CachedMap cache[8] = {};
-  static int next = 0;
-  for (const CachedMap& c : cache)
-    if (c.f == f && c.frows == frows && c.ncols == ncols) {
-      *map = c.map;
-      return cudaSuccess;
-    }
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -742,13 +651,7 @@ cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
       strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  cache[next].f = f;
-  cache[next].frows = frows;
-  cache[next].ncols = ncols;
-  cache[next].map = *map;
-  next = (next + 1) % 8;
-  return cudaSuccess;
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -756,25 +659,22 @@ cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
 extern "C" {
 
 // Compile-time geometry, for the wrapper's packing and checks: plane
-// columns a wide and a narrow item, k a chunk, the staged field row, the
-// most stages, threads a block, the fixed dynamic shared memory, a
-// block's most, then output rows an item and bytes of an operator block
-// for DENSE, FWD, INV, and bytes of a stage for each form with the
-// operator streamed and resident, wide and narrow (form, res, narrow).
+// columns an item, k a chunk, the staged field row, the most stages,
+// threads a block, the fixed dynamic shared memory, a block's most, then
+// output rows an item, bytes of an operator block and bytes of a stage for
+// DENSE, FWD, INV.
 int x_apply_tc_geometry(int* g) {
   g[0] = BM;
-  g[1] = BM_NARROW;
-  g[2] = KC;
-  g[3] = FBOX;
-  g[4] = MAX_S;
-  g[5] = NTHR;
-  g[6] = SMEM_FIXED;
-  g[7] = SMEM_MAX;
+  g[1] = KC;
+  g[2] = FBOX;
+  g[3] = MAX_S;
+  g[4] = NTHR;
+  g[5] = SMEM_FIXED;
+  g[6] = SMEM_MAX;
   for (int form = DENSE; form <= INV; ++form) {
-    g[8 + form] = tile_rows(form);
-    g[11 + form] = op_bytes(form);
-    for (int v = 0; v < 4; ++v)
-      g[14 + 4 * form + v] = stage_bytes(form, v >= 2, v & 1);
+    g[7 + form] = tile_rows(form);
+    g[10 + form] = op_bytes(form);
+    g[13 + form] = stage_bytes(form);
   }
   return 0;
 }
@@ -782,17 +682,15 @@ int x_apply_tc_geometry(int* g) {
 // One launch. form: 0 dense, 1 parity forward, 2 parity inverse; op: the
 // packed split operator (ops/x_apply_manual.py pack) of `rows` output rows
 // a part and contraction K; f, s (null without the subtraction), out as
-// TcArgs; ncols = ny * nz, a multiple of 4; slots 2 .. MAX_S; grid: blocks
-// (the SM count); res: the operator resident in shared memory, narrow:
-// 64-column items (the parity forms only). Returns the cudaError_t of the
-// launch (0 on success).
+// TcArgs; ncols = ny * nz, a multiple of 4; slots 2 .. MAX_S where the ring
+// fits (FWD 2 .. 7); grid: blocks (the SM count). Returns the cudaError_t
+// of the launch (0 on success).
 int x_apply_tc_launch(int form, const void* op, const void* f,
                       const void* s, void* out, int rows, int K,
-                      long long ncols, int slots, int grid, int res,
-                      int narrow, void* stream) {
+                      long long ncols, int slots, int grid, void* stream) {
   if (form < DENSE || form > INV || (form == FWD && s != nullptr)
       || rows < 1 || K < 1 || ncols < 4 || ncols % 4 || slots < 2
-      || slots > MAX_S || grid < 1 || (form == DENSE && (res || narrow)))
+      || slots > MAX_S || grid < 1)
     return (int)cudaErrorInvalidValue;
   const int bn = tile_rows(form);
   TcArgs a = {};
@@ -805,41 +703,25 @@ int x_apply_tc_launch(int form, const void* op, const void* f,
   a.rtiles = (rows + bn - 1) / bn;
   a.ktiles = (K + KC - 1) / KC;
   a.ncols = ncols;
-  const int bm = narrow ? BM_NARROW : BM;
-  const long long ctiles = (ncols + bm - 1) / bm;
-  const long long items = ctiles * a.rtiles;
-  // the resident operator: both parts, every row tile and k chunk
-  const long long resbytes =
-      res ? 2LL * a.rtiles * a.ktiles * op_bytes(form) : 0;
-  const long long bytes =
-      resbytes + (long long)slots * stage_bytes(form, res, narrow)
-      + SMEM_FIXED;
+  const long long items = (ncols + BM - 1) / BM * a.rtiles;
+  const int bytes = slots * stage_bytes(form) + SMEM_FIXED;
   if (items > 0x7FFFFFFFLL || bytes > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   a.nitems = (int)items;
   a.slots = slots;
-  a.resbytes = (int)resbytes;
   if (grid > a.nitems) grid = a.nitems;
   CUtensorMap fmap;
   const cudaError_t e =
       field_map(&fmap, f, (long long)K * (form == DENSE ? 1 : 2), ncols);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (int)bytes;
   switch (form * 2 + (s != nullptr ? 1 : 0)) {
-    case DENSE * 2:
-      return (int)launch<DENSE, false, false, false>(a, fmap, grid, nb, st);
+    case DENSE * 2: return (int)launch<DENSE, false>(a, fmap, grid, bytes, st);
     case DENSE * 2 + 1:
-      return (int)launch<DENSE, true, false, false>(a, fmap, grid, nb, st);
-    case FWD * 2:
-      return (int)launch_parity<FWD, false>(a, fmap, grid, nb, res, narrow,
-                                            st);
-    case INV * 2:
-      return (int)launch_parity<INV, false>(a, fmap, grid, nb, res, narrow,
-                                            st);
-    case INV * 2 + 1:
-      return (int)launch_parity<INV, true>(a, fmap, grid, nb, res, narrow,
-                                           st);
+      return (int)launch<DENSE, true>(a, fmap, grid, bytes, st);
+    case FWD * 2: return (int)launch<FWD, false>(a, fmap, grid, bytes, st);
+    case INV * 2: return (int)launch<INV, false>(a, fmap, grid, bytes, st);
+    case INV * 2 + 1: return (int)launch<INV, true>(a, fmap, grid, bytes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,10 @@ ny, nz)), dense or in the parity-split forms:
   kernel :114, pl.pallas_call :200): ``make_x_apply_manual(M64, sub,
   parity, slots)`` -> fn(f[, s]), parity "fwd" or "inv" running the
   parity-split forms (x modes in block-parity order) as the slab's x
-  stage does; counted as x_apply_manual with its form's tags. No path of
-  the solver calls it, in x3d2_tpu or here: tools/prof_manual.py times it.
+  stage does; counted as x_apply_manual with its form's tags; S = slots
+  2 to 8, 2 to 7 for "fwd" (MAX_SLOTS: its stage holds both halves'
+  blocks, 32 KB). No path of the solver calls it, in x3d2_tpu or here:
+  tools/prof_manual.py times it.
 
 The kernel's products are split TF32 (three tensor-core products of hi/lo
 halves, to float32 accuracy; see the source's head): its results are not
@@ -28,10 +30,9 @@ is made here, once per operator (``pack``): hi = RNA(M) and lo = RNA(M -
 hi) to TF32 (``split_tf32``, cvt.rna.tf32.f32's rounding), padded to whole
 tiles and laid out as the shared-memory image of each (part, row tile, k
 chunk) block (``block_index``); the field's split is made in registers.
-``geometry`` computes a launch's tiles, items, grid and shared memory, and
-its two choices for the parity forms (the operator resident in shared
-memory; 64-column items), and ``out_rows`` the output row each tile row
-writes (-1 where masked), in one place for the launcher and the tests.
+``geometry`` computes a launch's tiles, items, grid and shared memory,
+and ``out_rows`` the output row each tile row writes (-1 where masked), in
+one place for the launcher and the tests.
 ``tc_model`` is the kernel's arithmetic in numpy float32 (the three
 products of the split operands).
 
@@ -54,31 +55,28 @@ from .parity import parity_split_folded, pfwd, pinv
 
 DENSE, FWD, INV = 0, 1, 2
 # the kernel's geometry (x_apply_tc_geometry, checked when the library
-# loads): plane columns a wide and a narrow item, k a chunk, plane columns
-# a field box, the most stages, threads a block, the fixed shared memory
-# (barriers and alignment), a block's most on an H100, output rows an item
-# by form, bytes of an operator block (hi and lo) by form
-BM, BM_NARROW, KC, FBOX, MAX_S = 128, 64, 16, 32, 8
+# loads): plane columns an item, k a chunk, plane columns a field box, the
+# most stages, threads a block, the fixed shared memory (barriers and
+# alignment), a block's most on an H100, output rows an item by form,
+# bytes of an operator block (hi and lo) by form, bytes of a ring stage by
+# form (its operator blocks and field blocks; FWD both halves'); then the
+# most stages that fit in a block's shared memory, by form
+BM, KC, FBOX, MAX_S = 128, 16, 32, 8
 NTHR = 384
-SMEM_FIXED = 8 * (2 * MAX_S + 1) + 1024
+SMEM_FIXED = 2 * 8 * MAX_S + 1024
 SMEM_MAX = 232448
 TILE_ROWS = {DENSE: 128, FWD: 64, INV: 64}
 OP_BYTES = {f: 2 * bn * KC * 4 for f, bn in TILE_ROWS.items()}
+STAGE_BYTES = {f: (2 if f == FWD else 1) * (OP_BYTES[f] + BM * KC * 4)
+               for f in TILE_ROWS}
+MAX_SLOTS = {f: min(MAX_S, (SMEM_MAX - SMEM_FIXED) // b)
+             for f, b in STAGE_BYTES.items()}
 # launches of the kernel, by name (x_apply, x_apply[sub]; x_pfwd, x_pinv,
 # x_pinv[sub]; x_apply_manual, x_apply_manual[sub], [fwd], [inv],
 # [inv,sub])
 _LAUNCHES: dict[str, int] = {}
 _LIB = None
 _SMS: dict[int, int] = {}
-
-
-def stage_bytes(form, resident=False, narrow=False):
-    """Bytes of a ring stage: its operator blocks (none with the operator
-    resident) and its field blocks of BM (narrow: BM_NARROW) columns; FWD
-    holds both halves' (Me and Mo, f1 and f2)."""
-    parts = 2 if form == FWD else 1
-    field = ((BM_NARROW if narrow else BM) // FBOX) * FBOX * KC * 4
-    return parts * ((0 if resident else OP_BYTES[form]) + field)
 
 
 def launch_counts() -> dict[str, int]:
@@ -98,20 +96,17 @@ def lib():
         so = _build.load("x_apply_manual")
         i, p = ctypes.c_int, ctypes.c_void_p
         so.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i,
-                                         ctypes.c_longlong, i, i, i, i, p]
+                                         ctypes.c_longlong, i, i, p]
         so.x_apply_tc_launch.restype = i
         so.x_apply_tc_error_string.argtypes = [i]
         so.x_apply_tc_error_string.restype = ctypes.c_char_p
         so.x_apply_tc_geometry.argtypes = [ctypes.POINTER(i)]
         so.x_apply_tc_geometry.restype = i
-        geo = (i * 26)()
+        geo = (i * 16)()
         so.x_apply_tc_geometry(geo)
-        forms = (DENSE, FWD, INV)
-        want = (BM, BM_NARROW, KC, FBOX, MAX_S, NTHR, SMEM_FIXED,
-                SMEM_MAX) + tuple(TILE_ROWS[f] for f in forms) + tuple(
-            OP_BYTES[f] for f in forms) + tuple(
-            stage_bytes(f, v >= 2, bool(v & 1)) for f in forms
-            for v in range(4))
+        want = (BM, KC, FBOX, MAX_S, NTHR, SMEM_FIXED, SMEM_MAX) + tuple(
+            t[f] for t in (TILE_ROWS, OP_BYTES, STAGE_BYTES)
+            for f in (DENSE, FWD, INV))
         if tuple(geo) != want:
             raise RuntimeError(f"x_apply_manual.cu geometry {tuple(geo)} "
                                f"differs from the wrapper's {want}")
@@ -168,8 +163,7 @@ class XOperator:
     """An operator split and packed for the kernel. form: DENSE (M (n_out,
     K)) or FWD / INV (the parity stack [Me; Mo] (n_out, K), two parts of
     `rows` = n_out / 2); packed: (parts, rtiles, ktiles, 2, bn * KC)
-    float32 on its device, hi then lo per block (contiguous: the resident
-    operator is one run of blocks)."""
+    float32 on its device, hi then lo per block."""
 
     form: int
     n_out: int
@@ -231,12 +225,9 @@ def a_columns():
 class Geometry:
     """One launch: form, output rows a part (rows), contraction K, plane
     columns ncols; bn output rows of a part an item, rtiles row tiles a
-    part, ktiles k chunks (K padded to kpad), bm plane columns an item,
-    ctiles column tiles of bm, nitems work items (FWD and INV: both halves
-    an item), grid blocks; resident: the packed operator (resbytes) copied
-    once into shared memory; narrow: 64-column items, each consumer
-    warpgroup on half an item's output rows; smem bytes of dynamic shared
-    memory at `slots` stages."""
+    part, ktiles k chunks (K padded to kpad), ctiles column tiles of BM,
+    nitems work items (FWD and INV: both halves an item), grid blocks,
+    smem bytes of dynamic shared memory at `slots` stages."""
 
     form: int
     rows: int
@@ -246,36 +237,19 @@ class Geometry:
     rtiles: int
     ktiles: int
     kpad: int
-    bm: int
     ctiles: int
     nitems: int
     grid: int
     slots: int
-    resident: bool
-    narrow: bool
-    resbytes: int
     smem: int
 
 
-def geometry(form, n_out, K, ncols, sms, slots=4, resident=None,
-             narrow=None) -> Geometry:
-    """The launch geometry of an operator (n_out, K) in form `form` over
-    ncols plane columns on `sms` SMs. The parity forms' choices, unless
-    forced (each is the faster of the two at every size measured on an
-    H100, tools/prof_xparity.py): narrow where the 128-column items leave
-    more than half the SMs idle (twice the items then fill them; where
-    they do not, a block takes two narrow items for one wide one, in
-    series: 128^3 blocks lose 12-19%); resident for FWD, which streams two
-    operator blocks a chunk, where the packed operator fits in shared
-    memory beside the ring of `slots` stages (K = 64: 64 KB) and a block
-    takes at least 4 items to pay for copying it (INV, one block a chunk,
-    loses 2-8% with it). DENSE takes neither. Raises ValueError on what
-    the kernel does not take."""
-    return _geometry(form, n_out, K, ncols, sms, slots, resident, narrow)
-
-
 @functools.lru_cache(maxsize=512)
-def _geometry(form, n_out, K, ncols, sms, slots, resident, narrow):
+def geometry(form, n_out, K, ncols, sms, slots=4) -> Geometry:
+    """The launch geometry of an operator (n_out, K) in form `form` over
+    ncols plane columns on `sms` SMs at `slots` stages (2 to
+    MAX_SLOTS[form]: 8, FWD 7). Raises ValueError on what the kernel does
+    not take."""
     if form not in (DENSE, FWD, INV):
         raise ValueError(f"no form {form}")
     if n_out < 1 or K < 1 or (form != DENSE and n_out % 2):
@@ -283,41 +257,25 @@ def _geometry(form, n_out, K, ncols, sms, slots, resident, narrow):
     if ncols < 4 or ncols % 4:
         raise ValueError(f"the kernel takes ny * nz a multiple of 4, got "
                          f"{ncols}")
-    if not 2 <= slots <= MAX_S:
-        raise ValueError(f"2 to {MAX_S} stages, got {slots}")
-    if form == DENSE and (resident or narrow):
-        raise ValueError("the dense form streams its operator in 128-column "
-                         "items")
+    if not 2 <= slots <= MAX_SLOTS[form]:
+        raise ValueError(f"form {form} takes 2 to {MAX_SLOTS[form]} stages "
+                         f"({STAGE_BYTES[form]} bytes each), got {slots}")
     rows = n_out if form == DENSE else n_out // 2
     bn = TILE_ROWS[form]
-    rtiles, ktiles = -(-rows // bn), -(-K // KC)
-    if narrow is None:
-        narrow = form != DENSE and -(-ncols // BM) * rtiles <= sms // 2
-    narrow = bool(narrow)
-    bm = BM_NARROW if narrow else BM
-    ctiles = -(-ncols // bm)
+    rtiles, ktiles, ctiles = -(-rows // bn), -(-K // KC), -(-ncols // BM)
     nitems = ctiles * rtiles
-    resbytes = 2 * rtiles * ktiles * OP_BYTES[form]
-    if resident is None:
-        resident = form == FWD and nitems >= 4 * sms and resbytes \
-            + slots * stage_bytes(form, True, narrow) + SMEM_FIXED <= SMEM_MAX
-    resident = bool(resident)
-    resbytes = resbytes if resident else 0
-    smem = resbytes + slots * stage_bytes(form, resident, narrow) \
-        + SMEM_FIXED
-    if smem > SMEM_MAX or nitems >= 2 ** 31:
-        raise ValueError(f"{slots} stages or {nitems} items past the card")
+    if nitems >= 2 ** 31:
+        raise ValueError(f"{nitems} items past the kernel's count")
     return Geometry(form, rows, K, ncols, bn, rtiles, ktiles, ktiles * KC,
-                    bm, ctiles, nitems, min(sms, nitems), slots, resident,
-                    narrow, resbytes, smem)
+                    ctiles, nitems, min(sms, nitems), slots,
+                    slots * STAGE_BYTES[form] + SMEM_FIXED)
 
 
 def out_rows(geo: Geometry):
     """The output row each (group, row tile, tile row) writes, -1 where
     the row is masked: (2, rtiles, bn) int array (DENSE: group 1 all -1).
     FWD: group h the half h (E, O); INV: group 0 the a + b rows, group 1
-    the a - b rows. A narrow item's consumer warpgroup g writes the tile
-    rows g bn / 2 .. (g + 1) bn / 2 - 1."""
+    the a - b rows."""
     g = np.arange(2)[:, None, None]
     rt = np.arange(geo.rtiles)[None, :, None]
     n = np.arange(geo.bn)[None, None, :]
@@ -365,15 +323,6 @@ def _check(t, name, dev):
                          f"on {t.device}")
 
 
-def _raw_stream(idx):
-    """The handle of the current stream of device idx: PyTorch's raw
-    accessor where it has one (a Stream object a launch costs the host
-    several µs)."""
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return get(idx) if get is not None else \
-        torch.cuda.current_stream(idx).cuda_stream
-
-
 def _sm_count(dev):
     """The SM count of device dev, read once."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -382,13 +331,11 @@ def _sm_count(dev):
     return _SMS[idx]
 
 
-def launch(stage, op: XOperator, f, s=None, out=None, slots=4,
-           resident=None, narrow=None):
+def launch(stage, op: XOperator, f, s=None, out=None, slots=4):
     """One launch on CUDA tensors, counted as `stage`: out = M f (or s - M
     f; FWD and INV the parity forms) with op the packed operator (pack).
     f (n_in, ny, nz): n_in = K (DENSE) or 2 K; out and s (n_out, ny, nz);
-    out made here unless given, never overlapping f. resident, narrow:
-    geometry's choices, forced (None: geometry's own). Raises on what the
+    out made here unless given, never overlapping f. Raises on what the
     kernel does not take (shapes, an aliased output, then devices and
     types), and when the launch fails."""
     if not isinstance(op, XOperator):
@@ -416,13 +363,13 @@ def launch(stage, op: XOperator, f, s=None, out=None, slots=4,
                     (out, "output"), (s, "s")):
         if t is not None:
             _check(t, name, dev)
-    geo = _geometry(op.form, op.n_out, op.K, ny * nz, _sm_count(dev), slots,
-                    resident, narrow)
+    geo = geometry(op.form, op.n_out, op.K, ny * nz, _sm_count(dev), slots)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
+    # the raw handle: a Stream object costs the host several µs a launch
     args = (op.form, op.packed.data_ptr(), f.data_ptr(),
             s.data_ptr() if s is not None else None, out.data_ptr(),
-            geo.rows, op.K, geo.ncols, slots, geo.grid, int(geo.resident),
-            int(geo.narrow), _raw_stream(idx))
+            geo.rows, op.K, geo.ncols, slots, geo.grid,
+            torch._C._cuda_getCurrentRawStream(idx))
     if idx == torch.cuda.current_device():
         err = lib().x_apply_tc_launch(*args)
     else:
@@ -439,7 +386,7 @@ def x_apply_manual(M, f, s=None, parity=None, slots=4, packed=None):
     """One launch on CUDA tensors (M float32: dense (n_out, n_in), or the
     parity stack [Me; Mo] (n_out, n_in / 2); the kernel takes it packed,
     made here unless given); the plain version on CPU ones. slots: the
-    pipeline's stages, S."""
+    pipeline's stages, S (2 to MAX_SLOTS[form])."""
     if not f.is_cuda:
         if f.device.type != "cpu":
             raise ValueError(f"no x_apply_manual for device {f.device}")
@@ -459,7 +406,8 @@ def make_x_apply_manual(M64, sub=False, parity=None, slots=4, device=None):
     n_in) float64 operator (parity: its parity split, built here, as
     x3d2_tpu's make_x_apply_manual builds it). fn.op(dtype): the operator
     (the parity stack [Me; Mo]) as the plain version takes it; the kernel
-    takes it packed (pack), made at the first CUDA call."""
+    takes it packed (pack), made at the first CUDA call. slots: the
+    kernel's stages, S = 2 to 8, 2 to 7 with parity "fwd" (MAX_SLOTS)."""
     from ..common import resolve_device
 
     M64 = np.asarray(M64, np.float64)
@@ -468,10 +416,13 @@ def make_x_apply_manual(M64, sub=False, parity=None, slots=4, device=None):
         raise ValueError("parity x-apply needs even extents")
     if parity == "fwd" and sub:
         raise ValueError("sub is an inverse-stage fusion")
+    form = {None: DENSE, "fwd": FWD, "inv": INV}[parity]
+    if not 2 <= slots <= MAX_SLOTS[form]:
+        raise ValueError(f"parity {parity} takes 2 to {MAX_SLOTS[form]} "
+                         f"stages, got {slots}")
     if parity is not None:
         M64 = np.concatenate(parity_split_folded(
             M64, 0 if parity == "fwd" else 1))
-    form = {None: DENSE, "fwd": FWD, "inv": INV}[parity]
     device = resolve_device(device)
     mats = {}
 

@@ -8,8 +8,7 @@ work a launch apart from the device's.
         [--ref DIR] [--iters N]
 
 For each grid (default 512^3, 128x128x256, 128^3, 512x256x256,
-128x512x512: the sizes the paths give the applies; and 128x64x128,
-whose 128-column items fill fewer than half the SMs) it builds the slab's x
+128x512x512: the sizes the paths give the applies) it builds the slab's x
 operators of a periodic x of NX points (on an NX x 128 x 128 grid: the x
 stage's operators depend on NX alone) and random float32 fields, and for
 each stage times, by CUDA events and the host clock:
@@ -21,15 +20,16 @@ each stage times, by CUDA events and the host clock:
   synchronize, per call (the launches' host work: the checks, the
   geometry, the ctypes call).
 It holds the kernel against the plain float64 version (within 4e-7 of
-max |plain f64|: the split-TF32 limit), two launches and S = 2, 3, 4, 6
-bit-equal, and each of the launch choices geometry can take at the size
-(the operator resident or streamed, 64- or 128-column items) bit-equal
-to the one it takes, each timed back to back. With --ref DIR (a
-checkout, e.g. `git archive HEAD x3d2_tpu_torch/csrc | tar -x -C DIR`),
-DIR's x_apply_manual.cu is built too and its launches of the same parity
+max |plain f64|: the split-TF32 limit) and two launches and S = 2, 3, 4,
+6 bit-equal, each S timed back to back. With --ref DIR (a checkout, e.g.
+`git archive HEAD x3d2_tpu_torch/csrc | tar -x -C DIR`), DIR's
+x_apply_manual.cu is built too and its launches of the same parity
 forms, and of the dense form on four dense operators (512 and 128
 square, 513 -> 512, 512 -> 513), are held bit for bit against this
-checkout's and timed in turns (ref, this, this, ref). Prints one JSON
+checkout's and timed in turns (ref, this, this, ref); its launch is typed
+from its source's declaration (this checkout's arguments, or those and
+two launch choices before the stream, given as 0: the operator streamed,
+128-column items), and any other declaration is refused. Prints one JSON
 line (the card's name and power limit beside the numbers) and exits 1
 where a check fails, 2 without a card.
 """
@@ -40,6 +40,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -55,7 +56,7 @@ from x3d2_tpu_torch.solver import NavierStokes
 from x3d2_tpu_torch.tools.prof_manual import template
 
 SIZES = ((512, 512, 512), (128, 128, 256), (128, 128, 128),
-         (512, 256, 256), (128, 512, 512), (128, 64, 128))
+         (512, 256, 256), (128, 512, 512))
 STAGES = (("x_pfwd", "sx", False), ("x_pinv", "gxs", False),
           ("x_pinv[sub]", "gxs", True))
 TC_LIM = 4e-7
@@ -135,28 +136,50 @@ def x_mats(nx, dev):
     return pm
 
 
+def launch_args(src):
+    """The argument names of x_apply_tc_launch in the source `src`."""
+    decl = re.search(rb"int x_apply_tc_launch\(([^)]*)\)", src.read_bytes())
+    return [a.split()[-1].lstrip(b"*") for a in decl.group(1).split(b",")] \
+        if decl else []
+
+
 def ref_lib(ref):
-    """DIR's x_apply_manual library, its launch typed as it takes it."""
+    """(DIR's x_apply_manual library, the arguments its launch takes
+    between the grid and the stream): its launch typed from the source's
+    declaration of x_apply_tc_launch, this checkout's arguments or those
+    with the launch choices res and narrow before the stream (given as
+    0)."""
     from pathlib import Path
 
     from x3d2_tpu_torch.tools.template_bits import build
 
     src = Path(ref) / "x3d2_tpu_torch" / "csrc" / "x_apply_manual.cu"
+    names = launch_args(src)
+    own = launch_args(Path(__file__).resolve().parents[1] / "csrc"
+                      / "x_apply_manual.cu")
+    if names == own:
+        extra = ()
+    elif names == own[:-1] + [b"res", b"narrow", own[-1]]:
+        extra = (0, 0)
+    else:
+        raise RuntimeError(f"{src}: x_apply_tc_launch takes {names}, not "
+                           f"{own} (with or without res, narrow)")
     lib, _ = build(src, "ref_x_apply_manual")
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i,
-                                      ctypes.c_longlong, i, i, p]
+    lib.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i, ctypes.c_longlong,
+                                      i, i] + [i] * len(extra) + [p]
     lib.x_apply_tc_launch.restype = i
-    return lib
+    return lib, extra
 
 
-def ref_launch(lib, op, f, s, sms):
+def ref_launch(ref, op, f, s, sms):
     """out = the reference library's launch (S = 4) of packed op on f."""
+    lib, extra = ref
     out = torch.empty((op.n_out,) + tuple(f.shape[1:]), device=f.device)
     err = lib.x_apply_tc_launch(
         op.form, op.packed.data_ptr(), f.data_ptr(),
         s.data_ptr() if s is not None else None, out.data_ptr(), op.rows,
-        op.K, f.shape[1] * f.shape[2], 4, sms,
+        op.K, f.shape[1] * f.shape[2], 4, sms, *extra,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"reference launch failed ({err})")
@@ -202,9 +225,8 @@ def main(argv=None):
             M32 = pm.mats(torch.float32)[name]
             parity = "fwd" if stage == "x_pfwd" else "inv"
 
-            def kern(S=4, res=None, nar=None):
-                return xm.launch(stage, op, f, s_, slots=S, resident=res,
-                                 narrow=nar)
+            def kern(S=4):
+                return xm.launch(stage, op, f, s_, slots=S)
 
             def tmpl():
                 return template(M32, f, s_, parity)
@@ -229,29 +251,15 @@ def main(argv=None):
             if not e64 <= TC_LIM:
                 fail(f"{stage} {label}: {e64} of plain f64")
             geo = xm.geometry(op.form, op.n_out, op.K, ny * nz, sms)
-            entry["geometry"] = {"resident": geo.resident,
-                                 "narrow": geo.narrow, "items": geo.nitems,
-                                 "smem": geo.smem}
+            entry["geometry"] = {"items": geo.nitems, "smem": geo.smem}
             same = torch.equal(kern(), got)
-            # device ms at each S, and of each launch choice at S = 4
-            choices = {}
+            # device ms at each S
+            by_s = {}
             for S in (2, 3, 6):
                 same = same and torch.equal(kern(S), got)
-                choices[f"S={S}"] = device_ms(lambda S=S: kern(S),
-                                              args.iters)
-            for res in (False, True):
-                for nar in (False, True):
-                    try:
-                        xm.geometry(op.form, op.n_out, op.K, ny * nz, sms,
-                                    4, res, nar)
-                    except ValueError:
-                        continue
-                    same = same and torch.equal(kern(4, res, nar), got)
-                    choices[f"resident={int(res)},narrow={int(nar)}"] = \
-                        device_ms(lambda r=res, n=nar: kern(4, r, n),
-                                  args.iters)
-            entry["device_ms_by_choice"] = choices
-            entry["bit_equal_launches_S_choices"] = same
+                by_s[f"S={S}"] = device_ms(lambda S=S: kern(S), args.iters)
+            entry["device_ms_by_S"] = by_s
+            entry["bit_equal_launches_S"] = same
             if not same:
                 fail(f"{stage} {label}: launches differ")
             if ref is not None:
