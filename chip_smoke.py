@@ -17,7 +17,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    sweeps' halo forms named so; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
    ones, 1 the general ones; the split-TF32 x-apply kernel
-   x_apply_tc_kernel<FORM, SUB> and its dynamic shared memory
+   x_apply_tc_kernel<FORM, SUB, LINES> (LINES: the z layout of pipe3's
+   stages A and C) and its dynamic shared memory
    at S = 2, 4, 6). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
@@ -58,7 +59,16 @@ Phases, each printing its own lines; any failed check exits non-zero:
      (z and x accumulate with bfloat16 partials, y accumulate + AB3 with
      both bfloat16 streams, both rows);
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
-     inputs the previous stage's plain version gives;
+     inputs the previous stage's plain version gives; pipe_a and pipe_c
+     are two launches each of the split-TF32 kernel (MANUAL_SOURCE: a z
+     launch, then a y launch with the banded y folded into the y
+     transforms), launched twice and bit-equal, their bound the
+     split-TF32 one (the FP32 one beside it), and at every size a path
+     gives them each of the four launches is timed as a single call, back
+     to back and as the host's µs a call, beside its own bound and one
+     batched torch.matmul (torch.baddbmm with the subtraction) of the
+     dense operators it stands for (tc_launches); the pipeline is also
+     held at Z_HALF (128 x 128 x 144: z halves of 72, on no path);
    - the slab projection: x_div3, the mid with q, the mid without q (its
      outputs bit-equal to the mid with q), the mid's halves div_solve and
      grad (X3D2_MID_SPLIT=1, path BS; bit-equal to the mid) and
@@ -435,6 +445,9 @@ CARRY_HELD = ((128, 128, 1536),)
 PX = (320, 256, 384)
 PY = (384, 192, 384)
 YD = (256, 200, 256)
+# the pipeline held at a z half not a multiple of 16 (halves of 72): the
+# split-TF32 kernel's stages A and C with their last k chunk part-filled
+Z_HALF = (128, 128, 144)
 EXAMPLE = "examples/TGV_species/input.x3d"   # path S-ex
 CYL_EXAMPLE = "examples/cylinder/input.x3d"  # paths C and C-ex
 # path C: the example refined 2x in x and y and 4x in z (the smallest span
@@ -493,6 +506,9 @@ TILED_SOURCE = "x3d2_tpu_torch/csrc/pressure_mid_tiled.cu"
 # the one-field parity x applies (x_pfwd, x_pinv, x_pinv[sub]) and
 # the manual entry, on no solver path (tools/prof_manual.py)
 MANUAL_SOURCE = "x3d2_tpu_torch/csrc/x_apply_manual.cu"
+# the pipeline's stages A and C: two launches each of MANUAL_SOURCE's kernel,
+# a z launch (the transposed form) and a y launch (batched over x planes)
+PIPE_TC = ("pipe_a", "pipe_c")
 # the split-TF32 kernel's limit against plain float64, relative to max
 # |plain f64|: under the HIGHEST mode's 5e-7 (tests/test_pallas_v3.py:114)
 TC_LIM = 4e-7
@@ -654,21 +670,29 @@ def pipe_cost(stage, shape, w):
     once (the operators are under 1% and left out); the parity-split dense
     applies (n/2 multiply-adds per output and one add for the f1 +/- f2 or
     a +/- b combine), the banded applies (2w + 1 taps), the solve (waves,
-    reciprocal, scale) and the correction."""
+    reciprocal, scale) and the correction. Stages A and C count the
+    cheaper of two orders of the same function: the banded y apart, or
+    folded into the y transforms (on every grid the pipeline takes, a y
+    operator is circulant and Ty C, C Tyi are parity operators of the
+    transforms' size: ops/pressure_pipe.py fold_y), which spares C's
+    banded applies and costs A a third y transform."""
     nx, ny, nz = shape
     npts = nx * ny * nz
     band = 2 * (2 * w + 1) + 0.0
     if stage == "pipe_a":
-        # 3 banded y; z: Iz p1, Iz p2 + Sz p3; y: Ty z1, Ty z23
-        per_pt = 3 * band + 3 * (nz + 1) + 2 * (ny + 1)
+        # z: Iz p1, Iz p2 + Sz p3; y: 3 banded y, then Ty z1, Ty z23; or
+        # folded: Ty Iy z1, Ty Sy z2 + Ty Iy z3
+        per_pt = 3 * (nz + 1) + min(3 * band + 2 * (ny + 1),
+                                    3 * (ny + 1) + 1)
         fields = 3 + 2
     elif stage == "pipe_b":
         # x: Sx a + Ix e, solve; x: Gxs q, Gxi q
         per_pt = 2 * (nx + 1) + 5 + 2 * (nx + 1)
         fields = 2 + 2
     else:
-        # z: Gzi X, Gzs Y, Gzi Y; y: 3 inverse transforms; 3 banded y, minus
-        per_pt = 3 * (nz + 1) + 3 * (ny + 1) + 3 * band + 3
+        # z: Gzi X, Gzs Y, Gzi Y; y: 3 inverse transforms (the banded y
+        # folded in: none apart), minus
+        per_pt = 3 * (nz + 1) + 3 * (ny + 1) + 3
         fields = 5 + 3
     return 4 * npts * fields, npts * per_pt
 
@@ -732,15 +756,17 @@ def tiled_cost(stage, shape, w):
 def carry_cost(shape, w, wp):
     """(bytes, flops) of stage C with the carry, counted as pipe_cost
     counts stage C but y first, as the function needs it: 2 inverse y
-    transforms (Tyi X, Tyi Y), 3 banded y applies at wp, 3 inverse z
-    transforms (Gzi, Gzi, Gzs) and the subtraction; 5 fields in and 6 out
-    (u', v', w' and the carried partials); per point and component the
-    carry's 2w + 1 taps of D1, D2 and D1d (at the w the kernel uses), the
-    q*conv product and the combine."""
+    transforms (Tyi X, Tyi Y) and 3 banded y applies at wp, or the 3
+    inverse y transforms with the banded y folded in, whichever is
+    cheaper (pipe_cost), 3 inverse z transforms (Gzi, Gzi, Gzs) and the
+    subtraction; 5 fields in and 6 out (u', v', w' and the carried
+    partials); per point and component the carry's 2w + 1 taps of D1, D2
+    and D1d (at the w the kernel uses), the q*conv product and the
+    combine."""
     nx, ny, nz = shape
     npts = nx * ny * nz
     band = 2 * (2 * wp + 1)
-    per_pt = (2 * (ny + 1) + 3 * band + 3 * (nz + 1) + 3
+    per_pt = (min(2 * (ny + 1) + 3 * band, 3 * (ny + 1)) + 3 * (nz + 1) + 3
               + 3 * (2 * 3 * (2 * w + 1) + 1 + 5))
     return 4 * npts * (5 + 6), npts * per_pt
 
@@ -1139,7 +1165,7 @@ def main():
     from x3d2_tpu_torch.tools import prof_manual as pmt
     from x3d2_tpu_torch.tools import prof_xparity as pxp
     from x3d2_tpu_torch.ops.parity import (BW, Forms, ProjectionMats,
-                                           build_projection_mats, pfwd,
+                                           build_projection_mats, pfwd, pinv,
                                            solve_factor)
     from x3d2_tpu_torch.solver import NavierStokes
     from x3d2_tpu_torch.time_integrators import TimeIntegrator
@@ -1187,7 +1213,7 @@ def main():
             # TRANS, EPI, TWO, TAIL> (TAIL 0: the 128-tiled instances, 1:
             # the general ones),
             # pipe_c_d2_kernel<NZ>, transeq_dense_kernel<TRANS, EXACT>,
-            # x_apply_manual_kernel<FORM, SUB>
+            # x_apply_tc_kernel<FORM, SUB, LINES>
             # (mangled: <length><name>; the length is checked, since the
             # anonymous namespace before the name may end in digits too)
             found = [m for m in re.finditer(
@@ -1574,31 +1600,50 @@ def main():
         function, held but left out of the kernels line. n: the size label
         (default: of the first input). derive64: the limit against plain
         float64 is twice plain float32's own distance to it on these inputs
-        (the white-noise rule), and not below 3e-5."""
+        (the white-noise rule), and not below 3e-5. The stages of PIPE_TC
+        run on MANUAL_SOURCE's split-TF32 kernel: launched twice, bit-equal,
+        their bound the split-TF32 one (row(tc=True)) with plain float32's
+        own distance to float64 printed beside theirs."""
         m32, m64 = pm.mats(torch.float32), pm.mats(d64)
         n = n or size_label(ins[0].shape)
+        tc = name in PIPE_TC
+        if tc:
+            source = MANUAL_SOURCE
         got = [t for t in kern_fn(*ins, pm) if t is not None]
         torch.cuda.synchronize()
+        if tc:
+            again = [t for t in kern_fn(*ins, pm) if t is not None]
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, h) for g, h in zip(got, again)),
+                  f"{name} {n}: two launches differ")
+            del again
         p32 = [t for t in plain_fn(*ins, m32) if t is not None]
         err32, rel32 = rel_err(got, p32)
         p64 = [t for t in plain_fn(*to64(ins), m64) if t is not None]
         _, rel64 = rel_err(got, p64)
         lim64 = 3e-5
+        own64 = rel_err(p32, p64)[1]
         if derive64:
-            lim64 = max(3e-5, 2 * rel_err(p32, p64)[1])
+            lim64 = max(3e-5, 2 * own64)
         del got, p32, p64
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: kern_fn(*ins, pm), 10, torch)
         plain_ms = cuda_ms(lambda: plain_fn(*ins, m32), 5, torch)
-        txt = row(name, n, source, REPLACES[name], err32, ms, plain_ms, cost)
+        txt = row(name, n, source, REPLACES[name], err32, ms, plain_ms, cost,
+                  tc=tc)
+        if tc:
+            txt += f"  two launches bit-equal; plain32 vs plain64 rel " \
+                   f"{own64:.2e}"
         if not on_path:
             del rows[name, n]
         report(f"{name} {n}", err32, rel32, rel64, ms, plain_ms, txt, lim64)
 
-    def pipe_rows(shape, fields, pm):
+    def pipe_rows(shape, fields, pm, on_path=True):
         """The pipeline's stages at `shape`, each on the inputs the
         previous stage's plain version gives (so kernel and plain see the
-        same tensors)."""
+        same tensors); on a path's size also each launch of stages A and C
+        (tc_launches). on_path=False: held, left out of the kernels
+        line."""
         u, v, w = fields
         m32 = pm.mats(torch.float32)
         a_, e_ = pp.pipe_a_plain(u, v, w, m32)
@@ -1608,7 +1653,69 @@ def main():
                 ("pipe_b", (a_, e_), pp.pipe_b, pp.pipe_b_plain),
                 ("pipe_c", (X_, Y_, u, v, w), pp.pipe_c, pp.pipe_c_plain)]:
             stage_row(name, ins, kern_fn, plain_fn,
-                      pipe_cost(name, shape, BW), pm)
+                      pipe_cost(name, shape, BW), pm, on_path)
+        del a_, e_
+        if on_path:
+            tc_launches(shape, fields, (X_, Y_), pm)
+
+    def tc_launches(shape, fields, xy, pm):
+        """Each launch of stages A and C (the z and the y launch of
+        MANUAL_SOURCE's kernel) at `shape`, on the stages' inputs: its time
+        in a single call, back to back and the host's µs a call
+        (tools/prof_xparity.py's timings), its split-TF32 bound with the
+        FP32 one beside it (launch_cost), and as a yardstick one
+        torch.matmul (torch.baddbmm with the subtraction) of the dense
+        operators its parity applies stand for, batched over its jobs'
+        sources (the sum of e's two sources left out)."""
+        n = size_label(shape)
+        op = pp.tc_ops(pm, dev)
+        u, v, w = fields
+        X, Y = xy
+        nx, ny, nz = shape
+        m64, fold = pm.mats(d64), pp.fold_y(pm)
+
+        def dense(name, fwd):
+            M = (m64[name] if name in m64 else
+                 torch.as_tensor(fold[name], dtype=d64, device=dev))
+            eye = torch.eye(2 * M.shape[1], dtype=d64,
+                            device=dev).unsqueeze(-1)
+            return (pfwd(M, eye, 0) if fwd else
+                    pinv(M, eye, 0)).squeeze(-1).float()
+
+        z = pp.pipe_a_z(u, v, w, op)
+        g = pp.pipe_c_z(X, Y, op)
+        Dz = torch.stack([dense(k, k in ("iz", "sz")).T for k in
+                          ("iz", "iz", "sz", "gzi", "gzs", "gzi")])
+        Dy = torch.stack([dense(k, k in ("tyI", "tyS")) for k in
+                          ("tyI", "tyS", "tyI", "giT", "gsT", "giT")])
+        zf = torch.stack([t.reshape(-1, nz) for t in (u, v, w)])
+        gf = torch.stack([t.reshape(-1, nz) for t in (X, Y, Y)])
+        ys = torch.stack(z)
+        yg = torch.stack([g[0], g[2], g[1]]).reshape(-1, ny, nz)
+        ss = torch.stack([u, v, w]).reshape(-1, ny, nz)
+        Dyi = Dy[3:, None].expand(3, nx, ny, ny).reshape(-1, ny, ny)
+        launches = [
+            ("pipe_a", "z", lambda: pp.pipe_a_z(u, v, w, op),
+             lambda: torch.matmul(zf, Dz[:3]), 6, 3 * (nz + 1)),
+            ("pipe_a", "y", lambda: pp.pipe_a_y(*z, op),
+             lambda: torch.matmul(Dy[:3, None], ys), 5, 3 * (ny + 1) + 1),
+            ("pipe_c", "z", lambda: pp.pipe_c_z(X, Y, op),
+             lambda: torch.matmul(gf, Dz[3:]), 5, 3 * (nz + 1)),
+            ("pipe_c", "y", lambda: pp.pipe_c_y(*g, u, v, w, op),
+             lambda: torch.baddbmm(ss, Dyi, yg, alpha=-1.0), 9,
+             3 * (ny + 1) + 3)]
+        npts = nx * ny * nz
+        for stage, axis, kern, library, nfields, per_pt in launches:
+            cost = (4 * npts * nfields, npts * per_pt)
+            ms = cuda_ms(kern, 10, torch)
+            lib_ms = cuda_ms(library, 10, torch)
+            print(f"[{stage} {axis} launch {n}] single {ms:.4f} ms, device "
+                  f"{pxp.device_ms(kern, 20):.4f} ms back to back, host "
+                  f"{pxp.host_us(kern, 20):.1f} µs a call; "
+                  f"{tc_txt(f'{stage}[{axis}]', n, ms, cost, lib_ms)}",
+                  flush=True)
+        del z, g, Dz, Dy, zf, gf, ys, yg, ss, Dyi
+        torch.cuda.empty_cache()
 
     # the slab projection's functions. Their inputs are a few plane waves
     # of wavenumber about 12 in y and 1-2 in x and z, not white noise: the
@@ -2224,6 +2331,16 @@ def main():
     # path T128's projection is the pipeline, at this size too
     pipe_rows(shape_t, comps_t, ns_t._slab)
     del ns_t, comps_t
+    torch.cuda.empty_cache()
+    # the pipeline at a z half not a multiple of 16 (nz = 144: halves of
+    # 72, the tensor-core kernel's last k chunk part-filled), held on no
+    # path (x3d2_tpu's slab gate takes z in multiples of 128)
+    ns_k = NavierStokes.build(Mesh(Z_HALF, (2 * math.pi,) * 3, per), nu,
+                              device=dev)
+    randn_k = randn_of(Z_HALF)
+    pipe_rows(Z_HALF, (randn_k(), randn_k(), randn_k()),
+              build_projection_mats(ns_k), on_path=False)
+    del ns_k
     torch.cuda.empty_cache()
 
     # -- 3e. at 513 x 256 x 128: what path C launches, the dense x stage of

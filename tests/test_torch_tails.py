@@ -9,7 +9,9 @@ float64 and whole steps: test_torch_tails_steps.py).
   as x3d2_tpu's slab takes them, and records no projection gap.
 - The launch geometry (operator_apply.geometry) of every launch the
   wrappers make at those extents: the 128-tiled instance where it tiles the
-  launch, the general one elsewhere, and each output row written once.
+  launch, the general one elsewhere, and each output row written once; the
+  pipeline's stages A and C, a z and a y launch each of the tensor-core
+  kernel (x_apply_manual.geometry), each output element written once.
 - The slab in float32 vs x3d2_tpu's make_pressure_slab(terms=3) in
   interpret mode, 2e-4 * scale (the bound of tests/test_pallas_poisson.py),
   where each function meets a tail: x_div3 and x_gradsub3 at an x tail
@@ -54,6 +56,7 @@ from x3d2_tpu_torch.ops import operator_apply as oa
 from x3d2_tpu_torch.ops import parity
 from x3d2_tpu_torch.ops import pressure_pipe as pp
 from x3d2_tpu_torch.ops import pressure_slab as sl
+from x3d2_tpu_torch.ops import x_apply_manual as xm
 from x3d2_tpu_torch.ops.parity import build_projection_mats
 from x3d2_tpu_torch.solver import NavierStokes, projection_route
 
@@ -133,15 +136,23 @@ def test_routes_match_x3d2_tpu(dims):
 def _launches(pm, pipe):
     """The geometry of every launch the kernel wrappers make over pm: the
     slab's functions (the mid also over a local x batch) and the
-    pipeline's stages, recorded instead of launched."""
+    pipeline's stages, recorded instead of launched: the template's
+    (operator_apply.Geometry) and the tensor-core kernel's (stages A and
+    C: x_apply_manual.Geometry)."""
     seen = []
 
     def record(stage, geo, epi, dev, ptrs, nsrc, tabs):
         seen.append((stage, geo))
 
-    real_launch, real_check = oa._launch, oa._check
+    def record_tc(stage, geo, dev, ptrs):
+        seen.append((stage, geo))
+
+    real = (oa._launch, oa._check, xm._launch, xm._check, xm._sm_count)
     oa._launch = record
     oa._check = lambda t, shape, name: None
+    xm._launch = record_tc
+    xm._check = lambda t, name, dev: None
+    xm._sm_count = lambda dev: 132
     try:
         m = pm.mats(torch.float32)
         u = torch.zeros(pm.vert)
@@ -157,12 +168,34 @@ def _launches(pm, pipe):
                               sl.stage_name("pressure_mid", pm, True,
                                             local=True))
         if pipe:
-            pp._pipe_a_cuda(u, u, u, m)
+            pp._pipe_a_cuda(u, u, u, pm)
             pp._pipe_b_cuda(u, u, m)
-            pp._pipe_c_cuda(u, u, u, u, u, m)
+            pp._pipe_c_cuda(u, u, u, u, u, pm)
     finally:
-        oa._launch, oa._check = real_launch, real_check
+        (oa._launch, oa._check, xm._launch, xm._check, xm._sm_count) = real
     return seen
+
+
+def _tc_writes_once(geo):
+    """The tensor-core kernel's items (x_apply_manual.item_of) are every
+    (job, plane, column tile, row tile) once, the row tiles' rows
+    (out_rows) every output row once, and the consumers' columns
+    (a_columns) every column of a tile once a quad: so every output element
+    is written once."""
+    job, plane, ct, rt = xm.item_of(geo, np.arange(geo.nitems))
+    keys = ((job * geo.nplanes + plane) * geo.ctiles + ct) * geo.rtiles + rt
+    np.testing.assert_array_equal(np.sort(keys), np.arange(geo.nitems))
+    assert job.max() == geo.njobs - 1
+    rows = xm.out_rows(geo)
+    written = np.sort(rows[rows >= 0])
+    n_out = geo.rows * (1 if geo.form == xm.DENSE else 2)
+    np.testing.assert_array_equal(written, np.arange(n_out))
+    # each column held by the 4 threads of a quad (their tile rows 2 tig,
+    # 2 tig + 1 of each 8)
+    np.testing.assert_array_equal(
+        np.bincount(xm.a_columns(geo.lines).ravel(), minlength=xm.BM),
+        np.full(xm.BM, 4))
+    assert geo.ctiles == math.ceil(geo.ncols / xm.BM)
 
 
 @pytest.mark.parametrize("dims,bcs", [((512,) * 3, PER), (X_TAIL, PER),
@@ -178,7 +211,17 @@ def test_launch_geometry(dims, bcs):
     pm = ns._slab or build_projection_mats(ns)
     seen = _launches(pm, ns._pipe is not None)
     assert seen
+    tc = [(stage, geo) for stage, geo in seen
+          if isinstance(geo, xm.Geometry)]
+    # stages A and C: a z launch and a y launch each
+    assert [(s, g.lines, g.njobs) for s, g in tc] == (
+        [("pipe_a", True, 3), ("pipe_a", False, 2), ("pipe_c", True, 3),
+         ("pipe_c", False, 3)] if ns._pipe is not None else [])
+    for stage, geo in tc:
+        _tc_writes_once(geo)
     for stage, geo in seen:
+        if isinstance(geo, xm.Geometry):
+            continue
         rows = oa.out_rows(geo)
         assert rows.shape == (geo.mtiles, 2, oa.BBS)
         written = np.sort(rows[rows >= 0])
@@ -202,7 +245,8 @@ def test_launch_geometry(dims, bcs):
             assert tiled
         if dims == (512,) * 3:
             assert not geo.tail
-    assert any(g.tail for _, g in seen) == (dims != (512,) * 3)
+    assert any(g.tail for _, g in seen if not isinstance(g, xm.Geometry)) \
+        == (dims != (512,) * 3)
 
 
 @pytest.fixture(scope="module")

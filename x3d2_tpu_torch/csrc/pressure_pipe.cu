@@ -1,20 +1,20 @@
 // Three-stage pressure projection (keep_pressure=False) as batched operator
 // applies, for Hopper (sm_90a), behind a plain C interface.
 //
-// Replaces the TPU kernels of x3d2_tpu's projection pipeline
+// Replaces the TPU kernel of x3d2_tpu's projection pipeline
 // (make_pressure_pipe3, x3d2_tpu/ops/pallas_poisson.py:1573):
-//   - _pipe_a_kernel  pallas_poisson.py:1378  a = Ty Iz Iy u,
-//                                             e = Ty (Iz Sy v + Sz Iy w)
 //   - _pipe_b_kernel  pallas_poisson.py:1405  q = -(Sx a + Ix e) / waves,
 //                                             X = Gxs q, Y = Gxi q
-//   - _pipe_c_kernel  pallas_poisson.py:1455  u - Giy Gzi X, v - Gsy Gzi Y,
-//                                             w - Giy Gzs Y
+// (its stages A and C, _pipe_a_kernel :1378 and _pipe_c_kernel :1455, are
+// the split-TF32 tensor-core kernel of x_apply_manual.cu; stage C with the
+// carry takes two launches here before pipe_c_d2.cu's)
 // Each stage is a few launches of one kernel template that applies an
 // operator matrix along one axis of a field, out = M . f, in one of three
 // forms (the forms of the TPU kernels):
 //   BANDED  block-banded M: output block b of 64 rows reads the window of
 //           64 + 2*BW rows starting at 64*b - BW (periodic wrap); the y
-//           interpolation and staggered derivative of stages A and C.
+//           interpolation and staggered derivative of the mid and of
+//           stage C with the carry.
 //   PFWD    forward parity split of a transform-folded M:
 //           [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f
 //           (one radix-2 level in matrix form: half the operations).
@@ -22,7 +22,7 @@
 // The contraction runs along the slow axis of a row-major slab (x, or y
 // batched over x-planes) or, transposed, along the contiguous z axis. A
 // launch takes up to 3 jobs (fields) and a job up to 2 sources summed into
-// one result (Iz p2 + Sz p3; Sx a + Ix e), each source in a chain of its
+// one result (Iz . + Sz .; Sx a + Ix e), each source in a chain of its
 // own, the two sums added as the plain version adds them. Epilogues:
 // store, subtract from a field (the velocity correction), or the spectral
 // solve (multiply by -1/waves rebuilt from separable tables, with the
@@ -606,8 +606,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
     switch (key) {
       case BANDED * 100 + 0 + STORE:
         return launch<BANDED, false, STORE, false, true>(a, grid, two, s);
-      case BANDED * 100 + 0 + SUB:
-        return launch<BANDED, false, SUB, false, true>(a, grid, two, s);
       case PFWD * 100 + 0 + STORE:
         return launch<PFWD, false, STORE, false, true>(a, grid, two, s);
       case PFWD * 100 + 0 + SOLVE:
@@ -637,8 +635,8 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
   }
   if (two) {
     // the forms that take two-source jobs: the mid's banded y (Iy du +
-    // Sy dv) and z transforms (Iz . + Sz ., parity or dense), pipe A's z
-    // and pipe B's x (Sx a + Ix e, with the solve)
+    // Sy dv) and z transforms (Iz . + Sz ., parity or dense) and pipe B's
+    // x (Sx a + Ix e, with the solve)
     switch (key) {
       case BANDED * 100 + 0 + STORE:
         return launch<BANDED, false, STORE, true>(a, grid, true, s);
@@ -654,8 +652,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
   switch (key) {
     case BANDED * 100 + 0 + STORE:
       return launch<BANDED, false, STORE>(a, grid, false, s);
-    case BANDED * 100 + 0 + SUB:
-      return launch<BANDED, false, SUB>(a, grid, false, s);
     case PFWD * 100 + 0 + STORE:
       return launch<PFWD, false, STORE>(a, grid, false, s);
     case PFWD * 100 + 0 + SOLVE:

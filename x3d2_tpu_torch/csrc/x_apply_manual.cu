@@ -1,14 +1,22 @@
-// The x apply on the tensor cores, for Hopper (sm_90a), behind a plain C
-// interface: out = M @_x f, or out = s - M @_x f, for M (n_out, n_in)
-// float32 and f (n_in, ny, nz) float32, in five forms:
+// Operator applies on the tensor cores, for Hopper (sm_90a), behind a plain
+// C interface: out = M @_a f, or out = s - M @_a f, for M (n_out, n_in)
+// float32 applied along one axis a of f float32, in five forms:
 //   DENSE   out = M f, and DENSE + SUB: out = s - M f;
 //   FWD     the forward parity split of a transform-folded M:
 //           [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f;
 //   INV     the inverse one: [a + b; a - b], a = Me f_e, b = Mo f_o, and
 //           INV + SUB.
-// FWD and INV take the stacked [Me; Mo] (n_out, n_in / 2).
+// FWD and INV take the stacked [Me; Mo] (n_out, n_in / 2). The axis is
+// one of three layouts of an (nx, ny, nz) field:
+//   x       f (n_in, ny nz): one plane, its columns contiguous;
+//   y       f (nx, n_in, nz): nx planes of nz columns, batched;
+//   z       f (nx ny lines, n_in), the contraction along the contiguous
+//           axis (LINES, the transposed form): FWD and INV.
+// A launch takes up to three jobs of one form and one operator size: a
+// job sums the applies of one or two sources (M1 f1 + M2 f2) into its
+// output, or subtracts the sum from its s.
 //
-// Replaces four TPU kernels of x3d2_tpu, which compute these functions:
+// Replaces six TPU kernels of x3d2_tpu, which compute these functions:
 //   - _x_apply_kernel (pallas_poisson.py:954, pl.pallas_call :1346), the
 //     dense x stage of a wall-bounded x and of any x with X3D2_BFLY=0
 //     (DENSE, DENSE + SUB), launched by ops/operator_apply.py apply_dense
@@ -19,6 +27,15 @@
 //     ops/pressure_slab.py x_apply_parity (x_pfwd, x_pinv, x_pinv[sub]:
 //     X3D2_MERGED_X=0, compensated stepping's pressure_grads, every
 //     sharded periodic step);
+//   - _pipe_a_kernel (pallas_poisson.py:1378, pl.pallas_call :1619) and
+//     _pipe_c_kernel (:1455, pl.pallas_call :1703), the pipeline's stages
+//     A and C, two launches each (ops/pressure_pipe.py): A a z FWD launch
+//     (Iz u, Iz v, Sz w) and a y FWD launch (a = TyI z1, e = TyS z2 + TyI
+//     z3, one job of two sources); C a z INV launch (Gzi X, Gzs Y, Gzi Y)
+//     and a y INV + SUB launch (u - GiT px, v - GsT pzy, w - GiT dzy). The
+//     banded y applies are folded into the y transforms: the y operators
+//     of every pipeline grid are circulant, so Ty C and C Tyi are parity
+//     operators of the transforms' size (pressure_pipe.fold_y);
 //   - the manual-DMA x apply (make_x_apply_manual, pallas_manual.py:62;
 //     its `kernel` :114, pl.pallas_call :200), which is _x_apply_kernel
 //     with its own S-slot copy pipeline, in every form, launched by
@@ -41,51 +58,59 @@
 // operations, 0.83 ms at 3 x the 495 TFLOP/s TF32 rate, against 0.32 ms
 // for its two field passes at 3.35 TB/s: bound by operations (2.05 ms at
 // the 67 TFLOP/s FP32 rate the SIMT x applies had). The parity forms do
-// half the operations: 0.42 ms at 512^3, against 0.32 ms of bytes (0.48
-// with the subtraction's third field).
+// half the operations: 0.42 ms a field at 512^3, against 0.32 ms of
+// bytes (0.48 with the subtraction's third field).
 //
-// Design. wgmma reads TF32 operands from shared memory K-major only, and
-// the field (n_in, ny nz) is contiguous along its columns, so the kernel
-// computes the transposed tile: D^T (plane columns x output rows) =
-// F^T M^T. F^T is the A operand, read from the staged field tile into
-// registers and split there (FWD forms f1 +/- f2 first); M_hi and M_lo
-// are the B operands, in shared memory as M lies (row-major (n_out, K) is
-// K-major). The operator's split is made once per operator on the host
-// (ops/x_apply_manual.py pack), padded to whole tiles and laid out in
-// device memory as the shared-memory image of each (part, row tile, k
-// chunk) block: BN rows of KC = 16 tf32 (64 bytes, 64-byte swizzled), hi
-// then lo, so one bulk copy brings a block. The field comes by TMA
-// through a tensor map (encoded at each launch): boxes of 32 plane
-// columns by KC rows, 128-byte swizzled, zero-filled past the field's
-// extents (one copy a field row cost the issuing warp as much as the
-// tensor cores' work).
-// A persistent grid, one block an SM, walks work items: a column tile of
-// BM = 128 plane columns and a row tile of BN output rows (DENSE 128; FWD
-// and INV 64 rows of each half, both halves an item: FWD forms s = f1 + f2
-// and d = f1 - f2 once from one read of f1 and f2 and sums E = Me s and O
-// = Mo d in two sets of sums, INV sums a and b apart), block b taking
-// items b, b + grid, ... An item's contraction runs over k chunks of KC in
-// one fixed order whatever the extents (INV: the a source's chunks, then
-// the b source's): no split-K and no atomics, so two launches give the
-// same bits and a column's result does not depend on the other columns.
+// Design. wgmma reads TF32 operands from shared memory K-major only. In the
+// x and y layouts the field is contiguous along its columns, so the kernel
+// computes the transposed tile: D^T (plane columns x output rows) = F^T
+// M^T; in the z layout it computes D (lines x output rows) = F M^T, F
+// K-major as it lies. Either way the field is the A operand, read from the
+// staged field tile into registers and split there (FWD forms f1 +/- f2
+// first), and M_hi and M_lo are the B operands, in shared memory as M lies
+// (row-major (n_out, K) is K-major). The operator's split is made once per
+// operator on the host (ops/x_apply_manual.py pack), padded to whole tiles
+// and laid out in device memory as the shared-memory image of each (part,
+// row tile, k chunk) block: BN rows of KC = 16 tf32 (64 bytes, 64-byte
+// swizzled), hi then lo, so one bulk copy brings a block. The field comes
+// by TMA through a 3-D tensor map a source (encoded at each launch), zero
+// past the field's extents (one copy a field row cost the issuing warp as
+// much as the tensor cores' work): x and y boxes of 32 plane columns by KC
+// rows of one plane, 128-byte swizzled; z boxes of 32 lines by KC (64
+// bytes), 64-byte swizzled.
+// A persistent grid, one block an SM, walks work items: a job, a plane, a
+// column tile of BM = 128 plane columns (z: lines) and a row tile of BN
+// output rows (DENSE 128; FWD and INV 64 rows of each half, both halves an
+// item: FWD forms s = f1 + f2 and d = f1 - f2 once from one read of f1 and
+// f2 and sums E = Me s and O = Mo d in two sets of sums, INV sums a and b
+// apart), block b taking items b, b + grid, ... An item's contraction runs
+// over k chunks of KC in one fixed order whatever the extents (a source's
+// chunks, then the next source's; INV: a source's a chunks, then its b
+// chunks): no split-K and no atomics, so two launches give the same bits
+// and a column's result does not depend on the other columns.
 // One producer warp keeps the chunks in flight through an S-stage ring of
 // shared memory (full mbarriers completed by the copies' bytes, empty
 // ones by the consumer warps; a stage holds the chunk's operator blocks
 // and field blocks: DENSE 24 KB, FWD 32 KB (both halves'), INV 16 KB, so
 // FWD takes S = 2 to 7 and the others 2 to 8); its warpgroup hands its
 // registers to the two consumer warpgroups (setmaxnreg). A consumer
-// warpgroup takes 64 plane columns (a_columns in the wrapper: the column
-// order that makes its fragment loads conflict-free on the swizzled boxes)
+// warpgroup takes 64 plane columns or lines (a_columns in the wrapper: in
+// the x and y layouts the column order that makes its fragment loads
+// conflict-free on the swizzled boxes; in the z layout the lines in order)
 // and, per chunk,
 // issues 3 wgmma m64nNk8 for each of its two k steps of 8 and each set of
 // sums, loads and splits the next chunk's fragments while they run, then
 // adds the chunk's sums to its registers and frees the stage. Rows past
 // the operator's (n_out, or the half) are zero in the packed operator and
 // masked at the store; k past K is zero in the packed operator and masked
-// in the A fragments; columns past ny nz are zero-filled and not stored.
-// The epilogue stores each thread's sums from its registers (SUB: all of
-// the item's s loaded first), 16-byte runs of a row (no staging: the
-// shared memory is the ring's).
+// in the A fragments; columns past the plane's and lines past the field's
+// are zero-filled and not stored.
+// The epilogue stores each thread's sums from its registers (SUB: the
+// item's s loaded first, DENSE's in two halves; no staging: the shared
+// memory is the ring's): x and y 16-byte runs of an output row, z 32-byte
+// runs of an output line (pairs of neighbouring rows, 8 bytes a thread),
+// which measured no slower a field than the x and y forms' (PERF.md), so
+// the z form's stores are not staged.
 // Host side: each instance's shared-memory attribute is set to the card's
 // most once per device (an atomic flag; any thread may launch); the
 // launch's own size is given at each launch.
@@ -102,11 +127,13 @@ namespace {
 constexpr int NCONS = 256;           // consumer threads: two warpgroups
 constexpr int NTHR = NCONS + 128;    // and the producer warpgroup
 constexpr int NCW = NCONS / 32;      // consumer warps (empty arrivals)
-constexpr int BM = 128;              // plane columns an item
+constexpr int BM = 128;              // plane columns (z: lines) an item
 constexpr int KC = 16;               // k a chunk: one 64-byte row of tf32
-constexpr int FBOX = 32;             // plane columns a field box (128 B)
+constexpr int FBOX = 32;             // plane columns (z: lines) a box
 constexpr int FBOX_BYTES = FBOX * KC * 4;
 constexpr int MAX_S = 8;
+constexpr int MAX_JOBS = 3;          // jobs a launch
+constexpr int MAX_SRC = 2;           // sources a job
 // the fixed dynamic shared memory: a full and an empty barrier a stage,
 // the 1024-byte alignment
 constexpr int SMEM_FIXED = 8 * 2 * MAX_S + 1024;
@@ -135,24 +162,33 @@ __host__ __device__ constexpr int stage_parts(int form) {
   return form == FWD ? 2 : 1;
 }
 // bytes of a stage: its operator blocks, then its field blocks, each BM /
-// FBOX boxes of KC rows of 128 bytes; every block starts on a 1024-byte
-// swizzle atom
+// FBOX boxes of FBOX_BYTES; every block starts on a 1024-byte swizzle atom
 __host__ __device__ constexpr int stage_bytes(int form) {
   return stage_parts(form) * (op_bytes(form) + (BM / FBOX) * FBOX_BYTES);
 }
 
 struct TcArgs {
-  const float* op;   // packed: (parts, rtiles, ktiles, 2, BN * KC)
-  const float* f;    // (n_in, ncols): DENSE n_in = K, FWD and INV 2 K
-  const float* s;    // (n_out, ncols) or null
-  float* out;        // (n_out, ncols)
+  // per job and source: the packed operator (parts, rtiles, ktiles, 2, BN
+  // * KC); per job: s (the output's shape) or null, the output
+  const float* op[MAX_JOBS][MAX_SRC];
+  const float* s[MAX_JOBS];
+  float* out[MAX_JOBS];
+  int nsrc[MAX_JOBS];
   int rows;          // output rows of a part: DENSE n_out, else n_out / 2
+  int n_out;
   int K;
   int rtiles;        // row tiles of a part
   int ktiles;        // k chunks (the packed operator's K padded to KC)
-  long long ncols;
+  int ctiles;        // column tiles of BM a plane (z: line tiles)
+  long long ncols;   // columns of a plane (z: lines)
+  int items_job;     // items a job: planes x ctiles x rtiles
   int nitems;
   int slots;
+};
+
+// the field's tensor map of each job and source
+struct TcMaps {
+  CUtensorMap m[MAX_JOBS][MAX_SRC];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -198,15 +234,17 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// a TMA load of one field box (FBOX columns from c0, KC rows from row0;
-// past the field's extents zero-filled) into shared memory, completing on
-// mbarrier `bar`
+// a TMA load of one field box at coordinates (c0, c1, c2) of its map (x
+// and y: column, row, plane; z: k, line, 0; past the field's extents
+// zero-filled) into shared memory, completing on mbarrier `bar`
 __device__ __forceinline__ void box_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int row0, uint32_t bar) {
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(row0), "r"(bar)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
       : "memory");
 }
 
@@ -345,14 +383,14 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
   }
 }
 
-template <int FORM, bool SUB>
+template <int FORM, bool SUB, bool LINES>
 __global__ void __launch_bounds__(NTHR, 1)
 x_apply_tc_kernel(const __grid_constant__ TcArgs a,
-                  const __grid_constant__ CUtensorMap fmap) {
+                  const __grid_constant__ TcMaps maps) {
   constexpr int BN = tile_rows(FORM);
   constexpr int NV = BN / 2;                    // sums a set a thread
   constexpr int NP = stage_parts(FORM);         // operator and field blocks
-  constexpr int NSRC = FORM == INV ? 2 : 1;     // sources an item
+  constexpr int NH = FORM == INV ? 2 : 1;       // a source's halves in turn
   constexpr int OPB = op_bytes(FORM);
   constexpr int NBOX = BM / FBOX;               // field boxes a block
   constexpr int FB = NBOX * FBOX_BYTES;         // bytes of a field block
@@ -379,19 +417,27 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   const int my = a.nitems > (int)blockIdx.x
                      ? (a.nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                      : 0;
-  // item j of the block: its column tile's first column, its row tile
+  // item j of the block: its job, plane, column tile's first column (z:
+  // line) and row tile
   struct Item {
     long long c0;
-    int rt;
+    int rt, plane, job;
+  };
+  auto job_of = [&](int j) {
+    return ((int)blockIdx.x + j * (int)gridDim.x) / a.items_job;
   };
   auto item_of = [&](int j) {
     const int it = (int)blockIdx.x + j * (int)gridDim.x;
     Item m;
-    m.c0 = (long long)(it / a.rtiles) * BM;
-    m.rt = it % a.rtiles;
+    m.job = it / a.items_job;
+    int r = it - m.job * a.items_job;
+    m.rt = r % a.rtiles;
+    r /= a.rtiles;
+    m.c0 = (long long)(r % a.ctiles) * BM;
+    m.plane = r / a.ctiles;
     return m;
   };
-  // the operator block (part, row tile, k chunk) of the packed operator
+  // the operator block (part, row tile, k chunk) of a packed operator
   auto op_block = [&](int part, int rt, int kc) {
     return (part * a.rtiles + rt) * nk + kc;
   };
@@ -407,30 +453,39 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     uint32_t ph = 0;
     for (int j = 0; j < my; ++j) {
       const Item m = item_of(j);
-      for (int src = 0; src < NSRC; ++src) {
+      // a source's chunks (INV: its a chunks, then its b chunks), then the
+      // next source's: runs of nk chunks
+      for (int run = 0; run < a.nsrc[m.job] * NH; ++run) {
+        const int src = run / NH, h = run % NH;
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(bar_empty + 8 * st, ph ^ 1);
           const uint32_t full = bar_full + 8 * st;
           const uint32_t dst = ring + st * ST;
           if (lane == 0) {
             mbar_expect_tx(full, NP * (OPB + FB));
-            // the operator's parts: DENSE's one, FWD's Me and Mo, INV's
-            // source's (Me for a, Mo for b)
+            // the source's operator parts: DENSE's one, FWD's Me and Mo,
+            // INV's half's (Me for a, Mo for b)
             for (int o = 0; o < NP; ++o)
               bulk_load(dst + o * OPB,
-                        a.op + (long long)op_block(FORM == INV ? src : o,
-                                                   m.rt, kc) * (OPB / 4),
+                        a.op[m.job][src]
+                            + (long long)op_block(FORM == INV ? h : o, m.rt,
+                                                  kc) * (OPB / 4),
                         OPB, full);
           }
           __syncwarp();
           if (lane < NP * NBOX) {
-            // the field's rows k0 .. k0 + KC - 1 of f (DENSE), f1 and f2
-            // (FWD), f_e or f_o (INV); rows past K are read (f2's, or
-            // zeros past the field) and masked in the A fragments
+            // the field's rows (z: k) k0 .. k0 + KC - 1 of f (DENSE), f1
+            // and f2 (FWD), f_e or f_o (INV); rows past K are read (f2's,
+            // or zeros past the field) and masked in the A fragments
             const int b = lane / NBOX, q = lane % NBOX;
-            box_load(dst + NP * OPB + (b * NBOX + q) * FBOX_BYTES, &fmap,
-                     (int)m.c0 + q * FBOX,
-                     kc * KC + (b == 1 || src == 1 ? a.K : 0), full);
+            const int k = kc * KC + (b == 1 || h == 1 ? a.K : 0);
+            const uint32_t box =
+                dst + NP * OPB + (b * NBOX + q) * FBOX_BYTES;
+            const CUtensorMap* map = &maps.m[m.job][src];
+            if constexpr (LINES)
+              box_load(box, map, k, (int)m.c0 + q * FBOX, 0, full);
+            else
+              box_load(box, map, (int)m.c0 + q * FBOX, k, m.plane, full);
           }
           if (++st == S) {
             st = 0;
@@ -443,21 +498,23 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   }
 
   // ---- the consumers: warpgroup g takes the field boxes 2 g and 2 g + 1
-  // of the item (64 plane columns), warp w of it 16 columns of box 2 g + (w
-  // >> 1): its A rows gid and gid + 8 (wgmma's) are the columns 4 a[h] +
-  // (gid & 3) of the box, a[h] = 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1,
-  // so that the 32 lanes of a fragment load read 32 banks of the 128-byte
-  // swizzled rows (ops/x_apply_manual.py a_columns); its k columns tig and
-  // tig + 4 of each k step
+  // of the item (64 plane columns or lines), warp w of it 16 of box 2 g +
+  // (w >> 1); its k columns tig and tig + 4 of each k step. x and y: its A
+  // rows gid and gid + 8 (wgmma's) are the columns 4 a[h] + (gid & 3) of
+  // the box, a[h] = 2 (w & 1) + h + 4 (gid >> 2), h = 0, 1, so that the 32
+  // lanes of a fragment load read 32 banks of the 128-byte swizzled rows
+  // (ops/x_apply_manual.py a_columns). z: its A rows are the box's lines
+  // 16 (w & 1) + gid + 8 h, whose 64-byte swizzled rows give the 8 lines
+  // of a fragment load 8 distinct 16-byte bank groups
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int wg = t >> 7, w = (t >> 5) & 3;
   const int box = 2 * wg + (w >> 1);
-  const int ach[2] = {2 * (w & 1) + 4 * (gid >> 2),
-                      2 * (w & 1) + 1 + 4 * (gid >> 2)};
-  const int nkc = NSRC * nk;                  // chunks an item
+  const int ach[2] = {LINES ? 16 * (w & 1) + gid : 2 * (w & 1) + 4 * (gid >> 2),
+                      LINES ? 16 * (w & 1) + gid + 8
+                            : 2 * (w & 1) + 1 + 4 * (gid >> 2)};
   float acc[NV];
   float acc2[FORM == DENSE ? 1 : NV];         // FWD: O's sums; INV: b's
   float part[NV];                             // a chunk's tensor-core sum
@@ -468,21 +525,25 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   // blo of d) and the next (nhi, nlo; mhi, mlo)
   uint32_t ahi[2][4], alo[2][4], nhi[2][4], nlo[2][4];
   uint32_t bhi[2][4], blo[2][4], mhi[2][4], mlo[2][4];
-  auto load_a = [&](int c, int stage, uint32_t ph_, uint32_t (&hi)[2][4],
+  auto load_a = [&](int kc, int stage, uint32_t ph_, uint32_t (&hi)[2][4],
                     uint32_t (&lo)[2][4], uint32_t (&hi2)[2][4],
                     uint32_t (&lo2)[2][4]) {
     mbar_wait(bar_full + 8 * stage, ph_);
-    // the box: KC rows of 128 bytes, the 16-byte chunk a of row k at a ^
-    // (k & 7) (TMA's 128-byte swizzle)
-    const unsigned char* F =
-        ring_p + stage * ST + NP * OPB + box * FBOX_BYTES + (gid & 3) * 4;
-    const int k0 = (c % nk) * KC;
+    // x and y: the box holds KC rows of 128 bytes, the 16-byte chunk a of
+    // row k at a ^ (k & 7) (TMA's 128-byte swizzle); z: FBOX lines of 64
+    // bytes, the 16-byte chunk a of line l at a ^ ((l >> 1) & 3) (its
+    // 64-byte swizzle)
+    const unsigned char* F = ring_p + stage * ST + NP * OPB + box * FBOX_BYTES;
+    const int k0 = kc * KC;
 #pragma unroll
     for (int step = 0; step < 2; ++step)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kk = step * 8 + tig + (i >> 1) * 4;
-        const int off = kk * 128 + ((ach[i & 1] ^ (kk & 7)) << 4);
+        const int r = ach[i & 1];
+        const int off =
+            LINES ? r * 64 + (((kk >> 2) ^ ((r >> 1) & 3)) << 4) + tig * 4
+                  : kk * 128 + ((r ^ (kk & 7)) << 4) + (gid & 3) * 4;
         const bool ok = k0 + kk < a.K;
         const float x = *reinterpret_cast<const float*>(F + off);
         if constexpr (FORM == FWD) {
@@ -497,11 +558,16 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   int st = 0;
   uint32_t ph = 0;
   for (int j = 0; j < my; ++j) {
-    const Item m = item_of(j);
+    // the chunks only: the item's place is computed again for its
+    // epilogue, so that it holds no registers through the chunks
+    const int nkc = a.nsrc[job_of(j)] * NH * nk;
 #pragma unroll
     for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < (FORM == DENSE ? 1 : NV); ++i) acc2[i] = 0.f;
+    // the chunk's k chunk and half (INV: 0 its source's a, 1 its b),
+    // counted along, not divided out
+    int kc = 0, hb = 0;
     load_a(0, st, ph, ahi, alo, bhi, blo);
     for (int c = 0; c < nkc; ++c) {
       // the chunk's operator blocks in the stage (the source's part; FWD's
@@ -524,7 +590,12 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       // the next chunk's fragments while the tensor cores work
       const int st1 = st + 1 == S ? 0 : st + 1;
       const uint32_t ph1 = st1 == 0 ? ph ^ 1 : ph;
-      if (c + 1 < nkc) load_a(c + 1, st1, ph1, nhi, nlo, mhi, mlo);
+      const int hcur = hb;
+      if (++kc == nk) {
+        kc = 0;
+        hb ^= NH - 1;
+      }
+      if (c + 1 < nkc) load_a(kc, st1, ph1, nhi, nlo, mhi, mlo);
       wgmma_wait();
       fence_acc(part);
       fence_reg(ahi);
@@ -556,7 +627,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
         for (int i = 0; i < NV; ++i) acc2[i] += part2[i];
       }
       if constexpr (FORM == INV) {
-        if (c >= nk) {
+        if (hcur) {
 #pragma unroll
           for (int i = 0; i < NV; ++i) acc2[i] += part[i];
           continue;
@@ -565,72 +636,112 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
 #pragma unroll
       for (int i = 0; i < NV; ++i) acc[i] += part[i];
     }
-    // the item's outputs: d[4 j + 2 c + q] is (A row gid + 8 c, that is
-    // column 4 ach[c] + (gid & 3) of the box, output row 8 j + 2 tig + q
-    // of the tile); group g: the output half (FWD E, O; INV a + b,
-    // a - b); SUB reads all of its s first, then stores
+    // the item's outputs: d[4 j + 2 c + q] is (A row gid + 8 c: column 4
+    // ach[c] + (gid & 3) of the box, z line ach[c] of it; output row 8 j +
+    // 2 tig + q of the tile); group g: the output half (FWD E, O; INV a +
+    // b, a - b); SUB reads its s first, then stores (DENSE in two passes
+    // of half the rows: with all 64 of s live beside the 64 sums its
+    // instance spilled)
     constexpr int G = FORM == DENSE ? 1 : 2;
+    const Item m = item_of(j);
     const int nrows = a.rows - m.rt * BN < BN ? a.rows - m.rt * BN : BN;
-    const long long col[2] = {m.c0 + box * FBOX + 4 * ach[0] + (gid & 3),
-                              m.c0 + box * FBOX + 4 * ach[1] + (gid & 3)};
+    float* const out = a.out[m.job];
+    const long long base = m.c0 + box * FBOX;
+    const long long col[2] = {
+        base + (LINES ? ach[0] : 4 * ach[0] + (gid & 3)),
+        base + (LINES ? ach[1] : 4 * ach[1] + (gid & 3))};
     const bool okc[2] = {col[0] < a.ncols, col[1] < a.ncols};
-    auto row_of = [&](int g, int n) {
-      return (long long)g * a.rows + m.rt * BN + n;
+    const long long plane0 = (long long)m.plane * a.n_out * a.ncols;
+    // the element (group g, tile row n) of column (z: line) c
+    auto at = [&](int g, int n, int c) {
+      const long long row = (long long)g * a.rows + m.rt * BN + n;
+      return LINES ? col[c] * a.n_out + row
+                   : plane0 + row * a.ncols + col[c];
     };
-    float sv[SUB ? G * NV : 1];
-    if constexpr (SUB) {
+    auto value = [&](int g, int i) {
+      float v = acc[i];
+      if constexpr (FORM == FWD) v = g == 0 ? acc[i] : acc2[i];
+      if constexpr (FORM == INV) v = g == 0 ? v + acc2[i] : v - acc2[i];
+      return v;
+    };
+    if constexpr (LINES) {
+      // rows 2 tig and 2 tig + 1 of each 8 are neighbours along the line:
+      // 8 bytes a thread (rows is even, so a pair is stored whole or not);
+      // no SUB in this layout
+      static_assert(!SUB, "the z layout has no subtraction");
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+        for (int i = 0; i < NV; i += 2) {
+          const int n = (i >> 2) * 8 + 2 * tig;
           const int c = (i >> 1) & 1;
-          sv[g * NV + i] =
-              n < nrows && okc[c]
-                  ? __ldg(a.s + row_of(g, n) * a.ncols + col[c]) : 0.f;
+          if (n >= nrows || !okc[c]) continue;
+          *reinterpret_cast<float2*>(out + at(g, n, c)) =
+              make_float2(value(g, i), value(g, i + 1));
         }
-    }
+    } else {
+      const float* const sp = a.s[m.job];
+      constexpr int PASSES = SUB && G == 1 ? 2 : 1;
+      constexpr int NPI = NV / PASSES;
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int pass = 0; pass < PASSES; ++pass) {
+        float sv[SUB ? G * NPI : 1];
+        if constexpr (SUB) {
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
-        const int c = (i >> 1) & 1;
-        if (n >= nrows || !okc[c]) continue;
-        float v = acc[i];
-        if constexpr (FORM == FWD) v = g == 0 ? acc[i] : acc2[i];
-        if constexpr (FORM == INV) v = g == 0 ? v + acc2[i] : v - acc2[i];
-        if constexpr (SUB) v = sv[g * NV + i] - v;
-        a.out[row_of(g, n) * a.ncols + col[c]] = v;
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int i0 = 0; i0 < NPI; ++i0) {
+              const int i = pass * NPI + i0;
+              const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+              const int c = (i >> 1) & 1;
+              sv[g * NPI + i0] =
+                  n < nrows && okc[c] ? __ldg(sp + at(g, n, c)) : 0.f;
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int i0 = 0; i0 < NPI; ++i0) {
+            const int i = pass * NPI + i0;
+            const int n = (i >> 2) * 8 + 2 * tig + (i & 1);
+            const int c = (i >> 1) & 1;
+            if (n >= nrows || !okc[c]) continue;
+            float v = value(g, i);
+            if constexpr (SUB) v = sv[g * NPI + i0] - v;
+            out[at(g, n, c)] = v;
+          }
       }
+    }
   }
 }
 
 // One launch of an instance at `bytes` of dynamic shared memory; the
 // instance's attribute is raised to SMEM_MAX once per device
-template <int FORM, bool SUB>
-cudaError_t launch(const TcArgs& a, const CUtensorMap& fmap, int grid,
-                   int bytes, cudaStream_t stream) {
+template <int FORM, bool SUB, bool LINES>
+cudaError_t launch(const TcArgs& a, const TcMaps& maps, int grid, int bytes,
+                   cudaStream_t stream) {
   static std::atomic<bool> ready[MAX_DEV];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEV || !ready[dev].load(std::memory_order_acquire)) {
-    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB>,
+    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB, LINES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_MAX);
     if (e != cudaSuccess) return e;
     if (dev < MAX_DEV) ready[dev].store(true, std::memory_order_release);
   }
-  x_apply_tc_kernel<FORM, SUB><<<grid, NTHR, bytes, stream>>>(a, fmap);
+  x_apply_tc_kernel<FORM, SUB, LINES><<<grid, NTHR, bytes, stream>>>(a, maps);
   return cudaGetLastError();
 }
 
-// the field's tensor map: (frows, ncols) float32, boxes of KC rows of FBOX
-// columns, 128-byte swizzled, zeros past the extents (the driver's encoder,
-// found through the runtime: no link to the driver library)
-cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
-                      long long ncols) {
+// a field's tensor map: x and y (nplanes, n_in, ncols) float32, boxes of
+// KC rows of FBOX columns, 128-byte swizzled; z (ncols lines, n_in), boxes
+// of FBOX lines of KC, 64-byte swizzled; zeros past the extents (the
+// driver's encoder, found through the runtime: no link to the driver
+// library)
+cudaError_t field_map(CUtensorMap* map, const void* f, bool lines,
+                      long long n_in, long long ncols, long long nplanes) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -642,15 +753,19 @@ cudaError_t field_map(CUtensorMap* map, const void* f, long long frows,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)ncols, (cuuint64_t)frows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ncols * 4};
-  const cuuint32_t boxd[2] = {FBOX, KC};
-  const cuuint32_t elem[2] = {1, 1};
+  const long long inner = lines ? n_in : ncols, outer = lines ? ncols : n_in;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)nplanes};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 4,
+                                 (cuuint64_t)inner * outer * 4};
+  const cuuint32_t boxd[3] = {lines ? (cuuint32_t)KC : (cuuint32_t)FBOX,
+                              lines ? (cuuint32_t)FBOX : (cuuint32_t)KC, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(f), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(f), dims,
       strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      lines ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -662,7 +777,7 @@ extern "C" {
 // columns an item, k a chunk, the staged field row, the most stages,
 // threads a block, the fixed dynamic shared memory, a block's most, then
 // output rows an item, bytes of an operator block and bytes of a stage for
-// DENSE, FWD, INV.
+// DENSE, FWD, INV, then the most jobs a launch and sources a job.
 int x_apply_tc_geometry(int* g) {
   g[0] = BM;
   g[1] = KC;
@@ -676,52 +791,90 @@ int x_apply_tc_geometry(int* g) {
     g[10 + form] = op_bytes(form);
     g[13 + form] = stage_bytes(form);
   }
+  g[16] = MAX_JOBS;
+  g[17] = MAX_SRC;
   return 0;
 }
 
-// One launch. form: 0 dense, 1 parity forward, 2 parity inverse; op: the
-// packed split operator (ops/x_apply_manual.py pack) of `rows` output rows
-// a part and contraction K; f, s (null without the subtraction), out as
-// TcArgs; ncols = ny * nz, a multiple of 4; slots 2 .. MAX_S where the ring
+// One launch of njobs (1 .. MAX_JOBS) jobs. form: 0 dense, 1 parity
+// forward, 2 parity inverse; lines: 0 the x and y layouts (f (nplanes,
+// n_in, ncols)), 1 the z layout (f (ncols lines, n_in), nplanes 1; FWD and
+// INV, K and rows even, no s); n_in = K (DENSE) or 2 K. ptrs: 2 MAX_SRC + 2
+// pointers a job: its sources' packed operators (ops/x_apply_manual.py
+// pack; rows output rows a part, contraction K; the second null for one
+// source), their fields (likewise), s (null without the subtraction: all
+// jobs or none) and the output (n_out = rows x (1 or 2) rows). ncols a
+// multiple of 4 in the x and y layouts; slots 2 .. MAX_S where the ring
 // fits (FWD 2 .. 7); grid: blocks (the SM count). Returns the cudaError_t
 // of the launch (0 on success).
-int x_apply_tc_launch(int form, const void* op, const void* f,
-                      const void* s, void* out, int rows, int K,
-                      long long ncols, int slots, int grid, void* stream) {
-  if (form < DENSE || form > INV || (form == FWD && s != nullptr)
-      || rows < 1 || K < 1 || ncols < 4 || ncols % 4 || slots < 2
-      || slots > MAX_S || grid < 1)
+int x_apply_tc_launch_jobs(int form, int lines, int njobs,
+                           const void* const* ptrs, int rows, int K,
+                           long long ncols, int nplanes, int slots, int grid,
+                           void* stream) {
+  constexpr int NPTR = 2 * MAX_SRC + 2;
+  if (form < DENSE || form > INV || lines < 0 || lines > 1 || njobs < 1
+      || njobs > MAX_JOBS || rows < 1 || K < 1 || ncols < 1 || nplanes < 1
+      || slots < 2 || slots > MAX_S || grid < 1)
     return (int)cudaErrorInvalidValue;
+  if (lines ? (form == DENSE || K % 2 || rows % 2 || nplanes != 1)
+            : (ncols < 4 || ncols % 4))
+    return (int)cudaErrorInvalidValue;
+  const bool sub = ptrs[MAX_SRC * 2] != nullptr;
+  if ((form == FWD || lines) && sub) return (int)cudaErrorInvalidValue;
   const int bn = tile_rows(form);
+  const long long n_in = (long long)K * (form == DENSE ? 1 : 2);
   TcArgs a = {};
-  a.op = static_cast<const float*>(op);
-  a.f = static_cast<const float*>(f);
-  a.s = static_cast<const float*>(s);
-  a.out = static_cast<float*>(out);
+  TcMaps maps = {};
+  for (int j = 0; j < njobs; ++j) {
+    const void* const* p = ptrs + j * NPTR;
+    if ((p[MAX_SRC * 2] != nullptr) != sub || p[0] == nullptr
+        || p[MAX_SRC] == nullptr || p[MAX_SRC * 2 + 1] == nullptr)
+      return (int)cudaErrorInvalidValue;
+    a.nsrc[j] = 0;
+    for (int src = 0; src < MAX_SRC; ++src) {
+      if (p[src] == nullptr) break;
+      if (p[MAX_SRC + src] == nullptr) return (int)cudaErrorInvalidValue;
+      a.op[j][src] = static_cast<const float*>(p[src]);
+      const cudaError_t e = field_map(&maps.m[j][src], p[MAX_SRC + src],
+                                      lines, n_in, ncols, nplanes);
+      if (e != cudaSuccess) return (int)e;
+      ++a.nsrc[j];
+    }
+    a.s[j] = static_cast<const float*>(p[MAX_SRC * 2]);
+    a.out[j] = static_cast<float*>(const_cast<void*>(p[MAX_SRC * 2 + 1]));
+  }
   a.rows = rows;
+  a.n_out = rows * (form == DENSE ? 1 : 2);
   a.K = K;
   a.rtiles = (rows + bn - 1) / bn;
   a.ktiles = (K + KC - 1) / KC;
   a.ncols = ncols;
-  const long long items = (ncols + BM - 1) / BM * a.rtiles;
+  const long long ctiles = (ncols + BM - 1) / BM;
+  const long long per_job = ctiles * nplanes * a.rtiles;
   const int bytes = slots * stage_bytes(form) + SMEM_FIXED;
-  if (items > 0x7FFFFFFFLL || bytes > SMEM_MAX)
+  if (per_job * njobs > 0x7FFFFFFFLL || bytes > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  a.nitems = (int)items;
+  a.ctiles = (int)ctiles;
+  a.items_job = (int)per_job;
+  a.nitems = (int)(per_job * njobs);
   a.slots = slots;
   if (grid > a.nitems) grid = a.nitems;
-  CUtensorMap fmap;
-  const cudaError_t e =
-      field_map(&fmap, f, (long long)K * (form == DENSE ? 1 : 2), ncols);
-  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (form * 2 + (s != nullptr ? 1 : 0)) {
-    case DENSE * 2: return (int)launch<DENSE, false>(a, fmap, grid, bytes, st);
-    case DENSE * 2 + 1:
-      return (int)launch<DENSE, true>(a, fmap, grid, bytes, st);
-    case FWD * 2: return (int)launch<FWD, false>(a, fmap, grid, bytes, st);
-    case INV * 2: return (int)launch<INV, false>(a, fmap, grid, bytes, st);
-    case INV * 2 + 1: return (int)launch<INV, true>(a, fmap, grid, bytes, st);
+  switch ((form * 2 + (sub ? 1 : 0)) * 2 + lines) {
+    case (DENSE * 2) * 2:
+      return (int)launch<DENSE, false, false>(a, maps, grid, bytes, st);
+    case (DENSE * 2 + 1) * 2:
+      return (int)launch<DENSE, true, false>(a, maps, grid, bytes, st);
+    case (FWD * 2) * 2:
+      return (int)launch<FWD, false, false>(a, maps, grid, bytes, st);
+    case (FWD * 2) * 2 + 1:
+      return (int)launch<FWD, false, true>(a, maps, grid, bytes, st);
+    case (INV * 2) * 2:
+      return (int)launch<INV, false, false>(a, maps, grid, bytes, st);
+    case (INV * 2) * 2 + 1:
+      return (int)launch<INV, false, true>(a, maps, grid, bytes, st);
+    case (INV * 2 + 1) * 2:
+      return (int)launch<INV, true, false>(a, maps, grid, bytes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

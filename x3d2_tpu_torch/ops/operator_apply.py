@@ -7,7 +7,8 @@ axis of (nx, ny, nz) float32 fields in one of four forms (BANDED, PFWD,
 PINV, and DENSE along y or z: any (n_out, n) operator, rectangular on a
 wall-bounded axis), up to three fields a launch and two summed sources a
 field (the one-field PFWD and PINV along x, x_pfwd and x_pinv, are the
-x-apply kernel's: ops/pressure_slab.py x_apply_parity), with an epilogue
+x-apply kernel's: ops/pressure_slab.py x_apply_parity; so are the
+pipeline's stages A and C: ops/pressure_pipe.py), with an epilogue
 (STORE, SUB, SOLVE after an x or a z apply, SOLVE_PLANE after a y apply
 batched over x planes; the solves take the
 Nyquist mask where the operator set has one). ``apply_dense`` is the
@@ -41,8 +42,9 @@ from .parity import BBS, BW, TILE, WIN
 BANDED, PFWD, PINV, DENSE = 0, 1, 2, 3
 STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 
-# kernel launches per call of each wrapper
-LAUNCHES_PER_CALL = {"pipe_a": 3, "pipe_b": 2, "pipe_c": 3,
+# kernel launches per call of each wrapper (pipe_a, pipe_c and the x
+# applies: the x-apply kernel's, ops/x_apply_manual.py)
+LAUNCHES_PER_CALL = {"pipe_a": 2, "pipe_b": 2, "pipe_c": 2,
                      "pipe_c[d2]": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
                      "pressure_mid[dense]": 6, "pressure_mid[q,dense]": 6,
@@ -115,9 +117,9 @@ def _check(t, shape, name):
 # (mode, transposed, epilogue, two sources) of the 128-tiled instances;
 # every other launch, and every launch whose extents they do not tile,
 # takes the general instance (Geometry.tail)
-_TILED = {(BANDED, 0, STORE, False), (BANDED, 0, SUB, False),
-          (PFWD, 0, STORE, False), (PFWD, 0, SOLVE, False),
-          (PFWD, 0, SOLVE_PLANE, False), (PFWD, 1, STORE, False),
+_TILED = {(BANDED, 0, STORE, False), (PFWD, 0, STORE, False),
+          (PFWD, 0, SOLVE, False), (PFWD, 0, SOLVE_PLANE, False),
+          (PFWD, 1, STORE, False),
           (PINV, 0, STORE, False), (PINV, 0, SUB, False),
           (PINV, 1, STORE, False), (DENSE, 0, STORE, False),
           (DENSE, 0, SOLVE_PLANE, False),
@@ -175,7 +177,7 @@ def geometry(mode, axis, shape, nout, K, epi=STORE, two=False) -> Geometry:
                          f"rows, the parity forms an even count), got "
                          f"({nout}, {K})")
     if (epi == SOLVE and axis == 1) or (epi == SOLVE_PLANE and axis != 1) \
-            or (epi == SUB and (axis == 2 or mode == DENSE)) \
+            or (epi == SUB and (axis == 2 or mode != PINV)) \
             or (mode == BANDED and axis == 2) or (mode == DENSE and axis == 0):
         raise ValueError(f"epilogue {epi} with form {mode} along axis {axis}"
                          " is not a form of the template")

@@ -224,7 +224,11 @@ class ProjectionMats:
     for the physical pressure: ti_x, ti_y, ti_z. x_perm, q_perm, z_perm
     give the natural mode of each slot along x, y, z (None: natural
     order). shape: the CELL extents (q's); vert: the VERT ones (the
-    fields')."""
+    fields'). y64: with the banded y, the y axis' Iy, Sy (forward) and
+    Giy, Gsy (inverse) whole, (ny, ny) float64, from which the pipeline
+    folds the banded y into its y transforms (ops/pressure_pipe.py
+    fold_y; its folded and packed operators are kept in _fold, made
+    once)."""
 
     shape: tuple
     m64: dict
@@ -235,8 +239,10 @@ class ProjectionMats:
     dense: bool = False
     forms: Forms = Forms()
     vert: tuple | None = None
+    y64: dict | None = None
     _dev: dict = field(default_factory=dict)
     _packed: dict = field(default_factory=dict)
+    _fold: dict = field(default_factory=dict)
 
     def mats(self, dtype) -> dict:
         if dtype not in self._dev:
@@ -300,10 +306,11 @@ def build_projection_mats(solver, dense=False) -> ProjectionMats:
         # (pallas_poisson.py:580-587); the port's check is the stricter
         # (W = 32 at 1e-12 against x3d2_tpu's 1e-6), so the port takes it
         # wherever x3d2_tpu does
+        y_ops = (("iy", "biy", oy.interpl_v2p), ("sy", "bsy", oy.stagder_v2p),
+                 ("giy", "bgiy", oy.interpl_p2v),
+                 ("gsy", "bgsy", oy.stagder_p2v))
         try:
-            bands = {k: band(op) for k, op in (
-                ("biy", oy.interpl_v2p), ("bsy", oy.stagder_v2p),
-                ("bgiy", oy.interpl_p2v), ("bgsy", oy.stagder_p2v))}
+            bands = {k: band(op) for _, k, op in y_ops}
         except ValueError:
             banded_y = False
     y_form = "folded"
@@ -372,9 +379,11 @@ def build_projection_mats(solver, dense=False) -> ProjectionMats:
                for a, n in enumerate((nx, ny, nz))]
         m["mx"] = ind[0][xo]
         m["myz"] = np.outer(ind[1][yo], ind[2][zo]).reshape(-1)
+    y64 = ({k: np.asarray(op.M64, np.float64) for k, _, op in y_ops}
+           if banded_y else None)
     return ProjectionMats(shape=(nx, ny, nz), m64=m, device=solver.device,
                           x_perm=xp, q_perm=yp, z_perm=zp, dense=dense,
-                          forms=Forms(y_form, z_form), vert=vert)
+                          forms=Forms(y_form, z_form), vert=vert, y64=y64)
 
 
 # ---------------------------------------------------------------------------

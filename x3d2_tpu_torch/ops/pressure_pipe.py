@@ -1,6 +1,5 @@
 """Three-stage pressure projection for ``keep_pressure=False``: the wrappers
-of the Hopper kernels in ``csrc/pressure_pipe.cu`` and their plain PyTorch
-versions.
+of its Hopper kernels and their plain PyTorch versions.
 
 Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_pipe3
 (pallas_poisson.py:1573) and its kernels:
@@ -17,20 +16,39 @@ Counterpart of x3d2_tpu.ops.pallas_poisson.make_pressure_pipe3
        (u', v', w') (pipe_c_d2; the carried step's chain skips its z sweep,
        ops/transeq_sweep.py make_fused_transeq_ab(skip_d2=True))
 
-The y interpolation and staggered derivative are band-truncated per block
-of 64 rows (ops/banded.py, W=32); the periodic transforms use the parity
-split (one radix-2 level in matrix form, half the operations), so spectral
-indices stay in block-parity order [even modes; odd modes] between the
-stages and the solve tables are permuted to match. The operator set, the
-splits and the plain applies are shared with the slab projection
-(ops/parity.py); so is the kernel template, behind its launcher
-(ops/operator_apply.py).
+The plain versions are x3d2_tpu's: the y interpolation and staggered
+derivative band-truncated per block of 64 rows (ops/banded.py, W=32); the
+periodic transforms as parity splits (one radix-2 level in matrix form,
+half the operations), so spectral indices stay in block-parity order [even
+modes; odd modes] between the stages and the solve tables are permuted to
+match. The operator set, the splits and the plain applies are shared with
+the slab projection (ops/parity.py).
+
+On the card stages A and C are two launches each of the split-TF32
+tensor-core kernel of ``csrc/x_apply_manual.cu`` (ops/x_apply_manual.py
+launch_jobs): a z launch (the transposed form, three jobs) and a y launch
+(batched over the x planes). The banded y applies are folded into the y
+transforms (``fold_y``): the y operators of every pipeline grid are
+circulant (a periodic uniform y), and a circulant C commutes with the
+half-period shift, C = [[C11, C12], [C12, C11]] in halves, so
+
+    Ty C = [Me (C11 + C12); Mo (C11 - C12)]   (a forward parity operator)
+    C pinv(Me, Mo) = pinv((C11 + C12) Me, (C11 - C12) Mo)
+
+and, the y and z operators commuting (pallas_poisson.py:386-410), A is Iz
+u, Iz v, Sz w (z FWD), then a = TyI z1, e = TyS z2 + TyI z3 (y FWD, e one
+job of two sources); C is Gzi X, Gzs Y, Gzi Y (z INV), then u - GiT px,
+v - GsT pzy, w - GiT dzy (y INV with the subtraction). The same function
+as the plain versions' to float64 rounding (the band the fold removes
+drops entries below 1e-12 of the largest). Stage B and two of
+pipe_c[d2]'s three launches run on the operator-apply template of
+``csrc/pressure_pipe.cu`` (ops/operator_apply.py).
 
 The carry's plain version is x3d2_tpu's: the sweep's banded blocks of the
 z operators at its 128-point blocks and 64-point band in both modes
 (zbs, zw; at 64 points the compact-6 operators are exact to float64
-rounding). On the card stage C runs y first (the y and z operators
-commute, pallas_poisson.py:386-410): the inverse y transform of X and Y
+rounding). On the card stage C with the carry runs y first (the y and z
+operators commute): the inverse y transform of X and Y
 (two PINV applies, not stage C's three), the banded Giy, Gsy, Giy, then
 ``csrc/pipe_c_d2.cu``, whose block owns 32 whole z lines of the three
 fields: it applies the inverse parity z transforms, subtracts from u, v,
@@ -43,13 +61,13 @@ leave the step. At nz 256, 384 and 512 the lines stay in shared memory
 the transform streams its operand through shared memory and the carry
 reads the corrected lines back in chunks (``carry_geometry``).
 
-A stage on CUDA tensors launches the kernel (or raises); on CPU tensors it
+A stage on CUDA tensors launches the kernels (or raises); on CPU tensors it
 runs the plain version. The pipeline serves every grid x3d2_tpu's pipe3
 serves (pipe3_supported, pallas_poisson.py:1555: all-periodic and uniform,
-x and z multiples of 16, y of 64): where an extent is not a multiple of
-the template's 128-point tiles (an x of 320: parity halves of 160; a y of
-192: three banded blocks of 64, halves of 96) the launches take the
-template's general instance (operator_apply.geometry).
+x and z multiples of 16, y of 64): the tensor-core kernel takes any such
+extent (a y of 192: halves of 96, the last row tile part-filled), and
+stage B's launches take the template's general instance where an extent
+is not a multiple of its 128-point tiles (operator_apply.geometry).
 """
 
 from __future__ import annotations
@@ -62,8 +80,9 @@ import torch
 
 from ..common import resolve_device
 from .banded import banded_blocks
-from .operator_apply import (BANDED, PFWD, PINV, SOLVE, SUB, apply,
-                             count_launch, route)
+from . import x_apply_manual as xm
+from .operator_apply import (BANDED, PFWD, PINV, SOLVE, apply, count_launch,
+                             route)
 from .parity import (Forms, ProjectionMats, banded_apply, pfwd, pinv,
                      solve_factor)
 from .transeq_sweep import SweepBlocks, transeq_sweep_plain
@@ -84,8 +103,9 @@ STREAM_PASS, STREAM_CHUNK = 128, 128
 # and the taps
 STREAM_SMEM = 4 * (max(2 * 32 * 36, 2 * (STREAM_CHUNK + 2 * CARRY_W) * 36)
                    + 4 * (2 * CARRY_W + 1))
-# circulant to float64 rounding; the taps beyond CARRY_W, which the kernel
-# leaves out, far below float32 rounding (the compact-6 operators: 4e-14)
+# circulant to float64 rounding (the carry's z operators, the pipeline's
+# folded y); the taps beyond CARRY_W, which the carry kernel leaves out,
+# far below float32 rounding (the compact-6 operators: 4e-14)
 _CIRCULANT_TOL = _TAIL_TOL = 1e-12
 
 
@@ -120,21 +140,102 @@ def pipe_c_plain(X, Y, u, v, w, m):
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# the folded y and the kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _pipe_a_cuda(u, v, w, m):
-    p = [torch.empty_like(u) for _ in range(3)]
-    apply("pipe_a", BANDED, 1, [([m["biy"]], [u], p[0], None),
-                                ([m["bsy"]], [v], p[1], None),
-                                ([m["biy"]], [w], p[2], None)])
-    z1, z23 = torch.empty_like(u), torch.empty_like(u)
-    apply("pipe_a", PFWD, 2, [([m["iz"]], [p[0]], z1, None),
-                              ([m["sz"], m["iz"]], [p[2], p[1]], z23, None)])
-    # p1 and p2 are dead: a and e take their buffers
-    apply("pipe_a", PFWD, 1, [([m["ty"]], [z1], p[0], None),
-                              ([m["ty"]], [z23], p[1], None)])
-    return p[0], p[1]
+def _circulant_halves(M):
+    """(C11 + C12, C11 - C12) of a circulant (n, n) C in halves; raises
+    ValueError where C is not circulant within _CIRCULANT_TOL of its
+    largest entry."""
+    n = M.shape[0]
+    circ = np.stack([np.roll(M[0], i) for i in range(n)])
+    if M.shape != (n, n) or n % 2 or np.abs(M - circ).max() > \
+            _CIRCULANT_TOL * np.abs(M).max():
+        raise ValueError("the pipeline folds circulant y operators into its "
+                         "y transforms (a periodic uniform y axis)")
+    h = n // 2
+    return M[:h, :h] + M[:h, h:], M[:h, :h] - M[:h, h:]
+
+
+def fold_y(pm: ProjectionMats) -> dict:
+    """The y operators folded into the parity y transforms, float64, made
+    once per operator set from its masters ty = [Me; Mo], tyi = [Me; Mo]
+    and the y axis' whole operators (pm.y64): tyI, tyS = [Me (C11 + C12);
+    Mo (C11 - C12)] of Ty C for C = Iy, Sy (forward parity stacks); giT,
+    gsT = [(C11 + C12) Me; (C11 - C12) Mo] of C Tyi for C = Giy, Gsy
+    (inverse). Raises ValueError where the set has no parity y transforms
+    and whole y operators, or a y operator is not circulant."""
+    if "y" not in pm._fold:
+        if pm.forms.y != "parity" or pm.y64 is None:
+            raise ValueError(f"the pipeline folds the banded y into the "
+                             f"parity y transforms; the operator set's y "
+                             f"form is {pm.forms.y}")
+        ty, tyi = pm.m64["ty"], pm.m64["tyi"]
+        h = ty.shape[0] // 2
+
+        def fwd(C):
+            p, m = _circulant_halves(C)
+            return np.concatenate([ty[:h] @ p, ty[h:] @ m])
+
+        def inv(C):
+            p, m = _circulant_halves(C)
+            return np.concatenate([p @ tyi[:h], m @ tyi[h:]])
+
+        y = pm.y64
+        pm._fold["y"] = {"tyI": fwd(y["iy"]), "tyS": fwd(y["sy"]),
+                         "giT": inv(y["giy"]), "gsT": inv(y["gsy"])}
+    return pm._fold["y"]
+
+
+def tc_ops(pm: ProjectionMats, device) -> dict:
+    """Stages A and C's operators split and packed for the tensor-core
+    kernel (x_apply_manual.pack, from their float32 values), made once per
+    operator set and device: the parity z transforms iz, sz (forward),
+    gzi, gzs (inverse), and the folded y (fold_y)."""
+    key = ("packed", str(device))
+    if key not in pm._fold:
+        m, y = pm.m64, fold_y(pm)
+        pm._fold[key] = {
+            k: xm.pack(M, xm.FWD if k in ("iz", "sz", "tyI", "tyS")
+                       else xm.INV, device)
+            for k, M in (("iz", m["iz"]), ("sz", m["sz"]), ("gzi", m["gzi"]),
+                         ("gzs", m["gzs"]), *y.items())}
+    return pm._fold[key]
+
+
+# the launches of stages A and C, each on the packed operators of tc_ops
+
+def pipe_a_z(u, v, w, op):
+    """Stage A's z launch: (Iz u, Iz v, Sz w)."""
+    return xm.launch_jobs("pipe_a", 2, [([op["iz"]], [u], None, None),
+                                        ([op["iz"]], [v], None, None),
+                                        ([op["sz"]], [w], None, None)])
+
+
+def pipe_a_y(z1, z2, z3, op):
+    """Stage A's y launch: (a, e) = (TyI z1, TyS z2 + TyI z3)."""
+    return xm.launch_jobs("pipe_a", 1, [
+        ([op["tyI"]], [z1], None, None),
+        ([op["tyS"], op["tyI"]], [z2, z3], None, None)])
+
+
+def pipe_c_z(X, Y, op):
+    """Stage C's z launch: (px, dzy, pzy) = (Gzi X, Gzs Y, Gzi Y)."""
+    return xm.launch_jobs("pipe_c", 2, [([op["gzi"]], [X], None, None),
+                                        ([op["gzs"]], [Y], None, None),
+                                        ([op["gzi"]], [Y], None, None)])
+
+
+def pipe_c_y(px, dzy, pzy, u, v, w, op):
+    """Stage C's y launch: (u - GiT px, v - GsT pzy, w - GiT dzy)."""
+    return xm.launch_jobs("pipe_c", 1, [([op["giT"]], [px], None, u),
+                                        ([op["gsT"]], [pzy], None, v),
+                                        ([op["giT"]], [dzy], None, w)])
+
+
+def _pipe_a_cuda(u, v, w, pm):
+    op = tc_ops(pm, u.device)
+    return tuple(pipe_a_y(*pipe_a_z(u, v, w, op), op))
 
 
 def _pipe_b_cuda(a, e, m):
@@ -147,27 +248,16 @@ def _pipe_b_cuda(a, e, m):
     return X, Y
 
 
-def _pipe_c_cuda(X, Y, u, v, w, m):
-    px, dzy, pzy = (torch.empty_like(X) for _ in range(3))
-    apply("pipe_c", PINV, 2, [([m["gzi"]], [X], px, None),
-                              ([m["gzs"]], [Y], dzy, None),
-                              ([m["gzi"]], [Y], pzy, None)])
-    gx, gz, gy = (torch.empty_like(X) for _ in range(3))
-    apply("pipe_c", PINV, 1, [([m["tyi"]], [px], gx, None),
-                              ([m["tyi"]], [dzy], gz, None),
-                              ([m["tyi"]], [pzy], gy, None)])
-    un, vn, wn = (torch.empty_like(u) for _ in range(3))
-    apply("pipe_c", BANDED, 1, [([m["bgiy"]], [gx], un, u),
-                                ([m["bgsy"]], [gy], vn, v),
-                                ([m["bgiy"]], [gz], wn, w)], epi=SUB)
-    return un, vn, wn
+def _pipe_c_cuda(X, Y, u, v, w, pm):
+    op = tc_ops(pm, X.device)
+    return tuple(pipe_c_y(*pipe_c_z(X, Y, op), u, v, w, op))
 
 
 def pipe_a(u, v, w, pm: ProjectionMats):
     """Stage A: (u, v, w) -> (a, e). CUDA tensors launch the kernel (or
     raise); CPU tensors run the plain version."""
     if route(u, "pipe_a"):
-        return _pipe_a_cuda(u, v, w, pm.mats(torch.float32))
+        return _pipe_a_cuda(u, v, w, pm)
     return pipe_a_plain(u, v, w, pm.mats(u.dtype))
 
 
@@ -181,7 +271,7 @@ def pipe_b(a, e, pm: ProjectionMats):
 def pipe_c(X, Y, u, v, w, pm: ProjectionMats):
     """Stage C: (X, Y, u, v, w) -> the corrected (u', v', w')."""
     if route(X, "pipe_c"):
-        return _pipe_c_cuda(X, Y, u, v, w, pm.mats(torch.float32))
+        return _pipe_c_cuda(X, Y, u, v, w, pm)
     return pipe_c_plain(X, Y, u, v, w, pm.mats(X.dtype))
 
 
@@ -397,10 +487,13 @@ def make_pressure_pipe(pm: ProjectionMats):
     `pm` (parity.build_projection_mats, in the parity forms the pipeline
     takes: on the grids ``parity.pipe3_supported`` admits). Raises
     ValueError where the set has another form (a y operator wider than the
-    band: x3d2_tpu's make_pressure_pipe3 raises there too)."""
+    band: x3d2_tpu's make_pressure_pipe3 raises there too), or where its y
+    operators are not circulant (fold_y: every grid pipe3_supported admits
+    has them circulant)."""
     if pm.forms != Forms() or pm.x_perm is None:
         raise ValueError(f"the pipeline takes the banded y and the parity "
                          f"transforms, got the forms {pm.forms}")
+    fold_y(pm)
 
     def fn(u, v, w):
         a, e = pipe_a(u, v, w, pm)

@@ -1,10 +1,10 @@
-"""The x apply on the tensor cores: the wrapper of the Hopper kernel in
-``csrc/x_apply_manual.cu``, the host side of its split-TF32 operator, and
-its plain PyTorch version.
+"""Operator applies on the tensor cores: the wrapper of the Hopper kernel
+in ``csrc/x_apply_manual.cu``, the host side of its split-TF32 operator,
+and its plain PyTorch version.
 
-One kernel serves four TPU kernels of x3d2_tpu that compute the same
-functions, out = M @_x f or out = s - M @_x f (M (n_out, n_in), f (n_in,
-ny, nz)), dense or in the parity-split forms:
+One kernel serves six TPU kernels of x3d2_tpu that compute the same
+functions, out = M @_a f or out = s - M @_a f (M (n_out, n_in) applied
+along one axis a of f), dense or in the parity-split forms:
 - the dense x stage, _x_apply_kernel (pallas_poisson.py:954, call :1346):
   ``launch`` in its dense form, through ops/operator_apply.py
   ``apply_dense`` (the slab's ``x_apply``, the sharded ``XApplyOp``),
@@ -14,6 +14,12 @@ ny, nz)), dense or in the parity-split forms:
   ``launch`` in its FWD and INV forms, through ops/pressure_slab.py
   ``x_apply_parity`` (X3D2_MERGED_X=0, pressure_grads, the sharded step),
   counted as x_pfwd, x_pinv and x_pinv[sub];
+- the pipeline's stages A and C, _pipe_a_kernel (pallas_poisson.py:1378,
+  call :1619) and _pipe_c_kernel (:1455, call :1703): ``launch_jobs``
+  along z (the transposed form: the contraction along the contiguous
+  axis) and along y (batched over the x planes), two launches a stage of
+  up to three jobs, a job summing one or two sources, through
+  ops/pressure_pipe.py, counted as pipe_a and pipe_c;
 - the manual-DMA x apply, make_x_apply_manual (pallas_manual.py:62; its
   kernel :114, pl.pallas_call :200): ``make_x_apply_manual(M64, sub,
   parity, slots)`` -> fn(f[, s]), parity "fwd" or "inv" running the
@@ -31,7 +37,8 @@ hi) to TF32 (``split_tf32``, cvt.rna.tf32.f32's rounding), padded to whole
 tiles and laid out as the shared-memory image of each (part, row tile, k
 chunk) block (``block_index``); the field's split is made in registers.
 ``geometry`` computes a launch's tiles, items, grid and shared memory,
-and ``out_rows`` the output row each tile row writes (-1 where masked), in
+``item_of`` the (job, plane, column tile, row tile) of each item, and
+``out_rows`` the output row each tile row writes (-1 where masked), in
 one place for the launcher and the tests.
 ``tc_model`` is the kernel's arithmetic in numpy float32 (the three
 products of the split operands).
@@ -63,6 +70,8 @@ DENSE, FWD, INV = 0, 1, 2
 # most stages that fit in a block's shared memory, by form
 BM, KC, FBOX, MAX_S = 128, 16, 32, 8
 NTHR = 384
+# jobs a launch, sources a job (launch_jobs)
+MAX_JOBS, MAX_SRC = 3, 2
 SMEM_FIXED = 2 * 8 * MAX_S + 1024
 SMEM_MAX = 232448
 TILE_ROWS = {DENSE: 128, FWD: 64, INV: 64}
@@ -72,8 +81,8 @@ STAGE_BYTES = {f: (2 if f == FWD else 1) * (OP_BYTES[f] + BM * KC * 4)
 MAX_SLOTS = {f: min(MAX_S, (SMEM_MAX - SMEM_FIXED) // b)
              for f, b in STAGE_BYTES.items()}
 # launches of the kernel, by name (x_apply, x_apply[sub]; x_pfwd, x_pinv,
-# x_pinv[sub]; x_apply_manual, x_apply_manual[sub], [fwd], [inv],
-# [inv,sub])
+# x_pinv[sub]; pipe_a, pipe_c; x_apply_manual, x_apply_manual[sub], [fwd],
+# [inv], [inv,sub])
 _LAUNCHES: dict[str, int] = {}
 _LIB = None
 _SMS: dict[int, int] = {}
@@ -95,18 +104,18 @@ def lib():
 
         so = _build.load("x_apply_manual")
         i, p = ctypes.c_int, ctypes.c_void_p
-        so.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i,
-                                         ctypes.c_longlong, i, i, p]
-        so.x_apply_tc_launch.restype = i
+        so.x_apply_tc_launch_jobs.argtypes = [i, i, i, p, i, i,
+                                              ctypes.c_longlong, i, i, i, p]
+        so.x_apply_tc_launch_jobs.restype = i
         so.x_apply_tc_error_string.argtypes = [i]
         so.x_apply_tc_error_string.restype = ctypes.c_char_p
         so.x_apply_tc_geometry.argtypes = [ctypes.POINTER(i)]
         so.x_apply_tc_geometry.restype = i
-        geo = (i * 16)()
+        geo = (i * 18)()
         so.x_apply_tc_geometry(geo)
         want = (BM, KC, FBOX, MAX_S, NTHR, SMEM_FIXED, SMEM_MAX) + tuple(
             t[f] for t in (TILE_ROWS, OP_BYTES, STAGE_BYTES)
-            for f in (DENSE, FWD, INV))
+            for f in (DENSE, FWD, INV)) + (MAX_JOBS, MAX_SRC)
         if tuple(geo) != want:
             raise RuntimeError(f"x_apply_manual.cu geometry {tuple(geo)} "
                                f"differs from the wrapper's {want}")
@@ -202,20 +211,26 @@ def pack(M, form=DENSE, device=None):
                      torch.as_tensor(out, device=dev).contiguous())
 
 
-def a_columns():
-    """The plane column (0 .. BM - 1 of the item's tile) that each
-    consumer thread's A rows hold, as the kernel assigns them: (256, 2),
-    [t, h] the column of wgmma row gid + 8 h of thread t's warp (gid = (t &
-    31) >> 2): warpgroup t >> 7 takes the field boxes 2 (t >> 7) and 2 (t
-    >> 7) + 1, warp w = (t >> 5) & 3 of it 16 columns of box 2 (t >> 7) + (w
-    >> 1), the column 4 a + (gid & 3) of the box with a = 2 (w & 1) + h + 4
-    (gid >> 2); in the box's 128-byte swizzled rows the 32 lanes of each
-    fragment load then read 32 banks. The sums are stored to the same
-    columns."""
+def a_columns(lines=False):
+    """The plane column (0 .. BM - 1 of the item's tile; lines=True: the
+    line of the z layout's item) that each consumer thread's A rows hold,
+    as the kernel assigns them: (256, 2), [t, h] the column of wgmma row
+    gid + 8 h of thread t's warp (gid = (t & 31) >> 2): warpgroup t >> 7
+    takes the field boxes 2 (t >> 7) and 2 (t >> 7) + 1, warp w = (t >> 5)
+    & 3 of it 16 columns of box 2 (t >> 7) + (w >> 1). In the x and y
+    layouts the column 4 a + (gid & 3) of the box with a = 2 (w & 1) + h +
+    4 (gid >> 2): in the box's 128-byte swizzled rows the 32 lanes of each
+    fragment load then read 32 banks. In the z layout the box's line 16 (w
+    & 1) + gid + 8 h: wgmma's own row order, whose 8 lines a fragment load
+    meet 8 distinct 16-byte bank groups in the 64-byte swizzled lines. The
+    sums are stored to the same columns (lines)."""
     t = np.arange(256)
     gid, w = (t & 31) >> 2, (t >> 5) & 3
     box = 2 * (t >> 7) + w // 2
-    a = (2 * (w & 1) + 4 * (gid >> 2))[:, None] + np.arange(2)[None, :]
+    h = np.arange(2)[None, :]
+    if lines:
+        return box[:, None] * FBOX + (16 * (w & 1) + gid)[:, None] + 8 * h
+    a = (2 * (w & 1) + 4 * (gid >> 2))[:, None] + h
     return box[:, None] * FBOX + 4 * a + (gid & 3)[:, None]
 
 
@@ -224,10 +239,12 @@ def a_columns():
 @dataclass(frozen=True)
 class Geometry:
     """One launch: form, output rows a part (rows), contraction K, plane
-    columns ncols; bn output rows of a part an item, rtiles row tiles a
-    part, ktiles k chunks (K padded to kpad), ctiles column tiles of BM,
-    nitems work items (FWD and INV: both halves an item), grid blocks,
-    smem bytes of dynamic shared memory at `slots` stages."""
+    columns ncols (the z layout: lines); bn output rows of a part an item,
+    rtiles row tiles a part, ktiles k chunks (K padded to kpad), ctiles
+    column tiles of BM a plane, nitems work items (FWD and INV: both halves
+    an item) over njobs jobs of nplanes planes, grid blocks, smem bytes of
+    dynamic shared memory at `slots` stages; lines: the z layout (the
+    contraction along the contiguous axis)."""
 
     form: int
     rows: int
@@ -242,33 +259,63 @@ class Geometry:
     grid: int
     slots: int
     smem: int
+    njobs: int = 1
+    nplanes: int = 1
+    lines: bool = False
 
 
 @functools.lru_cache(maxsize=512)
-def geometry(form, n_out, K, ncols, sms, slots=4) -> Geometry:
+def geometry(form, n_out, K, ncols, sms, slots=4, njobs=1, nplanes=1,
+             lines=False, sub=False) -> Geometry:
     """The launch geometry of an operator (n_out, K) in form `form` over
-    ncols plane columns on `sms` SMs at `slots` stages (2 to
-    MAX_SLOTS[form]: 8, FWD 7). Raises ValueError on what the kernel does
-    not take."""
+    ncols plane columns of nplanes planes (lines=True: ncols lines of the z
+    layout) for njobs jobs on `sms` SMs at `slots` stages (2 to
+    MAX_SLOTS[form]: 8, FWD 7); sub: with the subtraction (DENSE and INV
+    in the x and y layouts). Raises ValueError on what the kernel does not
+    take."""
     if form not in (DENSE, FWD, INV):
         raise ValueError(f"no form {form}")
     if n_out < 1 or K < 1 or (form != DENSE and n_out % 2):
         raise ValueError(f"operator ({n_out}, {K}) does not fit form {form}")
-    if ncols < 4 or ncols % 4:
-        raise ValueError(f"the kernel takes ny * nz a multiple of 4, got "
-                         f"{ncols}")
+    if not 1 <= njobs <= MAX_JOBS or nplanes < 1 or (lines and nplanes != 1):
+        raise ValueError(f"1 to {MAX_JOBS} jobs a launch, planes only along "
+                         f"x and y: got {njobs} jobs of {nplanes} planes")
+    if lines:
+        # the field's lines and the output's in whole 16-byte rows of the
+        # tensor map, the output's pairs of rows whole
+        if form == DENSE or K % 2 or (n_out // 2) % 2 or ncols < 1 or sub:
+            raise ValueError(f"the z layout takes the parity forms with K "
+                             f"and the half even and no subtraction, got "
+                             f"form {form}, ({n_out}, {K}), sub={sub}")
+    elif ncols < 4 or ncols % 4:
+        raise ValueError(f"the kernel takes plane columns in a multiple of "
+                         f"4, got {ncols}")
+    if sub and form == FWD:
+        raise ValueError("the subtraction is an inverse-stage fusion")
     if not 2 <= slots <= MAX_SLOTS[form]:
         raise ValueError(f"form {form} takes 2 to {MAX_SLOTS[form]} stages "
                          f"({STAGE_BYTES[form]} bytes each), got {slots}")
     rows = n_out if form == DENSE else n_out // 2
     bn = TILE_ROWS[form]
     rtiles, ktiles, ctiles = -(-rows // bn), -(-K // KC), -(-ncols // BM)
-    nitems = ctiles * rtiles
+    nitems = njobs * nplanes * ctiles * rtiles
     if nitems >= 2 ** 31:
         raise ValueError(f"{nitems} items past the kernel's count")
     return Geometry(form, rows, K, ncols, bn, rtiles, ktiles, ktiles * KC,
                     ctiles, nitems, min(sms, nitems), slots,
-                    slots * STAGE_BYTES[form] + SMEM_FIXED)
+                    slots * STAGE_BYTES[form] + SMEM_FIXED, njobs, nplanes,
+                    lines)
+
+
+def item_of(geo: Geometry, it):
+    """(job, plane, column tile, row tile) of item `it` (an int or an
+    array), as the kernel walks them: the row tile fastest, then the
+    column tile, the plane, the job."""
+    per_job = geo.nplanes * geo.ctiles * geo.rtiles
+    job, r = np.divmod(it, per_job)
+    r, rt = np.divmod(r, geo.rtiles)
+    plane, ct = np.divmod(r, geo.ctiles)
+    return job, plane, ct, rt
 
 
 def out_rows(geo: Geometry):
@@ -316,6 +363,9 @@ def tc_model(M, f, s=None, parity=None):
 # -- the launch --------------------------------------------------------------
 
 def _check(t, name, dev):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the x-apply kernel runs on CUDA tensors, "
+                         f"got {t.device}")
     if t.device != dev or t.dtype != torch.float32 \
             or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel takes a contiguous, 16-byte "
@@ -331,55 +381,124 @@ def _sm_count(dev):
     return _SMS[idx]
 
 
+def _overlap(a, b):
+    return a.data_ptr() < b.data_ptr() + 4 * b.numel() \
+        and b.data_ptr() < a.data_ptr() + 4 * a.numel()
+
+
 def launch(stage, op: XOperator, f, s=None, out=None, slots=4):
     """One launch on CUDA tensors, counted as `stage`: out = M f (or s - M
-    f; FWD and INV the parity forms) with op the packed operator (pack).
-    f (n_in, ny, nz): n_in = K (DENSE) or 2 K; out and s (n_out, ny, nz);
-    out made here unless given, never overlapping f. Raises on what the
-    kernel does not take (shapes, an aliased output, then devices and
-    types), and when the launch fails."""
-    if not isinstance(op, XOperator):
+    f; FWD and INV the parity forms) along x, with op the packed operator
+    (pack). f (n_in, ny, nz): n_in = K (DENSE) or 2 K; out and s (n_out,
+    ny, nz); out made here unless given, never overlapping f. Raises on
+    what the kernel does not take (shapes, an aliased output, then devices
+    and types), and when the launch fails."""
+    return launch_jobs(stage, 0, [([op], [f], out, s)], slots)[0]
+
+
+def launch_jobs(stage, axis, jobs, slots=4):
+    """One launch on CUDA tensors, counted as `stage`, of up to MAX_JOBS
+    jobs along `axis` of (nx, ny, nz) fields: a job (ops, fields, out, s)
+    sums the applies of its 1 to MAX_SRC sources, the packed operators
+    `ops` (pack; one form and size a launch) along the axis of `fields`,
+    into out, or subtracts the sum from s (the INV and DENSE forms along x
+    and y; all jobs or none). Along x one plane of ny nz columns, along y nx planes of nz
+    columns, along z (the parity forms) nx ny lines; n_in = K (DENSE) or 2
+    K along the axis, out and s n_out along it. The sources of a job sum
+    in one chain of k chunks, the first source's first. out made here
+    where None, overlapping no field and no other output. Returns the
+    outputs. Raises on what the kernel does not take (shapes, an aliased
+    output, then devices and types), and when the launch fails."""
+    if not 1 <= len(jobs) <= MAX_JOBS:
+        raise ValueError(f"1 to {MAX_JOBS} jobs a launch and 1 to "
+                         f"{MAX_SRC} (operator, field) sources a job")
+    op0 = jobs[0][0][0] if jobs[0][0] else None
+    if not isinstance(op0, XOperator):
         raise TypeError("the kernel takes the packed operator (pack)")
-    if op.form == FWD and s is not None:
-        raise ValueError("the subtraction is an inverse-stage fusion")
-    n_in, ny, nz = f.shape
-    want = (op.n_out, ny, nz)
-    if n_in != (op.K if op.form == DENSE else 2 * op.K) \
-            or any(t is not None and tuple(t.shape) != want
-                   for t in (s, out)):
-        raise ValueError(f"operator ({op.n_out}, {op.K}) of form {op.form} "
-                         f"does not fit the field {tuple(f.shape)} and the "
-                         f"output {want}")
-    if out is not None and out.data_ptr() < f.data_ptr() + 4 * f.numel() \
-            and f.data_ptr() < out.data_ptr() + 4 * out.numel():
-        raise ValueError("the output may not alias the field")
-    dev = f.device
-    if not f.is_cuda:
-        raise ValueError(f"the x-apply kernel runs on CUDA tensors, got "
-                         f"{dev}")
-    if out is None:
-        out = torch.empty(want, dtype=f.dtype, device=dev)
-    for t, name in ((op.packed, "packed operator"), (f, "field"),
-                    (out, "output"), (s, "s")):
-        if t is not None:
-            _check(t, name, dev)
-    geo = geometry(op.form, op.n_out, op.K, ny * nz, _sm_count(dev), slots)
+    form, n_out, K = op0.form, op0.n_out, op0.K
+    sub = jobs[0][3] is not None
+    shape = jobs[0][1][0].shape
+    want = list(shape)
+    want[axis] = n_out
+    want = tuple(want)
+    fit = len(shape) == 3 and shape[axis] == (K if form == DENSE else 2 * K)
+    fields, given = [], []
+    for ops, fs, out, s in jobs:
+        for op in ops:
+            if not isinstance(op, XOperator):
+                raise TypeError("the kernel takes the packed operator (pack)")
+        if form == FWD and s is not None:
+            raise ValueError("the subtraction is an inverse-stage fusion")
+        if not 1 <= len(ops) == len(fs) <= MAX_SRC:
+            raise ValueError(f"1 to {MAX_JOBS} jobs a launch and 1 to "
+                             f"{MAX_SRC} (operator, field) sources a job")
+        for op in ops:
+            if op.form != form or op.n_out != n_out or op.K != K:
+                raise ValueError("the operators of a launch take one form "
+                                 "and size")
+        if (s is not None) != sub:
+            raise ValueError("the subtraction takes all jobs of a launch or "
+                             "none")
+        if axis == 2 and s is not None:
+            raise ValueError("the z layout takes no subtraction")
+        for f in fs:
+            fit = fit and f.shape == shape
+        for t in (out, s):
+            fit = fit and (t is None or t.shape == want)
+        fields += fs
+        if out is not None:
+            given.append(out)
+    if not fit:
+        raise ValueError(f"operator ({n_out}, {K}) of form {form} does not "
+                         f"fit the field {tuple(shape)} and the output {want} "
+                         f"along axis {axis}")
+    for i, o in enumerate(given):
+        if any(_overlap(o, t) for t in fields + given[:i]):
+            raise ValueError("the output may not alias the field or another "
+                             "output")
+    dev = fields[0].device
+    outs, ptrs = [], []
+    pad = [None] * MAX_SRC
+    for ops, fs, out, s in jobs:
+        if out is None:
+            out = torch.empty(want, dtype=fields[0].dtype, device=dev)
+        outs.append(out)
+        for op in ops:
+            _check(op.packed, "packed operator", dev)
+        for f in fs:
+            _check(f, "field", dev)
+        _check(out, "output", dev)
+        if s is not None:
+            _check(s, "s", dev)
+        n = MAX_SRC - len(ops)
+        ptrs += [op.packed.data_ptr() for op in ops] + pad[:n] \
+            + [f.data_ptr() for f in fs] + pad[:n] \
+            + [None if s is None else s.data_ptr(), out.data_ptr()]
+    nx, ny, nz = shape
+    ncols, nplanes = ((ny * nz, 1), (nz, nx), (nx * ny, 1))[axis]
+    geo = geometry(form, n_out, K, ncols, _sm_count(dev), slots, len(jobs),
+                   nplanes, axis == 2, sub)
+    _launch(stage, geo, dev, ptrs)
+    return outs
+
+
+def _launch(stage, geo: Geometry, dev, ptrs):
+    """The launch itself, its error check and its count."""
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     # the raw handle: a Stream object costs the host several µs a launch
-    args = (op.form, op.packed.data_ptr(), f.data_ptr(),
-            s.data_ptr() if s is not None else None, out.data_ptr(),
-            geo.rows, op.K, geo.ncols, slots, geo.grid,
+    args = (geo.form, int(geo.lines), geo.njobs,
+            (ctypes.c_void_p * len(ptrs))(*ptrs), geo.rows, geo.K,
+            geo.ncols, geo.nplanes, geo.slots, geo.grid,
             torch._C._cuda_getCurrentRawStream(idx))
     if idx == torch.cuda.current_device():
-        err = lib().x_apply_tc_launch(*args)
+        err = lib().x_apply_tc_launch_jobs(*args)
     else:
         with torch.cuda.device(dev):
-            err = lib().x_apply_tc_launch(*args)
+            err = lib().x_apply_tc_launch_jobs(*args)
     if err != 0:
         msg = lib().x_apply_tc_error_string(err).decode()
         raise RuntimeError(f"x-apply kernel launch failed: {msg} ({err})")
     _LAUNCHES[stage] = _LAUNCHES.get(stage, 0) + 1
-    return out
 
 
 def x_apply_manual(M, f, s=None, parity=None, slots=4, packed=None):

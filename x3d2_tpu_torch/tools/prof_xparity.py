@@ -26,10 +26,14 @@ max |plain f64|: the split-TF32 limit) and two launches and S = 2, 3, 4,
 x_apply_manual.cu is built too and its launches of the same parity
 forms, and of the dense form on four dense operators (512 and 128
 square, 513 -> 512, 512 -> 513), are held bit for bit against this
-checkout's and timed in turns (ref, this, this, ref); its launch is typed
-from its source's declaration (this checkout's arguments, or those and
-two launch choices before the stream, given as 0: the operator streamed,
-128-column items), and any other declaration is refused. Prints one JSON
+checkout's and timed in turns (ref, this, this, ref), with the host's
+µs a call of its launch from Python through ctypes ("ref_host_us": DIR
+this checkout's csrc gives the C entry's part of "host_us"); it is launched
+through its x_apply_tc_launch_jobs where it declares this checkout's,
+else through the one-job x_apply_tc_launch of the builds before the
+jobs entry (ONE_JOB's arguments, or those and two launch choices before
+the stream, given as 0: the operator streamed, 128-column items), and
+any other declaration is refused. Prints one JSON
 line (the card's name and power limit beside the numbers) and exits 1
 where a check fails, 2 without a card.
 """
@@ -136,51 +140,78 @@ def x_mats(nx, dev):
     return pm
 
 
-def launch_args(src):
-    """The argument names of x_apply_tc_launch in the source `src`."""
-    decl = re.search(rb"int x_apply_tc_launch\(([^)]*)\)", src.read_bytes())
+def launch_args(src, name):
+    """The argument names of the C function `name` in the source `src`."""
+    decl = re.search(rb"int " + name.encode() + rb"\(([^)]*)\)",
+                     src.read_bytes())
     return [a.split()[-1].lstrip(b"*") for a in decl.group(1).split(b",")] \
         if decl else []
 
 
+# the one-job launch of the builds before the jobs entry (the earliest of
+# them took the launch choices res and narrow before the stream, given as
+# 0)
+ONE_JOB = [b"form", b"op", b"f", b"s", b"out", b"rows", b"K", b"ncols",
+           b"slots", b"grid", b"stream"]
+
+
 def ref_lib(ref):
-    """(DIR's x_apply_manual library, the arguments its launch takes
-    between the grid and the stream): its launch typed from the source's
-    declaration of x_apply_tc_launch, this checkout's arguments or those
-    with the launch choices res and narrow before the stream (given as
-    0)."""
+    """(DIR's x_apply_manual library, how to launch it): its
+    x_apply_tc_launch_jobs where the source declares it as this checkout
+    does ("jobs"), else its one-job x_apply_tc_launch (ONE_JOB, or with
+    res and narrow before the stream: the extra arguments, 0)."""
     from pathlib import Path
 
     from x3d2_tpu_torch.tools.template_bits import build
 
     src = Path(ref) / "x3d2_tpu_torch" / "csrc" / "x_apply_manual.cu"
-    names = launch_args(src)
+    jobs = launch_args(src, "x_apply_tc_launch_jobs")
+    names = launch_args(src, "x_apply_tc_launch")
     own = launch_args(Path(__file__).resolve().parents[1] / "csrc"
-                      / "x_apply_manual.cu")
-    if names == own:
-        extra = ()
-    elif names == own[:-1] + [b"res", b"narrow", own[-1]]:
-        extra = (0, 0)
+                      / "x_apply_manual.cu", "x_apply_tc_launch_jobs")
+    if jobs and jobs == own:
+        how = "jobs"
+    elif names == ONE_JOB:
+        how = ()
+    elif names == ONE_JOB[:-1] + [b"res", b"narrow", b"stream"]:
+        how = (0, 0)
     else:
-        raise RuntimeError(f"{src}: x_apply_tc_launch takes {names}, not "
-                           f"{own} (with or without res, narrow)")
+        raise RuntimeError(f"{src}: declares x_apply_tc_launch_jobs{jobs} "
+                           f"and x_apply_tc_launch{names}, not this "
+                           f"checkout's x_apply_tc_launch_jobs{own} nor "
+                           f"x_apply_tc_launch{ONE_JOB} (with or without "
+                           f"res, narrow)")
     lib, _ = build(src, "ref_x_apply_manual")
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i, ctypes.c_longlong,
-                                      i, i] + [i] * len(extra) + [p]
-    lib.x_apply_tc_launch.restype = i
-    return lib, extra
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    if how == "jobs":
+        lib.x_apply_tc_launch_jobs.argtypes = [i, i, i, p, i, i, ll, i, i,
+                                               i, p]
+        lib.x_apply_tc_launch_jobs.restype = i
+    else:
+        lib.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i, ll, i,
+                                          i] + [i] * len(how) + [p]
+        lib.x_apply_tc_launch.restype = i
+    return lib, how
 
 
 def ref_launch(ref, op, f, s, sms):
     """out = the reference library's launch (S = 4) of packed op on f."""
-    lib, extra = ref
+    lib, how = ref
     out = torch.empty((op.n_out,) + tuple(f.shape[1:]), device=f.device)
-    err = lib.x_apply_tc_launch(
-        op.form, op.packed.data_ptr(), f.data_ptr(),
-        s.data_ptr() if s is not None else None, out.data_ptr(), op.rows,
-        op.K, f.shape[1] * f.shape[2], 4, sms, *extra,
-        torch.cuda.current_stream().cuda_stream)
+    sp = s.data_ptr() if s is not None else None
+    ncols = f.shape[1] * f.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    if how == "jobs":
+        ptrs = (ctypes.c_void_p * (2 * xm.MAX_SRC + 2))(
+            op.packed.data_ptr(), *[None] * (xm.MAX_SRC - 1), f.data_ptr(),
+            *[None] * (xm.MAX_SRC - 1), sp, out.data_ptr())
+        err = lib.x_apply_tc_launch_jobs(op.form, 0, 1, ptrs, op.rows, op.K,
+                                         ncols, 1, 4, sms, stream)
+    else:
+        err = lib.x_apply_tc_launch(op.form, op.packed.data_ptr(),
+                                    f.data_ptr(), sp, out.data_ptr(),
+                                    op.rows, op.K, ncols, 4, sms, *how,
+                                    stream)
     if err:
         raise RuntimeError(f"reference launch failed ({err})")
     return out
@@ -279,6 +310,8 @@ def main(argv=None):
                 t.append(device_ms(lambda: ref_launch(ref, op, f, s_, sms),
                                    args.iters))
                 entry["turns_ref_this_this_ref"] = t
+                entry["ref_host_us"] = host_us(
+                    lambda: ref_launch(ref, op, f, s_, sms), args.iters)
             out[f"{stage}@{label}"] = entry
             print(f"[{stage} {label}] " + json.dumps(entry), flush=True)
             del dense
