@@ -7,14 +7,16 @@ Phases, each printing its own lines; any failed check exits non-zero:
 
 1. Device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and asserts full-float32 matmuls (TF32 off).
-2. Build: compiles every kernel source (csrc/transeq_sweep.cu and
-   csrc/transeq_sweep_w32.cu, the sweep and species kernels of
+2. Build: compiles every kernel source (csrc/transeq_sweep.cu,
+   csrc/transeq_sweep_tc.cu and csrc/transeq_sweep_w32.cu, the sweep and
+   species kernels of
    csrc/transeq_sweep.cuh at W = 16 and at the HIGHEST mode's W = 32, both
    with the bfloat16 instances, csrc/pressure_pipe.cu, csrc/pipe_c_d2.cu,
    csrc/transeq_dense.cu, csrc/pressure_mid_tiled.cu and
    csrc/x_apply_manual.cu) with nvcc for sm_90a, one nvcc per source, all
    started together; prints each instance's registers and spills (the
-   sweeps' halo forms named so; the template's instances
+   sweeps' halo forms named so; the tensor-core momentum sweep
+   transeq_sweep_tc_kernel<AXIS, NOLDS, BASE_SEP>; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
    ones, 1 the general ones; the split-TF32 x-apply kernel
    x_apply_tc_kernel<FORM, SUB, LINES> (LINES: the z layout of pipe3's
@@ -25,6 +27,15 @@ Phases, each printing its own lines; any failed check exits non-zero:
    card.
 3. Kernel vs plain, float32, on the card, at every size a driven path
    gives the kernel (another size is another grid and tile count).
+   Every W = 16 momentum sweep of a periodic axis but the xdiv sweep and
+   the halo form runs the tensor-core body of csrc/transeq_sweep.cuh
+   (split-TF32 wgmma over each 16-row slice's band; ts.tc_route): its
+   row's bound is the split-TF32 one (max(bytes / 3.35 TB/s, 3 x the band
+   taps' operations / 495 TFLOP/s)), the FP32 one printed beside it, a
+   time below the bound a failure; it is held as every sweep is (1e-5 of
+   plain f32, 3e-5 * scale of plain f64), not to plain f32's bits. Every
+   counted path (phases 4-8) checks that each of those launches ran the
+   tensor-core body (ts.tc_launch_counts).
    Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
    driven HIGHEST path gives it is held to 5e-7 * scale of plain f64, the
    bound of x3d2_tpu's HIGHEST kernels (tests/test_pallas_v3.py:114); the
@@ -493,6 +504,10 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 SWEEP_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep.cu"
+# the tensor-core momentum sweeps (csrc/transeq_sweep.cuh's
+# transeq_sweep_tc_kernel): every W = 16 sweep of a periodic axis but the
+# xdiv sweep and the halo form
+SWEEP_TC_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep_tc.cu"
 # the W = 32 instances (X3D2_MATMUL_PRECISION=highest); both sources hold
 # the kernels of csrc/transeq_sweep.cuh at one block geometry each
 SWEEP32_SOURCE = "x3d2_tpu_torch/csrc/transeq_sweep_w32.cu"
@@ -1190,10 +1205,12 @@ def main():
           "float32 matmul precision must be 'highest'")
 
     # ---- 2. build -------------------------------------------------------
-    libs = _build.build_all(["transeq_sweep", "transeq_sweep_w32",
-                             "pressure_pipe", "pipe_c_d2", "transeq_dense",
+    libs = _build.build_all(["transeq_sweep", "transeq_sweep_tc",
+                             "transeq_sweep_w32", "pressure_pipe",
+                             "pipe_c_d2", "transeq_dense",
                              "pressure_mid_tiled", "x_apply_manual"])
     ts._lib(16)
+    ts._tc_lib()
     ts._lib(32)
     oa.lib()
     pp._carry_lib()
@@ -1207,7 +1224,8 @@ def main():
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             # ptxas names each instance by its mangled name and template
             # arguments: transeq_sweep_kernel<BS, W, AXIS, ACC, NOLDS, UPD,
-            # BASE_SEP, PREC>, transeq_xdiv_kernel<BS, W, NOLDS, PREC>
+            # BASE_SEP, PREC>, transeq_sweep_tc_kernel<AXIS, NOLDS,
+            # BASE_SEP>, transeq_xdiv_kernel<BS, W, NOLDS, PREC>
             # (PREC: 1 a bfloat16 history, 2 bfloat16 partials),
             # species_sweep_kernel<BS, W, AXIS, ACC>, mat_apply_kernel<MODE,
             # TRANS, EPI, TWO, TAIL> (TAIL 0: the 128-tiled instances, 1:
@@ -1369,9 +1387,9 @@ def main():
                 del p32
                 p32 = None
             p64 = fold(flat(plain(*to64(pargs))))[0]
-            if tc:
+            if tc and p32 is not None:
                 # the split-TF32 kernel's distance to float64 beside plain
-                # float32's own
+                # float32's own (not where a cut dropped plain float32's)
                 tail_txt = (f"  plain32 vs plain64 rel "
                             f"{rel_err(p32, p64)[1]:.2e}")
             if tail64 is None:
@@ -1467,6 +1485,9 @@ def main():
 
             upd, sep = dtc is not None, base is not None
             w32 = blocks.w != ts.W
+            # the tensor-core body (every W = 16 sweep but xdiv): its bound
+            # the split-TF32 one, the FP32 one beside it
+            tc = ts.tc_route(blocks, xm)
             hold(f"sweep {label}{' w32' if w32 else ''}", n, kern, plain,
                  (u, v, w, a, o, base),
                  ts.variant_name(axis, a is not None, nolds, xm is not None,
@@ -1476,10 +1497,11 @@ def main():
                             xm is not None, upd, sep, ob, ab),
                  again=xm is not None,
                  fold=sweep_fold(dtc, xm, upd, ob, ab),
-                 source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
+                 source=(SWEEP32_SOURCE if w32 else SWEEP_TC_SOURCE if tc
+                         else SWEEP_SOURCE),
                  lim64=5e-7 if w32 else 3e-5,
                  tail64=(3, 3e-5) if w32 and xm is not None else None,
-                 cut=cut)
+                 cut=cut, tc=tc)
 
     def bf16_variants(randn, xm=None):
         """The reduced-precision sweeps of the fused AB chain (paths H, HP
@@ -2568,12 +2590,15 @@ def main():
 
                 name = ts.variant_name(axis, a is not None, 0, w=w,
                                        halo=ext is not None)
+                # the unsharded axis' W = 16 sweep: the tensor-core body
+                tc = ts.tc_route(blocks, halo=ext is not None)
                 hold(f"sweep {name[14:-1]} {gdims} on {mesh_s}", lab, kern,
                      plain, (u, v, w_, a, ext), name,
                      REPLACES["halo" if ext else axis],
                      sweep_cost(local, a is not None, 0, w, ext=frac),
-                     source=SWEEP32_SOURCE if w32 else SWEEP_SOURCE,
-                     lim64=5e-7 if w32 else 3e-5)
+                     source=(SWEEP32_SOURCE if w32 else SWEEP_TC_SOURCE if tc
+                             else SWEEP_SOURCE),
+                     lim64=5e-7 if w32 else 3e-5, tc=tc)
                 if not scalars:
                     continue
                 phis = (randn_g(), randn_g())
@@ -2912,6 +2937,14 @@ def main():
         torch.cuda.synchronize()
         counts = counts_now()
         print(f"[{tag}] launches {counts}", flush=True)
+        # the W = 16 sweeps (but xdiv and the halo form) ran the
+        # tensor-core body, every launch
+        tc_want = {k: v for k, v in counts.items() if ts.tc_variant(k)}
+        tc_got = ts.tc_launch_counts()
+        if tc_want:
+            print(f"[{tag}] tensor-core sweep launches {tc_got}", flush=True)
+        check(tc_got == tc_want, f"{tag}: tensor-core sweep launches "
+                                 f"{tc_got}, expected {tc_want}")
         calls = Counter({name: steps * k
                          for name, k in Counter(per_step).items()})
         calls.update(per_run)

@@ -1,12 +1,15 @@
 // Directional transport sweeps for Hopper (sm_90a), behind a plain C
 // interface: the momentum sweep with accumulate and a fused time-update
-// epilogue (Adams-Bashforth or a Runge-Kutta substage), its xdiv variant,
-// and the passive-scalar (species) sweep. This header holds the kernels,
+// epilogue (Adams-Bashforth or a Runge-Kutta substage), in two bodies (a
+// tensor-core one and a SIMT one, see below), its xdiv variant, and the
+// passive-scalar (species) sweep. This header holds the kernels,
 // templated on the block geometry (BS output points per block, band
 // half-width W); each geometry is its own translation unit and library,
 // so nvcc builds them in parallel:
 //   - transeq_sweep.cu      BS = 64, W = 16 (x3d2_tpu's default mode,
-//     terms = 2), with the reduced-precision (bfloat16) instances;
+//     terms = 2): the halo form, the xdiv variant (with the
+//     reduced-precision instances) and the species sweep;
+//   - transeq_sweep_tc.cu   the tensor-core momentum sweep, BS = 64, W = 16;
 //   - transeq_sweep_w32.cu  BS = 32, W = 32 (x3d2_tpu's HIGHEST mode,
 //     X3D2_MATMUL_PRECISION=highest, terms = 3: w = 32 on the non-lane
 //     axes, pallas_kernels.py:484, :747, :1131), with the same
@@ -70,8 +73,44 @@
 // each block's operators dense, not a need of the function. The species sweep
 // with 2 scalars needs 198 FMA per point and moves 5 (z) or 7 (x, y +
 // acc) field passes: 0.82 ms of operations and 1.12 ms of bytes at 512^3.
-// What the design does about it: a block stages both operator pairings of
-// its output block (147 KB at BS = 64; 74 KB at BS = 32) once and walks
+//
+// Two bodies compute the momentum sweep. The tensor-core body
+// (transeq_sweep_tc_kernel, the default mode's geometry only) serves every
+// momentum sweep of a uniform periodic axis but the xdiv variant and the
+// halo form: the z sweep (_pencil_kernel) and the x and y sweeps with
+// their accumulate and update epilogues (_transeq_kernel_v3), at every
+// precision; it refuses an operator whose slices differ (a non-periodic
+// axis, which no solver path sweeps). The SIMT body (transeq_sweep_kernel,
+// described after it) serves the HIGHEST mode's W = 32 and the halo form
+// (at W = 16 only that form is built).
+//
+// The tensor-core body. What bounds it: its split-TF32 products of the
+// band taps (3 x 297 multiply-adds a point: 0.50 ms a 512^3 sweep at the
+// 495 TFLOP/s TF32 rate) are below the bytes of every instance (0.96,
+// 1.44, 2.88 ms for z, x + acc, y + acc + AB3): bound by bytes. What its
+// design does about it: it contracts the band, not the block. Each
+// 16-row slice of an output block takes the 48 window columns of its band
+// (three chunks of 16; every row keeps its +/- W taps), half the dense
+// block's work. On a circulant operator every slice of every block has
+// the same rows over its band, so three images a pairing (TF32 hi and lo
+// of [D1; D2] and D1d rows, as wgmma reads them: 36 KB) serve a launch,
+// staged once a block, and two stages of the u, v, w windows (144 KB) fit
+// beside them: the next tile's windows arrive by cp.async straight into
+// shared memory while a tile computes. Two warpgroups take two slices
+// each; the field window is the A operand, split to TF32 in registers (hi
+// rounded to nearest, lo truncated by the tensor cores), q conv formed as
+// it loads, each chunk's fragments loaded once for both slices of a
+// warpgroup; the [D1; D2] (n32) and D1d (n16) products, three a k step
+// (lo hi, hi lo, hi hi), are issued a chunk ahead of their wait, and the
+// tensor cores sum a slice over its band into FP32 registers (3-4e-7 of
+// max |plain f64|; not plain float32's bits). The epilogue works from the
+// accumulator layout (8 outputs a thread a slice; along z pairs of
+// neighbouring rows, 8 bytes), its streams loaded as the component starts.
+// 185 KB of shared memory, 256 threads, one block an SM.
+//
+// The SIMT body (and the species sweep's). What its design does about the
+// bound: a block stages both operator pairings of its output block (147
+// KB at BS = 64; 74 KB at BS = 32) once and walks
 // many line tiles with them, so the operators cost no device-memory
 // traffic per tile. Each thread keeps an RPT-row x 2-line register tile of
 // three accumulators (RPT = BS / 8: 8 rows, 4 at BS = 32), so one k step
@@ -136,6 +175,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -1011,22 +1052,10 @@ cudaError_t dispatch_prec(int accumulate, int nolds, int upd, int base_sep,
 // tableaus' rows) on the y sweep only, which ends the RK chain; with
 // WITH_PREC the reduced-precision ones (dispatch_prec).
 template <int BS, int W, int AXIS, bool WITH_PREC>
-cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
-                          int prec, int halo, const SweepArgs& a,
-                          long long ntiles, int nb, int grid_x,
-                          cudaStream_t s) {
-  if (halo) {
-    // the halo form: the partial sweeps of the sharded axes (y, z)
-    if (AXIS == 0 || upd || nolds != 0 || base_sep || prec != 0)
-      return cudaErrorInvalidValue;
-    if constexpr (AXIS != 0) {
-      return accumulate
-                 ? launch<BS, W, AXIS, true, 0, false, false, 0, true>(
-                       a, ntiles, nb, grid_x, s)
-                 : launch<BS, W, AXIS, false, 0, false, false, 0, true>(
-                       a, ntiles, nb, grid_x, s);
-    }
-  }
+cudaError_t dispatch_momentum(int accumulate, int nolds, int upd,
+                              int base_sep, int prec, const SweepArgs& a,
+                              long long ntiles, int nb, int grid_x,
+                              cudaStream_t s) {
   if (prec != 0)
     return dispatch_prec<BS, W, AXIS, WITH_PREC>(accumulate, nolds, upd,
                                                  base_sep, prec, a, ntiles,
@@ -1068,6 +1097,33 @@ cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
   return cudaErrorInvalidValue;
 }
 
+// HALO_ONLY: the geometry's other momentum sweeps are the tensor-core
+// body's (transeq_sweep_tc.cu), and their SIMT instances are not built.
+template <int BS, int W, int AXIS, bool WITH_PREC, bool HALO_ONLY>
+cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
+                          int prec, int halo, const SweepArgs& a,
+                          long long ntiles, int nb, int grid_x,
+                          cudaStream_t s) {
+  if (halo) {
+    // the halo form: the partial sweeps of the sharded axes (y, z)
+    if (AXIS == 0 || upd || nolds != 0 || base_sep || prec != 0)
+      return cudaErrorInvalidValue;
+    if constexpr (AXIS != 0) {
+      return accumulate
+                 ? launch<BS, W, AXIS, true, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s)
+                 : launch<BS, W, AXIS, false, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s);
+    }
+  }
+  if constexpr (HALO_ONLY) {
+    return cudaErrorInvalidValue;
+  } else {
+    return dispatch_momentum<BS, W, AXIS, WITH_PREC>(
+        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
+  }
+}
+
 // The xdiv instances: 1-3 history fields at each precision built.
 template <int BS, int W, int PREC>
 cudaError_t dispatch_xdiv(int nolds, const SweepArgs& a, long long ntiles,
@@ -1106,6 +1162,615 @@ inline long long lines_of(int axis, int n0, int n1, int n2) {
                      : (long long)n0 * n1;
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core momentum sweep (BS = 64, W = 16: transeq_sweep_tc_kernel)
+// ---------------------------------------------------------------------------
+// The function of transeq_sweep_kernel (every instance of the default
+// mode's geometry but the halo form; the xdiv variant stays on its SIMT
+// kernel) as split-TF32 wgmma products (see the head of the file). The
+// contraction of one component over one line tile is, for each 16-row
+// slice s of the output block (16 rows), D^T (64 lines x 48 rows) = F^T B
+// over the slice's band: A = the field window (or q * conv) in registers,
+// split to TF32 hi / lo there; B = the slice's operator rows in shared
+// memory, K-major as they lie (x_apply_manual.cu's operand layout). A
+// chunk is 16 window columns; slice s takes chunks s .. s + 2 (every row
+// keeps its +/- W taps). On a uniform periodic axis the operators are
+// circulant, so every slice of every output block has the same rows over
+// its three chunks: three images a pairing serve the launch
+// (ops/transeq_sweep.py tc_pack; other operators take the SIMT body).
+// Each chunk's three products (lo hi, hi lo, hi hi) over its two k steps
+// of 8 are summed by the tensor cores into a chunk sum, which is added to
+// the slice's FP32 sums in registers.
+namespace tc {
+
+constexpr int TBS = 64;              // output rows a block
+constexpr int TW = 16;               // band half-width
+constexpr int TWIN = TBS + 2 * TW;   // window length, 96
+constexpr int SL = 16;               // output rows a slice
+constexpr int KC = 16;               // window columns a chunk
+constexpr int SLICE_CHUNKS = 3;      // chunks a slice
+constexpr int NTHR = 256;            // two warpgroups, two slices each
+// an image (the slices' operator rows over their chunk j, one pairing):
+// the [S1; S2] rows (32 x KC) hi then lo, then the D rows (16 x KC) hi
+// then lo, each 64-byte swizzled (x_apply_manual.py block_index); images
+// j = 0 .. 2 of the aligned pairing, then of the transverse one
+constexpr int IMG = 2 * 2 * SL * KC + 2 * SL * KC;     // floats, 1536
+constexpr int IMG_BYTES = IMG * 4;
+constexpr int NIMG = SLICE_CHUNKS;
+constexpr int OPS_BYTES = 2 * NIMG * IMG_BYTES;        // 36 KB
+constexpr int S_HI = 0, S_LO = 2 * SL * KC * 4, D_HI = 2 * S_LO,
+              D_LO = D_HI + SL * KC * 4;               // byte offsets
+constexpr int WFLOATS = TWIN * TL;                     // a window
+constexpr int STAGE_BYTES = 3 * WFLOATS * 4;           // u, v, w windows
+constexpr int STAGES = 2;
+constexpr int SMEM_ALIGN = 1024;
+constexpr int SMEM_BYTES = SMEM_ALIGN + OPS_BYTES + STAGES * STAGE_BYTES;
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory on an H100");
+
+struct TcSweepArgs {
+  const float* f[3];                 // u, v, w
+  const float* img;                  // (2 pairings, NIMG, IMG)
+  const void* acc[3];                // float, or bfloat16 (acc_bf16)
+  const void* old[3][3];             // old[j][c]; bfloat16 (olds_bf16)
+  void* out[3];
+  void* rhs[3];
+  const float* base[3];              // base_sep
+  int n0, n1, n2;
+  float nu;
+  float dtc[5];
+  int accumulate, upd, olds_bf16, acc_bf16;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a 16-byte asynchronous copy from device memory into shared memory
+__device__ __forceinline__ void cp16(uint32_t dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the operand of a k step's wgmma: N rows of an image part from shared
+// address `addr`, K-major with the 64-byte swizzle (rows of 64 bytes,
+// 8-row atoms 512 bytes apart); the next k step of 8 tf32 starts 32
+// bytes, 2 units, on (x_apply_manual.cu's b_desc)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// x = hi + lo for the A operand: hi = RNA(x) to tf32 (cvt.rna, ties away
+// from zero), lo = x - hi (exact), whose low 13 bits the tensor cores
+// ignore, truncating it to tf32: |x - hi - tf32(lo)| < 2^-10 |lo| <=
+// 2^-21 |x| (one cvt and one subtraction where a rounded lo takes two
+// more instructions, and 2^-22)
+__device__ __forceinline__ void split_a(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  h &= 0xFFFFE000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// all but the newest commit group complete
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_reg(uint32_t (&r)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+}
+
+// D (64 x 16) = D acc + A (64 x 8, tf32 registers) . B (8 x 16, shared)
+__device__ __forceinline__ void mma_n16(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t desc, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// D (64 x 32) = D acc + A (64 x 8, tf32 registers) . B (8 x 32, shared)
+__device__ __forceinline__ void mma_n32(float (&d)[16],
+                                       const uint32_t (&a)[4], uint64_t desc,
+                                       int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// Window element (column k, line l) in shared memory, swizzled so that the
+// A fragment loads (8 lines x 4 columns a warp) meet 32 banks: z windows
+// are line-major (96 columns a line, the 16-byte chunk c of line l at c ^
+// (l & 7)); x and y windows column-major (64 lines a column, line l of
+// column k at l ^ 8 (k & 3)). A 16-byte run (4 columns of a z line; 4
+// lines of an x or y column) stays whole.
+template <int AXIS>
+__device__ __forceinline__ int widx(int k, int l) {
+  if (AXIS == 2) return l * TWIN + ((((k >> 2) ^ (l & 7))) << 2) + (k & 3);
+  return k * TL + (l ^ ((k & 3) << 3));
+}
+
+// The three windows of line tile t for output block b into a stage, by
+// 16-byte asynchronous copies (consecutive threads on consecutive
+// addresses; periodic along the sweep: n >= 96, one wrap suffices).
+template <int AXIS>
+__device__ __forceinline__ void issue_windows(const TcSweepArgs& a,
+                                              uint32_t stage, long long t,
+                                              int b) {
+  long long base, ls, ss;
+  int n;
+  tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
+  const int k0 = b * TBS - TW;
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    const float* f = a.f[c] + base;
+    const uint32_t dst = stage + c * WFLOATS * 4;
+#pragma unroll
+    for (int m = 0; m < WFLOATS / 4 / NTHR; ++m) {
+      const int i = threadIdx.x + m * NTHR;
+      int k, l;
+      if (AXIS == 2) {
+        l = i / (TWIN / 4);
+        k = (i - l * (TWIN / 4)) * 4;
+      } else {
+        k = i / (TL / 4);
+        l = (i - k * (TL / 4)) * 4;
+      }
+      int g = k0 + k;
+      g = g < 0 ? g + n : (g >= n ? g - n : g);
+      cp16(dst + widx<AXIS>(k, l) * 4,
+           AXIS == 2 ? f + (long long)l * ls + g : f + (long long)g * ss + l);
+    }
+  }
+}
+
+// The A fragments of window chunk ch, split: q (the component) and p = q
+// conv; a[st][i] holds (line 16 w + gid + 8 (i & 1), column 16 ch + 8 st +
+// tig + 4 (i >> 1)), wgmma's tf32 A layout.
+template <int AXIS>
+__device__ __forceinline__ void load_a(const float* Q, const float* CV,
+                                       int ch, int w, int gid, int tig,
+                                       uint32_t (&qh)[2][4],
+                                       uint32_t (&ql)[2][4],
+                                       uint32_t (&ph)[2][4],
+                                       uint32_t (&pl)[2][4]) {
+#pragma unroll
+  for (int st = 0; st < 2; ++st)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = widx<AXIS>(ch * KC + 8 * st + tig + 4 * (i >> 1),
+                               16 * w + gid + 8 * (i & 1));
+      const float q = Q[o], cvv = CV[o];
+      split_a(q, qh[st][i], ql[st][i]);
+      split_a(q * cvv, ph[st][i], pl[st][i]);
+    }
+}
+
+// The epilogue's elements: e = 4 j + 2 ci + q is (line 16 w + gid + 8 ci,
+// block row 16 s + 8 j + 2 tig + q), the wgmma accumulator's layout; the
+// pairs (q = 0, 1) are neighbours along the sweep (contiguous along z).
+template <int AXIS>
+__device__ __forceinline__ float2 ld_pair(const void* p, bool bf,
+                                          long long o, long long ss) {
+  if (bf) {
+    const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(p);
+    if (AXIS == 2)
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(h + o));
+    return make_float2(__bfloat162float(h[o]), __bfloat162float(h[o + ss]));
+  }
+  const float* f = static_cast<const float*>(p);
+  if (AXIS == 2) return *reinterpret_cast<const float2*>(f + o);
+  return make_float2(f[o], f[o + ss]);
+}
+
+template <int AXIS>
+__device__ __forceinline__ void st_pair(void* p, bool bf, long long o,
+                                        long long ss, float x, float y) {
+  if (bf) {
+    __nv_bfloat16* h = static_cast<__nv_bfloat16*>(p);
+    if (AXIS == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(h + o) = __floats2bfloat162_rn(x, y);
+    } else {
+      h[o] = __float2bfloat16_rn(x);
+      h[o + ss] = __float2bfloat16_rn(y);
+    }
+    return;
+  }
+  float* f = static_cast<float*>(p);
+  if (AXIS == 2) {
+    *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
+  } else {
+    f[o] = x;
+    f[o + ss] = y;
+  }
+}
+
+template <int AXIS>
+__device__ __forceinline__ void ld_elems(const void* p, bool bf,
+                                         const long long (&o)[4],
+                                         long long ss, float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const float2 x = ld_pair<AXIS>(p, bf, o[e / 2], ss);
+    v[e] = x.x;
+    v[e + 1] = x.y;
+  }
+}
+
+// The epilogue of a slice: the output offset of each element pair e / 2
+// (the q = 0 element), its streams (acc, the history, the base) loaded
+// ahead of the combine, and the combine, accumulate, update and stores
+// (see combine_line for the order of the update's terms).
+template <int AXIS>
+__device__ __forceinline__ void epi_offsets(int b, int s, int w, int gid,
+                                            int tig, long long base,
+                                            long long ls, long long ss,
+                                            long long (&o)[4]) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const int l = 16 * w + gid + 8 * ((e >> 1) & 1);
+    const long long g = (long long)b * TBS + 16 * s + 8 * (e >> 2) + 2 * tig;
+    o[e / 2] = base + (AXIS == 2 ? l * ls + g : l + g * ss);
+  }
+}
+
+// a slice's streams: acc, NOLDS history fields, the base (BASE_SEP)
+template <int NOLDS, bool BASE_SEP>
+struct EpiIn {
+  float av[8], ov[NOLDS > 0 ? NOLDS : 1][8], bv[BASE_SEP ? 8 : 1];
+};
+
+template <int AXIS, int NOLDS, bool BASE_SEP>
+__device__ __forceinline__ void epi_load(const TcSweepArgs& a, int c,
+                                         const long long (&o)[4],
+                                         long long ss,
+                                         EpiIn<NOLDS, BASE_SEP>& in) {
+  if (a.accumulate) ld_elems<AXIS>(a.acc[c], a.acc_bf16, o, ss, in.av);
+#pragma unroll
+  for (int j = 0; j < NOLDS; ++j)
+    ld_elems<AXIS>(a.old[j][c], a.olds_bf16, o, ss, in.ov[j]);
+  if constexpr (BASE_SEP) ld_elems<AXIS>(a.base[c], false, o, ss, in.bv);
+}
+
+// r = -1/2 (conv D1 q + D1d (q conv)) + nu D2 q [+ acc]; with the update
+// u' = base + dtc0 r + sum_j dtc_{j+1} old_j [+ dtc4 (r - bf16(r))]
+template <int AXIS, int NOLDS, bool BASE_SEP>
+__device__ __forceinline__ void epi_store(const TcSweepArgs& a, int c, int s,
+                                          const float* Q, const float* CV,
+                                          const float (&sd)[16],
+                                          const float (&dd)[8],
+                                          const EpiIn<NOLDS, BASE_SEP>& in,
+                                          const long long (&o)[4],
+                                          long long ss, int w, int gid,
+                                          int tig) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const int l = 16 * w + gid + 8 * ((e >> 1) & 1);
+    const int kw = TW + 16 * s + 8 * (e >> 2) + 2 * tig;
+    float r[2], un[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int x = widx<AXIS>(kw + q, l);
+      r[q] = -0.5f * (CV[x] * sd[e + q] + dd[e + q]) + a.nu * sd[8 + e + q];
+      if (a.accumulate) r[q] += in.av[e + q];
+      if (a.upd) {
+        if constexpr (BASE_SEP)
+          un[q] = in.bv[e + q] + a.dtc[0] * r[q];
+        else
+          un[q] = Q[x] + a.dtc[0] * r[q];
+#pragma unroll
+        for (int j = 0; j < NOLDS; ++j) un[q] += a.dtc[j + 1] * in.ov[j][e + q];
+        if (a.olds_bf16) {
+          // pre-pay the stored rhs's rounding while r is exact
+          const float rs = __bfloat162float(__float2bfloat16_rn(r[q]));
+          un[q] += a.dtc[4] * (r[q] - rs);
+        }
+      }
+    }
+    if (a.upd) {
+      st_pair<AXIS>(a.rhs[c], a.olds_bf16, o[e / 2], ss, r[0], r[1]);
+      st_pair<AXIS>(a.out[c], false, o[e / 2], ss, un[0], un[1]);
+    } else {
+      st_pair<AXIS>(a.out[c], a.acc_bf16, o[e / 2], ss, r[0], r[1]);
+    }
+  }
+}
+
+// The A fragments of one chunk, split: q (the component) and p = q conv.
+struct AFrag {
+  uint32_t qh[2][4], ql[2][4], ph[2][4], pl[2][4];
+};
+
+__device__ __forceinline__ void fence_a(AFrag& f) {
+  fence_reg(f.qh);
+  fence_reg(f.ql);
+  fence_reg(f.ph);
+  fence_reg(f.pl);
+}
+
+// a slice's sums: [D1 q; D2 q] (n32) and D1d (q conv) (n16)
+struct Part {
+  float s[16], d[8];
+};
+
+// A chunk's three products (lo hi, hi lo, hi hi) of both k steps with the
+// image at address `im`, added to P; acc = 0: the first replaces P.
+__device__ __forceinline__ void issue_chunk(uint32_t im, const AFrag& f,
+                                            Part& p, bool acc) {
+  const uint64_t sh = b_desc(im + S_HI), sl = b_desc(im + S_LO);
+  const uint64_t dh = b_desc(im + D_HI), dl = b_desc(im + D_LO);
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const int first = st > 0 || acc;
+    mma_n32(p.s, f.ql[st], sh + 2 * st, first);
+    mma_n32(p.s, f.qh[st], sl + 2 * st, 1);
+    mma_n32(p.s, f.qh[st], sh + 2 * st, 1);
+    mma_n16(p.d, f.pl[st], dh + 2 * st, first);
+    mma_n16(p.d, f.ph[st], dl + 2 * st, 1);
+    mma_n16(p.d, f.ph[st], dh + 2 * st, 1);
+  }
+}
+
+// A warpgroup's work on one component of a tile: its two slices, a = 2 g
+// and b = 2 g + 1, over the window chunks 2 g + t, t = 0 .. 3: chunk t is
+// slice a's image t (t <= 2) and slice b's image t - 1 (t >= 1), so each
+// chunk's fragments are loaded and split once for both slices. The run is
+// unrolled: wgmma asks for control flow the compiler can prove uniform
+// (with data-dependent trip counts around it, it serialises the wgmma).
+// Chunk t's wgmma group goes to the tensor cores before chunk t - 1's is
+// waited for (two sets of A fragments, used in turn); the tensor cores sum
+// a slice over its three chunks (48 k, three products each) into its
+// FP32 registers, and its epilogue runs once its last chunk is done, slice
+// a's while chunk 3 computes. Both slices' streams are loaded as the
+// component starts, ahead of the contraction.
+template <int AXIS, int NOLDS, bool BASE_SEP>
+__device__ __forceinline__ void component_items(
+    const TcSweepArgs& a, int c, const float* F, uint32_t ops, int wg,
+    long long base, long long ls, long long ss, int b, int w, int gid,
+    int tig) {
+  const float* Q = F + c * WFLOATS;
+  const float* CV = F + AXIS * WFLOATS;
+  const uint32_t im = ops + (c == AXIS ? 0 : NIMG * IMG_BYTES);
+  const int s = 2 * wg;
+  long long oa[4], ob[4];
+  EpiIn<NOLDS, BASE_SEP> ia, ib;
+  epi_offsets<AXIS>(b, s, w, gid, tig, base, ls, ss, oa);
+  epi_load<AXIS>(a, c, oa, ss, ia);
+  epi_offsets<AXIS>(b, s + 1, w, gid, tig, base, ls, ss, ob);
+  epi_load<AXIS>(a, c, ob, ss, ib);
+  AFrag f[2];
+  Part pa, pb;   // the slices' sums
+  load_a<AXIS>(Q, CV, s, w, gid, tig, f[0].qh, f[0].ql, f[0].ph, f[0].pl);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    // chunk t: slice a's image t, slice b's image t - 1 (the first product
+    // of a slice replaces its sums)
+    wgmma_fence();
+    if (t < 3) issue_chunk(im + t * IMG_BYTES, f[t & 1], pa, t > 0);
+    if (t > 0) issue_chunk(im + (t - 1) * IMG_BYTES, f[t & 1], pb, t > 1);
+    wgmma_commit();
+    if (t > 0) {
+      wgmma_wait1();
+      fence_a(f[(t - 1) & 1]);
+    }
+    if (t == 3) {
+      // chunk 2 is done: slice a is complete
+      fence_acc(pa.s);
+      fence_acc(pa.d);
+      epi_store<AXIS>(a, c, s, Q, CV, pa.s, pa.d, ia, oa, ss, w, gid, tig);
+    }
+    if (t < 3) {
+      load_a<AXIS>(Q, CV, s + t + 1, w, gid, tig, f[(t + 1) & 1].qh,
+                   f[(t + 1) & 1].ql, f[(t + 1) & 1].ph, f[(t + 1) & 1].pl);
+    }
+  }
+  wgmma_wait();
+  fence_a(f[1]);
+  fence_acc(pb.s);
+  fence_acc(pb.d);
+  epi_store<AXIS>(a, c, s + 1, Q, CV, pb.s, pb.d, ib, ob, ss, w, gid, tig);
+}
+
+// Grid (blocks per output block, output blocks); a block stages the images
+// (one set: every output block's slices have the same operators) and walks
+// line tiles t = blockIdx.x, + gridDim.x, ... of output block b; warpgroup
+// g takes slices 2 g and 2 g + 1 of every component. The next tile's
+// windows are in flight (cp.async, one group a tile) while a tile
+// computes.
+template <int AXIS, int NOLDS, bool BASE_SEP>
+__global__ void __launch_bounds__(NTHR, 1)
+transeq_sweep_tc_kernel(const __grid_constant__ TcSweepArgs a,
+                        long long ntiles) {
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t raw = smem_u32(tc_smem);
+  const uint32_t pad = ((raw + SMEM_ALIGN - 1) & ~(SMEM_ALIGN - 1)) - raw;
+  unsigned char* base_p = tc_smem + pad;
+  const uint32_t ops = raw + pad;
+  const uint32_t win = ops + OPS_BYTES;
+  const float* winp = reinterpret_cast<const float*>(base_p + OPS_BYTES);
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  {
+    const float4* src = reinterpret_cast<const float4*>(a.img);
+    float4* dst = reinterpret_cast<float4*>(base_p);
+    for (int i = tid; i < OPS_BYTES / 16; i += NTHR) dst[i] = __ldg(src + i);
+  }
+  // the images were written by the generic proxy; wgmma reads them by the
+  // async one
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const int wg = tid >> 7, w = (tid >> 5) & 3;
+  const int gid = (tid & 31) >> 2, tig = tid & 3;
+  long long t = blockIdx.x;
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st) {
+    const long long tt = t + (long long)st * gridDim.x;
+    if (tt < ntiles) issue_windows<AXIS>(a, win + st * STAGE_BYTES, tt, b);
+    cp_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
+    // this tile's group is complete once at most STAGES - 1 are pending
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+    __syncthreads();
+    const int stg = it % STAGES;
+    const float* F = winp + stg * 3 * WFLOATS;
+    long long base, ls, ss;
+    int n;
+    tile_geometry<AXIS>(a.n0, a.n1, a.n2, t, base, ls, ss, n);
+#pragma unroll 1
+    for (int c = 0; c < 3; ++c)
+      component_items<AXIS, NOLDS, BASE_SEP>(a, c, F, ops, wg, base, ls, ss,
+                                             b, w, gid, tig);
+    __syncthreads();  // every thread is done with this stage
+    const long long tn = t + (long long)STAGES * gridDim.x;
+    if (tn < ntiles) issue_windows<AXIS>(a, win + stg * STAGE_BYTES, tn, b);
+    cp_commit();
+  }
+}
+
+template <int AXIS, int NOLDS, bool BASE_SEP>
+cudaError_t launch_axis(const TcSweepArgs& a, long long ntiles, int nb,
+                        int grid_x, cudaStream_t s) {
+  auto kern = transeq_sweep_tc_kernel<AXIS, NOLDS, BASE_SEP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(grid_x, nb), NTHR, SMEM_BYTES, s>>>(a, ntiles);
+  return cudaGetLastError();
+}
+
+// the instances: every axis with 0-3 history fields and the sweep's own
+// base; the y sweep (which ends the RK chain) also with the step-initial
+// base and 0, 2 or 3 stage derivatives
+template <int AXIS>
+cudaError_t dispatch(int nolds, int base_sep, const TcSweepArgs& a,
+                     long long ntiles, int nb, int grid_x, cudaStream_t s) {
+  if (!base_sep) {
+    switch (nolds) {
+      case 0: return launch_axis<AXIS, 0, false>(a, ntiles, nb, grid_x, s);
+      case 1: return launch_axis<AXIS, 1, false>(a, ntiles, nb, grid_x, s);
+      case 2: return launch_axis<AXIS, 2, false>(a, ntiles, nb, grid_x, s);
+      case 3: return launch_axis<AXIS, 3, false>(a, ntiles, nb, grid_x, s);
+    }
+  } else if constexpr (AXIS == 1) {
+    switch (nolds) {
+      case 0: return launch_axis<1, 0, true>(a, ntiles, nb, grid_x, s);
+      case 2: return launch_axis<1, 2, true>(a, ntiles, nb, grid_x, s);
+      case 3: return launch_axis<1, 3, true>(a, ntiles, nb, grid_x, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// The tensor-core sweep's C interface body: as sweep_launch's momentum
+// sweeps, with the operators as packed images (tc_pack).
+inline int sweep_tc_launch(int axis, int accumulate, int nolds, int upd,
+                           int base_sep, int prec, void* const* ptrs, int n0,
+                           int n1, int n2, float nu, const float* dtc,
+                           int grid_x, void* stream) {
+  const int n = axis == 0 ? n0 : (axis == 1 ? n1 : n2);
+  if (axis < 0 || axis > 2 || nolds < 0 || nolds > 3 || (upd && !accumulate)
+      || (!upd && (nolds || base_sep)) || prec < 0 || prec > 3
+      || ((prec & OLDS_BF16) && (!upd || !nolds || base_sep))
+      || n % tc::TBS || n < tc::TWIN || n2 % TL || ((long long)n0 * n1) % TL
+      || grid_x < 1)
+    return cudaErrorInvalidValue;
+  tc::TcSweepArgs a;
+  int i = 0;
+  for (int c = 0; c < 3; ++c) a.f[c] = static_cast<const float*>(ptrs[i++]);
+  a.img = static_cast<const float*>(ptrs[i++]);
+  for (int c = 0; c < 3; ++c) a.acc[c] = ptrs[i++];
+  for (int j = 0; j < 3; ++j)
+    for (int c = 0; c < 3; ++c) a.old[j][c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.out[c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.rhs[c] = ptrs[i++];
+  for (int c = 0; c < 3; ++c) a.base[c] = static_cast<const float*>(ptrs[i++]);
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n2 = n2;
+  a.nu = nu;
+  for (int j = 0; j < 5; ++j) a.dtc[j] = dtc[j];
+  a.accumulate = accumulate;
+  a.upd = upd;
+  a.olds_bf16 = (prec & OLDS_BF16) != 0;
+  a.acc_bf16 = (prec & ACC_BF16) != 0;
+  const int nb = n / tc::TBS;
+  const long long ntiles = lines_of(axis, n0, n1, n2) / TL;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (axis) {
+    case 0: return tc::dispatch<0>(nolds, base_sep, a, ntiles, nb, grid_x, s);
+    case 1: return tc::dispatch<1>(nolds, base_sep, a, ntiles, nb, grid_x, s);
+    case 2: return tc::dispatch<2>(nolds, base_sep, a, ntiles, nb, grid_x, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Compile-time geometry of the tensor-core sweep, for the wrapper's
+// packing and checks: output rows a block, band, rows a slice, columns a
+// chunk, threads, floats of an image, images a pairing, bytes of a window
+// stage, window stages, the launch's dynamic shared memory.
+inline int sweep_tc_geometry(int* g) {
+  g[0] = tc::TBS;
+  g[1] = tc::TW;
+  g[2] = tc::SL;
+  g[3] = tc::KC;
+  g[4] = tc::NTHR;
+  g[5] = tc::IMG;
+  g[6] = tc::NIMG;
+  g[7] = tc::STAGE_BYTES;
+  g[8] = tc::STAGES;
+  g[9] = tc::SMEM_BYTES;
+  return 0;
+}
+
 // The bodies of the C interface (each translation unit exports them for
 // its geometry; see transeq_sweep.cu).
 template <int BS, int W>
@@ -1118,7 +1783,7 @@ int geometry(int* bs, int* w, int* tl, int* xdiv_max_nb, int* max_species) {
   return 0;
 }
 
-template <int BS, int W, bool WITH_PREC>
+template <int BS, int W, bool WITH_PREC, bool HALO_ONLY>
 int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
                  int xdiv, int prec, int halo, void* const* ptrs, int n0,
                  int n1, int n2, float nu, const float* dtc, int grid_x,
@@ -1167,13 +1832,13 @@ int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
     return cudaErrorInvalidValue;
   }
   switch (axis) {
-    case 0: return dispatch_axis<BS, W, 0, WITH_PREC>(
+    case 0: return dispatch_axis<BS, W, 0, WITH_PREC, HALO_ONLY>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
-    case 1: return dispatch_axis<BS, W, 1, WITH_PREC>(
+    case 1: return dispatch_axis<BS, W, 1, WITH_PREC, HALO_ONLY>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
-    case 2: return dispatch_axis<BS, W, 2, WITH_PREC>(
+    case 2: return dispatch_axis<BS, W, 2, WITH_PREC, HALO_ONLY>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
   }
@@ -1232,7 +1897,7 @@ int species_launch(int axis, int accumulate, int halo, int nsp,
 // blocks per output block. halo: the halo form (axes 1 and 2, no update);
 // n0, n1, n2 are the shard's extents. Each returns the cudaError_t of the
 // launch (0 on success).
-#define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC)                           \
+#define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC, HALO_ONLY)                \
   extern "C" {                                                                \
   int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,      \
                              int* max_species) {                              \
@@ -1243,7 +1908,7 @@ int species_launch(int axis, int accumulate, int halo, int nsp,
                            void* const* ptrs, int n0, int n1, int n2,         \
                            float nu, const float* dtc, int grid_x,            \
                            void* stream) {                                    \
-    return sweep::sweep_launch<BS, W, WITH_PREC>(                             \
+    return sweep::sweep_launch<BS, W, WITH_PREC, HALO_ONLY>(                  \
         axis, accumulate, nolds, upd, base_sep, xdiv, prec, halo, ptrs, n0,   \
         n1, n2, nu, dtc, grid_x, stream);                                     \
   }                                                                           \
@@ -1252,6 +1917,29 @@ int species_launch(int axis, int accumulate, int halo, int nsp,
                            const float* nus, int grid_x, void* stream) {      \
     return sweep::species_launch<BS, W>(axis, accumulate, halo, nsp, ptrs,    \
                                         n0, n1, n2, nus, grid_x, stream);     \
+  }                                                                           \
+  const char* transeq_sweep_error_string(int err) {                           \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));                 \
+  }                                                                           \
+  }
+
+// The tensor-core sweep's C interface (the default mode's geometry; its
+// library is transeq_sweep_tc.cu): transeq_sweep_tc_launch's ptrs are u, v, w, the packed images, acc[3],
+// old[j][c] (9, j-major), out[3], rhs[3], base[3] (unused entries may be
+// null); prec, dtc as transeq_sweep_launch's; grid_x: blocks per output
+// block. Returns the cudaError_t of the launch.
+#define TRANSEQ_SWEEP_TC_C_INTERFACE()                                        \
+  extern "C" {                                                                \
+  int transeq_sweep_tc_geometry(int* g) {                                     \
+    return sweep::sweep_tc_geometry(g);                                       \
+  }                                                                           \
+  int transeq_sweep_tc_launch(int axis, int accumulate, int nolds, int upd,   \
+                              int base_sep, int prec, void* const* ptrs,      \
+                              int n0, int n1, int n2, float nu,               \
+                              const float* dtc, int grid_x, void* stream) {   \
+    return sweep::sweep_tc_launch(axis, accumulate, nolds, upd, base_sep,     \
+                                  prec, ptrs, n0, n1, n2, nu, dtc, grid_x,    \
+                                  stream);                                    \
   }                                                                           \
   const char* transeq_sweep_error_string(int err) {                           \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                 \

@@ -55,6 +55,20 @@ the axis times its nb blocks), so a non-periodic axis' closure rows land on
 the ranks that own them. Partial sweeps only, as in x3d2_tpu (its halo
 sweeps take no update).
 
+Two bodies of the kernel serve a CUDA launch (``tc_route``). At the
+default mode's geometry the tensor-core body (transeq_sweep_tc_kernel,
+library ``transeq_sweep_tc.cu``) takes every sweep but the xdiv variant
+and the halo form: split-TF32 wgmma products of each 16-row slice of an
+output block with the 48 window columns of its band (``tc_pack`` packs
+the three images a pairing that every slice and block repeats on a
+circulant operator, and refuses the others, which no solver path sweeps;
+``tc_model`` is its arithmetic in float32 on the CPU; ``tc_writes`` its
+walk of the outputs). Its results are held to float64 (3-4e-7 of max
+|plain f64|), not plain float32's bits. The SIMT body takes the HIGHEST
+mode's W = 32, the halo form and the xdiv variant (its own kernel).
+Launches of either are counted by variant name (``launch_counts``), the
+tensor-core body's also in ``tc_launch_counts``.
+
 ``transeq_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs ``transeq_sweep_plain`` for CPU tensors only.
 """
@@ -91,8 +105,10 @@ MAX_SPECIES = 8   # scalars per species launch (ops/species_sweep.py)
 # on the y sweep that ends the chain
 RK_INSTANCES = {(0, False), (0, True), (2, True), (3, True)}
 
-# launches of the kernel per variant name, counted where it is launched
+# launches of the kernel per variant name, counted where it is launched;
+# those of the tensor-core body (tc_route) also in _TC_LAUNCHES
 _LAUNCHES: dict[str, int] = {}
+_TC_LAUNCHES: dict[str, int] = {}
 
 
 def variant_name(axis: int, accumulate: bool, nolds: int,
@@ -164,8 +180,14 @@ def launch_counts() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def tc_launch_counts() -> dict[str, int]:
+    """The launches of launch_counts() that ran the tensor-core body."""
+    return dict(_TC_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+    _TC_LAUNCHES.clear()
 
 
 @dataclass
@@ -224,6 +246,212 @@ def build_sweep_blocks(ops_axis, axis, device=None, terms=2) -> SweepBlocks:
            "da": bb(d1s), "dt": bb(d1)}
     return SweepBlocks(axis=axis, m64=m64, device=resolve_device(device),
                        bs=bs, w=w)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core body's operators (transeq_sweep_tc_kernel)
+# ---------------------------------------------------------------------------
+
+# the tensor-core body's geometry (transeq_sweep_tc_geometry, checked when
+# the library loads): output rows a block, band, rows a slice, window
+# columns a chunk, threads, floats of an image, images a pairing (a
+# slice's chunks), bytes of a window stage (three windows of 96 x 64
+# floats), window stages, the launch's dynamic shared memory
+TC_BS, TC_W, TC_SL, TC_KC, TC_NTHR = 64, 16, 16, 16, 256
+TC_IMG = 2 * 2 * TC_SL * TC_KC + 2 * TC_SL * TC_KC
+TC_SLICE_CHUNKS = 3               # a slice's band: chunks s .. s + 2
+TC_STAGE_BYTES = 3 * (TC_BS + 2 * TC_W) * TL * 4
+TC_STAGES = 2
+TC_SMEM = 1024 + 8 * TC_IMG * TC_SLICE_CHUNKS + TC_STAGES * TC_STAGE_BYTES
+TC_NSL = TC_BS // TC_SL           # slices a block
+TC_NCH = (TC_BS + 2 * TC_W) // TC_KC   # chunks a window
+# the pairings' stacks: (S, D) of the aligned and the transverse component
+_PAIRINGS = (("sa", "da"), ("st", "dt"))
+
+
+@dataclass
+class SweepTC:
+    """An axis' operator blocks packed for the tensor-core body. Slice s of
+    an output block (its 16 rows) takes window chunks s .. s + 2 (16
+    columns each); image j of a pairing holds the slices' rows over their
+    chunk j, the same for every slice and output block of a uniform
+    periodic axis (tc_pack checks it): the rows of [S1; S2] (32 x 16) and
+    of D (16 x 16) split to TF32 hi and lo (split_tf32), each laid out as
+    wgmma reads it (block_index). images (2, 3, TC_IMG) float32 (pairing 0
+    the aligned component's sa / da, 1 the transverse ones' st / dt);
+    dropped: the largest entry the slices leave out, relative to its
+    operator's largest. Device copies per device (``on``)."""
+
+    images: np.ndarray
+    dropped: float
+    _dev: dict = field(default_factory=dict)
+
+    def on(self, device):
+        """The images on `device` (cached)."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(self.images,
+                                             device=device).contiguous()
+        return self._dev[key]
+
+    def parts(self, pairing, img):
+        """(S hi, S lo, D hi, D lo) of an image, unpacked: (32, 16) and
+        (16, 16) float32."""
+        x = self.images[pairing, img]
+        return tuple(x[cut][idx] for cut, idx in _image_layout())
+
+
+def _image_layout():
+    """Where an image's four parts lie: (slice of the image, block_index
+    of the part's rows) for S hi, S lo, D hi, D lo."""
+    from .x_apply_manual import block_index
+
+    n2, n1 = 2 * TC_SL * TC_KC, TC_SL * TC_KC
+    i2, i1 = block_index(2 * TC_SL), block_index(TC_SL)
+    return ((slice(0, n2), i2), (slice(n2, 2 * n2), i2),
+            (slice(2 * n2, 2 * n2 + n1), i1), (slice(2 * n2 + n1, None), i1))
+
+
+def _operator_rows(m64):
+    """Each operator's rows in the stacks: (stack key, row offset); the
+    [S1; S2] stacks hold two operators."""
+    bs = m64["da"].shape[1]
+    return [("sa", 0), ("sa", bs), ("st", 0), ("st", bs), ("da", 0),
+            ("dt", 0)]
+
+
+def _image(m, pairing, j):
+    """Image j of a pairing from the float64 stacks (block 0's slice 0 over
+    window chunk j): float32 (TC_IMG,)."""
+    from .x_apply_manual import split_tf32
+
+    bs = m["da"].shape[1]
+    S, D = (m[k][0] for k in _PAIRINGS[pairing])
+    rows, cols = slice(0, TC_SL), slice(TC_KC * j, TC_KC * (j + 1))
+    parts = split_tf32(np.concatenate([S[rows, cols], S[bs:][rows, cols]])) \
+        + split_tf32(D[rows, cols])
+    out = np.empty(TC_IMG, np.float32)
+    for (cut, idx), part in zip(_image_layout(), parts):
+        out[cut][idx] = part
+    return out
+
+
+def tc_pack(blocks: SweepBlocks, tol=_BAND_TOL) -> SweepTC:
+    """The operator blocks packed for the tensor-core body (SweepTC; cached
+    on the blocks). Raises ValueError off the default mode's geometry;
+    where a slice's rows hold an entry above `tol` of its operator's
+    largest outside the slice's three chunks (the closure rows of a
+    non-periodic axis reach past the band); and where the slices' or the
+    blocks' rows over their chunks differ by more than float64 rounding
+    (1e-12 of the largest entry: an operator that is not circulant). No
+    solver path sweeps such an axis (a non-periodic one)."""
+    if "tc" in blocks._dev:
+        if isinstance(blocks._dev["tc"], ValueError):
+            raise blocks._dev["tc"]
+        return blocks._dev["tc"]
+    try:
+        pk = _tc_pack(blocks, tol)
+    except ValueError as e:
+        blocks._dev["tc"] = e
+        raise
+    blocks._dev["tc"] = pk
+    return pk
+
+
+def _tc_pack(blocks, tol):
+    if (blocks.bs, blocks.w) != (TC_BS, TC_W):
+        raise ValueError(f"the tensor-core sweep is built at BS={TC_BS}, "
+                         f"W={TC_W}, not ({blocks.bs}, {blocks.w})")
+    m = blocks.m64
+    nb = blocks.nb
+    band = np.zeros((TC_NSL, TC_NCH), bool)
+    for s in range(TC_NSL):
+        band[s, s:s + TC_SLICE_CHUNKS] = True
+    dropped = 0.0
+    for key, r0 in _operator_rows(m):
+        P = np.abs(m[key][:, r0:r0 + blocks.bs]).reshape(
+            nb, TC_NSL, TC_SL, TC_NCH, TC_KC)
+        out = np.where(band[None, :, None, :, None], 0.0, P).max() / P.max()
+        if out > tol:
+            raise ValueError(
+                f"an entry of {out:.1e} of its operator's largest lies "
+                f"outside its slice's band of {TC_SLICE_CHUNKS} chunks: the "
+                f"tensor-core sweep does not take this operator")
+        dropped = max(dropped, out)
+    # every slice of every block against slice 0 of block 0, chunk by chunk
+    for key in ("sa", "st", "da", "dt"):
+        M = m[key]
+        scale = np.abs(M).max()
+        for part in range(M.shape[1] // blocks.bs):
+            R = M[:, part * blocks.bs:(part + 1) * blocks.bs]
+            ref = R[0, :TC_SL, :TC_SLICE_CHUNKS * TC_KC]
+            for s in range(TC_NSL):
+                cut = R[:, TC_SL * s:TC_SL * (s + 1),
+                        TC_KC * s:TC_KC * (s + TC_SLICE_CHUNKS)]
+                if np.abs(cut - ref).max() > _EQUAL_BLOCKS_TOL * scale:
+                    raise ValueError(
+                        "the slices' operator rows differ (the operator is "
+                        "not circulant): the tensor-core sweep does not "
+                        "take it")
+    images = np.stack([[_image(m, p, j) for j in range(TC_SLICE_CHUNKS)]
+                       for p in range(2)])
+    return SweepTC(images=images, dropped=float(dropped))
+
+
+def tc_model(u, v, w_, blocks: SweepBlocks, nu, acc=None, olds=None,
+             dtc=None, base=None, acc_dtype=None):
+    """The tensor-core body's arithmetic in float32 on the CPU, as
+    transeq_sweep_plain's results: for every slice and chunk of its band
+    the three products of the split operands (A the window of q, or of q
+    conv, split as the kernel splits it: hi = RNA(x), lo = x - hi
+    truncated to TF32; B the packed images) summed in float32 and added to
+    the slice's sums (the tensor cores' own sums over the band round
+    otherwise: a model of the kernel, not its bits); then the combine, the
+    accumulate and the update at float32."""
+    from .x_apply_manual import split_tf32
+
+    pk = tc_pack(blocks)
+    axis, bs, w = blocks.axis, blocks.bs, blocks.w
+    comps = tuple(t.to(torch.float32) for t in (u, v, w_))
+
+    def split_a(x):
+        # the kernel's split of the field: hi = RNA(x), lo = x - hi, which
+        # the tensor cores truncate to TF32
+        hi = split_tf32(x)[0]
+        lo = ((x - hi).view(np.uint32) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+        return hi, lo
+
+    shape = tuple(u.shape)
+    nb = shape[axis] // bs
+    win = [_windows(q, axis, nb, bs, w).numpy() for q in comps]
+    cw = win[axis]
+    conv = cw[:, w:w + bs]
+    parts = [[pk.parts(p, j) for j in range(TC_SLICE_CHUNKS)]
+             for p in range(2)]
+    outs = []
+    for c in range(3):
+        p = 0 if c == axis else 1
+        qh, ql = split_a(win[c])
+        ph, pl = split_a(win[c] * cw)
+        sd = np.zeros((nb, 2 * bs, cw.shape[2]), np.float32)
+        dd = np.zeros((nb, bs, cw.shape[2]), np.float32)
+        for s in range(TC_NSL):
+            rows = slice(TC_SL * s, TC_SL * (s + 1))
+            for j in range(TC_SLICE_CHUNKS):
+                shi, slo, dhi, dlo = parts[p][j]
+                ks = slice(TC_KC * (s + j), TC_KC * (s + j + 1))
+                a_h, a_l = qh[:, ks], ql[:, ks]
+                ps = shi @ a_l + slo @ a_h + shi @ a_h
+                a_h, a_l = ph[:, ks], pl[:, ks]
+                pd = dhi @ a_l + dlo @ a_h + dhi @ a_h
+                sd[:, rows] += ps[:, :TC_SL]
+                sd[:, bs:][:, rows] += ps[:, TC_SL:]
+                dd[:, rows] += pd
+        r = (np.float32(-0.5) * (conv * sd[:, :bs] + dd)
+             + np.float32(nu) * sd[:, bs:])
+        outs.append(_field(torch.from_numpy(r), shape, axis))
+    return _finish(comps, outs, acc, olds, dtc, base, acc_dtype)
 
 
 @dataclass
@@ -361,10 +589,18 @@ def transeq_sweep_plain(u, v, w_, blocks: SweepBlocks, nu, acc=None,
         both = torch.bmm(S, qw)
         dqd = torch.bmm(D, qw * cw)
         r = -0.5 * (conv * both[:, :bs] + dqd) + nu * both[:, bs:]
-        r = _field(r, shape, axis)
-        if acc is not None:
-            r = r + acc[c].to(dtype)
-        outs.append(r)
+        outs.append(_field(r, shape, axis))
+    return _finish(comps, outs, acc, olds, dtc, base, acc_dtype,
+                   xdiv=xdiv)
+
+
+def _finish(comps, outs, acc, olds, dtc, base, acc_dtype, xdiv=None):
+    """The sweep's results from its combines r (per component, before the
+    accumulate): the accumulate, and with `dtc` the time update (as
+    transeq_sweep_plain documents)."""
+    dtype = comps[0].dtype
+    if acc is not None:
+        outs = [r + a.to(dtype) for r, a in zip(outs, acc)]
     if dtc is None:
         return tuple(r.to(acc_dtype or dtype) for r in outs)
     hist = olds if olds is not None else ((), (), ())
@@ -422,6 +658,32 @@ def _lib(w=W):
     return _LIBS[w]
 
 
+def _tc_lib():
+    """The tensor-core body's library (csrc/transeq_sweep_tc.cu), built
+    and typed at first use."""
+    if "tc" not in _LIBS:
+        from .. import _build
+
+        lib = _build.load("transeq_sweep_tc")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.transeq_sweep_tc_launch.argtypes = [
+            i, i, i, i, i, i, p, i, i, i, ctypes.c_float, p, i, p]
+        lib.transeq_sweep_tc_launch.restype = i
+        lib.transeq_sweep_error_string.argtypes = [i]
+        lib.transeq_sweep_error_string.restype = ctypes.c_char_p
+        lib.transeq_sweep_tc_geometry.argtypes = [ctypes.POINTER(i)]
+        lib.transeq_sweep_tc_geometry.restype = i
+        g = (i * 10)()
+        lib.transeq_sweep_tc_geometry(g)
+        want = (TC_BS, TC_W, TC_SL, TC_KC, TC_NTHR, TC_IMG, TC_SLICE_CHUNKS,
+                TC_STAGE_BYTES, TC_STAGES, TC_SMEM)
+        if tuple(g) != want:
+            raise RuntimeError(f"transeq_sweep_tc.cu geometry {tuple(g)} "
+                               f"differs from the wrapper's {want}")
+        _LIBS["tc"] = lib
+    return _LIBS["tc"]
+
+
 def sweep_shape_ok(shape, axis, bs=BS, w=W, halo=False) -> bool:
     """The kernel's tiling rules for one sweep axis at the geometry (bs,
     w); with `halo` for a shard of the halo form (a block at least, and the
@@ -471,6 +733,71 @@ def _reduced(dtype, what):
         raise ValueError(f"the sweep kernel stores {what} as float32 or "
                          f"bfloat16, not {dtype}")
     return True
+
+
+def tc_route(blocks, xdiv=None, halo=False) -> bool:
+    """Whether a sweep launches the tensor-core body: the default mode's
+    geometry, neither the halo form nor the xdiv variant (those, and the
+    HIGHEST mode's W = 32, launch the SIMT body). Its launch raises
+    ValueError for operators tc_pack refuses."""
+    return (blocks.bs, blocks.w) == (TC_BS, TC_W) and xdiv is None \
+        and not halo
+
+
+def tc_variant(name) -> bool:
+    """Whether a launch-count name (variant_name) is one the tensor-core
+    body serves: the default mode's band, neither the halo form nor the
+    xdiv variant."""
+    if not name.startswith("transeq_sweep["):
+        return False
+    tags = name[len("transeq_sweep["):-1].split(",")
+    return not {"xdiv", "halo"} & set(tags) \
+        and not any(t[:1] == "w" and t[1:].isdigit() for t in tags)
+
+
+def grid_of(shape, axis, sms, bs=BS, xdiv=False) -> int:
+    """Blocks per output block (the xdiv kernel: blocks in all), one block
+    an SM."""
+    lines = shape[0] * shape[1] * shape[2] // shape[axis]
+    nb = shape[axis] // bs
+    return max(1, min(lines // TL, sms if xdiv else sms // nb))
+
+
+def tc_writes(shape, axis, sms):
+    """The flat output index each (block, tile, component's slice, thread,
+    element) of a tensor-core launch writes, as the kernel walks them:
+    grid (grid_of, nb); block (x, b) takes tiles x, x + grid_x, ...;
+    warpgroup g slices 2 g, 2 g + 1; thread element e = 4 j + 2 ci + q at
+    (line 16 w + gid + 8 ci, block row 16 s + 8 j + 2 tig + q). A 1-D int64
+    array (one component's writes; the three are alike)."""
+    n0, n1, n2 = shape
+    n = shape[axis]
+    nb = n // TC_BS
+    grid_x = grid_of(shape, axis, sms)
+    ntiles = shape[0] * shape[1] * shape[2] // n // TL
+    out = []
+    t_ = np.arange(TC_NTHR)
+    wg, w = t_ >> 7, (t_ >> 5) & 3
+    gid, tig = (t_ & 31) >> 2, t_ & 3
+    e = np.arange(8)
+    ci, q, j = (e >> 1) & 1, e & 1, e >> 2
+    line = (16 * w + gid)[:, None] + 8 * ci[None, :]
+    for x in range(grid_x):
+        for t in range(x, ntiles, grid_x):
+            if axis == 0:
+                base, ls, ss = t * TL, 1, n1 * n2
+            elif axis == 1:
+                per = n2 // TL
+                base, ls, ss = (t // per) * n1 * n2 + (t % per) * TL, 1, n2
+            else:
+                base, ls, ss = t * TL * n2, n2, 1
+            for b in range(nb):
+                for h in range(2):
+                    s = 2 * wg + h
+                    row = b * TC_BS + (16 * s + 2 * tig)[:, None] \
+                        + 8 * j[None, :] + q[None, :]
+                    out.append((base + line * ls + row * ss).ravel())
+    return np.concatenate(out)
 
 
 def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
@@ -542,18 +869,46 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
             if t.data_ptr() in bases:
                 raise ValueError("out may not alias the base: the RK "
                                  "substages after this one read it")
+    if olds_bf16 and len(list(dtc)) != 5:
+        raise ValueError("a bfloat16 history needs the 5-entry row (the 5th: "
+                         "the error feedback, TimeIntegrator.ab_row(..., "
+                         "feedback=True))")
+    name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
+                        base is not None, olds_bf16, acc_bf16, w, halo)
+    # the streams' pointers: acc, old[j][c] (j-major), out, rhs; the base
     null = None
-    ptrs = [t.data_ptr() for t in (exts if halo else (u, v, w_))]
-    ptrs += [m.data_ptr() for m in mats]
-    ptrs += [t.data_ptr() for t in acc] if acc is not None else [null] * 3
+    streams = [t.data_ptr() for t in acc] if acc is not None else [null] * 3
     old_ptrs = [null] * 9
     for c in range(3):
         for j, o in enumerate(olds[c]):
             old_ptrs[3 * j + c] = o.data_ptr()
-    ptrs += old_ptrs
-    ptrs += [t.data_ptr() for t in outs[:3]]
-    ptrs += [t.data_ptr() for t in outs[3:]] if upd else [null] * 3
-    lines = shape[0] * shape[1] * shape[2] // shape[axis]
+    streams += old_ptrs + [t.data_ptr() for t in outs[:3]]
+    streams += [t.data_ptr() for t in outs[3:]] if upd else [null] * 3
+    base_ptrs = [t.data_ptr() for t in base] if base is not None \
+        else [null] * 3
+    co = list(dtc) if upd else []
+    carr = (ctypes.c_float * 5)(*(co + [0.0] * (5 - len(co))))
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    prec = (1 if olds_bf16 else 0) | (2 if acc_bf16 else 0)
+    flags = (axis, int(acc is not None), nolds, int(upd), int(base is not None))
+    if tc_route(blocks, xdiv, halo):
+        img = tc_pack(blocks).on(u.device)
+        ptrs = [t.data_ptr() for t in (u, v, w_, img)] + streams + base_ptrs
+        lib = _tc_lib()
+        with torch.cuda.device(u.device):
+            err = lib.transeq_sweep_tc_launch(
+                *flags, prec, (ctypes.c_void_p * len(ptrs))(*ptrs), *shape,
+                float(nu), carr, grid_of(shape, axis, sms), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"transeq_sweep (tensor cores) launch failed: "
+                f"{lib.transeq_sweep_error_string(err).decode()} ({err})")
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        _TC_LAUNCHES[name] = _TC_LAUNCHES.get(name, 0) + 1
+        return (tuple(outs[:3]), tuple(outs[3:])) if upd else tuple(outs)
+    ptrs = [t.data_ptr() for t in (exts if halo else (u, v, w_))]
+    ptrs += [m.data_ptr() for m in mats] + streams
     divs = None
     if xdiv is not None:
         blocks.require_equal_blocks()
@@ -567,29 +922,17 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
         ptrs += [M.data_ptr() for M in xm] + [t.data_ptr() for t in divs]
     else:
         ptrs += [null] * 5
-    ptrs += [t.data_ptr() for t in base] if base is not None else [null] * 3
+    ptrs += base_ptrs
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    co = list(dtc) if upd else []
-    if olds_bf16 and len(co) != 5:
-        raise ValueError("a bfloat16 history needs the 5-entry row (the 5th: "
-                         "the error feedback, TimeIntegrator.ab_row(..., "
-                         "feedback=True))")
-    carr = (ctypes.c_float * 5)(*(co + [0.0] * (5 - len(co))))
-    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
     # blocks per x block; the xdiv kernel's blocks own all of x
-    grid_x = max(1, min(lines // TL, sms if xdiv is not None else sms // nb))
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    prec = (1 if olds_bf16 else 0) | (2 if acc_bf16 else 0)
+    grid_x = grid_of(shape, axis, sms, bs, xdiv is not None)
     with torch.cuda.device(u.device):
         err = _lib(w).transeq_sweep_launch(
-            axis, int(acc is not None), nolds, int(upd), int(base is not None),
-            int(xdiv is not None), prec, int(halo), parr, *shape, float(nu),
-            carr, grid_x, stream)
+            *flags, int(xdiv is not None), prec, int(halo), parr, *shape,
+            float(nu), carr, grid_x, stream)
     if err != 0:
         raise RuntimeError(f"transeq_sweep launch failed: "
                            f"{launch_error(err, w)} ({err})")
-    name = variant_name(axis, acc is not None, nolds, xdiv is not None, upd,
-                        base is not None, olds_bf16, acc_bf16, w, halo)
     _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
     if xdiv is not None:
         return tuple(outs[:3]), tuple(outs[3:]), tuple(divs)

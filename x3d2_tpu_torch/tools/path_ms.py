@@ -8,7 +8,10 @@ main (keep_pressure=False), M (X3D2_MERGED_X=0, keep_pressure=True: the
 one-field x applies x_pfwd and x_pinv[sub]), K (compensated stepping:
 pressure_grads' x_pinv), HK (K in the HIGHEST mode,
 X3D2_MATMUL_PRECISION=highest), D (X3D2_D2C=1: stage C with the carry),
-R (RK3, keep_pressure=False). Each path's case is built with its
+R (RK3, keep_pressure=False), B (keep_pressure=True: the slab
+projection), S (two scalars, Prandtl numbers 0.7 and 1: the species
+sweeps), H (X3D2_BF16_OLDS=1: the bfloat16 history). Each path's case is
+built with its
 switches, stepped 3 times, then timed over N steps (default 10) by the
 host clock around each step with the device synchronised; prints one
 JSON line: the card's name and power limit, the package's directory, and
@@ -46,8 +49,12 @@ PATHS = {"main": ({}, {}, False),
          "HK": ({"X3D2_MATMUL_PRECISION": "highest"}, {"compensated": True},
                 False),
          "D": ({"X3D2_D2C": "1"}, {}, False),
-         "R": ({}, {"time_intg": "RK3"}, False)}
-SWITCHES = ("X3D2_MERGED_X", "X3D2_MATMUL_PRECISION", "X3D2_D2C")
+         "R": ({}, {"time_intg": "RK3"}, False),
+         "B": ({}, {}, True),
+         "S": ({}, {"n_species": 2, "pr_species": (0.7, 1.0)}, False),
+         "H": ({"X3D2_BF16_OLDS": "1"}, {}, False)}
+SWITCHES = ("X3D2_MERGED_X", "X3D2_MATMUL_PRECISION", "X3D2_D2C",
+            "X3D2_BF16_OLDS")
 
 
 def main(argv=None):
