@@ -34,8 +34,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    taps' operations / 495 TFLOP/s)), the FP32 one printed beside it, a
    time below the bound a failure; it is held as every sweep is (1e-5 of
    plain f32, 3e-5 * scale of plain f64), not to plain f32's bits. Every
-   counted path (phases 4-8) checks that each of those launches ran the
-   tensor-core body (ts.tc_launch_counts).
+   counted path (phases 4-8) checks that each launch of a sweep held here
+   on the tensor-core body ran that body (ts.tc_launch_counts). The W = 16
+   sweeps of a non-periodic axis (512 points, Dirichlet x, Neumann y: the
+   operators are not circulant) take the SIMT body: held too, at
+   512 x 128 x 256 and 128 x 512 x 256, out of the kernels line (no path
+   here runs them), with no tensor-core launch.
    Every W = 32 instance (X3D2_MATMUL_PRECISION=highest) at every size a
    driven HIGHEST path gives it is held to 5e-7 * scale of plain f64, the
    bound of x3d2_tpu's HIGHEST kernels (tests/test_pallas_v3.py:114); the
@@ -1182,7 +1186,7 @@ def main():
     from x3d2_tpu_torch.ops.parity import (BW, Forms, ProjectionMats,
                                            build_projection_mats, pfwd, pinv,
                                            solve_factor)
-    from x3d2_tpu_torch.solver import NavierStokes
+    from x3d2_tpu_torch.solver import NavierStokes, transport_route
     from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
     for switch in ("X3D2_XDIV_FUSED", "X3D2_FUSED_RK", "X3D2_FUSED_AB",
@@ -1287,6 +1291,7 @@ def main():
     d64 = torch.float64
     ti = TimeIntegrator("AB3")
     rows = {}     # (kernel name, size label) -> its entry of the kernels line
+    tc_names = set()   # sweeps held on the tensor-core body (ts.tc_route)
 
     def row(name, n, source, replaces, err, ms, plain_ms, cost,
             library_ms=None, tc=False):
@@ -1365,6 +1370,8 @@ def main():
         whole). tc: the split-TF32 x-apply kernel (its bound, row())."""
         reduced = fold is not None
         fold = fold or (lambda outs: (outs, []))
+        if tc and name.startswith("transeq_sweep["):
+            tc_names.add(name)
         got = flat(kern(*args))
         torch.cuda.synchronize()
         pargs = args
@@ -1454,7 +1461,7 @@ def main():
 
         return fold
 
-    def sweep_rows(shape, ops, variants, randn, terms=2):
+    def sweep_rows(shape, ops, variants, randn, terms=2, listed=True):
         """Hold sweep variants (label, axis, kw: acc, olds, dtc, xdiv,
         base, acc_dtype) against the plain version at `shape`, built at
         the geometry of `terms` (3: the HIGHEST mode's W = 32 instances,
@@ -1501,7 +1508,7 @@ def main():
                          else SWEEP_SOURCE),
                  lim64=5e-7 if w32 else 3e-5,
                  tail64=(3, 3e-5) if w32 and xm is not None else None,
-                 cut=cut, tc=tc)
+                 cut=cut, tc=tc, listed=listed)
 
     def bf16_variants(randn, xm=None):
         """The reduced-precision sweeps of the fused AB chain (paths H, HP
@@ -2172,6 +2179,37 @@ def main():
     del acc, olds, f0, ks
     # paths H and HA: the bfloat16 history, and the bfloat16 partials
     sweep_rows(shape, ns.ops, bf16_variants(randn), randn)
+    torch.cuda.empty_cache()
+    # a non-periodic axis of 512 points (Dirichlet x, then Neumann y): its
+    # operators are not circulant, so its W = 16 sweeps take the SIMT body
+    # (ts.tc_route, decided as the blocks are built); the periodic axes'
+    # the tensor-core body. Held out of the kernels line: no path here
+    # runs them
+    for bcs, shape_np, ax in (
+            (((BC.DIRICHLET,) * 2, (BC.PERIODIC,) * 2, (BC.PERIODIC,) * 2),
+             (NS, 128, 256), 0),
+            (((BC.PERIODIC,) * 2, (BC.NEUMANN,) * 2, (BC.PERIODIC,) * 2),
+             (128, NS, 256), 1)):
+        ns_np = NavierStokes.build(Mesh(shape_np, (2 * math.pi,) * 3, bcs),
+                                   nu, device=dev)
+        check(transport_route(ns_np, shape_np) == "sweeps",
+              f"{size_label(shape_np)} {bcs}: the sweeps' route")
+        blocks_np = ts.build_sweep_blocks(ns_np.ops[ax], ax, device=dev)
+        check(not ts.tc_route(blocks_np), f"axis {ax} of {bcs}: the "
+                                          "tensor-core route")
+        randn_np = randn_of(shape_np)
+        acc_np = tuple(randn_np(100.0) for _ in range(3))
+        olds_np = tuple(tuple(randn_np(100.0) for _ in range(2))
+                        for _ in range(3))
+        tc_before = ts.tc_launch_counts()
+        sweep_rows(shape_np, ns_np.ops, [
+            ("x,acc" if ax == 0 else "y,acc", ax, {"acc": acc_np}),
+            ("x,acc,ab3" if ax == 0 else "y,acc,ab3 steady", ax,
+             {"acc": acc_np, "olds": olds_np, "dtc": ti.ab_row(3, DT)}),
+        ], randn_np, listed=False)
+        check(ts.tc_launch_counts() == tc_before,
+              f"{size_label(shape_np)} {bcs}: a tensor-core launch")
+        del ns_np, blocks_np, acc_np, olds_np
     torch.cuda.empty_cache()
     # path HIA: the HIGHEST mode with both bfloat16 streams, W = 32 (the
     # partial sweeps on bfloat16 partials, the AB update with both)
@@ -2937,9 +2975,9 @@ def main():
         torch.cuda.synchronize()
         counts = counts_now()
         print(f"[{tag}] launches {counts}", flush=True)
-        # the W = 16 sweeps (but xdiv and the halo form) ran the
-        # tensor-core body, every launch
-        tc_want = {k: v for k, v in counts.items() if ts.tc_variant(k)}
+        # every launch of a sweep phase 3 held on the tensor-core body
+        # (ts.tc_route of the same periodic operators) ran that body
+        tc_want = {k: v for k, v in counts.items() if k in tc_names}
         tc_got = ts.tc_launch_counts()
         if tc_want:
             print(f"[{tag}] tensor-core sweep launches {tc_got}", flush=True)

@@ -12,7 +12,8 @@ its arithmetic against float64 and against x3d2_tpu.
   pairing) that every slice and block repeats; the hi / lo images are
   split_tf32 of the kept float32 entries. A non-periodic operator whose
   closure rows reach past the band, and a periodic one that is not
-  circulant, are refused with a message (no solver path sweeps them).
+  circulant, are refused with a message, and their launches take the SIMT
+  body.
 - (b) tc_model, the kernel's arithmetic in float32 (each chunk's three
   products of the split operands summed, then added to the slice's sums),
   for the main path's instances and every other instance of the body, at
@@ -26,8 +27,14 @@ its arithmetic against float64 and against x3d2_tpu.
   slices, threads and elements, writes each output once; at the paths'
   sizes every shape sweep_shape_ok admits packs and takes the
   tensor-core body.
-- (d) CPU tensors take the plain version and count no launch.
+- (d) CPU tensors take the plain version and count no launch. A solver
+  with a non-periodic axis of 512 points takes the sweeps; that axis'
+  launches go to the SIMT body (its closure rows are not circulant), the
+  periodic axes' to the tensor-core body, through the wrapper's launch
+  with the libraries stood in for.
 """
+
+import contextlib
 
 from types import SimpleNamespace
 
@@ -176,9 +183,9 @@ def _banded(n, rng, periodic):
 def test_pack_refuses_closure_rows_and_non_circulant():
     """A closure row of a non-periodic axis reaching past its slice's band
     (40 points off the diagonal, in the block's window), and a periodic
-    operator whose rows differ, are refused with a message (a launch on
-    the card raises it; no solver path sweeps such an axis); the CPU
-    route keeps its plain version."""
+    operator whose rows differ, are refused with a message (their launches
+    on the card take the SIMT body: tc_route); the CPU route keeps its
+    plain version."""
     rng = _rng(1)
     n = 256
     M = _banded(n, rng, periodic=False)
@@ -188,6 +195,7 @@ def test_pack_refuses_closure_rows_and_non_circulant():
         ts.tc_pack(blocks)
     with pytest.raises(ValueError, match="outside its slice's band"):
         ts.tc_pack(blocks)       # the refusal is kept, not packed again
+    assert not ts.tc_route(blocks)
     f = _fields(rng, (n, 4, 64), 3)
     want = ts.transeq_sweep_plain(*f, blocks, NU)
     assert all(torch.equal(g, w) for g, w in
@@ -195,6 +203,7 @@ def test_pack_refuses_closure_rows_and_non_circulant():
     blocks = _fake_blocks(_banded(n, rng, periodic=True))
     with pytest.raises(ValueError, match="not circulant"):
         ts.tc_pack(blocks)
+    assert not ts.tc_route(blocks)
     # a circulant operator of the same stencil is taken
     C = np.zeros((n, n))
     for d, x in zip(range(-3, 4), rng.standard_normal(7)):
@@ -429,3 +438,81 @@ def test_cpu_tensors_take_the_plain_version(ns):
     want = _flat(ts.transeq_sweep_plain(*fields, blocks, NU, **args))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ts.launch_counts() == {} and ts.tc_launch_counts() == {}
+
+
+class _FakeLib:
+    """Stands in for a sweep library: records the body each launch asks
+    for, launches nothing."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def transeq_sweep_tc_launch(self, *args):
+        self.calls.append("tc")
+        return 0
+
+    def transeq_sweep_launch(self, *args):
+        self.calls.append("simt")
+        return 0
+
+
+# a non-periodic x or y axis of 512 points (the Poisson solver takes x
+# and y non-periodic, z periodic): (x BCs, y BCs)
+NON_PERIODIC = [(BC.DIRICHLET, BC.PERIODIC), (BC.NEUMANN, BC.PERIODIC),
+                (BC.PERIODIC, BC.NEUMANN), (BC.DIRICHLET, BC.NEUMANN)]
+
+
+@pytest.mark.parametrize("bcx, bcy", NON_PERIODIC,
+                         ids=[f"{x.name}-{y.name}" for x, y in NON_PERIODIC])
+def test_non_periodic_axis_takes_the_simt_body(bcx, bcy, monkeypatch):
+    """A solver with a non-periodic axis of 512 points takes the sweeps
+    (transport_route, as x3d2_tpu's transeq_v3_supported asks no periodic
+    axis); the blocks of that axis are refused by the packer when they are
+    built, and each launch of the fused AB3 chain, through the wrapper's
+    own launch with the libraries stood in for (and CPU tensors standing
+    in for the card's, never written), asks the SIMT body for that axis'
+    sweep and the tensor-core body for the periodic ones; only the latter
+    count as tensor-core launches."""
+    from x3d2_tpu_torch.solver import transport_route
+
+    bcs = ((bcx,) * 2, (bcy,) * 2, (BC.PERIODIC,) * 2)
+    shape = (512, 128, 256) if bcx != BC.PERIODIC else (128, 512, 256)
+    ns_ = NavierStokes.build(Mesh(shape, L, bcs), NU, device="cpu")
+    assert transport_route(ns_, shape) == "sweeps"
+    periodic = [b == BC.PERIODIC for b in (bcx, bcy, BC.PERIODIC)]
+    fn = ts.make_fused_transeq_ab(ns_.ops, NU, shape, 2, device="cpu")
+    for sweep in fn.sweeps:
+        blocks = sweep.blocks
+        assert ts.tc_route(blocks) == periodic[blocks.axis]
+        if not periodic[blocks.axis]:
+            assert "not circulant" in blocks.tc_refusal
+    calls = []
+    monkeypatch.setattr(ts, "_lib", lambda w=ts.W: _FakeLib(calls))
+    monkeypatch.setattr(ts, "_tc_lib", lambda: _FakeLib(calls))
+    monkeypatch.setattr(ts, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+
+    def empty():
+        return torch.empty(shape)
+
+    u, v, w = empty(), empty(), empty()
+    olds = tuple((empty(), empty()) for _ in range(3))
+    ts.reset_launch_counts()
+    d2, d0, d1 = fn.sweeps
+    acc = ts._launch(u, v, w, d2.blocks, NU, None, None, None, None)
+    acc = ts._launch(u, v, w, d0.blocks, NU, acc, None, None, acc)
+    ts._launch(u, v, w, d1.blocks, NU, acc, olds, AB.ab_row(3, DT),
+               (tuple(o[-1] for o in olds), acc))
+    want = ["tc" if periodic[a] else "simt" for a in (2, 0, 1)]
+    assert calls == want
+    names = [ts.variant_name(2, False, 0), ts.variant_name(0, True, 0),
+             ts.variant_name(1, True, 2)]
+    assert ts.launch_counts() == {k: 1 for k in names}
+    assert ts.tc_launch_counts() == {k: 1 for k, b in zip(names, want)
+                                     if b == "tc"}
+    ts.reset_launch_counts()

@@ -7,8 +7,7 @@
 // half-width W); each geometry is its own translation unit and library,
 // so nvcc builds them in parallel:
 //   - transeq_sweep.cu      BS = 64, W = 16 (x3d2_tpu's default mode,
-//     terms = 2): the halo form, the xdiv variant (with the
-//     reduced-precision instances) and the species sweep;
+//     terms = 2), with the reduced-precision (bfloat16) instances;
 //   - transeq_sweep_tc.cu   the tensor-core momentum sweep, BS = 64, W = 16;
 //   - transeq_sweep_w32.cu  BS = 32, W = 32 (x3d2_tpu's HIGHEST mode,
 //     X3D2_MATMUL_PRECISION=highest, terms = 3: w = 32 on the non-lane
@@ -79,10 +78,11 @@
 // momentum sweep of a uniform periodic axis but the xdiv variant and the
 // halo form: the z sweep (_pencil_kernel) and the x and y sweeps with
 // their accumulate and update epilogues (_transeq_kernel_v3), at every
-// precision; it refuses an operator whose slices differ (a non-periodic
-// axis, which no solver path sweeps). The SIMT body (transeq_sweep_kernel,
-// described after it) serves the HIGHEST mode's W = 32 and the halo form
-// (at W = 16 only that form is built).
+// precision. The SIMT body (transeq_sweep_kernel, described after it)
+// serves the HIGHEST mode's W = 32, the halo form, and the axes whose
+// operators are not circulant (a non-periodic axis: its closure rows
+// differ from slice to slice), which the wrapper routes to it when it
+// builds the blocks (ops/transeq_sweep.py tc_route).
 //
 // The tensor-core body. What bounds it: its split-TF32 products of the
 // band taps (3 x 297 multiply-adds a point: 0.50 ms a 512^3 sweep at the
@@ -178,6 +178,7 @@
 
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace sweep {
@@ -1052,10 +1053,22 @@ cudaError_t dispatch_prec(int accumulate, int nolds, int upd, int base_sep,
 // tableaus' rows) on the y sweep only, which ends the RK chain; with
 // WITH_PREC the reduced-precision ones (dispatch_prec).
 template <int BS, int W, int AXIS, bool WITH_PREC>
-cudaError_t dispatch_momentum(int accumulate, int nolds, int upd,
-                              int base_sep, int prec, const SweepArgs& a,
-                              long long ntiles, int nb, int grid_x,
-                              cudaStream_t s) {
+cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
+                          int prec, int halo, const SweepArgs& a,
+                          long long ntiles, int nb, int grid_x,
+                          cudaStream_t s) {
+  if (halo) {
+    // the halo form: the partial sweeps of the sharded axes (y, z)
+    if (AXIS == 0 || upd || nolds != 0 || base_sep || prec != 0)
+      return cudaErrorInvalidValue;
+    if constexpr (AXIS != 0) {
+      return accumulate
+                 ? launch<BS, W, AXIS, true, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s)
+                 : launch<BS, W, AXIS, false, 0, false, false, 0, true>(
+                       a, ntiles, nb, grid_x, s);
+    }
+  }
   if (prec != 0)
     return dispatch_prec<BS, W, AXIS, WITH_PREC>(accumulate, nolds, upd,
                                                  base_sep, prec, a, ntiles,
@@ -1095,33 +1108,6 @@ cudaError_t dispatch_momentum(int accumulate, int nolds, int upd,
     }
   }
   return cudaErrorInvalidValue;
-}
-
-// HALO_ONLY: the geometry's other momentum sweeps are the tensor-core
-// body's (transeq_sweep_tc.cu), and their SIMT instances are not built.
-template <int BS, int W, int AXIS, bool WITH_PREC, bool HALO_ONLY>
-cudaError_t dispatch_axis(int accumulate, int nolds, int upd, int base_sep,
-                          int prec, int halo, const SweepArgs& a,
-                          long long ntiles, int nb, int grid_x,
-                          cudaStream_t s) {
-  if (halo) {
-    // the halo form: the partial sweeps of the sharded axes (y, z)
-    if (AXIS == 0 || upd || nolds != 0 || base_sep || prec != 0)
-      return cudaErrorInvalidValue;
-    if constexpr (AXIS != 0) {
-      return accumulate
-                 ? launch<BS, W, AXIS, true, 0, false, false, 0, true>(
-                       a, ntiles, nb, grid_x, s)
-                 : launch<BS, W, AXIS, false, 0, false, false, 0, true>(
-                       a, ntiles, nb, grid_x, s);
-    }
-  }
-  if constexpr (HALO_ONLY) {
-    return cudaErrorInvalidValue;
-  } else {
-    return dispatch_momentum<BS, W, AXIS, WITH_PREC>(
-        accumulate, nolds, upd, base_sep, prec, a, ntiles, nb, grid_x, s);
-  }
 }
 
 // The xdiv instances: 1-3 history fields at each precision built.
@@ -1177,10 +1163,12 @@ inline long long lines_of(int axis, int n0, int n1, int n2) {
 // keeps its +/- W taps). On a uniform periodic axis the operators are
 // circulant, so every slice of every output block has the same rows over
 // its three chunks: three images a pairing serve the launch
-// (ops/transeq_sweep.py tc_pack; other operators take the SIMT body).
-// Each chunk's three products (lo hi, hi lo, hi hi) over its two k steps
-// of 8 are summed by the tensor cores into a chunk sum, which is added to
-// the slice's FP32 sums in registers.
+// (ops/transeq_sweep.py tc_pack). The body takes no other operators: the
+// wrapper sends an axis whose operators are not circulant to the SIMT
+// body (tc_route). The three products (lo hi, hi lo, hi hi) of each k
+// step of 8 are summed by the tensor cores into the slice's FP32
+// accumulators over all 48 k of its band (six k steps), with no FP32 add
+// a chunk.
 namespace tc {
 
 constexpr int TBS = 64;              // output rows a block
@@ -1674,13 +1662,25 @@ transeq_sweep_tc_kernel(const __grid_constant__ TcSweepArgs a,
   }
 }
 
+constexpr int MAX_DEV = 16;   // devices whose attribute is remembered
+
+// an instance's shared-memory attribute is set once a device (past
+// MAX_DEV devices, at every launch)
 template <int AXIS, int NOLDS, bool BASE_SEP>
 cudaError_t launch_axis(const TcSweepArgs& a, long long ntiles, int nb,
                         int grid_x, cudaStream_t s) {
+  static std::atomic<bool> ready[MAX_DEV];
   auto kern = transeq_sweep_tc_kernel<AXIS, NOLDS, BASE_SEP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEV || !ready[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEV) ready[dev].store(true, std::memory_order_release);
+  }
   kern<<<dim3(grid_x, nb), NTHR, SMEM_BYTES, s>>>(a, ntiles);
   return cudaGetLastError();
 }
@@ -1783,7 +1783,7 @@ int geometry(int* bs, int* w, int* tl, int* xdiv_max_nb, int* max_species) {
   return 0;
 }
 
-template <int BS, int W, bool WITH_PREC, bool HALO_ONLY>
+template <int BS, int W, bool WITH_PREC>
 int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
                  int xdiv, int prec, int halo, void* const* ptrs, int n0,
                  int n1, int n2, float nu, const float* dtc, int grid_x,
@@ -1832,13 +1832,13 @@ int sweep_launch(int axis, int accumulate, int nolds, int upd, int base_sep,
     return cudaErrorInvalidValue;
   }
   switch (axis) {
-    case 0: return dispatch_axis<BS, W, 0, WITH_PREC, HALO_ONLY>(
+    case 0: return dispatch_axis<BS, W, 0, WITH_PREC>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
-    case 1: return dispatch_axis<BS, W, 1, WITH_PREC, HALO_ONLY>(
+    case 1: return dispatch_axis<BS, W, 1, WITH_PREC>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
-    case 2: return dispatch_axis<BS, W, 2, WITH_PREC, HALO_ONLY>(
+    case 2: return dispatch_axis<BS, W, 2, WITH_PREC>(
         accumulate, nolds, upd, base_sep, prec, halo, a, ntiles, nb, grid_x,
         s);
   }
@@ -1897,7 +1897,7 @@ int species_launch(int axis, int accumulate, int halo, int nsp,
 // blocks per output block. halo: the halo form (axes 1 and 2, no update);
 // n0, n1, n2 are the shard's extents. Each returns the cudaError_t of the
 // launch (0 on success).
-#define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC, HALO_ONLY)                \
+#define TRANSEQ_SWEEP_C_INTERFACE(BS, W, WITH_PREC)                           \
   extern "C" {                                                                \
   int transeq_sweep_geometry(int* bs, int* w, int* tl, int* xdiv_max_nb,      \
                              int* max_species) {                              \
@@ -1908,7 +1908,7 @@ int species_launch(int axis, int accumulate, int halo, int nsp,
                            void* const* ptrs, int n0, int n1, int n2,         \
                            float nu, const float* dtc, int grid_x,            \
                            void* stream) {                                    \
-    return sweep::sweep_launch<BS, W, WITH_PREC, HALO_ONLY>(                  \
+    return sweep::sweep_launch<BS, W, WITH_PREC>(                             \
         axis, accumulate, nolds, upd, base_sep, xdiv, prec, halo, ptrs, n0,   \
         n1, n2, nu, dtc, grid_x, stream);                                     \
   }                                                                           \

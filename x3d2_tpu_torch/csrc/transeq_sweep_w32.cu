@@ -9,4 +9,4 @@
 
 #include "transeq_sweep.cuh"
 
-TRANSEQ_SWEEP_C_INTERFACE(32, 32, true, false)
+TRANSEQ_SWEEP_C_INTERFACE(32, 32, true)

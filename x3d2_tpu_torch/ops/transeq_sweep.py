@@ -57,16 +57,18 @@ sweeps take no update).
 
 Two bodies of the kernel serve a CUDA launch (``tc_route``). At the
 default mode's geometry the tensor-core body (transeq_sweep_tc_kernel,
-library ``transeq_sweep_tc.cu``) takes every sweep but the xdiv variant
-and the halo form: split-TF32 wgmma products of each 16-row slice of an
-output block with the 48 window columns of its band (``tc_pack`` packs
-the three images a pairing that every slice and block repeats on a
-circulant operator, and refuses the others, which no solver path sweeps;
-``tc_model`` is its arithmetic in float32 on the CPU; ``tc_writes`` its
-walk of the outputs). Its results are held to float64 (3-4e-7 of max
-|plain f64|), not plain float32's bits. The SIMT body takes the HIGHEST
-mode's W = 32, the halo form and the xdiv variant (its own kernel).
-Launches of either are counted by variant name (``launch_counts``), the
+library ``transeq_sweep_tc.cu``) takes every sweep of an axis whose
+operators are circulant (a uniform periodic one) but the xdiv variant and
+the halo form: split-TF32 wgmma products of each 16-row slice of an
+output block with the 48 window columns of its band (``SweepBlocks.tc``,
+packed when the blocks are built: the three images a pairing that every
+slice and block repeats; ``tc_model`` is its arithmetic in float32 on the
+CPU; ``tc_writes`` its walk of the outputs). Its results are held to
+float64 (3-4e-7 of max |plain f64|), not plain float32's bits. The SIMT
+body takes the HIGHEST mode's W = 32, the halo form, the xdiv variant
+(its own kernel), and the axes whose operators the packer refuses (a
+non-periodic axis: its closure rows differ from slice to slice). Launches
+of either are counted by variant name (``launch_counts``), the
 tensor-core body's also in ``tc_launch_counts``.
 
 ``transeq_sweep`` launches the kernel for CUDA tensors (or raises) and
@@ -195,7 +197,10 @@ class SweepBlocks:
     """Banded operator blocks of one axis: sa = [D1; D2] and st = [D1s; D2s]
     as (nb, 2BS, WIN), da = D1s and dt = D1 as (nb, BS, WIN) at the block
     geometry (bs, w); float64 numpy masters plus device copies per
-    dtype."""
+    dtype. tc: the blocks packed for the tensor-core body (SweepTC), or
+    None where the packer refuses them (tc_refusal says why: another
+    geometry, or operators that are not circulant); decided once, here,
+    and the route of every launch (tc_route)."""
 
     axis: int
     m64: dict
@@ -203,6 +208,14 @@ class SweepBlocks:
     bs: int = BS
     w: int = W
     _dev: dict = field(default_factory=dict)
+    tc: SweepTC | None = field(init=False, default=None)
+    tc_refusal: str | None = field(init=False, default=None)
+
+    def __post_init__(self):
+        try:
+            self.tc = _tc_pack(self)
+        except ValueError as e:
+            self.tc_refusal = str(e)
 
     @property
     def nb(self) -> int:
@@ -336,29 +349,22 @@ def _image(m, pairing, j):
     return out
 
 
-def tc_pack(blocks: SweepBlocks, tol=_BAND_TOL) -> SweepTC:
-    """The operator blocks packed for the tensor-core body (SweepTC; cached
-    on the blocks). Raises ValueError off the default mode's geometry;
-    where a slice's rows hold an entry above `tol` of its operator's
-    largest outside the slice's three chunks (the closure rows of a
-    non-periodic axis reach past the band); and where the slices' or the
-    blocks' rows over their chunks differ by more than float64 rounding
-    (1e-12 of the largest entry: an operator that is not circulant). No
-    solver path sweeps such an axis (a non-periodic one)."""
-    if "tc" in blocks._dev:
-        if isinstance(blocks._dev["tc"], ValueError):
-            raise blocks._dev["tc"]
-        return blocks._dev["tc"]
-    try:
-        pk = _tc_pack(blocks, tol)
-    except ValueError as e:
-        blocks._dev["tc"] = e
-        raise
-    blocks._dev["tc"] = pk
-    return pk
+def tc_pack(blocks: SweepBlocks) -> SweepTC:
+    """The operator blocks packed for the tensor-core body (SweepTC,
+    packed when the blocks were built). Raises ValueError off the default
+    mode's geometry; where a slice's rows hold an entry above the band
+    tolerance (x3d2_tpu's 1e-6 of its operator's largest) outside the
+    slice's three chunks (closure rows reaching past the band); and where
+    the slices' or the blocks' rows over their chunks differ by more than
+    float64 rounding (1e-12 of the largest entry: an operator that is not
+    circulant, as a non-periodic axis' closure rows make it). The launches
+    of such blocks take the SIMT body (tc_route)."""
+    if blocks.tc is None:
+        raise ValueError(blocks.tc_refusal)
+    return blocks.tc
 
 
-def _tc_pack(blocks, tol):
+def _tc_pack(blocks):
     if (blocks.bs, blocks.w) != (TC_BS, TC_W):
         raise ValueError(f"the tensor-core sweep is built at BS={TC_BS}, "
                          f"W={TC_W}, not ({blocks.bs}, {blocks.w})")
@@ -372,7 +378,7 @@ def _tc_pack(blocks, tol):
         P = np.abs(m[key][:, r0:r0 + blocks.bs]).reshape(
             nb, TC_NSL, TC_SL, TC_NCH, TC_KC)
         out = np.where(band[None, :, None, :, None], 0.0, P).max() / P.max()
-        if out > tol:
+        if out > _BAND_TOL:
             raise ValueError(
                 f"an entry of {out:.1e} of its operator's largest lies "
                 f"outside its slice's band of {TC_SLICE_CHUNKS} chunks: the "
@@ -736,23 +742,12 @@ def _reduced(dtype, what):
 
 
 def tc_route(blocks, xdiv=None, halo=False) -> bool:
-    """Whether a sweep launches the tensor-core body: the default mode's
-    geometry, neither the halo form nor the xdiv variant (those, and the
-    HIGHEST mode's W = 32, launch the SIMT body). Its launch raises
-    ValueError for operators tc_pack refuses."""
-    return (blocks.bs, blocks.w) == (TC_BS, TC_W) and xdiv is None \
-        and not halo
-
-
-def tc_variant(name) -> bool:
-    """Whether a launch-count name (variant_name) is one the tensor-core
-    body serves: the default mode's band, neither the halo form nor the
-    xdiv variant."""
-    if not name.startswith("transeq_sweep["):
-        return False
-    tags = name[len("transeq_sweep["):-1].split(",")
-    return not {"xdiv", "halo"} & set(tags) \
-        and not any(t[:1] == "w" and t[1:].isdigit() for t in tags)
+    """Whether a sweep launches the tensor-core body: blocks it packs (the
+    default mode's geometry, circulant operators: SweepBlocks.tc), neither
+    the halo form nor the xdiv variant. The rest launch the SIMT body: the
+    HIGHEST mode's W = 32, the halo form, the xdiv variant and the axes
+    whose operators are not circulant (a non-periodic one)."""
+    return blocks.tc is not None and xdiv is None and not halo
 
 
 def grid_of(shape, axis, sms, bs=BS, xdiv=False) -> int:
@@ -893,7 +888,7 @@ def _launch(u, v, w_, blocks, nu, acc, olds, dtc, out, xdiv=None,
     prec = (1 if olds_bf16 else 0) | (2 if acc_bf16 else 0)
     flags = (axis, int(acc is not None), nolds, int(upd), int(base is not None))
     if tc_route(blocks, xdiv, halo):
-        img = tc_pack(blocks).on(u.device)
+        img = blocks.tc.on(u.device)
         ptrs = [t.data_ptr() for t in (u, v, w_, img)] + streams + base_ptrs
         lib = _tc_lib()
         with torch.cuda.device(u.device):
