@@ -19,9 +19,10 @@ Phases, each printing its own lines; any failed check exits non-zero:
    transeq_sweep_tc_kernel<AXIS, NOLDS, BASE_SEP>; the template's instances
    mat_apply_kernel<MODE, TRANS, EPI, TWO, TAIL>, TAIL 0 the 128-tiled
    ones, 1 the general ones; the split-TF32 x-apply kernel
-   x_apply_tc_kernel<FORM, SUB, LINES> (LINES: the z layout of pipe3's
-   stages A and C) and its dynamic shared memory
-   at S = 2, 4, 6). Then starts
+   x_apply_tc_kernel<FORM, EPI, LINES> (EPI 0 store, 1 subtract, 2 the
+   solve of pipe3's stage B; LINES: the z layout of pipe3's stages A and
+   C) and its dynamic shared memory at S = 2, 4, 6, and any ptxas C7518,
+   serialised wgmma, by instance). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
    card.
@@ -74,16 +75,19 @@ Phases, each printing its own lines; any failed check exits non-zero:
      (z and x accumulate with bfloat16 partials, y accumulate + AB3 with
      both bfloat16 streams, both rows);
    - each stage of the pressure pipeline (pipe_a, pipe_b, pipe_c), on the
-     inputs the previous stage's plain version gives; pipe_a and pipe_c
-     are two launches each of the split-TF32 kernel (MANUAL_SOURCE: a z
+     inputs the previous stage's plain version gives: two launches each
+     of the split-TF32 kernel (MANUAL_SOURCE: pipe_a and pipe_c a z
      launch, then a y launch with the banded y folded into the y
-     transforms), launched twice and bit-equal, their bound the
-     split-TF32 one (the FP32 one beside it), and at every size a path
-     gives them each of the four launches is timed as a single call, back
-     to back and as the host's µs a call, beside its own bound and one
-     batched torch.matmul (torch.baddbmm with the subtraction) of the
-     dense operators it stands for (tc_launches); the pipeline is also
-     held at Z_HALF (128 x 128 x 144: z halves of 72, on no path);
+     transforms; pipe_b an x FWD launch with the solve in its epilogue,
+     then an x INV launch of two jobs), launched twice and bit-equal,
+     their bound the split-TF32 one (the FP32 one beside it), and at
+     every size a path gives them each of the six launches is timed as a
+     single call, back to back and as the host's µs a call, beside its
+     own bound and one batched torch.matmul (torch.baddbmm with the
+     subtraction) of the dense operators it stands for (tc_launches;
+     pipe_b's INV launch also held to TC_LIM of plain float64 on its own
+     input); the pipeline is also held at Z_HALF (128 x 128 x 144: z
+     halves of 72, on no path);
    - the slab projection: x_div3, the mid with q, the mid without q (its
      outputs bit-equal to the mid with q), the mid's halves div_solve and
      grad (X3D2_MID_SPLIT=1, path BS; bit-equal to the mid) and
@@ -525,9 +529,11 @@ TILED_SOURCE = "x3d2_tpu_torch/csrc/pressure_mid_tiled.cu"
 # the one-field parity x applies (x_pfwd, x_pinv, x_pinv[sub]) and
 # the manual entry, on no solver path (tools/prof_manual.py)
 MANUAL_SOURCE = "x3d2_tpu_torch/csrc/x_apply_manual.cu"
-# the pipeline's stages A and C: two launches each of MANUAL_SOURCE's kernel,
-# a z launch (the transposed form) and a y launch (batched over x planes)
-PIPE_TC = ("pipe_a", "pipe_c")
+# the pipeline's stages: two launches each of MANUAL_SOURCE's kernel (A and
+# C a z launch, the transposed form, and a y launch batched over x planes;
+# B an x FWD launch with the solve, then an x INV launch); none of them on
+# PIPE_SOURCE's template
+PIPE_TC = ("pipe_a", "pipe_b", "pipe_c")
 # the split-TF32 kernel's limit against plain float64, relative to max
 # |plain f64|: under the HIGHEST mode's 5e-7 (tests/test_pallas_v3.py:114)
 TC_LIM = 4e-7
@@ -1235,12 +1241,15 @@ def main():
             # TRANS, EPI, TWO, TAIL> (TAIL 0: the 128-tiled instances, 1:
             # the general ones),
             # pipe_c_d2_kernel<NZ>, transeq_dense_kernel<TRANS, EXACT>,
-            # x_apply_tc_kernel<FORM, SUB, LINES>
+            # x_apply_tc_kernel<FORM, EPI, LINES>
             # (mangled: <length><name>; the length is checked, since the
             # anonymous namespace before the name may end in digits too)
             found = [m for m in re.finditer(
                 r"(?=(\d+)([a-z][a-z0-9_]*_kernel)I((?:L[ib]\d+E)+)E)", line)
                 if int(m.group(1)) == len(m.group(2))]
+            if "C7518" in line:
+                # serialised wgmma: the warning names its function
+                print(f"[build {name}] " + line.strip())
             # the kernels that are no templates (mid_t1_kernel ... of
             # pressure_mid_tiled.cu, pipe_c_d2_streamed_kernel): the name
             # and then the parameters (pointers, or a struct in the
@@ -1670,7 +1679,7 @@ def main():
     def pipe_rows(shape, fields, pm, on_path=True):
         """The pipeline's stages at `shape`, each on the inputs the
         previous stage's plain version gives (so kernel and plain see the
-        same tensors); on a path's size also each launch of stages A and C
+        same tensors); on a path's size also each launch of the stages
         (tc_launches). on_path=False: held, left out of the kernels
         line."""
         u, v, w = fields
@@ -1683,22 +1692,25 @@ def main():
                 ("pipe_c", (X_, Y_, u, v, w), pp.pipe_c, pp.pipe_c_plain)]:
             stage_row(name, ins, kern_fn, plain_fn,
                       pipe_cost(name, shape, BW), pm, on_path)
-        del a_, e_
         if on_path:
-            tc_launches(shape, fields, (X_, Y_), pm)
+            tc_launches(shape, fields, (a_, e_), (X_, Y_), pm)
+        del a_, e_
 
-    def tc_launches(shape, fields, xy, pm):
-        """Each launch of stages A and C (the z and the y launch of
-        MANUAL_SOURCE's kernel) at `shape`, on the stages' inputs: its time
-        in a single call, back to back and the host's µs a call
+    def tc_launches(shape, fields, ae, xy, pm):
+        """Each launch of the stages (A and C: the z and the y launch of
+        MANUAL_SOURCE's kernel; B: the x FWD launch with the solve and the
+        x INV launch) at `shape`, on the stages' inputs: its time in a
+        single call, back to back and the host's µs a call
         (tools/prof_xparity.py's timings), its split-TF32 bound with the
-        FP32 one beside it (launch_cost), and as a yardstick one
-        torch.matmul (torch.baddbmm with the subtraction) of the dense
-        operators its parity applies stand for, batched over its jobs'
-        sources (the sum of e's two sources left out)."""
+        FP32 one beside it, and as a yardstick one torch.matmul
+        (torch.baddbmm with the subtraction) of the dense operators its
+        parity applies stand for, batched over its jobs' sources (the sums
+        of e's and of q's two sources left out, and the solve). B's INV
+        launch is held to TC_LIM of plain float64 on its own input."""
         n = size_label(shape)
         op = pp.tc_ops(pm, dev)
         u, v, w = fields
+        a, e = ae
         X, Y = xy
         nx, ny, nz = shape
         m64, fold = pm.mats(d64), pp.fold_y(pm)
@@ -1713,6 +1725,21 @@ def main():
 
         z = pp.pipe_a_z(u, v, w, op)
         g = pp.pipe_c_z(X, Y, op)
+        tabs = pp.solve_tables(pm)
+        q = pp.pipe_b_x(a, e, op, tabs)
+        got = pp.pipe_b_inv(q, op)
+        q64 = q.to(d64)
+        rel_inv = max(rel_err([g_], [pinv(m64[k], q64, 0)])[1]
+                      for g_, k in zip(got, ("gxs", "gxi")))
+        del got, q64
+        print(f"[pipe_b x inv launch {n}] vs plain64 on its own input rel "
+              f"{rel_inv:.2e} (<= {TC_LIM:g})", flush=True)
+        check(rel_inv <= TC_LIM, f"pipe_b's INV launch at {n}: {rel_inv} "
+                                 "of plain f64")
+        Dx = torch.stack([dense(k, k in ("sx", "ix")) for k in
+                          ("sx", "ix", "gxs", "gxi")])
+        xs = torch.stack([a, e]).reshape(2, nx, -1)
+        qs = q.reshape(1, nx, -1)
         Dz = torch.stack([dense(k, k in ("iz", "sz")).T for k in
                           ("iz", "iz", "sz", "gzi", "gzs", "gzi")])
         Dy = torch.stack([dense(k, k in ("tyI", "tyS")) for k in
@@ -1728,6 +1755,10 @@ def main():
              lambda: torch.matmul(zf, Dz[:3]), 6, 3 * (nz + 1)),
             ("pipe_a", "y", lambda: pp.pipe_a_y(*z, op),
              lambda: torch.matmul(Dy[:3, None], ys), 5, 3 * (ny + 1) + 1),
+            ("pipe_b", "x fwd", lambda: pp.pipe_b_x(a, e, op, tabs),
+             lambda: torch.matmul(Dx[:2], xs), 3, 2 * (nx + 1) + 5),
+            ("pipe_b", "x inv", lambda: pp.pipe_b_inv(q, op),
+             lambda: torch.matmul(Dx[2:], qs), 3, 2 * (nx + 1)),
             ("pipe_c", "z", lambda: pp.pipe_c_z(X, Y, op),
              lambda: torch.matmul(gf, Dz[3:]), 5, 3 * (nz + 1)),
             ("pipe_c", "y", lambda: pp.pipe_c_y(*g, u, v, w, op),
@@ -1743,7 +1774,7 @@ def main():
                   f"{pxp.host_us(kern, 20):.1f} µs a call; "
                   f"{tc_txt(f'{stage}[{axis}]', n, ms, cost, lib_ms)}",
                   flush=True)
-        del z, g, Dz, Dy, zf, gf, ys, yg, ss, Dyi
+        del z, g, Dz, Dy, zf, gf, ys, yg, ss, Dyi, q, Dx, xs, qs
         torch.cuda.empty_cache()
 
     # the slab projection's functions. Their inputs are a few plane waves
@@ -2975,6 +3006,15 @@ def main():
         torch.cuda.synchronize()
         counts = counts_now()
         print(f"[{tag}] launches {counts}", flush=True)
+        # the pipeline's stages launch the x-apply kernel, none the template
+        on_tc = {k: v for k, v in xm.launch_counts().items() if k in PIPE_TC}
+        on_tmpl = {k: v for k, v in oa.launch_counts().items()
+                   if k in PIPE_TC}
+        if on_tc:
+            print(f"[{tag}] pipeline launches on the x-apply kernel {on_tc}",
+                  flush=True)
+        check(not on_tmpl, f"{tag}: pipeline launches on the template "
+                           f"{on_tmpl}")
         # every launch of a sweep phase 3 held on the tensor-core body
         # (ts.tc_route of the same periodic operators) ran that body
         tc_want = {k: v for k, v in counts.items() if k in tc_names}

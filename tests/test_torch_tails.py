@@ -169,7 +169,7 @@ def _launches(pm, pipe):
                                             local=True))
         if pipe:
             pp._pipe_a_cuda(u, u, u, pm)
-            pp._pipe_b_cuda(u, u, m)
+            pp._pipe_b_cuda(u, u, pm)
             pp._pipe_c_cuda(u, u, u, u, u, pm)
     finally:
         (oa._launch, oa._check, xm._launch, xm._check, xm._sm_count) = real
@@ -213,9 +213,11 @@ def test_launch_geometry(dims, bcs):
     assert seen
     tc = [(stage, geo) for stage, geo in seen
           if isinstance(geo, xm.Geometry)]
-    # stages A and C: a z launch and a y launch each
+    # stages A and C: a z launch and a y launch each; stage B two x
+    # launches
     assert [(s, g.lines, g.njobs) for s, g in tc] == (
-        [("pipe_a", True, 3), ("pipe_a", False, 2), ("pipe_c", True, 3),
+        [("pipe_a", True, 3), ("pipe_a", False, 2), ("pipe_b", False, 1),
+         ("pipe_b", False, 2), ("pipe_c", True, 3),
          ("pipe_c", False, 3)] if ns._pipe is not None else [])
     for stage, geo in tc:
         _tc_writes_once(geo)

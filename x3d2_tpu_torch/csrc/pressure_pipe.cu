@@ -1,14 +1,13 @@
-// Three-stage pressure projection (keep_pressure=False) as batched operator
-// applies, for Hopper (sm_90a), behind a plain C interface.
+// The slab projection as batched operator applies, for Hopper (sm_90a),
+// behind a plain C interface.
 //
-// Replaces the TPU kernel of x3d2_tpu's projection pipeline
-// (make_pressure_pipe3, x3d2_tpu/ops/pallas_poisson.py:1573):
-//   - _pipe_b_kernel  pallas_poisson.py:1405  q = -(Sx a + Ix e) / waves,
-//                                             X = Gxs q, Y = Gxi q
-// (its stages A and C, _pipe_a_kernel :1378 and _pipe_c_kernel :1455, are
-// the split-TF32 tensor-core kernel of x_apply_manual.cu; stage C with the
-// carry takes two launches here before pipe_c_d2.cu's)
-// Each stage is a few launches of one kernel template that applies an
+// x3d2_tpu's projection pipeline (make_pressure_pipe3,
+// x3d2_tpu/ops/pallas_poisson.py:1573) is the split-TF32 tensor-core
+// kernel of x_apply_manual.cu: its stages A, B and C (_pipe_a_kernel
+// :1378, _pipe_b_kernel :1405, _pipe_c_kernel :1455). Stage C with the
+// carry (X3D2_D2C=1, :1523-1552) takes two launches here (the inverse y
+// transforms, the banded y) before pipe_c_d2.cu's.
+// Each function is a few launches of one kernel template that applies an
 // operator matrix along one axis of a field, out = M . f, in one of three
 // forms (the forms of the TPU kernels):
 //   BANDED  block-banded M: output block b of 64 rows reads the window of
@@ -22,13 +21,12 @@
 // The contraction runs along the slow axis of a row-major slab (x, or y
 // batched over x-planes) or, transposed, along the contiguous z axis. A
 // launch takes up to 3 jobs (fields) and a job up to 2 sources summed into
-// one result (Iz . + Sz .; Sx a + Ix e), each source in a chain of its
-// own, the two sums added as the plain version adds them. Epilogues:
-// store, subtract from a field (the velocity correction), or the spectral
-// solve (multiply by -1/waves rebuilt from separable tables, with the
-// zero-wave guard, and by the Nyquist mask 1 - mx * Myz where the Poisson
-// variant zeros a line; on the all-periodic grids of the pipeline there is
-// no mask and the epilogue reads no mask table).
+// one result (Iz . + Sz .), each source in a chain of its own, the two
+// sums added as the plain version adds them. Epilogues: store, subtract
+// from a field (the velocity correction), or the spectral solve after a y
+// or a z apply (multiply by -1/waves rebuilt from separable tables, with
+// the zero-wave guard, and by the Nyquist mask 1 - mx * Myz where the
+// Poisson variant zeros a line).
 //
 // The same template carries the slab projection (make_pressure_slab,
 // pallas_poisson.py:553; wrappers in ops/pressure_slab.py):
@@ -69,11 +67,11 @@
 // it tiles the launch, so results, registers and times on those grids are
 // as they were before the tails (tools/template_bits.py checks that).
 
-// Bound on an H100 at 512^3: the three stages need about 4.4e3 FMA per
-// point (the dense parity halves dominate; the banded applies count their
-// 2*BW + 1 band taps), about 17.7 ms at the 67 TFLOP/s FP32 rate, against
-// 17 field passes of device memory (about 2.7 ms at 3.35 TB/s) for the
-// function itself: bound by operations.
+// Bound on an H100 at 512^3: the mid with q needs about 8.8 ms at the 67
+// TFLOP/s FP32 rate (the dense parity halves dominate; the banded applies
+// count their 2*BW + 1 band taps; chip_smoke.py slab_cost), against 7 field
+// passes of device memory (about 1.1 ms at 3.35 TB/s) for the function
+// itself: bound by operations.
 // What the design does about it: a classic register-tiled FP32 product,
 // 128 x 128 outputs per block of 256 threads, 8 x 8 per thread, two blocks
 // per SM, operands double-buffered through shared memory in k-steps of 8
@@ -121,10 +119,11 @@ struct Args {
   int bw;              // BANDED: band half-width
   long long ld;        // stride of a row (TRANS: of a column)
   long long pstride;   // stride between the planes of a batch
-  // SOLVE (after an x apply): A, B per (y, z) column, k2x, tx2 per output
-  // row. SOLVE_PLANE (after a y apply batched over x planes): A, B per
-  // (output row, column), k2x, tx2 per plane. tab[2], col[2]: the Nyquist
-  // indicators Myz and mx, laid out as A and k2x; null without a mask.
+  // SOLVE (after a z apply, TRANS): A, B per (y, z) mode, k2x, tx2 per x
+  // mode (the column's plane). SOLVE_PLANE (after a y apply batched over
+  // x planes): A, B per (output row, column), k2x, tx2 per plane. tab[2],
+  // col[2]: the Nyquist indicators Myz and mx, laid out as A and k2x; null
+  // without a mask.
   const float* tab[3];
   const float* col[3];
   // the general instance's: the output's row (TRANS: column) and plane
@@ -481,12 +480,12 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             v[1] = s.y - v[1];
             v[2] = s.z - v[2];
             v[3] = s.w - v[3];
-          } else if (EPI == SOLVE || EPI == SOLVE_PLANE) {
-            const int xm = EPI == SOLVE ? m : (int)(blockIdx.z % a.batch);
-            const long long tn = EPI == SOLVE ? n : off;
+          } else if (EPI == SOLVE_PLANE) {
+            // the x mode is the plane of the batch
+            const int xm = (int)(blockIdx.z % a.batch);
             const float k2 = a.col[0][xm], t2 = a.col[1][xm];
-            const float4 tA = ld4(a.tab[0] + tn);
-            const float4 tB = ld4(a.tab[1] + tn);
+            const float4 tA = ld4(a.tab[0] + off);
+            const float4 tB = ld4(a.tab[1] + off);
             const float wa[4] = {tA.x, tA.y, tA.z, tA.w};
             const float wb[4] = {tB.x, tB.y, tB.z, tB.w};
 #pragma unroll
@@ -497,7 +496,7 @@ mat_apply_kernel(const __grid_constant__ Args a) {
             if (a.tab[2] != nullptr) {
               // the Nyquist line: q * (1 - mx * Myz)
               const float mx = a.col[2][xm];
-              const float4 tm = ld4(a.tab[2] + tn);
+              const float4 tm = ld4(a.tab[2] + off);
               v[0] *= 1.f - mx * tm.x;
               v[1] *= 1.f - mx * tm.y;
               v[2] *= 1.f - mx * tm.z;
@@ -545,7 +544,8 @@ int pressure_pipe_geometry(int* bm, int* gr, int* bn, int* bk) {
 
 // One launch of the operator apply. ptrs: per job A0, A1, B0, B1, C, S (6
 // each, unused may be null); nsrc: sources per job; tabs: A, B, k2x, tx2,
-// Myz, mx (SOLVE only, else null; Myz and mx null without a Nyquist mask).
+// Myz, mx (the solves only, else null; Myz and mx null without a Nyquist
+// mask).
 // nout: the operator's rows. tail: the general instance (any extents,
 // ldo, pstrideo and cpp read), else the 128-tiled one. Grid: (ncols / BN
 // rounded up, mtiles, njobs * batch). Returns the cudaError_t of the
@@ -608,8 +608,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
         return launch<BANDED, false, STORE, false, true>(a, grid, two, s);
       case PFWD * 100 + 0 + STORE:
         return launch<PFWD, false, STORE, false, true>(a, grid, two, s);
-      case PFWD * 100 + 0 + SOLVE:
-        return launch<PFWD, false, SOLVE, false, true>(a, grid, two, s);
       case PFWD * 100 + 0 + SOLVE_PLANE:
         return launch<PFWD, false, SOLVE_PLANE, false, true>(a, grid, two, s);
       case PFWD * 100 + 10 + STORE:
@@ -635,15 +633,12 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
   }
   if (two) {
     // the forms that take two-source jobs: the mid's banded y (Iy du +
-    // Sy dv) and z transforms (Iz . + Sz ., parity or dense) and pipe B's
-    // x (Sx a + Ix e, with the solve)
+    // Sy dv) and z transforms (Iz . + Sz ., parity or dense)
     switch (key) {
       case BANDED * 100 + 0 + STORE:
         return launch<BANDED, false, STORE, true>(a, grid, true, s);
       case PFWD * 100 + 10 + STORE:
         return launch<PFWD, true, STORE, true>(a, grid, true, s);
-      case PFWD * 100 + 0 + SOLVE:
-        return launch<PFWD, false, SOLVE, true>(a, grid, true, s);
       case DENSE * 100 + 10 + STORE:
         return launch<DENSE, true, STORE, true>(a, grid, true, s);
     }
@@ -654,8 +649,6 @@ int pressure_pipe_apply(int mode, int trans, int epi, int njobs,
       return launch<BANDED, false, STORE>(a, grid, false, s);
     case PFWD * 100 + 0 + STORE:
       return launch<PFWD, false, STORE>(a, grid, false, s);
-    case PFWD * 100 + 0 + SOLVE:
-      return launch<PFWD, false, SOLVE>(a, grid, false, s);
     case PFWD * 100 + 0 + SOLVE_PLANE:
       return launch<PFWD, false, SOLVE_PLANE>(a, grid, false, s);
     case PFWD * 100 + 10 + STORE:

@@ -5,7 +5,12 @@
 //   FWD     the forward parity split of a transform-folded M:
 //           [E; O] = [Me (f1 + f2); Mo (f1 - f2)], f1, f2 the halves of f;
 //   INV     the inverse one: [a + b; a - b], a = Me f_e, b = Mo f_o, and
-//           INV + SUB.
+//           INV + SUB;
+//   FWD + SOLVE (the x layout): the spectral solve in FWD's epilogue,
+//           q[r, c] = F[r, c] * (-1 / (k2x[r] A[c] + tx2[r] B[c])), and 0
+//           where |k2x[r] A[c] + tx2[r] B[c]| < 1e-16, from four float32
+//           tables: A, B per plane column (the (y, z) modes in q's order),
+//           k2x, tx2 per output row (the x modes in block-parity order).
 // FWD and INV take the stacked [Me; Mo] (n_out, n_in / 2). The axis is
 // one of three layouts of an (nx, ny, nz) field:
 //   x       f (n_in, ny nz): one plane, its columns contiguous;
@@ -16,7 +21,7 @@
 // job sums the applies of one or two sources (M1 f1 + M2 f2) into its
 // output, or subtracts the sum from its s.
 //
-// Replaces six TPU kernels of x3d2_tpu, which compute these functions:
+// Replaces seven TPU kernels of x3d2_tpu, which compute these functions:
 //   - _x_apply_kernel (pallas_poisson.py:954, pl.pallas_call :1346), the
 //     dense x stage of a wall-bounded x and of any x with X3D2_BFLY=0
 //     (DENSE, DENSE + SUB), launched by ops/operator_apply.py apply_dense
@@ -36,6 +41,14 @@
 //     banded y applies are folded into the y transforms: the y operators
 //     of every pipeline grid are circulant, so Ty C and C Tyi are parity
 //     operators of the transforms' size (pressure_pipe.fold_y);
+//   - _pipe_b_kernel (pallas_poisson.py:1405, pl.pallas_call :1669), the
+//     pipeline's stage B, two launches (ops/pressure_pipe.py pipe_b_x,
+//     pipe_b_inv): an x FWD + SOLVE launch of one two-source job, q =
+//     solve(Sx a + Ix e), then an x INV launch of two jobs, X = Gxs q and
+//     Y = Gxi q. The TPU kernel keeps a (y, z) tile's whole x extent in
+//     VMEM and q never reaches HBM; here q goes through device memory (an
+//     item's 128 columns of all nx rows of q are 256 KB at nx = 512, past
+//     a block's 227 KB), two fields more than the function's four;
 //   - the manual-DMA x apply (make_x_apply_manual, pallas_manual.py:62;
 //     its `kernel` :114, pl.pallas_call :200), which is _x_apply_kernel
 //     with its own S-slot copy pipeline, in every form, launched by
@@ -51,7 +64,11 @@
 // products) at a time, and each chunk's P is added to the output's sums
 // in registers by FP32 adds (round to nearest): with the tensor cores'
 // sums running over all of K, 513 points read 5x plain float32's
-// distance to float64.
+// distance to float64. INV sums each k step of 8 (three products) apart
+// and adds the two in FP32: on the pipeline's q, whose few low x modes
+// carry max |X| and max |Y|, six truncating products a chunk put stage
+// B's INV launch past the 4e-7 of float64 the kernel is held to
+// (chip_smoke.py tc_launches).
 //
 // Bound on an H100: n_in multiply-adds an output (n_in / 2 in the parity
 // forms), three times over in TF32: the dense apply at 512^3 is 1.4e11
@@ -99,15 +116,18 @@
 // conflict-free on the swizzled boxes; in the z layout the lines in order)
 // and, per chunk,
 // issues 3 wgmma m64nNk8 for each of its two k steps of 8 and each set of
-// sums, loads and splits the next chunk's fragments while they run, then
-// adds the chunk's sums to its registers and frees the stage. Rows past
+// sums (INV: each k step into a set of its own), loads and splits the
+// next chunk's fragments while they run, then adds the chunk's sums to
+// its registers and frees the stage. Rows past
 // the operator's (n_out, or the half) are zero in the packed operator and
 // masked at the store; k past K is zero in the packed operator and masked
 // in the A fragments; columns past the plane's and lines past the field's
 // are zero-filled and not stored.
 // The epilogue stores each thread's sums from its registers (SUB: the
-// item's s loaded first, DENSE's in two halves; no staging: the shared
-// memory is the ring's): x and y 16-byte runs of an output row, z 32-byte
+// item's s loaded first, DENSE's in two halves; SOLVE: each sum times its
+// mode's -1 / waves, the column tables read once an item, the row tables
+// once a row; no staging: the shared memory is the ring's): x and y
+// 16-byte runs of an output row, z 32-byte
 // runs of an output line (pairs of neighbouring rows, 8 bytes a thread),
 // which measured no slower a field than the x and y forms' (PERF.md), so
 // the z form's stores are not staged.
@@ -147,6 +167,9 @@ constexpr int PROD_REGS = 40;
 constexpr int CONS_REGS = 232;
 
 enum { DENSE = 0, FWD = 1, INV = 2 };
+// the epilogues: store the sums, subtract them from s (DENSE and INV in
+// the x and y layouts), or the solve (FWD in the x layout)
+enum { STORE = 0, SUB = 1, SOLVE = 2 };
 
 // output rows of a part an item (the wgmma N)
 __host__ __device__ constexpr int tile_rows(int form) {
@@ -174,6 +197,8 @@ struct TcArgs {
   const float* s[MAX_JOBS];
   float* out[MAX_JOBS];
   int nsrc[MAX_JOBS];
+  // SOLVE: A, B (ncols each), k2x, tx2 (n_out each)
+  const float* tab[4];
   int rows;          // output rows of a part: DENSE n_out, else n_out / 2
   int n_out;
   int K;
@@ -383,7 +408,7 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
   }
 }
 
-template <int FORM, bool SUB, bool LINES>
+template <int FORM, int EPI, bool LINES>
 __global__ void __launch_bounds__(NTHR, 1)
 x_apply_tc_kernel(const __grid_constant__ TcArgs a,
                   const __grid_constant__ TcMaps maps) {
@@ -395,6 +420,8 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   constexpr int NBOX = BM / FBOX;               // field boxes a block
   constexpr int FB = NBOX * FBOX_BYTES;         // bytes of a field block
   constexpr int ST = stage_bytes(FORM);
+  static_assert(EPI != SOLVE || (FORM == FWD && !LINES),
+                "the solve follows the FWD form in the x layout");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
@@ -518,7 +545,9 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
   float acc[NV];
   float acc2[FORM == DENSE ? 1 : NV];         // FWD: O's sums; INV: b's
   float part[NV];                             // a chunk's tensor-core sum
-  float part2[FORM == FWD ? NV : 1];          // FWD: O's
+  // FWD: O's; INV: the chunk's second k step's, so that the tensor cores'
+  // truncating sums take one k step of 8
+  float part2[FORM == DENSE ? 1 : NV];
   // the A fragments of a chunk's two k steps, split: a0 (row gid, k), a1
   // (gid + 8, k), a2 (gid, k + 4), a3 (gid + 8, k + 4), k = 8 step + tig;
   // the chunk in the tensor cores' hands (ahi, alo; FWD: of s, and bhi,
@@ -575,10 +604,15 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       const uint32_t ob = ring + st * ST, ob2 = ob + OPB;
       const uint64_t dhi = b_desc(ob), dlo = b_desc(ob + OPB / 2);
       wgmma_fence();
+      if constexpr (FORM == INV) {
+        mma3<BN>(part, ahi[0], alo[0], dhi, dlo, 0);
+        mma3<BN>(part2, ahi[1], alo[1], dhi + 2, dlo + 2, 0);
+      } else {
 #pragma unroll
-      for (int step = 0; step < 2; ++step)
-        mma3<BN>(part, ahi[step], alo[step], dhi + 2 * step,
-                 dlo + 2 * step, step);
+        for (int step = 0; step < 2; ++step)
+          mma3<BN>(part, ahi[step], alo[step], dhi + 2 * step,
+                   dlo + 2 * step, step);
+      }
       if constexpr (FORM == FWD) {
         const uint64_t ehi = b_desc(ob2), elo = b_desc(ob2 + OPB / 2);
 #pragma unroll
@@ -600,6 +634,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       fence_acc(part);
       fence_reg(ahi);
       fence_reg(alo);
+      if constexpr (FORM == INV) fence_acc(part2);
       if constexpr (FORM == FWD) {
         fence_acc(part2);
         fence_reg(bhi);
@@ -627,6 +662,8 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
         for (int i = 0; i < NV; ++i) acc2[i] += part2[i];
       }
       if constexpr (FORM == INV) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) part[i] += part2[i];
         if (hcur) {
 #pragma unroll
           for (int i = 0; i < NV; ++i) acc2[i] += part[i];
@@ -641,7 +678,8 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
     // 2 tig + q of the tile); group g: the output half (FWD E, O; INV a +
     // b, a - b); SUB reads its s first, then stores (DENSE in two passes
     // of half the rows: with all 64 of s live beside the 64 sums its
-    // instance spilled)
+    // instance spilled); SOLVE scales each sum by its mode's -1 / waves
+    // (the pipeline's _pipe_b_kernel, pallas_poisson.py:1440-1443)
     constexpr int G = FORM == DENSE ? 1 : 2;
     const Item m = item_of(j);
     const int nrows = a.rows - m.rt * BN < BN ? a.rows - m.rt * BN : BN;
@@ -668,7 +706,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
       // rows 2 tig and 2 tig + 1 of each 8 are neighbours along the line:
       // 8 bytes a thread (rows is even, so a pair is stored whole or not);
       // no SUB in this layout
-      static_assert(!SUB, "the z layout has no subtraction");
+      static_assert(EPI == STORE, "the z layout only stores");
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -681,12 +719,22 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
         }
     } else {
       const float* const sp = a.s[m.job];
-      constexpr int PASSES = SUB && G == 1 ? 2 : 1;
+      constexpr int PASSES = EPI == SUB && G == 1 ? 2 : 1;
       constexpr int NPI = NV / PASSES;
+      // SOLVE: the column tables of the thread's two columns
+      float ta[2] = {0.f, 0.f}, tb[2] = {0.f, 0.f};
+      if constexpr (EPI == SOLVE) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (okc[c]) {
+            ta[c] = __ldg(a.tab[0] + col[c]);
+            tb[c] = __ldg(a.tab[1] + col[c]);
+          }
+      }
 #pragma unroll
       for (int pass = 0; pass < PASSES; ++pass) {
-        float sv[SUB ? G * NPI : 1];
-        if constexpr (SUB) {
+        float sv[EPI == SUB ? G * NPI : 1];
+        if constexpr (EPI == SUB) {
 #pragma unroll
           for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -707,7 +755,13 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
             const int c = (i >> 1) & 1;
             if (n >= nrows || !okc[c]) continue;
             float v = value(g, i);
-            if constexpr (SUB) v = sv[g * NPI + i0] - v;
+            if constexpr (EPI == SUB) v = sv[g * NPI + i0] - v;
+            if constexpr (EPI == SOLVE) {
+              const int row = g * a.rows + m.rt * BN + n;
+              const float waves = __ldg(a.tab[2] + row) * ta[c]
+                                  + __ldg(a.tab[3] + row) * tb[c];
+              v *= fabsf(waves) >= 1e-16f ? -1.f / waves : 0.f;
+            }
             out[at(g, n, c)] = v;
           }
       }
@@ -717,7 +771,7 @@ x_apply_tc_kernel(const __grid_constant__ TcArgs a,
 
 // One launch of an instance at `bytes` of dynamic shared memory; the
 // instance's attribute is raised to SMEM_MAX once per device
-template <int FORM, bool SUB, bool LINES>
+template <int FORM, int EPI, bool LINES>
 cudaError_t launch(const TcArgs& a, const TcMaps& maps, int grid, int bytes,
                    cudaStream_t stream) {
   static std::atomic<bool> ready[MAX_DEV];
@@ -725,13 +779,13 @@ cudaError_t launch(const TcArgs& a, const TcMaps& maps, int grid, int bytes,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= MAX_DEV || !ready[dev].load(std::memory_order_acquire)) {
-    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, SUB, LINES>,
+    e = cudaFuncSetAttribute(x_apply_tc_kernel<FORM, EPI, LINES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_MAX);
     if (e != cudaSuccess) return e;
     if (dev < MAX_DEV) ready[dev].store(true, std::memory_order_release);
   }
-  x_apply_tc_kernel<FORM, SUB, LINES><<<grid, NTHR, bytes, stream>>>(a, maps);
+  x_apply_tc_kernel<FORM, EPI, LINES><<<grid, NTHR, bytes, stream>>>(a, maps);
   return cudaGetLastError();
 }
 
@@ -803,14 +857,16 @@ int x_apply_tc_geometry(int* g) {
 // pointers a job: its sources' packed operators (ops/x_apply_manual.py
 // pack; rows output rows a part, contraction K; the second null for one
 // source), their fields (likewise), s (null without the subtraction: all
-// jobs or none) and the output (n_out = rows x (1 or 2) rows). ncols a
+// jobs or none) and the output (n_out = rows x (1 or 2) rows). tabs: null,
+// or the solve's four float32 tables A, B (ncols each), k2x, tx2 (n_out
+// each) for the FWD form in the x layout (nplanes 1, no s). ncols a
 // multiple of 4 in the x and y layouts; slots 2 .. MAX_S where the ring
 // fits (FWD 2 .. 7); grid: blocks (the SM count). Returns the cudaError_t
 // of the launch (0 on success).
 int x_apply_tc_launch_jobs(int form, int lines, int njobs,
-                           const void* const* ptrs, int rows, int K,
-                           long long ncols, int nplanes, int slots, int grid,
-                           void* stream) {
+                           const void* const* ptrs, const void* const* tabs,
+                           int rows, int K, long long ncols, int nplanes,
+                           int slots, int grid, void* stream) {
   constexpr int NPTR = 2 * MAX_SRC + 2;
   if (form < DENSE || form > INV || lines < 0 || lines > 1 || njobs < 1
       || njobs > MAX_JOBS || rows < 1 || K < 1 || ncols < 1 || nplanes < 1
@@ -821,6 +877,9 @@ int x_apply_tc_launch_jobs(int form, int lines, int njobs,
     return (int)cudaErrorInvalidValue;
   const bool sub = ptrs[MAX_SRC * 2] != nullptr;
   if ((form == FWD || lines) && sub) return (int)cudaErrorInvalidValue;
+  const bool solve = tabs != nullptr;
+  if (solve && (form != FWD || lines || nplanes != 1))
+    return (int)cudaErrorInvalidValue;
   const int bn = tile_rows(form);
   const long long n_in = (long long)K * (form == DENSE ? 1 : 2);
   TcArgs a = {};
@@ -843,6 +902,10 @@ int x_apply_tc_launch_jobs(int form, int lines, int njobs,
     a.s[j] = static_cast<const float*>(p[MAX_SRC * 2]);
     a.out[j] = static_cast<float*>(const_cast<void*>(p[MAX_SRC * 2 + 1]));
   }
+  for (int i = 0; i < 4; ++i) {
+    a.tab[i] = solve ? static_cast<const float*>(tabs[i]) : nullptr;
+    if (solve && a.tab[i] == nullptr) return (int)cudaErrorInvalidValue;
+  }
   a.rows = rows;
   a.n_out = rows * (form == DENSE ? 1 : 2);
   a.K = K;
@@ -860,21 +923,24 @@ int x_apply_tc_launch_jobs(int form, int lines, int njobs,
   a.slots = slots;
   if (grid > a.nitems) grid = a.nitems;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((form * 2 + (sub ? 1 : 0)) * 2 + lines) {
-    case (DENSE * 2) * 2:
-      return (int)launch<DENSE, false, false>(a, maps, grid, bytes, st);
-    case (DENSE * 2 + 1) * 2:
-      return (int)launch<DENSE, true, false>(a, maps, grid, bytes, st);
-    case (FWD * 2) * 2:
-      return (int)launch<FWD, false, false>(a, maps, grid, bytes, st);
-    case (FWD * 2) * 2 + 1:
-      return (int)launch<FWD, false, true>(a, maps, grid, bytes, st);
-    case (INV * 2) * 2:
-      return (int)launch<INV, false, false>(a, maps, grid, bytes, st);
-    case (INV * 2) * 2 + 1:
-      return (int)launch<INV, false, true>(a, maps, grid, bytes, st);
-    case (INV * 2 + 1) * 2:
-      return (int)launch<INV, true, false>(a, maps, grid, bytes, st);
+  const int epi = sub ? SUB : solve ? SOLVE : STORE;
+  switch ((form * 3 + epi) * 2 + lines) {
+    case (DENSE * 3 + STORE) * 2:
+      return (int)launch<DENSE, STORE, false>(a, maps, grid, bytes, st);
+    case (DENSE * 3 + SUB) * 2:
+      return (int)launch<DENSE, SUB, false>(a, maps, grid, bytes, st);
+    case (FWD * 3 + STORE) * 2:
+      return (int)launch<FWD, STORE, false>(a, maps, grid, bytes, st);
+    case (FWD * 3 + STORE) * 2 + 1:
+      return (int)launch<FWD, STORE, true>(a, maps, grid, bytes, st);
+    case (FWD * 3 + SOLVE) * 2:
+      return (int)launch<FWD, SOLVE, false>(a, maps, grid, bytes, st);
+    case (INV * 3 + STORE) * 2:
+      return (int)launch<INV, STORE, false>(a, maps, grid, bytes, st);
+    case (INV * 3 + STORE) * 2 + 1:
+      return (int)launch<INV, STORE, true>(a, maps, grid, bytes, st);
+    case (INV * 3 + SUB) * 2:
+      return (int)launch<INV, SUB, false>(a, maps, grid, bytes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,14 +8,13 @@ PINV, and DENSE along y or z: any (n_out, n) operator, rectangular on a
 wall-bounded axis), up to three fields a launch and two summed sources a
 field (the one-field PFWD and PINV along x, x_pfwd and x_pinv, are the
 x-apply kernel's: ops/pressure_slab.py x_apply_parity; so are the
-pipeline's stages A and C: ops/pressure_pipe.py), with an epilogue
-(STORE, SUB, SOLVE after an x or a z apply, SOLVE_PLANE after a y apply
-batched over x planes; the solves take the
-Nyquist mask where the operator set has one). ``apply_dense`` is the
-dense x apply, out = M f or out = s - M f (the x stage of a wall-bounded x
-axis, and of any x with X3D2_BFLY=0): one launch of the split-TF32
-tensor-core kernel of ``csrc/x_apply_manual.cu`` (ops/x_apply_manual.py),
-not of the template.
+pipeline's three stages: ops/pressure_pipe.py), with an epilogue (STORE,
+SUB, SOLVE after a z apply, SOLVE_PLANE after a y apply batched over x
+planes; the solves take the Nyquist mask where the operator set has
+one). ``apply_dense`` is the dense x apply, out = M f or out = s - M f
+(the x stage of a wall-bounded x axis, and of any x with X3D2_BFLY=0):
+one launch of the split-TF32 tensor-core kernel of
+``csrc/x_apply_manual.cu`` (ops/x_apply_manual.py), not of the template.
 ``geometry`` computes every template launch's block grid, strides and
 instance in one place: the 128-tiled instance where the extents are
 multiples of its tiles and the form is one it has (its results and
@@ -42,8 +41,8 @@ from .parity import BBS, BW, TILE, WIN
 BANDED, PFWD, PINV, DENSE = 0, 1, 2, 3
 STORE, SUB, SOLVE, SOLVE_PLANE = 0, 1, 2, 3
 
-# kernel launches per call of each wrapper (pipe_a, pipe_c and the x
-# applies: the x-apply kernel's, ops/x_apply_manual.py)
+# kernel launches per call of each wrapper (pipe_a, pipe_b, pipe_c and the
+# x applies: the x-apply kernel's, ops/x_apply_manual.py)
 LAUNCHES_PER_CALL = {"pipe_a": 2, "pipe_b": 2, "pipe_c": 2,
                      "pipe_c[d2]": 3,
                      "x_div3": 1, "pressure_mid": 6, "pressure_mid[q]": 6,
@@ -118,14 +117,13 @@ def _check(t, shape, name):
 # every other launch, and every launch whose extents they do not tile,
 # takes the general instance (Geometry.tail)
 _TILED = {(BANDED, 0, STORE, False), (PFWD, 0, STORE, False),
-          (PFWD, 0, SOLVE, False), (PFWD, 0, SOLVE_PLANE, False),
-          (PFWD, 1, STORE, False),
+          (PFWD, 0, SOLVE_PLANE, False), (PFWD, 1, STORE, False),
           (PINV, 0, STORE, False), (PINV, 0, SUB, False),
           (PINV, 1, STORE, False), (DENSE, 0, STORE, False),
           (DENSE, 0, SOLVE_PLANE, False),
           (DENSE, 1, STORE, False),
           (BANDED, 0, STORE, True), (PFWD, 1, STORE, True),
-          (PFWD, 0, SOLVE, True), (DENSE, 1, STORE, True)}
+          (DENSE, 1, STORE, True)}
 
 
 @dataclass(frozen=True)
@@ -176,7 +174,7 @@ def geometry(mode, axis, shape, nout, K, epi=STORE, two=False) -> Geometry:
                          f"operators with {want_k} columns (BANDED: {n} "
                          f"rows, the parity forms an even count), got "
                          f"({nout}, {K})")
-    if (epi == SOLVE and axis == 1) or (epi == SOLVE_PLANE and axis != 1) \
+    if (epi == SOLVE and axis != 2) or (epi == SOLVE_PLANE and axis != 1) \
             or (epi == SUB and (axis == 2 or mode != PINV)) \
             or (mode == BANDED and axis == 2) or (mode == DENSE and axis == 0):
         raise ValueError(f"epilogue {epi} with form {mode} along axis {axis}"
@@ -230,10 +228,11 @@ def apply(stage, mode, axis, jobs, epi=STORE, tabs=()):
     fields. jobs: (mats, fields, out, sub) per field, with 1-2 (mat, field)
     sources summed into `out` (sub: the field it is subtracted from).
     tabs: the solve's A, B (per (y, z) of the output), k2x, tx2 (per x of
-    it) [, Myz, mx: the Nyquist mask]. The operators are (n_out, K): BANDED
-    (n, WIN), PFWD and PINV [Me; Mo] (n_out, n/2), DENSE along y or z any
-    (n_out, n) (along x: apply_dense); out and sub have n_out along the
-    axis."""
+    it) [, Myz, mx: the Nyquist mask]; SOLVE follows a z apply (the x
+    solve, pipeline stage B's, is the x-apply kernel's). The operators are
+    (n_out, K): BANDED (n, WIN), PFWD and PINV [Me; Mo] (n_out, n/2),
+    DENSE along y or z any (n_out, n) (along x: apply_dense); out and sub
+    have n_out along the axis."""
     shape = tuple(jobs[0][1][0].shape)
     if mode == DENSE and axis == 0:
         raise ValueError("the dense x apply is apply_dense")

@@ -24,10 +24,15 @@ modes; odd modes] between the stages and the solve tables are permuted to
 match. The operator set, the splits and the plain applies are shared with
 the slab projection (ops/parity.py).
 
-On the card stages A and C are two launches each of the split-TF32
+On the card the three stages are two launches each of the split-TF32
 tensor-core kernel of ``csrc/x_apply_manual.cu`` (ops/x_apply_manual.py
-launch_jobs): a z launch (the transposed form, three jobs) and a y launch
-(batched over the x planes). The banded y applies are folded into the y
+launch_jobs): A and C a z launch (the transposed form, three jobs) and a y
+launch (batched over the x planes); B two x launches, a FWD launch of one
+two-source job with the solve in its epilogue (q = solve(Sx a + Ix e),
+from the separable tables) and an INV launch of two jobs (Gxs q, Gxi q).
+q goes through device memory: x3d2_tpu's kernel holds a (y, z) tile's
+whole x extent, but an item's 128 columns of q's nx rows are 256 KB at
+nx = 512, past a block's 227 KB. The banded y applies are folded into the y
 transforms (``fold_y``): the y operators of every pipeline grid are
 circulant (a periodic uniform y), and a circulant C commutes with the
 half-period shift, C = [[C11, C12], [C12, C11]] in halves, so
@@ -40,9 +45,9 @@ u, Iz v, Sz w (z FWD), then a = TyI z1, e = TyS z2 + TyI z3 (y FWD, e one
 job of two sources); C is Gzi X, Gzs Y, Gzi Y (z INV), then u - GiT px,
 v - GsT pzy, w - GiT dzy (y INV with the subtraction). The same function
 as the plain versions' to float64 rounding (the band the fold removes
-drops entries below 1e-12 of the largest). Stage B and two of
-pipe_c[d2]'s three launches run on the operator-apply template of
-``csrc/pressure_pipe.cu`` (ops/operator_apply.py).
+drops entries below 1e-12 of the largest). Two of pipe_c[d2]'s three
+launches run on the operator-apply template of ``csrc/pressure_pipe.cu``
+(ops/operator_apply.py).
 
 The carry's plain version is x3d2_tpu's: the sweep's banded blocks of the
 z operators at its 128-point blocks and 64-point band in both modes
@@ -65,9 +70,9 @@ A stage on CUDA tensors launches the kernels (or raises); on CPU tensors it
 runs the plain version. The pipeline serves every grid x3d2_tpu's pipe3
 serves (pipe3_supported, pallas_poisson.py:1555: all-periodic and uniform,
 x and z multiples of 16, y of 64): the tensor-core kernel takes any such
-extent (a y of 192: halves of 96, the last row tile part-filled), and
-stage B's launches take the template's general instance where an extent
-is not a multiple of its 128-point tiles (operator_apply.geometry).
+extent (a y of 192 or an x of 320: halves of 96 or 160, the last row tile
+part-filled). Its grids have no Nyquist mask (pipe3 refuses a folded
+Poisson, pallas_poisson.py:1563-1564): stage B's kernel reads none.
 """
 
 from __future__ import annotations
@@ -81,8 +86,7 @@ import torch
 from ..common import resolve_device
 from .banded import banded_blocks
 from . import x_apply_manual as xm
-from .operator_apply import (BANDED, PFWD, PINV, SOLVE, apply, count_launch,
-                             route)
+from .operator_apply import BANDED, PINV, apply, count_launch, route
 from .parity import (Forms, ProjectionMats, banded_apply, pfwd, pinv,
                      solve_factor)
 from .transeq_sweep import SweepBlocks, transeq_sweep_plain
@@ -188,22 +192,35 @@ def fold_y(pm: ProjectionMats) -> dict:
 
 
 def tc_ops(pm: ProjectionMats, device) -> dict:
-    """Stages A and C's operators split and packed for the tensor-core
-    kernel (x_apply_manual.pack, from their float32 values), made once per
+    """The stages' operators split and packed for the tensor-core kernel
+    (x_apply_manual.pack, from their float32 values), made once per
     operator set and device: the parity z transforms iz, sz (forward),
-    gzi, gzs (inverse), and the folded y (fold_y)."""
+    gzi, gzs (inverse), the folded y (fold_y), and the parity x transforms
+    sx, ix (forward), gxs, gxi (inverse)."""
     key = ("packed", str(device))
     if key not in pm._fold:
         m, y = pm.m64, fold_y(pm)
+        fwd = ("iz", "sz", "tyI", "tyS", "sx", "ix")
         pm._fold[key] = {
-            k: xm.pack(M, xm.FWD if k in ("iz", "sz", "tyI", "tyS")
-                       else xm.INV, device)
-            for k, M in (("iz", m["iz"]), ("sz", m["sz"]), ("gzi", m["gzi"]),
-                         ("gzs", m["gzs"]), *y.items())}
+            k: xm.pack(M, xm.FWD if k in fwd else xm.INV, device)
+            for k, M in (*((k, m[k]) for k in ("iz", "sz", "gzi", "gzs")),
+                         *y.items(),
+                         *((k, m[k]) for k in ("sx", "ix", "gxs", "gxi")))}
     return pm._fold[key]
 
 
-# the launches of stages A and C, each on the packed operators of tc_ops
+def solve_tables(pm: ProjectionMats) -> tuple:
+    """Stage B's solve tables, float32 on the set's device: tab_a, tab_b
+    per (y, z) mode in q's order, k2x, tx2 per x mode in block-parity
+    order (parity.build_projection_mats). Raises ValueError where the set
+    has a Nyquist mask (no pipeline grid has one)."""
+    m = pm.mats(torch.float32)
+    if "myz" in m:
+        raise ValueError("the pipeline's solve takes no Nyquist mask")
+    return m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]
+
+
+# the launches of the stages, each on the packed operators of tc_ops
 
 def pipe_a_z(u, v, w, op):
     """Stage A's z launch: (Iz u, Iz v, Sz w)."""
@@ -233,19 +250,27 @@ def pipe_c_y(px, dzy, pzy, u, v, w, op):
                                         ([op["giT"]], [dzy], None, w)])
 
 
+def pipe_b_x(a, e, op, tabs):
+    """Stage B's forward x launch with the solve: q = (Sx a + Ix e) times
+    -1 / waves (tabs: solve_tables)."""
+    return xm.launch_jobs("pipe_b", 0, [([op["sx"], op["ix"]], [a, e], None,
+                                         None)], solve=tabs)[0]
+
+
+def pipe_b_inv(q, op):
+    """Stage B's inverse x launch: (X, Y) = (Gxs q, Gxi q)."""
+    return xm.launch_jobs("pipe_b", 0, [([op["gxs"]], [q], None, None),
+                                        ([op["gxi"]], [q], None, None)])
+
+
 def _pipe_a_cuda(u, v, w, pm):
     op = tc_ops(pm, u.device)
     return tuple(pipe_a_y(*pipe_a_z(u, v, w, op), op))
 
 
-def _pipe_b_cuda(a, e, m):
-    q = torch.empty_like(a)
-    apply("pipe_b", PFWD, 0, [([m["sx"], m["ix"]], [a, e], q, None)],
-          epi=SOLVE, tabs=(m["tab_a"], m["tab_b"], m["k2x"], m["tx2"]))
-    X, Y = torch.empty_like(a), torch.empty_like(a)
-    apply("pipe_b", PINV, 0, [([m["gxs"]], [q], X, None),
-                              ([m["gxi"]], [q], Y, None)])
-    return X, Y
+def _pipe_b_cuda(a, e, pm):
+    op = tc_ops(pm, a.device)
+    return tuple(pipe_b_inv(pipe_b_x(a, e, op, solve_tables(pm)), op))
 
 
 def _pipe_c_cuda(X, Y, u, v, w, pm):
@@ -264,7 +289,7 @@ def pipe_a(u, v, w, pm: ProjectionMats):
 def pipe_b(a, e, pm: ProjectionMats):
     """Stage B: (a, e) -> (X, Y), the x transforms around the solve."""
     if route(a, "pipe_b"):
-        return _pipe_b_cuda(a, e, pm.mats(torch.float32))
+        return _pipe_b_cuda(a, e, pm)
     return pipe_b_plain(a, e, pm.mats(a.dtype))
 
 

@@ -2,9 +2,10 @@
 in ``csrc/x_apply_manual.cu``, the host side of its split-TF32 operator,
 and its plain PyTorch version.
 
-One kernel serves six TPU kernels of x3d2_tpu that compute the same
+One kernel serves seven TPU kernels of x3d2_tpu that compute the same
 functions, out = M @_a f or out = s - M @_a f (M (n_out, n_in) applied
-along one axis a of f), dense or in the parity-split forms:
+along one axis a of f), dense or in the parity-split forms, the forward
+parity form along x also with the spectral solve in its epilogue:
 - the dense x stage, _x_apply_kernel (pallas_poisson.py:954, call :1346):
   ``launch`` in its dense form, through ops/operator_apply.py
   ``apply_dense`` (the slab's ``x_apply``, the sharded ``XApplyOp``),
@@ -20,6 +21,11 @@ along one axis a of f), dense or in the parity-split forms:
   axis) and along y (batched over the x planes), two launches a stage of
   up to three jobs, a job summing one or two sources, through
   ops/pressure_pipe.py, counted as pipe_a and pipe_c;
+- the pipeline's stage B, _pipe_b_kernel (pallas_poisson.py:1405, call
+  :1669): ``launch_jobs`` along x, a FWD launch of one two-source job with
+  the solve (``solve=``: q = (Sx a + Ix e) * -1 / waves, the waves from
+  the separable tables), then an INV launch of two jobs (Gxs q, Gxi q),
+  through ops/pressure_pipe.py, counted as pipe_b;
 - the manual-DMA x apply, make_x_apply_manual (pallas_manual.py:62; its
   kernel :114, pl.pallas_call :200): ``make_x_apply_manual(M64, sub,
   parity, slots)`` -> fn(f[, s]), parity "fwd" or "inv" running the
@@ -41,7 +47,8 @@ chunk) block (``block_index``); the field's split is made in registers.
 ``out_rows`` the output row each tile row writes (-1 where masked), in
 one place for the launcher and the tests.
 ``tc_model`` is the kernel's arithmetic in numpy float32 (the three
-products of the split operands).
+products of the split operands, the sources summed, the solve
+``solve_model``).
 
 A function on CUDA tensors launches the kernel (or raises) and adds one
 to its launch count; on CPU tensors it runs the plain version
@@ -81,8 +88,8 @@ STAGE_BYTES = {f: (2 if f == FWD else 1) * (OP_BYTES[f] + BM * KC * 4)
 MAX_SLOTS = {f: min(MAX_S, (SMEM_MAX - SMEM_FIXED) // b)
              for f, b in STAGE_BYTES.items()}
 # launches of the kernel, by name (x_apply, x_apply[sub]; x_pfwd, x_pinv,
-# x_pinv[sub]; pipe_a, pipe_c; x_apply_manual, x_apply_manual[sub], [fwd],
-# [inv], [inv,sub])
+# x_pinv[sub]; pipe_a, pipe_b, pipe_c; x_apply_manual, x_apply_manual[sub],
+# [fwd], [inv], [inv,sub])
 _LAUNCHES: dict[str, int] = {}
 _LIB = None
 _SMS: dict[int, int] = {}
@@ -104,7 +111,7 @@ def lib():
 
         so = _build.load("x_apply_manual")
         i, p = ctypes.c_int, ctypes.c_void_p
-        so.x_apply_tc_launch_jobs.argtypes = [i, i, i, p, i, i,
+        so.x_apply_tc_launch_jobs.argtypes = [i, i, i, p, p, i, i,
                                               ctypes.c_longlong, i, i, i, p]
         so.x_apply_tc_launch_jobs.restype = i
         so.x_apply_tc_error_string.argtypes = [i]
@@ -244,7 +251,8 @@ class Geometry:
     column tiles of BM a plane, nitems work items (FWD and INV: both halves
     an item) over njobs jobs of nplanes planes, grid blocks, smem bytes of
     dynamic shared memory at `slots` stages; lines: the z layout (the
-    contraction along the contiguous axis)."""
+    contraction along the contiguous axis); solve: FWD's epilogue is the
+    spectral solve (its four tables follow the jobs' pointers)."""
 
     form: int
     rows: int
@@ -262,17 +270,18 @@ class Geometry:
     njobs: int = 1
     nplanes: int = 1
     lines: bool = False
+    solve: bool = False
 
 
 @functools.lru_cache(maxsize=512)
 def geometry(form, n_out, K, ncols, sms, slots=4, njobs=1, nplanes=1,
-             lines=False, sub=False) -> Geometry:
+             lines=False, sub=False, solve=False) -> Geometry:
     """The launch geometry of an operator (n_out, K) in form `form` over
     ncols plane columns of nplanes planes (lines=True: ncols lines of the z
     layout) for njobs jobs on `sms` SMs at `slots` stages (2 to
     MAX_SLOTS[form]: 8, FWD 7); sub: with the subtraction (DENSE and INV
-    in the x and y layouts). Raises ValueError on what the kernel does not
-    take."""
+    in the x and y layouts); solve: with the solve (FWD in the x layout,
+    one plane). Raises ValueError on what the kernel does not take."""
     if form not in (DENSE, FWD, INV):
         raise ValueError(f"no form {form}")
     if n_out < 1 or K < 1 or (form != DENSE and n_out % 2):
@@ -292,6 +301,10 @@ def geometry(form, n_out, K, ncols, sms, slots=4, njobs=1, nplanes=1,
                          f"4, got {ncols}")
     if sub and form == FWD:
         raise ValueError("the subtraction is an inverse-stage fusion")
+    if solve and (form != FWD or lines or nplanes != 1 or sub):
+        raise ValueError(f"the solve follows the FWD form along x, got form "
+                         f"{form}, lines={lines}, {nplanes} planes, "
+                         f"sub={sub}")
     if not 2 <= slots <= MAX_SLOTS[form]:
         raise ValueError(f"form {form} takes 2 to {MAX_SLOTS[form]} stages "
                          f"({STAGE_BYTES[form]} bytes each), got {slots}")
@@ -304,7 +317,7 @@ def geometry(form, n_out, K, ncols, sms, slots=4, njobs=1, nplanes=1,
     return Geometry(form, rows, K, ncols, bn, rtiles, ktiles, ktiles * KC,
                     ctiles, nitems, min(sms, nitems), slots,
                     slots * STAGE_BYTES[form] + SMEM_FIXED, njobs, nplanes,
-                    lines)
+                    lines, bool(solve))
 
 
 def item_of(geo: Geometry, it):
@@ -331,33 +344,60 @@ def out_rows(geo: Geometry):
     return np.where(ok, g * geo.rows + row, -1)
 
 
-def tc_model(M, f, s=None, parity=None):
+def tc_model(M, f, s=None, parity=None, solve=None):
     """The kernel's arithmetic in numpy float32: both operands split
     (split_tf32; FWD forms f1 +/- f2 first, in float32), out = A_lo B_hi +
     A_hi B_lo + A_hi B_hi, each product a float32 matrix product, summed
     in that order; INV sums a and b apart, then a + b and a - b. M
-    (n_out, K) float32 (the parity stack [Me; Mo]); f (n_in, ny, nz)."""
-    M = np.asarray(M, np.float32)
-    f = np.asarray(f, np.float32)
-    f2 = f.reshape(f.shape[0], -1)
+    (n_out, K) float32 (the parity stack [Me; Mo]); f (n_in, ny, nz). M
+    and f may be sequences of one job's sources, their results summed in
+    float32 in order. solve: (tab_a, tab_b, k2x, tx2) with parity "fwd",
+    the solve epilogue (solve_model) on the sum."""
+    Ms = list(M) if isinstance(M, (list, tuple)) else [M]
+    fs = list(f) if isinstance(f, (list, tuple)) else [f]
+    if solve is not None and (parity != "fwd" or s is not None):
+        raise ValueError("the solve follows the FWD form")
 
     def prod(Mp, A):
         mh, ml = split_tf32(Mp)
         ah, al = split_tf32(A)
         return (mh @ al + ml @ ah) + mh @ ah
 
-    if parity is None:
-        r = prod(M, f2)
-    else:
+    def one(M, f):
+        M = np.asarray(M, np.float32)
+        f2 = np.asarray(f, np.float32).reshape(f.shape[0], -1)
+        if parity is None:
+            return prod(M, f2)
         h, ho = f2.shape[0] // 2, M.shape[0] // 2
         if parity == "fwd":
-            r = np.concatenate([prod(M[:ho], f2[:h] + f2[h:]),
-                                prod(M[ho:], f2[:h] - f2[h:])])
-        else:
-            a, b = prod(M[:ho], f2[:h]), prod(M[ho:], f2[h:])
-            r = np.concatenate([a + b, a - b])
-    r = r.reshape((M.shape[0],) + f.shape[1:])
+            return np.concatenate([prod(M[:ho], f2[:h] + f2[h:]),
+                                   prod(M[ho:], f2[:h] - f2[h:])])
+        a, b = prod(M[:ho], f2[:h]), prod(M[ho:], f2[h:])
+        return np.concatenate([a + b, a - b])
+
+    r = one(Ms[0], fs[0])
+    for Mi, fi in zip(Ms[1:], fs[1:]):
+        r = r + one(Mi, fi)
+    if solve is not None:
+        r = solve_model(r, *solve)
+    r = r.reshape((np.shape(Ms[0])[0],) + tuple(fs[0].shape[1:]))
     return r if s is None else np.asarray(s, np.float32) - r
+
+
+def solve_model(F, tab_a, tab_b, k2x, tx2):
+    """The solve epilogue in numpy float32: F (n_out, ...) times -1 /
+    waves, waves = k2x[r] tab_a[c] + tx2[r] tab_b[c] for output row r and
+    plane column c (0 where |waves| < 1e-16), as x3d2_tpu's _pipe_b_kernel
+    (pallas_poisson.py:1440-1443) computes it (the kernel may contract
+    the sum into a fused multiply-add: one rounding less)."""
+    F = np.asarray(F, np.float32)
+    A, B, kx, tx = (np.asarray(t, np.float32).reshape(-1)
+                    for t in (tab_a, tab_b, k2x, tx2))
+    waves = kx[:, None] * A[None, :] + tx[:, None] * B[None, :]
+    ok = np.abs(waves) >= np.float32(1e-16)
+    fac = np.where(ok, np.float32(-1) / np.where(ok, waves, np.float32(1)),
+                   np.float32(0))
+    return (F.reshape(F.shape[0], -1) * fac).reshape(F.shape)
 
 
 # -- the launch --------------------------------------------------------------
@@ -396,19 +436,24 @@ def launch(stage, op: XOperator, f, s=None, out=None, slots=4):
     return launch_jobs(stage, 0, [([op], [f], out, s)], slots)[0]
 
 
-def launch_jobs(stage, axis, jobs, slots=4):
+def launch_jobs(stage, axis, jobs, slots=4, solve=None):
     """One launch on CUDA tensors, counted as `stage`, of up to MAX_JOBS
     jobs along `axis` of (nx, ny, nz) fields: a job (ops, fields, out, s)
     sums the applies of its 1 to MAX_SRC sources, the packed operators
     `ops` (pack; one form and size a launch) along the axis of `fields`,
     into out, or subtracts the sum from s (the INV and DENSE forms along x
-    and y; all jobs or none). Along x one plane of ny nz columns, along y nx planes of nz
-    columns, along z (the parity forms) nx ny lines; n_in = K (DENSE) or 2
-    K along the axis, out and s n_out along it. The sources of a job sum
-    in one chain of k chunks, the first source's first. out made here
-    where None, overlapping no field and no other output. Returns the
-    outputs. Raises on what the kernel does not take (shapes, an aliased
-    output, then devices and types), and when the launch fails."""
+    and y; all jobs or none). Along x one plane of ny nz columns, along y
+    nx planes of nz columns, along z (the parity forms) nx ny lines; n_in
+    = K (DENSE) or 2 K along the axis, out and s n_out along it. The
+    sources of a job sum in one chain of k chunks, the first source's
+    first. solve: (tab_a, tab_b, k2x, tx2), float32 vectors of ny nz, ny
+    nz, n_out and n_out on the fields' device: the FWD form along x
+    without s multiplies each output (x mode r, column c) by -1 / (k2x[r]
+    tab_a[c] + tx2[r] tab_b[c]), 0 where that is below 1e-16 in magnitude.
+    out made here where None, overlapping no field and no other output.
+    Returns the outputs. Raises on what the kernel does not take (shapes,
+    an aliased output, the solve's form, axis and tables, then devices
+    and types), and when the launch fails."""
     if not 1 <= len(jobs) <= MAX_JOBS:
         raise ValueError(f"1 to {MAX_JOBS} jobs a launch and 1 to "
                          f"{MAX_SRC} (operator, field) sources a job")
@@ -457,6 +502,8 @@ def launch_jobs(stage, axis, jobs, slots=4):
             raise ValueError("the output may not alias the field or another "
                              "output")
     dev = fields[0].device
+    tabs = [] if solve is None else _solve_tables(solve, form, axis, sub,
+                                                  shape, n_out, dev)
     outs, ptrs = [], []
     pad = [None] * MAX_SRC
     for ops, fs, out, s in jobs:
@@ -474,20 +521,46 @@ def launch_jobs(stage, axis, jobs, slots=4):
         ptrs += [op.packed.data_ptr() for op in ops] + pad[:n] \
             + [f.data_ptr() for f in fs] + pad[:n] \
             + [None if s is None else s.data_ptr(), out.data_ptr()]
+    for t in tabs:
+        _check(t, "solve table", dev)
     nx, ny, nz = shape
     ncols, nplanes = ((ny * nz, 1), (nz, nx), (nx * ny, 1))[axis]
     geo = geometry(form, n_out, K, ncols, _sm_count(dev), slots, len(jobs),
-                   nplanes, axis == 2, sub)
-    _launch(stage, geo, dev, ptrs)
+                   nplanes, axis == 2, sub, solve is not None)
+    _launch(stage, geo, dev, ptrs + [t.data_ptr() for t in tabs])
     return outs
 
 
+def _solve_tables(solve, form, axis, sub, shape, n_out, dev):
+    """The solve's four tables, checked: the FWD form along x without s;
+    float32 vectors of ny nz (tab_a, tab_b) and n_out (k2x, tx2) on the
+    fields' device."""
+    if form != FWD or axis != 0 or sub:
+        raise ValueError(f"the solve follows the FWD form along x without "
+                         f"s, got form {form} along axis {axis}, sub={sub}")
+    if len(solve) != 4:
+        raise ValueError("the solve takes four tables: tab_a, tab_b, k2x, "
+                         "tx2")
+    lens = (shape[1] * shape[2],) * 2 + (n_out,) * 2
+    for name, t, n in zip(("tab_a", "tab_b", "k2x", "tx2"), solve, lens):
+        if not torch.is_tensor(t) or t.dim() != 1 or t.numel() != n:
+            raise ValueError(f"solve table {name}: a vector of {n} values, "
+                             f"got {getattr(t, 'shape', type(t))}")
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"solve table {name}: float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    return list(solve)
+
+
 def _launch(stage, geo: Geometry, dev, ptrs):
-    """The launch itself, its error check and its count."""
+    """The launch itself, its error check and its count. ptrs: the jobs'
+    pointers, then with the solve its four tables'."""
     idx = torch.cuda.current_device() if dev.index is None else dev.index
+    n = len(ptrs) - (4 if geo.solve else 0)
+    tabs = (ctypes.c_void_p * 4)(*ptrs[n:]) if geo.solve else None
     # the raw handle: a Stream object costs the host several µs a launch
     args = (geo.form, int(geo.lines), geo.njobs,
-            (ctypes.c_void_p * len(ptrs))(*ptrs), geo.rows, geo.K,
+            (ctypes.c_void_p * n)(*ptrs[:n]), tabs, geo.rows, geo.K,
             geo.ncols, geo.nplanes, geo.slots, geo.grid,
             torch._C._cuda_getCurrentRawStream(idx))
     if idx == torch.cuda.current_device():

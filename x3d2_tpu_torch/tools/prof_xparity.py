@@ -29,11 +29,12 @@ square, 513 -> 512, 512 -> 513), are held bit for bit against this
 checkout's and timed in turns (ref, this, this, ref), with the host's
 µs a call of its launch from Python through ctypes ("ref_host_us": DIR
 this checkout's csrc gives the C entry's part of "host_us"); it is launched
-through its x_apply_tc_launch_jobs where it declares this checkout's,
-else through the one-job x_apply_tc_launch of the builds before the
-jobs entry (ONE_JOB's arguments, or those and two launch choices before
-the stream, given as 0: the operator streamed, 128-column items), and
-any other declaration is refused. Prints one JSON
+through its x_apply_tc_launch_jobs where it declares this checkout's, or
+that entry without the solve's tables (the builds before the solve; given
+no tables here), else through the one-job x_apply_tc_launch of the
+builds before the jobs entry (ONE_JOB's arguments, or those and two
+launch choices before the stream, given as 0: the operator streamed,
+128-column items), and any other declaration is refused. Prints one JSON
 line (the card's name and power limit beside the numbers) and exits 1
 where a check fails, 2 without a card.
 """
@@ -158,8 +159,9 @@ ONE_JOB = [b"form", b"op", b"f", b"s", b"out", b"rows", b"K", b"ncols",
 def ref_lib(ref):
     """(DIR's x_apply_manual library, how to launch it): its
     x_apply_tc_launch_jobs where the source declares it as this checkout
-    does ("jobs"), else its one-job x_apply_tc_launch (ONE_JOB, or with
-    res and narrow before the stream: the extra arguments, 0)."""
+    does ("jobs") or without the solve's tables ("jobs0"), else its
+    one-job x_apply_tc_launch (ONE_JOB, or with res and narrow before the
+    stream: the extra arguments, 0)."""
     from pathlib import Path
 
     from x3d2_tpu_torch.tools.template_bits import build
@@ -171,6 +173,8 @@ def ref_lib(ref):
                       / "x_apply_manual.cu", "x_apply_tc_launch_jobs")
     if jobs and jobs == own:
         how = "jobs"
+    elif jobs and jobs == [a for a in own if a != b"tabs"]:
+        how = "jobs0"
     elif names == ONE_JOB:
         how = ()
     elif names == ONE_JOB[:-1] + [b"res", b"narrow", b"stream"]:
@@ -183,9 +187,9 @@ def ref_lib(ref):
                            f"res, narrow)")
     lib, _ = build(src, "ref_x_apply_manual")
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    if how == "jobs":
-        lib.x_apply_tc_launch_jobs.argtypes = [i, i, i, p, i, i, ll, i, i,
-                                               i, p]
+    if how in ("jobs", "jobs0"):
+        lib.x_apply_tc_launch_jobs.argtypes = [i, i, i, p] + (
+            [p] if how == "jobs" else []) + [i, i, ll, i, i, i, p]
         lib.x_apply_tc_launch_jobs.restype = i
     else:
         lib.x_apply_tc_launch.argtypes = [i, p, p, p, p, i, i, ll, i,
@@ -201,12 +205,13 @@ def ref_launch(ref, op, f, s, sms):
     sp = s.data_ptr() if s is not None else None
     ncols = f.shape[1] * f.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
-    if how == "jobs":
+    if how in ("jobs", "jobs0"):
         ptrs = (ctypes.c_void_p * (2 * xm.MAX_SRC + 2))(
             op.packed.data_ptr(), *[None] * (xm.MAX_SRC - 1), f.data_ptr(),
             *[None] * (xm.MAX_SRC - 1), sp, out.data_ptr())
-        err = lib.x_apply_tc_launch_jobs(op.form, 0, 1, ptrs, op.rows, op.K,
-                                         ncols, 1, 4, sms, stream)
+        tabs = (None,) if how == "jobs" else ()
+        err = lib.x_apply_tc_launch_jobs(op.form, 0, 1, ptrs, *tabs, op.rows,
+                                         op.K, ncols, 1, 4, sms, stream)
     else:
         err = lib.x_apply_tc_launch(op.form, op.packed.data_ptr(),
                                     f.data_ptr(), sp, out.data_ptr(),

@@ -11,9 +11,8 @@ Its csrc/pressure_pipe.cu is built with nvcc into build/x3d2_tpu_torch/
 grid (default 512^3 and 128 x 128 x 256: every extent a multiple of the
 template's 128, so every launch takes a 128-tiled instance; a grid past
 the tiles, such as 320 x 256 x 384, takes the general instances and needs a
-reference that has them) the pipeline's stage B (where the grid takes the
-pipeline; stages A and C are the x-apply kernel's), x_div3, the mid with
-q, div_solve, grad, x_gradsub3 and the
+reference that has them) x_div3, the mid with q, div_solve, grad,
+x_gradsub3 (the pipeline's stages are the x-apply kernel's) and the
 template's one-field PFWD and PINV (with the subtraction) along x (the
 instances x_div3 and x_gradsub3 share; the one-field x applies of the
 solver, x_pfwd and x_pinv, are the x-apply kernel's; the template's are
@@ -44,7 +43,6 @@ from .. import _build
 from ..common import BC
 from ..mesh import Mesh
 from ..ops import operator_apply as oa
-from ..ops import pressure_pipe as pp
 from ..ops import pressure_slab as sl
 from ..solver import NavierStokes
 from .prof_manual import template
@@ -140,11 +138,7 @@ def functions(ns, dev, gen):
     d = sl.x_div3(u, v, w, pm)
     q = sl.div_solve(*d, pm)
     g = sl.grad(q, pm)
-    out = []
-    if ns._pipe is not None:
-        a_, e_ = pp.pipe_a(u, v, w, pm)
-        out += [("pipe_b", lambda: pp.pipe_b(a_, e_, pm))]
-    return out + [
+    return [
         ("x_div3", lambda: sl.x_div3(u, v, w, pm)),
         ("pressure_mid[q]", lambda: sl.pressure_mid(*d, pm)),
         ("div_solve", lambda: (sl.div_solve(*d, pm),)),
