@@ -22,7 +22,8 @@ Phases, each printing its own lines; any failed check exits non-zero:
    x_apply_tc_kernel<FORM, EPI, LINES> (EPI 0 store, 1 subtract, 2 the
    solve of pipe3's stage B; LINES: the z layout of pipe3's stages A and
    C) and its dynamic shared memory at S = 2, 4, 6, and any ptxas C7518,
-   serialised wgmma, by instance). Then starts
+   serialised wgmma, by instance); beside them g++ builds the native IO
+   library (x3d2_tpu_torch/native/x3d2io.cpp). Then starts
    phase 8's CPU legs in CPU_LEG_WORKERS processes (one torch and one
    BLAS thread each), which run on the host while phases 3-7 use the
    card.
@@ -91,7 +92,9 @@ Phases, each printing its own lines; any failed check exits non-zero:
    - the slab projection: x_div3, the mid with q, the mid without q (its
      outputs bit-equal to the mid with q), the mid's halves div_solve and
      grad (X3D2_MID_SPLIT=1, path BS; bit-equal to the mid) and
-     x_gradsub3;
+     x_gradsub3; x_div3 beside one batched torch.bmm of its three dense
+     operators on the stacked fields, x_gradsub3 beside one
+     torch.baddbmm(..., alpha=-1) (x_stage_library; at every size);
    - stage C with the carry, pipe_c[d2] (X3D2_D2C=1, path D), on the
      inputs the plain pipe_a, pipe_b give: u', v', w' as pipe_c, the carry
      to 1e-5 of plain float32 and to 5e-7 of the plain float64 carry of
@@ -368,6 +371,33 @@ Phases, each printing its own lines; any failed check exits non-zero:
    HIGHEST + compensated against the float64 einsum leg (X3D2_PALLAS=0),
    both on the card (x3d2_tpu_torch.tools.ke_parity): max |dKE| / KE0 <=
    KE_LIMIT.
+8e. The entry point, python -m x3d2_tpu_torch, one subprocess a run
+   (CLI_WRAP: the package's __main__ run as -m runs it, every launch count
+   set to 0 just before and checked after as a path's; the seconds of the
+   checkpoint, snapshot, monitoring and flush calls between device syncs,
+   the statistics updates' device time between two CUDA events, no sync),
+   each in a directory under build/smoke_cli, removed after. A run that
+   follows another starts beside it and waits, its imports and CUDA
+   context made, until that run is done (gated). Runs: the TGV example
+   (256^3 AB3) with IO added, vort, qcrit and the pressure in single
+   precision and a checkpoint every 20 steps, statistics from step 10, 40
+   steps (the xdiv chain, the mid with q, x_gradsub3); its restart from
+   step 20 to 40 (snapshots off), whose checkpoint and statistics at step
+   40 must equal the uninterrupted run's bit for bit and whose monitoring
+   rows continue the first run's file to the same bytes; beside the TGV
+   example's run, the cylinder example as it stands for 50 steps (one
+   snapshot) and the generic example for 10 steps through python -m
+   x3d2_tpu_torch as is (u = 1 to 1e-5); the main path's configuration
+   (TGV 512^3, no pressure output) for 20 steps with a checkpoint at the
+   last, then that checkpoint restored with statistics on for 20 more
+   (which keep the pressure: path B): ms/step over the last 10 steps of
+   each, with and without the monitoring row's share, the row, the
+   statistics update and the checkpoint's write and restore seconds
+   printed; then the generic example card against CPU at 64^3 through
+   config.make_case (1e-5). Every monitoring row and every .npz array is
+   finite (a checkpoint through the restore that reads it), and the VTK
+   payloads of the TGV example's last snapshot and of the cylinder's are
+   finite and their step's .npz arrays.
 9. The sharded step (x3d2_tpu make_sharded_step's counterpart,
    x3d2_tpu_torch.parallel): 4 ranks spawned on this host
    (x3d2_tpu_torch.tools.shard_run), on one card with gloo (the exchanges
@@ -409,6 +439,7 @@ Phases, each printing its own lines; any failed check exits non-zero:
 It imports nothing of JAX or of the JAX package.
 """
 
+import atexit
 import json
 import math
 import os
@@ -473,6 +504,135 @@ CYL_EXAMPLE = "examples/cylinder/input.x3d"  # paths C and C-ex
 # the slab tiles)
 CYL = (513, 256, 128)
 CYL_SMALL = (65, 128, 128)  # the cylinder's card vs CPU grid
+# phase 8e, the entry point: the examples through python -m x3d2_tpu_torch,
+# one subprocess a run, each in its own directory under build/smoke_cli
+TGV_EXAMPLE = "examples/TGV/input.x3d"          # 256^3 AB3
+GENERIC_EXAMPLE = "examples/generic/input.x3d"  # 256^3 AB3, u = 1
+CLI_STEPS = 40              # the TGV example's run; its restart: the last 20
+CLI_IO = 20                 # its checkpoint and snapshot period
+CLI_STATS = 10              # its initstat
+CLI_STEPS_NS = 20           # each 512^3 run (a report every 10 steps)
+CLI_STEPS_CYL = 50          # the cylinder example (one snapshot, at 50)
+CLI_STEPS_GENERIC = 10
+GENERIC_CUT = (64, 64, 64)  # the generic example's card vs CPU grid
+# a run of the entry point: the package's __main__ run as python -m runs it
+# (runpy), with every launch count set to 0 just before and written after,
+# beside the seconds of the IO calls and of the monitoring rows (each
+# between two device syncs; the rows end in one of their own), the
+# statistics updates' device time (two CUDA events, no sync: the run keeps
+# its overlap of host and device) and whether every array a restore read
+# was finite. argv: the record's path, a gate ("-": none; else the run
+# waits, its imports and CUDA context made, until that file exists), and
+# the module's arguments.
+CLI_WRAP = r"""
+import json, os, runpy, sys, time
+import numpy as np
+import torch
+from x3d2_tpu_torch.io import checkpoint, monitoring, native, snapshot, stats
+from x3d2_tpu_torch.ops import operator_apply as oa, species_sweep as spm
+from x3d2_tpu_torch.ops import transeq_dense as td, transeq_sweep as ts
+from x3d2_tpu_torch.ops import x_apply_manual as xm
+out, gate, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+if gate != "-":
+    torch.zeros(1, device="cuda")
+    native.get_lib()
+    while not os.path.exists(gate):
+        time.sleep(0.02)
+secs = {k: [] for k in ("checkpoint_write", "checkpoint_restore",
+                        "snapshot", "monitoring_row", "stats_update",
+                        "flush")}
+def timed(key, fn):
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[key].append(time.perf_counter() - t0)
+        return r
+    return call
+events = []
+def stats_update(self, state, it):
+    if not self.should_accumulate(it):
+        return update(self, state, it)
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    r = update(self, state, it)
+    ev[1].record()
+    events.append(ev)
+    return r
+CM, SM = checkpoint.CheckpointManager, stats.StatsManager
+restored = []
+def restore(self, *a, **kw):
+    out = read(self, *a, **kw)
+    new, stats_ = out[0], out[4]
+    ts_ = [new[k] for k in ("u", "v", "w", "phi") if k in new]
+    ts_ += [o for per in new.get("olds", ()) for o in per]
+    ts_ += list(new.get("comp", ()))
+    restored.append(all(bool(torch.isfinite(t).all()) for t in ts_) and all(
+        bool(np.isfinite(v).all()) for v in stats_.values()
+        if v.dtype.kind == "f"))
+    return out
+read, update = CM.restore, SM.update
+CM.write = timed("checkpoint_write", CM.write)
+CM.restore = timed("checkpoint_restore", restore)
+snapshot.SnapshotManager.write = timed("snapshot",
+                                       snapshot.SnapshotManager.write)
+monitoring.Monitor.write_step = timed("monitoring_row",
+                                      monitoring.Monitor.write_step)
+SM.update = stats_update
+native.async_flush = timed("flush", native.async_flush)
+for m in (ts, oa, spm, td, xm):
+    m.reset_launch_counts()
+sys.argv = ["x3d2_tpu_torch"] + argv
+try:
+    runpy.run_module("x3d2_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    torch.cuda.synchronize()
+    secs["stats_update"] = [a.elapsed_time(b) / 1e3 for a, b in events]
+    counts = {**ts.launch_counts(), **oa.launch_counts(),
+              **spm.launch_counts(), **td.launch_counts(),
+              **xm.launch_counts()}
+    with open(out, "w") as fh:
+        json.dump({"launches": counts, "template": oa.launch_counts(),
+                   "tc": ts.tc_launch_counts(), "seconds": secs,
+                   "restored_finite": restored}, fh)
+"""
+
+
+def edit_input(text, append="", **keys):
+    """An input file's text with each `key = value` line of `keys` set
+    (each key once in the file) and the namelist blocks `append` added."""
+    for k, val in keys.items():
+        text, n = re.subn(rf"(?m)^\s*{k}\s*=.*$", f"{k} = {val}", text)
+        if n != 1:
+            raise ValueError(f"{k}: {n} lines")
+    return text + append
+
+
+def io_block(stats=None, **keys):
+    """&checkpoint_params with `keys` (strings as written in the file),
+    and &stats_params with `stats` (a dict) where given."""
+    body = "".join(f"{k} = {v}\n" for k, v in keys.items())
+    out = f"\n&checkpoint_params\n{body}/End\n"
+    if stats:
+        out += "\n&stats_params\n" + "".join(
+            f"{k} = {v}\n" for k, v in stats.items()) + "/End\n"
+    return out
+
+
+def vtk_arrays(path, np):
+    """{name: float32 array} of a VTK XML file's base64 payloads (a regular
+    expression over the text: the files run to hundreds of MB)."""
+    import base64
+    import struct
+    text = open(path).read()
+    out = {}
+    for m in re.finditer(r'Name="([^"]+)" format="binary">([^<]*)<', text):
+        raw = base64.b64decode(m.group(2).strip())
+        n = struct.unpack("<I", raw[:4])[0]
+        out[m.group(1)] = np.frombuffer(raw[4:4 + n], np.float32)
+    return out
 STEPS = 10                  # steps at 512^3 (path R4: STEPS_R4)
 STEPS_A = 20                # steps at 256^3 and on the example grid
 SHARD_STEPS = 5             # timed steps of phase 9's runs at 128^3 blocks
@@ -1179,6 +1339,7 @@ def main():
     from x3d2_tpu_torch import _build, config
     from x3d2_tpu_torch.cases import CylinderCase, SolverParams, TGVCase
     from x3d2_tpu_torch.common import BC, DataLoc, env_set
+    from x3d2_tpu_torch.io import native as io_native
     from x3d2_tpu_torch.mesh import Mesh
     from x3d2_tpu_torch.ops import operator_apply as oa
     from x3d2_tpu_torch.ops import pressure_pipe as pp
@@ -1215,10 +1376,17 @@ def main():
           "float32 matmul precision must be 'highest'")
 
     # ---- 2. build -------------------------------------------------------
-    libs = _build.build_all(["transeq_sweep", "transeq_sweep_tc",
-                             "transeq_sweep_w32", "pressure_pipe",
-                             "pipe_c_d2", "transeq_dense",
-                             "pressure_mid_tiled", "x_apply_manual"])
+    # the native IO library (g++) beside the kernels: phase 8e's runs would
+    # otherwise build it at their first write, inside its timing
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        io_lib = pool.submit(io_native.build)
+        libs = _build.build_all(["transeq_sweep", "transeq_sweep_tc",
+                                 "transeq_sweep_w32", "pressure_pipe",
+                                 "pipe_c_d2", "transeq_dense",
+                                 "pressure_mid_tiled", "x_apply_manual"])
+        print(f"[build] {io_lib.result().name} (g++, the IO library)",
+              flush=True)
     ts._lib(16)
     ts._tc_lib()
     ts._lib(32)
@@ -1632,7 +1800,7 @@ def main():
                  lim64=5e-7 if w32 else 3e-5)
 
     def stage_row(name, ins, kern_fn, plain_fn, cost, pm, on_path=True,
-                  n=None, source=PIPE_SOURCE, derive64=False):
+                  n=None, source=PIPE_SOURCE, derive64=False, library=None):
         """Hold one function of a projection (operator set `pm`) against
         its plain version on `ins`. on_path=False: a size no path gives the
         function, held but left out of the kernels line. n: the size label
@@ -1663,12 +1831,20 @@ def main():
         own64 = rel_err(p32, p64)[1]
         if derive64:
             lim64 = max(3e-5, 2 * own64)
+        lib_txt = ""
+        if library is not None:
+            # the yardstick computes the same function: to 1e-5 of plain
+            lib_rel = rel_err(flat(library()), p32)[1]
+            check(lib_rel <= 1e-5, f"{name} {n}: the library call differs "
+                                   f"from plain f32 by {lib_rel}")
+            lib_txt = f" (library vs plain32 rel {lib_rel:.2e})"
         del got, p32, p64
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: kern_fn(*ins, pm), 10, torch)
         plain_ms = cuda_ms(lambda: plain_fn(*ins, m32), 5, torch)
+        lib_ms = None if library is None else cuda_ms(library, 10, torch)
         txt = row(name, n, source, REPLACES[name], err32, ms, plain_ms, cost,
-                  tc=tc)
+                  lib_ms, tc=tc) + lib_txt
         if tc:
             txt += f"  two launches bit-equal; plain32 vs plain64 rel " \
                    f"{own64:.2e}"
@@ -1818,6 +1994,32 @@ def main():
     def div_solve_p(du, dv, dw, m, forms=Forms()):
         return (sl.div_solve_plain(du, dv, dw, m, forms),)
 
+    def x_stage_library(name, pm, ins):
+        """One batched PyTorch call of x_div3 ([Sx u, Ix v, Ix w]: one
+        torch.bmm of the three dense operators, in the block-parity order
+        of their modes, on the stacked fields) or of x_gradsub3 ([u - Gxs
+        p_zy, v - Gxi dpdy, w - Gxi dpdz]: one torch.baddbmm(..., alpha=-1)
+        on the stacked gradients and velocities), as a function of no
+        arguments: the stacks are made here, outside the timing. The dense
+        operators are the parity applies' plain version on the identity
+        (parity_rows' yardstick, batched)."""
+        fwd = name == "x_div3"
+        src = ins if fwd else ins[:3]
+        k = src[0].shape[0]
+        eye = torch.eye(k, dtype=d64, device=dev).unsqueeze(-1)
+        m64 = pm.mats(d64)
+        dense = torch.stack([
+            sl.x_apply_parity_plain(op, m64[op], eye).squeeze(-1)
+            for op in (("sx", "ix", "ix") if fwd
+                       else ("gxs", "gxi", "gxi"))]).float()
+        f = torch.stack([t.reshape(k, -1) for t in src])
+        shape_out = (dense.shape[1],) + tuple(src[0].shape[1:])
+        if fwd:
+            return lambda: torch.bmm(dense, f).reshape((3,) + shape_out)
+        s_ = torch.stack([t.reshape(t.shape[0], -1) for t in ins[3:]])
+        return lambda: torch.baddbmm(s_, dense, f, alpha=-1.0).reshape(
+            (3,) + shape_out)
+
     def slab_rows(shape, mesh_, pm, on_path, n=None):
         """The mid with and without q and its halves (div_solve, grad), in
         pm's forms, and on a periodic x x_div3 and x_gradsub3, at `shape`
@@ -1844,9 +2046,13 @@ def main():
                 + jobs + [("x_gradsub3", gp + (su, sv, sw), sl.x_gradsub3,
                            sl.x_gradsub3_plain)]
         for name, ins, kern_fn, plain_fn in jobs:
+            lib = (x_stage_library(name, pm, ins)
+                   if name in ("x_div3", "x_gradsub3") else None)
             stage_row(name, ins, kern_fn, plain_fn,
                       slab_cost(name, pm.shape, BW, pm.forms.y,
-                                pm.forms.z), pm, name in on_path, n=n)
+                                pm.forms.z), pm, name in on_path, n=n,
+                      library=lib)
+            del lib
         with_q, no_q = mid_q(*dp, pm), mid_nq(*dp, pm)
         q = sl.div_solve(*dp, pm)
         halves = (q,) + sl.grad(q, pm)
@@ -2330,8 +2536,10 @@ def main():
     pm_a = ns_a._slab
     noise_a = (randn_a(), randn_a(), randn_a())
     pipe_rows(shape_a, noise_a, pm_a)
-    # x_div3 and the mid with q are on no path at this size
-    slab_rows(shape_a, mesh_a, pm_a, ("pressure_mid", "x_gradsub3"))
+    # x_div3 is on no path at this size; the mid with q is on the entry
+    # point's TGV example with the pressure output (phase 8e)
+    slab_rows(shape_a, mesh_a, pm_a, ("pressure_mid", "pressure_mid[q]",
+                                      "x_gradsub3"))
     mid_on_noise(shape_a, pm_a, noise_a, "white noise", True)
     del noise_a, ns_a, pm_a
     torch.cuda.empty_cache()
@@ -3793,6 +4001,334 @@ def main():
           f"{ke_t:.2f} (<= {KE_LIMIT:g})", flush=True)
     check(math.isfinite(ke_rel) and ke_rel <= KE_LIMIT,
           f"KE of the HIGHEST compensated run vs float64: {ke_rel}")
+
+    # ---- 8e. the entry point ------------------------------------------------
+    # on a quiet host (phase 8's CPU legs are done): the runs time steps
+    # and the host's IO
+    stamp("phase 8e (the entry point: python -m x3d2_tpu_torch)")
+    cli_root = _build.BUILD_DIR.parent / "smoke_cli"
+    shutil.rmtree(cli_root, ignore_errors=True)
+    cli_procs = []   # every run started here
+
+    @atexit.register
+    def stop_cli():
+        # a failed check exits with runs still going: stop them
+        for p_ in cli_procs:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env_cli = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [q for q in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if q]))
+
+    def cli_start(sub, text, argv, plain=False, gated=False):
+        """Start python -m x3d2_tpu_torch on `text` in
+        build/smoke_cli/<sub>: the module as is (plain), else through
+        CLI_WRAP, waiting for cli_go where gated. Returns the handle cli
+        takes."""
+        d = cli_root / sub
+        d.mkdir(parents=True)
+        (d / "input.x3d").write_text(text)
+        args = ["input.x3d", *argv]
+        gate = d / "go" if gated else None
+        cmd = ([sys.executable, "-m", "x3d2_tpu_torch", *args] if plain else
+               [sys.executable, "-c", CLI_WRAP, str(d / "cli.json"),
+                str(gate or "-"), *args])
+        proc = subprocess.Popen(cmd, cwd=d, env=env_cli, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        cli_procs.append(proc)
+        return dict(d=d, args=args, plain=plain, proc=proc, gate=gate,
+                    t0=time.perf_counter())
+
+    def cli_go(handle, prep=None):
+        """Let a gated run go on (prep(its directory) first, where
+        given); its seconds count from here."""
+        if prep is not None:
+            prep(handle["d"])
+        handle["gate"].touch()
+        handle["t0"] = time.perf_counter()
+        return handle
+
+    def cli(tag, handle, dims=None, per_step=(), steps=0):
+        """Wait for a run (cli_start's handle) and print its output. A run
+        through CLI_WRAP has its launches checked as run_counted checks a
+        path's (exactly per_step a step, the tensor-core sweeps on their
+        body, no pipeline stage on the template, every kernel held at its
+        size) and any restore it made read finite arrays. Returns
+        (directory, stdout, the wrapper's record)."""
+        d, args, plain, proc = (handle[k] for k in ("d", "args", "plain",
+                                                     "proc"))
+        out, err = proc.communicate(timeout=900)
+        print(f"[{tag}] python -m x3d2_tpu_torch {' '.join(args)} "
+              f"({'as is' if plain else 'counted'}): exit {proc.returncode}"
+              f", {time.perf_counter() - handle['t0']:.1f} s"
+              f"{' after its gate' if handle['gate'] else ''}", flush=True)
+        for line in out.splitlines():
+            print(f"[{tag}]   {line}", flush=True)
+        check(proc.returncode == 0, f"{tag}: exit {proc.returncode}\n"
+                                    f"{err[-4000:]}")
+        if plain:
+            return d, out, None
+        res = json.loads((d / "cli.json").read_text())
+        counts = res["launches"]
+        print(f"[{tag}] launches {counts}", flush=True)
+        on_tmpl = {k: v for k, v in res["template"].items() if k in PIPE_TC}
+        check(not on_tmpl, f"{tag}: pipeline launches on the template "
+                           f"{on_tmpl}")
+        tc_want = {k: v for k, v in counts.items() if k in tc_names}
+        check(res["tc"] == tc_want, f"{tag}: tensor-core sweep launches "
+                                    f"{res['tc']}, expected {tc_want}")
+        calls = Counter({k: steps * c for k, c in Counter(per_step).items()})
+        want = {k: c * oa.LAUNCHES_PER_CALL.get(k, 1)
+                for k, c in calls.items()}
+        check(counts == want, f"{tag}: expected launches {want}, got "
+                              f"{counts}")
+        check(all(res["restored_finite"]), f"{tag}: a restore read non-finite "
+                                           "arrays")
+        n = size_label(dims)
+        for k in counts:
+            if (k, n) not in rows:
+                unheld.add(f"{k}@{n}")
+            elif not rows[k, n]["launches"]:
+                rows[k, n]["launches"] = counts[k]
+        sec = res["seconds"]
+        print(f"[{tag}] seconds: " + ", ".join(
+            f"{k} {', '.join(f'{x:.3f}' for x in v)}" if len(v) <= 4 else
+            f"{k} {len(v)} calls, mean {sum(v) / len(v) * 1e3:.3f} ms"
+            for k, v in sec.items() if v), flush=True)
+        return d, out, res
+
+    def cli_rows(tag, d, n_rows):
+        """The monitoring rows of a run: n_rows of them, all finite."""
+        lines = (d / "monitoring.csv").read_text().split()
+        check(lines[0] == "time,enstrophy,div_u_max,div_u_mean,ke",
+              f"{tag}: monitoring header {lines[0]}")
+        vals = [[float(x) for x in ln.split(",")] for ln in lines[1:]]
+        check(len(vals) == n_rows and all(math.isfinite(x) for r in vals
+                                          for x in r),
+              f"{tag}: monitoring rows {vals}")
+        return vals
+
+    def cli_finite(tag, d, skip=(), decode=None):
+        """Every array of every .npz under d but those named in `skip`
+        (checked where they are compared) is finite; the payloads of the
+        VTK files in `decode` (default: all under d) are finite and equal
+        their step's .npz arrays (a 256^3 file of six fields is 512 MB of
+        base64, seconds to decode)."""
+        nf = 0
+        for f in sorted(d.rglob("*.npz")):
+            if f.name in skip:
+                continue
+            with np.load(f) as z:
+                for k in z.files:
+                    a = z[k]
+                    check(a.dtype.kind != "f" or bool(np.isfinite(a).all()),
+                          f"{tag}: {f.name} {k} not finite")
+            nf += 1
+        for f in (sorted(d.rglob("*.vt[ir]")) if decode is None else decode):
+            with np.load(f.with_suffix(".npz")) as z:
+                for k, a in vtk_arrays(f, np).items():
+                    check(bool(np.isfinite(a).all()) and np.array_equal(
+                        a, np.ascontiguousarray(
+                            z[k].transpose(2, 1, 0)).ravel().astype(
+                            np.float32)),
+                          f"{tag}: {f.name} {k}")
+            nf += 1
+        print(f"[{tag}] {nf} files finite (VTK payloads = their .npz)",
+              flush=True)
+
+    def step_ms_of(out):
+        """The ms/step of the run's last report."""
+        return float(re.findall(r"Time for this time step: ([0-9.]+) ms",
+                                out)[-1])
+
+    def ms_list(xs):
+        return ", ".join(f"{x:.3f}" for x in xs)
+
+    # started together: the TGV example with IO; beside it the generic
+    # example (u = 1) through python -m x3d2_tpu_torch as is, with a
+    # checkpoint at its last step, and the cylinder example as it stands
+    # (257 x 128 x 32, vort and the IBM mask in single precision at step
+    # 50: x3d2_tpu runs no kernel on it, the einsum transport and the
+    # folded chain, nor does the port), both a few seconds on the card;
+    # and, gated, the TGV example's restart.
+    # The TGV example (256^3 AB3): vort, qcrit and the pressure in single
+    # precision and a checkpoint every CLI_IO steps, statistics from step
+    # CLI_STATS (the pressure output and the statistics keep the pressure:
+    # the slab with q after the xdiv chain), a report every 10 steps; its
+    # restart from step CLI_IO to CLI_STEPS (snapshots off), whose
+    # checkpoint and statistics at CLI_STEPS must be the uninterrupted
+    # run's bit for bit (the kernels take no atomics and no split-K) and
+    # whose monitoring rows continue the first run's file
+    gen_text = open(GENERIC_EXAMPLE).read()
+    tgv_text = open(TGV_EXAMPLE).read()
+    io_tgv = dict(checkpoint_freq=CLI_IO, snapshot_freq=CLI_IO,
+                  keep_checkpoint=".true.", snapshot_sp=".true.",
+                  output_fields="'vort', 'qcrit', 'pressure'")
+    st_tgv = dict(initstat=CLI_STATS, istatfreq=1, istatout=CLI_IO)
+    per_tgv = sweeps_xdiv + ["pressure_mid[q]", "x_gradsub3"]
+    h_tgv = cli_start(
+        "tgv", edit_input(tgv_text, io_block(st_tgv, **io_tgv), n_output=10),
+        ["--n-iters", str(CLI_STEPS)])
+    h_gen = cli_start("generic",
+                      gen_text + io_block(checkpoint_freq=CLI_STEPS_GENERIC),
+                      ["--n-iters", str(CLI_STEPS_GENERIC)], plain=True)
+    h_cyl = cli_start("cylinder", open(CYL_EXAMPLE).read(),
+                      ["--n-iters", str(CLI_STEPS_CYL)])
+    d1 = h_tgv["d"]
+    io_re = dict(io_tgv, snapshot_freq=0, restart_from_checkpoint=".true.",
+                 restart_file=f"'{d1}/checkpoint_{CLI_IO:06d}.npz'")
+    h_re = cli_start(
+        "tgv_restart",
+        edit_input(tgv_text, io_block(st_tgv, **io_re), n_output=10),
+        ["--n-iters", str(CLI_STEPS - CLI_IO)], gated=True)
+    d1, out1, res1 = cli("cli TGV", h_tgv, (NA,) * 3, per_tgv, CLI_STEPS)
+    check("Flow case: tgv; grid (256, 256, 256); AB3" in out1,
+          "cli TGV: the Flow case line")
+    rows1 = cli_rows("cli TGV", d1, CLI_STEPS // 10 + 1)
+    check(all(b[4] < a[4] for a, b in zip(rows1, rows1[1:])),
+          "cli TGV: KE must decrease")
+    stepped = [CLI_IO * k for k in range(1, CLI_STEPS // CLI_IO + 1)]
+    for it in stepped:
+        for f in (f"checkpoint_{it:06d}.npz", f"statistics_{it:06d}.npz",
+                  f"snapshot_out/step_{it:06d}.npz",
+                  f"snapshot_out/step_{it:06d}.vti"):
+            check((d1 / f).exists(), f"cli TGV: no {f}")
+    check(all(f"step_{it:06d}.vti" in (d1 / "snapshot.pvd").read_text()
+              for it in stepped), "cli TGV: the .pvd collection")
+    head = (d1 / "monitoring.csv").read_text().splitlines()[:CLI_IO // 10 + 2]
+
+    def seed_rows(d):
+        # the monitoring file as it stood at the checkpoint's step
+        (d / "monitoring.csv").write_text("\n".join(head) + "\n")
+
+    # the main path's configuration through the CLI (bench.py:137-155: TGV
+    # 512^3 AB3, no pressure output): statistics off, a checkpoint at the
+    # last step; then that checkpoint restored (which checks its arrays
+    # finite) with statistics on from the next step, which keep the
+    # pressure (x3d2_tpu __main__.py:82-84): path B's slab with q in place
+    # of the pipeline. Each starts, gated, beside the run before it.
+    ns_text = edit_input(tgv_text, dims_global=f"{NS}, {NS}, {NS}",
+                         n_output=10)
+    ck_ns = cli_root / "ns" / f"checkpoint_{CLI_STEPS_NS:06d}.npz"
+    h_ns = cli_start("ns", ns_text + io_block(checkpoint_freq=CLI_STEPS_NS,
+                                              keep_checkpoint=".true."),
+                     ["--n-iters", str(CLI_STEPS_NS)], gated=True)
+    d2, out2, res2 = cli("cli TGV restart", cli_go(h_re, seed_rows),
+                         (NA,) * 3, per_tgv, CLI_STEPS - CLI_IO)
+    h_st = cli_start("ns_stats", ns_text + io_block(
+        dict(initstat=CLI_STEPS_NS + 1, istatfreq=1, istatout=0),
+        restart_from_checkpoint=".true.", restart_file=f"'{ck_ns}'"),
+        ["--n-iters", str(CLI_STEPS_NS)], gated=True)
+    check(f"Restart from {d1}/checkpoint_{CLI_IO:06d}.npz at iteration "
+          f"{CLI_IO}" in out2, "cli TGV restart: the Restart line")
+    check((d2 / "monitoring.csv").read_text()
+          == (d1 / "monitoring.csv").read_text(),
+          "cli TGV restart: monitoring.csv must continue to the "
+          "uninterrupted run's")
+    last = [f"checkpoint_{CLI_STEPS:06d}.npz",
+            f"statistics_{CLI_STEPS:06d}.npz"]
+    for f in last:
+        with np.load(d1 / f) as za, np.load(d2 / f) as zb:
+            check(sorted(za.files) == sorted(zb.files), f"cli TGV: {f} keys")
+            for k in za.files:
+                a = za[k]
+                check(a.dtype.kind != "f" or bool(np.isfinite(a).all()),
+                      f"cli TGV: {f} {k} not finite")
+                check(np.array_equal(a, zb[k]), f"cli TGV restart: {f} {k} "
+                                                "differs from the "
+                                                "uninterrupted run's")
+    # the checkpoint at CLI_IO is checked by the restart's read of it
+    cli_finite("cli TGV", d1, skip=last + [f"checkpoint_{CLI_IO:06d}.npz"],
+               decode=[d1 / f"snapshot_out/step_{CLI_STEPS:06d}.vti"])
+    size_ck = (d1 / f"checkpoint_{CLI_IO:06d}.npz").stat().st_size
+    sec1, sec2 = res1["seconds"], res2["seconds"]
+    print(f"[cli TGV] the restart's checkpoint and statistics at step "
+          f"{CLI_STEPS} bit-equal to the uninterrupted run's, monitoring "
+          f"appended to the same bytes; a checkpoint "
+          f"{size_ck / 2**20:.0f} MiB (u, v, w, the AB3 history, the "
+          f"statistics): write {ms_list(sec1['checkpoint_write'])} s "
+          f"(beside the generic and cylinder runs), "
+          f"{ms_list(sec2['checkpoint_write'])} s (the restart, alone), "
+          f"restore {ms_list(sec2['checkpoint_restore'])} s; snapshots "
+          f"{ms_list(sec1['snapshot'])} s ({card})", flush=True)
+    shutil.rmtree(d2)
+    shutil.rmtree(d1)
+
+    d5, out5, res5 = cli("cli cylinder", h_cyl, (257, 128, 32))
+    cli_rows("cli cylinder", d5, CLI_STEPS_CYL // 50 + 1)
+    cli_finite("cli cylinder", d5)
+    print(f"[cli cylinder] {CLI_STEPS_CYL} steps, "
+          f"{re.findall(r'Total time .*', out5)[-1]}; snapshots "
+          f"{ms_list(res5['seconds']['snapshot'])} s", flush=True)
+    d6, out6, _ = cli("cli generic", h_gen)
+    with np.load(d6 / f"checkpoint_{CLI_STEPS_GENERIC:06d}.npz") as z:
+        dev_g = max(float(np.abs(z["u"] - 1).max()),
+                    float(np.abs(z["v"]).max()), float(np.abs(z["w"]).max()))
+    print(f"[cli generic] after {CLI_STEPS_GENERIC} steps max |u - 1|, |v|,"
+          f" |w| {dev_g:.3e} (<= 1e-5)", flush=True)
+    check(dev_g <= 1e-5, f"cli generic: the uniform flow moved by {dev_g}")
+    cli_finite("cli generic", d6)
+    shutil.rmtree(d5)
+    shutil.rmtree(d6)
+
+    d3, out3, res3 = cli("cli 512", cli_go(h_ns), (NS,) * 3,
+                         sweeps_zxy + pipe3, CLI_STEPS_NS)
+    cli_rows("cli 512", d3, CLI_STEPS_NS // 10 + 1)
+    d4, out4, res4 = cli("cli 512 stats", cli_go(h_st), (NS,) * 3,
+                         sweeps_zxy + ["x_div3", "pressure_mid[q]",
+                                       "x_gradsub3"], CLI_STEPS_NS)
+    check(res4["restored_finite"] == [True], "cli 512 stats: one restore")
+    cli_rows("cli 512 stats", d4, CLI_STEPS_NS // 10)
+    stats_s = res4["seconds"]["stats_update"]
+    check(len(stats_s) == CLI_STEPS_NS, "cli 512 stats: a statistics "
+                                        "update every step")
+
+    def step_ms(out, res):
+        # the last report's ms/step (10 steps and the row at its end), and
+        # less the row's share
+        ms = step_ms_of(out)
+        return ms, ms - res["seconds"]["monitoring_row"][-1] * 1e3 / 10
+
+    (off, off_nr), (on, on_nr) = step_ms(out3, res3), step_ms(out4, res4)
+    print(f"[cli 512] ms/step (the report over the last 10 steps of each run"
+          f", their monitoring row included; without the row's share): "
+          f"statistics off {off:.2f}, {off_nr:.2f} (the main path: "
+          f"{quiet['main']:.3f} in phase 8q), on {on:.2f}, {on_nr:.2f} "
+          f"(path B: {modes_ms['path B']:.3f} in phase 5); a monitoring row "
+          f"{ms_list(x * 1e3 for x in res3['seconds']['monitoring_row'])} ms"
+          f" (statistics off), "
+          f"{ms_list(x * 1e3 for x in res4['seconds']['monitoring_row'])} ms"
+          f" (on; between two syncs); a statistics update "
+          f"{sorted(stats_s)[len(stats_s) // 2] * 1e3:.3f} ms (median "
+          f"device time, two CUDA events); checkpoint "
+          f"{ck_ns.stat().st_size / 2**30:.2f} GiB: write "
+          f"{res3['seconds']['checkpoint_write'][0]:.3f} s (to the "
+          f"background writer), flushed by "
+          f"{res3['seconds']['flush'][-1]:.3f} s more at exit, restore "
+          f"{res4['seconds']['checkpoint_restore'][0]:.3f} s ({card})",
+          flush=True)
+    shutil.rmtree(cli_root)
+
+    # the generic example card against CPU at GENERIC_CUT
+    cfg_g = config.Config.from_string(gen_text)
+    cfg_g.domain.dims_global = GENERIC_CUT
+    legs_g = []
+    for device in (dev, torch.device("cpu")):
+        c = config.make_case(cfg_g, torch.float32, monitor_path=None,
+                             verbose=False, keep_pressure=False,
+                             device=device)
+        st = c.run(n_iters=CLI_STEPS_GENERIC, n_output=CLI_STEPS_GENERIC)
+        legs_g.append([st[k].cpu() for k in ("u", "v", "w")])
+    err_g = max(float((a - b).abs().max()) for a, b in zip(*legs_g))
+    print(f"[cli generic] {size_label(GENERIC_CUT)}, {CLI_STEPS_GENERIC} "
+          f"steps: card vs CPU max |du, dv, dw| {err_g:.3e} (<= 1e-5)",
+          flush=True)
+    check(err_g <= 1e-5, f"cli generic: card vs CPU {err_g}")
+    del legs_g
 
     # ---- 9. the sharded step ------------------------------------------------
     stamp("phase 9 (the sharded step)")

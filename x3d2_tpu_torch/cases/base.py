@@ -127,7 +127,7 @@ class BaseCase:
     def __init__(self, mesh: Mesh, params: SolverParams, dtype=torch.float32,
                  monitor_path: str | None = "monitoring.csv", verbose=True,
                  keep_pressure=True, device=None, seed: int = 0,
-                 case_cfg=None):
+                 case_cfg=None, monitor_append=False):
         self.ti = TimeIntegrator(params.time_intg)
         self.device = resolve_device(device)
         self.seed = seed
@@ -266,7 +266,7 @@ class BaseCase:
                 if on_card:
                     raise
         self.monitor = Monitor(self.solver, path=monitor_path,
-                               verbose=verbose)
+                               append=monitor_append, verbose=verbose)
 
     # ------------------------------------------------------------------
     # hooks (overridden by concrete cases)
@@ -487,10 +487,19 @@ class BaseCase:
 
     # ------------------------------------------------------------------
     def run(self, n_iters: Optional[int] = None, state=None,
-            n_output: Optional[int] = None, fresh: Optional[bool] = None):
-        """Time loop (reference base_case run, base_case.f90:181-353):
-        step -> monitoring every n_output iterations. `fresh` marks a new
-        initial condition (write the t=0 monitoring row)."""
+            n_output: Optional[int] = None, io_manager=None,
+            fresh: Optional[bool] = None):
+        """Time loop (reference base_case run, base_case.f90:181-353;
+        x3d2_tpu cases/base.py:527-606): step -> stats accumulation ->
+        monitoring every n_output iterations (with the wall clock of the
+        reported steps) -> checkpoint and snapshot (io_manager, an
+        io.IOManager), and the manager's finalise at the end. `fresh` marks
+        a new initial condition (write the t=0 monitoring row) rather than
+        a checkpoint restore; default: a state built here is fresh, a
+        caller's is fresh at istep 1. IO reads the state between steps:
+        its host copies are made, and the statistics' device updates
+        enqueued, before the next step (which may write over the state's
+        buffers) starts."""
         n_iters = n_iters or self.params.n_iters
         n_output = n_output or self.params.n_output
         if state is None:
@@ -501,22 +510,42 @@ class BaseCase:
             fresh = int(state["istep"]) == 1
         if "rhsp" in state:
             # the carried z partials are derived from u, v, w: made anew
-            # whenever a state enters the loop (x3d2_tpu cases/base.py:
-            # 545-552)
+            # whenever a state enters the loop, a restored one too
+            # (x3d2_tpu cases/base.py:545-552)
             state = dict(state, rhsp=tuple(self._d2_boot(
                 state["u"], state["v"], state["w"])))
         if fresh and int(state["istep"]) == 1:
             self.postprocess(0, 0.0, state)
         t0 = time.perf_counter()
+        t_rep = t0
         start = int(state["istep"])
         for it in range(start, start + n_iters):
             state = self.step(state)
+            t = it * self.dt
+            if io_manager is not None:
+                io_manager.update_stats(state, it)
             if it % n_output == 0:
-                self.postprocess(it, it * self.dt, state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                self.postprocess(it, t, state)
+                if self.monitor.verbose:
+                    # per-reported-step wall clock (base_case.f90:244-266)
+                    self._sync()
+                    now = time.perf_counter()
+                    print(f"Time for this time step: "
+                          f"{(now - t_rep) / n_output * 1e3:.2f} ms "
+                          f"(iteration {it})")
+                    t_rep = now
+            if io_manager is not None:
+                io_manager.handle_io_step(state, it, t)
+        self._sync()
         elapsed = time.perf_counter() - t0
+        if io_manager is not None:
+            last = start + n_iters - 1
+            io_manager.finalise(state, last, last * self.dt)
         if self.monitor.verbose:
             print(f"Total time {elapsed:.3f}s for {n_iters} iters "
                   f"({elapsed / n_iters * 1e3:.2f} ms/step)")
         return state
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

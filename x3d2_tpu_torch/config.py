@@ -251,29 +251,33 @@ class Config:
         return cfg
 
 
+CHANNEL_GAP = ("the channel case is not ported yet: it needs the stretched "
+               "Poisson solver (x3d2_tpu's ops/stretched_poisson.py) and "
+               "cases/channel.py")
+
+
 def make_case(cfg: Config, dtype=None, seed=0, verbose=True,
               monitor_path="monitoring.csv", keep_pressure=True,
-              device=None):
+              device=None, monitor_append=False):
     """The case factory of x3d2_tpu (__main__.py:15-31; reference
     xcompact.f90:111-126): the mesh from &domain_settings and the case
-    ``flow_case_name`` names (tgv; cylinder with &cylinder_nml). Channel
-    and generic are not ported yet (ROADMAP Queue 1 item 6) and raise
-    NotImplementedError."""
+    ``flow_case_name`` names (tgv; cylinder with &cylinder_nml; generic).
+    The channel raises NotImplementedError (CHANNEL_GAP)."""
     import torch
 
-    from .cases import CylinderCase, TGVCase
+    from .cases import CylinderCase, GenericCase, TGVCase
     from .mesh import Mesh
 
-    mesh = Mesh.from_config(cfg.domain)
     name = cfg.domain.flow_case_name.lower()
-    if name in ("channel", "generic"):
-        raise NotImplementedError(f"the {name} case is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
-    table = {"tgv": (TGVCase, None), "cylinder": (CylinderCase, cfg.cylinder)}
+    if name == "channel":
+        raise NotImplementedError(CHANNEL_GAP)
+    table = {"tgv": (TGVCase, None), "cylinder": (CylinderCase, cfg.cylinder),
+             "generic": (GenericCase, None)}
     if name not in table:
         raise ValueError(f"flow_case_name '{name}' is undefined")
     cls, case_cfg = table[name]
-    return cls(mesh, cfg.solver, dtype=dtype or torch.float32, seed=seed,
-               verbose=verbose, monitor_path=monitor_path,
-               keep_pressure=keep_pressure, device=device,
-               case_cfg=case_cfg)
+    return cls(Mesh.from_config(cfg.domain), cfg.solver,
+               dtype=dtype or torch.float32, seed=seed, verbose=verbose,
+               monitor_path=monitor_path, keep_pressure=keep_pressure,
+               device=device, case_cfg=case_cfg,
+               monitor_append=monitor_append)

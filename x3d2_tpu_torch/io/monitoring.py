@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import csv
 import math
+import os
 
 import torch
 
@@ -65,7 +66,8 @@ class Monitor:
 
     COLUMNS = ["time", "enstrophy", "div_u_max", "div_u_mean", "ke"]
 
-    def __init__(self, solver, path="monitoring.csv", verbose=True):
+    def __init__(self, solver, path="monitoring.csv", append=False,
+                 verbose=True):
         self.fn = make_observables_fn(solver)
         from ..parallel.multihost import is_primary
         if not is_primary():
@@ -76,9 +78,13 @@ class Monitor:
         self.rows = []
         self._fh = None
         if path is not None:
-            self._fh = open(path, "w", newline="")
+            # append: a restarted run continues the series
+            header = (not append or not os.path.exists(path)
+                      or os.path.getsize(path) == 0)
+            self._fh = open(path, "a" if append else "w", newline="")
             self._csv = csv.writer(self._fh)
-            self._csv.writerow(self.COLUMNS)
+            if header:
+                self._csv.writerow(self.COLUMNS)
 
     def write_step(self, t, u, v, w):
         obs = {k: float(x) for k, x in self.fn(u, v, w).items()}
