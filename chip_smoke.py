@@ -397,7 +397,26 @@ Phases, each printing its own lines; any failed check exits non-zero:
    config.make_case (1e-5). Every monitoring row and every .npz array is
    finite (a checkpoint through the restore that reads it), and the VTK
    payloads of the TGV example's last snapshot and of the cylinder's are
-   finite and their step's .npz arrays.
+   finite and their step's .npz arrays. Beside the TGV example's run, the
+   channel example (128 x 65 x 64, a top-bottom stretched y, RK3) with
+   wall noise (inlet_noise set, CH_NOISE) for 20 steps, a checkpoint
+   every 10, no kernel launch; then, gated, its restart from step 10,
+   whose checkpoint at 20 (the fields and the generator's state) must
+   equal the uninterrupted run's bit for bit and whose monitoring rows
+   continue its file; and the example as it stands, 20 steps through
+   python -m x3d2_tpu_torch as is.
+8c. The channel (the stretched-y Poisson solve; x3d2_tpu runs no kernel
+   on a stretched y, so every launch count must stay 0): the example,
+   CH_STEPS RK3 steps on the card (counted) against the same on the CPU,
+   max |du, dv, dw| <= 1e-5 * max |u|, and the bulk sum(u) / cells right
+   after define_bc's correction within CH_BULK_LIMIT of 2/3 from step
+   CH_BULK_FROM on; ms/step (3 warm-up steps, the median of 10, the
+   transport's and the projection's shares) at 128 x 65 x 64 (CH) and
+   192 x 129 x 128 in KMM's box (CH-KMM); one projection of the example's
+   initial field on each Poisson route, card against CPU (1e-5 * max
+   |u|): the eigen-resolved matmul solve, the scan route
+   (X3D2_STRETCH_EIG=0), SpectralPoisson and CGPoisson (its iterations on
+   each device printed), each with a solve's and the projection's ms.
 9. The sharded step (x3d2_tpu make_sharded_step's counterpart,
    x3d2_tpu_torch.parallel): 4 ranks spawned on this host
    (x3d2_tpu_torch.tools.shard_run), on one card with gloo (the exchanges
@@ -440,6 +459,7 @@ It imports nothing of JAX or of the JAX package.
 """
 
 import atexit
+import copy
 import json
 import math
 import os
@@ -515,6 +535,26 @@ CLI_STEPS_NS = 20           # each 512^3 run (a report every 10 steps)
 CLI_STEPS_CYL = 50          # the cylinder example (one snapshot, at 50)
 CLI_STEPS_GENERIC = 10
 GENERIC_CUT = (64, 64, 64)  # the generic example's card vs CPU grid
+# the channel example (128 x 65 x 64, a top-bottom stretched y, RK3):
+# through the CLI with wall noise on (its input leaves it 0), a checkpoint
+# every CLI_IO_CH steps, and its restart from the first one (phase 8e);
+# card against CPU, each Poisson route's projection, ms/step (phase 8c);
+# CH-KMM: KMM's box at KMM-grade resolution, the grid
+# x3d2_tpu_torch/tools/validate_channel.py documents, timed
+CH_EXAMPLE = "examples/channel/input.x3d"
+CLI_STEPS_CH = 20
+CLI_IO_CH = 10
+CH_NOISE = "0.01d0, 0.005d0, 0.005d0"
+CH_STEPS = 10
+CH_KMM = ((192, 129, 128), (12.566, 2.0, 4.189))
+# the channel's bulk, sum(u) / cells right after define_bc's correction
+# (the vertex sum over the cells, channel.f90:70-78, so it reads 2/3 plus
+# the correction over ny cells): the example's float32 run on the CPU
+# reads 3.5e-3 and 5.5e-5 in steps 1 and 2 (the initial field's bulk),
+# then 0.6-1.9e-6 in steps 3-10; from step CH_BULK_FROM on it is held to
+# CH_BULK_LIMIT
+CH_BULK_FROM = 3
+CH_BULK_LIMIT = 1e-5
 # a run of the entry point: the package's __main__ run as python -m runs it
 # (runpy), with every launch count set to 0 just before and written after,
 # beside the seconds of the IO calls and of the monitoring rows (each
@@ -1337,7 +1377,8 @@ def main():
         return 2
     import x3d2_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
     from x3d2_tpu_torch import _build, config
-    from x3d2_tpu_torch.cases import CylinderCase, SolverParams, TGVCase
+    from x3d2_tpu_torch.cases import (ChannelCase, CylinderCase,
+                                      SolverParams, TGVCase)
     from x3d2_tpu_torch.common import BC, DataLoc, env_set
     from x3d2_tpu_torch.io import native as io_native
     from x3d2_tpu_torch.mesh import Mesh
@@ -4178,6 +4219,24 @@ def main():
                       ["--n-iters", str(CLI_STEPS_GENERIC)], plain=True)
     h_cyl = cli_start("cylinder", open(CYL_EXAMPLE).read(),
                       ["--n-iters", str(CLI_STEPS_CYL)])
+    # the channel example with wall noise (x3d2_tpu runs no kernel on it:
+    # the dense transport, the eigen-resolved folded projection), a
+    # checkpoint every CLI_IO_CH steps; gated, its restart from the first
+    ch_text = open(CH_EXAMPLE).read()
+
+    def ch_input(**io):
+        return edit_input(ch_text, io_block(
+            checkpoint_freq=CLI_IO_CH, keep_checkpoint=".true.", **io),
+            n_output=10, inlet_noise=CH_NOISE)
+
+    h_ch = cli_start("channel", ch_input(), ["--n-iters", str(CLI_STEPS_CH)])
+    h_cha = cli_start("channel_as_is", ch_text,
+                      ["--n-iters", str(CLI_STEPS_CH)], plain=True)
+    d_ch = h_ch["d"]
+    h_chr = cli_start("channel_restart", ch_input(
+        restart_from_checkpoint=".true.",
+        restart_file=f"'{d_ch}/checkpoint_{CLI_IO_CH:06d}.npz'"),
+        ["--n-iters", str(CLI_STEPS_CH - CLI_IO_CH)], gated=True)
     d1 = h_tgv["d"]
     io_re = dict(io_tgv, snapshot_freq=0, restart_from_checkpoint=".true.",
                  restart_file=f"'{d1}/checkpoint_{CLI_IO:06d}.npz'")
@@ -4185,6 +4244,16 @@ def main():
         "tgv_restart",
         edit_input(tgv_text, io_block(st_tgv, **io_re), n_output=10),
         ["--n-iters", str(CLI_STEPS - CLI_IO)], gated=True)
+    # the channel's run first (seconds), so that its restart goes on beside
+    # the TGV example's: no kernel launch, rows finite
+    d7, out7, _ = cli("cli channel", h_ch, (128, 65, 64))
+    check("Flow case: channel; grid (128, 65, 64); RK3" in out7,
+          "cli channel: the Flow case line")
+    cli_rows("cli channel", d7, CLI_STEPS_CH // 10 + 1)
+    ch_head = (d7 / "monitoring.csv").read_text().splitlines()[
+        :CLI_IO_CH // 10 + 2]
+    cli_go(h_chr, lambda d: (d / "monitoring.csv").write_text(
+        "\n".join(ch_head) + "\n"))
     d1, out1, res1 = cli("cli TGV", h_tgv, (NA,) * 3, per_tgv, CLI_STEPS)
     check("Flow case: tgv; grid (256, 256, 256); AB3" in out1,
           "cli TGV: the Flow case line")
@@ -4274,6 +4343,38 @@ def main():
     cli_finite("cli generic", d6)
     shutil.rmtree(d5)
     shutil.rmtree(d6)
+    # the channel's restart from step CLI_IO_CH: its last checkpoint (the
+    # fields and the generator's state of the wall noise) equals the
+    # uninterrupted run's bit for bit, its rows continue that run's file
+    d8, out8, res8 = cli("cli channel restart", h_chr, (128, 65, 64))
+    check(f"Restart from {d7}/checkpoint_{CLI_IO_CH:06d}.npz at iteration "
+          f"{CLI_IO_CH}" in out8, "cli channel restart: the Restart line")
+    check((d8 / "monitoring.csv").read_text()
+          == (d7 / "monitoring.csv").read_text(),
+          "cli channel restart: monitoring.csv must continue to the "
+          "uninterrupted run's")
+    ck_ch = f"checkpoint_{CLI_STEPS_CH:06d}.npz"
+    with np.load(d7 / ck_ch) as za, np.load(d8 / ck_ch) as zb:
+        check(sorted(za.files) == sorted(zb.files)
+              and "torch_rng_cuda" in za.files, f"cli channel: {ck_ch} keys "
+                                                f"{sorted(za.files)}")
+        for k in za.files:
+            check(np.array_equal(za[k], zb[k]), f"cli channel restart: "
+                  f"{ck_ch} {k} differs from the uninterrupted run's")
+    cli_finite("cli channel", d7)
+    print(f"[cli channel] {CLI_STEPS_CH} steps with wall noise "
+          f"({CH_NOISE}), {re.findall(r'Total time .*', out7)[-1]}; the "
+          f"restart from step {CLI_IO_CH}: {ck_ch} bit-equal to the "
+          f"uninterrupted run's (the generator's state too), monitoring "
+          f"appended to the same bytes", flush=True)
+    shutil.rmtree(d7)
+    shutil.rmtree(d8)
+    # the example as it stands (no wall noise, no IO, a row every 100)
+    d9, out9, _ = cli("cli channel as is", h_cha)
+    check("Flow case: channel; grid (128, 65, 64); RK3" in out9,
+          "cli channel as is: the Flow case line")
+    cli_rows("cli channel as is", d9, 1)
+    shutil.rmtree(d9)
 
     d3, out3, res3 = cli("cli 512", cli_go(h_ns), (NS,) * 3,
                          sweeps_zxy + pipe3, CLI_STEPS_NS)
@@ -4329,6 +4430,153 @@ def main():
           flush=True)
     check(err_g <= 1e-5, f"cli generic: card vs CPU {err_g}")
     del legs_g
+
+    # ---- 8c. the channel ----------------------------------------------------
+    # x3d2_tpu runs no kernel on a stretched y (its sweeps and slab gates
+    # refuse it), so neither does the port: every launch count stays 0
+    stamp("phase 8c (the channel: the stretched y, the Poisson solvers)")
+    cpu = torch.device("cpu")
+    cfg_ch = config.Config.from_file(CH_EXAMPLE)
+
+    def channel_case(device, cfg_=cfg_ch):
+        c = config.make_case(cfg_, torch.float32, monitor_path=None,
+                             verbose=False, keep_pressure=False,
+                             device=device)
+        so = c.solver
+        check(isinstance(c, ChannelCase) and so._transport == "dense"
+              and so._slab is None and so._projection_gap is None
+              and so.poisson.stretch_resolved and c._fused_rk is None,
+              "channel: x3d2_tpu's routes (the dense transport, the "
+              "eigen-resolved folded projection, the unfused RK step)")
+        return c
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for m in (ts, oa, spm, td, xm):
+            m.reset_launch_counts()
+
+    ch = channel_case(dev)
+    ncell = float(np.prod(ch.mesh.global_cell_dims))
+    bulk = []    # (step, the bulk right after each substage's correction)
+    define_bc = ch.define_bc
+
+    def recorded(fields, rng, istep):
+        out = define_bc(fields, rng, istep)
+        bulk.append((istep, float(out[0][0].double().sum()) / ncell))
+        return out
+
+    ch.define_bc = recorded
+    st_card, _ = run_counted("channel", ch, ch.initial_state(), CH_STEPS, ())
+    del ch.define_bc
+    st_card = {k: st_card[k].cpu() for k in "uvw"}
+
+    def channel_ms(tag, case):
+        """ms/step (3 warm-up steps, then the median of 10, host clock),
+        the transport's and the projection's ms (CUDA events, three
+        substages a step); no kernel launched."""
+        reset_counts()
+        state = case.initial_state()
+        for _ in range(3):
+            state = case.step(state)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = case.step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        f = (state["u"], state["v"], state["w"])
+        tr = cuda_ms(lambda: case.solver.transeq(*f), 10, torch)
+        pr = cuda_ms(lambda: case.solver.pressure_correction(
+            *f, keep_pressure=False), 10, torch)
+        check(counts_now() == {}, f"{tag}: kernel launches {counts_now()}")
+        med = times[len(times) // 2]
+        print(f"[{tag}] {size_label(case.mesh.dims(DataLoc.VERT))} RK3 "
+              f"{med:.3f} ms/step (median of 10, host clock; {times[0]:.3f}"
+              f"-{times[-1]:.3f}); transport {tr:.3f} ms x 3 "
+              f"({300 * tr / med:.1f}%), projection {pr:.3f} ms x 3 "
+              f"({300 * pr / med:.1f}%), no kernel launch ({card})",
+              flush=True)
+
+    # the card's timings before any CPU leg: a step is some 500 small
+    # launches of plain PyTorch, timed on the host's clock, and a CPU
+    # leg's threads (which spin a while after their work) would share the
+    # host with them
+    channel_ms("CH", ch)
+    cfg_kmm = copy.deepcopy(cfg_ch)
+    cfg_kmm.domain.dims_global, cfg_kmm.domain.L_global = CH_KMM
+    channel_ms("CH-KMM", channel_case(dev, cfg_kmm))
+
+    # one projection a Poisson route, card against CPU, of the example's
+    # initial field (white noise on the profile: a divergence the solve
+    # must remove): the eigen-resolved matmul solve (the default), the scan
+    # route (X3D2_STRETCH_EIG=0, the pentadiagonal recurrences, ~4 ny small
+    # launches a solve), the FFT pipeline and BiCGStab (one host read an
+    # iteration); each route's card run and times, then its CPU leg
+    st0 = ch.initial_state()
+    vel = tuple(st0[k] for k in "uvw")
+    scale = max(float(t.abs().max()) for t in vel)
+    routes = (("eigen", "matmul", {}),
+              ("scan", "matmul", {"X3D2_STRETCH_EIG": "0"}),
+              ("fft", "fft", {}), ("cg", "cg", {}))
+    reset_counts()
+    on_card = {}
+    for name, method, env in routes:
+        with env_set(env):
+            ns = NavierStokes.build(ch.mesh, ch.solver.nu,
+                                    dtype=torch.float32, device=dev,
+                                    poisson_method=method)
+        out = ns.pressure_correction(*vel, keep_pressure=False)
+        its = getattr(ns.poisson, "iterations", None)
+        div = ns.divergence_v2p(*vel)
+        on_card[name] = (
+            [t.cpu() for t in out[:3]], its,
+            cuda_ms(lambda: ns.poisson(div), 5, torch),
+            cuda_ms(lambda: ns.pressure_correction(
+                *vel, keep_pressure=False), 5, torch))
+        del ns, out, div
+    check(counts_now() == {}, f"channel poisson: kernel launches "
+                              f"{counts_now()}")
+
+    # the CPU legs
+    st_cpu = channel_case(cpu).run(n_iters=CH_STEPS, n_output=CH_STEPS)
+    err_ch = max(float((st_card[k] - st_cpu[k]).abs().max())
+                 for k in "uvw") / float(st_cpu["u"].abs().max())
+    late = max(abs(b - 2.0 / 3.0) for i, b in bulk if i >= CH_BULK_FROM)
+    print(f"[channel] {size_label(ch.mesh.dims(DataLoc.VERT))} RK3, "
+          f"{CH_STEPS} steps card vs CPU: max |du, dv, dw| / max |u| "
+          f"{err_ch:.3e} (<= 1e-5); the bulk after define_bc's correction, "
+          f"steps 1-2: " + ", ".join(f"{b - 2.0 / 3.0:+.2e}" for i, b in bulk
+                                      if i < CH_BULK_FROM)
+          + f"; steps {CH_BULK_FROM}-{CH_STEPS} within {late:.2e} of 2/3 "
+          f"(<= {CH_BULK_LIMIT:g}); the state's sum(u) / cells - 2/3 "
+          f"{float(st_card['u'].double().sum()) / ncell - 2.0 / 3.0:+.2e}",
+          flush=True)
+    check(err_ch <= 1e-5, f"channel: card vs CPU {err_ch}")
+    check(late <= CH_BULK_LIMIT, f"channel: the bulk {late} off 2/3")
+    vel_cpu = tuple(t.cpu() for t in vel)
+    for name, method, env in routes:
+        with env_set(env):
+            ns_c = NavierStokes.build(ch.mesh, ch.solver.nu,
+                                      dtype=torch.float32, device=cpu,
+                                      poisson_method=method)
+        out_c = ns_c.pressure_correction(*vel_cpu, keep_pressure=False)
+        got, its, solve_ms, proj_ms = on_card[name]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got, out_c[:3])) / scale
+        its = (f"; {its} iterations on the card, "
+               f"{ns_c.poisson.iterations} on the CPU"
+               if method == "cg" else "")
+        print(f"[channel poisson {name}] {size_label(ch.mesh.dims(0))}: the "
+              f"projection card vs CPU max |du, dv, dw| / max |u| "
+              f"{err:.3e} (<= 1e-5); a solve {solve_ms:.3f} ms, the "
+              f"projection {proj_ms:.3f} ms (CUDA events){its} ({card})",
+              flush=True)
+        check(err <= 1e-5, f"channel poisson {name}: card vs CPU {err}")
+        del ns_c, out_c
+    del ch, st0, st_card, st_cpu, vel, vel_cpu, on_card
+    torch.cuda.empty_cache()
 
     # ---- 9. the sharded step ------------------------------------------------
     stamp("phase 9 (the sharded step)")

@@ -17,8 +17,9 @@ x3d2_tpu's (``x3d2_tpu.__main__.main``), both in float64 on the CPU.
 - The generic case (u = 1) runs through ``python -m x3d2_tpu_torch`` in a
   subprocess, as users run it, and matches x3d2_tpu's series (its
   enstrophy is rounding too, ~1e-32).
-- The channel, ``--mesh`` and an nproc_dir above 1 raise
-  NotImplementedError; with no GPU and no ``--device`` the CLI raises.
+- ``--mesh`` and an nproc_dir above 1 raise NotImplementedError, the
+  channel runs (tests/test_torch_channel.py holds it against x3d2_tpu);
+  with no GPU and no ``--device`` the CLI raises.
 """
 
 import os
@@ -181,14 +182,22 @@ def test_cli_generic_case_as_users_run_it(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("edit, argv, match", [
-    (("'generic'", "'channel'"), [], "stretched_poisson"),
+    (("'generic'", "'channel'"), ["--n-iters", "2"], None),
     (None, ["--mesh", "2", "2"], "io/sharded.py"),
     (("L_global", "nproc_dir = 1, 2, 2\nL_global"), [], "io/sharded.py"),
 ], ids=["channel", "mesh", "nproc_dir"])
-def test_cli_refusals(tmp_path, monkeypatch, edit, argv, match):
+def test_cli_refusals(tmp_path, monkeypatch, capsys, edit, argv, match):
+    """The CLI's refusals; the channel, refused until its stretched-y
+    Poisson solve was ported, now runs (match None)."""
     text = GENERIC if edit is None else GENERIC.replace(*edit)
     (tmp_path / "input.x3d").write_text(text)
     monkeypatch.chdir(tmp_path)
+    if match is None:
+        main(["input.x3d", "--device", "cpu", *argv])
+        assert "Flow case: channel; grid (16, 16, 16)" in capsys.readouterr(
+        ).out
+        assert len(_rows(tmp_path / "monitoring.csv")) == 3
+        return
     with pytest.raises(NotImplementedError, match=match):
         main(["input.x3d", "--device", "cpu", *argv])
 

@@ -251,27 +251,21 @@ class Config:
         return cfg
 
 
-CHANNEL_GAP = ("the channel case is not ported yet: it needs the stretched "
-               "Poisson solver (x3d2_tpu's ops/stretched_poisson.py) and "
-               "cases/channel.py")
-
-
 def make_case(cfg: Config, dtype=None, seed=0, verbose=True,
               monitor_path="monitoring.csv", keep_pressure=True,
               device=None, monitor_append=False):
     """The case factory of x3d2_tpu (__main__.py:15-31; reference
     xcompact.f90:111-126): the mesh from &domain_settings and the case
-    ``flow_case_name`` names (tgv; cylinder with &cylinder_nml; generic).
-    The channel raises NotImplementedError (CHANNEL_GAP)."""
+    ``flow_case_name`` names (tgv; channel with &channel_nml; cylinder with
+    &cylinder_nml; generic)."""
     import torch
 
-    from .cases import CylinderCase, GenericCase, TGVCase
+    from .cases import ChannelCase, CylinderCase, GenericCase, TGVCase
     from .mesh import Mesh
 
     name = cfg.domain.flow_case_name.lower()
-    if name == "channel":
-        raise NotImplementedError(CHANNEL_GAP)
-    table = {"tgv": (TGVCase, None), "cylinder": (CylinderCase, cfg.cylinder),
+    table = {"tgv": (TGVCase, None), "channel": (ChannelCase, cfg.channel),
+             "cylinder": (CylinderCase, cfg.cylinder),
              "generic": (GenericCase, None)}
     if name not in table:
         raise ValueError(f"flow_case_name '{name}' is undefined")

@@ -10,11 +10,19 @@ solve is
     p = T_x^-1 T_y^-1 T_z^-1 [ -T_z T_y T_x f / waves ]
 
 Counterpart of x3d2_tpu.ops.matmul_poisson. Transforms and inverses are
-built in float64; stretched y (the pentadiagonal / eigen-resolved solve)
-is not ported yet and raises NotImplementedError.
+built in float64. A stretched y (variant 010 only) takes one of two
+routes, chosen when the solver is built by x3d2_tpu's test
+(matmul_poisson.py:135-168): unless X3D2_STRETCH_EIG is "0", the
+eigen-resolved solve (stretched_poisson.eigen_resolve) folded into the y
+transforms and the diagonal tables, so the solve keeps the uniform
+structure; where that raises ValueError, or with X3D2_STRETCH_EIG=0, the
+pentadiagonal elimination (``stretch_solver``, a StretchedYSolver) in place
+of the diagonal.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -50,7 +58,7 @@ def dct_matrix(n: int) -> np.ndarray:
 
 class MatmulPoisson:
     """Pressure Poisson solve on the cell grid via separable real
-    transforms; supports BC variants 000/010/100/110 on uniform grids."""
+    transforms; supports BC variants 000/010/100/110 and a stretched y."""
 
     def __init__(self, mesh: Mesh, ops, dtype=torch.float32, device=None):
         self.mesh = mesh
@@ -66,11 +74,9 @@ class MatmulPoisson:
         if any(mesh.stretched[a] for a in (0, 2)):
             raise ValueError("spectral Poisson does not support x/z "
                              "stretching")
-        if mesh.stretched[1]:
-            raise NotImplementedError(
-                "stretched-y Poisson (stretched_poisson.py) is not ported yet")
-        # the solver checks this to pick the transform-folded projection
-        self.stretch_solver = None
+        self.stretched_y = mesh.stretched[1]
+        if self.stretched_y and self.variant != "010":
+            raise ValueError("stretched y requires the 010 BC combination")
 
         nx, ny, nz = mesh.global_cell_dims
         self.nc = (nx, ny, nz)
@@ -86,6 +92,7 @@ class MatmulPoisson:
             T.append(_interp_transfer(ops[ax].interpl_v2p, tabs[ax][2],
                                       mesh.d[ax]))
         k2 = [t[4] for t in tabs]
+        k1 = [t[3] for t in tabs]
         self.k2_1d = [np.asarray(k2[a], np.float64) for a in range(3)]
         self.T_1d = [np.asarray(T[a], np.float64) for a in range(3)]
 
@@ -112,6 +119,41 @@ class MatmulPoisson:
         self.tab_A = np.outer(T[1] ** 2, T[2] ** 2)
         self.tab_B = (np.outer(k2[1], T[2] ** 2)
                       + np.outer(T[1] ** 2, k2[2]))
+
+        # the stretched y (x3d2_tpu matmul_poisson.py:135-168): the solver
+        # takes the transform-folded projection unless stretch_solver is set
+        self.stretch_solver = None
+        self.stretch_resolved = False
+        if self.stretched_y:
+            from .stretched_poisson import (StretchedYSolver,
+                                            build_stretch_matrices,
+                                            eigen_resolve)
+            g = mesh.geo[1]
+            if os.environ.get("X3D2_STRETCH_EIG", "1") != "0":
+                try:
+                    Fy, Iy, lam = eigen_resolve(
+                        ny, T[1], k1[1], mesh.L[1], g.alpha, g.beta,
+                        g.stretching)
+                    # the eigenbasis change folded into the y transforms:
+                    # every consumer composes Tf / Ti, so the stretched
+                    # solve has the uniform one's structure
+                    self.Tf64[1] = Fy @ self.Tf64[1]
+                    self.Ti64[1] = self.Ti64[1] @ Iy
+                    self.tab_A = np.broadcast_to(
+                        (T[2] ** 2)[None, :], (ny, nz)).copy()
+                    self.tab_B = (np.broadcast_to(k2[2][None, :], (ny, nz))
+                                  - np.outer(lam, T[2] ** 2))
+                    self.stretch_resolved = True
+                except ValueError:
+                    pass
+            if not self.stretch_resolved:
+                a_sets, offsets, inc = build_stretch_matrices(
+                    nx, ny, nz, T[0], T[1], T[2],
+                    k1[0], k1[1], k1[2], k2[0], k2[2],
+                    mesh.L[1], g.alpha, g.beta, g.stretching)
+                self.stretch_solver = StretchedYSolver(
+                    a_sets, a_sets, offsets, inc, dtype=dtype,
+                    device=self.device)
 
         kw = dict(dtype=dtype, device=self.device)
         self.Tf = [torch.as_tensor(M, **kw) for M in self.Tf64]
@@ -153,7 +195,10 @@ class MatmulPoisson:
         F = f
         for a in range(3):
             F = apply_matrix(self.Tf[a], F, a)
-        F = F * self.inv_waves
+        if self.stretch_solver is not None:
+            F = self.stretch_solver.solve_packed(F, self.nc[0], self.nc[2])
+        else:
+            F = F * self.inv_waves
         for a in range(3):
             F = apply_matrix(self.Ti[a], F, a)
         return F

@@ -30,7 +30,13 @@ conditions (``transport_route``, ``parity.slab_supported``,
   inverse transforms of the spectral solution q as plain matrix products
   (XLA einsums outside any kernel in x3d2_tpu too); elsewhere the
   transform-folded chain of matrix products (x3d2_tpu solver.py:461-491,
-  XLA there too) followed by ``u - dpdx``, on either device.
+  XLA there too) followed by ``u - dpdx``, on either device; with
+  another Poisson solve than the matmul one (poisson_method 'fft' or
+  'cg') or a stretched y solved by elimination (its stretch_solver), the
+  unfused chain divergence_v2p -> the solve -> gradient_p2v (x3d2_tpu
+  solver.py:423-435). A stretched y the eigen-resolved matmul solve
+  serves keeps the transform-folded chain: no x3d2_tpu kernel gate admits
+  a stretched y.
 - pressure_grads (the gradients without the correction, for compensated
   stepping), as x3d2_tpu's (solver.py:407-491): where the slab is built
   its x stage and mid with q, then the inverse x stage one field at a
@@ -79,8 +85,10 @@ import torch
 
 from .common import DataLoc, resolve_device
 from .mesh import Mesh
+from .ops.cg_poisson import CGPoisson
 from .ops.compact import apply_matrix, matmul_terms
 from .ops.dirops import AxisOps, build_all_ops
+from .ops.fft_poisson import SpectralPoisson
 from .ops.matmul_poisson import MatmulPoisson
 from .ops import pressure_slab
 from .ops.parity import (build_projection_mats, pipe3_supported, slab_gap,
@@ -150,23 +158,44 @@ class NavierStokes:
     def build(cls, mesh: Mesh, nu: float, *, dtype=torch.float32,
               schemes: dict | None = None, poisson_method: str = "matmul",
               device=None, nu_species=()) -> "NavierStokes":
-        """poisson_method: only 'matmul' (separable real transforms) is
-        ported; 'fft' and 'cg' raise NotImplementedError. nu_species: one
+        """poisson_method (x3d2_tpu solver.py:69-95): 'matmul' (separable
+        real transforms, ops/matmul_poisson.py), 'fft' (the FFT pipeline,
+        ops/fft_poisson.py SpectralPoisson) or 'cg' (BiCGStab on the
+        discrete div(grad(.)), ops/cg_poisson.py, right-preconditioned by
+        the matmul solve, on a uniform twin mesh where the mesh is
+        stretched); another raises ValueError. nu_species: one
         diffusivity per passive scalar. Reads X3D2_PALLAS ("0": no kernel
         branch, the einsum paths on either device) and
         X3D2_MATMUL_PRECISION (the sweeps' band: W=32 for "highest"; an
         unknown value raises ValueError) now, as x3d2_tpu's build does;
         the kernel mode is kept as ``_terms``."""
-        if poisson_method != "matmul":
-            raise NotImplementedError(
-                f"poisson_method {poisson_method!r} is not ported yet")
+        if poisson_method not in ("matmul", "fft", "cg"):
+            raise ValueError(f"unknown poisson_method {poisson_method!r}")
         device = resolve_device(device)
         terms = matmul_terms()
         # x3d2_tpu's switch of all its kernel branches (solver.py:106)
         kernels = os.environ.get("X3D2_PALLAS", "1") != "0"
         ops = build_all_ops(mesh, dtype=dtype, device=device,
                             **(schemes or {}))
-        poisson = MatmulPoisson(mesh, ops, dtype=dtype, device=device)
+        if poisson_method == "matmul":
+            poisson = MatmulPoisson(mesh, ops, dtype=dtype, device=device)
+        elif poisson_method == "fft":
+            poisson = SpectralPoisson(mesh, ops, dtype=dtype, device=device)
+        else:
+            # the preconditioner: the matmul solve, on the uniform twin of
+            # a stretched mesh (x3d2_tpu solver.py:80-95)
+            ns0 = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
+                      poisson=None, nu_species=tuple(nu_species))
+            if any(mesh.stretched):
+                twin = Mesh(mesh.global_vert_dims, mesh.L, mesh.BCs)
+                pre = MatmulPoisson(twin, build_all_ops(
+                    twin, dtype=dtype, device=device, **(schemes or {})),
+                    dtype=dtype, device=device)
+            else:
+                pre = MatmulPoisson(mesh, ops, dtype=dtype, device=device)
+            poisson = CGPoisson(
+                lambda p: ns0.divergence_v2p(*ns0.gradient_p2v(p)),
+                precond=pre, tol=1e-10 if dtype == torch.float64 else 1e-6)
         ns = cls(mesh=mesh, ops=ops, nu=nu, dtype=dtype, device=device,
                  poisson=poisson, nu_species=tuple(nu_species))
         ns._fused_pressure_mats()
@@ -428,7 +457,11 @@ class NavierStokes:
     def _fp_mats64(self):
         """Float64 numpy masters of the transform-folded projection
         matrices: the spectral transforms composed with the staggered
-        divergence (Tf @ op) and gradient (op @ Ti) stages per axis."""
+        divergence (Tf @ op) and gradient (op @ Ti) stages per axis; None
+        when the Poisson solve is not the matmul one (x3d2_tpu
+        solver.py:359-361)."""
+        if not isinstance(self.poisson, MatmulPoisson):
+            return None
         if "_fp64_cache" in self.__dict__:
             return self._fp64_cache
         po = self.poisson
@@ -454,11 +487,15 @@ class NavierStokes:
         return d
 
     def _fused_pressure_mats(self):
-        """Device copies of the folded projection matrices (cached)."""
+        """Device copies of the folded projection matrices (cached), or
+        None with another Poisson solve than the matmul one."""
         if "_fp_cache" in self.__dict__:
             return self._fp_cache
+        d64 = self._fp_mats64()
+        if d64 is None:
+            return None
         d = {k: torch.as_tensor(M, dtype=self.dtype, device=self.device)
-             for k, M in self._fp_mats64().items()}
+             for k, M in d64.items()}
         object.__setattr__(self, "_fp_cache", d)
         return d
 
@@ -470,10 +507,12 @@ class NavierStokes:
         inverse x stage one field at a time without the correction, the
         parity x apply on a periodic x or the dense x apply on a
         wall-bounded one. Elsewhere the transform-folded chain
-        (pressure_grads_folded). p: the physical pressure with
-        keep_pressure, else the spectral-basis solution q. On a process
-        mesh x3d2_tpu runs its GSPMD spectral chain here (solver.py:420-431)
-        and the port raises NotImplementedError."""
+        (pressure_grads_folded), or the unfused divergence -> solve ->
+        gradient with another Poisson solve or the scan route. p: the
+        physical pressure with keep_pressure, else the spectral-basis
+        solution q (the unfused chain's p is physical either way). On a
+        process mesh x3d2_tpu runs its GSPMD spectral chain here
+        (solver.py:420-431) and the port raises NotImplementedError."""
         if getattr(self, "_sharded", False):
             from .parallel.topo import GSPMD_GAP
             raise NotImplementedError(GSPMD_GAP.format(
@@ -486,6 +525,13 @@ class NavierStokes:
                     "the projection on the card: x3d2_tpu runs its slab "
                     f"kernels on this grid; the port lacks "
                     f"{self._projection_gap}")
+            if (not isinstance(self.poisson, MatmulPoisson)
+                    or self.poisson.stretch_solver is not None):
+                # x3d2_tpu solver.py:423-435: divergence, the Poisson
+                # solve (not the matmul one, or a stretched y solved by
+                # elimination), gradient, each as its own operator chain
+                p = self.poisson(self.divergence_v2p(u, v, w))
+                return self.gradient_p2v(p) + (p,)
             return self.pressure_grads_folded(u, v, w, keep_pressure)
         q, p_zy, dpdy, dpdz = self._slab_mid(u, v, w)
         grads = self._x_stage(_X_INV, (p_zy, dpdy, dpdz))
