@@ -217,6 +217,18 @@ Phases, each printing its own lines; any failed check exits non-zero:
    3 sweep launches and the pipeline's 8 launches per step, finite and
    decreasing KE, div_u_max below its limit; then ms/step and the share of
    the step in the sweeps and in the projection.
+4g. The differentiable step (x3d2_tpu_torch/diffsim.py) on the main path's
+   case: the einsum twin's build (seconds); differentiable_step's forward
+   against case.step on the same state (every tensor bit for bit); the
+   gradient of the kinetic energy after DIFF_STEPS steps with respect to
+   (u0, v0, w0), a first run and then remat off and on (bit-equal), the
+   rollout's forward launching the main path's kernels per step (the
+   three sweeps and pipe_a, pipe_b, pipe_c, counted) and its backward none
+   (the twin's vjp is plain PyTorch), within DIFF_LIM of the twin's own
+   gradient with remat (max-abs over max-abs of the whole gradient); ms a
+   forward step and a forward + backward step and each run's peak memory
+   over what it started with; a DIFF_MEMBERS-member ensemble bit for bit
+   its members' runs.
 4b. The AB step's modes at 512^3, each through TGVCase.run with the
    counts set to 0 just before, the main path's KE and divergence checks,
    and ms/step beside the main path's:
@@ -360,11 +372,12 @@ Phases, each printing its own lines; any failed check exits non-zero:
    stream and step can give: 10 n dt 4.58 2^-7 R (n = 1 with the history,
    2 with the partials alone, 3 with both), and the KE limit by that times mean(|u| +
    |v| + |w|) / KE.
-8q. The paths' step times on a quiet host: phases 4-7 time their steps
-   while phase 8's CPU legs keep 7 of the host's cores busy, so once the
-   legs are done the main path and the tails' paths PX, PY, PYB, YD are
-   built and timed again (3 warm-up steps, then 10) and each median is
-   printed beside the one taken with the legs running, with the ratio.
+8q. The main path's step time on a quiet host: phases 4-7 time their
+   steps while phase 8's CPU legs keep 7 of the host's cores busy, so once
+   the legs are done the main path is built and timed again (3 warm-up
+   steps, then 10) and its median printed beside the one taken with the
+   legs running, with the ratio. The tails' paths are not timed again:
+   their ratios read 0.985-1.038 on an H100 80GB HBM3 at 700 W.
    Every ms/step of phases 4-7 also prints the fastest and slowest of its
    10 steps.
 8b. KE in the HIGHEST mode: TGV (128, 128, 256) to t = KE_T, float32
@@ -698,6 +711,14 @@ DT = 1e-3
 # and the limit is 5x that.
 DIV_LIMIT = {1024: 3e-3, 512: 1e-3, 384: 6.8e-4, 256: 3.65e-4,
              128: 1.2e-4}   # by max(dims)
+# phase 4g, the differentiable step on the main path: the steps of the
+# rollout whose kinetic energy is differentiated, the ensemble's members,
+# and the limit of the kernel forward's gradient against the einsum twin's
+# own (x3d2_tpu tests/test_diffsim.py:161: the two forwards differ by the
+# kernels' float32 rounding)
+DIFF_STEPS = 3
+DIFF_MEMBERS = 2
+DIFF_LIM = 1e-4
 # path C: after one step of the cylinder (the first projection of the white
 # initial noise; the level falls after it) the float32 plain path on the
 # CPU reaches 2.56e-5, 2.88e-5 and 3.07e-5 at (65, 128, 128), (129, 128,
@@ -1363,6 +1384,175 @@ def start_cpu_legs(specs, shared, out_dir):
                   reverse=True)
     return pool, {s["label"]: pool.apply_async(cpu_leg, (s, out_dir))
                   for s in legs}
+
+
+def phase_diffsim(case, per_step, counts_now, reset_counts, want_counts):
+    """Phase 4g: x3d2_tpu_torch.diffsim on the main path's case (512^3 AB3
+    float32, keep_pressure=False). differentiable_step's forward against
+    case.step on the same input (every tensor of the state bit for bit),
+    the launches of a DIFF_STEPS-step rollout's forward (per_step a step,
+    want_counts' rule) and of its backward (none: the einsum twin's vjp is
+    plain PyTorch), the gradient of the kinetic energy with respect to (u0,
+    v0, w0) against the twin's own (DIFF_LIM, max-abs over max-abs), with
+    remat on and off (the same numbers: the kernel step's Function keeps
+    only its input either way), a DIFF_MEMBERS-member ensemble against its
+    members' runs (bit for bit); prints ms a forward step and a forward +
+    backward step, peak memory, the twin's build."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from x3d2_tpu_torch import diffsim
+
+    tag = "diffsim"
+    t_phase = time.perf_counter()
+
+    def tensors(s):
+        return [t for t in tree_leaves(s) if isinstance(t, torch.Tensor)]
+
+    def copy(s):
+        """A copy of the state: its tensors cloned, a generator of its
+        own at the same state."""
+        s = diffsim._replayed(s, s["rng"].get_state())
+        return dict(s, olds=tuple(tuple(o.clone() for o in per)
+                                  for per in s["olds"]),
+                    **{k: s[k].clone() for k in ("u", "v", "w", "p")})
+
+    # the initial state, made once on the host (TGV's analytic field at
+    # 512^3 takes seconds there) and copied on the card for each run
+    init = case.initial_state()
+
+    t0 = time.perf_counter()
+    step = diffsim.differentiable_step(case)
+    twin = step.twin
+    t_twin = time.perf_counter() - t0
+    check(diffsim._kernels_active(case)
+          and not diffsim._kernels_active(twin),
+          f"{tag}: the case must launch kernels and its twin none")
+    print(f"[{tag}] einsum twin (X3D2_PALLAS=0) built in {t_twin:.2f} s",
+          flush=True)
+
+    # the forward is case.step, bit for bit, on a state with a history
+    with torch.no_grad():
+        s1 = case.step(copy(init))
+    ref = case.step(copy(s1))
+    x = dict(s1, u=s1["u"].clone().requires_grad_())
+    got = step(x)
+    check(got["istep"] == ref["istep"] and got.keys() == ref.keys()
+          and all(torch.equal(a.detach(), b)
+                  for a, b in zip(tensors(got), tensors(ref))),
+          f"{tag}: the differentiable step's forward is not case.step's")
+    check(got["u"].requires_grad, f"{tag}: the forward made no graph")
+    print(f"[{tag}] forward == case.step bit for bit on "
+          f"{len(tensors(ref))} tensors (step 2, with u requiring grad)",
+          flush=True)
+    del s1, ref, x, got
+
+    def grad_run(c, remat, count):
+        """KE after DIFF_STEPS steps of c from its initial state and its
+        gradient with respect to (u0, v0, w0): (grads, forward ms, backward
+        ms, peak bytes, forward counts, backward counts)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        s0 = copy(init)
+        xs = [s0[k].requires_grad_() for k in ("u", "v", "w")]
+        torch.cuda.synchronize()
+        if count:
+            reset_counts()
+        t0 = time.perf_counter()
+        ke = diffsim.kinetic_energy(
+            diffsim.rollout(c, s0, DIFF_STEPS, remat=remat))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c_fwd = counts_now() if count else None
+        if count:
+            reset_counts()
+        grads = torch.autograd.grad(ke, xs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c_bwd = counts_now() if count else None
+        peak = torch.cuda.max_memory_allocated() - base
+        del s0, xs, ke
+        return (grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3, peak, c_fwd,
+                c_bwd)
+
+    want = want_counts(DIFF_STEPS, per_step)
+    res = {}
+    # the first run warms the twin's products and the allocator; the
+    # second and third are timed
+    for run, remat in (("first", False), ("timed", False), ("timed", True)):
+        g, f_ms, b_ms, peak, c_fwd, c_bwd = grad_run(case, remat, True)
+        res[remat] = g
+        print(f"[{tag}] {run} run, kernel forward, twin backward, "
+              f"remat={remat}: "
+              f"{DIFF_STEPS} steps forward {f_ms:.1f} ms "
+              f"({f_ms / DIFF_STEPS:.3f} ms a step), backward {b_ms:.1f} ms; "
+              f"forward + backward {(f_ms + b_ms) / DIFF_STEPS:.3f} ms a "
+              f"step; peak {peak / 2**30:.2f} GiB over the run's start",
+              flush=True)
+        print(f"[{tag}] launches: forward {c_fwd}, backward {c_bwd}",
+              flush=True)
+        check(c_fwd == want, f"{tag}: forward launches {c_fwd}, expected "
+                             f"{want}")
+        check(not any(c_bwd.values()),
+              f"{tag}: the backward launched kernels: {c_bwd}")
+        check(all(bool(torch.isfinite(t).all()) for t in g),
+              f"{tag}: non-finite gradient")
+    check(all(torch.equal(a, b) for a, b in zip(res[False], res[True])),
+          f"{tag}: remat changed the kernel path's gradient")
+    # the twin alone, with remat: without it every step's graph is kept
+    ge, f_ms, b_ms, peak, _, _ = grad_run(twin, True, False)
+    print(f"[{tag}] twin only, remat=True: forward {f_ms:.1f} ms, "
+          f"backward {b_ms:.1f} ms ({(f_ms + b_ms) / DIFF_STEPS:.3f} ms a "
+          f"step); peak {peak / 2**30:.2f} GiB over the run's start",
+          flush=True)
+    # the gradient as one vector over (u0, v0, w0): TGV's w starts at 0,
+    # so dKE/dw0 is orders below the others and its own relative
+    # difference reads the float32 rounding of a near-zero w
+    den = max(float(b.abs().max()) for b in ge)
+    errs = [float((a - b).abs().max()) / den for a, b in zip(res[False], ge)]
+    print(f"[{tag}] gradient of KE after {DIFF_STEPS} steps, kernel "
+          f"forward vs the twin's own: max |dg| / max |g| over (u0, v0, w0) "
+          f"{max(errs):.3e} (<= {DIFF_LIM:g}; u, v, w "
+          + ", ".join(f"{e:.3e}" for e in errs) + "); max |g| u, v, w "
+          + ", ".join(f"{float(b.abs().max()):.3e}" for b in ge), flush=True)
+    check(0 < max(errs) <= DIFF_LIM,
+          f"{tag}: the kernel path's gradient vs the twin's {errs}")
+    del res, ge
+    torch.cuda.empty_cache()
+
+    # the ensemble: members perturbed by 1e-3 of white noise, stacked, run
+    # together and one by one
+    gen = torch.Generator(device=case.device).manual_seed(5)
+    members = []
+    for _ in range(DIFF_MEMBERS):
+        m = copy(init)
+        for k in ("u", "v", "w"):
+            m[k] += 1e-3 * torch.randn(m[k].shape, generator=gen,
+                                       device=case.device)
+        members.append(m)
+    del init
+    stacked = diffsim.stack_states(members)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batched = diffsim.ensemble_rollout(case, stacked, DIFF_STEPS)
+    torch.cuda.synchronize()
+    t_ens = (time.perf_counter() - t0) * 1e3
+    del stacked
+    for i, m in enumerate(members):
+        with torch.no_grad():
+            one = diffsim.rollout(case, m, DIFF_STEPS, remat=False)
+        check(one["istep"] == batched["istep"]
+              and all(torch.equal(a[i], b) for a, b in
+                      zip(tensors(diffsim._without_rng(batched)),
+                          tensors(diffsim._without_rng(one)))),
+              f"{tag}: ensemble member {i} differs from its own run")
+        del one
+    print(f"[{tag}] ensemble of {DIFF_MEMBERS} x {DIFF_STEPS} steps "
+          f"{t_ens:.1f} ms, each member bit for bit its own run", flush=True)
+    del members, batched
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main():
@@ -3234,6 +3424,10 @@ def main():
                 **spm.launch_counts(), **td.launch_counts(),
                 **xm.launch_counts()}
 
+    def reset_counts():
+        for mod in (ts, oa, spm, td, xm):
+            mod.reset_launch_counts()
+
     # kernels a counted run launched at a size phase 3 did not hold them at
     unheld = set()
 
@@ -3408,7 +3602,16 @@ def main():
                            sweeps_zxy + pipe3)
     check(not case._ab_is_xdiv, "512^3 must not take the xdiv chain")
     modes_ms = {"main": step_times("main", case, state)}
-    del case, state
+    del state
+    torch.cuda.empty_cache()
+
+    # 4g. the differentiable step on the main path (x3d2_tpu_torch.diffsim)
+    stamp("phase 4g (diffsim)")
+    phase_diffsim(case, sweeps_zxy + pipe3, counts_now, reset_counts,
+                  lambda steps, names: {
+                      name: steps * k * oa.LAUNCHES_PER_CALL.get(name, 1)
+                      for name, k in Counter(names).items()})
+    del case
     torch.cuda.empty_cache()
 
     # 4d. path D: the main path with the d2-in-C carry (X3D2_D2C=1): the
@@ -4008,11 +4211,9 @@ def main():
     # host's cores; with the legs done, the main path and the tails' paths
     # again, beside what was read with them
     stamp("phase 8q (step times on a quiet host)")
-    busy = {"main": modes_ms["main"], **tails_ms}
+    busy = {"main": modes_ms["main"]}
     quiet = {}
-    for tag, dims, keep in (("main", (NS,) * 3, False),
-                            ("path PX", PX, False), ("path PY", PY, False),
-                            ("path PYB", PY, True), ("path YD", YD, False)):
+    for tag, dims, keep in (("main", (NS,) * 3, False),):
         case = TGVCase(Mesh(dims, (2 * math.pi,) * 3, per), params,
                        dtype=torch.float32, monitor_path=None, verbose=False,
                        keep_pressure=keep, device=dev)

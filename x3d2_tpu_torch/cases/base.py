@@ -83,8 +83,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from ..common import DataLoc, resolve_device
+from ..diffsim import _kernels_active
 from ..io.monitoring import Monitor
 from ..mesh import Mesh
 from ..ops.compact import matmul_terms
@@ -376,11 +378,32 @@ class BaseCase:
         return (tuple(outs) + tuple(fields[3:]), grads[3],
                 tuple(newc) + tuple(comp[3:]))
 
-    @torch.no_grad()
     def step(self, state):
         """One time step (all substages); returns the new state (the input
         state is consumed: the fused AB chain reuses its history
-        buffers)."""
+        buffers). Where grad mode is on and a tensor of the state requires
+        grad, a step that runs no kernel records the autograd graph (the
+        einsum paths are differentiable, as x3d2_tpu's step is under
+        jax.grad), and a step that launches kernels raises: the kernels
+        carry no backward, and their plain versions on the CPU are none
+        (diffsim.differentiable_step pairs the kernel forward with the
+        einsum twin's adjoint). Otherwise the step runs without a graph."""
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in tree_leaves(state)
+                if isinstance(t, torch.Tensor)):
+            if _kernels_active(self):
+                raise RuntimeError(
+                    f"{type(self).__name__}.step launches kernels, which "
+                    "have no autograd rule, and a tensor of its state "
+                    "requires grad: take the gradient through "
+                    "x3d2_tpu_torch.diffsim.differentiable_step (the "
+                    "kernel forward, the einsum twin's exact adjoint)")
+            return self._step(state)
+        with torch.no_grad():
+            return self._step(state)
+
+    def _step(self, state):
+        """The body of step, which runs it with or without a graph."""
         fields = (state["u"], state["v"], state["w"])
         if self.nsp:
             fields = fields + (state["phi"],)
@@ -486,6 +509,7 @@ class BaseCase:
         return state
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def run(self, n_iters: Optional[int] = None, state=None,
             n_output: Optional[int] = None, io_manager=None,
             fresh: Optional[bool] = None):
