@@ -166,6 +166,16 @@ Phases, each printing its own lines; any failed check exits non-zero:
    [t3] each on the inputs the previous one's plain version gives, the
    first on plane waves, then the three in turn against the plain tiled
    mid (float32 and float64) and on white noise (mid_on_noise's limits).
+   The program on a mesh (phase 8m): 256^3 on (2, 2) and on (4, 1) (the
+   blocks 256 x 128 x 128 and 256 x 64 x 256: the sweeps (on (2, 2) only:
+   (4, 1)'s blocks fail the sharded sweeps' gate, its transport is the
+   halo-mode operators), x_pfwd, x_pinv[sub], the local mid over the batch
+   64 x 256 x 256, and the per-rank x apply of a compact operator,
+   x_apply, which the monitoring rows, the statistics, the snapshots and
+   (4, 1)'s transport launch on the block). The chains the
+   sharded step runs on gathered fields (phase 9's SH-rk and SH-d2c) on
+   the whole field at 128 x 256 x 256: the sweeps z, x + acc, y + acc +
+   AB3 and the three RK3 rows, pipe_a, pipe_b and pipe_c[d2].
    max |kernel - plain f32| <= 1e-5 * scale and max |kernel - plain f64|
    <= 3e-5 * scale (scale = max |plain f64|); kernel and plain times (CUDA
    events, median) beside the bound. The mid's inputs there are plane
@@ -418,6 +428,27 @@ Phases, each printing its own lines; any failed check exits non-zero:
    equal the uninterrupted run's bit for bit and whose monitoring rows
    continue its file; and the example as it stands, 20 steps through
    python -m x3d2_tpu_torch as is.
+8m. The program on a mesh: the TGV example (256^3 AB3 float32) with 8e's
+   edits (vort, qcrit and the pressure in single precision and a
+   checkpoint every 20 steps, statistics from step 10, 40 steps) through
+   torchrun --standalone --nproc_per_node 4 -m x3d2_tpu_torch ... --mesh 2
+   2 (run as CLI_WRAP's script, each rank in its directory: started gated
+   at 8e's start, let go after 8e), one card: gloo, every rank on cuda:0.
+   Every rank's launches are phase 9's sharded step per step with the mid
+   with q, and the per-rank x applies its IO makes (5 a monitoring row,
+   1 a statistics update, 4 a snapshot); at steps 20 and 40 one manifest
+   and four shard files, rank 0 alone writing the monitoring file, the
+   statistics and the snapshots (the other ranks' directories hold their
+   shard files alone); u, v, w within DRIFT_K (2) times 8e's
+   single-process run's own distance to the same input run in float64
+   (the einsum leg, X3D2_PALLAS=0: float32's drift, measured) of that run
+   at steps 20 and 40; its restart from step 20 on (2, 2) bit for bit (every shard,
+   the manifest, the statistics) with its monitoring rows continuing the
+   file to the same bytes; beside it its restarts on (4, 1) (the
+   halo-mode transport, 9 x applies a step) and on one process (from the
+   per-shard files) within DRIFT_K times that distance at step 40, of the
+   mesh run's fields. ms/step a rank with
+   and without its IO, a shard's write and restore seconds.
 8c. The channel (the stretched-y Poisson solve; x3d2_tpu runs no kernel
    on a stretched y, so every launch count must stay 0): the example,
    CH_STEPS RK3 steps on the card (counted) against the same on the CPU,
@@ -438,20 +469,20 @@ Phases, each printing its own lines; any failed check exits non-zero:
    the launches (set to 0 just before the timed steps), ms/step (host
    clock, the device synchronised) and the share of the halo exchanges and
    the all-to-alls; a failing rank fails the run. Runs: the main sharded
-   path, TGV 512^3 AB3 float32 keep_pressure=False on (2, 2), 2 warm-up
-   and 3 timed steps (per rank and step: transeq_sweep[z,halo], [x,acc],
+   path, TGV 512^3 AB3 float32 keep_pressure=False on (2, 2), 1 warm-up
+   and 2 timed steps (per rank and step: transeq_sweep[z,halo], [x,acc],
    [y,acc,halo], 3 x_pfwd, pressure_mid[q,local] (6 launches), 3
    x_pinv[sub]; no pipeline, no x_div3); TGV 128 x 1024 x 1024 on (2, 2),
-   1 warm-up and 2 timed steps, the same launches with the y/z-tiled mid
+   2 timed steps, the same launches with the y/z-tiled mid
    (pressure_mid[tiled,t1], [t2], [t3]) in place of the local one, as
    x3d2_tpu takes it at 1024^2 planes; TGV 128 x 256 x 256 on (2, 2) with
-   2 scalars, 5 steps, and the same in the HIGHEST mode (the W = 32 halo
-   instances); TGV 128 x 128 x 512 on (1, 4), 5 steps; TGV 128 x 256 x
+   2 scalars, 3 steps, and the same in the HIGHEST mode (the W = 32 halo
+   instances); TGV 128 x 128 x 512 on (1, 4), 3 steps; TGV 128 x 256 x
    256 on (2, 2) RK3 with X3D2_FUSED_RK=0 (the sharded unfused RK step, 3
    substages a step) and keep_pressure=True, 3 steps, and AB3 with
    X3D2_BFLY=0 (3 x_apply, pressure_mid[q,dense,local], 3 x_apply[sub])
-   and keep_pressure=True, 5 steps; SH-ty (128 x 2048 x 256) and SH-tz
-   (128 x 256 x 2048) on (2, 2), 3 steps each, the tiled mid's long form
+   and keep_pressure=True, 3 steps; SH-ty (128 x 2048 x 256) and SH-tz
+   (128 x 256 x 2048) on (2, 2), 2 steps each, the tiled mid's long form
    (2048 points along y, along z) in place of the local mid. Each
    gathered u, v, w
    (phi) against the port's single-card step of the same arithmetic
@@ -461,6 +492,14 @@ Phases, each printing its own lines; any failed check exits non-zero:
    |u|, bit-equality reported (the tiled run's single card takes the
    merged mid: not bit-equal); a kept p within p_tolerance of the
    single-card p. Rank 0's seconds of each run's stages are printed.
+   The chains the sharded step runs on gathered fields, at 128 x 256 x
+   256 on (2, 2), 2 steps each: SH-rk, fused RK3 (per substage the chain
+   z, x + acc, y + acc + the RK row on the whole field, then the sharded
+   projection), against the single-card fused RK3 step as above; SH-d2c,
+   X3D2_D2C=1 with X3D2_XDIV_FUSED=0 (the carried step on the whole field:
+   x + acc, y + acc + AB3, pipe_a, pipe_b, pipe_c[d2]), against the
+   single-card carried step (shard_run's reference "own"); each rank's
+   peak device memory printed.
 10. Every held kernel was launched on a path at its size, and every kernel
    a counted path launched was held at that size; the total wall time
    (and, before, when each phase started), the kernels line (JSON; one
@@ -548,6 +587,26 @@ CLI_STEPS_NS = 20           # each 512^3 run (a report every 10 steps)
 CLI_STEPS_CYL = 50          # the cylinder example (one snapshot, at 50)
 CLI_STEPS_GENERIC = 10
 GENERIC_CUT = (64, 64, 64)  # the generic example's card vs CPU grid
+# phase 8m, the program on a mesh: the TGV example as phase 8e runs it,
+# through torchrun on MESH_RUN, and its restarts on MESH_RUN, MESH_OTHER
+# and one process. (1, 4) would give a rank a local z of 64 at 256^3,
+# which the per-rank x applies do not tile (128): neither package's kernel
+# branch has the repencilled projection there, so the other shape is (4, 1)
+MESH_RUN = (2, 2)
+MESH_OTHER = (4, 1)
+# phase 8m holds runs of different float32 arithmetic over tens of steps
+# (the mesh run's halo sweeps and repencilled projection against the
+# single-process xdiv chain and slab, or the halo-mode transport of
+# MESH_OTHER) to a measured drift: DRIFT_K times the single-process float32
+# run's own distance to the same run in float64 (the einsum leg,
+# X3D2_PALLAS=0) at the same step. Two float32 runs each that far from
+# float64 are at most twice that far apart; a fault that grows with the
+# steps takes the mesh run past it. (Phase 9's 1e-6 of max |u| holds a few
+# steps of the same arithmetic; the mesh run read 9.5e-7 and 1.6e-6 of max
+# |u| against phase 8e's run at steps 20 and 40, H100 80GB HBM3, 700.00 W;
+# the same pair in float64 agrees to 1e-13, tests/test_torch_sharded_io.py.)
+# The restart on MESH_RUN is bit for bit.
+DRIFT_K = 2.0
 # the channel example (128 x 65 x 64, a top-bottom stretched y, RK3):
 # through the CLI with wall noise on (its input leaves it 0), a checkpoint
 # every CLI_IO_CH steps, and its restart from the first one (phase 8e);
@@ -574,18 +633,27 @@ CH_BULK_LIMIT = 1e-5
 # between two device syncs; the rows end in one of their own), the
 # statistics updates' device time (two CUDA events, no sync: the run keeps
 # its overlap of host and device) and whether every array a restore read
-# was finite. argv: the record's path, a gate ("-": none; else the run
-# waits, its imports and CUDA context made, until that file exists), and
-# the module's arguments.
+# was finite. argv: the record's path ("{rank}" in it: the rank under
+# torchrun), a gate ("-": none; else the run waits, its imports and CUDA
+# context made, until that file exists), and the module's arguments. With
+# SMOKE_RANK_DIRS set each rank runs in its own directory, rank<r>, so that
+# what a rank writes is seen apart; the run's seconds (BaseCase.run between
+# two syncs) and the statistics archives' writes are recorded too.
 CLI_WRAP = r"""
 import json, os, runpy, sys, time
 import numpy as np
 import torch
+from x3d2_tpu_torch.cases import base
 from x3d2_tpu_torch.io import checkpoint, monitoring, native, snapshot, stats
 from x3d2_tpu_torch.ops import operator_apply as oa, species_sweep as spm
 from x3d2_tpu_torch.ops import transeq_dense as td, transeq_sweep as ts
 from x3d2_tpu_torch.ops import x_apply_manual as xm
 out, gate, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+out = out.replace("{rank}", os.environ.get("RANK", "0"))
+if os.environ.get("SMOKE_RANK_DIRS"):
+    rank_dir = "rank" + os.environ.get("RANK", "0")
+    os.makedirs(rank_dir, exist_ok=True)
+    os.chdir(rank_dir)
 if gate != "-":
     torch.zeros(1, device="cuda")
     native.get_lib()
@@ -593,7 +661,7 @@ if gate != "-":
         time.sleep(0.02)
 secs = {k: [] for k in ("checkpoint_write", "checkpoint_restore",
                         "snapshot", "monitoring_row", "stats_update",
-                        "flush")}
+                        "stats_write", "flush", "run")}
 def timed(key, fn):
     def call(*a, **kw):
         torch.cuda.synchronize()
@@ -634,6 +702,8 @@ snapshot.SnapshotManager.write = timed("snapshot",
 monitoring.Monitor.write_step = timed("monitoring_row",
                                       monitoring.Monitor.write_step)
 SM.update = stats_update
+SM.write = timed("stats_write", SM.write)
+base.BaseCase.run = timed("run", base.BaseCase.run)
 native.async_flush = timed("flush", native.async_flush)
 for m in (ts, oa, spm, td, xm):
     m.reset_launch_counts()
@@ -688,7 +758,7 @@ def vtk_arrays(path, np):
     return out
 STEPS = 10                  # steps at 512^3 (path R4: STEPS_R4)
 STEPS_A = 20                # steps at 256^3 and on the example grid
-SHARD_STEPS = 5             # timed steps of phase 9's runs at 128^3 blocks
+SHARD_STEPS = 3             # timed steps of phase 9's runs at 128^3 blocks
 STEPS_R4 = 3
 PR = (0.7, 1.0)             # the example's scalars
 # phase 8b: the KE check's horizon and limit. In the long runs of
@@ -1584,6 +1654,8 @@ def main():
     from x3d2_tpu_torch.ops.parity import (BW, Forms, ProjectionMats,
                                            build_projection_mats, pfwd, pinv,
                                            solve_factor)
+    from x3d2_tpu_torch.ops.compact import apply_matrix
+    from x3d2_tpu_torch.parallel.shard_kernels import XApplyOp
     from x3d2_tpu_torch.solver import NavierStokes, transport_route
     from x3d2_tpu_torch.time_integrators import TimeIntegrator
 
@@ -2576,9 +2648,14 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn_of(shape_):
+    # the rows phase 8m and phase 9's gathered chains added draw from a
+    # generator of their own: every earlier row keeps its inputs
+    gen_mesh = torch.Generator(device=dev).manual_seed(20)
+
+    def randn_of(shape_, g=None):
         def randn(scale=1.0):
-            return scale * torch.randn(shape_, generator=gen, device=dev)
+            return scale * torch.randn(shape_, generator=g or gen,
+                                       device=dev)
         return randn
 
     # -- 3a. at 512^3: what the main path, paths B, S, R and R4 launch --
@@ -2917,6 +2994,31 @@ def main():
              again=True, source=MANUAL_SOURCE, library=library,
              listed=listed, tc=True)
 
+    def x_op_hold(op, f, n):
+        """A compact operator's x apply on a rank's block as the sharded
+        solver makes it (shard_kernels.XApplyOp: the dense x apply of the
+        split-TF32 kernel) against its plain product, beside one
+        torch.matmul on the same operands."""
+        xop = XApplyOp(op)
+        M = op.M.to(f.dtype)
+
+        def kern(f):
+            return (xop(f, 0),)
+
+        def plain(f):
+            return (apply_matrix(torch.as_tensor(op.M64, dtype=f.dtype,
+                                                 device=f.device), f, 0),)
+
+        def library(f):
+            return torch.matmul(M, f.reshape(M.shape[1], -1)).reshape(
+                (M.shape[0],) + tuple(f.shape[1:]))
+
+        hold("x_apply[der1st]", n, kern, plain, (f,), "x_apply",
+             REPLACES["x_apply"],
+             x_apply_cost(M.shape[0], M.shape[1], f.shape[1], f.shape[2],
+                          False),
+             again=True, source=MANUAL_SOURCE, library=library, tc=True)
+
     randn_c, randn_cc = randn_of(CYL), randn_of(ncell)
     for op in ("sx", "ix"):
         x_apply_hold(op, pm_c, randn_c(), None, lab_c)
@@ -3065,6 +3167,12 @@ def main():
 
     for gdims, mesh_s, modes, scalars in (
             ((NS,) * 3, (2, 2), (2,), False),
+            # the TGV example through the entry point on a mesh (phase 8m):
+            # on (2, 2), and its restart on MESH_OTHER
+            ((NA,) * 3, MESH_RUN, (2,), False),
+            # no sweeps on MESH_OTHER: its blocks fail the sharded sweeps'
+            # gate there, the transport takes the halo-mode operators
+            ((NA,) * 3, MESH_OTHER, (), False),
             (SHARD_SMALL, (2, 2), (2, 3), True),
             (SHARD_Z, (1, 4), (2,), False),
             (SHARD_TILED, (2, 2), (2,), False),
@@ -3075,7 +3183,8 @@ def main():
         local = (gdims[0], gdims[1] // mesh_s[0], gdims[2] // mesh_s[1])
         lab = size_label(local)
         coords = (mesh_s[0] - 1, mesh_s[1] - 1)
-        randn_g, randn_l = randn_of(gdims), randn_of(local)
+        g_h = gen_mesh if gdims == (NA,) * 3 else None
+        randn_g, randn_l = randn_of(gdims, g_h), randn_of(local, g_h)
         glob = (randn_g(), randn_g(), randn_g())
         acc_l = tuple(randn_l(100.0) for _ in range(3))
         for terms in modes:
@@ -3137,6 +3246,12 @@ def main():
         pm_h = ns_h._slab
         # the x stage of the repencilled projection, one field a launch
         parity_rows(local, pm_h, randn_l, ("x_pfwd", "x_pinv[sub]"))
+        if gdims == (NA,) * 3:
+            # the entry point's monitoring rows, statistics and snapshots
+            # differentiate and interpolate along x on the rank's block:
+            # the per-rank x applies (shard_kernels.XApplyOp, the dense x
+            # apply of the split-TF32 kernel) of the compact operators
+            x_op_hold(ns_h.ops[0].der1st, randn_l(), lab)
         # the mid over the rank's x batch: the x-transformed plane waves'
         # planes of that batch, the solve tables sliced there
         nx_loc = gdims[0] // (mesh_s[0] * mesh_s[1])
@@ -3176,8 +3291,9 @@ def main():
             return sl.pressure_mid_plain(
                 du, dv, dw, sl.local_tables(m, off_x, n), True, forms)
 
-        stage_row("pressure_mid[q,local]", dp, mid_loc, mid_loc_plain,
-                  slab_cost("pressure_mid[q]", dp[0].shape, BW), pm_h)
+        if ("pressure_mid[q,local]", size_label(dp[0].shape)) not in rows:
+            stage_row("pressure_mid[q,local]", dp, mid_loc, mid_loc_plain,
+                      slab_cost("pressure_mid[q]", dp[0].shape, BW), pm_h)
         del ns_h, pm_h, m32, dp
         torch.cuda.empty_cache()
         if gdims != SHARD_SMALL:
@@ -3201,6 +3317,50 @@ def main():
                             "dense"), pm_d)
         del pm_d, dd
         torch.cuda.empty_cache()
+
+    # -- the chains the sharded step runs on gathered fields (phase 9's
+    # SH-rk and SH-d2c), on the whole field at SHARD_SMALL: the fused RK
+    # chain (z, x + acc, y + acc + the RK3 rows) and the carried step (x +
+    # acc, y + acc + AB3, pipe_a, pipe_b, pipe_c[d2]) --
+    ns_g = NavierStokes.build(Mesh(SHARD_SMALL, (2 * math.pi,) * 3, per),
+                              nu, device=dev)
+    randn_g = randn_of(SHARD_SMALL, gen_mesh)
+    acc = tuple(randn_g(100.0) for _ in range(3))
+    olds = tuple(tuple(randn_g(100.0) for _ in range(2)) for _ in range(3))
+    f0 = tuple(randn_g() for _ in range(3))
+    ks = [tuple(randn_g(100.0) for _ in range(3)) for _ in range(3)]
+    rk3 = TimeIntegrator("RK3")
+
+    def stage_olds(prev):
+        return tuple(tuple(ks[j][c] for j in prev) for c in range(3))
+
+    sweep_rows(SHARD_SMALL, ns_g.ops, [
+        ("z", 2, {}),
+        ("x,acc", 0, {"acc": acc}),
+        ("y,acc,ab3 steady", 1, {"acc": acc, "olds": olds,
+                                 "dtc": ti.ab_row(3, DT)}),
+        ("y,acc,ab3 startup", 1, {"acc": acc, "olds": olds,
+                                  "dtc": ti.ab_row(1, DT)}),
+        ("y,acc,rk0 (RK3 substage 0)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(0, DT)}),
+        ("y,acc,rk0,f0 (RK3 substage 1)", 1,
+         {"acc": acc, "olds": stage_olds([]), "dtc": rk3.rk_row(1, DT),
+          "base": f0}),
+        ("y,acc,rk2,f0 (RK3 substage 2)", 1,
+         {"acc": acc, "olds": stage_olds(rk3.rk_prev(2)),
+          "dtc": rk3.rk_row(2, DT), "base": f0})], randn_g)
+    del acc, olds, f0, ks
+    pm_g = ns_g._slab
+    fields_g = (randn_g(), randn_g(), randn_g())
+    m32_g = pm_g.mats(torch.float32)
+    ae_g = pp.pipe_a_plain(*fields_g, m32_g)
+    stage_row("pipe_a", fields_g, pp.pipe_a, pp.pipe_a_plain,
+              pipe_cost("pipe_a", SHARD_SMALL, BW), pm_g, True)
+    stage_row("pipe_b", ae_g, pp.pipe_b, pp.pipe_b_plain,
+              pipe_cost("pipe_b", SHARD_SMALL, BW), pm_g, True)
+    carry_rows(SHARD_SMALL, ns_g, fields_g)
+    del ns_g, pm_g, fields_g, m32_g, ae_g
+    torch.cuda.empty_cache()
 
     stamp("phase 3i")
     # -- 3i. the tails: the template's general instance at the extents
@@ -4254,10 +4414,14 @@ def main():
 
     @atexit.register
     def stop_cli():
-        # a failed check exits with runs still going: stop them
+        # a failed check exits with runs still going: stop them, and a
+        # torchrun's ranks with it (each run leads its own process group)
         for p_ in cli_procs:
             if p_.poll() is None:
-                p_.kill()
+                try:
+                    os.killpg(p_.pid, 9)
+                except ProcessLookupError:
+                    pass
                 p_.wait()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4265,11 +4429,11 @@ def main():
         [here] + [q for q in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if q]))
 
-    def cli_start(sub, text, argv, plain=False, gated=False):
+    def cli_start(sub, text, argv, plain=False, gated=False, env=None):
         """Start python -m x3d2_tpu_torch on `text` in
         build/smoke_cli/<sub>: the module as is (plain), else through
-        CLI_WRAP, waiting for cli_go where gated. Returns the handle cli
-        takes."""
+        CLI_WRAP, waiting for cli_go where gated; `env` added to its
+        environment. Returns the handle cli takes."""
         d = cli_root / sub
         d.mkdir(parents=True)
         (d / "input.x3d").write_text(text)
@@ -4278,9 +4442,10 @@ def main():
         cmd = ([sys.executable, "-m", "x3d2_tpu_torch", *args] if plain else
                [sys.executable, "-c", CLI_WRAP, str(d / "cli.json"),
                 str(gate or "-"), *args])
-        proc = subprocess.Popen(cmd, cwd=d, env=env_cli, text=True,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE)
+        proc = subprocess.Popen(cmd, cwd=d, env=dict(env_cli, **(env or {})),
+                                text=True, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
         cli_procs.append(proc)
         return dict(d=d, args=args, plain=plain, proc=proc, gate=gate,
                     t0=time.perf_counter())
@@ -4445,6 +4610,44 @@ def main():
         "tgv_restart",
         edit_input(tgv_text, io_block(st_tgv, **io_re), n_output=10),
         ["--n-iters", str(CLI_STEPS - CLI_IO)], gated=True)
+    # phase 8m's run on a mesh: the same input through torchrun on
+    # MESH_RUN, started now and gated, so that its ranks' imports, CUDA
+    # contexts and operator builds go on beside this phase's runs
+    mesh_root = _build.BUILD_DIR.parent / "smoke_mesh"
+    shutil.rmtree(mesh_root, ignore_errors=True)
+    mesh_root.mkdir(parents=True)
+    mesh_wrap = mesh_root / "wrap.py"
+    mesh_wrap.write_text(CLI_WRAP)
+
+    def mesh_start(sub, text, argv, mesh_s=None):
+        """Start the entry point on `text` in build/smoke_mesh/<sub>
+        through CLI_WRAP, gated: on mesh_s under torchrun (gloo or nccl
+        as the package chooses; each rank in its directory rank<r>, its
+        record cli<r>.json), else as one process. Returns the handle
+        mesh_cli takes."""
+        d = mesh_root / sub
+        d.mkdir(parents=True)
+        (d / "input.x3d").write_text(text)
+        n = 1 if mesh_s is None else mesh_s[0] * mesh_s[1]
+        head = ([sys.executable] if n == 1 else
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", f"--nproc_per_node={n}"])
+        args = [str(d / "input.x3d"), *argv]
+        cmd = head + [str(mesh_wrap), str(d / "cli{rank}.json"),
+                      str(d / "go"), *args]
+        env = dict(env_cli, **({"SMOKE_RANK_DIRS": "1"} if n > 1 else {}))
+        proc = subprocess.Popen(cmd, cwd=d, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        cli_procs.append(proc)
+        return dict(d=d, args=args, proc=proc, gate=d / "go", n=n,
+                    t0=time.perf_counter())
+
+    mesh_text = edit_input(tgv_text, io_block(st_tgv, **io_tgv), n_output=10)
+    mesh_argv = ["--mesh", *map(str, MESH_RUN)]
+    h_mesh = mesh_start("mesh", mesh_text,
+                        ["--n-iters", str(CLI_STEPS)] + mesh_argv, MESH_RUN)
     # the channel's run first (seconds), so that its restart goes on beside
     # the TGV example's: no kernel launch, rows finite
     d7, out7, _ = cli("cli channel", h_ch, (128, 65, 64))
@@ -4526,6 +4729,11 @@ def main():
           f"restore {ms_list(sec2['checkpoint_restore'])} s; snapshots "
           f"{ms_list(sec1['snapshot'])} s ({card})", flush=True)
     shutil.rmtree(d2)
+    # phase 8m holds the run on a mesh against these fields
+    tgv_ref = {}
+    for it in stepped:
+        with np.load(d1 / f"checkpoint_{it:06d}.npz") as z:
+            tgv_ref[it] = {k: z[k] for k in ("u", "v", "w")}
     shutil.rmtree(d1)
 
     d5, out5, res5 = cli("cli cylinder", h_cyl, (257, 128, 32))
@@ -4631,6 +4839,307 @@ def main():
           flush=True)
     check(err_g <= 1e-5, f"cli generic: card vs CPU {err_g}")
     del legs_g
+
+    # ---- 8m. the program on a mesh ------------------------------------------
+    # the TGV example with phase 8e's edits through torchrun on MESH_RUN
+    # (started gated in phase 8e), every rank on cuda:0 over gloo with one
+    # card (the package's transport rule): per-shard checkpoints, rank 0's
+    # monitoring, statistics and snapshots; its restarts from step CLI_IO
+    # on MESH_RUN, MESH_OTHER and one process, together
+    stamp("phase 8m (the program on a mesh: torchrun, per-shard "
+          "checkpoints)")
+    def sharded_launches(w, mesh_s, scalars, dense=False, tiled=False):
+        """The per-rank kernel calls of one sharded AB step (an RK
+        substage): the z, x + acc, y + acc sweeps (the halo form on a
+        sharded axis; and the scalars'), 3 x_pfwd, the local mid (6
+        launches; tiled: the tiled mid's 3), 3 x_pinv[sub]; with
+        X3D2_BFLY=0 (dense) 3 x_apply, the dense local mid, 3
+        x_apply[sub]."""
+        halo = {1: mesh_s[0] > 1, 2: mesh_s[1] > 1, 0: False}
+        out = [ts.variant_name(a, a != 2, 0, w=w, halo=halo[a])
+               for a in (2, 0, 1)]
+        if scalars:
+            out += [spm.variant_name(a, a != 2, w, halo=halo[a])
+                    for a in (2, 0, 1)]
+        if dense:
+            return out + ["x_apply"] * 3 + ["pressure_mid[q,dense,local]"] \
+                + ["x_apply[sub]"] * 3
+        mid = (list(sl.TILED_STAGES) if tiled
+               else ["pressure_mid[q,local]"])
+        return out + ["x_pfwd"] * 3 + mid + ["x_pinv[sub]"] * 3
+
+    from x3d2_tpu_torch.io import sharded as io_sharded
+    nrank = MESH_RUN[0] * MESH_RUN[1]
+    per_mesh = sharded_launches(ts.W, MESH_RUN, False)
+    # on MESH_OTHER the blocks (256 x 64 x 256) fail the sharded sweeps'
+    # gate (x3d2_tpu's): the transport is the halo-mode operators, its x
+    # derivatives 9 per-rank x applies a step (counted on the CPU)
+    per_other = sharded_launches(ts.W, MESH_OTHER, False)[3:] + \
+        ["x_apply"] * 9
+    d_mesh = h_mesh["d"]
+    r0 = d_mesh / "rank0"
+    mesh_ck = r0 / f"checkpoint_{CLI_IO:06d}.manifest.npz"
+    io_mre = dict(io_tgv, snapshot_freq=0, restart_from_checkpoint=".true.",
+                  restart_file=f"'{mesh_ck}'")
+    re_text = edit_input(tgv_text, io_block(st_tgv, **io_mre), n_output=10)
+    re_argv = ["--n-iters", str(CLI_STEPS - CLI_IO)]
+
+    def x_io(rows_, updates, snaps):
+        """The per-rank x applies (XApplyOp) of a run's IO on the mesh:
+        a monitoring row's curl (2) and divergence (3), a statistics
+        update's pressure interpolation (1), a snapshot's velocity
+        gradients and pressure (3 + 1)."""
+        return 5 * rows_ + updates + 4 * snaps
+
+    def mesh_cli(tag, handle, per_step, steps, io_calls, mesh_s):
+        """Wait for a run (mesh_start's handle) and print rank 0's output;
+        every rank's launches must be per_step a step (and io_calls x
+        applies), the tensor-core sweeps on their body, any restore finite.
+        Returns (directory, stdout, the ranks' records)."""
+        d, proc = handle["d"], handle["proc"]
+        out, err = proc.communicate(timeout=900)
+        how = (f"torchrun --standalone --nproc_per_node {handle['n']}"
+               if handle["n"] > 1 else "python")
+        print(f"[{tag}] {how} -m x3d2_tpu_torch {' '.join(handle['args'])} "
+              f"(counted): exit {proc.returncode}, "
+              f"{time.perf_counter() - handle['t0']:.1f} s after its gate",
+              flush=True)
+        for line in out.splitlines():
+            print(f"[{tag}]   {line}", flush=True)
+        check(proc.returncode == 0, f"{tag}: exit {proc.returncode}\n"
+                                    f"{err[-4000:]}")
+        recs = [json.loads((d / f"cli{r}.json").read_text())
+                for r in range(handle["n"])]
+        calls = Counter({k: steps * c for k, c in Counter(per_step).items()})
+        want = {k: c * oa.LAUNCHES_PER_CALL.get(k, 1)
+                for k, c in calls.items()}
+        if io_calls:
+            want["x_apply"] = want.get("x_apply", 0) + io_calls
+        if mesh_s is None:
+            block = (NA,) * 3
+        else:
+            block = (NA, NA // mesh_s[0], NA // mesh_s[1])
+        batch = size_label((NA // handle["n"], NA, NA))
+        for r, res in enumerate(recs):
+            counts = res["launches"]
+            check(counts == want, f"{tag} rank {r}: expected launches "
+                                  f"{want}, got {counts}")
+            tc_want = {k: v for k, v in counts.items() if k in tc_names}
+            check(res["tc"] == tc_want, f"{tag} rank {r}: tensor-core "
+                                        f"sweep launches {res['tc']}")
+            check(all(res["restored_finite"]), f"{tag} rank {r}: a restore "
+                                               "read non-finite arrays")
+        for k in want:
+            n = (batch if k.startswith("pressure_mid") and mesh_s else
+                 size_label(block))
+            if (k, n) not in rows:
+                unheld.add(f"{k}@{n}")
+            elif not rows[k, n]["launches"]:
+                rows[k, n]["launches"] = sum(res["launches"][k]
+                                             for res in recs)
+        return d, out, recs
+
+    def io_seconds(res):
+        """A rank's seconds in its IO calls, of those its run counts."""
+        sec = res["seconds"]
+        return sum(sum(sec[k]) for k in (
+            "checkpoint_write", "snapshot", "monitoring_row", "stats_update",
+            "stats_write", "flush"))
+
+    def rank_ms(recs, steps):
+        """Per rank: ms/step of its run with its IO, and without it."""
+        return [(r["seconds"]["run"][0] * 1e3 / steps,
+                 (r["seconds"]["run"][0] - io_seconds(r)) * 1e3 / steps)
+                for r in recs]
+
+    def merged(d, steps_):
+        """Every rank's shard files of steps_ beside rank 0's manifest (a
+        link each): a checkpoint read from rank 0's directory."""
+        for r in range(1, nrank):
+            for it in steps_:
+                f = d / f"rank{r}" / f"checkpoint_{it:06d}.shards{r:04d}.npz"
+                check(f.exists(), f"{d.name}: no {f.name} in rank{r}")
+                (d / "rank0" / f.name).symlink_to(f)
+
+    def vel_err(got, want):
+        return max(float(np.abs(got[k] - want[k]).max())
+                   for k in ("u", "v", "w")) / float(np.abs(want["u"]).max())
+
+    def mesh_fields(manifest):
+        reader = io_sharded.ChunkReader(str(manifest))
+        return {k: reader.read_global(k) for k in ("u", "v", "w")}, reader
+
+    # the uninterrupted run, alone on the card
+    t0 = time.perf_counter()
+    cli_go(h_mesh)
+    h_mre = mesh_start("mesh_restart", re_text, re_argv + mesh_argv, MESH_RUN)
+    h_ore = mesh_start("other_restart", re_text,
+                       re_argv + ["--mesh", *map(str, MESH_OTHER)],
+                       MESH_OTHER)
+    h_1re = mesh_start("one_restart", re_text, re_argv)
+    dm, outm, recm = mesh_cli(
+        "cli mesh", h_mesh, per_mesh, CLI_STEPS,
+        x_io(CLI_STEPS // 10 + 1, CLI_STEPS - CLI_STATS + 1,
+             CLI_STEPS // CLI_IO), MESH_RUN)
+    check("Flow case: tgv; grid (256, 256, 256); AB3" in outm
+          and f"{nrank} processes on a {MESH_RUN} mesh over gloo" in outm,
+          "cli mesh: the Flow case line")
+    rowsm = cli_rows("cli mesh", r0, CLI_STEPS // 10 + 1)
+    # one manifest and a shard file a rank at each checkpoint; rank 0 alone
+    # writes the monitoring file, the statistics and the snapshots
+    stepped = [CLI_IO * k for k in range(1, CLI_STEPS // CLI_IO + 1)]
+    for r in range(nrank):
+        names = sorted(p_.name for p_ in (dm / f"rank{r}").iterdir())
+        mine = [f"checkpoint_{it:06d}.shards{r:04d}.npz" for it in stepped]
+        if r:
+            check(names == sorted(mine), f"cli mesh: rank {r} wrote {names}")
+            continue
+        want = sorted(mine + [f"checkpoint_{it:06d}.manifest.npz"
+                              for it in stepped]
+                      + [f"statistics_{it:06d}.npz" for it in stepped]
+                      + ["monitoring.csv", "snapshot.pvd", "snapshot_out"])
+        check(names == want, f"cli mesh: rank 0 wrote {names}")
+    merged(dm, stepped)
+    errs = {}
+    for it in stepped:
+        got, reader = mesh_fields(r0 / f"checkpoint_{it:06d}.manifest.npz")
+        check(len(reader.files) == nrank, f"cli mesh: {len(reader.files)} "
+                                          f"shard files at step {it}")
+        errs[it] = vel_err(got, tgv_ref[it])
+        check(all(bool(np.isfinite(a).all()) for a in got.values()),
+              f"cli mesh: step {it} not finite")
+    print(f"[cli mesh] u, v, w vs phase 8e's single-process run (the xdiv "
+          f"chain and the slab with q on one card): max |d| / max|u| " +
+          ", ".join(f"{errs[it]:.3e} at step {it}" for it in stepped) +
+          " (held below, beside the float64 run)", flush=True)
+    cli_finite("cli mesh", r0, skip=[f"checkpoint_{it:06d}.manifest.npz"
+                                     for it in stepped],
+               decode=[r0 / f"snapshot_out/step_{CLI_STEPS:06d}.vti"])
+    ms_m = rank_ms(recm, CLI_STEPS)
+    wr = [r["seconds"]["checkpoint_write"] for r in recm]
+    size_sh = (dm / "rank1" / f"checkpoint_{CLI_IO:06d}.shards0001.npz"
+               ).stat().st_size
+    print(f"[cli mesh] {CLI_STEPS} steps on {MESH_RUN}, one card (all ranks "
+          f"on cuda:0, gloo staging the exchanges through host memory: not "
+          f"multi-card communication): ms/step a rank with its IO "
+          f"{ms_list(a for a, _ in ms_m)}, without "
+          f"{ms_list(b for _, b in ms_m)} (BaseCase.run between syncs, less "
+          f"the IO calls' seconds); a shard file "
+          f"{size_sh / 2**20:.0f} MiB, written in "
+          + "; ".join(f"rank {r}: {ms_list(w)} s" for r, w in enumerate(wr))
+          + f"; snapshots (gathered, rank 0 writes) "
+          f"{ms_list(recm[0]['seconds']['snapshot'])} s on rank 0 ({card})",
+          flush=True)
+    # the restart on MESH_RUN: bit for bit, its rows continuing the
+    # uninterrupted run's file; beside it those on MESH_OTHER and one process
+    head_m = (r0 / "monitoring.csv").read_text().splitlines()[
+        :CLI_IO // 10 + 2]
+    (h_mre["d"] / "rank0").mkdir(exist_ok=True)
+    (h_mre["d"] / "rank0" / "monitoring.csv").write_text(
+        "\n".join(head_m) + "\n")
+    # the three restarts go on together (their seconds beside each other),
+    # and beside them the float64 run that measures float32's drift: the
+    # same input (statistics on, so that it keeps the pressure too; no
+    # snapshot) in float64 through the einsum leg (X3D2_PALLAS=0)
+    cli_go(h_mre)
+    cli_go(h_ore)
+    cli_go(h_1re)
+    h_64 = cli_start(
+        "tgv_f64", edit_input(tgv_text, io_block(
+            st_tgv, checkpoint_freq=CLI_IO, keep_checkpoint=".true."),
+            n_output=10),
+        ["--n-iters", str(CLI_STEPS), "--dtype", "f64"], plain=True,
+        env={"X3D2_PALLAS": "0"})
+    dr, outr, recr = mesh_cli(
+        "cli mesh restart", h_mre, per_mesh, CLI_STEPS - CLI_IO,
+        x_io((CLI_STEPS - CLI_IO) // 10, CLI_STEPS - CLI_IO, 0), MESH_RUN)
+    check(f"Restart from {mesh_ck} at iteration {CLI_IO}" in outr,
+          "cli mesh restart: the Restart line")
+    check((dr / "rank0" / "monitoring.csv").read_text()
+          == (r0 / "monitoring.csv").read_text(),
+          "cli mesh restart: monitoring.csv must continue to the "
+          "uninterrupted run's")
+    last = CLI_STEPS
+    for r in range(nrank):
+        names = [f"checkpoint_{last:06d}.shards{r:04d}.npz"]
+        if r == 0:
+            names += [f"checkpoint_{last:06d}.manifest.npz",
+                      f"statistics_{last:06d}.npz"]
+        for f in names:
+            with np.load(dm / f"rank{r}" / f) as za, \
+                    np.load(dr / f"rank{r}" / f) as zb:
+                check(sorted(za.files) == sorted(zb.files),
+                      f"cli mesh restart: {f} keys")
+                for k in za.files:
+                    check(np.array_equal(za[k], zb[k]),
+                          f"cli mesh restart: {f} {k} differs from the "
+                          "uninterrupted run's")
+    rst = [r["seconds"]["checkpoint_restore"] for r in recr]
+    ms_r = rank_ms(recr, CLI_STEPS - CLI_IO)
+    print(f"[cli mesh restart] from step {CLI_IO} on {MESH_RUN}: the "
+          f"checkpoint (every rank's shard, the manifest) and statistics at "
+          f"step {last} bit-equal to the uninterrupted run's, monitoring "
+          f"appended to the same bytes; a shard restored in " + "; ".join(
+              f"rank {r}: {ms_list(x)} s" for r, x in enumerate(rst))
+          + f"; ms/step a rank with its IO {ms_list(a for a, _ in ms_r)}, "
+          f"without {ms_list(b for _, b in ms_r)} ({card})", flush=True)
+    shutil.rmtree(dr)
+    do, outo, reco = mesh_cli(
+        "cli mesh restart other", h_ore, per_other, CLI_STEPS - CLI_IO,
+        x_io((CLI_STEPS - CLI_IO) // 10, CLI_STEPS - CLI_IO, 0), MESH_OTHER)
+    d1r, out1r, rec1r = mesh_cli(
+        "cli mesh restart one process", h_1re, per_tgv, CLI_STEPS - CLI_IO,
+        0, None)
+    merged(do, [last])
+    want_m, _ = mesh_fields(r0 / f"checkpoint_{last:06d}.manifest.npz")
+    got_o, _ = mesh_fields(do / "rank0" /
+                           f"checkpoint_{last:06d}.manifest.npz")
+    with np.load(d1r / f"checkpoint_{last:06d}.npz") as z:
+        got_1 = {k: z[k] for k in ("u", "v", "w")}
+    err_o, err_1 = vel_err(got_o, want_m), vel_err(got_1, want_m)
+    d64_, out64, _ = cli("cli TGV f64", h_64)
+    ref64, e_one, e_mesh = {}, {}, {}
+    for it in stepped:
+        with np.load(d64_ / f"checkpoint_{it:06d}.npz") as z:
+            ref64[it] = {k: z[k] for k in ("u", "v", "w")}
+        e_one[it] = vel_err(tgv_ref[it], ref64[it])
+        got, _ = mesh_fields(r0 / f"checkpoint_{it:06d}.manifest.npz")
+        e_mesh[it] = vel_err(got, ref64[it])
+    del got
+    shutil.rmtree(d64_)
+    print(f"[cli mesh] float32's drift, measured: the float64 run (the "
+          f"einsum leg, {step_ms_of(out64):.3f} ms/step at its last report) "
+          f"against phase 8e's single-process float32 run, max |d| / "
+          f"max|u| " + ", ".join(f"{e_one[it]:.3e} at step {it}"
+                                  for it in stepped)
+          + "; against the mesh run " + ", ".join(
+              f"{e_mesh[it]:.3e} at step {it}" for it in stepped)
+          + "; the mesh run against the single-process run " + ", ".join(
+              f"{errs[it]:.3e} at step {it}" for it in stepped)
+          + f" (<= {DRIFT_K:g}x the single-process run's own distance to "
+          f"float64 at that step; {card})", flush=True)
+    check(all(errs[it] <= DRIFT_K * e_one[it] for it in stepped),
+          f"cli mesh: vs the single-process run {errs}, float32's drift "
+          f"{e_one}")
+    print(f"[cli mesh restart] the restarts from step {CLI_IO} of the run "
+          f"on {MESH_RUN} at step {last} against it: on {MESH_OTHER} "
+          f"{err_o:.3e}, on one process {err_1:.3e} (<= {DRIFT_K:g}x "
+          f"{e_one[last]:.3e}, the single-process float32 run's own "
+          f"distance to float64 at step {last}; {MESH_OTHER}: "
+          f"(1, 4) gives a local z of 64 at {NA}^3, which the per-rank x "
+          f"applies do not tile, so neither package's kernel branch has the "
+          f"repencilled projection there); a shard restored in " + "; ".join(
+              f"rank {r}: {ms_list(x['seconds']['checkpoint_restore'])} s"
+              for r, x in enumerate(reco)) + f"; one process "
+          f"{ms_list(rec1r[0]['seconds']['checkpoint_restore'])} s "
+          f"({card})", flush=True)
+    check(err_o <= DRIFT_K * e_one[last] and err_1 <= DRIFT_K * e_one[last],
+          f"cli mesh restarts: {err_o}, {err_1} (float32's drift "
+          f"{e_one[last]})")
+    print(f"[cli mesh] phase 8m: {time.perf_counter() - t0:.1f} s "
+          f"after its gate", flush=True)
+    shutil.rmtree(mesh_root)
+    del tgv_ref, want_m, got_o, got_1, ref64
 
     # ---- 8c. the channel ----------------------------------------------------
     # x3d2_tpu runs no kernel on a stretched y (its sweeps and slab gates
@@ -4791,47 +5300,56 @@ def main():
         "tensors): the kernels and the arithmetic of a 4-rank run, not "
         "multi-card communication"), flush=True)
 
-    def sharded_launches(w, mesh_s, scalars, dense=False, tiled=False):
-        """The per-rank kernel calls of one sharded AB step (an RK
-        substage): the z, x + acc, y + acc sweeps (the halo form on a
-        sharded axis; and the scalars'), 3 x_pfwd, the local mid (6
-        launches; tiled: the tiled mid's 3), 3 x_pinv[sub]; with
-        X3D2_BFLY=0 (dense) 3 x_apply, the dense local mid, 3
-        x_apply[sub]."""
-        halo = {1: mesh_s[0] > 1, 2: mesh_s[1] > 1, 0: False}
-        out = [ts.variant_name(a, a != 2, 0, w=w, halo=halo[a])
-               for a in (2, 0, 1)]
-        if scalars:
-            out += [spm.variant_name(a, a != 2, w, halo=halo[a])
-                    for a in (2, 0, 1)]
-        if dense:
-            return out + ["x_apply"] * 3 + ["pressure_mid[q,dense,local]"] \
-                + ["x_apply[sub]"] * 3
-        mid = (list(sl.TILED_STAGES) if tiled
-               else ["pressure_mid[q,local]"])
-        return out + ["x_pfwd"] * 3 + mid + ["x_pinv[sub]"] * 3
-
+    # the chains the sharded step runs on gathered fields (x3d2_tpu keeps
+    # them single-device under GSPMD): per rank and step, on the whole
+    # field, the fused RK chain's three substages (z, x + acc, y + acc +
+    # the RK row), each followed by the sharded projection; the carried
+    # step of X3D2_D2C=1 (x + acc, y + acc + AB3, pipe_a, pipe_b,
+    # pipe_c[d2]), its projection single-device too
+    rk_gathered = ([ts.variant_name(2, False, 0), ts.variant_name(0, True, 0)]
+                   * 3 + [ts.variant_name(1, True, k, upd=True,
+                                          base_sep=i > 0)
+                          for i, k in enumerate((0, 0, 2))])
+    d2c_gathered = [ts.variant_name(0, True, 0), ts.variant_name(1, True, 2),
+                    "pipe_a", "pipe_b", "pipe_c[d2]"]
+    proj = sharded_launches(ts.W, (2, 2), False)[3:]
     base = {"device": "cuda", "backend": transport, "dtype": "float32",
             "reference": True}
     sh_runs = [
         ("main sharded path: TGV 512^3 AB3 float32 keep_pressure=False",
-         {"dims": (NS,) * 3, "mesh": (2, 2), "warmup": 2, "steps": 3},
+         {"dims": (NS,) * 3, "mesh": (2, 2), "warmup": 1, "steps": 2},
          sharded_launches(ts.W, (2, 2), False)),
         # 1024^2 planes: the repencilled projection takes the tiled mid
         (f"TGV {size_label(SHARD_TILED)} AB3 float32 keep_pressure=False "
          "(the tiled mid)",
-         {"dims": SHARD_TILED, "mesh": (2, 2), "warmup": 1, "steps": 2},
+         {"dims": SHARD_TILED, "mesh": (2, 2), "steps": 2},
          sharded_launches(ts.W, (2, 2), False, tiled=True)),
         # the tiled mid's long form: 2048 points along y (SH-ty), along z
         # (SH-tz)
         (f"TGV {size_label(SHARD_TY)} AB3 float32 keep_pressure=False "
          "(SH-ty: the tiled mid, 2048 points along y)",
-         {"dims": SHARD_TY, "mesh": (2, 2), "steps": 3},
+         {"dims": SHARD_TY, "mesh": (2, 2), "steps": 2},
          sharded_launches(ts.W, (2, 2), False, tiled=True)),
         (f"TGV {size_label(SHARD_TZ)} AB3 float32 keep_pressure=False "
          "(SH-tz: the tiled mid, 2048 points along z)",
-         {"dims": SHARD_TZ, "mesh": (2, 2), "steps": 3},
+         {"dims": SHARD_TZ, "mesh": (2, 2), "steps": 2},
          sharded_launches(ts.W, (2, 2), False, tiled=True)),
+        # SH-rk: the fused RK3 chain on gathered fields, against the
+        # single-card fused RK3 step of the same projection arithmetic
+        (f"TGV {size_label(SHARD_SMALL)} RK3 fused (SH-rk: the chain on "
+         "gathered fields)",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 2,
+          "time_intg": "RK3"},
+         rk_gathered + proj * 3),
+        # SH-d2c: the carried step on gathered fields (X3D2_XDIV_FUSED=0:
+        # the carry's gate takes no xdiv chain, which x3d2_tpu takes below
+        # 257 points), against the single-card carried step
+        (f"TGV {size_label(SHARD_SMALL)} AB3 X3D2_D2C=1 (SH-d2c: the "
+         "carried step on gathered fields)",
+         {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": 2,
+          "env": {"X3D2_D2C": "1", "X3D2_XDIV_FUSED": "0"},
+          "reference": "own"},
+         d2c_gathered),
         (f"TGV {size_label(SHARD_SMALL)} AB3, 2 scalars",
          {"dims": SHARD_SMALL, "mesh": (2, 2), "steps": SHARD_STEPS,
           "n_species": 2, "pr": PR},
@@ -4880,6 +5398,9 @@ def main():
                   f"{r['counts']}", flush=True)
             check(r["counts"] == want, f"{tag} rank {r['rank']}: expected "
                                        f"launches {want}, got {r['counts']}")
+            check(r["gathered"] == {"fused_rk": "SH-rk" in label,
+                                    "d2c": "SH-d2c" in label},
+                  f"{tag}: the gathered chains {r['gathered']}")
             check(r["solver"] == {"_sharded_transeq": True,
                                   "_sharded_species": bool(
                                       spec.get("n_species")),
@@ -4896,10 +5417,19 @@ def main():
             print(f"[{tag}] SH-d: rank 0 {res[0]['ms_per_step']:.3f} ms/step;"
                   f" PR 11's final run {PR11_MS['SH-d']:.3f} ({card})",
                   flush=True)
-        # the mid runs over the rank's x batch, the rest over its block
+        if "gathered" in label:
+            print(f"[{tag}] the ranks' peak device memory (the whole fields "
+                  f"of the chain on every rank): " + ", ".join(
+                      f"{r['peak_gib']:.3f}" for r in res) + f" GiB ({card})",
+                  flush=True)
+        # the mid runs over the rank's x batch, the gathered chains over
+        # the whole field, the rest over the rank's block
         lab_mid = size_label((dims[0] // (mesh_s[0] * mesh_s[1]),) + dims[1:])
+        whole = set(rk_gathered + d2c_gathered) if "gathered" in label \
+            else set()
         for name in want:
-            n = lab_mid if name.startswith("pressure_mid") else lab
+            n = (lab_mid if name.startswith("pressure_mid") else
+                 size_label(dims) if name in whole else lab)
             if (name, n) not in rows:
                 unheld.add(f"{name}@{n}")
             elif not rows[name, n]["launches"]:
@@ -4930,9 +5460,10 @@ def main():
         err = max(diffs.values()) / cmp["scale"]
         finite = cmp["finite"]
         steps = spec.get("warmup", 0) + spec["steps"]
+        ref_of = ("its own switches" if spec.get("reference") == "own" else
+                  "X3D2_FUSED_AB=0, X3D2_MERGED_X=0, keep_pressure=True")
         print(f"[{tag}] after {steps} steps vs the single-card step on "
-              f"rank 0 (X3D2_FUSED_AB=0, X3D2_MERGED_X=0, keep_pressure=True)"
-              f": max "
+              f"rank 0 ({ref_of}): max "
               f"|d| / max|u| {err:.3e} (<= 1e-6), "
               f"{'bit-equal' if err == 0 else 'not bit-equal'}; KE "
               f"{res[0]['obs']['ke']:.10e}", flush=True)

@@ -17,9 +17,11 @@ x3d2_tpu's (``x3d2_tpu.__main__.main``), both in float64 on the CPU.
 - The generic case (u = 1) runs through ``python -m x3d2_tpu_torch`` in a
   subprocess, as users run it, and matches x3d2_tpu's series (its
   enstrophy is rounding too, ~1e-32).
-- ``--mesh`` and an nproc_dir above 1 raise NotImplementedError, the
-  channel runs (tests/test_torch_channel.py holds it against x3d2_tpu);
-  with no GPU and no ``--device`` the CLI raises.
+- An x-decomposed ``--mesh`` (NX > 1) and the channel on a mesh (an
+  nproc_dir of 1, 2, 2) raise NotImplementedError (the CLI on a (y, z)
+  mesh runs: tests/test_torch_sharded_io.py), the channel runs
+  (tests/test_torch_channel.py holds it against x3d2_tpu); with no GPU and
+  no ``--device`` the CLI raises.
 """
 
 import os
@@ -183,12 +185,15 @@ def test_cli_generic_case_as_users_run_it(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("edit, argv, match", [
     (("'generic'", "'channel'"), ["--n-iters", "2"], None),
-    (None, ["--mesh", "2", "2"], "io/sharded.py"),
-    (("L_global", "nproc_dir = 1, 2, 2\nL_global"), [], "io/sharded.py"),
+    (None, ["--mesh", "2", "1", "1"], "x-decomposed"),
+    (("'generic'", "'channel'\nnproc_dir = 1, 2, 2"), [], "GSPMD"),
 ], ids=["channel", "mesh", "nproc_dir"])
 def test_cli_refusals(tmp_path, monkeypatch, capsys, edit, argv, match):
-    """The CLI's refusals; the channel, refused until its stretched-y
-    Poisson solve was ported, now runs (match None)."""
+    """The CLI's refusals: an x-decomposed mesh (X_MESH_GAP) and the
+    channel on a (y, z) mesh from its nproc_dir (GSPMD_GAP: its stretched y
+    has no repencilled projection), both before any process group; the
+    channel, refused until its stretched-y Poisson solve was ported, now
+    runs (match None)."""
     text = GENERIC if edit is None else GENERIC.replace(*edit)
     (tmp_path / "input.x3d").write_text(text)
     monkeypatch.chdir(tmp_path)

@@ -14,7 +14,10 @@
   array's largest value (the RMS and the stresses, differences of two
   moments, to 1e-12 of the second moment).
 - Restarts in the port are bit for bit: AB3, two scalars, compensated
-  stepping, a bfloat16 history, and the statistics through a restart.
+  stepping, a bfloat16 history, and the statistics through a restart;
+  with sharded_io on one process the per-shard files (io/sharded.py)
+  restore bit for bit too (tests/test_torch_sharded_io.py holds them on
+  meshes and across the packages).
 - Checkpoints cross the packages both ways: a file written by one package
   at step 5 and continued 5 steps by the other equals the writer's own
   10 steps to 1e-12 (float64).
@@ -310,11 +313,22 @@ def test_checkpoint_cleanup_latest_and_rng(tmp_path):
     assert (ts, r["istep"], st) == (6, 7, {})
     assert tm == pytest.approx(0.06) and dt == 1e-2
     assert torch.equal(r["rng"].get_state(), s["rng"].get_state())
-    with pytest.raises(NotImplementedError, match="io/sharded.py"):
-        sh = IOManager(case, CheckpointConfig(
-            checkpoint_freq=1, sharded_io=True, checkpoint_prefix=prefix,
-            snapshot_prefix=str(tmp_path / "snap")), StatsConfig())
-        sh.checkpoint_mgr.write(s, 7, 0.07, 1e-2)
+    # sharded_io on one process: x3d2_tpu's per-shard files (one shard),
+    # which latest() finds and restore() reads back bit for bit
+    sh = IOManager(case, CheckpointConfig(
+        checkpoint_freq=1, sharded_io=True, checkpoint_prefix=prefix,
+        snapshot_prefix=str(tmp_path / "snap")), StatsConfig())
+    path = sh.checkpoint_mgr.write(s, 7, 0.07, 1e-2)
+    assert path == f"{prefix}_000007.manifest.npz"
+    assert sh.checkpoint_mgr.latest() == path
+    assert os.path.exists(f"{prefix}_000007.shards0000.npz")
+    r, ts, tm, dt, st = sh.checkpoint_mgr.restore(case.initial_state())
+    assert (ts, r["istep"], st, tm, dt) == (7, 8, {}, 0.07, 1e-2)
+    for k in ("u", "v", "w"):
+        assert torch.equal(r[k], s[k])
+    for a, b in zip(r["olds"], s["olds"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(r["rng"].get_state(), s["rng"].get_state())
 
 
 # ---------------------------------------------------------------------------

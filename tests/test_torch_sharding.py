@@ -29,8 +29,9 @@ temporary directory, no port), float64, the plain versions of the kernels.
 - convert's round trip: x3d2_tpu's initial state (numpy) to the ranks'
   blocks and gathered back, bit for bit.
 - The raises: an x-decomposed mesh; a sharded grid without the
-  repencilled projection (x3d2_tpu's GSPMD spectral pressure_grads); a
-  fused RK step and compensated stepping under make_sharded_step.
+  repencilled projection (x3d2_tpu's GSPMD spectral pressure_grads);
+  compensated stepping under make_sharded_step (the fused RK step runs on
+  gathered fields: tests/test_torch_sharded_io.py).
 """
 
 import math
@@ -281,19 +282,9 @@ def test_raises_without_repencil():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"compensated": True}, "compensated"),
-    ({"time_intg": "RK3"}, "fused RK")], ids=["compensated", "rk-fused"])
+    ({"compensated": True}, "compensated")], ids=["compensated"])
 def test_raises_step_branches(kw, match):
     pmesh = ProcessMesh(2, 2, device=torch.device("cpu"))
-    if "time_intg" in kw:
-        # the port builds its fused RK chain on float32 sweeps, where
-        # x3d2_tpu keeps the single-device chain under make_sharded_step
-        case = TGVCase(Mesh((128, 256, 256), L, PER), SolverParams(**kw),
-                       dtype=torch.float32, monitor_path=None,
-                       verbose=False, device="cpu")
-        assert case._fused_rk is not None
-        pmesh.device = torch.device("cpu")
-    else:
-        case = _case((64, 128, 256), **kw)
+    case = _case((64, 128, 256), **kw)
     with pytest.raises(NotImplementedError, match=match):
         make_sharded_step(case, pmesh)

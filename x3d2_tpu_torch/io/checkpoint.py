@@ -17,9 +17,16 @@ the port saves the state of its ``torch.Generator`` under
 states), a key x3d2_tpu's restore does not read. The write serialises on
 the main thread, after every field has been copied to the host (so the
 next step may write over the state's buffers), and hands the bytes to the
-native background writer (temporary file, then rename). Per-shard files
-(x3d2_tpu's io/sharded.py, its default with more than one process) are
-not ported and raise.
+native background writer (temporary file, then rename).
+
+On a process mesh (``pmesh``, the run's parallel.topo.ProcessMesh, and
+``mesh``, the case's Mesh) the state holds the rank's blocks. Per-shard
+files (io/sharded.py) are written where the config's ``sharded_io`` says
+so, and by default with more than one process (x3d2_tpu
+checkpoint.py:40-50); the global file is otherwise gathered (collective)
+and written by rank 0 alone. ``restore`` reads a manifest shard-locally
+onto the rank's blocks, and a global file whole (IOManager.handle_restart
+then cuts it to the rank's blocks).
 """
 
 from __future__ import annotations
@@ -32,26 +39,16 @@ import numpy as np
 import torch
 
 from . import native
-
-SHARDED_GAP = ("per-shard checkpoints (x3d2_tpu's io/sharded.py) are not "
-               "ported: the port writes one global .npz from a single "
-               "process (ROADMAP Queue 1, the parallel item)")
-
-
-def _host(t):
-    t = t.detach().cpu()
-    # numpy has no bfloat16: archive it as float32, exactly
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-
-def _rng_key(gen):
-    return f"torch_rng_{gen.device.type}"
+from .sharded import (_host, _rng_key, cleanup_sharded, restore_sharded,
+                      write_sharded)
+from ..parallel import multihost
 
 
 class CheckpointManager:
-    def __init__(self, config, verbose=True):
+    def __init__(self, config, verbose=True, pmesh=None, mesh=None):
         self.config = config
         self.verbose = verbose
+        self.pmesh, self.mesh = pmesh, mesh
 
     def _fname(self, timestep):
         return f"{self.config.checkpoint_prefix}_{timestep:06d}.npz"
@@ -60,36 +57,59 @@ class CheckpointManager:
         f = self.config.checkpoint_freq
         return f > 0 and timestep % f == 0
 
-    def _check_single_file(self):
-        """x3d2_tpu writes per-shard files when configured, and by default
-        with more than one process (checkpoint.py:40-50)."""
+    def sharded_io(self) -> bool:
+        """Per-shard files where the config says so; by default with more
+        than one process (x3d2_tpu checkpoint.py:40-50)."""
         cfg = getattr(self.config, "sharded_io", None)
-        multi = (torch.distributed.is_available()
-                 and torch.distributed.is_initialized()
-                 and torch.distributed.get_world_size() > 1)
-        if cfg or (cfg is None and multi):
-            raise NotImplementedError(SHARDED_GAP)
+        if cfg is not None:
+            return bool(cfg)
+        return self.pmesh is not None and self.pmesh.size > 1
 
     def write(self, state, timestep, time, dt, stats=None):
-        """Write the checkpoint of `state` at `timestep`. The history is
-        stored where a field has one (AB2-4; x3d2_tpu's RK states carry
-        none, and its AB1 files zero-length ones, which either package's
-        restore reads as none)."""
-        self._check_single_file()
+        """Write the checkpoint of `state` at `timestep` (on a mesh every
+        rank calls it). The history is stored where a field has one
+        (AB2-4; x3d2_tpu's RK states carry none, and its AB1 files
+        zero-length ones, which either package's restore reads as none).
+        `stats`: the statistics' accumulators (StatsManager.
+        checkpoint_state)."""
+        if self.sharded_io():
+            path = write_sharded(self.config.checkpoint_prefix, timestep,
+                                 state, time, dt, stats, self.pmesh,
+                                 self.mesh)
+            if self.verbose:
+                print(f"Checkpoint written (sharded): {path}")
+            if not self.config.keep_checkpoint:
+                # every rank's files durable before any rank removes its
+                # older ones: a complete checkpoint is always on disk
+                native.async_flush()
+                rank = None
+                if self.pmesh is not None and self.pmesh.size > 1:
+                    torch.distributed.barrier(
+                        group=self.pmesh.groups["world"])
+                    rank = self.pmesh.rank
+                cleanup_sharded(self.config.checkpoint_prefix, path, rank)
+            return path
+
+        def host(t):
+            # collective on a mesh: every rank gathers, rank 0 writes
+            if torch.is_tensor(t):
+                t = multihost.gather_global(t, self.pmesh, self.mesh)
+            return _host(t)
+
         arrays = {}
         for k in ("u", "v", "w", "phi"):
             if k in state:
-                arrays[k] = _host(state[k])
+                arrays[k] = host(state[k])
         olds = state.get("olds", ())
         if any(len(o) for o in olds):
             # olds[i] is a (nolds,)-tuple per field, stored stacked
             for i, o in enumerate(olds):
-                arrays[f"olds_{i}"] = (np.stack([_host(a) for a in o])
+                arrays[f"olds_{i}"] = (np.stack([host(a) for a in o])
                                        if len(o) else np.zeros((0,)))
             arrays["n_olds_vars"] = np.asarray(len(olds))
         if "comp" in state:
             for i, c in enumerate(state["comp"]):
-                arrays[f"comp_{i}"] = _host(c)
+                arrays[f"comp_{i}"] = host(c)
         if "rng" in state:
             arrays[_rng_key(state["rng"])] = state["rng"].get_state().numpy()
         arrays["timestep"] = np.asarray(timestep)
@@ -97,8 +117,10 @@ class CheckpointManager:
         arrays["dt"] = np.asarray(dt)
         if stats is not None:
             for k, v in stats.items():
-                arrays[f"stats_{k}"] = np.asarray(v)
+                arrays[f"stats_{k}"] = host(v)
         fname = self._fname(timestep)
+        if not multihost.is_primary():
+            return fname
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         del arrays
@@ -126,14 +148,19 @@ class CheckpointManager:
 
     def restore(self, state, path=None, dtype=None):
         """Load a checkpoint into an existing state (the case's
-        initial_state(), whose tensors give the device, the dtypes and the
-        history's structure). Returns (state, timestep, time, dt, stats)."""
+        initial_state(), or on a mesh the rank's blocks of it, whose tensors
+        give the device, the dtypes and the history's structure). Returns
+        (state, timestep, time, dt, stats): from a manifest the rank's
+        blocks, from a global file the whole fields."""
         native.async_flush()
         path = path or self.config.restart_file or self.latest()
         if not path or not os.path.exists(path):
             raise FileNotFoundError(f"no checkpoint found at {path!r}")
         if path.endswith(".manifest.npz"):
-            raise NotImplementedError(SHARDED_GAP)
+            out = restore_sharded(path, state, dtype=dtype, pmesh=self.pmesh)
+            if self.verbose:
+                print(f"Restart from {path} at iteration {out[1]}")
+            return out
         device = state["u"].device
         dtype = dtype or state["u"].dtype
 

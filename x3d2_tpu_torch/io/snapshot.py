@@ -10,7 +10,10 @@ VTK XML ImageData (``.vti``; a RectilinearGrid ``.vtr`` with the true
 vertex coordinates on a stretched mesh) beside it, plus the ``.pvd``
 collection: the same files, names and keys as x3d2_tpu's. The fields are
 copied to the host before ``write`` returns, so the next step may write
-over the state's buffers.
+over the state's buffers. On a process mesh (the case's ``pmesh``) the
+fields and the derived ones are formed on the rank's blocks, through the
+case's halo solver, and gathered (collective: every rank calls ``write``)
+for rank 0 to write (x3d2_tpu snapshot.py:54-58, :86).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import numpy as np
 
 from . import native
+from ..parallel import multihost
 from ..postprocess import make_derived_fields_fn, pressure_vert
 
 
@@ -37,12 +41,14 @@ class SnapshotManager:
             want += [f"phi_{i + 1}"
                      for i in range(case.params.n_species)]
         self.fields = want
+        self.pmesh = getattr(case, "pmesh", None)
         derived = [f for f in ("vort", "qcrit") if f in want]
         self._derived_fn = None
         if derived:
             self._derived_fn = make_derived_fields_fn(
                 case.solver, case.dt, want=tuple(derived))
-        os.makedirs(self._dir, exist_ok=True)
+        if multihost.is_primary():
+            os.makedirs(self._dir, exist_ok=True)
 
     @property
     def _dir(self):
@@ -56,6 +62,7 @@ class SnapshotManager:
         s = self.config.output_stride
 
         def stride(t):
+            t = multihost.gather_global(t, self.pmesh, self.case.mesh)
             arr = t.detach().cpu().numpy()
             if self.config.snapshot_sp:
                 return native.pack_strided(arr, s)
@@ -85,6 +92,8 @@ class SnapshotManager:
                 data[name] = stride(state["phi"][i])
 
         path = os.path.join(self._dir, f"step_{timestep:06d}.npz")
+        if not multihost.is_primary():
+            return path
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
             np.savez(fh, time=time, timestep=timestep, **data)

@@ -14,6 +14,12 @@ The accumulators live on the fields' device and are updated in place
 update is ordered on the device's stream before the next step, which may
 write over the step's output buffers. ``write`` derives the RMS and the
 stresses on the host with x3d2_tpu's numpy expressions and file names.
+
+On a process mesh (the case's ``pmesh``: a sharded step's working case,
+parallel/topo.py) the accumulators hold the rank's blocks, the pressure
+mean interpolates p through the case's halo solver, and ``write`` gathers
+them (collective: every rank calls it) for rank 0 to write (x3d2_tpu
+stats.py:96-129).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from ..postprocess import pressure_vert
 
 
@@ -60,6 +67,14 @@ class StatsManager:
         self.acc = None
         self.is_active = config.initstat > 0
         self.last_written = -1
+        self.pmesh = getattr(case, "pmesh", None)
+
+    def _gathered(self):
+        """The accumulators as whole fields on the host (collective on a
+        mesh: every rank gathers them in one order, their names')."""
+        return {k: _host(multihost.gather_global(self.acc[k], self.pmesh,
+                                                 self.case.mesh))
+                for k in sorted(self.acc)}
 
     def _init_acc(self, state):
         self.acc = {k: torch.zeros_like(state["u"]) for k in MOMENTS}
@@ -102,7 +117,7 @@ class StatsManager:
     def write(self, timestep):
         """Write means + derived RMS/Reynolds stresses
         (stats.f90:231-246)."""
-        a = {k: _host(v) for k, v in self.acc.items()}
+        a = self._gathered()
         out = dict(sample_count=self.sample_count,
                    umean=a["umean"], vmean=a["vmean"], wmean=a["wmean"],
                    uprime=np.sqrt(np.maximum(0, a["uumean"] - a["umean"]**2)),
@@ -119,6 +134,8 @@ class StatsManager:
                 np.maximum(0, a["phiphimean"] - a["phimean"] ** 2))
         path = f"{self.config.stats_prefix}_{timestep:06d}.npz"
         self.last_written = timestep
+        if not multihost.is_primary():
+            return path
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
             np.savez(fh, **out)
@@ -128,17 +145,23 @@ class StatsManager:
         return path
 
     # -- checkpoint integration ------------------------------------------
-    def checkpoint_state(self):
+    def checkpoint_state(self, gather=True):
+        """The accumulators and the sample count as numpy: whole fields
+        (gathered on a mesh, collective), or with gather=False the rank's
+        blocks (the per-shard checkpoint's)."""
         if self.acc is None:
             return None
-        d = {k: _host(v) for k, v in self.acc.items()}
+        d = (self._gathered() if gather else
+             {k: _host(v) for k, v in self.acc.items()})
         d["sample_count"] = np.asarray(self.sample_count)
         return d
 
     def restore(self, stats_dict):
         if not stats_dict or "sample_count" not in stats_dict:
             return
-        self.sample_count = int(stats_dict["sample_count"])
+        # 0-d, or one element (a per-shard checkpoint's, io/sharded.py)
+        self.sample_count = int(np.asarray(
+            stats_dict["sample_count"]).reshape(()))
         case = self.case
         self.acc = {k: torch.as_tensor(np.array(v), dtype=case.dtype,
                                        device=case.device).contiguous()

@@ -25,14 +25,36 @@ import torch.distributed as dist
 from ..common import env_set
 
 
+def transport(device) -> str:
+    """The backend for ranks whose fields live on `device`: "nccl" where
+    the card count covers this host's ranks (LOCAL_WORLD_SIZE; rank on
+    cuda:LOCAL_RANK), else "gloo" (on the card, every rank on cuda:0, its
+    exchanges staged through host memory). torchrun sets both; a run of
+    more than one process on the card without them (a --coordinator
+    launch) raises: WORLD_SIZE does not say how many ranks share a host."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    if int(os.environ.get("WORLD_SIZE") or 1) > 1 and not (
+            "LOCAL_WORLD_SIZE" in os.environ and "LOCAL_RANK" in os.environ):
+        raise ValueError("a multi-process run on the card needs this host's "
+                         "rank count and this process's place on it: set "
+                         "LOCAL_WORLD_SIZE and LOCAL_RANK")
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    return "nccl" if torch.cuda.device_count() >= ranks > 1 else "gloo"
+
+
 def maybe_init_distributed(backend="gloo", init_method=None,
-                           world_size=None, rank=None, store=None) -> bool:
+                           world_size=None, rank=None, store=None,
+                           coordinator=None) -> bool:
     """Initialise the default process group when more than one process is
     configured (arguments, else torchrun's RANK and WORLD_SIZE with the
-    env:// rendezvous of MASTER_ADDR and MASTER_PORT). Returns True when
+    env:// rendezvous of MASTER_ADDR and MASTER_PORT; `coordinator`
+    "host:port" takes the tcp:// rendezvous there). Returns True when
     running multi-process, False (a no-op) for a single process. An
     explicit rendezvous without a world size or rank raises: N independent
     runs would write over each other's output."""
+    if coordinator is not None:
+        init_method = f"tcp://{coordinator}"
     explicit = init_method is not None or store is not None
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "0") or 0)
@@ -70,13 +92,26 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
+def gather_global(t, pmesh=None, mesh=None):
+    """The whole field of a rank's block `t` (x3d2_tpu gather_global,
+    multihost.py:65-76). Collective on a mesh of more than one rank: every
+    rank calls it and every rank gets the field (topo.gather_tensor;
+    `mesh`, the case's Mesh, gives its global extents). A single process
+    gets `t` back untouched."""
+    if pmesh is None or pmesh.size == 1:
+        return t
+    from .topo import gather_tensor, global_shape
+    return gather_tensor(pmesh, t, global_shape(pmesh, mesh, tuple(t.shape)))
+
+
 def _rank_main(rank, world, fn, args, workdir, backend, threads):
     """One spawned rank: the process group through the FileStore, fn, its
     result saved for the parent."""
     if threads:
         torch.set_num_threads(threads)
     os.environ["RANK"], os.environ["WORLD_SIZE"] = str(rank), str(world)
-    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = (str(rank),
+                                                                str(world))
     store = dist.FileStore(os.path.join(workdir, "store"), world)
     maybe_init_distributed(backend, store=store, world_size=world, rank=rank)
     try:

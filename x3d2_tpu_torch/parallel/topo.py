@@ -20,6 +20,12 @@ point-to-point and all-to-all exchanges, so with gloo and CUDA tensors the
 halo planes, the all-to-all buffers and the reductions are staged through
 host memory (``ProcessMesh.staged``) by the code that exchanges them.
 
+Where x3d2_tpu keeps a single-device kernel chain under its sharded step
+and lets GSPMD run it on gathered fields (the fused RK chain, the
+d2-in-C carry of X3D2_D2C=1), each rank gathers the fields the chain reads
+(gather_tensor), runs the case's own chain on its device and keeps its
+block: every rank then holds the whole fields of that chain.
+
 What the port does not cover raises NotImplementedError: an x-decomposed
 mesh (nproc_x > 1), and on a sharded mesh any operator or projection that
 x3d2_tpu partitions with GSPMD (an axis too narrow for the halo band, the
@@ -46,18 +52,9 @@ GSPMD_GAP = ("x3d2_tpu partitions {what} with GSPMD on this mesh "
              "(x3d2_tpu/parallel/topo.py:97-137, solver.py:420-431): "
              "collectives the port does not make")
 STEP_GAPS = {
-    "rk": ("a fused RK step under make_sharded_step: x3d2_tpu keeps the "
-           "case's single-device fused RK chain (make_fused_transeq_rk, "
-           "x3d2_tpu/ops/pallas_kernels.py:944; make_sharded_step resets "
-           "only _fused_ab, topo.py:179) and runs it on GSPMD-gathered "
-           "fields; X3D2_FUSED_RK=0 takes the sharded unfused RK step"),
     "compensated": ("compensated stepping under make_sharded_step: its "
                     "pressure_grads is x3d2_tpu's GSPMD spectral chain "
                     "(solver.py:420-431), not the repencilled projection"),
-    "d2c": ("X3D2_D2C=1 under make_sharded_step: x3d2_tpu keeps the "
-            "single-device carry pipeline (make_pressure_pipe3(d2_sweep="
-            "True), x3d2_tpu/cases/base.py:182-211) on GSPMD-gathered "
-            "fields"),
 }
 
 
@@ -260,6 +257,22 @@ def shard_state(pmesh: ProcessMesh, state) -> dict:
         state, lambda t: t[local_slices(pmesh, tuple(t.shape))].contiguous())
 
 
+def global_shape(pmesh: ProcessMesh, mesh, local_shape) -> tuple:
+    """The global shape of a rank's block of `local_shape` (leading axes
+    whole): the block of a field at the VERT or the CELL extents of the
+    case's Mesh `mesh`."""
+    lead = tuple(local_shape[:-3])
+    loc = tuple(local_shape[-3:])
+    for loc_ in (DataLoc.VERT, DataLoc.CELL):
+        g = tuple(mesh.dims(loc_))
+        if tuple(s // pmesh.shape[n] if n else s for s, n in
+                 zip(g, field_spec(pmesh, g))) == loc:
+            return lead + g
+    raise ValueError(f"a local block {loc} of neither the VERT "
+                     f"{tuple(mesh.dims(DataLoc.VERT))} nor the CELL "
+                     f"{tuple(mesh.dims(DataLoc.CELL))} extents")
+
+
 def gather_tensor(pmesh: ProcessMesh, t, global_shape):
     """The global tensor from every rank's block of it (on every rank)."""
     parts = pmesh.all_gather(t.contiguous())
@@ -273,21 +286,8 @@ def gather_state(pmesh: ProcessMesh, local_state, mesh) -> dict:
     """The global state from the ranks' local states (collective: every
     rank calls it, every rank gets it). mesh: the case's Mesh (the global
     VERT and CELL extents)."""
-    vert = tuple(mesh.dims(DataLoc.VERT))
-    cell = tuple(mesh.dims(DataLoc.CELL))
-
-    def gshape(t):
-        lead = tuple(t.shape[:-3])
-        loc = tuple(t.shape[-3:])
-        for g in (vert, cell):
-            if tuple(s // pmesh.shape[n] if n else s for s, n in
-                     zip(g, field_spec(pmesh, g))) == loc:
-                return lead + g
-        raise ValueError(f"a local block {loc} of neither the VERT {vert} "
-                         f"nor the CELL {cell} extents")
-
-    return _map_fields(local_state,
-                       lambda t: gather_tensor(pmesh, t, gshape(t)))
+    return _map_fields(local_state, lambda t: gather_tensor(
+        pmesh, t, global_shape(pmesh, mesh, tuple(t.shape))))
 
 
 def make_halo_solver(solver, pmesh: ProcessMesh, w=None):
@@ -346,12 +346,16 @@ def make_sharded_step(case, pmesh: ProcessMesh, state=None):
     sharded sweep chain, halo form on the sharded axes, with the scalars'
     (at most 8); in halo mode the x operators as per-rank x applies
     (wrap_x_ops); where repencil_supported holds the repencilled
-    projection. With X3D2_PALLAS=0 none of the kernel branches. A fused RK
-    step, compensated stepping and X3D2_D2C=1 take single-device chains
-    or GSPMD in x3d2_tpu and raise NotImplementedError (STEP_GAPS). The
-    working case (a copy; monitoring with global reductions, written by
-    rank 0) is ``case._sharded_case``, its solver
-    ``case._sharded_solver``."""
+    projection. With X3D2_PALLAS=0 none of the kernel branches. The chains
+    x3d2_tpu keeps single-device and runs on GSPMD-gathered fields run on
+    gathered fields here: a fused RK step's substage chains (the
+    projection after each stays the sharded one), and with X3D2_D2C=1 the
+    whole carried step (the chain without its z sweep and the carry
+    pipeline) and its boot z sweep. Compensated stepping raises
+    NotImplementedError (STEP_GAPS). The working case (a copy; monitoring
+    with global reductions, written by rank 0; ``pmesh`` set) is
+    ``case._sharded_case``, its solver ``case._sharded_solver``: its
+    ``run`` drives the time loop on the rank's block."""
     from ..io.monitoring import make_observables_fn
     from ..ops.compact import matmul_terms
     from .shard_kernels import (make_repencilled_pressure,
@@ -362,12 +366,8 @@ def make_sharded_step(case, pmesh: ProcessMesh, state=None):
     if case.device != pmesh.device:
         raise ValueError(f"the case is on {case.device}, this rank's "
                          f"fields on {pmesh.device}")
-    if case._fused_rk is not None:
-        raise NotImplementedError(STEP_GAPS["rk"])
     if case.params.compensated:
         raise NotImplementedError(STEP_GAPS["compensated"])
-    if case._pipe_d2c is not None and not case.keep_pressure:
-        raise NotImplementedError(STEP_GAPS["d2c"])
     if state is None:
         state = case.initial_state()
     solver = case.solver
@@ -403,6 +403,64 @@ def make_sharded_step(case, pmesh: ProcessMesh, state=None):
     # with the observables reduced over the ranks
     case.monitor = copy.copy(case.monitor)
     case.monitor.fn = make_observables_fn(halo_solver, pmesh)
+    case.pmesh = pmesh
+    if case._fused_rk is not None:
+        case._fused_rk = tuple(_gathered_stage(stage, pmesh, orig.mesh)
+                               for stage in case._fused_rk)
+    if case._pipe_d2c is not None and not case.keep_pressure:
+        case._step = _gathered_step(orig, pmesh)
+        case._d2_boot = _gathered_boot(orig._d2_boot, pmesh, orig.mesh)
     orig._sharded_case = case
     orig._sharded_solver = halo_solver
     return case.step, shard_state(pmesh, state)
+
+
+def _gathered_stage(stage, pmesh, mesh):
+    """A fused RK substage chain (stage(u, v, w, f0, ks, dtc)) on gathered
+    fields: u, v, w and f0 gathered (f0's entries that are u, v, w
+    reused), the chain run on the whole fields, u' cut to this rank's
+    block. The stage derivative stays whole: only the later substages'
+    chains read it."""
+    shape = tuple(mesh.dims(DataLoc.VERT))
+
+    def run(u, v, w, f0, ks, dtc):
+        fields = (u, v, w)
+        g = tuple(gather_tensor(pmesh, t, shape) for t in fields)
+        g0 = tuple(gi if f is fi else gather_tensor(pmesh, f, shape)
+                   for f, fi, gi in zip(f0, fields, g))
+        mom, rhs = stage(*g, g0, ks, dtc)
+        sl = local_slices(pmesh, shape)
+        return tuple(m[sl].contiguous() for m in mom), rhs
+
+    run.prev_nz, run.sweeps = stage.prev_nz, stage.sweeps
+    return run
+
+
+def _gathered_step(orig, pmesh):
+    """The carried step of X3D2_D2C=1 on gathered fields: u, v, w, their
+    history and the carried z partials gathered, the single-device case's
+    own step (its chain without the z sweep, then the carry pipeline) run
+    on the whole fields, the new state cut to this rank's block; p is
+    carried untouched (the carried step forms none)."""
+    mesh = orig.mesh
+
+    def step(state):
+        g = gather_state(pmesh, {k: v for k, v in state.items()
+                                 if k != "p"}, mesh)
+        out = type(orig)._step(orig, dict(g, p=state["p"]))
+        p = out.pop("p")
+        return dict(shard_state(pmesh, out), p=p)
+
+    return step
+
+
+def _gathered_boot(boot, pmesh, mesh):
+    """The carry's boot z sweep on gathered u, v, w, cut to the block."""
+    shape = tuple(mesh.dims(DataLoc.VERT))
+
+    def run(u, v, w):
+        out = boot(*(gather_tensor(pmesh, t, shape) for t in (u, v, w)))
+        sl = local_slices(pmesh, shape)
+        return tuple(o[sl].contiguous() for o in out)
+
+    return run

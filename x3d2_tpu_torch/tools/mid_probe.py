@@ -5,6 +5,8 @@ whole mid over several white-noise seeds.
 
     python3 -m x3d2_tpu_torch.tools.mid_probe [n | NXxNYxNZ ...] \
         [--dense] [--seeds N]                     (default 512 256, 4 seeds)
+    python3 -m x3d2_tpu_torch.tools.mid_probe --tiled [NXxNYxNZ] [--seeds N]
+                                   (default 128x3968x128, 4 seeds)
 
 Needs one NVIDIA GPU. Per launch it prints max |kernel - plain32|,
 max |kernel - plain64| and max |plain32 - plain64|, each over
@@ -17,7 +19,10 @@ q weighted by its wave factor (the solve's input, mode by mode); last, the
 whole mid's time on the card (the median of 10 runs, CUDA events). The chip
 smoke run holds the mid on white noise to bounds read off this output. With
 --dense the mid's dense forms (X3D2_BFLY=0: the whole mid over the seeds
-and its time only).
+and its time only). With --tiled the y/z-tiled mid over the x batch a rank
+of a (2, 2) mesh holds last (the batch chip_smoke.py's phase 3k holds on
+white noise), over the seeds: per seed and output the same distances, the
+root-mean-square ratios being those phase 3k holds to 2x.
 """
 
 import math
@@ -29,7 +34,8 @@ from ..common import BC, env_set
 from ..mesh import Mesh
 from ..ops import operator_apply as oa
 from ..ops import pressure_slab as sl
-from ..ops.parity import banded_apply, pfwd, pinv, solve_factor
+from ..ops.parity import (banded_apply, build_projection_mats, pfwd, pinv,
+                          solve_factor)
 from ..solver import NavierStokes
 
 D64 = torch.float64
@@ -95,6 +101,44 @@ def probe(shape, dev, dense=False, seeds=SEEDS):
             print(f"[{n}] the whole mid: {mid_ms(ins, pm):.3f} ms",
                   flush=True)
         del ins
+        torch.cuda.empty_cache()
+
+
+def probe_tiled(shape, dev, seeds=SEEDS):
+    """The tiled mid over x batch [3 n, 4 n), n = nx / 4, on the x_div3 of
+    white noise, against its plain float32 and float64 versions, for seeds
+    1..seeds."""
+    per = ((BC.PERIODIC, BC.PERIODIC),) * 3
+    ns = NavierStokes.build(Mesh(shape, (2 * math.pi,) * 3, per),
+                            1 / 1600, device=dev)
+    if not sl.tiled_mid_supported(ns, 2):
+        raise SystemExit(f"{shape}: not a grid of the tiled mid")
+    pm = build_projection_mats(ns)
+    n_b = shape[0] // 4
+    off = 3 * n_b
+    m32 = sl.local_tables(pm.mats(torch.float32), off, n_b)
+    m64 = sl.local_tables(pm.mats(D64), off, n_b)
+    n = "x".join(map(str, (n_b,) + tuple(shape[1:]))) + " tiled"
+    for seed in range(1, seeds + 1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        f = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+        ins = tuple(t[off:off + n_b].contiguous()
+                    for t in sl.x_div3_plain(*f, pm.mats(torch.float32)))
+        del f
+        k = sl.pressure_mid_tiled(*ins, pm, m32["k2x"], m32["tx2"],
+                                  m32.get("mx"))
+        p32 = sl.pressure_mid_tiled_plain(*ins, m32)
+        p64 = sl.pressure_mid_tiled_plain(*(t.to(D64) for t in ins), m64)
+        for name, x, y, z in zip(("q", "p_zy", "dpdy", "dpdz"), k, p32, p64):
+            kp, k6, p6 = dist(x, y), dist(x, z), dist(y, z)
+            s = float(z.abs().max())
+            print(f"[{n}] seed {seed} {name}: max kernel-plain32 "
+                  f"{kp[0] / s:.2e} kernel-plain64 {k6[0] / s:.2e} "
+                  f"plain32-plain64 {p6[0] / s:.2e} ({kp[0] / p6[0]:.2f}x, "
+                  f"{k6[0] / p6[0]:.2f}x); rms {kp[1] / p6[1]:.2f}x, "
+                  f"{k6[1] / p6[1]:.2f}x the plain32-plain64 one",
+                  flush=True)
+        del ins, k, p32, p64
         torch.cuda.empty_cache()
 
 
@@ -179,6 +223,13 @@ def main(argv):
         seeds = int(argv[argv.index("--seeds") + 1])
         argv = argv[:argv.index("--seeds")] + argv[argv.index("--seeds")
                                                     + 2:]
+    if "--tiled" in argv:
+        sizes = [a for a in argv if not a.startswith("--")] or [
+            "128x3968x128"]
+        for a in sizes:
+            probe_tiled(tuple(int(x) for x in a.split("x")),
+                        torch.device("cuda"), seeds)
+        return 0
     sizes = [a for a in argv if not a.startswith("--")] or ["512", "256"]
     for a in sizes:
         shape = tuple(int(x) for x in a.split("x"))

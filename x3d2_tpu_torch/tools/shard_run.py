@@ -54,14 +54,17 @@ def _tgv_run(rank, world, spec):
     before the counted and timed ones), gather (True), state (a global
     numpy state to start from, convert.py's structure), reference (False:
     rank 0 then also runs the single-card step, _single_card, and compares
-    its gathered state with it, _compare). Returns a dict: the launch
-    counts of the counted steps, ms/step, the halo and all-to-all seconds,
-    the observables of the last state, the branches taken (and the
-    repencilled projection's mid: mid_local, mid_tiled or mid_einsum), the
-    seconds of the run's stages (set-up, warm-up, the timed steps, the
-    gather, rank 0's reference), and on rank 0 the gathered fields as numpy
-    under "state", or with a reference, in their place, the comparison under
-    "compare"."""
+    its gathered state with it, _compare; "own": the single-card step with
+    the run's own switches and keep_pressure, for the chains the sharded
+    step runs on gathered fields). Returns a dict: the launch counts of the
+    counted steps, ms/step, the halo and all-to-all seconds, the
+    observables of the last state, the branches taken (and the repencilled
+    projection's mid: mid_local, mid_tiled or mid_einsum; the gathered
+    chains: the fused RK chain, the carried step), the peak of the rank's
+    device memory in GiB (None off the card), the seconds of the run's
+    stages (set-up, warm-up, the timed steps, the gather, rank 0's
+    reference), and on rank 0 the gathered fields as numpy under "state",
+    or with a reference, in their place, the comparison under "compare"."""
     import math
 
     import torch
@@ -101,8 +104,11 @@ def _tgv_run(rank, world, spec):
         from ..convert import state_from_numpy_sharded
         st = state_from_numpy_sharded(spec["state"], pmesh,
                                       device=pmesh.device)
+    on_card = pmesh.device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(pmesh.device)) \
-        if pmesh.device.type == "cuda" else (lambda: None)
+        if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(pmesh.device)
     sync()
     stages = {"setup": time.perf_counter() - t_start}
     t0 = time.perf_counter()
@@ -137,6 +143,10 @@ def _tgv_run(rank, world, spec):
            | {"_halo_mode": bool(case._sharded_solver._halo_mode)},
            "dense_mid": rp is not None and rp.mats.dense,
            "mid": None if rp is None else rp.mid.__name__,
+           "gathered": {"fused_rk": case._sharded_case._fused_rk is not None,
+                        "d2c": "rhsp" in st},
+           "peak_gib": (torch.cuda.max_memory_allocated(pmesh.device) / 2**30
+                        if on_card else None),
            "seconds": stages}
     stages["steps"] = seconds
     names = ("u", "v", "w", "p") + (("phi",) if nsp else ())
@@ -156,7 +166,9 @@ def _tgv_run(rank, world, spec):
             mesh, params, dtype, pmesh.device,
             spec.get("warmup", 0) + spec["steps"],
             tuple(k for k in names
-                  if k != "p" or spec.get("keep_pressure", False)))
+                  if k != "p" or spec.get("keep_pressure", False)),
+            own=(spec.get("keep_pressure", False)
+                 if spec["reference"] == "own" else None))
         stages["reference"] = time.perf_counter() - t0
         out["compare"] = _compare(out.pop("state"), ref)
     return out
@@ -180,20 +192,24 @@ def _compare(got, ref):
     return out
 
 
-def _single_card(mesh, params, dtype, device, steps, names):
+def _single_card(mesh, params, dtype, device, steps, names, own=None):
     """The global state after `steps` single-card steps of the same
     arithmetic as the sharded step (the unfused AB update, the one-field
     parity x stage and the mid with q: X3D2_FUSED_AB=0, X3D2_MERGED_X=0,
     keep_pressure=True; the run's other switches, set by tgv_rank), as
-    numpy. Built in a rank's process, so that its host-built operators are
-    the ranks' own bits: the float64 transforms from LAPACK differ in their
-    last bits with the BLAS thread count."""
+    numpy; with `own` (the run's keep_pressure) the case of the run's own
+    switches. Built in a rank's process, so that its host-built operators
+    are the ranks' own bits: the float64 transforms from LAPACK differ in
+    their last bits with the BLAS thread count."""
     from ..cases import TGVCase
     from ..common import env_set
 
-    with env_set({"X3D2_FUSED_AB": "0", "X3D2_MERGED_X": "0"}):
+    env = {} if own is not None else {"X3D2_FUSED_AB": "0",
+                                      "X3D2_MERGED_X": "0"}
+    with env_set(env):
         case = TGVCase(mesh, params, dtype=dtype, monitor_path=None,
-                       verbose=False, keep_pressure=True, device=device)
+                       verbose=False, keep_pressure=own is None or own,
+                       device=device)
         st = case.initial_state()
         for _ in range(steps):
             st = case.step(st)
